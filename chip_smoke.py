@@ -9,14 +9,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
   2. build: compile the CUDA kernels from stabletriton_tpu_torch/csrc/ for sm_90a;
   3. kernels: each kernel against its plain PyTorch version at the shapes the
      SDXL-base 1024^2 path gives it (max abs / max relative error, times);
+  3b. fused-op kernels: GroupNorm (K9), LayerNorm / RMSNorm (K10), GEGLU
+     (K11) and the GN-fused 3x3 conv (K8) against their plain versions at
+     the same path's shapes; K8 also beside the unfused pair (K9 apply, K6);
   4. step deviation: one full-width SDXL-base UNet step (128^2 latent, CFG
      batch 2, bf16, random weights) under the default binding (kernels,
      fused projections, cross K/V cache) against the "reference" binding;
      MSE must stay under 1e-3;
+  4b. the same step under the fused-op binding (CompileConfig.overrides:
+     group_norm, layer_norm, geglu -> "cuda", gn_conv2d -> "fused") against
+     the reference binding, MSE under 1e-3, with its per-step launch counts
+     (K8 35, K9 11, K10 210, K11 70);
   5. serving: a ServingEngine over a full-width SDXL-base pipeline answers
      three 1024^2 requests (4 Euler steps, guidance 5); the images must be
      finite, (1024, 1024, 3) and inside [-1, 1], and both kernels' launch
-     counters must have moved during this phase.
+     counters must have moved during this phase;
+  5b. a second ServingEngine, over a pipeline with the fused-op binding,
+     answers two co-batched 1024^2 requests and one alone; same image
+     checks, and the launch counters of K8-K11 must match the per-step
+     counts times the UNet steps run (K9 also once per VAE GroupNorm per
+     image).
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -25,6 +37,7 @@ Weights are random, made from fixed seeds; it needs no network.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -60,10 +73,11 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name, kernel_fn, plain_fn, tol, iters, op_fn=None):
+def compare(name, kernel_fn, plain_fn, tol, iters, op_fn=None,
+            op_label="reference-binding op"):
     """Run kernel and plain version on the same inputs; fail past ``tol``
     (max abs error relative to the largest plain output). ``op_fn`` (timed
-    only) is the "reference" binding's op at the same shape, for context."""
+    only) is another binding's op at the same shape, for context."""
     out = kernel_fn()
     ref = plain_fn()
     torch.cuda.synchronize()
@@ -79,10 +93,110 @@ def compare(name, kernel_fn, plain_fn, tol, iters, op_fn=None):
     op_ms = timed_ms(op_fn, iters) if op_fn is not None else None
     log(f"kernel {name}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol {tol:g}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-        + (f", reference-binding op {op_ms:.4f} ms" if op_ms is not None else ""))
+        + (f", {op_label} {op_ms:.4f} ms" if op_ms is not None else ""))
     if not rel <= tol:
         raise AssertionError(f"{name}: relative error {rel:.3e} exceeds {tol:g}")
     return {"max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_fused_kernels(dev):
+    """K8-K11 against their plain versions at the fused-op path's shapes."""
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import geglu as gg
+    from stabletriton_tpu_torch.kernels import group_norm as gn
+    from stabletriton_tpu_torch.kernels import layer_norm as ln
+    from stabletriton_tpu_torch.ops import reference
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    results = []
+
+    def record(tpu, name, source, r):
+        r.update(name=name, source=f"stabletriton_tpu_torch/csrc/{source}", tpu=tpu)
+        results.append(r)
+
+    # K9: UNet transformer GroupNorms (bf16, no act), a resnet-sized one with
+    # SiLU, and the VAE decoder's f32 GroupNorms with SiLU
+    for shape, dtype, act, iters in [((2, 64, 64, 640), bf16, None, 20),
+                                     ((2, 128, 128, 320), bf16, "silu", 20),
+                                     ((1, 128, 128, 512), f32, "silu", 20),
+                                     ((1, 1024, 1024, 128), f32, "silu", 5)]:
+        x = randn(*shape, dtype=dtype, scale=2.0, shift=0.5)
+        g, b = randn(shape[3], dtype=dtype, shift=1.0), randn(shape[3], dtype=dtype)
+        kfn = lambda x=x, g=g, b=b, act=act: gn.group_norm(x, g, b, num_groups=32, act=act)
+        pfn = lambda x=x, g=g, b=b, act=act: gn.group_norm_plain(x, g, b, num_groups=32,
+                                                                 act=act)
+        ofn = lambda x=x, g=g, b=b, act=act: (
+            reference.group_norm_bf16apply if x.dtype == bf16 else reference.group_norm)(
+                x, g, b, num_groups=32, act=act)
+        name = f"group_norm {tuple(shape)} {'bf16' if dtype == bf16 else 'f32'} act={act}"
+        record("K9", name, "group_norm.cu",
+               compare(name, kfn, pfn, BF16_REL_TOL if dtype == bf16 else F32_REL_TOL,
+                       iters, ofn, "default-binding op"))
+        del x
+
+    # K10: the transformer LayerNorms, and RMSNorm through the same kernel
+    for rows, c, rms in [(8192, 640, False), (2048, 1280, False), (8192, 640, True)]:
+        x = randn(rows, c, scale=2.0, shift=0.3)
+        g, b = randn(c, shift=1.0), randn(c)
+        fn, plain = (ln.rms_norm, reference.rms_norm) if rms else (ln.layer_norm,
+                                                                   reference.layer_norm_bf16apply)
+        kfn = lambda x=x, g=g, b=b, fn=fn: fn(x, g, b, eps=1e-6)
+        pfn = lambda x=x, g=g, b=b, rms=rms: ln.layer_norm_plain(x, g, b, eps=1e-6,
+                                                                 rmsnorm=rms)
+        ofn = lambda x=x, g=g, b=b, plain=plain: plain(x, g, b, eps=1e-6)
+        name = f"{'rms_norm' if rms else 'layer_norm'} ({rows}, {c}) bf16"
+        record("K10", name, "layer_norm.cu",
+               compare(name, kfn, pfn, BF16_REL_TOL, 50, ofn, "default-binding op"))
+
+    # K11: the halves of the feed-forward projection, read in place
+    for b_, s_, n in [(2, 4096, 2560), (2, 1024, 5120)]:
+        proj = randn(b_, s_, 2 * n, scale=2.0)
+        state, gate = proj.chunk(2, dim=-1)
+        kfn = lambda st=state, ga=gate: gg.geglu(st, ga)
+        pfn = lambda st=state, ga=gate: gg.geglu_plain(st, ga)
+        ofn = lambda st=state, ga=gate: reference.geglu(st, ga)
+        name = f"geglu halves of ({b_}, {s_}, {2 * n}) bf16"
+        record("K11", name, "geglu.cu",
+               compare(name, kfn, pfn, BF16_REL_TOL, 20, ofn, "default-binding op"))
+        del proj, state, gate
+
+    # K8: GroupNorm + SiLU fused into the 3x3 conv; the unfused pair (K9
+    # apply, then K6) timed beside it on the same scale / shift
+    for label, (b_, hh, ww, cin, cout), bias_kind, with_res in [
+            ("resnet conv1 128x128 320->320 batch-bias", (2, 128, 128, 320, 320), "bb", False),
+            ("resnet conv2 64x64 640->640 bias+residual", (2, 64, 64, 640, 640), "b", True),
+            ("up resnet conv1 32x32 2560->1280 batch-bias", (2, 32, 32, 2560, 1280), "bb",
+             False),
+            ("conv_out 128x128 320->4", (2, 128, 128, 320, 4), "b", False)]:
+        x = randn(b_, hh, ww, cin, scale=2.0, shift=0.5)
+        s1, s2 = gn.moments(x)
+        scale, shift = gn.fold(s1, s2, randn(cin, dtype=f32, scale=0.2, shift=1.0),
+                               randn(cin, dtype=f32, scale=0.2), hw=hh * ww, num_groups=32,
+                               eps=1e-5)
+        w = randn(3, 3, cin, cout, scale=1.0 / math.sqrt(9 * cin))
+        bias = randn(b_, cout, dtype=f32) if bias_kind == "bb" else randn(cout)
+        res = randn(b_, hh, ww, cout) if with_res else None
+        args = (x, scale, shift, w, bias)
+        kfn = lambda a=args, r=res: cd.gn_conv3x3(*a, residual=r, gn_act="silu")
+        pfn = lambda a=args, r=res: cd.gn_conv3x3_plain(*a, residual=r, gn_act="silu")
+        name = f"gn_conv3x3 {label}"
+        r = compare(name, kfn, pfn, BF16_REL_TOL, 10)
+        unfused = lambda a=args, r=res: cd.conv3x3(gn.apply(a[0], a[1], a[2], "silu"), a[3],
+                                                     a[4], residual=r)
+        r["unfused_ms"] = timed_ms(unfused, 10)
+        log(f"  unfused pair (K9 apply + K6) {r['unfused_ms']:.4f} ms vs fused {r['ms']:.4f} ms")
+        record("K8", name, "conv3x3.cu", r)
+        del x, w, res, args
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return results
 
 
 def phase_kernels(dev):
@@ -175,11 +289,30 @@ def make_unet_params(dev):
     return cfg, init_unet_params(cfg, 0, device=dev, dtype=torch.bfloat16)
 
 
+# launches of each fused-op kernel per SDXL-base UNet step: 17 resnets x 2
+# GN+SiLU+conv pairs + norm_out/conv_out (K8); one GroupNorm per
+# Transformer2D, 11 of them (K9); 70 transformer blocks x 3 LayerNorms (K10)
+# and x 1 GEGLU (K11)
+FUSED_PER_STEP = {"K8": 35, "K9": 11, "K10": 210, "K11": 70}
+
+
+def fused_counters():
+    """Launch counters of K8-K11 (and K6, the plain conv kernel)."""
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import geglu as gg
+    from stabletriton_tpu_torch.kernels import group_norm as gn
+    from stabletriton_tpu_torch.kernels import layer_norm as ln
+
+    return {"K8": cd.GN_LAUNCHES, "K9": gn.LAUNCHES, "K10": ln.LAUNCHES,
+            "K11": gg.LAUNCHES, "K6": cd.LAUNCHES}
+
+
 def phase_step_deviation(dev, cfg, params):
-    """One UNet step at full SDXL-base width, default vs reference binding."""
+    """One UNet step at full SDXL-base width: the default binding and the
+    fused-op binding, each against the reference binding."""
     from stabletriton_tpu_torch import ops
     from stabletriton_tpu_torch.compile import (
-        CompileConfig, fuse_attention_projections, resolve_binding)
+        FUSED_OP_OVERRIDES, CompileConfig, fuse_attention_projections, resolve_binding)
     from stabletriton_tpu_torch.models.unet import precompute_cross_kv, unet_apply
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -190,42 +323,65 @@ def phase_step_deviation(dev, cfg, params):
     time_ids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device=dev)
 
     fused = fuse_attention_projections(params)
-    default = resolve_binding(CompileConfig())
+    bindings = {"default": resolve_binding(CompileConfig()),
+                "fused_ops": resolve_binding(CompileConfig(overrides=FUSED_OP_OVERRIDES))}
     reference = resolve_binding(CompileConfig(backend="reference"))
 
-    def run_default():
-        with ops.use_backends(default):
-            kv = precompute_cross_kv(cfg, fused, ctx)
-            return unet_apply(cfg, fused, sample, t, None, pooled, time_ids, cross_kv=kv)
+    def kernel_step(binding):
+        def run():
+            with ops.use_backends(binding):
+                kv = precompute_cross_kv(cfg, fused, ctx)
+                return unet_apply(cfg, fused, sample, t, None, pooled, time_ids, cross_kv=kv)
+        return run
 
     def run_reference():
         with ops.use_backends(reference):
             return unet_apply(cfg, params, sample, t, ctx, pooled, time_ids)
 
+    runs = {"reference": run_reference,
+            **{name: kernel_step(b) for name, b in bindings.items()}}
+    counters = fused_counters()
+    result = {}
     with torch.inference_mode():
-        out_k = run_default().float()
         out_r = run_reference().float()
+        for name in bindings:
+            for c in counters.values():
+                c.reset()
+            out_k = runs[name]().float()
+            torch.cuda.synchronize()
+            counts = {k: c.count for k, c in counters.items()}
+            if not (torch.isfinite(out_k).all() and torch.isfinite(out_r).all()):
+                raise AssertionError(f"UNet step output is not finite ({name} binding)")
+            mse = (out_k - out_r).square().mean().item()
+            mx = (out_k - out_r).abs().max().item()
+            log(f"step deviation, {name} binding vs reference: UNet 128x128 latent, CFG "
+                f"batch 2, bf16: mse={mse:.3e} max_abs={mx:.3e} (gate mse<{STEP_MSE_GATE:g}); "
+                f"output rms {out_r.square().mean().sqrt().item():.4f}; launches in one "
+                f"step {json.dumps(counts)}")
+            if not mse < STEP_MSE_GATE:
+                raise AssertionError(f"{name} step deviation mse {mse:.3e} exceeds "
+                                     f"{STEP_MSE_GATE:g}")
+            if name == "fused_ops":
+                for k, want in FUSED_PER_STEP.items():
+                    if counts[k] != want:
+                        raise AssertionError(f"{k}: {counts[k]} launches in one fused-op "
+                                             f"step, expected {want}")
+            else:
+                if any(counts[k] for k in FUSED_PER_STEP):
+                    raise AssertionError(f"default binding launched fused-op kernels: {counts}")
+            result[name] = {"mse": mse, "max_abs": mx, "launches": counts}
         torch.cuda.synchronize()
         times = {}
-        for name, fn in (("reference", run_reference), ("default", run_default),
-                         ("default_2", run_default), ("reference_2", run_reference)):
+        for name in ("reference", "default", "fused_ops", "fused_ops", "default", "reference"):
             t0 = time.perf_counter()
-            fn()
+            runs[name]()
             torch.cuda.synchronize()
-            times[name] = (time.perf_counter() - t0) * 1e3
-    if not (torch.isfinite(out_k).all() and torch.isfinite(out_r).all()):
-        raise AssertionError("UNet step output is not finite")
-    mse = (out_k - out_r).square().mean().item()
-    mx = (out_k - out_r).abs().max().item()
-    log(f"step deviation: UNet 128x128 latent, CFG batch 2, bf16: mse={mse:.3e} "
-        f"max_abs={mx:.3e} (gate mse<{STEP_MSE_GATE:g}); output rms "
-        f"{out_r.square().mean().sqrt().item():.4f}")
-    log(f"step time (host clock around a synchronised step, ms): "
-        + ", ".join(f"{k}={v:.1f}" for k, v in times.items()))
-    if not mse < STEP_MSE_GATE:
-        raise AssertionError(f"step deviation mse {mse:.3e} exceeds {STEP_MSE_GATE:g}")
+            times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+    log("step time (host clock around a synchronised step, ms, two runs each): "
+        + ", ".join(f"{k}={v[0]:.1f}/{v[1]:.1f}" for k, v in times.items()))
     del fused
-    return {"mse": mse, "max_abs": mx, "step_ms": times}
+    result["step_ms"] = times
+    return result
 
 
 class StubTokenizer:
@@ -244,51 +400,22 @@ class StubTokenizer:
         return out
 
 
-def phase_serving(dev, ucfg, unet_params):
-    from stabletriton_tpu_torch.compile import CompileConfig
-    from stabletriton_tpu_torch.kernels import conv_direct as cd
-    from stabletriton_tpu_torch.kernels import flash_attention as fa
+def make_other_params(dev):
+    """CLIP and VAE configs and random weights (fixed seeds)."""
     from stabletriton_tpu_torch.models import clip as clip_mod
     from stabletriton_tpu_torch.models import vae as vae_mod
-    from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline
-    from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine
 
     c1, c2 = clip_mod.sdxl_text_encoder_config(), clip_mod.sdxl_text_encoder_2_config()
     vcfg = vae_mod.sdxl_vae_config()
     params = {
-        "unet": unet_params,
         "text_encoder": clip_mod.init_clip_params(c1, 1, device=dev),
         "text_encoder_2": clip_mod.init_clip_params(c2, 2, device=dev),
         "vae": vae_mod.init_vae_params(vcfg, 3, device=dev),
     }
-    pipe = SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
-                        vae_config=vcfg, params=params, compile_config=CompileConfig(),
-                        device=dev)
-    tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
-    engine = ServingEngine(pipe, tok, tok, max_wait_s=0.5)
-    kw = dict(height=1024, width=1024, steps=4, guidance_scale=5.0, solver="euler")
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        fa.LAUNCHES.reset()
-        cd.LAUNCHES.reset()
-        t0 = time.perf_counter()
-        # two requests with one signature co-batch; the third repeats the
-        # first one's seed alone
-        futs = [engine.submit(Request(prompt="a lighthouse at dusk", seed=11, **kw)),
-                engine.submit(Request(prompt="a bowl of ramen", seed=12, **kw))]
-        done = []
-        for f in futs:
-            done.append((f.result(timeout=900), time.perf_counter() - t0))
-        t1 = time.perf_counter()
-        third = engine.submit(Request(prompt="a lighthouse at dusk", seed=11, **kw))
-        done.append((third.result(timeout=900), time.perf_counter() - t1))
-        counts = {"flash_attention": fa.LAUNCHES.count, "conv3x3": cd.LAUNCHES.count}
-        by_key = {"flash_attention": dict(fa.LAUNCHES.by_key),
-                  "conv3x3": dict(cd.LAUNCHES.by_key)}
-        peak = torch.cuda.max_memory_allocated(dev)
-    finally:
-        engine.close()
+    return (c1, c2, vcfg), params
+
+
+def check_images(done):
     for i, (img, latency) in enumerate(done):
         ok = (img.shape == (1024, 1024, 3) and np.isfinite(img).all()
               and img.min() >= -1.0 and img.max() <= 1.0)
@@ -296,17 +423,106 @@ def phase_serving(dev, ucfg, unet_params):
             f"range [{img.min():.3f}, {img.max():.3f}] mean {img.mean():.4f}")
         if not ok:
             raise AssertionError(f"request {i}: bad image")
-    solo_vs_batched = float(np.abs(done[0][0] - done[2][0]).max())
-    log(f"same seed, batched (bucket 2) vs solo (bucket 1): max abs diff {solo_vs_batched:.3e}")
+
+
+def serve(dev, ucfg, unet_params, other, compile_config, prompts, counters, solo=None):
+    """A ServingEngine over a full-width pipeline: submit ``prompts`` together
+    (one signature, so they co-batch), then ``solo`` alone. The counters are
+    set to 0 just before the requests and read just after."""
+    from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline
+    from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine
+
+    (c1, c2, vcfg), params = other
+    pipe = SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
+                        vae_config=vcfg, params={"unet": unet_params, **params},
+                        compile_config=compile_config, device=dev)
+    tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+    engine = ServingEngine(pipe, tok, tok, max_wait_s=0.5)
+    kw = dict(height=1024, width=1024, steps=4, guidance_scale=5.0, solver="euler")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        futs = [engine.submit(Request(prompt=p, seed=s, **kw)) for p, s in prompts]
+        done = []
+        for f in futs:
+            done.append((f.result(timeout=900), time.perf_counter() - t0))
+        if solo is not None:
+            t1 = time.perf_counter()
+            fut = engine.submit(Request(prompt=solo[0], seed=solo[1], **kw))
+            done.append((fut.result(timeout=900), time.perf_counter() - t1))
+        counts = {k: c.count for k, c in counters.items()}
+        by_key = {k: dict(c.by_key) for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        engine.close()
+    del pipe, engine
+    gc.collect()  # the pipeline's program cache holds closures over the pipeline
+    torch.cuda.empty_cache()
+    check_images(done)
     log(f"peak device memory during serving: {peak / 2**30:.2f} GiB")
     log(f"kernel launches during serving: {json.dumps(counts)}")
     for name, keys in by_key.items():
         for key, n in sorted(keys.items()):
             log(f"  {name} {key}: {n}")
+    return done, counts, by_key
+
+
+def phase_serving(dev, ucfg, unet_params, other):
+    """Phase 5: the default binding, two co-batched requests and one alone."""
+    from stabletriton_tpu_torch.compile import CompileConfig
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import flash_attention as fa
+
+    counters = {"flash_attention": fa.LAUNCHES, "conv3x3": cd.LAUNCHES}
+    # two requests with one signature co-batch; the third repeats the first
+    # one's seed alone
+    done, counts, by_key = serve(
+        dev, ucfg, unet_params, other, CompileConfig(), counters=counters,
+        prompts=[("a lighthouse at dusk", 11), ("a bowl of ramen", 12)],
+        solo=("a lighthouse at dusk", 11))
+    solo_vs_batched = float(np.abs(done[0][0] - done[2][0]).max())
+    log(f"same seed, batched (bucket 2) vs solo (bucket 1): max abs diff {solo_vs_batched:.3e}")
     for name, n in counts.items():
         if n == 0:
             raise AssertionError(f"{name}: no launch during the serving run")
-    return counts, by_key, peak, [d[1] for d in done]
+    return counts, by_key
+
+
+def phase_serving_fused(dev, ucfg, unet_params, other):
+    """Phase 5b: the fused-op binding, two co-batched requests and the first
+    one's seed alone. Every K8-K11 launch count must be its per-step count
+    times the UNet steps run, which the conv_out launches (one K8 launch with
+    Cout = 4 per step) give; K9 also runs each f32 VAE decoder GroupNorm once
+    per image."""
+    from stabletriton_tpu_torch.compile import FUSED_OP_OVERRIDES, CompileConfig
+
+    counters = fused_counters()
+    done, counts, by_key = serve(
+        dev, ucfg, unet_params, other, CompileConfig(overrides=FUSED_OP_OVERRIDES),
+        counters=counters, prompts=[("a red fox in snow", 21), ("a glass teapot", 22)],
+        solo=("a red fox in snow", 21))
+    log(f"same seed, batched (bucket 2) vs solo (bucket 1), fused-op binding: max abs diff "
+        f"{float(np.abs(done[0][0] - done[2][0]).max()):.3e}")
+    steps = sum(n for key, n in by_key["K8"].items() if f"->{ucfg.out_channels} " in key)
+    vae_norms = sum(1 for k in other[1]["vae"] if k.endswith(
+        ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")))
+    k9_f32 = sum(n for key, n in by_key["K9"].items() if key.startswith("f32"))
+    log(f"fused-op serving: {steps} UNet steps, {len(done)} images, "
+        f"{vae_norms} VAE GroupNorms per image")
+    if steps == 0:
+        raise AssertionError("no UNet step ran through K8 during the fused-op serving run")
+    want = {k: n * steps for k, n in FUSED_PER_STEP.items()}
+    want["K9"] += vae_norms * len(done)
+    for k, n in want.items():
+        if counts[k] != n:
+            raise AssertionError(f"{k}: {counts[k]} launches during fused-op serving, "
+                                 f"expected {n}")
+    if k9_f32 != vae_norms * len(done):
+        raise AssertionError(f"K9: {k9_f32} f32 launches, expected {vae_norms * len(done)}")
+    return counts
 
 
 def tpu_class(key: str) -> str:
@@ -323,6 +539,10 @@ REPLACES = {
     "K2": "stabletriton_tpu/kernels/flash_attention.py:276",
     "K3": "stabletriton_tpu/kernels/flash_attention.py:120",
     "K6": "stabletriton_tpu/kernels/conv_direct.py:60",
+    "K8": "stabletriton_tpu/kernels/conv_direct.py:60",  # with gs_ref/gsh_ref
+    "K9": "stabletriton_tpu/kernels/group_norm.py:36",   # and _apply_kernel :54
+    "K10": "stabletriton_tpu/kernels/layer_norm.py:23",
+    "K11": "stabletriton_tpu/kernels/geglu.py:21",
 }
 
 
@@ -347,10 +567,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  ptxas " + line.strip())
 
-    kernel_results = phase_kernels(dev)
+    kernel_results = phase_kernels(dev) + phase_fused_kernels(dev)
     ucfg, unet_params = make_unet_params(dev)
-    step = phase_step_deviation(dev, ucfg, unet_params)
-    counts, by_key, peak, latencies = phase_serving(dev, ucfg, unet_params)
+    phase_step_deviation(dev, ucfg, unet_params)
+    other = make_other_params(dev)
+    counts, by_key = phase_serving(dev, ucfg, unet_params, other)
+    fused_counts = phase_serving_fused(dev, ucfg, unet_params, other)
 
     launches = {"K6": counts["conv3x3"], "K1": 0, "K2": 0, "K3": 0}
     for key, n in by_key["flash_attention"].items():
@@ -358,6 +580,7 @@ def main() -> int:
     for k in ("K1", "K2", "K3"):
         if launches[k] == 0:
             raise AssertionError(f"no attention launch of class {k} during serving")
+    launches.update({k: fused_counts[k] for k in FUSED_PER_STEP})
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"],
         "replaces": REPLACES[r["tpu"]], "launches": launches[r["tpu"]],

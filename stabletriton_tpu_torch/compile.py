@@ -11,17 +11,32 @@ from dataclasses import dataclass
 
 import torch
 
+from stabletriton_tpu_torch import ops
+
 # ops the "cuda" backend binds to the attention kernel
 KERNEL_ATTENTION_OPS = ("attention", "attention_qkv", "attention_kv")
+
+# ops whose "cuda" kernel exists but is opt-in (bind via overrides); the
+# counterpart of the JAX package's OPTIONAL_PALLAS_OPS, listing only the ops
+# the port has a kernel for. ``gn_conv2d`` binds "fused" (GN apply fused
+# into the 3x3 conv kernel).
+OPTIONAL_KERNEL_OPS = ("geglu", "group_norm", "layer_norm", "rms_norm")
+
+# the fused-op binding: the JAX package's ``backend="pallas"`` with the
+# group_norm / layer_norm / geglu / gn_conv2d="fused" overrides
+FUSED_OP_OVERRIDES = (("group_norm", "cuda"), ("layer_norm", "cuda"), ("geglu", "cuda"),
+                      ("gn_conv2d", "fused"))
 
 
 @dataclass(frozen=True)
 class CompileConfig:
     """``backend``: "cuda" (hand-written Hopper kernels) or "reference"
-    (plain PyTorch)."""
+    (plain PyTorch). ``overrides``: per-op (op, backend) pairs applied on
+    top of the backend's binding, e.g. ``FUSED_OP_OVERRIDES``."""
 
     backend: str = "cuda"
     dtype: str = "bfloat16"
+    overrides: tuple[tuple[str, str], ...] = ()
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -31,18 +46,24 @@ class CompileConfig:
 def resolve_binding(config: CompileConfig) -> dict[str, str]:
     """The op -> backend binding for ``config``, as in the JAX package: the
     attention family on the attention kernel, conv2d on the direct 3x3 conv
-    kernel, GroupNorm/LayerNorm on the bf16-apply forms."""
+    kernel, GroupNorm/LayerNorm on the bf16-apply forms; then the overrides.
+    An override must name a registered backend, or "reference"."""
     if config.backend not in ("cuda", "reference"):
         raise ValueError(f"unknown backend {config.backend!r}")
+    if config.backend == "cuda" or any(bk != "reference" for _, bk in config.overrides):
+        import stabletriton_tpu_torch.kernels  # noqa: F401  (registers the kernels)
     binding: dict[str, str] = {}
     if config.backend == "cuda":
-        import stabletriton_tpu_torch.kernels  # noqa: F401  (registers the kernels)
-
         for op in KERNEL_ATTENTION_OPS:
             binding[op] = "cuda"
         binding["group_norm"] = "bf16apply"
         binding["layer_norm"] = "bf16apply"
         binding["conv2d"] = "direct"
+    registered = ops.registered_ops()
+    for op, backend in config.overrides:
+        if backend != "reference" and backend not in registered.get(op, []):
+            raise ValueError(f"override {op}->{backend}: backend not registered")
+        binding[op] = backend
     return binding
 
 

@@ -15,20 +15,31 @@
 // f32 bias, the optional residual (B, H, W, Cout), applies the optional SiLU
 // and writes the input dtype.
 //
+// Optional GroupNorm prologue (the fused-GN conv of gn_conv2d_fused, whose
+// Pallas form is _conv3x3_kernel_elem with gs_ref / gsh_ref): each input
+// element inside the image becomes x * scale[b, ci] + shift[b, ci] in f32,
+// then SiLU when gn_act is set, then is rounded to the input dtype before the
+// product, as the JAX kernel casts before its MXU dots. Taps outside the
+// image skip the prologue and stay exactly 0: the conv pads the NORMALIZED
+// input with zeros, and normalize(0) != 0.
+//
 // Two kernels:
 //   conv_wmma_bf16   - bf16 operands on tensor cores (WMMA 16x16x16, f32 acc);
 //                      128x128 block tile, 8 warps of 32x64.
 //   conv_scalar<T>   - f32 FMA, 64x64 block tile, 4x4 outputs per thread.
 //                      The VAE decoder's f32 convs (no TF32 rounding).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "vec.cuh"
 
 using namespace nvcuda;
 
 namespace {
+
+using stv::from_f32;
+using stv::silu;
+using stv::to_f32;
 
 struct ConvArgs {
   const void* x;         // (B, H, W, Cin)
@@ -38,14 +49,41 @@ struct ConvArgs {
   const void* residual;  // (B, H, W, Cout) or null
   void* out;             // (B, H, W, Cout)
   int B, H, W, Cin, Cout, act;
+  const float* gn_scale;  // (B, Cin) GroupNorm prologue, or null
+  const float* gn_shift;  // (B, Cin)
+  int gn_act;             // 1: SiLU after the GroupNorm apply
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// the prologue's SiLU, recomputed for every tap: fast division (2 ulp) is
+// far below the bf16 rounding that follows
+__device__ __forceinline__ float silu_fast(float x) { return __fdividef(x, 1.f + __expf(-x)); }
+
+// GroupNorm apply (+ SiLU) of one in-image input element, rounded to T
+template <typename T>
+__device__ __forceinline__ float gn_prologue(const ConvArgs& a, int b, int ci, float v) {
+  const long long o = (long long)b * a.Cin + ci;
+  v = fmaf(v, __ldg(a.gn_scale + o), __ldg(a.gn_shift + o));
+  if (a.gn_act) v = silu_fast(v);
+  return to_f32(from_f32<T>(v));
+}
+
+// the prologue on 8 bf16 channels ci..ci+7 of batch b, packed in one uint4;
+// scale / shift come in as two 16-byte loads each (Cin % 8 == 0)
+__device__ __forceinline__ uint4 gn_prologue8(const ConvArgs& a, int b, int ci, uint4 raw) {
+  const long long o = (long long)b * a.Cin + ci;
+  const float4* sc = reinterpret_cast<const float4*>(a.gn_scale + o);
+  const float4* sh = reinterpret_cast<const float4*>(a.gn_shift + o);
+  const float4 s0 = __ldg(sc), s1 = __ldg(sc + 1), h0 = __ldg(sh), h1 = __ldg(sh + 1);
+  const float scale[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  const float shift[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float v = fmaf(__bfloat162float(e[i]), scale[i], shift[i]);
+    if (a.gn_act) v = silu_fast(v);
+    e[i] = __float2bfloat16(v);
+  }
+  return raw;
 }
 
 // A[m][k] of the implicit GEMM, zero outside the image or past M / K.
@@ -61,7 +99,8 @@ __device__ __forceinline__ float load_a(const ConvArgs& a, int m, int k) {
   int y = r / a.W + ky - 1, xx = r % a.W + kx - 1;
   if (y < 0 || y >= a.H || xx < 0 || xx >= a.W) return 0.f;
   const T* x = static_cast<const T*>(a.x);
-  return to_f32(x[(((long long)b * a.H + y) * a.W + xx) * a.Cin + ci]);
+  const float v = to_f32(x[(((long long)b * a.H + y) * a.W + xx) * a.Cin + ci]);
+  return a.gn_scale ? gn_prologue<T>(a, b, ci, v) : v;
 }
 
 template <typename T>
@@ -71,7 +110,7 @@ __device__ __forceinline__ void store_out(const ConvArgs& a, int m, int n, float
   long long o = (long long)m * a.Cout + n;
   if (a.bias) acc += a.bias[(long long)(m / (a.H * a.W)) * a.bias_bstride + n];
   if (a.residual) acc += to_f32(static_cast<const T*>(a.residual)[o]);
-  if (a.act == 1) acc = acc / (1.f + __expf(-acc));
+  if (a.act == 1) acc = silu(acc);
   static_cast<T*>(a.out)[o] = from_f32<T>(acc);
 }
 
@@ -183,9 +222,11 @@ __global__ void __launch_bounds__(WTHREADS) conv_wmma_bf16(ConvArgs a, int vec_a
           int tap = k / a.Cin, ci = k - tap * a.Cin;
           int ky = tap / 3, kx = tap - ky * 3;
           int y = ay[s] + ky - 1, xx = ax[s] + kx - 1;
-          if (y >= 0 && y < a.H && xx >= 0 && xx < a.W)
+          if (y >= 0 && y < a.H && xx >= 0 && xx < a.W) {
             val = *reinterpret_cast<const uint4*>(
                 x + (((long long)ab[s] * a.H + y) * a.W + xx) * a.Cin + ci);
+            if (a.gn_scale) val = gn_prologue8(a, ab[s], ci, val);
+          }
         }
         *reinterpret_cast<uint4*>(As + arow[s] * LDA + achunk * 8) = val;
       }
@@ -254,18 +295,24 @@ __global__ void __launch_bounds__(WTHREADS) conv_wmma_bf16(ConvArgs a, int vec_a
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. act: 0 = none, 1 = SiLU.
-// bias (f32) and residual may be null. Returns a cudaError_t (0 on success).
-// *variant receives 1 for the WMMA kernel, 0 for the scalar kernel.
+// bias (f32) and residual may be null. gn_scale / gn_shift: (B, Cin) f32
+// GroupNorm prologue, or null; gn_act: 1 = SiLU after it. Returns a
+// cudaError_t (0 on success). *variant receives 1 for the WMMA kernel, 0 for
+// the scalar kernel.
 extern "C" int st_conv3x3(const void* x, const void* w, const float* bias,
                           long long bias_bstride, const void* residual, void* out,
                           int B, int H, int W, int Cin, int Cout, int act, int dtype,
+                          const float* gn_scale, const float* gn_shift, int gn_act,
                           int* variant, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  ConvArgs a{x, w, bias, bias_bstride, residual, out, B, H, W, Cin, Cout, act};
+  ConvArgs a{x, w, bias, bias_bstride, residual, out, B, H, W, Cin, Cout, act,
+             gn_scale, gn_shift, gn_act};
   const long long M = (long long)B * H * W;
   if (dtype == 1) {
     *variant = 1;
-    int vec_a = (Cin % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+    int vec_a = (Cin % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                (reinterpret_cast<uintptr_t>(gn_scale) % 16 == 0) &&
+                (reinterpret_cast<uintptr_t>(gn_shift) % 16 == 0);
     int vec_b = (Cout % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
     dim3 grid((unsigned)((M + WBM - 1) / WBM), (Cout + WBN - 1) / WBN);
     conv_wmma_bf16<<<grid, WTHREADS, 0, stream>>>(a, vec_a, vec_b);

@@ -1,0 +1,57 @@
+// Conversions, SiLU and 16-byte vector loads and stores shared by the
+// kernels (conv3x3.cu, group_norm.cu, layer_norm.cu, geglu.cu). V values of
+// T go through one uint4 when V * sizeof(T) == 16 (8 bf16 or 4 f32), element
+// by element otherwise (V == 1). The caller guarantees 16-byte alignment for
+// the vector form.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace stv {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f32(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f32(p[i]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = from_f32<T>(v[i]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = from_f32<T>(v[i]);
+  }
+}
+
+// one parameter value (gamma / beta) of dtype code pdtype: 0 f32, 1 bf16
+__device__ __forceinline__ float load_param(const void* p, int pdtype, int i) {
+  return pdtype == 1 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+                     : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ float silu(float x) { return x / (1.f + __expf(-x)); }
+
+}  // namespace stv

@@ -2,10 +2,22 @@
 
   flash_attention - attention, attention_qkv, attention_kv -> "cuda"
                     (csrc/flash_attention.cu)
-  conv_direct     - conv2d -> "direct" (csrc/conv3x3.cu for 3x3 stride-1 SAME)
+  conv_direct     - conv2d -> "direct" (csrc/conv3x3.cu for 3x3 stride-1 SAME);
+                    gn_conv2d -> "fused" (the same kernel with a GroupNorm
+                    prologue, moments from csrc/group_norm.cu)
+  group_norm      - group_norm -> "cuda" (csrc/group_norm.cu)
+  layer_norm      - layer_norm, rms_norm -> "cuda" (csrc/layer_norm.cu)
+  geglu           - geglu -> "cuda" (csrc/geglu.cu)
 
-The CUDA sources are compiled at first launch (kernels/build.py); importing
-builds nothing.
+The default binding uses flash_attention and conv2d "direct"; the others are
+opt-in through ``CompileConfig.overrides``. The CUDA sources are compiled at
+first launch (kernels/build.py); importing builds nothing.
 """
 
-from stabletriton_tpu_torch.kernels import conv_direct, flash_attention  # noqa: F401
+from stabletriton_tpu_torch.kernels import (  # noqa: F401
+    conv_direct,
+    flash_attention,
+    geglu,
+    group_norm,
+    layer_norm,
+)

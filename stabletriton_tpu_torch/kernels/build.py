@@ -2,7 +2,8 @@
 
 Every ``stabletriton_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
 ``sm_90a`` into ONE shared library with a plain C interface, loaded with
-``ctypes``. The build happens at first use, in ``build/torch_kernels/<hash>/``
+``ctypes``: one ``nvcc -c`` per source, all started together, then one link.
+The build happens at first use, in ``build/torch_kernels/<hash>/``
 beside the package (listed in ``.gitignore``), keyed by a hash of the sources
 and the flags, so an edited source rebuilds and an unchanged one loads the
 cached library. A plain-C library builds in seconds, where a PyTorch C++
@@ -24,14 +25,20 @@ import subprocess
 import threading
 import time
 
+import torch
+
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libst_kernels.so"
+
+# the codes every C entry point takes for its dtype and activation arguments
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ACT_CODES = {None: 0, "silu": 1}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -70,16 +77,36 @@ def build() -> pathlib.Path:
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    tag = os.getpid()
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o",
+               str(tmp), *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}")
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
     seconds = time.perf_counter() - t0
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "nvcc.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
     build_info.update(path=str(lib_path), seconds=seconds, cached=False,
                       log=str(out_dir / "nvcc.log"))

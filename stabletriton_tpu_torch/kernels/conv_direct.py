@@ -23,6 +23,20 @@ stride-1, padding-1 conv goes to the kernel; the strided downsamplers, the
 package also runs outside any Pallas kernel. The plain version
 (:func:`conv3x3_plain`) computes the kernel's function in PyTorch; the
 wrapper uses it only for tensors on the CPU.
+
+The same kernel with a GroupNorm prologue (K8) replaces the JAX package's
+fused-GN conv, ``_conv3x3_kernel_elem`` with ``gs_ref`` / ``gsh_ref``
+reached from ``gn_conv2d_fused`` (binding ``gn_conv2d="fused"``): every
+ResnetBlock2D GN+SiLU+conv pair and the UNet's norm_out+SiLU+conv_out. Bound
+like the conv; the prologue saves the write and re-read of the normalized
+activation that the unfused pair (GroupNorm apply, then conv) pays. The
+A-tile gather multiplies each in-image input element by its (batch, channel)
+f32 scale, adds the shift, applies SiLU and rounds to bf16 before the
+tensor-core product (the JAX kernel casts before its MXU dots); the SAME
+border is computed by index and skips the prologue, so it stays exactly 0.
+Each thread loads the scale / shift of its 8-channel run once per K tile
+with 16-byte loads. The moments come from the GroupNorm stats kernels
+(``kernels/group_norm.py``), which read x once.
 """
 
 from __future__ import annotations
@@ -32,14 +46,14 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from stabletriton_tpu_torch.kernels.build import LaunchCounter, check, function
+from stabletriton_tpu_torch.kernels import group_norm
+from stabletriton_tpu_torch.kernels.build import (
+    ACT_CODES, DTYPE_CODES, LaunchCounter, check, function)
 from stabletriton_tpu_torch.ops import reference
-from stabletriton_tpu_torch.ops.registry import register
+from stabletriton_tpu_torch.ops.registry import dispatch, register
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ACT_CODES = {None: 0, "silu": 1}
-
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()     # K6: the plain conv kernel
+GN_LAUNCHES = LaunchCounter()  # K8: the conv with the GroupNorm prologue
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
@@ -66,15 +80,12 @@ _CONV_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
-            residual: torch.Tensor | None = None,
-            act: str | None = None) -> torch.Tensor:
-    """3x3 stride-1 SAME conv: x (B, H, W, Cin), w (3, 3, Cin, Cout), b (Cout,)
-    or (B, Cout), residual (B, H, W, Cout). CPU tensors take the plain version."""
+def _check_conv(x, w, b, residual, act):
     n, h, wd, cin = x.shape
     if w.shape[:3] != (3, 3, cin):
         raise ValueError(f"weight {tuple(w.shape)} is not (3, 3, {cin}, Cout)")
@@ -85,9 +96,13 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
         raise ValueError(f"bias {tuple(b.shape)} is neither ({cout},) nor ({n}, {cout})")
     if residual is not None and residual.shape != (n, h, wd, cout):
         raise ValueError(f"residual {tuple(residual.shape)} is not {(n, h, wd, cout)}")
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w, b, residual=residual, act=act)
 
+
+def _launch(x, w, b, residual, act, gn=None) -> tuple[torch.Tensor, str]:
+    """Launch st_conv3x3 on CUDA operands; ``gn`` is (scale, shift, gn_act)
+    for the GroupNorm prologue. Returns the output and the launch key."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
     dtype = x.dtype
     if dtype not in DTYPE_CODES:
         raise ValueError(f"conv kernel takes float32 or bfloat16, got {dtype}")
@@ -95,6 +110,10 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     if w.dtype != dtype or (residual is not None and residual.dtype != dtype):
         raise ValueError("conv kernel takes x, w and residual of one dtype")
     tensors = [x, w] + [t for t in (b, residual) if t is not None]
+    if gn is not None:
+        tensors += list(gn[:2])
+        if any(t.dtype != torch.float32 for t in gn[:2]):
+            raise ValueError("GroupNorm scale and shift must be float32")
     if any(t.device != dev for t in tensors):
         raise ValueError("conv operands lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
@@ -110,12 +129,61 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
             None if bias is None else bias.data_ptr(),
             cout if (bias is not None and bias.dim() == 2) else 0,
             None if residual is None else residual.data_ptr(),
-            out.data_ptr(), n, h, wd, cin, cout, ACT_CODES[act],
-            DTYPE_CODES[dtype], ctypes.byref(variant), stream,
+            out.data_ptr(), n, h, wd, cin, cout, ACT_CODES[act], DTYPE_CODES[dtype],
+            None if gn is None else gn[0].data_ptr(),
+            None if gn is None else gn[1].data_ptr(),
+            0 if gn is None else ACT_CODES[gn[2]],
+            ctypes.byref(variant), stream,
         )
     check(code, "st_conv3x3")
-    LAUNCHES.add(f"{'wmma_bf16' if variant.value == 1 else 'scalar'} "
+    return out, (f"{'wmma_bf16' if variant.value == 1 else 'scalar'} "
                  f"b={n} {h}x{wd} {cin}->{cout}")
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+            residual: torch.Tensor | None = None,
+            act: str | None = None) -> torch.Tensor:
+    """3x3 stride-1 SAME conv: x (B, H, W, Cin), w (3, 3, Cin, Cout), b (Cout,)
+    or (B, Cout), residual (B, H, W, Cout). CPU tensors take the plain version."""
+    _check_conv(x, w, b, residual, act)
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, b, residual=residual, act=act)
+    out, key = _launch(x, w, b, residual, act)
+    LAUNCHES.add(key)
+    return out
+
+
+def gn_conv3x3_plain(x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
+                     w: torch.Tensor, b: torch.Tensor | None = None, *,
+                     residual: torch.Tensor | None = None, act: str | None = None,
+                     gn_act: str | None = "silu") -> torch.Tensor:
+    """The fused kernel's function in plain PyTorch: x * scale + shift (+SiLU)
+    in f32 per (batch, channel), rounded to x's dtype, then
+    :func:`conv3x3_plain`, whose zero padding lies outside the normalized
+    input."""
+    xn = group_norm.apply_plain(x, gn_scale, gn_shift, gn_act)
+    return conv3x3_plain(xn, w, b, residual=residual, act=act)
+
+
+def gn_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
+               w: torch.Tensor, b: torch.Tensor | None = None, *,
+               residual: torch.Tensor | None = None, act: str | None = None,
+               gn_act: str | None = "silu") -> torch.Tensor:
+    """The 3x3 conv with the GroupNorm apply fused into its input read:
+    ``gn_scale`` / ``gn_shift`` (B, Cin) f32 from :func:`group_norm.fold`.
+    CPU tensors take the plain version."""
+    _check_conv(x, w, b, residual, act)
+    if gn_act not in ACT_CODES:
+        raise ValueError(f"conv kernel prologue takes gn_act in {list(ACT_CODES)}, "
+                         f"got {gn_act!r}")
+    if gn_scale.shape != (x.shape[0], x.shape[3]) or gn_shift.shape != gn_scale.shape:
+        raise ValueError(f"GroupNorm scale {tuple(gn_scale.shape)} / shift "
+                         f"{tuple(gn_shift.shape)} are not {(x.shape[0], x.shape[3])}")
+    if x.device.type == "cpu":
+        return gn_conv3x3_plain(x, gn_scale, gn_shift, w, b, residual=residual, act=act,
+                                gn_act=gn_act)
+    out, key = _launch(x, w, b, residual, act, (gn_scale, gn_shift, gn_act))
+    GN_LAUNCHES.add(f"{key} gn_act={gn_act}")
     return out
 
 
@@ -131,3 +199,24 @@ def conv2d_direct(x, w, b=None, *, stride=1, padding=1, residual=None, act=None)
         return conv3x3(x, w.to(x.dtype), b, residual=residual, act=act)
     return reference.conv2d(x, w, b, stride=stride, padding=padding,
                             residual=residual, act=act)
+
+
+@register("gn_conv2d", "fused")
+def gn_conv2d_fused(x, gamma, beta, w, b=None, *, num_groups=32, eps=1e-5,
+                    gn_act="silu", stride=1, padding=1, residual=None, act=None):
+    """GroupNorm(+gn_act) -> 3x3 conv with the GN apply fused into the conv's
+    input read: the stats kernels read x once, the fold runs in PyTorch on
+    (B, C), and the conv kernel normalizes its input as it gathers it.
+    Ineligible shapes (not 3x3 stride 1 SAME, C not divisible by the groups,
+    an activation the kernel does not take) compose ``group_norm`` ->
+    ``conv2d`` through the active binding, as in the JAX package."""
+    if (_is_conv3x3_s1(w, stride, padding) and act in ACT_CODES and gn_act in ACT_CODES
+            and x.shape[3] % num_groups == 0):
+        s1, s2 = group_norm.moments(x)
+        scale, shift = group_norm.fold(s1, s2, gamma, beta, hw=x.shape[1] * x.shape[2],
+                                       num_groups=num_groups, eps=eps)
+        return gn_conv3x3(x, scale, shift, w.to(x.dtype), b, residual=residual, act=act,
+                          gn_act=gn_act)
+    h = dispatch("group_norm", x, gamma, beta, num_groups=num_groups, eps=eps, act=gn_act)
+    return dispatch("conv2d", h, w, b, stride=stride, padding=padding,
+                    residual=residual, act=act)

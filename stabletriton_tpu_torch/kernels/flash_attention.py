@@ -31,13 +31,12 @@ import math
 
 import torch
 
-from stabletriton_tpu_torch.kernels.build import LaunchCounter, check, function
+from stabletriton_tpu_torch.kernels.build import DTYPE_CODES, LaunchCounter, check, function
 from stabletriton_tpu_torch.ops.registry import register
 
 LOG2E = 1.4426950408889634
 SOFTMAX_CLIP = 80.0
 HEAD_DIMS = (64, 512)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = LaunchCounter()
 

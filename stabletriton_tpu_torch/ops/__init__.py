@@ -21,6 +21,7 @@ attention_qkv = partial(dispatch, "attention_qkv")
 attention_kv = partial(dispatch, "attention_kv")
 group_norm = partial(dispatch, "group_norm")
 layer_norm = partial(dispatch, "layer_norm")
+rms_norm = partial(dispatch, "rms_norm")
 geglu = partial(dispatch, "geglu")
 linear = partial(dispatch, "linear")
 time_embed = partial(dispatch, "time_embed")

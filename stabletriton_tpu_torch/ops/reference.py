@@ -161,6 +161,20 @@ def layer_norm_bf16apply(x: torch.Tensor, gamma: torch.Tensor | None,
     return out
 
 
+@register("rms_norm", "reference")
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor | None,
+             beta: torch.Tensor | None = None, *, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis: x / sqrt(mean(x^2) + eps) * gamma (+beta);
+    float32 moments and apply, one rounding."""
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if gamma is not None:
+        out = out * gamma.float()
+    if beta is not None:
+        out = out + beta.float()
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GEGLU, linear, timestep embedding
 # ---------------------------------------------------------------------------
@@ -175,11 +189,17 @@ def geglu(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
 @register("linear", "reference")
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
            act: str | None = None) -> torch.Tensor:
-    """x: (..., in), w: (in, out). The product runs in x's dtype (float32
-    accumulation inside the GEMM); bias and activation follow in that dtype."""
-    out = torch.matmul(x, w.to(x.dtype))
-    if b is not None:
-        out = out + b.to(x.dtype)
+    """x: (..., in), w: (in, out). The product runs in x's dtype with float32
+    accumulation inside the GEMM; the bias joins the float32 sum
+    (``addmm``), so the output rounds once, as in the JAX op. With ``act``
+    the activation follows in x's dtype, so that case still rounds twice
+    (no model path passes ``act``)."""
+    w = w.to(x.dtype)
+    if b is None:
+        out = torch.matmul(x, w)
+    else:
+        out = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
+        out = out.reshape(*x.shape[:-1], w.shape[1])
     return apply_activation(out, act)
 
 

@@ -15,6 +15,9 @@ import torch
 
 from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
+from stabletriton_tpu_torch.kernels import geglu as tgeglu
+from stabletriton_tpu_torch.kernels import group_norm as tgn
+from stabletriton_tpu_torch.kernels import layer_norm as tln
 
 
 @pytest.fixture
@@ -92,3 +95,110 @@ def test_gpu_routing_and_refusals(cuda_device):
         tfa.flash_attention(q, q, q, num_heads=2)  # d=32
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.flash_attention(q.half(), q.half(), q.half(), num_heads=1)
+
+
+def _rel_err(out, ref):
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,act,tol", [
+    (torch.bfloat16, (2, 9, 7, 64), None, 2e-2),     # vector loads, ragged chunks
+    (torch.bfloat16, (3, 16, 16, 40), "silu", 2e-2),  # C/8 = 5 vectors: a masked slab
+    (torch.float32, (1, 33, 31, 128), "silu", 1e-4),
+    (torch.float32, (2, 5, 6, 12), None, 1e-4),      # C % 8, f32 vector width 4
+])
+def test_gpu_group_norm_kernel_vs_plain(cuda_device, dtype, shape, act, tol):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 3 + 1).to(dtype)
+    g = torch.randn(shape[3], generator=gen, device=cuda_device).to(dtype)
+    b = torch.randn(shape[3], generator=gen, device=cuda_device).to(dtype)
+    before = tgn.LAUNCHES.count
+    out = tgn.group_norm(x, g, b, num_groups=4, act=act)
+    assert tgn.LAUNCHES.count == before + 1
+    assert _rel_err(out, tgn.group_norm_plain(x, g, b, num_groups=4, act=act)) <= tol
+    # the stats are the same bits in every run and at every batch size
+    again = tgn.group_norm(torch.cat([x, x]), g, b, num_groups=4, act=act)
+    assert torch.equal(again[: shape[0]], out) and torch.equal(again[shape[0]:], out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rows,c,rms,affine,tol", [
+    (torch.bfloat16, 37, 640, False, True, 2e-2),   # 80 vectors: a masked tail
+    (torch.bfloat16, 16, 1280, True, True, 2e-2),
+    (torch.float32, 9, 96, False, False, 1e-4),     # gamma = beta = None
+    (torch.float32, 8, 1024, True, False, 1e-4),
+])
+def test_gpu_layer_norm_kernel_vs_plain(cuda_device, dtype, rows, c, rms, affine, tol):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = (torch.randn((rows, c), generator=gen, device=cuda_device) * 2 + 0.5).to(dtype)
+    g = torch.randn(c, generator=gen, device=cuda_device).to(dtype) if affine else None
+    b = torch.randn(c, generator=gen, device=cuda_device).to(dtype) if affine else None
+    fn = tln.rms_norm if rms else tln.layer_norm
+    out = fn(x, g, b, eps=1e-6)
+    assert _rel_err(out, tln.layer_norm_plain(x, g, b, eps=1e-6, rmsnorm=rms)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n,tol", [
+    (torch.bfloat16, 40, 2e-2), (torch.bfloat16, 13, 2e-2), (torch.float32, 24, 1e-4),
+])
+def test_gpu_geglu_kernel_on_strided_halves(cuda_device, dtype, n, tol):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    proj = (torch.randn((2, 11, 2 * n), generator=gen, device=cuda_device) * 2).to(dtype)
+    state, gate = proj.chunk(2, dim=-1)
+    before = tgeglu.LAUNCHES.count
+    out = tgeglu.geglu(state, gate)
+    assert tgeglu.LAUNCHES.count == before + 1
+    assert out.is_contiguous() and out.shape == state.shape
+    assert _rel_err(out, tgeglu.geglu_plain(state, gate)) <= tol
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        tgeglu.geglu(state.transpose(1, 2), gate.transpose(1, 2))
+    with pytest.raises(ValueError, match="one row stride"):
+        tgeglu.geglu(state, gate.contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,cin,cout,bias_kind,res,tol", [
+    (torch.bfloat16, 64, 96, "batch", False, 2e-2),
+    (torch.bfloat16, 64, 48, "shared", True, 2e-2),
+    (torch.bfloat16, 32, 4, "shared", False, 2e-2),   # conv_out-like Cout = 4
+    (torch.bfloat16, 12, 8, "batch", False, 2e-2),    # element loads (Cin % 8)
+    (torch.float32, 32, 40, "batch", True, 1e-4),
+])
+def test_gpu_gn_conv_kernel_vs_plain(cuda_device, dtype, cin, cout, bias_kind, res, tol):
+    """The GroupNorm prologue, including a large shift: the SAME border must
+    stay exactly zero, since normalize(0) != 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((2, 8, 8, cin), generator=gen, device=cuda_device).to(dtype)
+    scale = torch.rand((2, cin), generator=gen, device=cuda_device) + 0.5
+    shift = torch.randn((2, cin), generator=gen, device=cuda_device) + 4.0
+    w = (torch.randn((3, 3, cin, cout), generator=gen, device=cuda_device)
+         / (9 * cin) ** 0.5).to(dtype)
+    bias = torch.randn((2, cout) if bias_kind == "batch" else (cout,), generator=gen,
+                       device=cuda_device)
+    r = torch.randn((2, 8, 8, cout), generator=gen, device=cuda_device).to(dtype) if res else None
+    before = tconv.GN_LAUNCHES.count, tconv.LAUNCHES.count
+    out = tconv.gn_conv3x3(x, scale, shift, w, bias, residual=r, gn_act="silu")
+    assert (tconv.GN_LAUNCHES.count, tconv.LAUNCHES.count) == (before[0] + 1, before[1])
+    ref = tconv.gn_conv3x3_plain(x, scale, shift, w, bias, residual=r, gn_act="silu")
+    assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.gpu
+def test_gpu_fused_binding_routes_to_kernels(cuda_device):
+    """gn_conv2d "fused" launches K8 on eligible shapes and composes the
+    active binding's group_norm and conv2d on the rest."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import FUSED_OP_OVERRIDES, CompileConfig, resolve_binding
+
+    x = torch.randn((2, 8, 8, 32), device=cuda_device, dtype=torch.bfloat16)
+    g = torch.ones(32, device=cuda_device, dtype=torch.bfloat16)
+    w3 = torch.randn((3, 3, 32, 16), device=cuda_device, dtype=torch.bfloat16) * 0.1
+    counts = lambda: (tconv.GN_LAUNCHES.count, tgn.LAUNCHES.count, tconv.LAUNCHES.count)
+    with ops.use_backends(resolve_binding(CompileConfig(overrides=FUSED_OP_OVERRIDES))):
+        before = counts()
+        ops.gn_conv2d(x, g, g, w3, num_groups=8)
+        assert counts() == (before[0] + 1, before[1], before[2])
+        ops.gn_conv2d(x, g, g, w3, num_groups=8, stride=2)  # strided: GN kernel + plain conv
+        assert counts() == (before[0] + 1, before[1] + 1, before[2])

@@ -85,6 +85,20 @@ def test_linear(act, bias):
     _close(jops.linear(xj, wj, bj, act=act), tops.linear(xt, wt, bt, act=act))
 
 
+@pytest.mark.parametrize("x_shape", [(308, 640), (2, 77, 640)])
+def test_linear_bf16_bias_rounds_once(x_shape):
+    """In bf16 the bias joins the f32 GEMM sum and the output rounds once,
+    as in the JAX op: the two agree bit for bit."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    w = (rng.standard_normal((640, 1280)) / 25).astype(np.float32)
+    b = rng.standard_normal(1280).astype(np.float32)
+    j = jops.linear(*(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)))
+    t = tops.linear(*(torch.from_numpy(a).bfloat16() for a in (x, w, b)))
+    assert t.dtype == torch.bfloat16 and t.shape == (*x_shape[:-1], 1280)
+    np.testing.assert_array_equal(t.float().numpy(), np.asarray(j.astype(jnp.float32)))
+
+
 @pytest.mark.parametrize("flip,shift", [(True, 0.0), (False, 1.0)])
 def test_time_embed(flip, shift):
     t = np.array([0.0, 1.0, 499.0, 999.0], np.float32)

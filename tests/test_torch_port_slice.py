@@ -7,7 +7,9 @@ initial latents go through the JAX package's pieces (``encode_sdxl_prompts``,
 ``SDXLPipeline.txt2img`` with its initial noise replaced by the same numpy
 latents. Tolerance on the images: atol 1e-3; measured max abs deviation
 7.3e-6 (reference binding) and 8.1e-6 (kernel binding), on images with a
-standard deviation of 0.54.
+standard deviation of 0.54. The "fused" case runs the port's fused-op
+binding (CompileConfig.overrides) against the JAX pipeline under the same
+overrides, its Pallas kernels in interpret mode.
 """
 
 import dataclasses
@@ -22,13 +24,16 @@ import numpy as np
 import pytest
 import torch
 
+from stabletriton_tpu import ops as jops
+from stabletriton_tpu.compile import CompileConfig as JCompileConfig
+from stabletriton_tpu.compile import resolve_binding as jresolve_binding
 from stabletriton_tpu.models import clip as jclip
 from stabletriton_tpu.models import unet as junet
 from stabletriton_tpu.models import vae as jvae
 from stabletriton_tpu.runtime import scheduler as jsched
 from stabletriton_tpu.runtime.denoise import make_denoise_loop as jmake_loop
 from stabletriton_tpu.runtime.pipeline import _decode_images as jdecode_images
-from stabletriton_tpu_torch.compile import CompileConfig
+from stabletriton_tpu_torch.compile import FUSED_OP_OVERRIDES, CompileConfig
 from stabletriton_tpu_torch.io.convert import params_from_numpy
 from stabletriton_tpu_torch.runtime import pipeline as tpipe
 from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine, _bucket
@@ -82,39 +87,64 @@ def slice_case():
 
     schedule = jsched.make_schedule(jsched.SchedulerConfig(), STEPS)
     ju, jc1, jc2, jv = jcfg
-
-    def unet_step(p, sample, t, ctx, text_embeds, time_ids):
-        return junet.unet_apply(ju, p, sample, t, ctx, text_embeds, time_ids)
-
-    loop = jmake_loop(unet_step, schedule, guidance_scale=GUIDANCE)
-
-    @jax.jit
-    def program(p, ids1_all, ids2_all, latents):
-        ctx, pooled = jclip.encode_sdxl_prompts(jc1, p["text_encoder"], jc2,
-                                                p["text_encoder_2"], ids1_all, ids2_all)
-        tid = jnp.asarray([SIZE, SIZE, 0, 0, SIZE, SIZE], jnp.float32)
-        time_ids = jnp.broadcast_to(tid, (2 * batch, 6))
-        out = loop(p["unet"], latents, ctx, pooled, time_ids)
-        return jdecode_images(jv, p["vae"], out)
-
     neg1, neg2 = c1.empty_prompt_ids(batch), c2.empty_prompt_ids(batch)
-    want = np.asarray(program(
-        params, jnp.asarray(np.concatenate([neg1, ids1])),
-        jnp.asarray(np.concatenate([neg2, ids2])),
-        jnp.asarray(noise * schedule.init_noise_sigma)))
-    return params, ids1, ids2, noise, want
+    images = {}
+
+    def jax_images(binding: dict) -> np.ndarray:
+        """The JAX pipeline's images, traced under ``binding``."""
+        key = tuple(sorted(binding.items()))
+        if key in images:
+            return images[key]
+
+        def unet_step(p, sample, t, ctx, text_embeds, time_ids):
+            return junet.unet_apply(ju, p, sample, t, ctx, text_embeds, time_ids)
+
+        loop = jmake_loop(unet_step, schedule, guidance_scale=GUIDANCE)
+
+        @jax.jit
+        def program(p, ids1_all, ids2_all, latents):
+            with jops.use_backends(binding):
+                ctx, pooled = jclip.encode_sdxl_prompts(jc1, p["text_encoder"], jc2,
+                                                        p["text_encoder_2"], ids1_all, ids2_all)
+                tid = jnp.asarray([SIZE, SIZE, 0, 0, SIZE, SIZE], jnp.float32)
+                time_ids = jnp.broadcast_to(tid, (2 * batch, 6))
+                out = loop(p["unet"], latents, ctx, pooled, time_ids)
+                return jdecode_images(jv, p["vae"], out)
+
+        images[key] = np.asarray(program(
+            params, jnp.asarray(np.concatenate([neg1, ids1])),
+            jnp.asarray(np.concatenate([neg2, ids2])),
+            jnp.asarray(noise * schedule.init_noise_sigma)))
+        return images[key]
+
+    return params, ids1, ids2, noise, jax_images
 
 
-@pytest.mark.parametrize("backend", ["reference", "cuda"])
+# the port's binding -> the JAX binding its images are held against
+BINDINGS = {
+    "reference": (CompileConfig(backend="reference", dtype="float32"), {}),
+    "cuda": (CompileConfig(backend="cuda", dtype="float32"), {}),
+    "fused": (CompileConfig(backend="cuda", dtype="float32", overrides=FUSED_OP_OVERRIDES),
+              (("group_norm", "pallas"), ("layer_norm", "pallas"), ("geglu", "pallas"),
+               ("gn_conv2d", "fused"))),
+}
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda", "fused"])
 def test_txt2img_slice_matches_jax(slice_case, backend, monkeypatch):
     """The "cuda" binding on CPU tensors runs the kernels' plain versions,
-    with fused projections and the cross K/V cache, as on the card."""
-    params, ids1, ids2, noise, want = slice_case
+    with fused projections and the cross K/V cache, as on the card; "fused"
+    adds the fused-op overrides, against the JAX pipeline under the same
+    overrides (on the JAX reference base: its Pallas attention and conv
+    kernels compute what the port's reference ops do)."""
+    params, ids1, ids2, noise, jax_images = slice_case
+    config, jax_overrides = BINDINGS[backend]
+    want = jax_images(jresolve_binding(JCompileConfig(backend="reference",
+                                                      overrides=tuple(jax_overrides))))
     monkeypatch.setattr(tpipe, "initial_noise",
                         lambda seeds, shape, device: torch.from_numpy(noise))
-    pipe = tpipe.make_tiny_pipeline(CompileConfig(backend=backend, dtype="float32"),
-                                    params=params_from_numpy(params))
-    if backend == "cuda":
+    pipe = tpipe.make_tiny_pipeline(config, params=params_from_numpy(params))
+    if backend != "reference":
         assert any(k.endswith("to_qkv.weight") for k in pipe.params["unet"])
     got = pipe.txt2img(ids1, ids2, height=SIZE, width=SIZE, steps=STEPS,
                        guidance_scale=GUIDANCE)
