@@ -1,27 +1,28 @@
-"""Attention through the hand-written Hopper kernel ``csrc/flash_attention.cu``.
+"""Attention through the hand-written Hopper kernels ``csrc/flash_attention.cu``.
 
-Replaces three Pallas TPU kernels of ``stabletriton_tpu/kernels/flash_attention.py``:
-``_packed_single_kv_kernel`` and ``_packed_flash_kernel`` (the UNet's self
-attention off the fused (B, S, 3C) QKV buffer and cross attention off the
-fused (B, 77, 2C) KV cache), and ``_flash_kernel`` (the VAE mid-block,
-h=1, d=512, f32).
+Replaces five Pallas TPU kernels of ``stabletriton_tpu/kernels/flash_attention.py``,
+which the JAX package routes by head packing and key count:
+``_packed_single_kv_kernel`` (K1) and ``_packed_flash_kernel`` (K2), the
+SDXL UNet's d=64 attention with heads packed into 128 lanes;
+``_flash_kernel`` (K3) and ``_single_kv_kernel_bh`` (K4), head-major
+attention over a KV loop or one KV block (SD1.5's d = 40, 80, 160, which do
+not pack; the VAE mid-block, h=1, d=512, f32); and ``_single_kv_kernel``
+(K5), all heads against a tiny KV of at most 128 keys (SD1.5's cross
+attention against 77 keys). :func:`attention_class` is that rule; each
+launch is counted under its class.
 
-What bounds it on the H100: at d=64 the two products do 2*d FLOPs per score
-element against a handful of softmax operations, so the kernel is bound by
-the exp2/compare work and shared-memory traffic of the (BQ, BK) score tile
-rather than by tensor-core FLOPs; the score matrix never reaches device
-memory. At d=512 f32 it is bound by f32 FMA throughput (no TF32).
-
-What the design does about it: the shift-free softmax ``exp2(min(s, 80))``
-of the JAX kernels needs no running max, so the accumulator is never
-rescaled and the bf16 kernel keeps its PV accumulators in tensor-core
-fragments across all KV tiles; q, k and v are read straight out of the fused
-projection buffers by (row stride, column offset), so no split copies are
-made.
+On the card, bf16 runs ``attn_wmma_bf16<D>`` (K1-K4: JAX splits them only by
+VMEM) or ``attn_tiny_kv_bf16<D>`` (K5) for D in {40, 64, 80, 160}; f32 runs
+the scalar kernel for D in {64, 512}. What bounds them and what their design
+does about it is in the source's note: the shift-free softmax
+``exp2(min(s, 80))`` of the JAX kernels needs no running max, so the
+accumulator is never rescaled and stays in tensor-core fragments across KV
+tiles; q, k and v are read straight out of the fused projection buffers by
+(row stride, column offset), so no split copies are made.
 
 The plain version (:func:`attention_plain`) computes the same function in
 PyTorch; the wrappers use it only for tensors that lie on the CPU. A CUDA
-tensor goes to the kernel or the wrapper raises.
+tensor goes to a kernel or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -31,20 +32,44 @@ import math
 
 import torch
 
-from stabletriton_tpu_torch.kernels.build import DTYPE_CODES, LaunchCounter, check, function
+from stabletriton_tpu_torch.kernels.build import LaunchCounter, check, function
 from stabletriton_tpu_torch.ops.registry import register
 
 LOG2E = 1.4426950408889634
 SOFTMAX_CLIP = 80.0
-HEAD_DIMS = (64, 512)
+LANES = 128  # the TPU lane width behind the JAX package's routing rule
+# head dims each dtype's kernels take
+HEAD_DIMS = {torch.bfloat16: (40, 64, 80, 160), torch.float32: (64, 512)}
 
 LAUNCHES = LaunchCounter()
 
 
+def pack_factor(h: int, d: int) -> int:
+    """Whole heads per 128-lane block in the JAX package's head-packed
+    kernels; 1 when d does not divide 128 or h is not a multiple of it."""
+    pack = LANES // d if (d <= LANES and LANES % d == 0) else 1
+    return pack if pack > 1 and h % pack == 0 else 1
+
+
+def attention_class(h: int, d: int, sk: int) -> str:
+    """The JAX package's Pallas kernel that a launch stands in for, by its
+    routing (``pack_factor``, ``_can_pack``, ``_attn_layout``,
+    ``_pick_blocks``): packed heads K1 (whole KV in one 1024 block) or K2;
+    unpacked heads K5 (Sk <= 128), K4 (Sk <= 1024) or K3; h=1 is K3."""
+    if h == 1:
+        return "K3"
+    if pack_factor(h, d) > 1:
+        return "K1" if sk <= 1024 else "K2"
+    if sk <= LANES:
+        return "K5"
+    return "K4" if sk <= 1024 else "K3"
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     num_heads: int = 1, scale: float | None = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: q (B, Sq, H*D), k/v (B, Sk, H*D)
-    -> (B, Sq, H*D); base-2 shift-free softmax with f32 sums."""
+    """The kernels' function in plain PyTorch: q (B, Sq, H*D), k/v (B, Sk, H*D)
+    -> (B, Sq, H*D). q times scale*log2(e), both rounded to q's dtype as in
+    JAX; base-2 shift-free softmax with f32 sums; one rounding at the end."""
     b, sq, c = q.shape
     sk = k.shape[1]
     d = c // num_heads
@@ -54,7 +79,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     def split(x, s):
         return x.reshape(b, s, num_heads, d).transpose(1, 2).float()
 
-    s = torch.matmul(split(q, sq), split(k, sk).transpose(-1, -2)) * (scale * LOG2E)
+    qs = q * torch.tensor(scale * LOG2E, dtype=q.dtype)
+    s = torch.matmul(split(qs, sq), split(k, sk).transpose(-1, -2))
     p = torch.exp2(torch.clamp(s, max=SOFTMAX_CLIP))
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p.to(v.dtype).float(), split(v, sk)) / l.clamp(min=1e-30)
@@ -63,14 +89,17 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 _ATTN_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] * 3
-    + [ctypes.c_void_p] + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 )
+# C entry point's kernel codes
+_SCALAR_F32, _WMMA_BF16, _TINY_KV_BF16 = 0, 1, 2
+_KERNEL_NAMES = {_SCALAR_F32: "scalar_f32", _WMMA_BF16: "wmma_bf16",
+                 _TINY_KV_BF16: "tinykv_bf16"}
 
 
 def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
             scale) -> torch.Tensor:
-    """Launch the kernel on (buffer, column offset) operands: each buffer is a
+    """Launch a kernel on (buffer, column offset) operands: each buffer is a
     (B, S, X) tensor whose last dim is contiguous; the head-h columns of the
     operand start at ``offset + h*d``."""
     bufs = (q_buf, k_buf, v_buf)
@@ -78,21 +107,33 @@ def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
     dtype = q_buf.dtype
     if any(t.device != dev for t in bufs):
         raise ValueError("attention operands lie on different devices")
-    if any(t.dtype != dtype for t in bufs) or dtype not in DTYPE_CODES:
+    if any(t.dtype != dtype for t in bufs) or dtype not in HEAD_DIMS:
         raise ValueError(f"attention kernel takes float32 or bfloat16 operands "
                          f"of one dtype, got {[t.dtype for t in bufs]}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS}, got {d}")
+    if d not in HEAD_DIMS[dtype]:
+        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS[dtype]} "
+                         f"in {dtype}, got {d}")
     if any(t.dim() != 3 or t.stride(2) != 1 for t in bufs):
         raise ValueError("attention operands must be (B, S, X) with a contiguous last dim")
     if sk < 1:
         raise ValueError("attention needs at least one key")
+    cls = attention_class(num_heads, d, sk)
+    if dtype == torch.bfloat16:
+        # 16-byte vector loads: base, strides and column offsets in 8-element units
+        if any(t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8 for t in bufs) or any(
+                off % 8 for off in (q_off, k_off, v_off)):
+            raise ValueError("bf16 attention operands must be 16-byte aligned "
+                             "(base, row and batch strides, column offsets)")
+        kernel = _TINY_KV_BF16 if cls == "K5" else _WMMA_BF16
+    else:
+        kernel = _SCALAR_F32
     b = q_buf.shape[0]
     c = num_heads * d
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    # scale*log2(e) rounded to the operand dtype, as JAX's asarray(.., q.dtype)
+    qscale = torch.tensor(scale * LOG2E, dtype=dtype).item()
     out = torch.empty((b, sq, c), dtype=dtype, device=dev)
-    variant = ctypes.c_int(-1)
     fn = function("st_flash_attention", _ATTN_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -100,12 +141,13 @@ def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
             q_buf.data_ptr(), q_buf.stride(0), q_buf.stride(1), q_off,
             k_buf.data_ptr(), k_buf.stride(0), k_buf.stride(1), k_off,
             v_buf.data_ptr(), v_buf.stride(0), v_buf.stride(1), v_off,
-            out.data_ptr(), b, sq, sk, num_heads, d, DTYPE_CODES[dtype],
-            float(scale) * LOG2E, ctypes.byref(variant), stream,
+            out.data_ptr(), b, sq, sk, num_heads, d, kernel, qscale, stream,
         )
+    if code == -1:
+        raise ValueError(f"attention kernel {_KERNEL_NAMES[kernel]} has no instance for "
+                         f"d={d} sk={sk}")
     check(code, "st_flash_attention")
-    LAUNCHES.add(f"{'wmma_bf16' if variant.value == 1 else 'scalar'} "
-                 f"b={b} h={num_heads} d={d} sq={sq} sk={sk}")
+    LAUNCHES.add(f"{cls} {_KERNEL_NAMES[kernel]} b={b} h={num_heads} d={d} sq={sq} sk={sk}")
     return out
 
 

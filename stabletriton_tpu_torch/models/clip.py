@@ -65,6 +65,11 @@ def sdxl_text_encoder_2_config() -> CLIPTextConfig:
                           projection_dim=1280, pad_token_id=0)
 
 
+def sd15_text_encoder_config() -> CLIPTextConfig:
+    """SD1.x text encoder: the same CLIP ViT-L/14 text tower."""
+    return CLIPTextConfig()
+
+
 def tiny_clip_config() -> CLIPTextConfig:
     return CLIPTextConfig(vocab_size=100, hidden_size=32, num_layers=2, num_heads=4,
                           intermediate_size=64, max_position_embeddings=16,

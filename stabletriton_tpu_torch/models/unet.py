@@ -1,4 +1,4 @@
-"""Functional SDXL UNet in PyTorch, written against the op registry.
+"""Functional UNet (SDXL, SD1.x) in PyTorch, written against the op registry.
 
 Counterpart of ``stabletriton_tpu/models/unet.py``: the model is a plain
 function of ``(config, params, inputs)`` over a flat ``{hf_key: tensor}``
@@ -83,6 +83,27 @@ class UNetConfig:
 
 def sdxl_base_unet_config() -> UNetConfig:
     return UNetConfig()
+
+
+def sd15_unet_config() -> UNetConfig:
+    """Stable Diffusion 1.x UNet (runwayml/stable-diffusion-v1-5): 4 levels,
+    conv-only innermost, 8 heads at every level (head dim 40/80/160),
+    768-wide cross attention, no added (text_time) conditioning."""
+    return UNetConfig(
+        block_out_channels=(320, 640, 1280, 1280),
+        down_block_types=(
+            "CrossAttnDownBlock2D",
+            "CrossAttnDownBlock2D",
+            "CrossAttnDownBlock2D",
+            "DownBlock2D",
+        ),
+        transformer_layers_per_block=(1, 1, 1, 1),
+        cross_attention_dim=768,
+        fixed_num_heads=8,
+        addition_time_embed_dim=None,
+        projection_class_embeddings_input_dim=None,
+        mid_block_layers=1,
+    )
 
 
 def tiny_unet_config() -> UNetConfig:
@@ -416,8 +437,9 @@ def unet_apply(cfg: UNetConfig, params: dict, sample: torch.Tensor,
     sample: (B, H, W, C_in) NHWC latents; timesteps: (B,) or scalar;
     encoder_hidden_states: (B, S, cross_attention_dim), or None when
     ``cross_kv`` (from :func:`precompute_cross_kv`) holds every cross K/V;
-    text_embeds: (B, pooled); time_ids: (B, 6). Returns the predicted noise,
-    same shape as sample."""
+    text_embeds: (B, pooled); time_ids: (B, 6); both (B, 0) for a config
+    without added conditioning (SD1.x). Returns the predicted noise, same
+    shape as sample."""
     p = params
     dtype = sample.dtype
     if timesteps.dim() == 0:

@@ -38,6 +38,11 @@ def sdxl_vae_config() -> VAEConfig:
     return VAEConfig()
 
 
+def sd15_vae_config() -> VAEConfig:
+    """SD1.x/2.x AutoencoderKL: same topology, 0.18215 scaling."""
+    return VAEConfig(scaling_factor=0.18215)
+
+
 def tiny_vae_config() -> VAEConfig:
     return VAEConfig(block_out_channels=(8, 16), norm_num_groups=4, layers_per_block=1)
 

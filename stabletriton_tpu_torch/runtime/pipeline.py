@@ -1,4 +1,8 @@
-"""End-to-end SDXL txt2img: dual CLIP -> Euler CFG denoise loop -> VAE decode.
+"""End-to-end txt2img: CLIP -> Euler CFG denoise loop -> VAE decode.
+
+SDXL conditions on two encoders (penultimate states, pooled bigG, size
+micro-conditioning); SD1.x on one (final states, or penultimate with
+``clip_skip >= 2``) and nothing added.
 
 Counterpart of ``SDXLPipeline.txt2img`` in ``stabletriton_tpu/runtime/pipeline.py``.
 JAX traces the whole program into one executable; PyTorch runs it eagerly.
@@ -80,9 +84,13 @@ class SDXLPipeline:
     clip_config: clip_mod.CLIPTextConfig
     clip2_config: clip_mod.CLIPTextConfig
     vae_config: vae_mod.VAEConfig
-    params: dict[str, dict[str, torch.Tensor]]  # unet, text_encoder, text_encoder_2, vae
+    # unet, text_encoder, vae; and text_encoder_2 for SDXL
+    params: dict[str, dict[str, torch.Tensor]]
     compile_config: CompileConfig = field(default_factory=CompileConfig)
     scheduler_config: sched.SchedulerConfig = field(default_factory=sched.SchedulerConfig)
+    # single-encoder (SD1.x) configs: condition on the penultimate encoder
+    # layer when >= 2, else on the final one
+    clip_skip: int = 1
     device: Any = "cpu"
     _cache: dict[Any, Any] = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
@@ -127,16 +135,28 @@ class SDXLPipeline:
 
         def program(params, ids1, ids2, neg_ids1, neg_ids2, seeds):
             with torch.inference_mode(), ops.use_backends(binding):
-                ctx, pooled = clip_mod.encode_sdxl_prompts(
-                    self.clip_config, params["text_encoder"],
-                    self.clip2_config, params["text_encoder_2"],
-                    torch.cat([neg_ids1, ids1]), torch.cat([neg_ids2, ids2]),
-                )
-                ctx, pooled = ctx.to(dtype), pooled.to(dtype)
-                # SDXL micro-conditioning: [oh, ow, ct, cl, th, tw]
-                tid = torch.tensor([height, width, 0, 0, height, width],
-                                   dtype=torch.float32, device=self.device)
-                time_ids = tid.expand(2 * batch, 6)
+                ids1_all = torch.cat([neg_ids1, ids1])
+                if ucfg.has_addition_embedding:
+                    # SDXL: dual encoders, penultimate states + pooled bigG
+                    ctx, pooled = clip_mod.encode_sdxl_prompts(
+                        self.clip_config, params["text_encoder"],
+                        self.clip2_config, params["text_encoder_2"],
+                        ids1_all, torch.cat([neg_ids2, ids2]),
+                    )
+                    ctx, pooled = ctx.to(dtype), pooled.to(dtype)
+                    # SDXL micro-conditioning: [oh, ow, ct, cl, th, tw]
+                    tid = torch.tensor([height, width, 0, 0, height, width],
+                                       dtype=torch.float32, device=self.device)
+                    time_ids = tid.expand(2 * batch, 6)
+                else:
+                    # SD1.x: one encoder, final (or clip-skipped) states, no
+                    # added conditioning; ids2 is not read
+                    pen, final, _ = clip_mod.clip_apply_chunked(
+                        self.clip_config, params["text_encoder"], ids1_all)
+                    ctx = (pen if self.clip_skip >= 2 else final).to(dtype)
+                    pooled = torch.zeros((2 * batch, 0), dtype=dtype, device=self.device)
+                    time_ids = torch.zeros((2 * batch, 0), dtype=torch.float32,
+                                           device=self.device)
                 noise = initial_noise(seeds, (lat_h, lat_w, ucfg.in_channels), self.device)
                 latents = (noise * schedule.init_noise_sigma).to(dtype)
                 latents = loop(params["unet"], latents, ctx, pooled, time_ids)
@@ -219,6 +239,49 @@ def make_tiny_pipeline(compile_config: CompileConfig | None = None, *,
         }
     return SDXLPipeline(
         unet_config=ucfg, clip_config=c1, clip2_config=c2, vae_config=vcfg,
+        params=params, device=device,
+        compile_config=compile_config or CompileConfig(backend="reference", dtype="float32"),
+    )
+
+
+def tiny_sd15_configs():
+    """(unet, clip, vae) configs of the tiny SD1.x test pipeline, the same as
+    the JAX package's ``make_tiny_sd15_pipeline``: one encoder, 4 heads at
+    every level (head dims 8 and 16, which do not pack), no added
+    conditioning."""
+    c1 = clip_mod.CLIPTextConfig(
+        vocab_size=100, hidden_size=32, num_layers=2, num_heads=4,
+        intermediate_size=32, max_position_embeddings=16, eos_token_id=99, bos_token_id=98,
+    )
+    ucfg = UNetConfig(
+        block_out_channels=(32, 64),
+        down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+        layers_per_block=1,
+        transformer_layers_per_block=(1, 1),
+        fixed_num_heads=4,
+        cross_attention_dim=c1.hidden_size,
+        norm_num_groups=8,
+        addition_time_embed_dim=None,
+        projection_class_embeddings_input_dim=None,
+        mid_block_layers=1,
+    )
+    return ucfg, c1, vae_mod.tiny_vae_config()
+
+
+def make_tiny_sd15_pipeline(compile_config: CompileConfig | None = None, *,
+                            params: dict | None = None, device="cpu") -> SDXLPipeline:
+    """A tiny SD1.x-style pipeline (CPU tests): single text encoder, fixed
+    head count, no added conditioning. ``params`` (optional) replaces the
+    seeded random init, as in :func:`make_tiny_pipeline`."""
+    ucfg, c1, vcfg = tiny_sd15_configs()
+    if params is None:
+        params = {
+            "unet": init_unet_params(ucfg, 20, device=device),
+            "text_encoder": clip_mod.init_clip_params(c1, 21, device=device),
+            "vae": vae_mod.init_vae_params(vcfg, 22, device=device),
+        }
+    return SDXLPipeline(
+        unet_config=ucfg, clip_config=c1, clip2_config=c1, vae_config=vcfg,
         params=params, device=device,
         compile_config=compile_config or CompileConfig(backend="reference", dtype="float32"),
     )

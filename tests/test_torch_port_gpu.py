@@ -59,6 +59,63 @@ def test_gpu_attention_kernel_vs_plain(cuda_device, dtype, d, h, sq, sk, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,h,sq,sk,form,cls", [
+    (40, 2, 200, 77, "kv", "K5"),      # SD1.5 cross: tiny-KV kernel, padded head dim
+    (80, 2, 130, 77, "kv", "K5"),
+    (160, 2, 64, 64, "qkv", "K5"),     # SD1.5 mid self-attention
+    (64, 3, 50, 100, "kv", "K5"),      # d=64 with 3 heads does not pack
+    (40, 2, 100, 17, "kv", "K5"),      # 15 pad keys in the staged fragments: the
+    (160, 2, 64, 33, "kv", "K5"),      # mask, not the tolerance, keeps them out
+    (40, 2, 300, 300, "qkv", "K4"),    # several KV tiles, ragged last tile
+    (80, 2, 256, 256, "qkv", "K4"),
+    (160, 2, 256, 256, "qkv", "K4"),
+    (40, 2, 1100, 1100, "qkv", "K3"),  # past one JAX KV block
+    (64, 1, 70, 130, "kv", "K3"),      # h=1
+])
+def test_gpu_attention_routes_by_class(cuda_device, d, h, sq, sk, form, cls):
+    """Each (d, Sk) class of the SD1.5 path against the plain version, bf16;
+    the launch is counted under the Pallas kernel it stands in for."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    c = h * d
+    if form == "qkv":
+        qkv = torch.randn((2, sq, 3 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        run = lambda: tfa.flash_attention_qkv(qkv, num_heads=h)
+        ref = tfa.attention_plain(*qkv.chunk(3, -1), num_heads=h)
+    else:
+        q = torch.randn((2, sq, c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        kv = torch.randn((2, sk, 2 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        run = lambda: tfa.flash_attention_kv(q, kv, num_heads=h)
+        ref = tfa.attention_plain(q, *kv.chunk(2, -1), num_heads=h)
+    assert tfa.attention_class(h, d, sk) == cls
+    before = dict(tfa.LAUNCHES.by_key)
+    out = run()
+    torch.cuda.synchronize()
+    new = {k: n - before.get(k, 0) for k, n in tfa.LAUNCHES.by_key.items()
+           if n != before.get(k, 0)}
+    kernel = "tinykv_bf16" if cls == "K5" else "wmma_bf16"
+    assert new == {f"{cls} {kernel} b=2 h={h} d={d} sq={sq} sk={sk}": 1}
+    assert _rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_gpu_attention_refuses_what_no_kernel_takes(cuda_device):
+    """Head dims and dtypes outside the kernels' table, and misaligned bf16
+    operands, raise on a CUDA tensor; nothing runs the plain version."""
+    before = tfa.LAUNCHES.count
+    q96 = torch.randn((1, 8, 2 * 96), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q96, q96, q96, num_heads=2)
+    q40 = torch.randn((1, 8, 80), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q40, q40, q40, num_heads=2)  # f32 takes d = 64, 512
+    buf = torch.randn((1, 8, 2 * 40 + 4), device=cuda_device, dtype=torch.bfloat16)
+    q = buf[..., 4:]
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention(q, q, q, num_heads=2)
+    assert tfa.LAUNCHES.count == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,cin,cout,tol", [
     (torch.bfloat16, 64, 96, 2e-2), (torch.bfloat16, 4, 3, 2e-2),
     (torch.float32, 32, 40, 1e-4), (torch.float32, 3, 5, 1e-4),
