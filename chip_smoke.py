@@ -17,18 +17,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
   3c. SD1.5 attention: the bf16 kernels at the SD1.5 512^2 path's shapes
      (K3 at d=40, K4 at d=80 and 160, K5 against 77 keys and the mid-block's
      64), then phase 3's d=64 rows again;
-  4. step deviation: one full-width SDXL-base UNet step (128^2 latent, CFG
-     batch 2, bf16, random weights) under the default binding (kernels,
-     fused projections, cross K/V cache) against the "reference" binding;
-     MSE must stay under 1e-3; attention launches per step K1 130, K2 10;
-  4b. the same step under the fused-op binding (CompileConfig.overrides:
-     group_norm, layer_norm, geglu -> "cuda", gn_conv2d -> "fused") against
-     the reference binding, MSE under 1e-3, with its per-step launch counts
-     (K8 35, K9 11, K10 210, K11 70);
+  3d. the rest of the opt-in kernels: the timestep embedding (K12) at
+     (2,)->(2,320) and (12,)->(12,256); linear (K13) at every GEMM shape of
+     both paths (WMMA, skinny and f32 scalar variants, SiLU and GELU
+     epilogues), each beside cuBLAS's addmm of the same GEMM; seeded dropout
+     (K14) through ops.dispatch under a ("dropout", "cuda") binding, bit for
+     bit against its plain version, deterministic, seed-sensitive, and
+     dropping a fraction within 4 sigma of the rate;
+  4, 4b, 4d. step deviation: one full-width SDXL-base UNet step (128^2
+     latent, CFG batch 2, bf16, random weights, fused projections and the
+     cross K/V precompute) under the default binding, the fused-op binding
+     (CompileConfig.overrides: group_norm, layer_norm, geglu -> "cuda",
+     gn_conv2d -> "fused") and the all-kernel binding (the fused-op binding
+     plus linear and time_embed -> "cuda"), each against the "reference"
+     binding: MSE under 1e-3; attention launches per step K1 130, K2 10;
+     fused-op launches K8 35, K9 11, K10 210, K11 70; all-kernel also K12 2
+     and K13 463 + 70 in the precompute, every linear dispatch on the
+     kernel and none on the reference (cuBLAS) op;
   4c. one full-width SD1.5 UNet step (64^2 latent, CFG batch 2, bf16) under
-     both bindings against the reference binding, MSE under 1e-3;
-     attention launches per step K3 5, K4 10, K5 17 and no K1 or K2; the
-     fused-op step's K8 45, K9 16, K10 48, K11 16;
+     the three bindings against the reference binding, MSE under 1e-3;
+     attention launches per step K3 5, K4 10, K5 17 and no K1 or K2; K8 45,
+     K9 16, K10 48, K11 16; all-kernel K12 1, K13 152 + 16;
   5. serving: a ServingEngine over a full-width SDXL-base pipeline answers
      three 1024^2 requests (4 Euler steps, guidance 5); the images must be
      finite, (1024, 1024, 3) and inside [-1, 1], and the attention (K1, K2,
@@ -38,6 +47,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      checks, and the launch counters of K8-K11 must match the per-step
      counts times the UNet steps run (K9 also once per VAE GroupNorm per
      image);
+  5d. a third, with the all-kernel binding: as 5b, and K12 must launch 2 a
+     UNet step, K13 463 a step + 70 a generation (the precompute) + 4 an
+     image (the f32 VAE mid-attention);
   5c. with the SDXL weights freed, a ServingEngine over a full-width SD1.5
      pipeline (CLIP-L, one encoder; VAE scaling 0.18215) answers two
      co-batched 512^2 requests and one alone (4 Euler steps, guidance 7.5);
@@ -295,6 +307,115 @@ def phase_sd15_attention(dev):
     return results
 
 
+# K13 at the shapes of both paths: (label, M, K, N, bias, act, dtype, timing
+# iterations); "+b" marks a bias
+LINEAR_CASES = [
+    ("SDXL to_qkv (8192,640)@(640,1920)", 8192, 640, 1920, False, None, torch.bfloat16, 20),
+    ("SDXL ff proj (2048,1280)@(1280,10240)+b", 2048, 1280, 10240, True, None, torch.bfloat16,
+     10),
+    ("SDXL ff out (2048,5120)@(5120,1280)+b", 2048, 5120, 1280, True, None, torch.bfloat16, 10),
+    ("SDXL cross K/V precompute (154,2048)@(2048,2560)", 154, 2048, 2560, False, None,
+     torch.bfloat16, 20),
+    ("SDXL time MLP (2,1280)@(1280,1280)+b", 2, 1280, 1280, True, None, torch.bfloat16, 50),
+    ("SDXL add embedding (2,2816)@(2816,1280)+b", 2, 2816, 1280, True, None, torch.bfloat16,
+     50),
+    ("SD1.5 to_qkv (8192,320)@(320,960)", 8192, 320, 960, False, None, torch.bfloat16, 20),
+    ("SD1.5 8x8 level (128,1280)@(1280,1280)+b", 128, 1280, 1280, True, None, torch.bfloat16,
+     50),
+    ("VAE f32 (16384,512)@(512,512)+b", 16384, 512, 512, True, None, torch.float32, 5),
+    ("act=silu (2,320)@(320,1280)+b", 2, 320, 1280, True, "silu", torch.bfloat16, 50),
+    ("act=gelu (2048,1280)@(1280,5120)+b", 2048, 1280, 5120, True, "gelu", torch.bfloat16, 10),
+]
+
+
+def phase_optional_kernels(dev):
+    """Phase 3d: K12 (time_embed), K13 (linear, every variant the paths
+    run, beside cuBLAS's addmm of the same GEMM) and K14 (dropout) against
+    their plain versions. K14 runs through the op dispatch under a
+    ("dropout", "cuda") binding, its path (no model reaches dropout); its
+    output must equal the plain version bit for bit, repeat itself, change
+    with the seed, and drop a fraction within 4 sigma of the rate."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import CompileConfig, resolve_binding
+    from stabletriton_tpu_torch.kernels import dropout as dr
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.kernels import time_embed as te
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(4444)
+    results = []
+
+    def record(tpu, name, source, r, **extra):
+        r.update(name=name, source=f"stabletriton_tpu_torch/csrc/{source}", tpu=tpu, **extra)
+        results.append(r)
+
+    # K12: the SDXL timesteps (and SD1.5's, the same shape) and time_ids
+    for t_vals, dim in [([999.0, 999.0], 320), ([1024.0, 1024, 0, 0, 1024, 1024] * 2, 256)]:
+        t = torch.tensor(t_vals, device=dev)
+        name = f"time_embed ({len(t_vals)},)->({len(t_vals)},{dim}) f32"
+        record("K12", name, "time_embed.cu", compare(
+            name, lambda t=t, dim=dim: te.time_embed(t, dim=dim),
+            lambda t=t, dim=dim: te.time_embed_plain(t, dim=dim), F32_REL_TOL, 50))
+
+    # K13: each variant at the paths' shapes, cuBLAS's addmm timed beside it
+    for label, m, k, n, has_bias, act, dtype, iters in LINEAR_CASES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        if label.startswith("SDXL time MLP"):
+            x = torch.nn.functional.silu(x)  # linear_2 of the time MLP reads silu(h)
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(dtype)
+        b = torch.randn(n, generator=gen, device=dev).to(dtype) if has_bias else None
+        before = dict(lin.LAUNCHES.by_key)
+        name = f"linear {label}" + (f" act={act}" if act and "act=" not in label else "")
+        r = compare(name, lambda x=x, w=w, b=b, act=act: lin.linear(x, w, b, act=act),
+                    lambda x=x, w=w, b=b, act=act: lin.linear_plain(x, w, b, act=act),
+                    BF16_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL, iters,
+                    (lambda x=x, w=w, b=b: torch.addmm(b, x, w)) if b is not None
+                    else (lambda x=x, w=w: x @ w), "cuBLAS addmm")
+        keys = {key for key, c in lin.LAUNCHES.by_key.items() if c != before.get(key, 0)}
+        kernel = lin.variant(m, dtype)
+        if {key.split()[0] for key in keys} != {kernel}:
+            raise AssertionError(f"{name}: launched {sorted(keys)}, expected {kernel}")
+        log(f"  launch key: {sorted(keys)[0]}")
+        record("K13", name, "linear.cu", r, kernel=kernel)
+        del x, w, b
+
+    # K14: through the op dispatch, its path; bit-equal to the plain version
+    binding = resolve_binding(CompileConfig(backend="reference",
+                                            overrides=(("dropout", "cuda"),)))
+    rate, seed = 0.1, 20260417
+    for shape, dtype in [((2, 4096, 640), torch.bfloat16), ((1 << 20,), torch.float32)]:
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        name = f"dropout {tuple(shape)} {'bf16' if dtype == torch.bfloat16 else 'f32'} rate={rate}"
+        dr.LAUNCHES.reset()
+        with ops.use_backends(binding):
+            out = ops.dispatch("dropout", x, seed, rate=rate)
+            again = ops.dispatch("dropout", x, seed, rate=rate)
+        torch.cuda.synchronize()
+        launches = dr.LAUNCHES.count
+        plain = dr.dropout_plain(x, seed, rate=rate)
+        other = dr.dropout(x, seed + 1, rate=rate)
+        dropped = (out == 0).float().mean().item()
+        sigma = math.sqrt(rate * (1 - rate) / x.numel())
+        log(f"kernel {name}: {launches} launches through ops.dispatch; equal to plain "
+            f"{torch.equal(out, plain)}, repeat {torch.equal(out, again)}, other seed differs "
+            f"{not torch.equal(out, other)}; dropped {dropped:.5f} (rate {rate}, "
+            f"4 sigma {4 * sigma:.5f})")
+        if launches != 2 or not torch.equal(out, again) or torch.equal(out, other):
+            raise AssertionError(f"{name}: not deterministic in (x, seed, rate)")
+        if not torch.equal(out, plain):
+            raise AssertionError(f"{name}: kernel and plain version differ")
+        if abs(dropped - rate) > 4 * sigma:
+            raise AssertionError(f"{name}: dropped {dropped:.5f}, rate {rate}")
+        r = {"max_abs_err": (out.float() - plain.float()).abs().max().item(), "max_rel_err": 0.0,
+             "ms": timed_ms(lambda x=x: dr.dropout(x, seed, rate=rate), 20),
+             "plain_ms": timed_ms(lambda x=x: dr.dropout_plain(x, seed, rate=rate), 5)}
+        log(f"  kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        record("K14", name, "dropout.cu", r, launches=launches)
+        del x, out, again, plain, other
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernels(dev):
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.ops import reference
@@ -356,14 +477,23 @@ def make_unet_params(dev, cfg):
     return init_unet_params(cfg, 0, device=dev, dtype=torch.bfloat16)
 
 
-# launches of each fused-op kernel per UNet step under the fused-op binding:
-# resnets x 2 GN+SiLU+conv pairs + norm_out/conv_out (K8); one GroupNorm per
-# Transformer2D (K9); transformer blocks x 3 LayerNorms (K10) and x 1 GEGLU
-# (K11). SDXL-base: 17 resnets, 11 Transformer2D, 70 blocks. SD1.5: 22
-# resnets (4 levels x 2 down, 2 mid, 4 x 3 up), 16 Transformer2D of one
-# block each.
-FUSED_PER_STEP = {"K8": 35, "K9": 11, "K10": 210, "K11": 70}
-SD15_FUSED_PER_STEP = {"K8": 45, "K9": 16, "K10": 48, "K11": 16}
+# launches of each opt-in kernel per UNet step under the all-kernel binding
+# (the fused-op binding launches K8-K11 alone): resnets x 2 GN+SiLU+conv
+# pairs + norm_out/conv_out (K8); one GroupNorm per Transformer2D (K9);
+# transformer blocks x 3 LayerNorms (K10) and x 1 GEGLU (K11); the timestep
+# embedding, and for SDXL the time_ids' (K12); every projection (K13):
+# transformer blocks x 6 (to_qkv, to_q, two to_out, ff proj, ff out) +
+# Transformer2D x 2 (proj_in, proj_out) + one time_emb_proj per resnet + the
+# time MLP's 2 (+ the add embedding's 2 for SDXL). SDXL-base: 17 resnets, 11
+# Transformer2D, 70 blocks. SD1.5: 22 resnets (4 levels x 2 down, 2 mid, 4 x 3
+# up), 16 Transformer2D of one block each. The cross K/V precompute adds one
+# K13 launch per block, once per generation.
+ALL_PER_STEP = {"K8": 35, "K9": 11, "K10": 210, "K11": 70, "K12": 2, "K13": 463}
+SD15_ALL_PER_STEP = {"K8": 45, "K9": 16, "K10": 48, "K11": 16, "K12": 1, "K13": 152}
+FUSED_PER_STEP = {k: ALL_PER_STEP[k] for k in ("K8", "K9", "K10", "K11")}
+PRECOMPUTE_LINEARS = 70
+SD15_PRECOMPUTE_LINEARS = 16
+VAE_LINEARS = 4  # the f32 VAE decoder's mid-attention q, k, v, out per image
 # attention launches per UNet step by class, under either kernel binding.
 # SDXL-base: self at 64^2 (h=10) 10 x K2, self at 32^2 (h=20) 60 x K1, 70
 # cross x K1. SD1.5: self at 64^2 (d=40) 5 x K3, at 32^2 (d=80) and 16^2
@@ -372,15 +502,45 @@ ATTN_PER_STEP = {"K1": 130, "K2": 10, "K3": 0, "K4": 0, "K5": 0}
 SD15_ATTN_PER_STEP = {"K1": 0, "K2": 0, "K3": 5, "K4": 10, "K5": 17}
 
 
-def fused_counters():
-    """Launch counters of K8-K11 (and K6, the plain conv kernel)."""
+def kernel_counters():
+    """Launch counters of K8-K13 (and K6, the plain conv kernel)."""
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.kernels import geglu as gg
     from stabletriton_tpu_torch.kernels import group_norm as gn
     from stabletriton_tpu_torch.kernels import layer_norm as ln
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.kernels import time_embed as te
 
     return {"K8": cd.GN_LAUNCHES, "K9": gn.LAUNCHES, "K10": ln.LAUNCHES,
-            "K11": gg.LAUNCHES, "K6": cd.LAUNCHES}
+            "K11": gg.LAUNCHES, "K12": te.LAUNCHES, "K13": lin.LAUNCHES, "K6": cd.LAUNCHES}
+
+
+class LinearDispatches:
+    """Counts the ``linear`` op's dispatches by backend while entered, by
+    registering counting wrappers around its implementations (restored on
+    exit): a linear that reached cuBLAS would show as a "reference" call."""
+
+    def __init__(self):
+        from stabletriton_tpu_torch import ops
+
+        self.ops = ops
+        self.impls = {}
+        for bk in ops.registered_ops()["linear"]:
+            with ops.use_backends(linear=bk):
+                self.impls[bk] = ops.resolve("linear")
+        self.calls = dict.fromkeys(self.impls, 0)
+
+    def __enter__(self):
+        for bk, fn in self.impls.items():
+            def counting(*a, bk=bk, fn=fn, **kw):
+                self.calls[bk] += 1
+                return fn(*a, **kw)
+            self.ops.register("linear", bk)(counting)
+        return self
+
+    def __exit__(self, *exc):
+        for bk, fn in self.impls.items():
+            self.ops.register("linear", bk)(fn)
 
 
 def attention_by_class(by_key: dict, kernel: str = "") -> dict:
@@ -413,13 +573,18 @@ def sd15_step_inputs(dev):
         time_ids=torch.zeros((2, 0), device=dev))
 
 
-def phase_step_deviation(dev, cfg, params, inputs, fused_per_step, attn_per_step, label):
-    """One full-width UNet step: the default binding and the fused-op
-    binding, each against the reference binding, with the per-step launch
-    counts of the attention classes and of the fused-op kernels."""
+def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_linears,
+                         attn_per_step, label):
+    """One full-width UNet step (cross K/V precompute included) under the
+    default, the fused-op and the all-kernel binding, each against the
+    reference binding, with the per-step launch counts of the attention
+    classes and of K8-K13. Under the all-kernel binding every linear
+    dispatch must reach the "cuda" backend and launch K13, and the
+    precompute alone must launch ``precompute_linears``."""
     from stabletriton_tpu_torch import ops
     from stabletriton_tpu_torch.compile import (
-        FUSED_OP_OVERRIDES, CompileConfig, fuse_attention_projections, resolve_binding)
+        ALL_KERNEL_OVERRIDES, FUSED_OP_OVERRIDES, CompileConfig, fuse_attention_projections,
+        resolve_binding)
     from stabletriton_tpu_torch.kernels import flash_attention as fa
     from stabletriton_tpu_torch.models.unet import precompute_cross_kv, unet_apply
 
@@ -427,8 +592,13 @@ def phase_step_deviation(dev, cfg, params, inputs, fused_per_step, attn_per_step
     t = torch.full((2,), 500.0, device=dev)
     fused = fuse_attention_projections(params)
     bindings = {"default": resolve_binding(CompileConfig()),
-                "fused_ops": resolve_binding(CompileConfig(overrides=FUSED_OP_OVERRIDES))}
+                "fused_ops": resolve_binding(CompileConfig(overrides=FUSED_OP_OVERRIDES)),
+                "all_kernels": resolve_binding(CompileConfig(overrides=ALL_KERNEL_OVERRIDES))}
     reference = resolve_binding(CompileConfig(backend="reference"))
+    zero = dict.fromkeys(all_per_step, 0)
+    expect = {"default": zero,
+              "fused_ops": {**zero, **{k: all_per_step[k] for k in FUSED_PER_STEP}},
+              "all_kernels": {**all_per_step, "K13": all_per_step["K13"] + precompute_linears}}
 
     def kernel_step(binding):
         def run():
@@ -443,7 +613,7 @@ def phase_step_deviation(dev, cfg, params, inputs, fused_per_step, attn_per_step
 
     runs = {"reference": run_reference,
             **{name: kernel_step(b) for name, b in bindings.items()}}
-    counters = fused_counters()
+    counters = kernel_counters()
     result = {}
     lat = sample.shape[1]
     with torch.inference_mode():
@@ -451,8 +621,9 @@ def phase_step_deviation(dev, cfg, params, inputs, fused_per_step, attn_per_step
         for name in bindings:
             for c in (*counters.values(), fa.LAUNCHES):
                 c.reset()
-            out_k = runs[name]().float()
-            torch.cuda.synchronize()
+            with LinearDispatches() as linear_calls:
+                out_k = runs[name]().float()
+                torch.cuda.synchronize()
             counts = {k: c.count for k, c in counters.items()}
             attn = attention_by_class(fa.LAUNCHES.by_key)
             if not (torch.isfinite(out_k).all() and torch.isfinite(out_r).all()):
@@ -462,30 +633,39 @@ def phase_step_deviation(dev, cfg, params, inputs, fused_per_step, attn_per_step
             log(f"step deviation, {label}, {name} binding vs reference: UNet {lat}x{lat} "
                 f"latent, CFG batch 2, bf16: mse={mse:.3e} max_abs={mx:.3e} (gate "
                 f"mse<{STEP_MSE_GATE:g}); output rms {out_r.square().mean().sqrt().item():.4f}; "
-                f"launches in one step {json.dumps(counts)}, attention {json.dumps(attn)}")
+                f"launches in one step (precompute included) {json.dumps(counts)}, attention "
+                f"{json.dumps(attn)}, linear dispatches {json.dumps(linear_calls.calls)}")
             if not mse < STEP_MSE_GATE:
                 raise AssertionError(f"{label} {name} step deviation mse {mse:.3e} exceeds "
                                      f"{STEP_MSE_GATE:g}")
             if attn != attn_per_step:
                 raise AssertionError(f"{label} {name}: attention launches {attn} in one step, "
                                      f"expected {attn_per_step}")
-            if name == "fused_ops":
-                for k, want in fused_per_step.items():
-                    if counts[k] != want:
-                        raise AssertionError(f"{label} {k}: {counts[k]} launches in one "
-                                             f"fused-op step, expected {want}")
-            elif any(counts[k] for k in fused_per_step):
-                raise AssertionError(f"{label} default binding launched fused-op kernels: "
-                                     f"{counts}")
+            got = {k: counts[k] for k in expect[name]}
+            if got != expect[name]:
+                raise AssertionError(f"{label} {name}: launches {got} in one step, expected "
+                                     f"{expect[name]}")
+            if name == "all_kernels" and (linear_calls.calls.get("reference", 0)
+                                          or linear_calls.calls["cuda"] != counts["K13"]):
+                raise AssertionError(f"{label} all-kernel step: linear dispatches "
+                                     f"{linear_calls.calls}, K13 launches {counts['K13']}")
             result[name] = {"mse": mse, "max_abs": mx, "launches": counts, "attention": attn}
+        counters["K13"].reset()
+        with ops.use_backends(bindings["all_kernels"]):
+            precompute_cross_kv(cfg, fused, ctx)
+        if counters["K13"].count != precompute_linears:
+            raise AssertionError(f"{label}: the cross K/V precompute launched K13 "
+                                 f"{counters['K13'].count} times, expected {precompute_linears}")
         torch.cuda.synchronize()
         times = {}
-        for name in ("reference", "default", "fused_ops", "fused_ops", "default", "reference"):
+        for name in ("reference", "default", "fused_ops", "all_kernels", "all_kernels",
+                     "fused_ops", "default", "reference"):
             t0 = time.perf_counter()
             runs[name]()
             torch.cuda.synchronize()
             times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-    log(f"step time, {label} (host clock around a synchronised step, ms, two runs each): "
+    log(f"step time, {label} (host clock around a synchronised step, cross K/V precompute "
+        f"included, ms, two runs each): "
         + ", ".join(f"{k}={v[0]:.1f}/{v[1]:.1f}" for k, v in times.items()))
     del fused
     result["step_ms"] = times
@@ -545,6 +725,9 @@ def check_images(done, size):
             raise AssertionError(f"request {i}: bad image")
 
 
+SERVE_STEPS = 4  # Euler steps of every served request
+
+
 def serve(dev, ucfg, unet_params, other, compile_config, prompts, counters, solo=None, *,
           size=1024, guidance=5.0):
     """A ServingEngine over a full-width pipeline: submit ``prompts`` together
@@ -559,7 +742,8 @@ def serve(dev, ucfg, unet_params, other, compile_config, prompts, counters, solo
                         compile_config=compile_config, device=dev)
     tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
     engine = ServingEngine(pipe, tok, tok, max_wait_s=0.5)
-    kw = dict(height=size, width=size, steps=4, guidance_scale=guidance, solver="euler")
+    kw = dict(height=size, width=size, steps=SERVE_STEPS, guidance_scale=guidance,
+              solver="euler")
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -631,7 +815,7 @@ def phase_serving_fused(dev, ucfg, unet_params, other):
     per image."""
     from stabletriton_tpu_torch.compile import FUSED_OP_OVERRIDES, CompileConfig
 
-    counters = fused_counters()
+    counters = kernel_counters()
     done, counts, by_key = serve(
         dev, ucfg, unet_params, other, CompileConfig(overrides=FUSED_OP_OVERRIDES),
         counters=counters, prompts=[("a red fox in snow", 21), ("a glass teapot", 22)],
@@ -655,6 +839,46 @@ def phase_serving_fused(dev, ucfg, unet_params, other):
     if k9_f32 != vae_norms * len(done):
         raise AssertionError(f"K9: {k9_f32} f32 launches, expected {vae_norms * len(done)}")
     return counts
+
+
+def phase_serving_all(dev, ucfg, unet_params, other):
+    """Phase 5d: the all-kernel binding, two co-batched requests and the
+    first one's seed alone. K8-K11 as in phase 5b; K12 must launch its
+    per-step count times the UNet steps run; K13 its per-step count times the
+    steps, plus the cross K/V precompute once per generation (a generation
+    runs SERVE_STEPS steps) and the f32 VAE decoder's mid-attention
+    projections once per image."""
+    from stabletriton_tpu_torch.compile import ALL_KERNEL_OVERRIDES, CompileConfig
+
+    counters = kernel_counters()
+    done, counts, by_key = serve(
+        dev, ucfg, unet_params, other, CompileConfig(overrides=ALL_KERNEL_OVERRIDES),
+        counters=counters, prompts=[("a paper boat on a pond", 41), ("a clock tower", 42)],
+        solo=("a paper boat on a pond", 41))
+    log(f"same seed, batched (bucket 2) vs solo (bucket 1), all-kernel binding: max abs diff "
+        f"{float(np.abs(done[0][0] - done[2][0]).max()):.3e}")
+    steps = unet_steps(by_key["K8"], ucfg, "wmma_bf16")
+    gens, images = steps // SERVE_STEPS, len(done)
+    vae_norms = sum(1 for k in other[1]["vae"] if k.endswith(
+        ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")))
+    want = {k: n * steps for k, n in ALL_PER_STEP.items()}
+    want["K9"] += vae_norms * images
+    want["K13"] += PRECOMPUTE_LINEARS * gens + VAE_LINEARS * images
+    # the precompute's GEMMs are the only ones over the 2048-wide context
+    precompute = sum(n for key, n in by_key["K13"].items() if " k=2048 " in key)
+    vae = sum(n for key, n in by_key["K13"].items() if key.startswith("scalar_f32 "))
+    log(f"all-kernel serving: {steps} UNet steps, {gens} generations, {images} images; "
+        f"K13 precompute launches {precompute}, VAE launches {vae}")
+    if steps == 0 or steps % SERVE_STEPS:
+        raise AssertionError(f"all-kernel serving ran {steps} UNet steps")
+    for k, n in want.items():
+        if counts[k] != n:
+            raise AssertionError(f"{k}: {counts[k]} launches during all-kernel serving, "
+                                 f"expected {n}")
+    if precompute != PRECOMPUTE_LINEARS * gens or vae != VAE_LINEARS * images:
+        raise AssertionError(f"K13: {precompute} precompute and {vae} VAE launches, expected "
+                             f"{PRECOMPUTE_LINEARS * gens} and {VAE_LINEARS * images}")
+    return counts, by_key
 
 
 def phase_serving_sd15(dev, ucfg, unet_params, other):
@@ -701,6 +925,9 @@ REPLACES = {
     "K9": "stabletriton_tpu/kernels/group_norm.py:36",   # and _apply_kernel :54
     "K10": "stabletriton_tpu/kernels/layer_norm.py:23",
     "K11": "stabletriton_tpu/kernels/geglu.py:21",
+    "K12": "stabletriton_tpu/kernels/time_embed.py:23",
+    "K13": "stabletriton_tpu/kernels/linear.py:29",
+    "K14": "stabletriton_tpu/kernels/dropout.py:25",
 }
 
 
@@ -735,35 +962,46 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  ptxas " + line.strip())
 
-    kernel_results = phase_kernels(dev) + phase_fused_kernels(dev) + phase_sd15_attention(dev)
+    kernel_results = (phase_kernels(dev) + phase_fused_kernels(dev) + phase_sd15_attention(dev)
+                      + phase_optional_kernels(dev))
 
-    # SDXL-base at 1024^2: phases 4, 4b, 5, 5b
+    # SDXL-base at 1024^2: phases 4, 4b, 4d, 5, 5b, 5d
     ucfg = sdxl_base_unet_config()
     sdxl = {"unet": make_unet_params(dev, ucfg)}
-    phase_step_deviation(dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev), FUSED_PER_STEP,
-                         ATTN_PER_STEP, "SDXL-base")
+    phase_step_deviation(dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev), ALL_PER_STEP,
+                         PRECOMPUTE_LINEARS, ATTN_PER_STEP, "SDXL-base")
     sdxl["other"] = make_other_params(dev)
     by_key = phase_serving(dev, ucfg, sdxl["unet"], sdxl["other"])
     fused_counts = phase_serving_fused(dev, ucfg, sdxl["unet"], sdxl["other"])
+    all_counts, all_by_key = phase_serving_all(dev, ucfg, sdxl["unet"], sdxl["other"])
     free(sdxl)
 
-    # SD1.5 at 512^2: phases 4c, 5c
+    # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 5c
     ucfg = sd15_unet_config()
     sd15 = {"unet": make_unet_params(dev, ucfg)}
-    phase_step_deviation(dev, ucfg, sd15["unet"], sd15_step_inputs(dev), SD15_FUSED_PER_STEP,
-                         SD15_ATTN_PER_STEP, "SD1.5")
+    phase_step_deviation(dev, ucfg, sd15["unet"], sd15_step_inputs(dev), SD15_ALL_PER_STEP,
+                         SD15_PRECOMPUTE_LINEARS, SD15_ATTN_PER_STEP, "SD1.5")
     sd15["other"] = make_sd15_other_params(dev)
     sd15_by_key = phase_serving_sd15(dev, ucfg, sd15["unet"], sd15["other"])
     free(sd15)
 
-    # launches of each kernel on the serving paths (phases 5, 5b, 5c), by
-    # the first two fields of its launch key ("K3 wmma_bf16") for attention
+    # launches of each kernel on its path: the serving phases (5, 5b, 5c,
+    # 5d), by the first two fields of its launch key ("K3 wmma_bf16") for
+    # attention and by the first ("wmma_bf16") for K13; K14's op dispatch in
+    # phase 3d
     attention = [*by_key["flash_attention"].items(), *sd15_by_key["flash_attention"].items()]
     conv = sum(by_key["conv3x3"].values()) + sum(sd15_by_key["conv3x3"].values())
 
     def launches(r):
         if r["tpu"] == "K6":
             return conv
+        if r["tpu"] == "K12":
+            return all_counts["K12"]
+        if r["tpu"] == "K13":
+            return sum(n for key, n in all_by_key["K13"].items()
+                       if key.startswith(r["kernel"] + " "))
+        if r["tpu"] == "K14":
+            return r["launches"]
         if r["tpu"] in FUSED_PER_STEP:
             return fused_counts[r["tpu"]]
         return sum(n for key, n in attention if key.startswith(r["kernel"] + " "))
@@ -775,7 +1013,7 @@ def main() -> int:
     } for r in kernel_results]
     for k in kernels:
         if k["launches"] == 0:
-            raise AssertionError(f"{k['name']}: no launch of its kernel on the serving paths")
+            raise AssertionError(f"{k['name']}: no launch of its kernel on its path")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,16 +16,21 @@ from stabletriton_tpu_torch import ops
 # ops the "cuda" backend binds to the attention kernel
 KERNEL_ATTENTION_OPS = ("attention", "attention_qkv", "attention_kv")
 
-# ops whose "cuda" kernel exists but is opt-in (bind via overrides); the
-# counterpart of the JAX package's OPTIONAL_PALLAS_OPS, listing only the ops
-# the port has a kernel for. ``gn_conv2d`` binds "fused" (GN apply fused
-# into the 3x3 conv kernel).
-OPTIONAL_KERNEL_OPS = ("geglu", "group_norm", "layer_norm", "rms_norm")
+# ops whose "cuda" kernel exists but is opt-in (bind via overrides): the JAX
+# package's OPTIONAL_PALLAS_OPS plus rms_norm (the LayerNorm kernel's other
+# form). ``gn_conv2d`` binds "fused" (GN apply fused into the 3x3 conv kernel).
+OPTIONAL_KERNEL_OPS = ("geglu", "group_norm", "layer_norm", "rms_norm", "linear",
+                       "time_embed", "dropout")
 
 # the fused-op binding: the JAX package's ``backend="pallas"`` with the
 # group_norm / layer_norm / geglu / gn_conv2d="fused" overrides
 FUSED_OP_OVERRIDES = (("group_norm", "cuda"), ("layer_norm", "cuda"), ("geglu", "cuda"),
                       ("gn_conv2d", "fused"))
+
+# the all-kernel binding: the fused-op binding with linear and time_embed on
+# their kernels too, so every op a model path reaches runs a hand-written
+# kernel (dropout is not on any model path: the UNet elides it, as in JAX)
+ALL_KERNEL_OVERRIDES = FUSED_OP_OVERRIDES + (("linear", "cuda"), ("time_embed", "cuda"))
 
 
 @dataclass(frozen=True)

@@ -8,6 +8,10 @@
   group_norm      - group_norm -> "cuda" (csrc/group_norm.cu)
   layer_norm      - layer_norm, rms_norm -> "cuda" (csrc/layer_norm.cu)
   geglu           - geglu -> "cuda" (csrc/geglu.cu)
+  linear          - linear -> "cuda" (csrc/linear.cu)
+  time_embed      - time_embed -> "cuda" (csrc/time_embed.cu)
+  dropout         - dropout -> "cuda" (csrc/dropout.cu) and "reference" (its
+                    plain version; no model path reaches dropout)
 
 The default binding uses flash_attention and conv2d "direct"; the others are
 opt-in through ``CompileConfig.overrides``. The CUDA sources are compiled at
@@ -16,8 +20,11 @@ first launch (kernels/build.py); importing builds nothing.
 
 from stabletriton_tpu_torch.kernels import (  # noqa: F401
     conv_direct,
+    dropout,
     flash_attention,
     geglu,
     group_norm,
     layer_norm,
+    linear,
+    time_embed,
 )

@@ -38,7 +38,10 @@ LIB_NAME = "libst_kernels.so"
 
 # the codes every C entry point takes for its dtype and activation arguments
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ACT_CODES = {None: 0, "silu": 1}
+ACT_CODES = {None: 0, "silu": 1, "gelu": 2}
+# the activations the conv and GroupNorm kernels apply; the linear kernel
+# takes every code above
+SILU_ACTS = (None, "silu")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from stabletriton_tpu_torch.kernels import group_norm
 from stabletriton_tpu_torch.kernels.build import (
-    ACT_CODES, DTYPE_CODES, LaunchCounter, check, function)
+    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, function)
 from stabletriton_tpu_torch.ops import reference
 from stabletriton_tpu_torch.ops.registry import dispatch, register
 
@@ -90,8 +90,8 @@ def _check_conv(x, w, b, residual, act):
     if w.shape[:3] != (3, 3, cin):
         raise ValueError(f"weight {tuple(w.shape)} is not (3, 3, {cin}, Cout)")
     cout = w.shape[3]
-    if act not in ACT_CODES:
-        raise ValueError(f"conv kernel epilogue takes act in {list(ACT_CODES)}, got {act!r}")
+    if act not in SILU_ACTS:
+        raise ValueError(f"conv kernel epilogue takes act in {list(SILU_ACTS)}, got {act!r}")
     if b is not None and b.shape not in ((cout,), (n, cout)):
         raise ValueError(f"bias {tuple(b.shape)} is neither ({cout},) nor ({n}, {cout})")
     if residual is not None and residual.shape != (n, h, wd, cout):
@@ -173,8 +173,8 @@ def gn_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
     ``gn_scale`` / ``gn_shift`` (B, Cin) f32 from :func:`group_norm.fold`.
     CPU tensors take the plain version."""
     _check_conv(x, w, b, residual, act)
-    if gn_act not in ACT_CODES:
-        raise ValueError(f"conv kernel prologue takes gn_act in {list(ACT_CODES)}, "
+    if gn_act not in SILU_ACTS:
+        raise ValueError(f"conv kernel prologue takes gn_act in {list(SILU_ACTS)}, "
                          f"got {gn_act!r}")
     if gn_scale.shape != (x.shape[0], x.shape[3]) or gn_shift.shape != gn_scale.shape:
         raise ValueError(f"GroupNorm scale {tuple(gn_scale.shape)} / shift "
@@ -195,7 +195,7 @@ def _is_conv3x3_s1(w, stride, padding) -> bool:
 def conv2d_direct(x, w, b=None, *, stride=1, padding=1, residual=None, act=None):
     """3x3 stride-1 SAME convs go to the kernel; other shapes (strided, 1x1,
     asymmetric padding) go to the plain conv, as in the JAX package."""
-    if _is_conv3x3_s1(w, stride, padding) and act in ACT_CODES:
+    if _is_conv3x3_s1(w, stride, padding) and act in SILU_ACTS:
         return conv3x3(x, w.to(x.dtype), b, residual=residual, act=act)
     return reference.conv2d(x, w, b, stride=stride, padding=padding,
                             residual=residual, act=act)
@@ -210,7 +210,7 @@ def gn_conv2d_fused(x, gamma, beta, w, b=None, *, num_groups=32, eps=1e-5,
     Ineligible shapes (not 3x3 stride 1 SAME, C not divisible by the groups,
     an activation the kernel does not take) compose ``group_norm`` ->
     ``conv2d`` through the active binding, as in the JAX package."""
-    if (_is_conv3x3_s1(w, stride, padding) and act in ACT_CODES and gn_act in ACT_CODES
+    if (_is_conv3x3_s1(w, stride, padding) and act in SILU_ACTS and gn_act in SILU_ACTS
             and x.shape[3] % num_groups == 0):
         s1, s2 = group_norm.moments(x)
         scale, shift = group_norm.fold(s1, s2, gamma, beta, hw=x.shape[1] * x.shape[2],

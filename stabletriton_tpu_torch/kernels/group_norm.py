@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from stabletriton_tpu_torch.kernels.build import (
-    ACT_CODES, DTYPE_CODES, LaunchCounter, check, function)
+    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, function)
 from stabletriton_tpu_torch.ops.registry import register
 
 STATS_BLOCKS_PER_IMAGE = 132  # one stats block per SM for a single image
@@ -142,8 +142,8 @@ def apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
           act: str | None) -> torch.Tensor:
     """x * scale + shift (+SiLU) per (batch, channel), by the apply kernel
     (the plain version for CPU tensors). Counts nothing."""
-    if act not in ACT_CODES:
-        raise ValueError(f"group norm kernel takes act in {list(ACT_CODES)}, got {act!r}")
+    if act not in SILU_ACTS:
+        raise ValueError(f"group norm kernel takes act in {list(SILU_ACTS)}, got {act!r}")
     if x.device.type == "cpu":
         return apply_plain(x, scale, shift, act)
     _check_cuda(x)
@@ -171,8 +171,8 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     n, h, w, c = x.shape
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
-    if act not in ACT_CODES:
-        raise ValueError(f"group norm kernel takes act in {list(ACT_CODES)}, got {act!r}")
+    if act not in SILU_ACTS:
+        raise ValueError(f"group norm kernel takes act in {list(SILU_ACTS)}, got {act!r}")
     if x.device.type == "cpu":
         return group_norm_plain(x, gamma, beta, num_groups=num_groups, eps=eps, act=act)
     s1, s2 = moments(x)

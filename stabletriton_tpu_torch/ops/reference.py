@@ -189,18 +189,23 @@ def geglu(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
 @register("linear", "reference")
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
            act: str | None = None) -> torch.Tensor:
-    """x: (..., in), w: (in, out). The product runs in x's dtype with float32
-    accumulation inside the GEMM; the bias joins the float32 sum
-    (``addmm``), so the output rounds once, as in the JAX op. With ``act``
-    the activation follows in x's dtype, so that case still rounds twice
-    (no model path passes ``act``)."""
+    """x: (..., in), w: (in, out), w cast to x's dtype. Without ``act`` the
+    product runs in x's dtype with float32 accumulation inside the GEMM and
+    the bias joins the float32 sum (``addmm``). With ``act`` the GEMM runs
+    in float32 on the upcast operands (a bf16 product is exact in float32),
+    the bias joins that sum and the activation applies to it in float32.
+    Either way the output rounds once to x's dtype, as in the JAX op."""
     w = w.to(x.dtype)
-    if b is None:
-        out = torch.matmul(x, w)
+    if act is None and b is None:
+        return torch.matmul(x, w)
+    x2 = x.reshape(-1, x.shape[-1])
+    if act is None:
+        out = torch.addmm(b.to(x.dtype), x2, w)
     else:
-        out = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
-        out = out.reshape(*x.shape[:-1], w.shape[1])
-    return apply_activation(out, act)
+        xf, wf = x2.float(), w.float()
+        out = xf @ wf if b is None else torch.addmm(b.float(), xf, wf)
+        out = apply_activation(out, act).to(x.dtype)
+    return out.reshape(*x.shape[:-1], w.shape[1])
 
 
 @register("time_embed", "reference")

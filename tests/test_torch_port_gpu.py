@@ -14,10 +14,13 @@ import pytest
 import torch
 
 from stabletriton_tpu_torch.kernels import conv_direct as tconv
+from stabletriton_tpu_torch.kernels import dropout as tdropout
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
 from stabletriton_tpu_torch.kernels import geglu as tgeglu
 from stabletriton_tpu_torch.kernels import group_norm as tgn
 from stabletriton_tpu_torch.kernels import layer_norm as tln
+from stabletriton_tpu_torch.kernels import linear as tlinear
+from stabletriton_tpu_torch.kernels import time_embed as ttime
 
 
 @pytest.fixture
@@ -259,3 +262,90 @@ def test_gpu_fused_binding_routes_to_kernels(cuda_device):
         assert counts() == (before[0] + 1, before[1], before[2])
         ops.gn_conv2d(x, g, g, w3, num_groups=8, stride=2)  # strided: GN kernel + plain conv
         assert counts() == (before[0] + 1, before[1] + 1, before[2])
+
+
+def _new_keys(counter, before):
+    return {k: n - before.get(k, 0) for k, n in counter.by_key.items()
+            if n != before.get(k, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,m,k,n,bias,act,kernel,vec", [
+    (torch.bfloat16, 300, 136, 200, True, None, "wmma_bf16", 1),    # ragged M and N tiles
+    (torch.bfloat16, 130, 37, 45, True, "gelu", "wmma_bf16", 0),    # K, N % 8: element loads
+    (torch.bfloat16, 70, 64, 4, False, "silu", "wmma_bf16", 0),     # N = 4: element loads
+    (torch.bfloat16, 154, 2816, 136, False, None, "wmma_bf16", 1),  # precompute-like, deep K
+    (torch.bfloat16, 2, 1280, 40, True, "silu", "skinny_bf16", 0),  # time MLP rows
+    (torch.bfloat16, 12, 33, 4, False, "gelu", "skinny_bf16", 0),
+    (torch.float32, 100, 70, 40, True, "gelu", "scalar_f32", 0),
+    (torch.float32, 65, 512, 130, True, None, "scalar_f32", 0),
+    (torch.float32, 16, 300, 77, True, "silu", "skinny_f32", 0),
+])
+def test_gpu_linear_kernel_vs_plain(cuda_device, dtype, m, k, n, bias, act, kernel, vec):
+    """Every variant of K13 at ragged shapes, against its plain version,
+    with the launch counted under its variant and shape."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=cuda_device) / k**0.5).to(dtype)
+    b = torch.randn(n, generator=gen, device=cuda_device).to(dtype) if bias else None
+    before = dict(tlinear.LAUNCHES.by_key)
+    out = tlinear.linear(x, w, b, act=act)
+    torch.cuda.synchronize()
+    assert _new_keys(tlinear.LAUNCHES, before) == {
+        f"{kernel} m={m} k={k} n={n} bias={int(bias)} act={act} vec={vec}": 1}
+    assert out.shape == (m, n) and out.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_err(out, tlinear.linear_plain(x, w, b, act=act)) <= tol
+
+
+@pytest.mark.gpu
+def test_gpu_linear_on_misaligned_operands(cuda_device):
+    """A strided view (x[..., 1:]) is copied to a contiguous one; a
+    contiguous view whose base is not 16-byte aligned takes the element
+    loads. Both are right."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    buf = torch.randn((3, 50, 129), generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn((128, 64), generator=gen, device=cuda_device) / 12).to(torch.bfloat16)
+    x = buf[..., 1:]
+    before = dict(tlinear.LAUNCHES.by_key)
+    out = tlinear.linear(x, w)
+    assert out.shape == (3, 50, 64)
+    assert _rel_err(out, tlinear.linear_plain(x, w)) <= 2e-2
+    flat = torch.randn(150 * 128 + 1, generator=gen, device=cuda_device).to(torch.bfloat16)
+    x2 = flat[1:].view(150, 128)
+    assert x2.data_ptr() % 16 != 0
+    out2 = tlinear.linear(x2, w, act="silu")
+    assert _rel_err(out2, tlinear.linear_plain(x2, w, act="silu")) <= 2e-2
+    assert _new_keys(tlinear.LAUNCHES, before) == {
+        "wmma_bf16 m=150 k=128 n=64 bias=0 act=None vec=1": 1,
+        "wmma_bf16 m=150 k=128 n=64 bias=0 act=silu vec=0": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,dim,flip,shift", [(2, 320, True, 0.0), (12, 256, True, 0.0),
+                                              (5, 64, False, 1.0)])
+def test_gpu_time_embed_kernel_vs_plain(cuda_device, b, dim, flip, shift):
+    t = torch.tensor([999.0, 1024.0, 0.0, 1.0, 500.0] * 3, device=cuda_device)[:b]
+    before = ttime.LAUNCHES.count
+    out = ttime.time_embed(t, dim=dim, flip_sin_to_cos=flip, downscale_freq_shift=shift)
+    assert ttime.LAUNCHES.count == before + 1
+    ref = ttime.time_embed_plain(t, dim=dim, flip_sin_to_cos=flip, downscale_freq_shift=shift)
+    assert out.shape == (b, dim)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (2, 100, 640)),
+                                         (torch.float32, ((1 << 20) + 3,))])
+def test_gpu_dropout_kernel_matches_plain_bit_for_bit(cuda_device, dtype, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    before = tdropout.LAUNCHES.count
+    out = tdropout.dropout(x, 2**40 + 17, rate=0.1)
+    again = tdropout.dropout(x, 2**40 + 17, rate=0.1)
+    assert tdropout.LAUNCHES.count == before + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out, tdropout.dropout_plain(x, 2**40 + 17, rate=0.1))
+    assert not torch.equal(out, tdropout.dropout(x, 17, rate=0.1))
+    assert tdropout.dropout(x, 3, rate=0.0) is x
+    assert tdropout.LAUNCHES.count == before + 3

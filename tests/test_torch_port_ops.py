@@ -99,6 +99,31 @@ def test_linear_bf16_bias_rounds_once(x_shape):
     np.testing.assert_array_equal(t.float().numpy(), np.asarray(j.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_linear_bf16_act_rounds_once(act):
+    """With an activation the bias and the activation apply to the f32 sum
+    and the output rounds once, as in the JAX op. The two GEMMs sum in
+    another order, so a few outputs may differ by 1 bf16 ulp; rounding the
+    GEMM before the activation made 25% (silu) and 33% (gelu) differ. Below
+    2^-14 in magnitude the ulp gives way to an absolute 2^-21: there the
+    f32 sum order (~1e-7 over 640 unit terms) and the gelu tail (XLA's and
+    PyTorch's f32 erf differ by up to 3.1e-7 where gelu(x) ~ 1e-5) decide."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((308, 640)).astype(np.float32)
+    w = (rng.standard_normal((640, 1280)) / 25).astype(np.float32)
+    b = rng.standard_normal(1280).astype(np.float32)
+    j = np.asarray(jops.linear(*(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)),
+                               act=act).astype(jnp.float32))
+    t = tops.linear(*(torch.from_numpy(a).bfloat16() for a in (x, w, b)), act=act)
+    assert t.dtype == torch.bfloat16
+    t = t.float().numpy()
+    differ = t != j
+    assert differ.mean() <= 0.005
+    # 1 bf16 ulp (8 significant bits) of each differing output
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.maximum(np.abs(j), np.abs(t)), 2.0**-14))) - 7)
+    assert (np.abs(t - j) <= ulp)[differ].all()
+
+
 @pytest.mark.parametrize("flip,shift", [(True, 0.0), (False, 1.0)])
 def test_time_embed(flip, shift):
     t = np.array([0.0, 1.0, 499.0, 999.0], np.float32)

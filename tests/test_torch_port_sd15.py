@@ -36,7 +36,12 @@ from stabletriton_tpu.models import unet as junet
 from stabletriton_tpu.models import vae as jvae
 from stabletriton_tpu.runtime import pipeline as jpipe
 from stabletriton_tpu_torch import ops as tops
-from stabletriton_tpu_torch.compile import CompileConfig, fuse_attention_projections, resolve_binding
+from stabletriton_tpu_torch.compile import (
+    ALL_KERNEL_OVERRIDES,
+    CompileConfig,
+    fuse_attention_projections,
+    resolve_binding,
+)
 from stabletriton_tpu_torch.io.convert import params_from_numpy
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
 from stabletriton_tpu_torch.models import clip as tclip
@@ -226,18 +231,32 @@ def sd15_weights():
 UNET_LATENT = 36
 
 
-@pytest.mark.parametrize("binding", ["reference", "cuda"])
+# the port's kernel bindings -> the JAX package's overrides on its default
+# Pallas binding
+UNET_BINDINGS = {
+    "cuda": ((), ()),
+    "all_kernels": (ALL_KERNEL_OVERRIDES,
+                    (("group_norm", "pallas"), ("layer_norm", "pallas"), ("geglu", "pallas"),
+                     ("gn_conv2d", "fused"), ("linear", "pallas"), ("time_embed", "pallas"))),
+}
+
+
+@pytest.mark.parametrize("binding", ["reference", "cuda", "all_kernels"])
 def test_tiny_sd15_unet_vs_jax(sd15_weights, binding):
     """No added conditioning: text_embeds and time_ids have width 0. The
     "cuda" binding (its kernels' plain versions on the CPU, fused
-    projections, cross K/V cache) against JAX's default Pallas binding."""
+    projections, cross K/V cache) against JAX's default Pallas binding;
+    "all_kernels" adds the fused-op, linear and time_embed kernels to both
+    (JAX's in interpret mode)."""
     (jcfg, _, _), params = sd15_weights
     rng = np.random.default_rng(5)
     sample = rng.standard_normal((2, UNET_LATENT, UNET_LATENT, 4)).astype(np.float32)
     t = np.array([999.0, 261.0], np.float32)
     ctx = rng.standard_normal((2, 16, 32)).astype(np.float32)
     empty = np.zeros((2, 0), np.float32)
-    jb = {} if binding == "reference" else jresolve(JCompileConfig(dtype="float32"))
+    overrides, joverrides = UNET_BINDINGS.get(binding, ((), ()))
+    jb = {} if binding == "reference" else jresolve(JCompileConfig(dtype="float32",
+                                                                   overrides=joverrides))
 
     @jax.jit
     def jstep(p, sample, t, ctx, empty):
@@ -258,7 +277,8 @@ def test_tiny_sd15_unet_vs_jax(sd15_weights, binding):
     else:
         tp = fuse_attention_projections(tp)
         before = tfa.LAUNCHES.count
-        with tops.use_backends(resolve_binding(CompileConfig(dtype="float32"))):
+        with tops.use_backends(resolve_binding(CompileConfig(dtype="float32",
+                                                             overrides=overrides))):
             kv = tunet.precompute_cross_kv(tcfg, tp, args[2])
             out = tunet.unet_apply(tcfg, tp, args[0], args[1], None, args[3], args[3],
                                    cross_kv=kv)

@@ -9,7 +9,8 @@ latents. Tolerance on the images: atol 1e-3; measured max abs deviation
 7.3e-6 (reference binding) and 8.1e-6 (kernel binding), on images with a
 standard deviation of 0.54. The "fused" case runs the port's fused-op
 binding (CompileConfig.overrides) against the JAX pipeline under the same
-overrides, its Pallas kernels in interpret mode.
+overrides, its Pallas kernels in interpret mode; "all_kernels" adds linear
+and time_embed to both.
 """
 
 import dataclasses
@@ -33,7 +34,7 @@ from stabletriton_tpu.models import vae as jvae
 from stabletriton_tpu.runtime import scheduler as jsched
 from stabletriton_tpu.runtime.denoise import make_denoise_loop as jmake_loop
 from stabletriton_tpu.runtime.pipeline import _decode_images as jdecode_images
-from stabletriton_tpu_torch.compile import FUSED_OP_OVERRIDES, CompileConfig
+from stabletriton_tpu_torch.compile import ALL_KERNEL_OVERRIDES, FUSED_OP_OVERRIDES, CompileConfig
 from stabletriton_tpu_torch.io.convert import params_from_numpy
 from stabletriton_tpu_torch.runtime import pipeline as tpipe
 from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine, _bucket
@@ -121,22 +122,27 @@ def slice_case():
 
 
 # the port's binding -> the JAX binding its images are held against
+JAX_FUSED = (("group_norm", "pallas"), ("layer_norm", "pallas"), ("geglu", "pallas"),
+             ("gn_conv2d", "fused"))
 BINDINGS = {
     "reference": (CompileConfig(backend="reference", dtype="float32"), {}),
     "cuda": (CompileConfig(backend="cuda", dtype="float32"), {}),
     "fused": (CompileConfig(backend="cuda", dtype="float32", overrides=FUSED_OP_OVERRIDES),
-              (("group_norm", "pallas"), ("layer_norm", "pallas"), ("geglu", "pallas"),
-               ("gn_conv2d", "fused"))),
+              JAX_FUSED),
+    "all_kernels": (CompileConfig(backend="cuda", dtype="float32",
+                                  overrides=ALL_KERNEL_OVERRIDES),
+                    JAX_FUSED + (("linear", "pallas"), ("time_embed", "pallas"))),
 }
 
 
-@pytest.mark.parametrize("backend", ["reference", "cuda", "fused"])
+@pytest.mark.parametrize("backend", ["reference", "cuda", "fused", "all_kernels"])
 def test_txt2img_slice_matches_jax(slice_case, backend, monkeypatch):
     """The "cuda" binding on CPU tensors runs the kernels' plain versions,
     with fused projections and the cross K/V cache, as on the card; "fused"
     adds the fused-op overrides, against the JAX pipeline under the same
     overrides (on the JAX reference base: its Pallas attention and conv
-    kernels compute what the port's reference ops do)."""
+    kernels compute what the port's reference ops do); "all_kernels" also
+    binds linear and time_embed to their kernels in both packages."""
     params, ids1, ids2, noise, jax_images = slice_case
     config, jax_overrides = BINDINGS[backend]
     want = jax_images(jresolve_binding(JCompileConfig(backend="reference",
