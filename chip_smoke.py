@@ -1,29 +1,50 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (stabletriton_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--plans]
+    python3 chip_smoke.py --host-time [DIR]
+
+``--profile`` adds a torch.profiler breakdown of one step under each
+binding to phases 4 and 4c (device time by kernel family, idle share);
+``--plans`` times the wgmma kernels at forced tile widths and K splits
+beside the planner's choice and a plain wave-filling rule's (before phase
+3). ``--host-time`` only builds the kernels and prints the host time a
+launch of the linear and conv wrappers, of the package in DIR (a copy of
+another tree, to compare two in one run) or of this checkout; it prints no
+result line.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
   1. device: the card's name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels from stabletriton_tpu_torch/csrc/ for sm_90a;
   3. kernels: each kernel against its plain PyTorch version at the shapes the
-     SDXL-base 1024^2 path gives it (max abs / max relative error, times);
-     each attention launch must carry its class (the JAX package's Pallas
-     kernel it stands in for, K1-K5) in its launch key;
-  3b. fused-op kernels: GroupNorm (K9), LayerNorm / RMSNorm (K10), GEGLU
-     (K11) and the GN-fused 3x3 conv (K8) against their plain versions at
-     the same path's shapes; K8 also beside the unfused pair (K9 apply, K6);
+     SDXL-base 1024^2 path gives it (max abs / max relative error, times),
+     beside its bound (operations over the peak rate or bytes over the
+     memory rate, whichever is longer) and one PyTorch call computing the
+     same function where there is one (SDPA for attention; the reference
+     op's cuDNN conv for the bf16 convs, F.conv2d with TF32 off for the f32
+     ones); each attention launch must carry its class (the JAX package's
+     Pallas kernel it stands in for, K1-K5) in its launch key; the bf16
+     convs run on the kernel the routing picks (wgmma, or WMMA for Cin or
+     Cout 4), the wgmma ones also beside the WMMA kernel at the same shape,
+     SD1.5's 16^2 and 8^2 levels included;
+  3b. fused-op kernels: GroupNorm (K9, beside F.group_norm), LayerNorm /
+     RMSNorm (K10, beside F.layer_norm / F.rms_norm), GEGLU (K11) and the
+     GN-fused 3x3 conv (K8) against their plain versions at the same path's
+     shapes; K8 also beside the WMMA kernel and the unfused pair (K9 apply,
+     K6);
   3c. SD1.5 attention: the bf16 kernels at the SD1.5 512^2 path's shapes
      (K3 at d=40, K4 at d=80 and 160, K5 against 77 keys and the mid-block's
      64), then phase 3's d=64 rows again;
   3d. the rest of the opt-in kernels: the timestep embedding (K12) at
      (2,)->(2,320) and (12,)->(12,256); linear (K13) at every GEMM shape of
-     both paths (WMMA, skinny and f32 scalar variants, SiLU and GELU
-     epilogues), each beside cuBLAS's addmm of the same GEMM; seeded dropout
-     (K14) through ops.dispatch under a ("dropout", "cuda") binding, bit for
-     bit against its plain version, deterministic, seed-sensitive, and
-     dropping a fraction within 4 sigma of the rate;
+     both paths (wgmma, skinny and f32 scalar variants, SiLU and GELU
+     epilogues), each beside cuBLAS's addmm of the same GEMM and the wgmma
+     rows beside the WMMA kernel (element loads, the route of the shapes TMA
+     cannot take); seeded dropout (K14) through ops.dispatch
+     under a ("dropout", "cuda") binding, bit for bit against its plain
+     version, deterministic, seed-sensitive, and dropping a fraction within
+     4 sigma of the rate;
   4, 4b, 4d. step deviation: one full-width SDXL-base UNet step (128^2
      latent, CFG batch 2, bf16, random weights, fused projections and the
      cross K/V precompute) under the default binding, the fused-op binding
@@ -33,11 +54,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      binding: MSE under 1e-3; attention launches per step K1 130, K2 10;
      fused-op launches K8 35, K9 11, K10 210, K11 70; all-kernel also K12 2
      and K13 463 + 70 in the precompute, every linear dispatch on the
-     kernel and none on the reference (cuBLAS) op;
+     kernel and none on the reference (cuBLAS) op, 512 of the 533 on the
+     wgmma kernel and 21 (M = 2) on the skinny one; under every binding 36
+     of the 38 convs on the wgmma kernel, conv_in and conv_out on WMMA;
   4c. one full-width SD1.5 UNet step (64^2 latent, CFG batch 2, bf16) under
      the three bindings against the reference binding, MSE under 1e-3;
      attention launches per step K3 5, K4 10, K5 17 and no K1 or K2; K8 45,
-     K9 16, K10 48, K11 16; all-kernel K12 1, K13 152 + 16;
+     K9 16, K10 48, K11 16; all-kernel K12 1, K13 152 + 16 (144 wgmma, 24
+     skinny); 47 of the 49 convs on wgmma;
   5. serving: a ServingEngine over a full-width SDXL-base pipeline answers
      three 1024^2 requests (4 Euler steps, guidance 5); the images must be
      finite, (1024, 1024, 3) and inside [-1, 1], and the attention (K1, K2,
@@ -81,10 +105,26 @@ sys.path.insert(0, REPO)
 BF16_REL_TOL = 2e-2   # bf16 outputs: ~2-3 bf16 ulps of the largest value
 F32_REL_TOL = 1e-4    # f32: summation order only
 STEP_MSE_GATE = 1e-3  # the JAX package's fidelity gate
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense): bf16 on the
+# tensor cores, f32 outside them (the f32 kernels use no TF32), HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+MEMORY_BYTES_PER_S = 3.35e12
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flops: float, moved: int, dtype) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the operations
+    over the dtype's peak rate and the bytes (each input read once, each
+    output written once) over the memory rate, and which of the two it is."""
+    t_ops, t_mem = flops / PEAK_FLOPS[dtype], moved / MEMORY_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
 def timed_ms(fn, iters: int) -> float:
@@ -100,11 +140,15 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name, kernel_fn, plain_fn, tol, iters, op_fn=None,
+def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
+            library_label="library call", wmma_fn=None, op_fn=None,
             op_label="reference-binding op"):
     """Run kernel and plain version on the same inputs; fail past ``tol``
-    (max abs error relative to the largest plain output). ``op_fn`` (timed
-    only) is another binding's op at the same shape, for context."""
+    (max abs error relative to the largest plain output). Timed beside them:
+    ``library_fn``, one PyTorch call computing the same function (the
+    yardstick, never called by the port); ``wmma_fn``, the WMMA kernel a
+    redesigned kernel replaced, at the same shape; ``op_fn``, another
+    binding's op. ``bound_ms`` is (ms, "operations" or "bytes")."""
     out = kernel_fn()
     ref = plain_fn()
     torch.cuda.synchronize()
@@ -117,17 +161,32 @@ def compare(name, kernel_fn, plain_fn, tol, iters, op_fn=None,
     rel = err / max(scale, 1e-30)
     ms = timed_ms(kernel_fn, iters)
     plain_ms = timed_ms(plain_fn, iters)
-    op_ms = timed_ms(op_fn, iters) if op_fn is not None else None
+    r = {"max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
+         "library_ms": timed_ms(library_fn, iters) if library_fn is not None else None}
+    extra = ""
+    if wmma_fn is not None:
+        r["wmma_ms"] = timed_ms(wmma_fn, iters)
+        extra += f", WMMA kernel {r['wmma_ms']:.4f} ms"
+    if r["library_ms"] is not None:
+        extra += f", {library_label} {r['library_ms']:.4f} ms"
+    if op_fn is not None:
+        extra += f", {op_label} {timed_ms(op_fn, iters):.4f} ms"
     log(f"kernel {name}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol {tol:g}) "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-        + (f", {op_label} {op_ms:.4f} ms" if op_ms is not None else ""))
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}; bound {bound_ms[0]:.4f} ms "
+        f"({bound_ms[1]}), {bound_ms[0] / ms:.1%} of bound")
     if not rel <= tol:
         raise AssertionError(f"{name}: relative error {rel:.3e} exceeds {tol:g}")
-    return {"max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms}
+    return r
 
 
 def phase_fused_kernels(dev):
-    """K8-K11 against their plain versions at the fused-op path's shapes."""
+    """K8-K11 against their plain versions at the fused-op path's shapes,
+    each beside its library call where one PyTorch call computes the same
+    function (K9 F.group_norm, K10 F.layer_norm / F.rms_norm; no single call
+    computes K11's state * gelu(gate) or K8's GroupNorm-fused conv)."""
+    import torch.nn.functional as F
+
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.kernels import geglu as gg
     from stabletriton_tpu_torch.kernels import group_norm as gn
@@ -144,12 +203,15 @@ def phase_fused_kernels(dev):
 
     results = []
 
-    def record(tpu, name, source, r):
-        r.update(name=name, source=f"stabletriton_tpu_torch/csrc/{source}", tpu=tpu)
+    def record(tpu, name, source, r, kernel=None):
+        r.update(name=name, source=f"stabletriton_tpu_torch/csrc/{source}", tpu=tpu,
+                 kernel=kernel)
         results.append(r)
 
     # K9: UNet transformer GroupNorms (bf16, no act), a resnet-sized one with
-    # SiLU, and the VAE decoder's f32 GroupNorms with SiLU
+    # SiLU, and the VAE decoder's f32 GroupNorms with SiLU; the library call
+    # is F.group_norm on an NCHW copy made outside the timed call (GroupNorm
+    # alone: the SiLU rows' library time leaves the activation out)
     for shape, dtype, act, iters in [((2, 64, 64, 640), bf16, None, 20),
                                      ((2, 128, 128, 320), bf16, "silu", 20),
                                      ((1, 128, 128, 512), f32, "silu", 20),
@@ -162,11 +224,15 @@ def phase_fused_kernels(dev):
         ofn = lambda x=x, g=g, b=b, act=act: (
             reference.group_norm_bf16apply if x.dtype == bf16 else reference.group_norm)(
                 x, g, b, num_groups=32, act=act)
+        nchw = x.permute(0, 3, 1, 2).contiguous()
+        lfn = lambda x=nchw, g=g, b=b: F.group_norm(x, 32, g, b, 1e-5)
         name = f"group_norm {tuple(shape)} {'bf16' if dtype == bf16 else 'f32'} act={act}"
         record("K9", name, "group_norm.cu",
                compare(name, kfn, pfn, BF16_REL_TOL if dtype == bf16 else F32_REL_TOL,
-                       iters, ofn, "default-binding op"))
-        del x
+                       iters, bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, b), dtype),
+                       library_fn=lfn, library_label="F.group_norm", op_fn=ofn,
+                       op_label="default-binding op"))
+        del x, nchw
 
     # K10: the transformer LayerNorms, and RMSNorm through the same kernel
     for rows, c, rms in [(8192, 640, False), (2048, 1280, False), (8192, 640, True)]:
@@ -178,9 +244,14 @@ def phase_fused_kernels(dev):
         pfn = lambda x=x, g=g, b=b, rms=rms: ln.layer_norm_plain(x, g, b, eps=1e-6,
                                                                  rmsnorm=rms)
         ofn = lambda x=x, g=g, b=b, plain=plain: plain(x, g, b, eps=1e-6)
+        lfn = ((lambda x=x, g=g, c=c: F.rms_norm(x, (c,), g, 1e-6)) if rms
+               else (lambda x=x, g=g, b=b, c=c: F.layer_norm(x, (c,), g, b, 1e-6)))
         name = f"{'rms_norm' if rms else 'layer_norm'} ({rows}, {c}) bf16"
         record("K10", name, "layer_norm.cu",
-               compare(name, kfn, pfn, BF16_REL_TOL, 50, ofn, "default-binding op"))
+               compare(name, kfn, pfn, BF16_REL_TOL, 50,
+                       bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, b), bf16), library_fn=lfn,
+                       library_label="F.rms_norm" if rms else "F.layer_norm", op_fn=ofn,
+                       op_label="default-binding op"))
 
     # K11: the halves of the feed-forward projection, read in place
     for b_, s_, n in [(2, 4096, 2560), (2, 1024, 5120)]:
@@ -191,15 +262,21 @@ def phase_fused_kernels(dev):
         ofn = lambda st=state, ga=gate: reference.geglu(st, ga)
         name = f"geglu halves of ({b_}, {s_}, {2 * n}) bf16"
         record("K11", name, "geglu.cu",
-               compare(name, kfn, pfn, BF16_REL_TOL, 20, ofn, "default-binding op"))
+               compare(name, kfn, pfn, BF16_REL_TOL, 20,
+                       bound_ms=bound(0, nbytes(proj) + nbytes(proj) // 2, bf16), op_fn=ofn,
+                       op_label="default-binding op"))
         del proj, state, gate
 
-    # K8: GroupNorm + SiLU fused into the 3x3 conv; the unfused pair (K9
-    # apply, then K6) timed beside it on the same scale / shift
+    # K8: GroupNorm + SiLU fused into the 3x3 conv, on the kernel the
+    # routing picks (wgmma, or WMMA for conv_out's Cout = 4); beside it the
+    # WMMA kernel at the same shape and the unfused pair (K9 apply, then
+    # K6) on the same scale / shift
     for label, (b_, hh, ww, cin, cout), bias_kind, with_res in [
             ("resnet conv1 128x128 320->320 batch-bias", (2, 128, 128, 320, 320), "bb", False),
             ("resnet conv2 64x64 640->640 bias+residual", (2, 64, 64, 640, 640), "b", True),
             ("up resnet conv1 32x32 2560->1280 batch-bias", (2, 32, 32, 2560, 1280), "bb",
+             False),
+            ("SD1.5 resnet conv1 8x8 1280->1280 batch-bias", (2, 8, 8, 1280, 1280), "bb",
              False),
             ("conv_out 128x128 320->4", (2, 128, 128, 320, 4), "b", False)]:
         x = randn(b_, hh, ww, cin, scale=2.0, shift=0.5)
@@ -211,15 +288,22 @@ def phase_fused_kernels(dev):
         bias = randn(b_, cout, dtype=f32) if bias_kind == "bb" else randn(cout)
         res = randn(b_, hh, ww, cout) if with_res else None
         args = (x, scale, shift, w, bias)
+        kernel = cd.conv_variant(tuple(x.shape), cout, bf16, gn=True)
         kfn = lambda a=args, r=res: cd.gn_conv3x3(*a, residual=r, gn_act="silu")
         pfn = lambda a=args, r=res: cd.gn_conv3x3_plain(*a, residual=r, gn_act="silu")
+        wfn = (lambda a=args, r=res: cd._launch(a[0], a[3], a[4], r, None,
+                                                (a[1], a[2], "silu"), variant="wmma_bf16")[0])
         name = f"gn_conv3x3 {label}"
-        r = compare(name, kfn, pfn, BF16_REL_TOL, 10)
+        flops = 2 * b_ * hh * ww * cout * 9 * cin
+        moved = nbytes(x, w, bias, res, scale, shift) + b_ * hh * ww * cout * 2
+        r = compare(name, kfn, pfn, BF16_REL_TOL, 10, bound_ms=bound(flops, moved, bf16),
+                    wmma_fn=wfn if kernel == "wgmma_bf16" else None)
         unfused = lambda a=args, r=res: cd.conv3x3(gn.apply(a[0], a[1], a[2], "silu"), a[3],
                                                      a[4], residual=r)
         r["unfused_ms"] = timed_ms(unfused, 10)
-        log(f"  unfused pair (K9 apply + K6) {r['unfused_ms']:.4f} ms vs fused {r['ms']:.4f} ms")
-        record("K8", name, "conv3x3.cu", r)
+        log(f"  {kernel}; unfused pair (K9 apply + K6) {r['unfused_ms']:.4f} ms vs fused "
+            f"{r['ms']:.4f} ms")
+        record("K8", name, "conv3x3.cu", r, kernel)
         del x, w, res, args
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
@@ -255,8 +339,16 @@ SD15_ATTENTION_CASES = [
 
 def attention_cases(randn, cases, record=True):
     """Each attention case: the wrapper against attention_plain on the same
-    inputs. The launch must carry the case's class in its counter key."""
+    inputs, beside F.scaled_dot_product_attention on (B, h, S, d) copies made
+    outside the timed call. The launch must carry the case's class in its
+    counter key."""
+    import torch.nn.functional as F
+
     from stabletriton_tpu_torch.kernels import flash_attention as fa
+
+    def heads(t, h):
+        b, s, c = t.shape
+        return t.reshape(b, s, h, c // h).transpose(1, 2).contiguous()
 
     results = []
     for label, tpu, kind, shape, dtype, iters in cases:
@@ -266,19 +358,29 @@ def attention_cases(randn, cases, record=True):
             qkv = randn(b, s, 3 * c, dtype=dtype)
             kfn = lambda qkv=qkv, h=h: fa.flash_attention_qkv(qkv, num_heads=h)
             pfn = lambda qkv=qkv, h=h: fa.attention_plain(*qkv.chunk(3, -1), num_heads=h)
+            q, k, v = qkv.chunk(3, -1)
+            sq, sk, inputs = s, s, (qkv,)
         elif kind == "kv":
             b, sq, sk, c, h = shape
             q, kv = randn(b, sq, c, dtype=dtype), randn(b, sk, 2 * c, dtype=dtype)
             kfn = lambda q=q, kv=kv, h=h: fa.flash_attention_kv(q, kv, num_heads=h)
             pfn = lambda q=q, kv=kv, h=h: fa.attention_plain(q, *kv.chunk(2, -1), num_heads=h)
+            k, v = kv.chunk(2, -1)
+            inputs = (q, kv)
         else:
             b, s, c, h = shape
             q, k, v = (randn(b, s, c, dtype=dtype) for _ in range(3))
             kfn = lambda q=q, k=k, v=v, h=h: fa.flash_attention(q, k, v, num_heads=h)
             pfn = lambda q=q, k=k, v=v, h=h: fa.attention_plain(q, k, v, num_heads=h)
+            sq, sk, inputs = s, s, (q, k, v)
+        qh, kh, vh = heads(q, h), heads(k, h), heads(v, h)
+        lfn = lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh)
+        flops = 4 * b * h * sq * sk * (c // h)
+        moved = nbytes(*inputs) + b * sq * c * qh.element_size()
         before = dict(fa.LAUNCHES.by_key)
         name = f"flash_attention {label}"
-        r = compare(name, kfn, pfn, tol, iters)
+        r = compare(name, kfn, pfn, tol, iters, bound_ms=bound(flops, moved, dtype),
+                    library_fn=lfn, library_label="SDPA")
         keys = {k for k, n in fa.LAUNCHES.by_key.items() if n != before.get(k, 0)}
         if {k.split()[0] for k in keys} != {tpu}:
             raise AssertionError(f"{name}: launched {sorted(keys)}, expected class {tpu}")
@@ -288,6 +390,7 @@ def attention_cases(randn, cases, record=True):
                  kernel=" ".join(key.split()[:2]))
         if record:
             results.append(r)
+        del qh, kh, vh
     torch.cuda.empty_cache()
     return results
 
@@ -349,15 +452,20 @@ def phase_optional_kernels(dev):
         r.update(name=name, source=f"stabletriton_tpu_torch/csrc/{source}", tpu=tpu, **extra)
         results.append(r)
 
-    # K12: the SDXL timesteps (and SD1.5's, the same shape) and time_ids
+    # K12: the SDXL timesteps (and SD1.5's, the same shape) and time_ids; no
+    # single PyTorch call computes the sinusoidal embedding
     for t_vals, dim in [([999.0, 999.0], 320), ([1024.0, 1024, 0, 0, 1024, 1024] * 2, 256)]:
         t = torch.tensor(t_vals, device=dev)
         name = f"time_embed ({len(t_vals)},)->({len(t_vals)},{dim}) f32"
         record("K12", name, "time_embed.cu", compare(
             name, lambda t=t, dim=dim: te.time_embed(t, dim=dim),
-            lambda t=t, dim=dim: te.time_embed_plain(t, dim=dim), F32_REL_TOL, 50))
+            lambda t=t, dim=dim: te.time_embed_plain(t, dim=dim), F32_REL_TOL, 50,
+            bound_ms=bound(0, nbytes(t) * (1 + dim), torch.float32)))
 
-    # K13: each variant at the paths' shapes, cuBLAS's addmm timed beside it
+    # K13: each variant at the paths' shapes, cuBLAS's addmm of the same GEMM
+    # as the library call; the wgmma rows also time the WMMA kernel (element
+    # loads: the route of the shapes TMA cannot take), launched through the
+    # wrapper's internal launch
     for label, m, k, n, has_bias, act, dtype, iters in LINEAR_CASES:
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         if label.startswith("SDXL time MLP"):
@@ -366,14 +474,19 @@ def phase_optional_kernels(dev):
         b = torch.randn(n, generator=gen, device=dev).to(dtype) if has_bias else None
         before = dict(lin.LAUNCHES.by_key)
         name = f"linear {label}" + (f" act={act}" if act and "act=" not in label else "")
+        kernel = lin.variant(m, k, n, dtype)
         r = compare(name, lambda x=x, w=w, b=b, act=act: lin.linear(x, w, b, act=act),
                     lambda x=x, w=w, b=b, act=act: lin.linear_plain(x, w, b, act=act),
                     BF16_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL, iters,
-                    (lambda x=x, w=w, b=b: torch.addmm(b, x, w)) if b is not None
-                    else (lambda x=x, w=w: x @ w), "cuBLAS addmm")
+                    bound_ms=bound(2 * m * n * k, nbytes(x, w, b) + m * n * x.element_size(),
+                                   dtype),
+                    library_fn=(lambda x=x, w=w, b=b: torch.addmm(b, x, w)) if b is not None
+                    else (lambda x=x, w=w: x @ w), library_label="cuBLAS addmm",
+                    wmma_fn=(lambda x=x, w=w, b=b, act=act: lin._launch(x, w, b, act,
+                                                                       "wmma_bf16")[0])
+                    if kernel == "wgmma_bf16" else None)
         keys = {key for key, c in lin.LAUNCHES.by_key.items() if c != before.get(key, 0)}
-        kernel = lin.variant(m, dtype)
-        if {key.split()[0] for key in keys} != {kernel}:
+        if len(keys) != 1 or not next(iter(keys)).startswith(kernel + " "):
             raise AssertionError(f"{name}: launched {sorted(keys)}, expected {kernel}")
         log(f"  launch key: {sorted(keys)[0]}")
         record("K13", name, "linear.cu", r, kernel=kernel)
@@ -406,10 +519,15 @@ def phase_optional_kernels(dev):
             raise AssertionError(f"{name}: kernel and plain version differ")
         if abs(dropped - rate) > 4 * sigma:
             raise AssertionError(f"{name}: dropped {dropped:.5f}, rate {rate}")
+        # no single PyTorch call computes the seeded (Philox, index-keyed) mask;
+        # the bound counts the bytes alone
         r = {"max_abs_err": (out.float() - plain.float()).abs().max().item(), "max_rel_err": 0.0,
              "ms": timed_ms(lambda x=x: dr.dropout(x, seed, rate=rate), 20),
-             "plain_ms": timed_ms(lambda x=x: dr.dropout_plain(x, seed, rate=rate), 5)}
-        log(f"  kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+             "plain_ms": timed_ms(lambda x=x: dr.dropout_plain(x, seed, rate=rate), 5),
+             "library_ms": None}
+        r["bound_ms"], r["bound_by"] = bound(0, 2 * nbytes(x), dtype)
+        log(f"  kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (bytes)")
         record("K14", name, "dropout.cu", r, launches=launches)
         del x, out, again, plain, other
     torch.cuda.empty_cache()
@@ -417,6 +535,13 @@ def phase_optional_kernels(dev):
 
 
 def phase_kernels(dev):
+    """K1-K3 at the SDXL path's attention shapes, then K6 at every 3x3 conv
+    shape of both paths on the kernel the routing picks: the wgmma kernel
+    beside the WMMA kernel it replaced and the reference binding's cuDNN op
+    (the library call); the f32 VAE convs beside one F.conv2d call (TF32
+    off) on channels-last copies made outside the timed call."""
+    import torch.nn.functional as F
+
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.ops import reference
 
@@ -434,12 +559,15 @@ def phase_kernels(dev):
     # online (self at S=4096); K3: head-major online (VAE mid-block, f32)
     results += attention_cases(randn, SDXL_ATTENTION_CASES)
 
-    # K6: every 3x3 stride-1 conv; the epilogue forms the path uses
+    # K6: every 3x3 stride-1 conv; the epilogue forms the path uses; SD1.5's
+    # 16^2 and 8^2 levels, where the K split fills the card
     conv_cases = [
         ("unet 128x128 320->320 batch-bias silu", (2, 128, 128, 320, 320), bf16, "bb", None),
         ("unet 128x128 320->320 bias+residual", (2, 128, 128, 320, 320), bf16, "b", "res"),
         ("unet 64x64 640->640 batch-bias", (2, 64, 64, 640, 640), bf16, "bb", None),
         ("unet 32x32 1280->1280 bias+residual", (2, 32, 32, 1280, 1280), bf16, "b", "res"),
+        ("SD1.5 16x16 1280->1280 batch-bias", (2, 16, 16, 1280, 1280), bf16, "bb", None),
+        ("SD1.5 8x8 1280->1280 batch-bias", (2, 8, 8, 1280, 1280), bf16, "bb", None),
         ("unet conv_in 128x128 4->320", (2, 128, 128, 4, 320), bf16, "b", None),
         ("unet conv_out 128x128 320->4", (2, 128, 128, 320, 4), bf16, "b", None),
         ("vae 128x128 512->512 f32", (1, 128, 128, 512, 512), torch.float32, "b", "res"),
@@ -454,21 +582,198 @@ def phase_kernels(dev):
                 else randn(cout, dtype=dtype))
         res = randn(b, hh, ww, cout, dtype=dtype) if res_kind else None
         act = "silu" if bias_kind == "bb" else None
+        kernel = cd.conv_variant(tuple(x.shape), cout, dtype)
         kfn = lambda x=x, w=w, bias=bias, res=res, act=act: cd.conv3x3(
             x, w, bias, residual=res, act=act)
         pfn = lambda x=x, w=w, bias=bias, res=res, act=act: cd.conv3x3_plain(
             x, w, bias, residual=res, act=act)
-        ofn = lambda x=x, w=w, bias=bias, res=res, act=act: reference.conv2d(
-            x, w, bias, residual=res, act=act)
+        if dtype == bf16:
+            lfn = lambda x=x, w=w, bias=bias, res=res, act=act: reference.conv2d(
+                x, w, bias, residual=res, act=act)
+            label_l = "cuDNN (reference op)"
+        else:
+            xc = x.permute(0, 3, 1, 2)                                  # NCHW view, channels last
+            wc = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # OIHW, channels last
+            lfn = lambda xc=xc, wc=wc, bias=bias: F.conv2d(xc, wc, bias, padding=1)
+            label_l = "F.conv2d f32"
+        wfn = ((lambda x=x, w=w, bias=bias, res=res, act=act: cd._launch(
+            x, w, bias, res, act, variant="wmma_bf16")[0]) if kernel == "wgmma_bf16" else None)
         iters = 3 if dtype == torch.float32 else 10
-        r = compare(f"conv3x3 {label}", kfn, pfn, tol, iters, ofn)
-        r.update(name=f"conv3x3 {label}", source="stabletriton_tpu_torch/csrc/conv3x3.cu",
-                 tpu="K6")
+        flops = 2 * b * hh * ww * cout * 9 * cin
+        moved = nbytes(x, w, bias, res) + b * hh * ww * cout * x.element_size()
+        name = f"conv3x3 {label}"
+        r = compare(name, kfn, pfn, tol, iters, bound_ms=bound(flops, moved, dtype),
+                    library_fn=lfn, library_label=label_l, wmma_fn=wfn)
+        log(f"  {kernel}")
+        r.update(name=name, source="stabletriton_tpu_torch/csrc/conv3x3.cu", tpu="K6",
+                 kernel=kernel)
         results.append(r)
         del x, w, bias, res
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
     return results
+
+
+# the GEMMs and convs whose forced plans ``--plans`` times: the SDXL and
+# SD1.5 paths' shapes with the most launches or time a step
+PLAN_GEMMS = [(8192, 640, 1920), (8192, 640, 640), (2048, 1280, 10240), (2048, 5120, 1280),
+              (2048, 1280, 1280), (154, 2048, 2560), (8192, 320, 960), (128, 1280, 1280)]
+PLAN_CONVS = [(2, 128, 128, 320, 320), (2, 64, 64, 640, 640), (2, 32, 32, 1280, 1280),
+              (2, 32, 32, 2560, 1280), (2, 16, 16, 1280, 1280), (2, 8, 8, 1280, 1280)]
+
+
+def wave_rule(m_tiles: int, n: int, steps: int):
+    """A plain wave-filling rule to hold the planner's model against: width
+    256 wherever N has a 256-wide tile, then the least K split whose blocks
+    fill one wave of the card's SMs."""
+    from stabletriton_tpu_torch.kernels import wgmma_plan as wp
+
+    bn = 256 if n >= 256 else 128
+    splits = math.ceil(wp.SMS / (m_tiles * math.ceil(n / bn)))
+    return wp.Plan(bn, max(1, min(splits, steps, wp.MAX_SPLITS)))
+
+
+def phase_plans(dev):
+    """``--plans``: each wgmma shape above at every width and a range of K
+    splits, launched through the C entry points (no wrapper host time),
+    beside the plan wgmma_plan picks (the data its model was fitted to) and
+    the plan of :func:`wave_rule`."""
+    from stabletriton_tpu_torch.kernels import build
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.kernels import wgmma_plan as wp
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gemm = build.function("st_linear_wgmma", lin._WGMMA_ARGTYPES)
+    conv = build.function("st_conv3x3_wgmma", cd._WGMMA_ARGTYPES)
+    model_vs_rule = []
+
+    def sweep(label, chosen, rule, steps, rows, n, launch):
+        times = {}
+        plans = {(bn, sp) for bn in wp.WIDTHS for sp in (1, 2, 3, 4, 6, 9, 12) if sp <= steps}
+        for bn, splits in sorted(plans | {(chosen.bn, chosen.splits), (rule.bn, rule.splits)}):
+            ws = torch.empty((splits, rows, n), device=dev) if splits > 1 else None
+            times[(bn, splits)] = timed_ms(lambda: launch(bn, splits, ws), 10)
+        best = min(times, key=times.get)
+        t_model, t_rule = times[(chosen.bn, chosen.splits)], times[(rule.bn, rule.splits)]
+        model_vs_rule.append(t_rule / t_model)
+        log(f"plans {label}: chosen bn={chosen.bn} split={chosen.splits} {t_model:.4f} ms, "
+            f"wave rule bn={rule.bn} split={rule.splits} {t_rule:.4f} ms "
+            f"({t_rule / t_model - 1:+.0%}), fastest bn={best[0]} split={best[1]} "
+            f"{times[best]:.4f} ms; " + ", ".join(f"{b}/{sp} {t:.4f}" for (b, sp), t in
+                                                 sorted(times.items())))
+
+    for m, k, n in PLAN_GEMMS:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
+        steps = math.ceil(k / wp.BK)
+        sweep(f"gemm ({m},{k})@({k},{n})", wp.gemm_plan(m, k, n),
+              wave_rule(math.ceil(m / wp.BM), n, steps), steps, m, n,
+              lambda bn, sp, ws: gemm(x.data_ptr(), w.data_ptr(), None, 0, out.data_ptr(),
+                                      None if ws is None else ws.data_ptr(), m, n, k, 0, bn, sp,
+                                      stream))
+    for b, h, wd, cin, cout in PLAN_CONVS:
+        x = torch.randn((b, h, wd, cin), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((3, 3, cin, cout), generator=gen, device=dev).to(torch.bfloat16)
+        out = torch.empty((b, h, wd, cout), device=dev, dtype=torch.bfloat16)
+        tile, plan = wp.conv_plan(b, h, wd, cin, cout)
+        steps = 9 * math.ceil(cin / wp.BK)
+        sweep(f"conv {b}x{h}x{wd} {cin}->{cout}", plan,
+              wave_rule(math.prod(tile.counts(b, h, wd)), cout, steps), steps, b * h * wd, cout,
+              lambda bn, sp, ws: conv(x.data_ptr(), w.data_ptr(), None, 0, 0, None,
+                                      out.data_ptr(), None if ws is None else ws.data_ptr(),
+                                      b, h, wd, cin, cout, 0, None, None, 0, tile.tw, tile.th,
+                                      tile.tb, bn, sp, stream))
+    slower = sum(r > 1.05 for r in model_vs_rule)
+    faster = sum(r < 1 / 1.05 for r in model_vs_rule)
+    log(f"plans: the wave rule is more than 5% slower than the model's plan at {slower} of "
+        f"{len(model_vs_rule)} shapes and more than 5% faster at {faster} (rule/model "
+        f"{min(model_vs_rule):.2f}-{max(model_vs_rule):.2f})")
+    torch.cuda.empty_cache()
+
+
+# the shapes whose host time a launch ``--host-time`` reads: bf16 GEMMs and
+# convs the wgmma kernels take, with and without a K split
+HOST_GEMMS = [(8192, 640, 1920), (2048, 5120, 1280), (154, 2048, 2560), (128, 1280, 1280)]
+HOST_CONVS = [(2, 128, 128, 320, 320), (2, 32, 32, 1280, 1280), (2, 8, 8, 1280, 1280)]
+HOST_ROUNDS = 7
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Mean host time (us) of one fn() call: ``calls`` calls queued back to
+    back after a synchronisation, timed on the host clock before the device
+    catches up (their launches stay inside CUDA's launch queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def phase_host_time(dev):
+    """``--host-time [DIR]``: the host time a launch of the package in DIR
+    (default: this checkout), for each shape above: the public wrapper
+    (linear, conv3x3), linear's internal launch on the wgmma route and on
+    the WMMA route, and the wgmma kernels' bare C entries at the planned
+    plan. The host is shared, so each is measured in HOST_ROUNDS
+    interleaved rounds and printed as its least and its median round. Run
+    it on two trees in one call to compare them."""
+    import statistics
+
+    from stabletriton_tpu_torch.kernels import build
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.kernels import wgmma_plan as wp
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gemm = build.function("st_linear_wgmma", lin._WGMMA_ARGTYPES)
+    conv = build.function("st_conv3x3_wgmma", cd._WGMMA_ARGTYPES)
+    cases = []  # (label, {what: fn})
+    for m, k, n in HOST_GEMMS:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        b = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+        out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
+        plan = wp.gemm_plan(m, k, n)
+        ws = torch.empty((plan.splits, m, n), device=dev)
+        cases.append((f"gemm ({m},{k})@({k},{n})+b bn={plan.bn} split={plan.splits}", {
+            "wrapper": lambda x=x, w=w, b=b: lin.linear(x, w, b),
+            "wgmma route": lambda x=x, w=w, b=b: lin._launch(x, w, b, None, "wgmma_bf16"),
+            "WMMA route": lambda x=x, w=w, b=b: lin._launch(x, w, b, None, "wmma_bf16"),
+            "wgmma C entry": lambda x=x, w=w, b=b, out=out, ws=ws, m=m, k=k, n=n, plan=plan:
+                gemm(x.data_ptr(), w.data_ptr(), b.data_ptr(), 1, out.data_ptr(), ws.data_ptr(),
+                     m, n, k, 0, plan.bn, plan.splits, stream)}))
+    for bsz, h, wd, cin, cout in HOST_CONVS:
+        x = torch.randn((bsz, h, wd, cin), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((3, 3, cin, cout), generator=gen, device=dev).to(torch.bfloat16)
+        bias = torch.randn((bsz, cout), generator=gen, device=dev)
+        out = torch.empty((bsz, h, wd, cout), device=dev, dtype=torch.bfloat16)
+        tile, plan = wp.conv_plan(bsz, h, wd, cin, cout)
+        ws = torch.empty((plan.splits, bsz * h * wd, cout), device=dev)
+        cases.append((f"conv {bsz}x{h}x{wd} {cin}->{cout} bn={plan.bn} split={plan.splits}", {
+            "wrapper": lambda x=x, w=w, bias=bias: cd.conv3x3(x, w, bias, act="silu"),
+            "wgmma C entry": lambda x=x, w=w, bias=bias, out=out, ws=ws, s=(bsz, h, wd, cin, cout),
+                tile=tile, plan=plan:
+                conv(x.data_ptr(), w.data_ptr(), bias.data_ptr(), 0, s[4], None, out.data_ptr(),
+                     ws.data_ptr(), *s, 1, None, None, 0, tile.tw, tile.th, tile.tb, plan.bn,
+                     plan.splits, stream)}))
+    rounds = {(label, what): [] for label, fns in cases for what in fns}
+    for _ in range(HOST_ROUNDS):
+        for label, fns in cases:
+            for what, fn in fns.items():
+                rounds[(label, what)].append(host_us(fn))
+    for label, fns in cases:
+        log(f"host {label}: " + ", ".join(
+            f"{what} {min(rounds[(label, what)]):.1f} "
+            f"(median {statistics.median(rounds[(label, what)]):.1f})" for what in fns)
+            + " us a launch")
+    torch.cuda.empty_cache()
 
 
 def make_unet_params(dev, cfg):
@@ -500,6 +805,25 @@ VAE_LINEARS = 4  # the f32 VAE decoder's mid-attention q, k, v, out per image
 # (d=160) 10 x K4, mid self at 8^2 (d=160) 1 + 16 cross x K5.
 ATTN_PER_STEP = {"K1": 130, "K2": 10, "K3": 0, "K4": 0, "K5": 0}
 SD15_ATTN_PER_STEP = {"K1": 0, "K2": 0, "K3": 5, "K4": 10, "K5": 17}
+# the kernels of a step's bf16 3x3 convs (K6 and K8 together): conv_in (Cin
+# 4) and conv_out (Cout 4) on WMMA, the rest on wgmma. SDXL-base: 34 resnet
+# convs + 2 upsamplers; SD1.5: 44 + 3
+CONV_SPLIT = {"wgmma_bf16": 36, "wmma_bf16": 2}
+SD15_CONV_SPLIT = {"wgmma_bf16": 47, "wmma_bf16": 2}
+# the all-kernel step's K13 launches (precompute included) by kernel: M = 2
+# on the skinny kernel (a time projection per resnet, the time MLP's 2, and
+# for SDXL the add embedding's 2), every other GEMM on wgmma
+LINEAR_SPLIT = {"wgmma_bf16": 512, "skinny_bf16": 21}
+SD15_LINEAR_SPLIT = {"wgmma_bf16": 144, "skinny_bf16": 24}
+
+
+def by_kernel(*counters) -> dict:
+    """Launches summed by kernel, the first field of the launch keys."""
+    out = {}
+    for c in counters:
+        for key, n in c.by_key.items():
+            out[key.split()[0]] = out.get(key.split()[0], 0) + n
+    return out
 
 
 def kernel_counters():
@@ -573,14 +897,53 @@ def sd15_step_inputs(dev):
         time_ids=torch.zeros((2, 0), device=dev))
 
 
+def profile_step(run, label):
+    """Device time of two runs of ``run`` by kernel family, and the share of
+    the device span in which no kernel ran (torch.profiler's CUDA kernel
+    events; ``--profile`` only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError(f"{label}: the profiler saw no kernel on the device")
+    families = {"wgmma conv": ("conv_wgmma", "conv_gn_wgmma"), "WMMA conv": ("conv_wmma",),
+                "wgmma linear": ("linear_wgmma",), "split-K reduce": ("splitk_reduce",),
+                "skinny/scalar linear": ("linear_skinny", "linear_scalar"),
+                "attention": ("attn_",), "GroupNorm/LayerNorm/GEGLU/time_embed": (
+                    "gn_apply", "gn_stats", "ln_rows", "geglu_kernel", "time_embed_kernel"),
+                "cuBLAS/cuDNN": ("gemm", "nvjet", "sm90_", "cutlass", "cudnn", "xmma", "conv2d")}
+    by, counts, busy, end = {}, {}, 0.0, spans[0][0]
+    for t0, t1, name in spans:
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)), "glue")
+        by[fam] = by.get(fam, 0.0) + (t1 - t0) / 2e3
+        counts[fam] = counts.get(fam, 0) + 1
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    span = end - spans[0][0]
+    log(f"profile, {label} (2 steps; ms a step by kernel family, launches a step): "
+        + ", ".join(f"{f} {ms:.2f} ({counts[f] // 2})" for f, ms in sorted(
+            by.items(), key=lambda kv: -kv[1]))
+        + f"; kernel time {sum(by.values()):.1f} ms a step, device span {span / 2e3:.1f} ms a "
+          f"step, idle {1 - busy / span:.1%}")
+
+
 def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_linears,
-                         attn_per_step, label):
+                         attn_per_step, conv_split, linear_split, label, profile=False):
     """One full-width UNet step (cross K/V precompute included) under the
     default, the fused-op and the all-kernel binding, each against the
     reference binding, with the per-step launch counts of the attention
-    classes and of K8-K13. Under the all-kernel binding every linear
-    dispatch must reach the "cuda" backend and launch K13, and the
-    precompute alone must launch ``precompute_linears``."""
+    classes and of K8-K13, and the convs' split over the wgmma and WMMA
+    kernels (``conv_split``). Under the all-kernel binding every linear
+    dispatch must reach the "cuda" backend and launch K13, its launches
+    split over the kernels as ``linear_split``, and the precompute alone
+    must launch ``precompute_linears``."""
     from stabletriton_tpu_torch import ops
     from stabletriton_tpu_torch.compile import (
         ALL_KERNEL_OVERRIDES, FUSED_OP_OVERRIDES, CompileConfig, fuse_attention_projections,
@@ -625,6 +988,8 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
                 out_k = runs[name]().float()
                 torch.cuda.synchronize()
             counts = {k: c.count for k, c in counters.items()}
+            convs = by_kernel(counters["K6"], counters["K8"])
+            linears = by_kernel(counters["K13"])
             attn = attention_by_class(fa.LAUNCHES.by_key)
             if not (torch.isfinite(out_k).all() and torch.isfinite(out_r).all()):
                 raise AssertionError(f"{label} UNet step output is not finite ({name} binding)")
@@ -634,7 +999,8 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
                 f"latent, CFG batch 2, bf16: mse={mse:.3e} max_abs={mx:.3e} (gate "
                 f"mse<{STEP_MSE_GATE:g}); output rms {out_r.square().mean().sqrt().item():.4f}; "
                 f"launches in one step (precompute included) {json.dumps(counts)}, attention "
-                f"{json.dumps(attn)}, linear dispatches {json.dumps(linear_calls.calls)}")
+                f"{json.dumps(attn)}, linear dispatches {json.dumps(linear_calls.calls)}; "
+                f"convs by kernel {json.dumps(convs)}, linears by kernel {json.dumps(linears)}")
             if not mse < STEP_MSE_GATE:
                 raise AssertionError(f"{label} {name} step deviation mse {mse:.3e} exceeds "
                                      f"{STEP_MSE_GATE:g}")
@@ -649,7 +1015,14 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
                                           or linear_calls.calls["cuda"] != counts["K13"]):
                 raise AssertionError(f"{label} all-kernel step: linear dispatches "
                                      f"{linear_calls.calls}, K13 launches {counts['K13']}")
-            result[name] = {"mse": mse, "max_abs": mx, "launches": counts, "attention": attn}
+            if convs != conv_split:
+                raise AssertionError(f"{label} {name}: convs by kernel {convs}, expected "
+                                     f"{conv_split}")
+            if name == "all_kernels" and linears != linear_split:
+                raise AssertionError(f"{label} all-kernel step: K13 by kernel {linears}, "
+                                     f"expected {linear_split}")
+            result[name] = {"mse": mse, "max_abs": mx, "launches": counts, "attention": attn,
+                            "convs": convs, "linears": linears}
         counters["K13"].reset()
         with ops.use_backends(bindings["all_kernels"]):
             precompute_cross_kv(cfg, fused, ctx)
@@ -664,6 +1037,9 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
             runs[name]()
             torch.cuda.synchronize()
             times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        if profile:
+            for name in ("default", "fused_ops", "all_kernels"):
+                profile_step(runs[name], f"{label} {name} binding")
     log(f"step time, {label} (host clock around a synchronised step, cross K/V precompute "
         f"included, ms, two runs each): "
         + ", ".join(f"{k}={v[0]:.1f}/{v[1]:.1f}" for k, v in times.items()))
@@ -838,7 +1214,7 @@ def phase_serving_fused(dev, ucfg, unet_params, other):
                                  f"expected {n}")
     if k9_f32 != vae_norms * len(done):
         raise AssertionError(f"K9: {k9_f32} f32 launches, expected {vae_norms * len(done)}")
-    return counts
+    return counts, by_key
 
 
 def phase_serving_all(dev, ucfg, unet_params, other):
@@ -941,6 +1317,13 @@ def free(*objs):
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    profile = "--profile" in args
+    host_time = "--host-time" in args
+    if host_time:
+        at = args.index("--host-time") + 1
+        if at < len(args) and not args[at].startswith("--"):
+            sys.path.insert(0, os.path.abspath(args[at]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA GPU is required",
               file=sys.stderr)
@@ -952,16 +1335,28 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     from stabletriton_tpu_torch.kernels import build
+    if host_time:
+        log(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(build.__file__)))}")
     from stabletriton_tpu_torch.models.unet import sd15_unet_config, sdxl_base_unet_config
 
     t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s ({build.build_info})")
     if "log" in build.build_info:
+        # registers and spills of the wgmma kernels, and every warning
+        entry = ""
         for line in open(build.build_info["log"]).read().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log("  ptxas " + line.strip())
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "warning" in line.lower() or ("wgmma" in entry and (
+                    "registers" in line or "spill" in line)):
+                log(f"  ptxas {entry[:90]}: {line.strip()}")
 
+    if host_time:
+        phase_host_time(dev)
+        return 0
+    if "--plans" in args:
+        phase_plans(dev)
     kernel_results = (phase_kernels(dev) + phase_fused_kernels(dev) + phase_sd15_attention(dev)
                       + phase_optional_kernels(dev))
 
@@ -969,10 +1364,11 @@ def main() -> int:
     ucfg = sdxl_base_unet_config()
     sdxl = {"unet": make_unet_params(dev, ucfg)}
     phase_step_deviation(dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev), ALL_PER_STEP,
-                         PRECOMPUTE_LINEARS, ATTN_PER_STEP, "SDXL-base")
+                         PRECOMPUTE_LINEARS, ATTN_PER_STEP, CONV_SPLIT, LINEAR_SPLIT, "SDXL-base",
+                         profile)
     sdxl["other"] = make_other_params(dev)
     by_key = phase_serving(dev, ucfg, sdxl["unet"], sdxl["other"])
-    fused_counts = phase_serving_fused(dev, ucfg, sdxl["unet"], sdxl["other"])
+    fused_counts, fused_by_key = phase_serving_fused(dev, ucfg, sdxl["unet"], sdxl["other"])
     all_counts, all_by_key = phase_serving_all(dev, ucfg, sdxl["unet"], sdxl["other"])
     free(sdxl)
 
@@ -980,21 +1376,26 @@ def main() -> int:
     ucfg = sd15_unet_config()
     sd15 = {"unet": make_unet_params(dev, ucfg)}
     phase_step_deviation(dev, ucfg, sd15["unet"], sd15_step_inputs(dev), SD15_ALL_PER_STEP,
-                         SD15_PRECOMPUTE_LINEARS, SD15_ATTN_PER_STEP, "SD1.5")
+                         SD15_PRECOMPUTE_LINEARS, SD15_ATTN_PER_STEP, SD15_CONV_SPLIT,
+                         SD15_LINEAR_SPLIT, "SD1.5", profile)
     sd15["other"] = make_sd15_other_params(dev)
     sd15_by_key = phase_serving_sd15(dev, ucfg, sd15["unet"], sd15["other"])
     free(sd15)
 
     # launches of each kernel on its path: the serving phases (5, 5b, 5c,
     # 5d), by the first two fields of its launch key ("K3 wmma_bf16") for
-    # attention and by the first ("wmma_bf16") for K13; K14's op dispatch in
-    # phase 3d
+    # attention and by the first (the kernel: "wgmma_bf16", "wmma_bf16",
+    # "scalar", "skinny_bf16" ...) for the conv (K6, K8) and K13; K14's op
+    # dispatch in phase 3d
     attention = [*by_key["flash_attention"].items(), *sd15_by_key["flash_attention"].items()]
-    conv = sum(by_key["conv3x3"].values()) + sum(sd15_by_key["conv3x3"].values())
+    conv = [*by_key["conv3x3"].items(), *sd15_by_key["conv3x3"].items()]
 
     def launches(r):
         if r["tpu"] == "K6":
-            return conv
+            return sum(n for key, n in conv if key.startswith(r["kernel"] + " "))
+        if r["tpu"] == "K8":
+            return sum(n for key, n in fused_by_key["K8"].items()
+                       if key.startswith(r["kernel"] + " "))
         if r["tpu"] == "K12":
             return all_counts["K12"]
         if r["tpu"] == "K13":
@@ -1010,6 +1411,8 @@ def main() -> int:
         "name": r["name"], "route": "cuda", "source": r["source"],
         "replaces": REPLACES[r["tpu"]], "launches": launches(r),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **({"wmma_ms": r["wmma_ms"]} if "wmma_ms" in r else {}),
     } for r in kernel_results]
     for k in kernels:
         if k["launches"] == 0:

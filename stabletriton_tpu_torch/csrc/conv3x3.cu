@@ -9,9 +9,8 @@
 //                                         (9*Cin, Cout) B operand),
 //   with k = (ky*3 + kx)*Cin + ci.
 //
-// The SAME padding is computed by index: no padded copy of x is made. Ragged
-// M, N and K edges are masked (Cin=4, Cout=3 and Cout=4 all occur).
-// Accumulation is f32; the epilogue adds the (Cout,) or per-batch (B, Cout)
+// No padded copy of x and no im2col matrix is made. Accumulation is f32; the
+// epilogue adds the (Cout,) bias (in its own dtype) or the per-batch (B, Cout)
 // f32 bias, the optional residual (B, H, W, Cout), applies the optional SiLU
 // and writes the input dtype.
 //
@@ -20,18 +19,43 @@
 // element inside the image becomes x * scale[b, ci] + shift[b, ci] in f32,
 // then SiLU when gn_act is set, then is rounded to the input dtype before the
 // product, as the JAX kernel casts before its MXU dots. Taps outside the
-// image skip the prologue and stay exactly 0: the conv pads the NORMALIZED
-// input with zeros, and normalize(0) != 0.
+// image stay exactly 0: the conv pads the NORMALIZED input with zeros, and
+// normalize(0) != 0.
 //
-// Two kernels:
-//   conv_wmma_bf16   - bf16 operands on tensor cores (WMMA 16x16x16, f32 acc);
-//                      128x128 block tile, 8 warps of 32x64.
+// Four kernels:
+//   conv_wgmma_bf16  - bf16 with Cin % 8 == 0, Cout % 8 == 0 and 16-byte
+//                      aligned operands: the Hopper mainloop of wgmma.cuh.
+//                      The A operand is one TMA box per (tap, 64-channel
+//                      chunk): a 4-D box of 64 channels x tw x th pixels x tb
+//                      images (128 pixels) at (c0, x0+kx-1, y0+ky-1, b0), whose
+//                      out-of-range pixels TMA fills with zeros, so the SAME
+//                      border costs nothing. B is the weight as the (9*Cin,
+//                      Cout) matrix, as in linear_wgmma_bf16. Small levels
+//                      (SD1.5's 8^2 and 16^2, SDXL's 32^2) split the K steps
+//                      over blocks; the splits meet in splitk_reduce.
+//   conv_gn_wgmma_bf16 - the same with the GroupNorm prologue: a TMA box of the
+//                      tile's halo per 64-channel chunk, normalised once in
+//                      shared memory (scale / shift staged once per block,
+//                      SiLU, bf16; zero outside the image, since TMA's zero is
+//                      a raw zero), then each of the 9 taps loads its A
+//                      fragments from the halo at its offset (ldmatrix) for a
+//                      register-A wgmma.
+//   conv_wmma_bf16   - bf16 shapes TMA cannot take (conv_in's Cin = 4,
+//                      conv_out's Cout = 4): WMMA 16x16x16, 128x128 block
+//                      tile, 8 warps of 32x64, the SAME padding by index.
 //   conv_scalar<T>   - f32 FMA, 64x64 block tile, 4x4 outputs per thread.
 //                      The VAE decoder's f32 convs (no TF32 rounding).
+//
+// What bounds it on the H100: at the UNet's shapes (K = 9*Cin = 2880 to
+// 23040) the implicit GEMM is compute-bound, so the wgmma kernel keeps the
+// tensor cores fed from a TMA ring; at SD1.5's 8^2 level (128 output pixels
+// a batch) reading the weight once bounds it, and the K split spreads that
+// read over the SMs.
 
 #include <mma.h>
 
 #include "vec.cuh"
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -44,8 +68,9 @@ using stv::to_f32;
 struct ConvArgs {
   const void* x;         // (B, H, W, Cin)
   const void* w;         // (3, 3, Cin, Cout)
-  const float* bias;     // (Cout,) or (B, Cout), or null
+  const void* bias;      // (Cout,) or (B, Cout) of bias_dtype, or null
   long long bias_bstride;  // 0 for a shared bias, Cout for per-batch
+  int bias_dtype;        // 0 f32, 1 bf16
   const void* residual;  // (B, H, W, Cout) or null
   void* out;             // (B, H, W, Cout)
   int B, H, W, Cin, Cout, act;
@@ -54,16 +79,12 @@ struct ConvArgs {
   int gn_act;             // 1: SiLU after the GroupNorm apply
 };
 
-// the prologue's SiLU, recomputed for every tap: fast division (2 ulp) is
-// far below the bf16 rounding that follows
-__device__ __forceinline__ float silu_fast(float x) { return __fdividef(x, 1.f + __expf(-x)); }
-
 // GroupNorm apply (+ SiLU) of one in-image input element, rounded to T
 template <typename T>
 __device__ __forceinline__ float gn_prologue(const ConvArgs& a, int b, int ci, float v) {
   const long long o = (long long)b * a.Cin + ci;
   v = fmaf(v, __ldg(a.gn_scale + o), __ldg(a.gn_shift + o));
-  if (a.gn_act) v = silu_fast(v);
+  if (a.gn_act) v = silu(v);
   return to_f32(from_f32<T>(v));
 }
 
@@ -80,7 +101,7 @@ __device__ __forceinline__ uint4 gn_prologue8(const ConvArgs& a, int b, int ci, 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     float v = fmaf(__bfloat162float(e[i]), scale[i], shift[i]);
-    if (a.gn_act) v = silu_fast(v);
+    if (a.gn_act) v = silu(v);
     e[i] = __float2bfloat16(v);
   }
   return raw;
@@ -108,7 +129,11 @@ __device__ __forceinline__ void store_out(const ConvArgs& a, int m, int n, float
   const int M = a.B * a.H * a.W;
   if (m >= M || n >= a.Cout) return;
   long long o = (long long)m * a.Cout + n;
-  if (a.bias) acc += a.bias[(long long)(m / (a.H * a.W)) * a.bias_bstride + n];
+  if (a.bias) {
+    const long long bo = (long long)(m / (a.H * a.W)) * a.bias_bstride + n;
+    acc += a.bias_dtype == 1 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[bo])
+                             : static_cast<const float*>(a.bias)[bo];
+  }
   if (a.residual) acc += to_f32(static_cast<const T*>(a.residual)[o]);
   if (a.act == 1) acc = silu(acc);
   static_cast<T*>(a.out)[o] = from_f32<T>(acc);
@@ -292,20 +317,345 @@ __global__ void __launch_bounds__(WTHREADS) conv_wmma_bf16(ConvArgs a, int vec_a
     }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 wgmma kernel (the mainloop of wgmma.cuh): a block tile is 128 output
+// pixels (tb images x th rows x tw columns) by BN output channels; K steps
+// run over the 9 taps x ceil(Cin / 64) channel chunks, blockIdx.z taking a
+// contiguous share of them
+// ---------------------------------------------------------------------------
+struct ConvWgmmaArgs {
+  wg::Epilogue e;
+  float* ws;                 // (splits, B*H*W, Cout) f32 partials when splits > 1
+  const float* gn_scale;     // (B, Cin) GroupNorm prologue, or null
+  const float* gn_shift;     // (B, Cin)
+  int B, H, W, Cin;
+  int tw, th, tb, ntx, nty;  // the pixel tile and the tiles across W and H
+  int splits, gn_act;
+};
+
+template <int BN, int STAGES, int CTAS>
+__global__ void __launch_bounds__(wg::THREADS, CTAS)
+    conv_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
+                    const __grid_constant__ CUtensorMap tmap_w, ConvWgmmaArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  wg::Ring<BN, STAGES> r;
+  wg::ring_init(smem, r);
+  int mt, nt;
+  wg::block_tile((a.e.N + BN - 1) / BN, mt, nt);
+  const int n0 = nt * BN;
+  const int x0 = (mt % a.ntx) * a.tw;
+  const int y0 = (mt / a.ntx % a.nty) * a.th;
+  const int b0 = mt / (a.ntx * a.nty) * a.tb;
+  const int ncc = (a.Cin + 63) / 64;
+  int k0, k1;
+  wg::split_range(9 * ncc, a.splits, blockIdx.z, k0, k1);
+  const int wgi = threadIdx.x / 128;
+  const int per_img = a.th * a.tw;
+  if (wgi == 2) {
+    if (threadIdx.x == 256) {
+      const CUtensorMap* mx = &tmap_x;
+      const CUtensorMap* mw = &tmap_w;
+      wg::produce(r, k1 - k0, [&](int s, int it) {
+        const int kb = k0 + it, tap = kb / ncc, c0 = (kb - tap * ncc) * 64;
+        const int ky = tap / 3, kx = tap - 3 * ky;
+        wg::tma_load_4d(r.a(s), mx, r.full(s), c0, x0 + kx - 1, y0 + ky - 1, b0);
+        wg::load_b(r, s, mw, n0, tap * a.Cin + c0);
+      });
+    }
+  } else {
+    float acc[BN / 128][64];
+#pragma unroll
+    for (int j = 0; j < BN / 128; ++j)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+    wg::consume_ss(r, k1 - k0, wgi, acc);
+    const long long M = a.e.M;
+    wg::store_tile<BN>(
+        acc, wgi, n0,
+        [&](int row) -> long long {
+          const int b = b0 + row / per_img;
+          const int y = y0 + row % per_img / a.tw, x = x0 + row % a.tw;
+          return (b < a.B && y < a.H && x < a.W) ? ((long long)b * a.H + y) * a.W + x : -1;
+        },
+        a.e, a.splits > 1 ? a.ws + blockIdx.z * M * a.e.N : nullptr);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 wgmma kernel with the GroupNorm prologue (K8), block tile 128 x 128.
+// K steps run channel chunk by channel chunk (step kb: chunk kb / 9, tap
+// kb % 9). For each chunk the producer loads the tile's halo once, (th + 2)
+// x (tw + 2) pixels x 64 channels of each image, zero outside the tensor;
+// the consumers normalise it in place in shared memory (x * scale + shift,
+// SiLU, rounded to bf16; zero for pixels outside the image and channels
+// past Cin, since GroupNorm(0) != 0), and each of the 9 taps then reads its
+// A fragments from the halo at the tap's offset (ldmatrix) for a register-A
+// wgmma. B (the weight rows of the tap and chunk) streams through its own
+// ring, a stage a step, as in the plain conv.
+// ---------------------------------------------------------------------------
+constexpr int GN_B_STAGES = 4, GN_HALO_STAGES = 2;
+constexpr int GN_B_BYTES = wg::BK * 128 * 2;
+
+// the halo ring stage of the tile, rounded to the 1024-byte swizzle atom
+__host__ __device__ __forceinline__ int gn_halo_bytes(int tw, int th, int tb) {
+  return (tw + 2) * (th + 2) * tb * 128;
+}
+__host__ __device__ __forceinline__ int gn_halo_stride(int tw, int th, int tb) {
+  return (gn_halo_bytes(tw, th, tb) + 1023) / 1024 * 1024;
+}
+// [pad to 1024][B ring][halo ring][fullB, emptyB, fullH, emptyH][(scale, shift)]
+__host__ __device__ __forceinline__ int gn_smem_bytes(int tw, int th, int tb, int cin) {
+  return 1024 + GN_B_STAGES * GN_B_BYTES + GN_HALO_STAGES * gn_halo_stride(tw, th, tb) +
+         16 * (GN_B_STAGES + GN_HALO_STAGES) + tb * cin * 8;
+}
+
+// the GroupNorm prologue on 8 bf16 channels c .. c + 7 of one pixel, with
+// their (scale, shift) pairs: the arithmetic of the GroupNorm apply kernel
+// (group_norm.cu gn_apply), so the normalised operand is the unfused pair's
+// bit for bit
+__device__ __forceinline__ uint4 gn_apply8(uint4 raw, const float2 (&ss)[8], int gn_act) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    f.x = fmaf(f.x, ss[2 * i].x, ss[2 * i].y);
+    f.y = fmaf(f.y, ss[2 * i + 1].x, ss[2 * i + 1].y);
+    if (gn_act) {
+      f.x = silu(f.x);
+      f.y = silu(f.y);
+    }
+    h[i] = __floats2bfloat162_rn(f.x, f.y);
+  }
+  return raw;
+}
+
+// keeps A-fragment registers alive (and unmoved) until the wgmma that reads
+// them asynchronously has been waited for
+__device__ __forceinline__ void fence_frag(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) asm volatile("" : "+r"(f[kk][v])::"memory");
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    conv_gn_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_halo,
+                       const __grid_constant__ CUtensorMap tmap_w, ConvWgmmaArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t base = wg::smem_u32(smem);
+  const uint32_t b_ring = (base + 1023u) & ~1023u;
+  const int halo_stride = gn_halo_stride(a.tw, a.th, a.tb);
+  const uint32_t h_ring = b_ring + GN_B_STAGES * GN_B_BYTES;
+  const uint32_t bars = h_ring + GN_HALO_STAGES * halo_stride;
+  auto full_b = [&](int s) { return bars + 8 * s; };
+  auto empty_b = [&](int s) { return bars + 8 * (GN_B_STAGES + s); };
+  auto full_h = [&](int h) { return bars + 8 * (2 * GN_B_STAGES + h); };
+  auto empty_h = [&](int h) { return bars + 8 * (2 * GN_B_STAGES + GN_HALO_STAGES + h); };
+  uint8_t* halo_ptr = smem + (h_ring - base);
+  float2* gss = reinterpret_cast<float2*>(smem + (bars + 16 * (GN_B_STAGES + GN_HALO_STAGES) -
+                                                   base));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GN_B_STAGES; ++s) {
+      wg::bar_init(full_b(s), 1);
+      wg::bar_init(empty_b(s), 2);
+    }
+    for (int h = 0; h < GN_HALO_STAGES; ++h) {
+      wg::bar_init(full_h(h), 1);
+      wg::bar_init(empty_h(h), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int mt, nt;
+  wg::block_tile((a.e.N + 127) / 128, mt, nt);
+  const int n0 = nt * 128;
+  const int x0 = (mt % a.ntx) * a.tw;
+  const int y0 = (mt / a.ntx % a.nty) * a.th;
+  const int b0 = mt / (a.ntx * a.nty) * a.tb;
+  const int ncc = (a.Cin + 63) / 64;
+  int k0, k1;
+  wg::split_range(9 * ncc, a.splits, blockIdx.z, k0, k1);
+  const int nk = k1 - k0;
+  const int wgi = threadIdx.x / 128;
+  const int per_img = a.th * a.tw;
+  const int hw = a.tw + 2, hh = a.th + 2;
+  if (wgi == 2) {
+    if (threadIdx.x == 256) {
+      const CUtensorMap* mh = &tmap_halo;
+      const CUtensorMap* mw = &tmap_w;
+      const uint32_t halo_tx = gn_halo_bytes(a.tw, a.th, a.tb);
+      for (int it = 0, loads = 0; it < nk; ++it) {
+        const int kb = k0 + it, cc = kb / 9, tap = kb - 9 * cc;
+        if (it == 0 || tap == 0) {  // a new channel chunk: its halo
+          const int h = loads % GN_HALO_STAGES;
+          wg::bar_wait(empty_h(h), ((loads / GN_HALO_STAGES) & 1) ^ 1);
+          wg::bar_expect_tx(full_h(h), halo_tx);
+          wg::tma_load_4d(h_ring + h * halo_stride, mh, full_h(h), cc * 64, x0 - 1, y0 - 1, b0);
+          ++loads;
+        }
+        const int s = it % GN_B_STAGES;
+        wg::bar_wait(empty_b(s), ((it / GN_B_STAGES) & 1) ^ 1);
+        wg::bar_expect_tx(full_b(s), GN_B_BYTES);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wg::tma_load_2d(b_ring + s * GN_B_BYTES + j * wg::BOX_BYTES, mw, full_b(s),
+                          n0 + 64 * j, tap * a.Cin + cc * 64);
+      }
+    }
+  } else {
+    float acc[1][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = 0.f;
+    // scale / shift of the tile's images as (scale, shift) pairs
+    for (int i = threadIdx.x; i < a.tb * a.Cin; i += 256) {
+      const int bi = i / a.Cin, c = i - bi * a.Cin;
+      const long long o = (long long)(b0 + bi) * a.Cin + c;
+      gss[i] = b0 + bi < a.B ? make_float2(a.gn_scale[o], a.gn_shift[o]) : make_float2(0.f, 0.f);
+    }
+    wg::consumers_sync();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    // the output pixel (tile row) this lane addresses for ldmatrix, as a
+    // halo pixel index at tap (0, 0)
+    const int lrow = wgi * 64 + warp * 16 + lane % 16;
+    const int lhp = (lrow / per_img * hh + lrow % per_img / a.tw) * hw + lrow % a.tw;
+    // normalise halo stage h (channel chunk cc) in place. Consumer thread t
+    // takes the 8-channel piece t % 8 of every 32nd halo pixel from t / 8:
+    // its channels stay fixed, so their (scale, shift) pairs sit in
+    // registers while the image does not change, and its pixel's (image,
+    // row, column) in the halo advances without a division.
+    const int c8 = threadIdx.x & 7;
+    auto normalise = [&](int h, int cc) {
+      uint8_t* halo = halo_ptr + h * halo_stride;
+      const int c = cc * 64 + c8 * 8;
+      float2 ss[8];
+      int hb = 0, ry = 0, rx = threadIdx.x >> 3, loaded = -1;
+      auto wrap = [&] {
+        while (rx >= hw) {
+          rx -= hw;
+          if (++ry == hh) ry = 0, ++hb;
+        }
+      };
+      wrap();
+      for (int hp = threadIdx.x >> 3; hb < a.tb; hp += 32) {
+        const int y = y0 - 1 + ry, x = x0 - 1 + rx;
+        uint4* piece = reinterpret_cast<uint4*>(halo + hp * 128 + ((c8 ^ (hp & 7)) << 4));
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (b0 + hb < a.B && y >= 0 && y < a.H && x >= 0 && x < a.W && c < a.Cin) {
+          if (loaded != hb) {
+            const float4* src = reinterpret_cast<const float4*>(gss + hb * a.Cin + c);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float4 t = src[i];
+              ss[2 * i] = make_float2(t.x, t.y);
+              ss[2 * i + 1] = make_float2(t.z, t.w);
+            }
+            loaded = hb;
+          }
+          v = gn_apply8(*piece, ss, a.gn_act);
+        }
+        *piece = v;
+        rx += 32;
+        wrap();
+      }
+    };
+    int loads = 0, h = 0;
+    // step it's A fragments from the normalised halo, at the tap's offset;
+    // a new chunk's halo is waited for and normalised first, and a chunk's
+    // halo is released after its last tap's loads
+    auto fragments = [&](int it, uint32_t(&f)[4][4]) {
+      const int kb = k0 + it, cc = kb / 9, tap = kb - 9 * cc;
+      if (it == 0 || tap == 0) {
+        h = loads % GN_HALO_STAGES;
+        wg::bar_wait(full_h(h), (loads / GN_HALO_STAGES) & 1);
+        normalise(h, cc);
+        wg::consumers_sync();
+        ++loads;
+      }
+      const int ky = tap / 3, kx = tap - 3 * ky;
+      const int hp = lhp + ky * hw + kx;
+      const uint32_t row = h_ring + h * halo_stride + hp * 128;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::ldmatrix_x4(row + (((2 * kk + lane / 16) ^ (hp & 7)) << 4), f[kk]);
+      if (tap == 8 || it == nk - 1) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wg::bar_arrive(empty_h(h));
+      }
+    };
+    auto issue = [&](int it, uint32_t(&f)[4][4]) {
+      const int s = it % GN_B_STAGES;
+      wg::bar_wait(full_b(s), (it / GN_B_STAGES) & 1);
+      wg::fence_acc(acc[0]);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::wgmma_rs(acc[0], f[kk], wg::desc_b(b_ring + s * GN_B_BYTES, 0, kk));
+      wg::wgmma_commit();
+      wg::fence_acc(acc[0]);
+    };
+    auto retire = [&](int it, uint32_t(&f)[4][4]) {
+      wg::wgmma_wait<0>();
+      wg::fence_acc(acc[0]);
+      fence_frag(f);
+      if (threadIdx.x % 128 == 0 && it + GN_B_STAGES < nk)
+        wg::bar_arrive(empty_b(it % GN_B_STAGES));
+    };
+    // the next step's fragments load while this step's wgmmas run
+    uint32_t fa[4][4], fb[4][4];
+    fragments(0, fa);
+    for (int it = 0; it < nk; it += 2) {
+      issue(it, fa);
+      if (it + 1 < nk) fragments(it + 1, fb);
+      retire(it, fa);
+      if (it + 1 >= nk) break;
+      issue(it + 1, fb);
+      if (it + 2 < nk) fragments(it + 2, fa);
+      retire(it + 1, fb);
+    }
+    const long long M = a.e.M;
+    wg::store_tile<128>(
+        acc, wgi, n0,
+        [&](int row) -> long long {
+          const int b = b0 + row / per_img;
+          const int y = y0 + row % per_img / a.tw, x = x0 + row % a.tw;
+          return (b < a.B && y < a.H && x < a.W) ? ((long long)b * a.H + y) * a.W + x : -1;
+        },
+        a.e, a.splits > 1 ? a.ws + blockIdx.z * M * a.e.N : nullptr);
+  }
+}
+
+template <class Kernel>
+int launch_conv(Kernel kernel, const CUtensorMap& tx, const CUtensorMap& tw,
+                const ConvWgmmaArgs& a, int bn, long long m_tiles, int smem, bool& attr_set,
+                cudaStream_t stream) {
+  const long long tiles = m_tiles * ((a.e.N + bn - 1) / bn);
+  if (smem > 232448 || tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const dim3 grid((unsigned)tiles, 1, a.splits);
+  kernel<<<grid, wg::THREADS, smem, stream>>>(tx, tw, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. act: 0 = none, 1 = SiLU.
-// bias (f32) and residual may be null. gn_scale / gn_shift: (B, Cin) f32
+// bias (of bias_dtype: 0 f32, 1 bf16) and residual may be null. gn_scale / gn_shift: (B, Cin) f32
 // GroupNorm prologue, or null; gn_act: 1 = SiLU after it. Returns a
 // cudaError_t (0 on success). *variant receives 1 for the WMMA kernel, 0 for
 // the scalar kernel.
-extern "C" int st_conv3x3(const void* x, const void* w, const float* bias,
+extern "C" int st_conv3x3(const void* x, const void* w, const void* bias, int bias_dtype,
                           long long bias_bstride, const void* residual, void* out,
                           int B, int H, int W, int Cin, int Cout, int act, int dtype,
                           const float* gn_scale, const float* gn_shift, int gn_act,
                           int* variant, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  ConvArgs a{x, w, bias, bias_bstride, residual, out, B, H, W, Cin, Cout, act,
+  ConvArgs a{x, w, bias, bias_bstride, bias_dtype, residual, out, B, H, W, Cin, Cout, act,
              gn_scale, gn_shift, gn_act};
   const long long M = (long long)B * H * W;
   if (dtype == 1) {
@@ -325,4 +675,67 @@ extern "C" int st_conv3x3(const void* x, const void* w, const float* bias,
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 wgmma conv: x (B, H, W, Cin), w (3, 3, Cin, Cout), residual and
+// out (B, H, W, Cout), contiguous bf16 with Cin % 8 == 0, Cout % 8 == 0 and
+// 16-byte aligned bases; bias of bias_dtype with bias_bstride as st_conv3x3;
+// gn_scale / gn_shift (B, Cin) f32 for the GroupNorm prologue or null. The
+// plan: the pixel tile tw x th x tb (= 128), the block tile's width bn (128
+// or 256; 128 with the prologue) and the K split (1 <= splits <= 9 *
+// ceil(Cin / 64)), with ws a (splits, B*H*W, Cout) f32 workspace when
+// splits > 1. Returns a cudaError_t.
+extern "C" int st_conv3x3_wgmma(const void* x, const void* w, const void* bias, int bias_dtype,
+                                long long bias_bstride, const void* residual, void* out,
+                                float* ws, int B, int H, int W, int Cin, int Cout, int act,
+                                const float* gn_scale, const float* gn_shift, int gn_act, int tw,
+                                int th, int tb, int bn, int splits, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool gn = gn_scale != nullptr;
+  const int nk = 9 * ((Cin + 63) / 64);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(residual) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 8 || Cout % 8 || !aligned ||
+      act < 0 || act > 1 || gn_act < 0 || gn_act > 1 || bias_dtype < 0 || bias_dtype > 1 ||
+      (gn && (!gn_shift || (tw * th) % 16)) || tw < 1 || th < 1 || tb < 1 || tw > 256 ||
+      th > 256 || tb > 256 ||
+      tw * th * tb != wg::BM || (bn != 128 && bn != 256) || (gn && bn != 128) || splits < 1 ||
+      splits > nk || (splits > 1 && !ws))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, twm;
+  const uint64_t xdims[4] = {(uint64_t)Cin, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+  const uint64_t xstrides[3] = {(uint64_t)Cin * 2, (uint64_t)W * Cin * 2,
+                                (uint64_t)H * W * Cin * 2};
+  // the A box: the pixel tile, or with the prologue its halo
+  const uint32_t xbox[4] = {64, (uint32_t)(tw + (gn ? 2 : 0)), (uint32_t)(th + (gn ? 2 : 0)),
+                            (uint32_t)tb};
+  if (!wg::make_map(&tx, x, 4, xdims, xstrides, xbox) ||
+      !wg::make_b_map(&twm, w, 9LL * Cin, Cout))
+    return (int)cudaErrorInvalidValue;
+  const long long M = (long long)B * H * W;
+  const wg::Epilogue e{bias, bias_bstride, (long long)H * W,
+                       static_cast<const __nv_bfloat16*>(residual),
+                       static_cast<__nv_bfloat16*>(out), M, Cout, bias_dtype, act};
+  const int ntx = (W + tw - 1) / tw, nty = (H + th - 1) / th;
+  const long long mt = (long long)ntx * nty * ((B + tb - 1) / tb);
+  const ConvWgmmaArgs a{e, ws, gn_scale, gn_shift, B, H, W, Cin, tw, th, tb, ntx, nty,
+                        splits, gn_act};
+  int code;
+  if (gn) {
+    static bool set = false;
+    code = launch_conv(conv_gn_wgmma_bf16, tx, twm, a, 128, mt, gn_smem_bytes(tw, th, tb, Cin),
+                       set, stream);
+  } else if (bn == 256) {
+    static bool set = false;
+    code = launch_conv(conv_wgmma_bf16<256, 4, 1>, tx, twm, a, 256, mt,
+                       wg::Ring<256, 4>::bytes(), set, stream);
+  } else {
+    static bool set = false;
+    code = launch_conv(conv_wgmma_bf16<128, 3, 2>, tx, twm, a, 128, mt,
+                       wg::Ring<128, 3>::bytes(), set, stream);
+  }
+  if (code != 0 || splits == 1) return code;
+  return wg::launch_reduce(ws, splits, e, stream);
 }

@@ -1,19 +1,29 @@
 // Linear layer for Hopper (sm_90a): out = act(x @ w + b), x (M, K) and w
-// (K, N) row-major, f32 accumulation, the (N,) f32 bias and the activation
-// (SiLU, or the exact erf GELU) applied to the f32 sum in the epilogue, one
-// rounding to the input dtype. Computes the function of the Pallas TPU kernel
-// stabletriton_tpu/kernels/linear.py:_linear_kernel, whose GELU carries its
-// own erf polynomial only because Mosaic has none; here erff.
+// (K, N) row-major, f32 accumulation, the (N,) bias (read in its own dtype,
+// f32 or bf16) and the activation (SiLU, or the exact erf GELU) applied to
+// the f32 sum in the epilogue, one rounding to the input dtype. Computes the
+// function of the Pallas TPU kernel stabletriton_tpu/kernels/linear.py:
+// _linear_kernel, whose GELU carries its own erf polynomial only because
+// Mosaic has none; here erff.
 //
-// Ragged M, N and K edges are masked: every shape is right. Three kernels:
+// Four kernels:
 //
-//   linear_wmma_bf16   - bf16 operands on tensor cores (WMMA 16x16x16, f32
-//                        acc), 128x128 block tile, 8 warps of 32x64, K in
-//                        steps of 32 through two shared-memory buffers: with
-//                        K % 8 == 0, N % 8 == 0 and 16-byte aligned bases the
-//                        next tile streams in by cp.async while the current
-//                        one is multiplied; otherwise by predicated element
-//                        loads. The UNet's GEMMs, M = 128 ... 8192.
+//   linear_wgmma_bf16  - bf16 with K % 8 == 0, N % 8 == 0 and 16-byte aligned
+//                        operands (what TMA takes): the Hopper mainloop of
+//                        wgmma.cuh, TMA loads into 3 stages (BN = 128, two
+//                        blocks an SM) or 4 (BN = 256, one block), two
+//                        consumer warpgroups of m64n128k16
+//                        wgmma, the epilogue from the accumulator registers
+//                        with 16-byte stores. A split-K count from the
+//                        wrapper's planner fills the card where the output
+//                        tiles alone do not (the cross K/V precompute: 40
+//                        tiles); the splits meet in splitk_reduce. The UNet's
+//                        GEMMs, M = 128 ... 8192.
+//   linear_wmma_bf16   - bf16 shapes TMA cannot take (K or N not a multiple of
+//                        8, a misaligned base): WMMA 16x16x16, 128x128 block
+//                        tile, 8 warps of 32x64, K in steps of 32 through two
+//                        shared-memory buffers filled by predicated element
+//                        loads. Every shape is right.
 //   linear_skinny<T>   - M <= 16 rows (the time-embedding MLPs and the
 //                        resnets' time projections run at M = 2): a 128-row
 //                        tile would leave 98% of its rows empty. Each block
@@ -26,13 +36,15 @@
 //                        projections.
 //
 // What bounds them on the H100: the large GEMMs are compute-bound (hundreds
-// of FLOPs a byte); this WMMA kernel has no wgmma or TMA and reaches a
-// fraction of the tensor-core rate (PERF.md). The skinny GEMMs are bound by
-// reading w once.
+// of FLOPs a byte, against the card's ~295 FLOP/B balance), so the wgmma
+// kernel keeps the tensor cores fed from a TMA ring and stores straight from
+// registers; grids of fewer tiles than the 132 SMs split K. The skinny GEMMs
+// are bound by reading w once.
 
 #include <mma.h>
 
 #include "vec.cuh"
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -44,14 +56,15 @@ using stv::to_f32;
 struct LinearArgs {
   const void* x;      // (M, K)
   const void* w;      // (K, N)
-  const float* bias;  // (N,) or null
+  const void* bias;   // (N,) of bias_dtype, or null
   void* out;          // (M, N)
   int M, N, K, act;   // act: 0 none, 1 SiLU, 2 GELU (erf)
+  int bias_dtype;     // 0 f32, 1 bf16
 };
 
 // bias and activation on the f32 sum of output column n
 __device__ __forceinline__ float epilogue(const LinearArgs& a, int n, float acc) {
-  if (a.bias) acc += a.bias[n];
+  if (a.bias) acc += stv::load_param(a.bias, a.bias_dtype, n);
   if (a.act == 1) acc = acc / (1.f + expf(-acc));
   else if (a.act == 2) acc = 0.5f * acc * (1.f + erff(acc * 0.70710678118654752f));
   return acc;
@@ -64,59 +77,28 @@ __device__ __forceinline__ void store_out(const LinearArgs& a, int m, int n, flo
 }
 
 // ---------------------------------------------------------------------------
-// bf16 WMMA kernel
+// bf16 WMMA kernel, for the shapes TMA cannot take: element loads, so no
+// alignment or multiple of 8 is assumed
 // ---------------------------------------------------------------------------
 constexpr int WBM = 128, WBN = 128, WBK = 32, WTHREADS = 256;
 constexpr int LDA = WBK + 8;  // bf16 pitch, multiple of 8 (16 bytes)
 constexpr int LDB = WBN + 8;
 
-// 16-byte copy global -> shared, zero-filled when !pred (src is then not read)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
 // stage the (WBM x WBK) tile of x and the (WBK x WBN) tile of w at k0
-template <bool VEC>
 __device__ __forceinline__ void load_tiles(const LinearArgs& a, __nv_bfloat16* As,
                                            __nv_bfloat16* Bs, int m0, int n0, int k0) {
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
-  const int tid = threadIdx.x;
-  if constexpr (VEC) {
-    // K and N are multiples of 8: an 8-wide chunk lies wholly in or out
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {  // A: 128 rows x 4 chunks
-      const int idx = tid + s * WTHREADS, row = idx / 4, c = (idx % 4) * 8;
-      const int m = m0 + row, k = k0 + c;
-      const bool ok = m < a.M && k < a.K;
-      cp_async16(As + row * LDA + c, ok ? x + (long long)m * a.K + k : x, ok);
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {  // B: 32 rows x 16 chunks
-      const int idx = tid + s * WTHREADS, row = idx / 16, c = (idx % 16) * 8;
-      const int k = k0 + row, n = n0 + c;
-      const bool ok = k < a.K && n < a.N;
-      cp_async16(Bs + row * LDB + c, ok ? w + (long long)k * a.N + n : w, ok);
-    }
-  } else {
-    for (int idx = tid; idx < WBM * WBK; idx += WTHREADS) {
-      const int mm = idx / WBK, kk = idx % WBK, m = m0 + mm, k = k0 + kk;
-      As[mm * LDA + kk] = (m < a.M && k < a.K) ? x[(long long)m * a.K + k]
-                                               : __float2bfloat16(0.f);
-    }
-    for (int idx = tid; idx < WBK * WBN; idx += WTHREADS) {
-      const int kk = idx / WBN, nn = idx % WBN, k = k0 + kk, n = n0 + nn;
-      Bs[kk * LDB + nn] = (k < a.K && n < a.N) ? w[(long long)k * a.N + n]
-                                               : __float2bfloat16(0.f);
-    }
+  for (int idx = threadIdx.x; idx < WBM * WBK; idx += WTHREADS) {
+    const int mm = idx / WBK, kk = idx % WBK, m = m0 + mm, k = k0 + kk;
+    As[mm * LDA + kk] = (m < a.M && k < a.K) ? x[(long long)m * a.K + k] : __float2bfloat16(0.f);
+  }
+  for (int idx = threadIdx.x; idx < WBK * WBN; idx += WTHREADS) {
+    const int kk = idx / WBN, nn = idx % WBN, k = k0 + kk, n = n0 + nn;
+    Bs[kk * LDB + nn] = (k < a.K && n < a.N) ? w[(long long)k * a.N + n] : __float2bfloat16(0.f);
   }
 }
 
-template <bool VEC>
 __global__ void __launch_bounds__(WTHREADS) linear_wmma_bf16(LinearArgs a) {
   __shared__ __align__(128) __nv_bfloat16 As[2][WBM * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[2][WBK * LDB];
@@ -133,14 +115,11 @@ __global__ void __launch_bounds__(WTHREADS) linear_wmma_bf16(LinearArgs a) {
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   const int nk = (a.K + WBK - 1) / WBK;
-  load_tiles<VEC>(a, As[0], Bs[0], m0, n0, 0);
-  cp_async_commit();
+  load_tiles(a, As[0], Bs[0], m0, n0, 0);
   for (int t = 0; t < nk; ++t) {
     // the buffer refilled here was last read in step t - 1, behind its
     // trailing barrier
-    if (t + 1 < nk) load_tiles<VEC>(a, As[(t + 1) & 1], Bs[(t + 1) & 1], m0, n0, (t + 1) * WBK);
-    cp_async_commit();
-    cp_async_wait_one();  // every copy but the newest group (tile t + 1) has landed
+    if (t + 1 < nk) load_tiles(a, As[(t + 1) & 1], Bs[(t + 1) & 1], m0, n0, (t + 1) * WBK);
     __syncthreads();
     const __nv_bfloat16* as = As[t & 1];
     const __nv_bfloat16* bs = Bs[t & 1];
@@ -263,19 +242,84 @@ __global__ void __launch_bounds__(STHREADS) linear_scalar_f32(LinearArgs a) {
     for (int j = 0; j < 4; ++j) store_out<float>(a, m0 + tm + 16 * i, n0 + tn + 16 * j, acc[i][j]);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 wgmma kernel (the mainloop of wgmma.cuh): block tile 128 x BN, split
+// blockIdx.z of the K steps
+// ---------------------------------------------------------------------------
+struct WgmmaArgs {
+  wg::Epilogue e;
+  float* ws;  // (splits, M, N) f32 partials when splits > 1
+  int K, splits;
+};
+
+template <int BN, int STAGES, int CTAS>
+__global__ void __launch_bounds__(wg::THREADS, CTAS)
+    linear_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_x,
+                      const __grid_constant__ CUtensorMap tmap_w, WgmmaArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  wg::Ring<BN, STAGES> r;
+  wg::ring_init(smem, r);
+  int mt, nt;
+  wg::block_tile((a.e.N + BN - 1) / BN, mt, nt);
+  const int n0 = nt * BN, m0 = mt * wg::BM;
+  int k0, k1;
+  wg::split_range((a.K + wg::BK - 1) / wg::BK, a.splits, blockIdx.z, k0, k1);
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    if (threadIdx.x == 256) {
+      const CUtensorMap* mx = &tmap_x;
+      const CUtensorMap* mw = &tmap_w;
+      wg::produce(r, k1 - k0, [&](int s, int it) {
+        const int k = (k0 + it) * wg::BK;
+        wg::tma_load_2d(r.a(s), mx, r.full(s), k, m0);
+        wg::load_b(r, s, mw, n0, k);
+      });
+    }
+  } else {
+    float acc[BN / 128][64];
+#pragma unroll
+    for (int j = 0; j < BN / 128; ++j)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+    wg::consume_ss(r, k1 - k0, wgi, acc);
+    const long long M = a.e.M;
+    wg::store_tile<BN>(
+        acc, wgi, n0, [&](int row) -> long long { return m0 + row < M ? m0 + row : -1; }, a.e,
+        a.splits > 1 ? a.ws + blockIdx.z * M * a.e.N : nullptr);
+  }
+}
+
+template <int BN, int STAGES, int CTAS>
+int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tw, const WgmmaArgs& a,
+                 cudaStream_t stream) {
+  constexpr int smem = wg::Ring<BN, STAGES>::bytes();
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        linear_wgmma_bf16<BN, STAGES, CTAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const long long tiles = (a.e.M + wg::BM - 1) / wg::BM * ((a.e.N + BN - 1) / BN);
+  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, 1, a.splits);
+  linear_wgmma_bf16<BN, STAGES, CTAS><<<grid, wg::THREADS, smem, stream>>>(tx, tw, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (M, K), w (K, N), out (M, N) contiguous, of one dtype (0 = f32, 1 =
-// bf16); bias (N,) f32 or null. act: 0 none, 1 SiLU, 2 GELU. variant: 0 the
-// scalar f32 kernel, 1 the bf16 WMMA kernel, 2 the skinny kernel (M <= 16);
-// vec (WMMA only): 1 when K and N are multiples of 8 and x and w 16-byte
-// aligned. Returns a cudaError_t (0 on success).
-extern "C" int st_linear(const void* x, const void* w, const float* bias, void* out, int M,
-                         int N, int K, int act, int dtype, int variant, int vec,
+// bf16); bias (N,) of bias_dtype (0 = f32, 1 = bf16) or null. act: 0 none,
+// 1 SiLU, 2 GELU. variant: 0 the scalar f32 kernel, 1 the bf16 WMMA kernel,
+// 2 the skinny kernel (M <= 16). Returns a cudaError_t (0 on success).
+extern "C" int st_linear(const void* x, const void* w, const void* bias, int bias_dtype,
+                         void* out, int M, int N, int K, int act, int dtype, int variant,
                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const LinearArgs a{x, w, bias, out, M, N, K, act};
-  if (act < 0 || act > 2 || M <= 0 || N <= 0 || K < 0) return (int)cudaErrorInvalidValue;
+  const LinearArgs a{x, w, bias, out, M, N, K, act, bias_dtype};
+  if (act < 0 || act > 2 || M <= 0 || N <= 0 || K < 0 || bias_dtype < 0 || bias_dtype > 1)
+    return (int)cudaErrorInvalidValue;
   if (variant == 2) {
     if (M > SKINNY_MAX_M) return (int)cudaErrorInvalidValue;
     const dim3 grid((N + KCOLS - 1) / KCOLS);
@@ -287,10 +331,7 @@ extern "C" int st_linear(const void* x, const void* w, const float* bias, void* 
       return (int)cudaErrorInvalidValue;
   } else if (variant == 1 && dtype == 1) {
     const dim3 grid((M + WBM - 1) / WBM, (N + WBN - 1) / WBN);
-    if (vec)
-      linear_wmma_bf16<true><<<grid, WTHREADS, 0, stream>>>(a);
-    else
-      linear_wmma_bf16<false><<<grid, WTHREADS, 0, stream>>>(a);
+    linear_wmma_bf16<<<grid, WTHREADS, 0, stream>>>(a);
   } else if (variant == 0 && dtype == 0) {
     const dim3 grid((M + SBM - 1) / SBM, (N + SBN - 1) / SBN);
     linear_scalar_f32<<<grid, STHREADS, 0, stream>>>(a);
@@ -298,4 +339,36 @@ extern "C" int st_linear(const void* x, const void* w, const float* bias, void* 
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The bf16 wgmma GEMM: x (M, K), w (K, N), out (M, N) contiguous bf16 with
+// K % 8 == 0, N % 8 == 0 and 16-byte aligned bases (TMA's terms); bias (N,)
+// of bias_dtype or null; act as st_linear. bn: the block tile's width (128
+// or 256); splits: the K split (1 <= splits <= ceil(K / 64)), with ws a
+// (splits, M, N) f32 workspace when splits > 1. Returns a cudaError_t.
+extern "C" int st_linear_wgmma(const void* x, const void* w, const void* bias, int bias_dtype,
+                               void* out, float* ws, int M, int N, int K, int act, int bn,
+                               int splits, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int nk = (K + wg::BK - 1) / wg::BK;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (act < 0 || act > 2 || M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 || !aligned ||
+      bias_dtype < 0 || bias_dtype > 1 || (bn != 128 && bn != 256) || splits < 1 ||
+      splits > nk || (splits > 1 && !ws))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t xstrides[1] = {(uint64_t)K * 2};
+  const uint32_t xbox[2] = {wg::BK, wg::BM};
+  if (!wg::make_map(&tx, x, 2, xdims, xstrides, xbox) || !wg::make_b_map(&tw, w, K, N))
+    return (int)cudaErrorInvalidValue;
+  const wg::Epilogue e{bias, 0, M, nullptr, static_cast<__nv_bfloat16*>(out), M, N, bias_dtype,
+                       act};
+  const WgmmaArgs a{e, ws, K, splits};
+  const int code = bn == 256 ? launch_wgmma<256, 4, 1>(tx, tw, a, stream)
+                             : launch_wgmma<128, 3, 2>(tx, tw, a, stream);
+  if (code != 0 || splits == 1) return code;
+  return wg::launch_reduce(ws, splits, e, stream);
 }

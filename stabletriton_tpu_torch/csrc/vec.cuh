@@ -52,6 +52,10 @@ __device__ __forceinline__ float load_param(const void* p, int pdtype, int i) {
                      : static_cast<const float*>(p)[i];
 }
 
-__device__ __forceinline__ float silu(float x) { return x / (1.f + __expf(-x)); }
+// x * sigmoid(x) to a few f32 ulps (fast exp and division: two special-
+// function ops), far below the bf16 rounding that follows it in every use
+// but the f32 VAE's; the GroupNorm apply kernel and the conv's GroupNorm
+// prologue share it, so the fused and the unfused pair normalise alike
+__device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.f + __expf(-x)); }
 
 }  // namespace stv

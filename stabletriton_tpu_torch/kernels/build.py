@@ -16,6 +16,7 @@ memory, too many threads) never passes silently.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -125,13 +126,29 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+_functions: dict[str, ctypes._CFuncPtr] = {}
+
+
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
     """A C entry point with its argument types declared (every pointer and
-    the stream as ``c_void_p``, so ctypes does not cut them to 32 bits)."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    the stream as ``c_void_p``, so ctypes does not cut them to 32 bits),
+    looked up once: the eager step launches hundreds of kernels."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn
+
+
+def on_device(device: torch.device):
+    """Makes ``device`` the current CUDA device for a launch (the C entry
+    points launch on the current device); nothing to do, and no host time
+    spent, when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(code: int, what: str) -> None:

@@ -1,4 +1,4 @@
-"""3x3 convolution through the hand-written Hopper kernel ``csrc/conv3x3.cu``.
+"""3x3 convolution through the hand-written Hopper kernels ``csrc/conv3x3.cu``.
 
 Replaces the Pallas TPU kernels ``_conv3x3_kernel_elem`` and
 ``_conv3x3_kernel`` of ``stabletriton_tpu/kernels/conv_direct.py``: every
@@ -6,16 +6,22 @@ Replaces the Pallas TPU kernels ``_conv3x3_kernel_elem`` and
 with the bias / per-batch bias / residual / SiLU epilogue in-kernel.
 
 What bounds it on the H100: at the SDXL UNet shapes (K = 9*Cin = 2880 to
-11520) the implicit GEMM has far more operations per byte than the card's
+23040) the implicit GEMM has far more operations per byte than the card's
 ~295 FLOP/B balance point, so it is bound by tensor-core throughput and by
-how well the A-tile gather keeps the tensor cores fed; the f32 VAE convs
-are bound by f32 FMA throughput.
+how well the A operand keeps the tensor cores fed; at SD1.5's 8^2 level
+(128 output pixels a batch) by reading the weight once; the f32 VAE convs
+by f32 FMA throughput.
 
 What the design does about it: an implicit GEMM (M = B*H*W, N = Cout,
-K = 9*Cin) whose A tiles are gathered from the NHWC input with the SAME
-padding computed by index, so no im2col matrix and no padded copy ever
-reach device memory; bf16 runs on tensor cores (WMMA) with 16-byte loads of
-8 channels at a time; the epilogue is fused so the output is written once.
+K = 9*Cin) with no im2col matrix and no padded copy. bf16 operands that TMA
+takes (Cin and Cout multiples of 8, 16-byte aligned bases: 36 of SDXL's 38
+convs) go to the wgmma kernel: the TMA + wgmma mainloop of
+``csrc/wgmma.cuh`` with one 4-D TMA box per (tap, 64-channel chunk) as the
+A operand, whose out-of-range pixels TMA fills with zeros (the SAME
+border), and a pixel tile and K split from ``wgmma_plan.conv_plan`` (the
+8^2 and 16^2 levels split K over blocks). conv_in (Cin 4) and conv_out
+(Cout 4) go to the WMMA kernel, which gathers A by index; f32 to the scalar
+kernel. The launch key names the kernel (:func:`conv_variant`).
 
 Routing is by shape, as in ``conv2d_direct`` of the JAX package: a 3x3,
 stride-1, padding-1 conv goes to the kernel; the strided downsamplers, the
@@ -24,31 +30,36 @@ package also runs outside any Pallas kernel. The plain version
 (:func:`conv3x3_plain`) computes the kernel's function in PyTorch; the
 wrapper uses it only for tensors on the CPU.
 
-The same kernel with a GroupNorm prologue (K8) replaces the JAX package's
+The same kernels with a GroupNorm prologue (K8) replace the JAX package's
 fused-GN conv, ``_conv3x3_kernel_elem`` with ``gs_ref`` / ``gsh_ref``
 reached from ``gn_conv2d_fused`` (binding ``gn_conv2d="fused"``): every
 ResnetBlock2D GN+SiLU+conv pair and the UNet's norm_out+SiLU+conv_out. Bound
 like the conv; the prologue saves the write and re-read of the normalized
-activation that the unfused pair (GroupNorm apply, then conv) pays. The
-A-tile gather multiplies each in-image input element by its (batch, channel)
-f32 scale, adds the shift, applies SiLU and rounds to bf16 before the
+activation that the unfused pair (GroupNorm apply, then conv) pays. Each
+in-image input element is multiplied by its (batch, channel) f32 scale, the
+shift added, SiLU applied and the result rounded to bf16 before the
 tensor-core product (the JAX kernel casts before its MXU dots); the SAME
-border is computed by index and skips the prologue, so it stays exactly 0.
-Each thread loads the scale / shift of its 8-channel run once per K tile
-with 16-byte loads. The moments come from the GroupNorm stats kernels
-(``kernels/group_norm.py``), which read x once.
+border stays exactly 0. The wgmma kernel (``conv_gn_wgmma_bf16``) loads the
+tile's halo once per 64-channel chunk, normalises it in shared memory
+(scale and shift staged once per block; the border and channels past Cin
+set to 0, since TMA's zero fill is a raw zero) and feeds all 9 taps from it
+as register-A wgmma operands, so each input element is normalised once, not
+once per tap; the WMMA kernel applies it in its A-tile gather. The moments
+come from the GroupNorm stats kernels (``kernels/group_norm.py``), which
+read x once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-from stabletriton_tpu_torch.kernels import group_norm
+from stabletriton_tpu_torch.kernels import group_norm, wgmma_plan
 from stabletriton_tpu_torch.kernels.build import (
-    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, function)
+    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, function, on_device)
 from stabletriton_tpu_torch.ops import reference
 from stabletriton_tpu_torch.ops.registry import dispatch, register
 
@@ -76,13 +87,28 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = Non
     return out.to(x.dtype).contiguous()
 
 
-_CONV_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# st_conv3x3(x, w, bias, bias_dtype, bias_bstride, residual, out, B, H, W,
+#            Cin, Cout, act, dtype, gn_scale, gn_shift, gn_act, *variant, stream)
+_CONV_ARGTYPES = ([_P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 7
+                  + [_P, _P, _I, ctypes.POINTER(_I), _P])
+# st_conv3x3_wgmma(x, w, bias, bias_dtype, bias_bstride, residual, out, ws,
+#                  B, H, W, Cin, Cout, act, gn_scale, gn_shift, gn_act,
+#                  tw, th, tb, bn, splits, stream)
+_WGMMA_ARGTYPES = ([_P, _P, _P, _I, ctypes.c_longlong, _P, _P, _P] + [_I] * 6
+                   + [_P, _P, _I] + [_I] * 5 + [_P])
+
+
+def conv_variant(x_shape: tuple[int, ...], cout: int, dtype: torch.dtype,
+                 aligned: bool = True, gn: bool = False) -> str:
+    """The kernel that takes a 3x3 conv of x (B, H, W, Cin) to ``cout``
+    channels: "wgmma_bf16" where TMA takes the bf16 operands (``aligned``:
+    every operand's base is 16-byte aligned), "wmma_bf16" for the other
+    bf16 shapes, "scalar" for float32."""
+    if dtype != torch.bfloat16:
+        return "scalar"
+    fits = wgmma_plan.conv_fits(*x_shape, cout, aligned, gn=gn)
+    return "wgmma_bf16" if fits else "wmma_bf16"
 
 
 def _check_conv(x, w, b, residual, act):
@@ -98,9 +124,19 @@ def _check_conv(x, w, b, residual, act):
         raise ValueError(f"residual {tuple(residual.shape)} is not {(n, h, wd, cout)}")
 
 
-def _launch(x, w, b, residual, act, gn=None) -> tuple[torch.Tensor, str]:
-    """Launch st_conv3x3 on CUDA operands; ``gn`` is (scale, shift, gn_act)
-    for the GroupNorm prologue. Returns the output and the launch key."""
+@functools.lru_cache(maxsize=None)
+def _wgmma_route(n, h, wd, cin, cout, gn):
+    """The wgmma conv's pixel tile, plan and launch key at one shape
+    (cached: the host time of a launch is the step's budget)."""
+    tile, plan = wgmma_plan.conv_plan(n, h, wd, cin, cout, gn=gn)
+    return tile, plan, (f"wgmma_bf16 b={n} {h}x{wd} {cin}->{cout} "
+                        f"tile={tile.tw}x{tile.th}x{tile.tb} bn={plan.bn} split={plan.splits}")
+
+
+def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor, str]:
+    """Launch a conv kernel on CUDA operands; ``gn`` is (scale, shift, gn_act)
+    for the GroupNorm prologue; ``variant`` names the kernel, else
+    :func:`conv_variant` picks it. Returns the output and the launch key."""
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     dtype = x.dtype
@@ -109,6 +145,8 @@ def _launch(x, w, b, residual, act, gn=None) -> tuple[torch.Tensor, str]:
     dev = x.device
     if w.dtype != dtype or (residual is not None and residual.dtype != dtype):
         raise ValueError("conv kernel takes x, w and residual of one dtype")
+    if b is not None and b.dtype not in DTYPE_CODES:
+        raise ValueError(f"conv kernel takes a float32 or bfloat16 bias, got {b.dtype}")
     tensors = [x, w] + [t for t in (b, residual) if t is not None]
     if gn is not None:
         tensors += list(gn[:2])
@@ -118,26 +156,36 @@ def _launch(x, w, b, residual, act, gn=None) -> tuple[torch.Tensor, str]:
         raise ValueError("conv operands lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("conv kernel takes contiguous operands")
-    bias = None if b is None else b.to(torch.float32).contiguous()
+    if variant is None:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, residual) if t is not None)
+        variant = conv_variant(tuple(x.shape), cout, dtype, aligned, gn is not None)
     out = torch.empty((n, h, wd, cout), dtype=dtype, device=dev)
-    variant = ctypes.c_int(-1)
-    fn = function("st_conv3x3", _CONV_ARGTYPES)
-    with torch.cuda.device(dev):
+    bias_args = ((None, 0, 0) if b is None else
+                 (b.data_ptr(), DTYPE_CODES[b.dtype], cout if b.dim() == 2 else 0))
+    res_ptr = None if residual is None else residual.data_ptr()
+    gn_args = ((None, None, 0) if gn is None else
+               (gn[0].data_ptr(), gn[1].data_ptr(), ACT_CODES[gn[2]]))
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            cout if (bias is not None and bias.dim() == 2) else 0,
-            None if residual is None else residual.data_ptr(),
-            out.data_ptr(), n, h, wd, cin, cout, ACT_CODES[act], DTYPE_CODES[dtype],
-            None if gn is None else gn[0].data_ptr(),
-            None if gn is None else gn[1].data_ptr(),
-            0 if gn is None else ACT_CODES[gn[2]],
-            ctypes.byref(variant), stream,
-        )
+        if variant == "wgmma_bf16":
+            tile, plan, key = _wgmma_route(n, h, wd, cin, cout, gn is not None)
+            ws = (torch.empty((plan.splits, n * h * wd, cout), dtype=torch.float32, device=dev)
+                  if plan.splits > 1 else None)
+            code = function("st_conv3x3_wgmma", _WGMMA_ARGTYPES)(
+                x.data_ptr(), w.data_ptr(), *bias_args, res_ptr, out.data_ptr(),
+                None if ws is None else ws.data_ptr(), n, h, wd, cin, cout, ACT_CODES[act],
+                *gn_args, tile.tw, tile.th, tile.tb, plan.bn, plan.splits, stream)
+            check(code, "st_conv3x3_wgmma")
+            return out, key
+        launched = ctypes.c_int(-1)
+        code = function("st_conv3x3", _CONV_ARGTYPES)(
+            x.data_ptr(), w.data_ptr(), *bias_args, res_ptr, out.data_ptr(),
+            n, h, wd, cin, cout, ACT_CODES[act], DTYPE_CODES[dtype], *gn_args,
+            ctypes.byref(launched), stream)
     check(code, "st_conv3x3")
-    return out, (f"{'wmma_bf16' if variant.value == 1 else 'scalar'} "
-                 f"b={n} {h}x{wd} {cin}->{cout}")
+    if launched.value != (1 if variant == "wmma_bf16" else 0):
+        raise ValueError(f"conv kernel {variant!r} does not take {dtype} operands")
+    return out, f"{variant} b={n} {h}x{wd} {cin}->{cout}"
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,

@@ -27,7 +27,8 @@ import math
 
 import torch
 
-from stabletriton_tpu_torch.kernels.build import DTYPE_CODES, LaunchCounter, check, function
+from stabletriton_tpu_torch.kernels.build import (
+    DTYPE_CODES, LaunchCounter, check, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 LAUNCHES = LaunchCounter()
@@ -115,7 +116,7 @@ def dropout(x: torch.Tensor, seed, *, rate: float = 0.1) -> torch.Tensor:
     if n == 0:
         return out
     fn = function("st_dropout", _DROPOUT_ARGTYPES)
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(xc.data_ptr(), out.data_ptr(), n, *_key(seed), _threshold(rate),
                   _scale(rate), DTYPE_CODES[x.dtype], stream)

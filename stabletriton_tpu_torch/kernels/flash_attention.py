@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from stabletriton_tpu_torch.kernels.build import LaunchCounter, check, function
+from stabletriton_tpu_torch.kernels.build import LaunchCounter, check, function, on_device
 from stabletriton_tpu_torch.ops.registry import register
 
 LOG2E = 1.4426950408889634
@@ -135,7 +135,7 @@ def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
     qscale = torch.tensor(scale * LOG2E, dtype=dtype).item()
     out = torch.empty((b, sq, c), dtype=dtype, device=dev)
     fn = function("st_flash_attention", _ATTN_ARGTYPES)
-    with torch.cuda.device(dev):
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(
             q_buf.data_ptr(), q_buf.stride(0), q_buf.stride(1), q_off,

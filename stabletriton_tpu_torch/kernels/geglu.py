@@ -31,7 +31,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from stabletriton_tpu_torch.kernels.build import DTYPE_CODES, LaunchCounter, check, function
+from stabletriton_tpu_torch.kernels.build import (
+    DTYPE_CODES, LaunchCounter, check, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 
@@ -85,7 +86,7 @@ def geglu(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
         vec = 1
     out = torch.empty(state.shape, dtype=state.dtype, device=state.device)
     fn = function("st_geglu", _GEGLU_ARGTYPES)
-    with torch.cuda.device(state.device):
+    with on_device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         code = fn(state.data_ptr(), gate.data_ptr(), rs, out.data_ptr(), rows, n,
                   DTYPE_CODES[state.dtype], vec, stream)

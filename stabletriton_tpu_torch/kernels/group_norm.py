@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from stabletriton_tpu_torch.kernels.build import (
-    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, function)
+    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 STATS_BLOCKS_PER_IMAGE = 132  # one stats block per SM for a single image
@@ -129,7 +129,7 @@ def moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     partial = torch.empty((2, n, nchunks, c), dtype=torch.float64, device=dev)
     sums = torch.empty((2, n, c), dtype=torch.float32, device=dev)
     fn = function("st_group_norm_stats", _STATS_ARGTYPES)
-    with torch.cuda.device(dev):
+    with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(x.data_ptr(), partial[0].data_ptr(), partial[1].data_ptr(),
                   sums[0].data_ptr(), sums[1].data_ptr(), n, h * w, c, nchunks,
@@ -155,7 +155,7 @@ def apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         raise ValueError("scale / shift must be contiguous float32 on x's device")
     out = torch.empty_like(x)
     fn = function("st_group_norm_apply", _APPLY_ARGTYPES)
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n,
                   h * w, c, ACT_CODES[act], DTYPE_CODES[x.dtype], _vec(x), stream)

@@ -30,7 +30,8 @@ import ctypes
 
 import torch
 
-from stabletriton_tpu_torch.kernels.build import DTYPE_CODES, LaunchCounter, check, function
+from stabletriton_tpu_torch.kernels.build import (
+    DTYPE_CODES, LaunchCounter, check, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 MAX_VECTORS_PER_LANE = 8  # the kernel's register budget: C <= 2048 bf16 / 1024 f32
@@ -86,7 +87,7 @@ def _row_norm(x, gamma, beta, eps, rmsnorm):
     rows = x.numel() // c
     out = torch.empty_like(x)
     fn = function("st_layer_norm", _LN_ARGTYPES)
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), None if gamma is None else gamma.data_ptr(),
                   None if beta is None else beta.data_ptr(), pdtype, out.data_ptr(),

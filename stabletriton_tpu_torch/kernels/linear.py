@@ -1,5 +1,5 @@
-"""Linear (GEMM + bias + activation) through the hand-written Hopper kernel
-``csrc/linear.cu``.
+"""Linear (GEMM + bias + activation) through the hand-written Hopper kernels
+of ``csrc/linear.cu``.
 
 Replaces the Pallas TPU kernel ``_linear_kernel`` of
 ``stabletriton_tpu/kernels/linear.py`` (K13): x (..., K) @ w (K, N) + b with
@@ -13,13 +13,15 @@ projections; the VAE decoder's f32 mid-attention adds (16384, 512) @ (512,
 What bounds it on the H100: the transformer GEMMs are compute-bound; the
 M = 2 ones read their weight once and do two FMAs a weight.
 
-What the design does about it: three kernels in one source, picked here by
-M and dtype. bf16 with M > 16 goes to a WMMA tensor-core kernel (128x128
-tiles, K staged through two shared-memory buffers by cp.async); M <= 16 to
-a skinny kernel whose blocks each read a 32-column slice of w once, with
-the K reduction split over 16 warps; f32 with M > 16 to an FMA-tiled kernel
-with no TF32 rounding. It is a first, correct GEMM: no wgmma, no TMA, so
-it runs behind cuBLAS (PERF.md); making it fast is later work.
+What the design does about it: four kernels in one source, picked here by
+:func:`variant`, a pure function of the shape, dtype and alignment that the
+launch key names. bf16 with M > 16 goes to the wgmma kernel (the TMA +
+wgmma mainloop of ``csrc/wgmma.cuh``, block tile 128 x 128 or 256 and a K
+split from the planner of ``wgmma_plan.py``) when TMA takes the operands (K
+and N multiples of 8, 16-byte aligned bases), else to the WMMA kernel;
+M <= 16 to a skinny kernel whose blocks each read a 32-column slice of w
+once, with the K reduction split over 16 warps; f32 with M > 16 to an
+FMA-tiled kernel with no TF32 rounding. The bias is read in its own dtype.
 
 CUDA C++ rather than Triton: the repo has one build route (``build.py``),
 one launch check and one library.
@@ -32,11 +34,14 @@ to the kernel or the wrapper raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
+from stabletriton_tpu_torch.kernels import wgmma_plan
 from stabletriton_tpu_torch.kernels.build import (
-    ACT_CODES, DTYPE_CODES, LaunchCounter, check, function)
+    ACT_CODES, DTYPE_CODES, LaunchCounter, check, function, on_device)
 from stabletriton_tpu_torch.ops.reference import apply_activation
 from stabletriton_tpu_torch.ops.registry import register
 
@@ -46,7 +51,11 @@ SKINNY_MAX_M = 16  # rows the skinny kernel takes (csrc/linear.cu SKINNY_MAX_M)
 # the kernel's variant codes in st_linear
 _VARIANTS = {"scalar_f32": 0, "wmma_bf16": 1, "skinny_f32": 2, "skinny_bf16": 2}
 
-_LINEAR_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# st_linear(x, w, bias, bias_dtype, out, M, N, K, act, dtype, variant, stream)
+_LINEAR_ARGTYPES = [_P, _P, _P, _I, _P] + [_I] * 6 + [_P]
+# st_linear_wgmma(x, w, bias, bias_dtype, out, ws, M, N, K, act, bn, splits, stream)
+_WGMMA_ARGTYPES = [_P, _P, _P, _I, _P, _P] + [_I] * 6 + [_P]
 
 
 def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
@@ -62,19 +71,65 @@ def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
     return apply_activation(out, act).to(x.dtype).reshape(*x.shape[:-1], n)
 
 
-def variant(m: int, dtype: torch.dtype) -> str:
-    """The kernel that takes an (m, K) @ (K, N) GEMM of ``dtype``."""
+def variant(m: int, k: int, n: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The kernel that takes an (m, k) @ (k, n) GEMM of ``dtype``; ``aligned``:
+    x's and w's bases are 16-byte aligned."""
     name = "bf16" if dtype == torch.bfloat16 else "f32"
     if m <= SKINNY_MAX_M:
         return f"skinny_{name}"
-    return "wmma_bf16" if dtype == torch.bfloat16 else "scalar_f32"
+    if dtype != torch.bfloat16:
+        return "scalar_f32"
+    return "wgmma_bf16" if wgmma_plan.gemm_fits(m, k, n, aligned) else "wmma_bf16"
+
+
+@functools.lru_cache(maxsize=None)
+def _route(name: str, m: int, k: int, n: int, bias: bool,
+           act: str | None) -> tuple[wgmma_plan.Plan | None, str]:
+    """The launch of kernel ``name`` at one shape: the wgmma kernel's plan
+    and the launch key; cached, since the eager step launches hundreds of
+    GEMMs."""
+    head = f"{name} m={m} k={k} n={n} bias={int(bias)} act={act}"
+    if name == "wgmma_bf16":
+        plan = wgmma_plan.gemm_plan(m, k, n)
+        return plan, f"{head} bn={plan.bn} split={plan.splits}"
+    return None, head
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, act: str | None,
+            name: str) -> tuple[torch.Tensor, str]:
+    """Launch kernel ``name`` on contiguous CUDA operands x (..., K), w (K, N)
+    of one dtype and b (N,) or None; x is read as its (M, K) rows and the
+    output (..., N) is made in its final shape, so no reshape costs host
+    time. Returns the output and the launch key."""
+    k, n = w.shape
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    plan, key = _route(name, m, k, n, b is not None, act)
+    out = torch.empty((*lead, n), dtype=x.dtype, device=x.device)
+    bias_args = (None, 0) if b is None else (b.data_ptr(), DTYPE_CODES[b.dtype])
+    with on_device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if plan is not None:
+            ws = (torch.empty((plan.splits, m, n), dtype=torch.float32, device=x.device)
+                  if plan.splits > 1 else None)
+            code = function("st_linear_wgmma", _WGMMA_ARGTYPES)(
+                x.data_ptr(), w.data_ptr(), *bias_args, out.data_ptr(),
+                None if ws is None else ws.data_ptr(), m, n, k, ACT_CODES[act], plan.bn,
+                plan.splits, stream)
+        else:
+            code = function("st_linear", _LINEAR_ARGTYPES)(
+                x.data_ptr(), w.data_ptr(), *bias_args, out.data_ptr(), m, n, k,
+                ACT_CODES[act], DTYPE_CODES[x.dtype], _VARIANTS[name], stream)
+    check(code, "st_linear_wgmma" if plan is not None else "st_linear")
+    return out, key
 
 
 @register("linear", "cuda")
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
            act: str | None = None) -> torch.Tensor:
     """x (..., K) @ w (K, N) + b (N,), then ``act`` (None, "silu" or "gelu").
-    x is flattened to (M, K) and copied only if it is not contiguous."""
+    x is read as its (M, K) rows and copied only if it is not contiguous;
+    the bias is read in its own dtype (float32 or bfloat16)."""
     if act not in ACT_CODES:
         raise ValueError(f"linear kernel takes act in {list(ACT_CODES)}, got {act!r}")
     k = x.shape[-1]
@@ -83,34 +138,27 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     n = w.shape[1]
     if b is not None and tuple(b.shape) != (n,):
         raise ValueError(f"bias {tuple(b.shape)} is not ({n},)")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return linear_plain(x, w, b, act=act)
-    if x.dtype not in DTYPE_CODES:
-        raise ValueError(f"linear kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in DTYPE_CODES or (b is not None and b.dtype not in DTYPE_CODES):
+        raise ValueError(f"linear kernel takes float32 or bfloat16, got {x.dtype}"
+                         + ("" if b is None else f" with a {b.dtype} bias"))
     if w.device != x.device or (b is not None and b.device != x.device):
         raise ValueError("linear operands lie on different devices")
-    x2 = x.reshape(-1, k)
-    if not x2.is_contiguous():
-        x2 = x2.contiguous()
-    w = w.to(x.dtype)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if w.dtype != x.dtype:
+        w = w.to(x.dtype)
     if not w.is_contiguous():
         w = w.contiguous()
-    bias = None if b is None else b.to(torch.float32).contiguous()
-    m = x2.shape[0]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if b is not None and not b.is_contiguous():
+        b = b.contiguous()
+    m = math.prod(x.shape[:-1])
     if m == 0 or n == 0:
-        return out.reshape(*x.shape[:-1], n)
+        return torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     if max(m, n, k) >= 2**31:
         raise ValueError(f"linear kernel takes dims below 2^31, got ({m}, {k}) @ ({k}, {n})")
-    name = variant(m, x.dtype)
-    vec = int(name == "wmma_bf16" and k % 8 == 0 and n % 8 == 0
-              and x2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    fn = function("st_linear", _LINEAR_ARGTYPES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x2.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-                  out.data_ptr(), m, n, k, ACT_CODES[act], DTYPE_CODES[x.dtype],
-                  _VARIANTS[name], vec, stream)
-    check(code, "st_linear")
-    LAUNCHES.add(f"{name} m={m} k={k} n={n} bias={int(b is not None)} act={act} vec={vec}")
-    return out.reshape(*x.shape[:-1], n)
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    out, key = _launch(x, w, b, act, variant(m, k, n, x.dtype, aligned))
+    LAUNCHES.add(key)
+    return out

@@ -1,0 +1,137 @@
+"""Tile width, pixel tile and K split of the Hopper wgmma kernels
+(``csrc/wgmma.cuh``: ``linear_wgmma_bf16``, ``conv_wgmma_bf16``).
+
+A pure function of the shape: the same shape always gets the same plan, so
+a launch repeats bit for bit and the CPU tests cover every choice. Plans are
+cached by shape: the eager step launches ~550 GEMMs and convs, and the
+search costs tens of microseconds of host time.
+
+A block computes a 128-row output tile of width ``bn`` (128 or 256) over a
+share of the K steps (64 wide); one block runs on each of the card's 132
+SMs at a time (two at width 128, to overlap one block's epilogue with the
+other's mainloop). Where the output tiles alone leave SMs idle (SDXL's
+(2048, ., 1280) GEMMs and 32^2 convs: 160 tiles, 1.2 waves; the cross K/V
+precompute: 40 tiles; SD1.5's 8^2 conv: 10 tiles) the planner splits K
+over blocks, which write f32 partials that a second kernel sums in split
+order. It picks the plan of least modelled time:
+
+    a launch
+    + waves x (a block's fill and epilogue + its K steps x one step's time),
+      or the bytes the call must move over the memory rate, if longer
+    + with a split, the reduction's launch and the partials' write and read.
+
+A step's time is its operations at the H100's bf16 peak (989 TFLOP/s over
+132 SMs) over the share of it the mainloop sustains. The shares and the
+fixed costs were fitted to the wgmma kernels' times at forced plans on an
+H100 80GB HBM3 at 700 W (``chip_smoke.py --plans`` prints them beside the
+planner's choice); they rank plans and are no measurement of any one call.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+
+SMS = 132                  # H100 SXM streaming multiprocessors
+BM, BK = 128, 64           # the block tile's rows and K step (csrc/wgmma.cuh)
+WIDTHS = (128, 256)        # the block tile's widths
+MAX_SPLITS = 16
+PEAK_FLOPS = 989e12        # bf16 dense tensor-core rate
+MEMORY_BYTES_PER_S = 3.35e12
+# fitted (see above): the mainloop's share of the peak, and a block's fill
+# and epilogue (at width 128 two blocks share an SM and half hide it)
+SUSTAINED = {128: 0.73, 256: 0.93}
+BLOCK_SECONDS = {128: 2.3e-6, 256: 7.5e-6}
+LAUNCH_SECONDS, REDUCE_SECONDS = 4e-6, 3e-6
+# dynamic shared memory the GroupNorm prologue's (scale, shift) staging may
+# take beside its rings (csrc/conv3x3.cu conv_gn_wgmma_bf16: 4 B stages of
+# 16 KB, 2 halo stages of at most 25 KB, 12 barriers; 227 KB in all)
+GN_STAGING_BYTES = 232448 - (1024 + 4 * BK * 128 * 2 + 2 * 25600 + 16 * 6)
+
+
+@dataclass(frozen=True)
+class Plan:
+    bn: int      # block tile width
+    splits: int  # blocks sharing one output tile's K steps
+
+
+@dataclass(frozen=True)
+class ConvTile:
+    tw: int  # pixels across
+    th: int  # rows
+    tb: int  # images: tw * th * tb == BM
+
+    def counts(self, b: int, h: int, w: int) -> tuple[int, int, int]:
+        """Tiles across W, H and the batch."""
+        return math.ceil(w / self.tw), math.ceil(h / self.th), math.ceil(b / self.tb)
+
+
+def split_ranges(steps: int, splits: int) -> list[tuple[int, int]]:
+    """The K steps [start, stop) of each split, as the kernels take them."""
+    return [(z * steps // splits, (z + 1) * steps // splits) for z in range(splits)]
+
+
+def plan(m_tiles: int, n: int, steps: int, out_rows: int, bytes_moved: int,
+         widths: tuple[int, ...] = WIDTHS) -> Plan:
+    """The plan of least modelled time for ``m_tiles`` row tiles, ``n``
+    output columns and ``steps`` K steps; ``out_rows`` x ``n`` outputs."""
+    best = None
+    for bn in widths:
+        n_tiles = math.ceil(n / bn)
+        step_seconds = BM * bn * BK * 2 / (PEAK_FLOPS * SUSTAINED[bn] / SMS)
+        for splits in range(1, min(steps, MAX_SPLITS) + 1):
+            waves = math.ceil(m_tiles * n_tiles * splits / SMS)
+            seconds = LAUNCH_SECONDS + max(
+                waves * (BLOCK_SECONDS[bn] + math.ceil(steps / splits) * step_seconds),
+                bytes_moved / MEMORY_BYTES_PER_S)
+            if splits > 1:
+                seconds += (REDUCE_SECONDS
+                            + 2 * splits * out_rows * n * 4 / MEMORY_BYTES_PER_S)
+            key = (seconds, splits, bn)
+            if best is None or key < best:
+                best = key
+    return Plan(bn=best[2], splits=best[1])
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m: int, k: int, n: int) -> Plan:
+    """The plan of an (m, k) @ (k, n) bf16 GEMM."""
+    return plan(math.ceil(m / BM), n, math.ceil(k / BK), m, (m * k + k * n + m * n) * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tile(b: int, h: int, w: int) -> ConvTile:
+    """The 128-pixel tile of a (b, h, w) image batch: 16 x 8 pixels where
+    the image is wider than 8, else 8 x 8 pixels of two images (SD1.5's 8^2
+    level: one tile for the batch)."""
+    tw = 16 if w > 8 else 8
+    return ConvTile(tw, 8, BM // (tw * 8))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int, *,
+              gn: bool = False) -> tuple[ConvTile, Plan]:
+    """The pixel tile and plan of a 3x3 conv; the GroupNorm prologue runs at
+    width 128 only."""
+    tile = conv_tile(b, h, w)
+    m_tiles = math.prod(tile.counts(b, h, w))
+    steps = 9 * math.ceil(cin / BK)
+    moved = (b * h * w * (cin + cout) + 9 * cin * cout) * 2
+    return tile, plan(m_tiles, cout, steps, b * h * w, moved, (128,) if gn else WIDTHS)
+
+
+def gemm_fits(m: int, k: int, n: int, aligned: bool) -> bool:
+    """Whether the wgmma GEMM takes the shape: TMA needs 16-byte aligned
+    bases and 16-byte row strides (k % 8 == n % 8 == 0 in bf16). The grid
+    walks the output tiles along blockIdx.x, so no row count is too many."""
+    return aligned and k > 0 and k % 8 == 0 and n % 8 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def conv_fits(b: int, h: int, w: int, cin: int, cout: int, aligned: bool, *,
+              gn: bool = False) -> bool:
+    """Whether the wgmma conv takes the shape (TMA's terms as for the GEMM;
+    with the prologue, the images' scale and shift must fit beside the ring)."""
+    return (aligned and cin % 8 == 0 and cout % 8 == 0
+            and (not gn or conv_tile(b, h, w).tb * cin * 8 <= GN_STAGING_BYTES))

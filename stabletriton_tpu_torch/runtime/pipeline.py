@@ -91,12 +91,17 @@ class SDXLPipeline:
     # single-encoder (SD1.x) configs: condition on the penultimate encoder
     # layer when >= 2, else on the final one
     clip_skip: int = 1
-    device: Any = "cpu"
+    # the card unless the caller asks for the CPU (the CPU-sized twins below
+    # do); with no CUDA device the default raises, it never falls back
+    device: Any = "cuda"
     _cache: dict[Any, Any] = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SDXLPipeline runs on the CUDA device and torch sees none; "
+                               "pass device='cpu' to run on the CPU")
         self.params = dict(self.params)
         unet = self.params["unet"]
         if self.compile_config.backend != "reference":
@@ -226,9 +231,11 @@ def tiny_configs():
 
 def make_tiny_pipeline(compile_config: CompileConfig | None = None, *,
                        params: dict | None = None, device="cpu") -> SDXLPipeline:
-    """A structurally complete but tiny pipeline (CPU tests). ``params``
-    (optional) replaces the seeded random init, e.g. with the JAX package's
-    weights through ``io.convert.params_from_numpy``."""
+    """A structurally complete but tiny pipeline, the CPU-sized test twin of
+    the full one: it runs on the CPU unless ``device`` names another (the
+    pipeline's own default is the card). ``params`` (optional) replaces the
+    seeded random init, e.g. with the JAX package's weights through
+    ``io.convert.params_from_numpy``."""
     ucfg, c1, c2, vcfg = tiny_configs()
     if params is None:
         params = {
@@ -270,9 +277,10 @@ def tiny_sd15_configs():
 
 def make_tiny_sd15_pipeline(compile_config: CompileConfig | None = None, *,
                             params: dict | None = None, device="cpu") -> SDXLPipeline:
-    """A tiny SD1.x-style pipeline (CPU tests): single text encoder, fixed
-    head count, no added conditioning. ``params`` (optional) replaces the
-    seeded random init, as in :func:`make_tiny_pipeline`."""
+    """A tiny SD1.x-style pipeline, the CPU-sized test twin: single text
+    encoder, fixed head count, no added conditioning; on the CPU unless
+    ``device`` names another. ``params`` (optional) replaces the seeded
+    random init, as in :func:`make_tiny_pipeline`."""
     ucfg, c1, vcfg = tiny_sd15_configs()
     if params is None:
         params = {

@@ -21,6 +21,7 @@ from stabletriton_tpu_torch.kernels import group_norm as tgn
 from stabletriton_tpu_torch.kernels import layer_norm as tln
 from stabletriton_tpu_torch.kernels import linear as tlinear
 from stabletriton_tpu_torch.kernels import time_embed as ttime
+from stabletriton_tpu_torch.kernels import wgmma_plan as twp
 
 
 @pytest.fixture
@@ -269,19 +270,41 @@ def _new_keys(counter, before):
             if n != before.get(k, 0)}
 
 
+@pytest.fixture
+def force_plan(monkeypatch):
+    """Replaces a planner function of wgmma_plan for one test; the wrappers'
+    per-shape route caches are cleared before and after, so no forced plan
+    outlives it."""
+    def force(name, fn):
+        monkeypatch.setattr(twp, name, fn)
+        tlinear._route.cache_clear()
+        tconv._wgmma_route.cache_clear()
+    yield force
+    tlinear._route.cache_clear()
+    tconv._wgmma_route.cache_clear()
+
+
+def _linear_key(kernel, m, k, n, bias, act):
+    head = f"{kernel} m={m} k={k} n={n} bias={int(bias)} act={act}"
+    if kernel == "wgmma_bf16":
+        plan = twp.gemm_plan(m, k, n)
+        return f"{head} bn={plan.bn} split={plan.splits}"
+    return head
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,m,k,n,bias,act,kernel,vec", [
-    (torch.bfloat16, 300, 136, 200, True, None, "wmma_bf16", 1),    # ragged M and N tiles
-    (torch.bfloat16, 130, 37, 45, True, "gelu", "wmma_bf16", 0),    # K, N % 8: element loads
-    (torch.bfloat16, 70, 64, 4, False, "silu", "wmma_bf16", 0),     # N = 4: element loads
-    (torch.bfloat16, 154, 2816, 136, False, None, "wmma_bf16", 1),  # precompute-like, deep K
-    (torch.bfloat16, 2, 1280, 40, True, "silu", "skinny_bf16", 0),  # time MLP rows
-    (torch.bfloat16, 12, 33, 4, False, "gelu", "skinny_bf16", 0),
-    (torch.float32, 100, 70, 40, True, "gelu", "scalar_f32", 0),
-    (torch.float32, 65, 512, 130, True, None, "scalar_f32", 0),
-    (torch.float32, 16, 300, 77, True, "silu", "skinny_f32", 0),
+@pytest.mark.parametrize("dtype,m,k,n,bias,act,kernel", [
+    (torch.bfloat16, 300, 136, 200, True, None, "wgmma_bf16"),    # ragged M and N tiles
+    (torch.bfloat16, 130, 37, 45, True, "gelu", "wmma_bf16"),     # K, N % 8: element loads
+    (torch.bfloat16, 70, 64, 4, False, "silu", "wmma_bf16"),      # N = 4: element loads
+    (torch.bfloat16, 154, 2816, 136, False, None, "wgmma_bf16"),  # precompute-like, deep K
+    (torch.bfloat16, 2, 1280, 40, True, "silu", "skinny_bf16"),   # time MLP rows
+    (torch.bfloat16, 12, 33, 4, False, "gelu", "skinny_bf16"),
+    (torch.float32, 100, 70, 40, True, "gelu", "scalar_f32"),
+    (torch.float32, 65, 512, 130, True, None, "scalar_f32"),
+    (torch.float32, 16, 300, 77, True, "silu", "skinny_f32"),
 ])
-def test_gpu_linear_kernel_vs_plain(cuda_device, dtype, m, k, n, bias, act, kernel, vec):
+def test_gpu_linear_kernel_vs_plain(cuda_device, dtype, m, k, n, bias, act, kernel):
     """Every variant of K13 at ragged shapes, against its plain version,
     with the launch counted under its variant and shape."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
@@ -291,8 +314,7 @@ def test_gpu_linear_kernel_vs_plain(cuda_device, dtype, m, k, n, bias, act, kern
     before = dict(tlinear.LAUNCHES.by_key)
     out = tlinear.linear(x, w, b, act=act)
     torch.cuda.synchronize()
-    assert _new_keys(tlinear.LAUNCHES, before) == {
-        f"{kernel} m={m} k={k} n={n} bias={int(bias)} act={act} vec={vec}": 1}
+    assert _new_keys(tlinear.LAUNCHES, before) == {_linear_key(kernel, m, k, n, bias, act): 1}
     assert out.shape == (m, n) and out.dtype == dtype
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert _rel_err(out, tlinear.linear_plain(x, w, b, act=act)) <= tol
@@ -300,9 +322,9 @@ def test_gpu_linear_kernel_vs_plain(cuda_device, dtype, m, k, n, bias, act, kern
 
 @pytest.mark.gpu
 def test_gpu_linear_on_misaligned_operands(cuda_device):
-    """A strided view (x[..., 1:]) is copied to a contiguous one; a
-    contiguous view whose base is not 16-byte aligned takes the element
-    loads. Both are right."""
+    """A strided view (x[..., 1:]) is copied to a contiguous one, which TMA
+    takes; a contiguous view whose base is not 16-byte aligned goes to the
+    WMMA kernel's element loads. Both are right."""
     gen = torch.Generator(device=cuda_device).manual_seed(8)
     buf = torch.randn((3, 50, 129), generator=gen, device=cuda_device).to(torch.bfloat16)
     w = (torch.randn((128, 64), generator=gen, device=cuda_device) / 12).to(torch.bfloat16)
@@ -317,8 +339,107 @@ def test_gpu_linear_on_misaligned_operands(cuda_device):
     out2 = tlinear.linear(x2, w, act="silu")
     assert _rel_err(out2, tlinear.linear_plain(x2, w, act="silu")) <= 2e-2
     assert _new_keys(tlinear.LAUNCHES, before) == {
-        "wmma_bf16 m=150 k=128 n=64 bias=0 act=None vec=1": 1,
-        "wmma_bf16 m=150 k=128 n=64 bias=0 act=silu vec=0": 1}
+        _linear_key("wgmma_bf16", 150, 128, 64, False, None): 1,
+        "wmma_bf16 m=150 k=128 n=64 bias=0 act=silu": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn,splits", [(128, 1), (128, 2), (128, 3), (128, 9),
+                                       (256, 1), (256, 2), (256, 4)])
+@pytest.mark.parametrize("m,k,n,bias_dtype,act", [
+    (300, 584, 200, torch.bfloat16, "gelu"),  # ragged M, N; K = 9 steps, the last of 8
+    (64, 576, 8, torch.float32, None),        # N = 8: one 8-column chunk of a 64-wide box
+])
+def test_gpu_wgmma_linear_at_each_plan(cuda_device, force_plan, bn, splits, m, k, n,
+                                       bias_dtype, act):
+    """The wgmma GEMM at every tile width and split count, forced through
+    the planner: right, and the same bits in a second run (the splits meet
+    in a fixed order, no atomics)."""
+    force_plan("gemm_plan", lambda *shape: twp.Plan(bn, splits))
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=cuda_device) / k**0.5).to(torch.bfloat16)
+    b = torch.randn(n, generator=gen, device=cuda_device).to(bias_dtype)
+    before = dict(tlinear.LAUNCHES.by_key)
+    out = tlinear.linear(x, w, b, act=act)
+    again = tlinear.linear(x, w, b, act=act)
+    assert _new_keys(tlinear.LAUNCHES, before) == {
+        f"wgmma_bf16 m={m} k={k} n={n} bias=1 act={act} bn={bn} split={splits}": 2}
+    assert torch.equal(out, again)
+    assert _rel_err(out, tlinear.linear_plain(x, w, b, act=act)) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn,splits", [(128, 1), (128, 4), (256, 1), (256, 3), (128, 18)])
+def test_gpu_wgmma_conv_at_each_plan(cuda_device, force_plan, bn, splits):
+    """The wgmma conv with the per-batch (B, Cout) bias and a residual at
+    forced plans: two 64-channel chunks a tap (Cin 72), ragged tiles (13 x 17
+    images in 16 x 8 tiles), Cout 200 over widths of 128 and 256."""
+    tile = twp.conv_tile(2, 13, 17)
+    force_plan("conv_plan", lambda *a, **kw: (tile, twp.Plan(bn, splits)))
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn((2, 13, 17, 72), generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn((3, 3, 72, 200), generator=gen, device=cuda_device) / 25).to(torch.bfloat16)
+    bias = torch.randn((2, 200), generator=gen, device=cuda_device)
+    res = torch.randn((2, 13, 17, 200), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = dict(tconv.LAUNCHES.by_key)
+    out = tconv.conv3x3(x, w, bias, residual=res, act="silu")
+    again = tconv.conv3x3(x, w, bias, residual=res, act="silu")
+    assert _new_keys(tconv.LAUNCHES, before) == {
+        f"wgmma_bf16 b=2 13x17 72->200 tile=16x8x1 bn={bn} split={splits}": 2}
+    assert torch.equal(out, again)
+    ref = tconv.conv3x3_plain(x, w, bias, residual=res, act="silu")
+    assert _rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,cin,splits", [(8, 64, 1), (8, 1280, 9), (16, 320, 1), (16, 320, 5),
+                                           (16, 40, 3)])
+def test_gpu_wgmma_gn_conv_border(cuda_device, force_plan, hw, cin, splits):
+    """K8 on the wgmma kernel at 8 x 8 images (two to a tile) and 16 x 16
+    ones: a large shift makes normalize(0) far from 0, so a border pixel or
+    a channel past Cin (40: a 64-channel chunk with 24 empty) that escaped
+    the register mask would show."""
+    real = twp.conv_plan
+    force_plan("conv_plan", lambda *a, **kw: (real(*a, **kw)[0], twp.Plan(128, splits)))
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.randn((2, hw, hw, cin), generator=gen, device=cuda_device).to(torch.bfloat16)
+    scale = torch.rand((2, cin), generator=gen, device=cuda_device) + 0.5
+    shift = torch.randn((2, cin), generator=gen, device=cuda_device) + 4.0
+    w = (torch.randn((3, 3, cin, 64), generator=gen, device=cuda_device)
+         / (9 * cin) ** 0.5).to(torch.bfloat16)
+    bias = torch.randn((2, 64), generator=gen, device=cuda_device)
+    before = dict(tconv.GN_LAUNCHES.by_key)
+    out = tconv.gn_conv3x3(x, scale, shift, w, bias, gn_act="silu")
+    keys = _new_keys(tconv.GN_LAUNCHES, before)
+    assert len(keys) == 1 and next(iter(keys)).startswith("wgmma_bf16 ")
+    ref = tconv.gn_conv3x3_plain(x, scale, shift, w, bias, gn_act="silu")
+    assert _rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,center", [(16, -3.0), (16, 0.0), (8, -6.0)])
+def test_gpu_wgmma_gn_conv_operand_equals_unfused_pair(cuda_device, force_plan, hw, center):
+    """K8's normalised operand is the GroupNorm apply kernel's, bit for bit:
+    at Cin 64 (one channel chunk, so the taps sum in the plain conv's order)
+    and one plan for both, K8 equals K9's apply followed by the wgmma conv
+    exactly. Normalised values centred in SiLU's negative tail (down to -6),
+    where an approximate sigmoid would round differently, and images with
+    borders, which must read the normalised zero padding."""
+    real = twp.conv_plan
+    force_plan("conv_plan", lambda *a, **kw: (real(*a, **kw)[0], twp.Plan(128, 1)))
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.randn((2, hw, hw, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    scale = torch.rand((2, 64), generator=gen, device=cuda_device) + 0.5
+    shift = torch.randn((2, 64), generator=gen, device=cuda_device) + center
+    w = (torch.randn((3, 3, 64, 96), generator=gen, device=cuda_device) / 24).to(torch.bfloat16)
+    bias = torch.randn((2, 96), generator=gen, device=cuda_device)
+    before = dict(tconv.GN_LAUNCHES.by_key), dict(tconv.LAUNCHES.by_key)
+    fused = tconv.gn_conv3x3(x, scale, shift, w, bias, act="silu", gn_act="silu")
+    pair = tconv.conv3x3(tgn.apply(x, scale, shift, "silu"), w, bias, act="silu")
+    (k8,), (k6,) = _new_keys(tconv.GN_LAUNCHES, before[0]), _new_keys(tconv.LAUNCHES, before[1])
+    assert k8 == f"{k6} gn_act=silu" and k6.startswith("wgmma_bf16 ")
+    assert torch.equal(fused, pair)
 
 
 @pytest.mark.gpu

@@ -174,6 +174,22 @@ def test_txt2img_seeds_and_signature_cache():
         pipe.txt2img(ids, ids, height=30, width=SIZE, steps=1)
 
 
+def test_pipeline_runs_on_the_card_unless_told_otherwise():
+    """SDXLPipeline's device defaults to the card, read from the dataclass
+    without building a pipeline; with no card, building one on that default
+    raises (it never falls back to the CPU). The tiny twins stay on the CPU."""
+    default = {f.name: f.default for f in dataclasses.fields(tpipe.SDXLPipeline)}["device"]
+    assert torch.device(default).type == "cuda"
+    tiny = tpipe.make_tiny_pipeline()
+    assert tiny.device == torch.device("cpu")
+    assert tpipe.make_tiny_sd15_pipeline().device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tpipe.SDXLPipeline(unet_config=tiny.unet_config, clip_config=tiny.clip_config,
+                               clip2_config=tiny.clip2_config, vae_config=tiny.vae_config,
+                               params=tiny.params)
+
+
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['stabletriton_tpu'] = None\n"
             "import stabletriton_tpu_torch, stabletriton_tpu_torch.kernels\n"

@@ -1,0 +1,274 @@
+"""The wgmma kernels' host side on the CPU: routing, the tile / split
+planner, and the split-K summation order against the plain versions and the
+JAX package's Pallas kernels.
+
+A CUDA kernel has no interpret mode, so what the CPU can hold is what
+surrounds the kernels: which shapes and alignments reach ``wgmma_bf16``
+(``kernels/linear.py`` :func:`variant`, ``kernels/conv_direct.py``
+:func:`conv_variant`); that the plans of ``kernels/wgmma_plan.py`` cover
+every output once and every K step once, repeat themselves, and split the
+grids that leave SMs idle; and that summing f32 partials over the planned K
+ranges in split order (what ``splitk_reduce`` does) computes the function of
+the unsplit plain versions and of JAX's ``fused_linear`` and
+``conv3x3_direct`` (interpret mode). Tolerance 1e-4 of the largest output,
+float32: only the summation order differs. The kernels themselves run on
+the card in tests/test_torch_port_gpu.py.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stabletriton_tpu.kernels.conv_direct import conv3x3_direct
+from stabletriton_tpu.kernels.linear import fused_linear
+from stabletriton_tpu_torch.kernels import conv_direct as tconv
+from stabletriton_tpu_torch.kernels import linear as tlinear
+from stabletriton_tpu_torch.kernels import wgmma_plan as wp
+
+BF16 = torch.bfloat16
+
+# --------------------------------------------------------------------------
+# routing
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n,aligned,want", [
+    (8192, 640, 1920, True, "wgmma_bf16"),    # SDXL to_qkv
+    (154, 2048, 2560, True, "wgmma_bf16"),    # the cross K/V precompute
+    (17, 8, 8, True, "wgmma_bf16"),           # the smallest TMA shape above the skinny rows
+    (130, 37, 45, True, "wmma_bf16"),         # K, N not multiples of 8
+    (70, 64, 4, True, "wmma_bf16"),           # N = 4
+    (150, 128, 64, False, "wmma_bf16"),       # a base off 16 bytes
+    (300, 0, 64, True, "wmma_bf16"),          # K = 0: no TMA box
+    (16, 1280, 1280, True, "skinny_bf16"),
+    (2, 1280, 1280, False, "skinny_bf16"),
+])
+def test_linear_routes_bf16_by_tma_terms(m, k, n, aligned, want):
+    assert tlinear.variant(m, k, n, BF16, aligned) == want
+
+
+def test_linear_routes_f32_by_rows():
+    assert tlinear.variant(16384, 512, 512, torch.float32) == "scalar_f32"
+    assert tlinear.variant(16, 512, 512, torch.float32) == "skinny_f32"
+
+
+def test_linear_routes_past_the_grid_limit_to_wmma():
+    """The wgmma grid walks its output tiles along blockIdx.x, so rows past
+    CUDA's 65535-block limit on grid.y stay on wgmma; only what TMA cannot
+    take (here a misaligned base) goes to the WMMA kernel, at any row count."""
+    rows = (65535 + 1) * wp.BM
+    assert tlinear.variant(rows, 64, 64, BF16) == "wgmma_bf16"
+    assert tlinear.variant(rows - wp.BM, 64, 64, BF16) == "wgmma_bf16"
+    assert tlinear.variant(rows, 64, 64, BF16, aligned=False) == "wmma_bf16"
+    assert tconv.conv_variant((2, 2048, 2048, 64), 64, BF16) == "wgmma_bf16"
+
+
+# every bf16 3x3 conv of the SDXL 1024^2 UNet (CFG batch 2): conv_in and
+# conv_out go to WMMA, the other 36 (resnets, upsamplers) to wgmma
+SDXL_CONVS = [((2, 128, 128, 4), 320, "wmma_bf16"), ((2, 128, 128, 320), 4, "wmma_bf16"),
+              ((2, 128, 128, 320), 320, "wgmma_bf16"), ((2, 64, 64, 320), 640, "wgmma_bf16"),
+              ((2, 64, 64, 640), 640, "wgmma_bf16"), ((2, 32, 32, 640), 1280, "wgmma_bf16"),
+              ((2, 32, 32, 1280), 1280, "wgmma_bf16"), ((2, 32, 32, 2560), 1280, "wgmma_bf16"),
+              ((2, 64, 64, 1920), 640, "wgmma_bf16"), ((2, 128, 128, 960), 320, "wgmma_bf16"),
+              ((2, 8, 8, 1280), 1280, "wgmma_bf16"), ((2, 16, 16, 2560), 1280, "wgmma_bf16")]
+
+
+@pytest.mark.parametrize("shape,cout,want", SDXL_CONVS)
+def test_conv_routes_by_tma_terms(shape, cout, want):
+    assert tconv.conv_variant(shape, cout, BF16) == want
+    assert tconv.conv_variant(shape, cout, BF16, gn=True) == want
+    assert tconv.conv_variant(shape, cout, BF16, aligned=False) == "wmma_bf16"
+    assert tconv.conv_variant(shape, cout, torch.float32) == "scalar"
+
+
+def test_conv_prologue_routes_by_staging_room():
+    """The GroupNorm prologue stages (scale, shift) of the tile's images
+    beside the ring: Cin past what fits goes to the WMMA kernel."""
+    fits = wp.GN_STAGING_BYTES // 8  # channels at one image a tile
+    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8), 64, BF16, gn=True) == "wgmma_bf16"
+    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 64, BF16, gn=True) == "wmma_bf16"
+    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 64, BF16) == "wgmma_bf16"
+    # 8 x 8 images: two to a tile, half the channels
+    assert tconv.conv_variant((2, 8, 8, fits // 8 * 8), 64, BF16, gn=True) == "wmma_bf16"
+
+
+# --------------------------------------------------------------------------
+# the planner
+# --------------------------------------------------------------------------
+
+# (m, k, n) of every bf16 GEMM with M > 16 on the SDXL and SD1.5 paths
+GEMMS = [(8192, 640, 1920), (8192, 640, 640), (8192, 640, 5120), (8192, 2560, 640),
+         (2048, 1280, 3840), (2048, 1280, 1280), (2048, 1280, 10240), (2048, 5120, 1280),
+         (154, 2048, 2560), (154, 2048, 1280), (8192, 320, 960), (8192, 320, 320),
+         (8192, 1280, 320), (2048, 640, 640), (512, 1280, 1280), (128, 1280, 1280),
+         (154, 768, 640), (300, 136, 200), (17, 8, 8)]
+
+
+@pytest.mark.parametrize("m,k,n", GEMMS)
+def test_gemm_plan_covers_outputs_and_k_once(m, k, n):
+    plan = wp.gemm_plan(m, k, n)
+    assert plan == wp.gemm_plan(m, k, n)  # a pure function of the shape
+    assert plan.bn in wp.WIDTHS and 1 <= plan.splits <= wp.MAX_SPLITS
+    steps = math.ceil(k / wp.BK)
+    ranges = wp.split_ranges(steps, plan.splits)
+    covered = [s for a, b in ranges for s in range(a, b)]
+    assert covered == list(range(steps)) and all(b > a for a, b in ranges)
+    # the grid's blocks (blockIdx.x -> row tile, column tile as in
+    # wg::block_tile) cover every output tile once
+    m_tiles, n_tiles = math.ceil(m / wp.BM), math.ceil(n / plan.bn)
+    tiles = [divmod(bx, n_tiles) for bx in range(m_tiles * n_tiles)]
+    assert sorted(tiles) == [(i, j) for i in range(m_tiles) for j in range(n_tiles)]
+    rows = [r for t in range(m_tiles) for r in range(t * wp.BM, (t + 1) * wp.BM) if r < m]
+    cols = [c for t in range(n_tiles) for c in range(t * plan.bn, (t + 1) * plan.bn) if c < n]
+    assert rows == list(range(m)) and cols == list(range(n))
+
+
+def test_small_grids_get_a_split():
+    """Grids under one wave split K: SDXL's 32^2 convs (160 tiles of 128),
+    the 40-tile precompute and SD1.5's 8^2 and 16^2 convs (10 and 40 tiles).
+    SDXL's 160-tile ff out takes 80 tiles of width 256 instead (80 K steps
+    each: a split's partials would cost more than the idle SMs); the full
+    grids neither split nor widen."""
+    assert wp.conv_tile(2, 32, 32).counts(2, 32, 32) == (2, 4, 2)  # 16 row tiles
+    assert wp.conv_plan(2, 32, 32, 1280, 1280)[1].splits > 1
+    assert wp.gemm_plan(154, 2048, 2560).splits > 1
+    assert wp.conv_plan(2, 8, 8, 1280, 1280)[1].splits > 1
+    assert wp.conv_plan(2, 16, 16, 1280, 1280)[1].splits > 1
+    assert wp.gemm_plan(2048, 5120, 1280) == wp.Plan(256, 1)
+    assert wp.gemm_plan(8192, 640, 1920) == wp.Plan(128, 1)
+    assert wp.conv_plan(2, 128, 128, 320, 320)[1] == wp.Plan(128, 1)
+
+
+def test_prologue_plans_run_at_width_128():
+    for b, h, w, cin, cout in [(2, 32, 32, 2560, 1280), (2, 8, 8, 1280, 1280)]:
+        assert wp.conv_plan(b, h, w, cin, cout, gn=True)[1].bn == 128
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 128, 128), (2, 64, 64), (2, 32, 32), (2, 16, 16),
+                                   (2, 8, 8), (1, 8, 8), (2, 13, 17), (3, 5, 6), (1, 9, 40),
+                                   (2, 40, 7)])
+def test_conv_tiles_cover_every_pixel_once(b, h, w):
+    """The kernel's walk over pixel tiles (row tile -> x0, y0, b0, as in
+    conv_wgmma_bf16) reaches every output pixel exactly once."""
+    tile = wp.conv_tile(b, h, w)
+    assert tile.tw * tile.th * tile.tb == wp.BM
+    ntx, nty, ntb = tile.counts(b, h, w)
+    seen = np.zeros((b, h, w), np.int64)
+    for mt in range(ntx * nty * ntb):
+        x0, y0 = (mt % ntx) * tile.tw, (mt // ntx % nty) * tile.th
+        b0 = mt // (ntx * nty) * tile.tb
+        for row in range(wp.BM):
+            bb = b0 + row // (tile.th * tile.tw)
+            y, x = y0 + row % (tile.th * tile.tw) // tile.tw, x0 + row % tile.tw
+            if bb < b and y < h and x < w:
+                seen[bb, y, x] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("cin,cout", [(320, 320), (1280, 1280), (2560, 1280), (64, 96), (40, 8)])
+def test_conv_plan_covers_k_once(cin, cout):
+    tile, plan = wp.conv_plan(2, 16, 16, cin, cout)
+    assert (tile, plan) == wp.conv_plan(2, 16, 16, cin, cout)
+    steps = 9 * math.ceil(cin / wp.BK)
+    covered = [s for a, b in wp.split_ranges(steps, plan.splits) for s in range(a, b)]
+    assert covered == list(range(steps))
+
+
+# --------------------------------------------------------------------------
+# split-K summation order
+# --------------------------------------------------------------------------
+
+
+def _gemm_split_sum(x, w, b, act, splits):
+    """f32 partials over each split's K steps (64 wide), summed in split
+    order, then the epilogue: the function of linear_wgmma_bf16 +
+    splitk_reduce in plain PyTorch."""
+    k = x.shape[1]
+    total = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32)
+    for a, e in wp.split_ranges(math.ceil(k / wp.BK), splits):
+        part = torch.zeros_like(total)
+        for s in range(a, e):
+            ks = slice(s * wp.BK, min(k, (s + 1) * wp.BK))
+            part += x[:, ks].float() @ w[ks].float()
+        total += part
+    if b is not None:
+        total += b.float()
+    if act == "silu":
+        total = torch.nn.functional.silu(total)
+    elif act == "gelu":
+        total = torch.nn.functional.gelu(total)
+    return total
+
+
+def _conv_split_sum(x, w, bias, residual, act, splits):
+    """The same for the implicit-GEMM conv: K step kb is tap kb // chunks,
+    channels (kb % chunks) * 64 ... + 64 of the zero-padded input."""
+    bsz, h, wd, cin = x.shape
+    chunks = math.ceil(cin / wp.BK)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    total = torch.zeros((bsz, h, wd, w.shape[3]), dtype=torch.float32)
+    for a, e in wp.split_ranges(9 * chunks, splits):
+        part = torch.zeros_like(total)
+        for kb in range(a, e):
+            tap, c = divmod(kb, chunks)
+            ky, kx = divmod(tap, 3)
+            cs = slice(c * wp.BK, min(cin, (c + 1) * wp.BK))
+            part += xp[:, ky:ky + h, kx:kx + wd, cs] @ w[ky, kx, cs].float()
+        total += part
+    total += bias.float()[:, None, None, :] if bias.dim() == 2 else bias.float()
+    if residual is not None:
+        total += residual.float()
+    return torch.nn.functional.silu(total) if act == "silu" else total
+
+
+def _rel(a, b):
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max())
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_gemm_split_sum_matches_plain_and_pallas(splits, act):
+    rng = np.random.default_rng(50 + splits)
+    m, k, n = 40, 300, 24   # K = 4 steps of 64 and a ragged fifth
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / math.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    got = _gemm_split_sum(xt, wt, bt, act, splits)
+    assert _rel(got, tlinear.linear_plain(xt, wt, bt, act=act)) <= 1e-4
+    pallas = fused_linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), act=act, interpret=True)
+    assert _rel(got, pallas) <= 1e-4
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 9])
+@pytest.mark.parametrize("batch_bias", [False, True])
+def test_conv_split_sum_matches_plain_and_pallas(splits, batch_bias):
+    rng = np.random.default_rng(60 + splits)
+    bsz, h, wd, cin, cout = 2, 6, 7, 72, 16   # two channel chunks a tap, 18 K steps
+    x = rng.standard_normal((bsz, h, wd, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) / math.sqrt(9 * cin)).astype(np.float32)
+    bias = rng.standard_normal((bsz, cout) if batch_bias else (cout,)).astype(np.float32)
+    res = rng.standard_normal((bsz, h, wd, cout)).astype(np.float32)
+    xt, wt, bt, rt = (torch.from_numpy(a) for a in (x, w, bias, res))
+    got = _conv_split_sum(xt, wt, bt, rt, "silu", splits)
+    assert _rel(got, tconv.conv3x3_plain(xt, wt, bt, residual=rt, act="silu")) <= 1e-4
+    pallas = conv3x3_direct(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                            residual=jnp.asarray(res), act="silu", interpret=True)
+    assert _rel(got, pallas) <= 1e-4
+
+
+def test_bias_dtype_reaches_the_plain_versions_unchanged():
+    """The wrappers no longer cast a bf16 bias to f32 per call; on the CPU
+    the plain versions add it in f32 (bf16 -> f32 is exact), so a bf16 bias
+    and its f32 copy give the same bits."""
+    rng = np.random.default_rng(70)
+    x = torch.from_numpy(rng.standard_normal((20, 32)).astype(np.float32)).to(BF16)
+    w = torch.from_numpy(rng.standard_normal((32, 16)).astype(np.float32)).to(BF16)
+    b = torch.from_numpy(rng.standard_normal(16).astype(np.float32)).to(BF16)
+    assert torch.equal(tlinear.linear(x, w, b), tlinear.linear(x, w, b.float()))
+    xc = torch.from_numpy(rng.standard_normal((1, 5, 5, 8)).astype(np.float32)).to(BF16)
+    wc = torch.from_numpy(rng.standard_normal((3, 3, 8, 8)).astype(np.float32) / 8).to(BF16)
+    assert torch.equal(tconv.conv3x3(xc, wc, b[:8]), tconv.conv3x3(xc, wc, b[:8].float()))
