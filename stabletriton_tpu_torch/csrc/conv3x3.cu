@@ -22,7 +22,7 @@
 // image stay exactly 0: the conv pads the NORMALIZED input with zeros, and
 // normalize(0) != 0.
 //
-// Four kernels:
+// Five kernels:
 //   conv_wgmma_bf16  - bf16 with Cin % 8 == 0, Cout % 8 == 0 and 16-byte
 //                      aligned operands: the Hopper mainloop of wgmma.cuh.
 //                      The A operand is one TMA box per (tap, 64-channel
@@ -43,14 +43,34 @@
 //   conv_wmma_bf16   - bf16 shapes TMA cannot take (conv_in's Cin = 4,
 //                      conv_out's Cout = 4): WMMA 16x16x16, 128x128 block
 //                      tile, 8 warps of 32x64, the SAME padding by index.
+//   conv_wgmma_tf32x3 - f32 with Cin % 8 == 0 (every 3x3 conv of the VAE
+//                      decoder but conv_in): the same TMA + wgmma shape in
+//                      3xTF32. The weight comes prepared by the wrapper as
+//                      two K-major (Cout_pad, 9*Cin) f32 matrices, big (low
+//                      13 mantissa bits cleared) and small (w - big), Cout
+//                      padded to a multiple of 8 with zero rows (tf32 wgmma
+//                      has no transpose, so the HWIO weight, N-contiguous,
+//                      cannot be B as it lies). A's split is made in
+//                      registers from the f32 tile. The three products
+//                      a_big w_big + a_big w_small + a_small w_big keep f32
+//                      accuracy (the dropped a_small w_small is ~2^-22 of a
+//                      product). Cout <= 8 (the decoder's conv_out, Cout 3)
+//                      runs an 8-wide block tile, so its 3 channels cost 8
+//                      columns, not 64.
 //   conv_scalar<T>   - f32 FMA, 64x64 block tile, 4x4 outputs per thread.
-//                      The VAE decoder's f32 convs (no TF32 rounding).
+//                      The f32 convs the tf32 kernel does not take (the
+//                      decoder's conv_in, Cin = 4).
 //
 // What bounds it on the H100: at the UNet's shapes (K = 9*Cin = 2880 to
 // 23040) the implicit GEMM is compute-bound, so the wgmma kernel keeps the
 // tensor cores fed from a TMA ring; at SD1.5's 8^2 level (128 output pixels
 // a batch) reading the weight once bounds it, and the K split spreads that
-// read over the SMs.
+// read over the SMs. The f32 VAE convs (K = 1152 to 4608) are bound by
+// operations: at the f32 FMA peak (67 TFLOP/s) a 1024^2 128->128 conv takes
+// 4.6 ms, and in 3xTF32 on the tensor cores (three tf32 products at 495
+// TFLOP/s) 1.9 ms; conv_out (128->3) is bound by reading x once (0.16 ms).
+// The tf32 kernel's stage reloads the block's weight share (big and small,
+// 32 KB at BN = 128) beside 16 KB of A, so L2 traffic is its second limit.
 
 #include <mma.h>
 
@@ -429,15 +449,6 @@ __device__ __forceinline__ uint4 gn_apply8(uint4 raw, const float2 (&ss)[8], int
   return raw;
 }
 
-// keeps A-fragment registers alive (and unmoved) until the wgmma that reads
-// them asynchronously has been waited for
-__device__ __forceinline__ void fence_frag(uint32_t (&f)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) asm volatile("" : "+r"(f[kk][v])::"memory");
-}
-
 __global__ void __launch_bounds__(wg::THREADS, 1)
     conv_gn_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_halo,
                        const __grid_constant__ CUtensorMap tmap_w, ConvWgmmaArgs a) {
@@ -597,7 +608,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     auto retire = [&](int it, uint32_t(&f)[4][4]) {
       wg::wgmma_wait<0>();
       wg::fence_acc(acc[0]);
-      fence_frag(f);
+      wg::fence_frag(f);
       if (threadIdx.x % 128 == 0 && it + GN_B_STAGES < nk)
         wg::bar_arrive(empty_b(it % GN_B_STAGES));
     };
@@ -622,6 +633,167 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
           return (b < a.B && y < a.H && x < a.W) ? ((long long)b * a.H + y) * a.W + x : -1;
         },
         a.e, a.splits > 1 ? a.ws + blockIdx.z * M * a.e.N : nullptr);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 wgmma kernel, 3xTF32: the block tile is 128 output pixels (the bf16
+// kernel's pixel tile) by BN output channels (8 for Cout <= 8, else 128);
+// K steps run over the 9 taps x ceil(Cin / 32) channel chunks (32 f32 = one
+// 128-byte swizzle row). A stage is the 4-D box of x at the tap's offset
+// (16 KB) and the two (BN x 32) boxes of the weight's big and small parts.
+// Each consumer warpgroup loads its 64 rows' A fragments from the stage
+// (ldmatrix: a 32-bit word is a pair of b16), splits each value a into
+// big = a with its low 13 mantissa bits cleared (exact in tf32) and small =
+// a - big (exact in f32), and runs a_big w_big + a_big w_small +
+// a_small w_big as register-A tf32 wgmmas (k = 8) into a stage's f32 sum,
+// which f32 adds then carry into the running sum.
+// ---------------------------------------------------------------------------
+constexpr int TF_STAGES = 4;
+constexpr int TF_A_BYTES = wg::BM * 128;  // 128 pixels x 32 channels
+
+template <int BN>
+__host__ __device__ constexpr int tf_stage_bytes() { return TF_A_BYTES + 2 * BN * 128; }
+template <int BN>
+__host__ __device__ constexpr int tf_smem_bytes() { return 1024 + TF_STAGES * tf_stage_bytes<BN>() + 16 * TF_STAGES; }
+
+struct ConvTf32Args {
+  const void* bias;          // (Cout,) or (B, Cout) of bias_dtype, or null
+  long long bias_bstride;    // 0: one bias; Cout: per batch
+  const float* residual;     // (B, H, W, Cout) or null
+  float* out;                // (B, H, W, Cout)
+  int B, H, W, Cin, Cout, bias_dtype, act;
+  int tw, th, tb, ntx, nty, n_tiles;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    conv_wgmma_tf32x3(const __grid_constant__ CUtensorMap tmap_x,
+                      const __grid_constant__ CUtensorMap tmap_big,
+                      const __grid_constant__ CUtensorMap tmap_small, ConvTf32Args a) {
+  constexpr int STAGE = tf_stage_bytes<BN>();
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t ring = (wg::smem_u32(smem) + 1023u) & ~1023u;
+  auto full = [&](int s) { return ring + TF_STAGES * STAGE + 8 * s; };
+  auto empty = [&](int s) { return full(TF_STAGES + s); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TF_STAGES; ++s) {
+      wg::bar_init(full(s), 1);
+      wg::bar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int mt, nt;
+  wg::block_tile(a.n_tiles, mt, nt);
+  const int n0 = nt * BN;
+  const int x0 = (mt % a.ntx) * a.tw;
+  const int y0 = (mt / a.ntx % a.nty) * a.th;
+  const int b0 = mt / (a.ntx * a.nty) * a.tb;
+  const int ncc = (a.Cin + 31) / 32;
+  const int nk = 9 * ncc;
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    if (threadIdx.x == 256) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % TF_STAGES, tap = it / ncc, c0 = (it - tap * ncc) * 32;
+        const int ky = tap / 3, kx = tap - 3 * ky;
+        const uint32_t st = ring + s * STAGE;
+        wg::bar_wait(empty(s), ((it / TF_STAGES) & 1) ^ 1);
+        wg::bar_expect_tx(full(s), STAGE);
+        wg::tma_load_4d(st, &tmap_x, full(s), c0, x0 + kx - 1, y0 + ky - 1, b0);
+        wg::tma_load_2d(st + TF_A_BYTES, &tmap_big, full(s), tap * a.Cin + c0, n0);
+        wg::tma_load_2d(st + TF_A_BYTES + BN * 128, &tmap_small, full(s), tap * a.Cin + c0, n0);
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  // the tile row whose 16-byte pieces this lane addresses for ldmatrix
+  const int lrow = wgi * 64 + warp * 16 + lane % 16;
+  // part: one stage's sum on the tensor cores; acc: the sum over stages in
+  // f32 adds, rounded to nearest (the tensor cores' own f32 accumulation
+  // rounds less well, and over K = 1152 .. 4608 that costs digits)
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % TF_STAGES;
+    const uint32_t st = ring + s * STAGE, wb = st + TF_A_BYTES, ws = wb + BN * 128;
+    wg::bar_wait(full(s), (it / TF_STAGES) & 1);
+    uint32_t big[4][4], small[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg::ldmatrix_x4(st + lrow * 128 + (((2 * kk + lane / 16) ^ (lrow & 7)) << 4), big[kk]);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const uint32_t x = big[kk][v];
+        big[kk][v] = x & 0xFFFFE000u;
+        small[kk][v] = __float_as_uint(__uint_as_float(x) - __uint_as_float(big[kk][v]));
+      }
+    }
+    wg::fence_frag(big);
+    wg::fence_frag(small);
+    wg::fence_acc(part);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = wg::desc_sw128(wb + kk * 32, 16, wg::SW_ROWS8);
+      wg::wgmma_tf32_rs(part, small[kk], db, kk);
+      wg::wgmma_tf32_rs(part, big[kk], wg::desc_sw128(ws + kk * 32, 16, wg::SW_ROWS8), 1);
+      wg::wgmma_tf32_rs(part, big[kk], db, 1);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_acc(part);
+    wg::fence_frag(big);
+    wg::fence_frag(small);
+    if (threadIdx.x % 128 == 0) wg::bar_arrive(empty(s));
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+  }
+
+  // epilogue: accumulator i lies at tile row 16 warp + lane / 4 + 8 ((i >> 1)
+  // & 1) and column 8 (i >> 2) + 2 (lane % 4) + (i & 1); bias, residual,
+  // SiLU in f32; columns at or past Cout (the zero rows of the padded
+  // weight) are not stored
+  const int per_img = a.th * a.tw;
+  const bool pairs = a.Cout % 2 == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wgi * 64 + warp * 16 + lane / 4 + 8 * r;
+    const int b = b0 + row / per_img;
+    const int y = y0 + row % per_img / a.tw, x = x0 + row % a.tw;
+    if (b >= a.B || y >= a.H || x >= a.W) continue;
+    const long long m = ((long long)b * a.H + y) * a.W + x;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane % 4);
+      if (n >= a.Cout) continue;
+      float v[2] = {acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]};
+      const int cnt = n + 1 < a.Cout ? 2 : 1;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (e == cnt) break;
+        if (a.bias) {
+          const long long o = (long long)b * a.bias_bstride + n + e;
+          v[e] += a.bias_dtype == 1
+                      ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[o])
+                      : static_cast<const float*>(a.bias)[o];
+        }
+        if (a.residual) v[e] += a.residual[m * a.Cout + n + e];
+        if (a.act == 1) v[e] = silu(v[e]);
+      }
+      float* dst = a.out + m * a.Cout + n;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+      } else {
+        dst[0] = v[0];
+        if (cnt == 2) dst[1] = v[1];
+      }
+    }
   }
 }
 
@@ -738,4 +910,71 @@ extern "C" int st_conv3x3_wgmma(const void* x, const void* w, const void* bias, 
   }
   if (code != 0 || splits == 1) return code;
   return wg::launch_reduce(ws, splits, e, stream);
+}
+
+// The f32 3xTF32 wgmma conv: x (B, H, W, Cin) f32 with Cin % 8 == 0;
+// w_big / w_small the (cout_pad, 9 * Cin) K-major f32 parts of the weight
+// (kernels/conv_direct.py tf32_split: big + small == w, big exact in tf32,
+// rows past Cout zero; cout_pad % 8 == 0); bias of bias_dtype with
+// bias_bstride as st_conv3x3; residual and out (B, H, W, Cout) f32. Bases
+// of x and the weight parts 16-byte aligned, residual and out 8-byte. The
+// pixel tile tw x th x tb (= 128). Returns a cudaError_t.
+extern "C" int st_conv3x3_tf32x3(const float* x, const float* w_big, const float* w_small,
+                                 const void* bias, int bias_dtype, long long bias_bstride,
+                                 const float* residual, float* out, int B, int H, int W, int Cin,
+                                 int Cout, int cout_pad, int act, int tw, int th, int tb,
+                                 void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w_big) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w_small) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(residual) % 8 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % 8 || Cout <= 0 || cout_pad < Cout ||
+      cout_pad % 8 || !aligned || act < 0 || act > 1 || bias_dtype < 0 || bias_dtype > 1 ||
+      tw < 1 || th < 1 || tb < 1 || tw > 256 || th > 256 || tb > 256 || tw * th * tb != wg::BM)
+    return (int)cudaErrorInvalidValue;
+  const int bn = cout_pad <= 8 ? 8 : 128;
+  CUtensorMap tx, tbig, tsmall;
+  const uint64_t xdims[4] = {(uint64_t)Cin, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+  const uint64_t xstrides[3] = {(uint64_t)Cin * 4, (uint64_t)W * Cin * 4,
+                                (uint64_t)H * W * Cin * 4};
+  const uint32_t xbox[4] = {32, (uint32_t)tw, (uint32_t)th, (uint32_t)tb};
+  const uint64_t wdims[2] = {9ull * Cin, (uint64_t)cout_pad};
+  const uint64_t wstrides[1] = {9ull * Cin * 4};
+  const uint32_t wbox[2] = {32, (uint32_t)bn};
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!wg::make_map(&tx, x, 4, xdims, xstrides, xbox, f32) ||
+      !wg::make_map(&tbig, w_big, 2, wdims, wstrides, wbox, f32) ||
+      !wg::make_map(&tsmall, w_small, 2, wdims, wstrides, wbox, f32))
+    return (int)cudaErrorInvalidValue;
+  const int ntx = (W + tw - 1) / tw, nty = (H + th - 1) / th;
+  const long long m_tiles = (long long)ntx * nty * ((B + tb - 1) / tb);
+  const int n_tiles = (cout_pad + bn - 1) / bn;
+  if (m_tiles * n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const ConvTf32Args a{bias, bias_bstride, residual, out, B, H, W, Cin, Cout, bias_dtype, act,
+                       tw, th, tb, ntx, nty, n_tiles};
+  const dim3 grid((unsigned)(m_tiles * n_tiles));
+  if (bn == 8) {
+    static bool set = false;
+    if (!set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          conv_wgmma_tf32x3<8>, cudaFuncAttributeMaxDynamicSharedMemorySize, tf_smem_bytes<8>());
+      if (err != cudaSuccess) return (int)err;
+      set = true;
+    }
+    conv_wgmma_tf32x3<8><<<grid, wg::THREADS, tf_smem_bytes<8>(), stream>>>(tx, tbig, tsmall, a);
+  } else {
+    static bool set = false;
+    if (!set) {
+      const cudaError_t err = cudaFuncSetAttribute(conv_wgmma_tf32x3<128>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   tf_smem_bytes<128>());
+      if (err != cudaSuccess) return (int)err;
+      set = true;
+    }
+    conv_wgmma_tf32x3<128><<<grid, wg::THREADS, tf_smem_bytes<128>(), stream>>>(tx, tbig,
+                                                                                tsmall, a);
+  }
+  return (int)cudaGetLastError();
 }

@@ -7,7 +7,7 @@
 //   _single_kv_kernel_bh     (K4, head-major, whole KV in one block),
 //   _single_kv_kernel        (K5, all heads, tiny KV of at most 128 keys).
 // JAX splits K1-K4 by VMEM and lane packing; on Hopper one templated kernel
-// (attn_wmma_bf16<D>) computes all four in bf16. The routing rule that names
+// (attn_wgmma_bf16<D>) computes all four in bf16. The routing rule that names
 // each launch's class lives in kernels/flash_attention.py.
 //
 // Numerics follow the JAX kernels: q is multiplied by scale*log2(e) (the
@@ -23,35 +23,74 @@
 // of a fused (B, Sk, 2C) KV buffer: no split copies are made.
 //
 // Three kernels:
-//   attn_wmma_bf16<D>    - bf16, D in {40, 64, 80, 160}: tensor-core WMMA
-//                          16x16x16 tiles, f32 accumulate, a loop over KV tiles
-//                          of 64 keys. K1-K4.
+//   attn_wgmma_bf16<D>   - bf16, D in {40, 64, 80, 160}: TMA + wgmma, a loop
+//                          over KV tiles of 64 keys. K1-K4.
 //   attn_tiny_kv_bf16<D> - bf16, the same D, Sk <= 128: the head's whole K and
 //                          V staged once, one score pass, no KV loop. K5.
 //   attn_scalar_f32<D>   - f32, D in {64, 512}: FMA on f32 tiles in shared
 //                          memory (the VAE's d=512 needs full f32 products;
 //                          TF32 would lose digits). K3 in f32.
 //
-// What bounds them on the H100. The bf16 kernels do 4*D FLOPs per score
-// element against a handful of softmax operations (compare, exp2, convert,
-// shared-memory round trip of the f32 score tile), so at D <= 160 they are
-// bound by that per-score work and by shared-memory traffic, not by the
-// tensor cores; the score matrix never reaches device memory. D = 40 is
-// staged padded to 48 with zero columns (WMMA tiles are 16 wide): zero q and
-// k columns leave the scores unchanged, zero v columns give output columns
-// that are never stored, and 20% of each product is padding. The tiny-KV
-// kernel at Sk = 77 reads q once and writes the output once (5.2 MB each at
-// B = 2, Sq = 4096, C = 320); its products are small and the bound is the
-// per-block fixed work (staging a head's K and V, the softmax pass), which
-// it keeps to one pass over the key fragments up to the last real key (5 of
-// the 8 fragments of its 128-row K buffer at Sk = 77). At D = 160 its
-// shared memory (159 KB) leaves one block per SM.
-// The scalar f32 kernel is bound by f32 FMA throughput.
+// What bounds them on the H100. Attention does 4*D FLOPs per score element
+// against one exp2 on the SFU (16 a clock an SM against ~4,000 bf16 FLOPs
+// on the tensor cores), so at D = 64 the exponentials take as long as both
+// products; the score matrix never reaches device memory. The operations
+// bound of chip_smoke.py counts only the products, at the bf16 tensor-core
+// peak.
+//
+// attn_wgmma_bf16<D>: a block is 128 query rows of one (batch, head): two
+// consumer warpgroups of 64 rows and one producer warp (288 threads). The
+// producer loads the block's Q tile once and then keeps K and V tiles of 64
+// keys in flight through a ring of 2-4 stages (TMA, 128-byte swizzle, full /
+// empty mbarrier pairs; the ring depth shrinks as D grows so Q and the ring
+// fit in shared memory). Each consumer warpgroup computes its 64 x 64 score
+// tile S = Q K^T with wgmma into registers (Q and K both K-major in shared
+// memory: a K row is head-dim contiguous), takes p = exp2(min(s, 80)) on the
+// accumulator fragments, masks keys at or past Sk by index (TMA's zero fill
+// past Sk would give s = 0, p = 1), sums the unrounded p per row in
+// registers, rounds p to bf16 in registers and feeds it as the register-A
+// operand of O += P V (V MN-major through the transpose flag): no score or P
+// tile goes through shared memory. The shift-free softmax needs no running
+// max and no rescale, so O and the row sums accumulate across KV tiles; the
+// row sums are reduced over the quad of lanes sharing a row once, at the end.
+// At D <= 64 a block takes 96 registers a thread and 80 KB, so two blocks
+// fit an SM and four consumer warpgroups can interleave their exponentials
+// and products. (A second score buffer, to compute the next tile's S under
+// this tile's exponentials, took 156 registers, left one block an SM and
+// measured slower.)
+//
+// Head dims. Q, K and V are read as boxes of 64 columns (one 128-byte
+// swizzle row): NB = ceil(D / 64) boxes at the head's first column, so a box
+// also holds the next head's columns (or, past the operand's last column,
+// TMA's zeros). Q's columns at or past D are zeroed when Q is prescaled in
+// shared memory, so S = Q K^T sums over ceil(D / 16) k16 steps and the
+// extra K columns add exactly 0; O's columns at or past D are computed and
+// never stored. Padding cost: S over 48 columns at D = 40 (20%), none at 64,
+// 80 and 160; O over 64 NB columns, 60% at D = 40 and 80, 20% at 160.
+// Shared memory: Q 16 KB and a stage (K + V) 16 KB per box; 4 / 3 / 2
+// stages at NB = 1 / 2 / 3 (80 / 128 / 144 KB). Registers: O takes 32 NB
+// f32 a thread (96 at D = 160) beside the 32 of S and 16 of P.
+//
+// q's prescale: Q arrives by TMA as it lies and each consumer warpgroup
+// multiplies its 64 rows by qscale in place, rounding to bf16 (JAX's
+// q * asarray(scale * LOG2E, q.dtype)), before its first wgmma.
+//
+// attn_tiny_kv_bf16<D> (WMMA 16x16x16 tiles, 4 warps of 16 query rows)
+// stages the head dim padded to a multiple of 16 with zero columns (20% at
+// D = 40). At Sk = 77 it reads q once and writes the output once (5.2 MB
+// each at B = 2, Sq = 4096, C = 320); its products are small and the bound
+// is the per-block fixed work (staging a head's K and V, the softmax pass),
+// which it keeps to one pass over the key fragments up to the last real key
+// (5 of the 8 fragments of its 128-row K buffer at Sk = 77). At D = 160 its
+// shared memory (159 KB) leaves one block per SM. The scalar f32 kernel is
+// bound by f32 FMA throughput.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -185,15 +224,14 @@ attn_scalar_f32(Operand q, Operand k, Operand v, float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 WMMA kernels: 4 warps, BQ=64 query rows (16 per warp). A warp owns its
-// 16 rows through the whole kernel: scores, softmax, PV and the output. The
-// shift-free softmax needs no rescale, so the PV accumulator fragments stay in
-// registers across every KV tile (D/16 fragments: 10 at D=160, 80 registers
-// a thread). The head dim is staged padded to DP = round_up(D, 16).
+// bf16 WMMA kernel (K5): 4 warps, BQ=64 query rows (16 per warp). A warp owns
+// its 16 rows through the whole kernel: scores, softmax, PV and the output.
+// The PV accumulator fragments stay in registers (D/16 fragments: 10 at
+// D=160, 80 registers a thread). The head dim is staged padded to DP =
+// round_up(D, 16).
 // ---------------------------------------------------------------------------
 constexpr int WBQ = 64;
 constexpr int WTHREADS = 128;
-constexpr int LOOP_BK = 64;    // keys per tile of the KV loop (K1-K4)
 constexpr int TINY_BK = 128;   // the tiny-KV kernel's whole key buffer (K5)
 
 using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -329,52 +367,208 @@ __device__ __forceinline__ __nv_bfloat16* out_row(__nv_bfloat16* out, int Sq, in
                  : nullptr;
 }
 
-// K1-K4: KV loop over tiles of LOOP_BK keys.
+// ---------------------------------------------------------------------------
+// attn_wgmma_bf16<D> (K1-K4): see the note at the top
+// ---------------------------------------------------------------------------
+constexpr int GBQ = 128;  // query rows a block: two consumer warpgroups of 64
+constexpr int GBK = 64;   // keys a KV tile
+
 template <int D>
-__global__ void __launch_bounds__(WTHREADS)
-attn_wmma_bf16(Operand q, Operand k, Operand v, __nv_bfloat16* __restrict__ out,
-               int Sq, int Sk, int H, float qscale) {
-  constexpr int BK = LOOP_BK, LDH = Head<D>::LDH, LDP = BK + 8, LDS = BK + 4;
-  extern __shared__ __align__(128) unsigned char wsmem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(wsmem);
-  __nv_bfloat16* Ks = Qs + WBQ * LDH;
-  __nv_bfloat16* Vs = Ks + BK * LDH;
-  __nv_bfloat16* Ps = Vs + BK * LDH;
-  float* Ss = reinterpret_cast<float*>(Ps + WBQ * LDP);
+struct Tiles {
+  static constexpr int NB = (D + 63) / 64;   // 64-column boxes across the head
+  static constexpr int KS = (D + 15) / 16;   // k16 steps of S = Q K^T
+  static constexpr int STAGES = NB == 1 ? 4 : NB == 2 ? 3 : 2;
+  static constexpr int Q_BOX = GBQ * 128;    // bytes of a box of the Q tile
+  static constexpr int KV_BOX = GBK * 128;   // bytes of a box of a K or V tile
+  static constexpr int Q_BYTES = NB * Q_BOX;
+  static constexpr int STAGE = 2 * NB * KV_BOX;  // the K boxes, then the V boxes
+  // [pad to 1024][Q][STAGES x (K, V)][q_full, full[STAGES], empty[STAGES]]
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE + 8 * (1 + 2 * STAGES);
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * WBQ;
-  const __nv_bfloat16* kp = head_ptr(k, D);
-  const __nv_bfloat16* vp = head_ptr(v, D);
-  load_rows<D, true>(Qs, head_ptr(q, D), q.row_stride, q0, WBQ, Sq, qscale, tid);
+struct WgmmaArgs {
+  __nv_bfloat16* out;           // (B, Sq, H * D)
+  int Sq, Sk, H;
+  int q_col, k_col, v_col;      // the operands' first columns in their buffers
+  float qscale;
+};
 
-  const __nv_bfloat16* Qw = Qs + warp * 16 * LDH;
-  __nv_bfloat16* Pw = Ps + warp * 16 * LDP;
-  float* Sw = Ss + warp * 16 * LDS;
-  AccFrag oacc[Head<D>::NF];
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    attn_wgmma_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, WgmmaArgs a) {
+  using T = Tiles<D>;
+  extern __shared__ __align__(16) uint8_t gsmem[];
+  const uint32_t base = wg::smem_u32(gsmem);
+  const uint32_t qt = (base + 1023u) & ~1023u;
+  const uint32_t ring = qt + T::Q_BYTES;
+  const uint32_t q_full = ring + T::STAGES * T::STAGE;
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + T::STAGES + s); };
+  if (threadIdx.x == 0) {
+    wg::bar_init(q_full, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      wg::bar_init(full(s), 1);
+      wg::bar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int q0 = blockIdx.x * GBQ, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (a.Sk + GBK - 1) / GBK;
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    if (threadIdx.x == 256) {
+      wg::bar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < Head<D>::NF; ++n) wmma::fill_fragment(oacc[n], 0.f);
-
-  // softmax pass: lane -> row lane/2, half of the tile's key columns
-  const int prow = lane / 2;
-  const int pcol = (lane % 2) * (BK / 2);
-  float lpart = 0.f;
-
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();
-    load_rows<D, false>(Ks, kp, k.row_stride, k0, BK, Sk, 0.f, tid);
-    load_rows<D, false>(Vs, vp, v.row_stride, k0, BK, Sk, 0.f, tid);
-    __syncthreads();
+      for (int j = 0; j < T::NB; ++j)
+        wg::tma_load_3d(qt + j * T::Q_BOX, &tq, q_full, a.q_col + h * D + 64 * j, q0, b);
+      for (int it = 0; it < nt; ++it) {
+        const int s = it % T::STAGES;
+        const uint32_t kt = ring + s * T::STAGE;
+        wg::bar_wait(empty(s), ((it / T::STAGES) & 1) ^ 1);
+        wg::bar_expect_tx(full(s), T::STAGE);
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) score_fragment<D>(Sw + n * 16, LDS, Qw, Ks + n * 16 * LDH);
-    __syncwarp();
-    lpart += softmax_cols(Sw + prow * LDS, Pw + prow * LDP, pcol, BK / 2, Sk - k0);
-    __syncwarp();
-    pv_accumulate<D>(oacc, Pw, LDP, Vs, BK / 16);
+        for (int j = 0; j < T::NB; ++j) {
+          wg::tma_load_3d(kt + j * T::KV_BOX, &tk, full(s), a.k_col + h * D + 64 * j, it * GBK, b);
+          wg::tma_load_3d(kt + (T::NB + j) * T::KV_BOX, &tv, full(s), a.v_col + h * D + 64 * j,
+                          it * GBK, b);
+        }
+      }
+    }
+    return;
   }
 
-  const float l = lpart + __shfl_xor_sync(0xffffffffu, lpart, 1);
-  store_output<D>(oacc, Sw, LDS, l, out_row(out, Sq, H, D, q0 + warp * 16 + prow), lane);
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  // Q: this warpgroup's 64 rows times qscale, rounded to bf16, in place;
+  // columns at or past D zeroed. Piece i is 16 bytes: box i / 512, row
+  // (i / 8) % 64 of the warpgroup, physical chunk i % 8 (the 128-byte
+  // swizzle puts logical chunk c of row r at c ^ (r % 8)).
+  wg::bar_wait(q_full, 0);
+  for (int i = t; i < T::NB * 64 * 8; i += 128) {
+    const int j = i / 512, row = wgi * 64 + (i / 8) % 64, pc = i % 8;
+    const int col = 64 * j + 8 * (pc ^ (row & 7));
+    uint4* piece =
+        reinterpret_cast<uint4*>(gsmem + (qt - base) + j * T::Q_BOX + row * 128 + pc * 16);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (col < D) {
+      v = *piece;
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        h2[e] = __floats2bfloat162_rn(f.x * a.qscale, f.y * a.qscale);
+      }
+    }
+    *piece = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wgi) : "memory");
+
+  // accumulator i of an m64nN tile lies at row 16 warp + g + 8 ((i >> 1) & 1)
+  // and column 8 (i >> 2) + 2 c + (i & 1), g = lane / 4, c = lane % 4
+  float sacc[32], oacc[T::NB][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+#pragma unroll
+  for (int n = 0; n < T::NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[n][i] = 0.f;
+  float lsum[2] = {0.f, 0.f};  // rows g and g + 8: this thread's share
+  const uint32_t qw = qt + wgi * 64 * 128;
+  for (int it = 0; it < nt; ++it) {
+    const int s = it % T::STAGES;
+    const uint32_t kt = ring + s * T::STAGE, vt = kt + T::NB * T::KV_BOX;
+    wg::bar_wait(full(s), (it / T::STAGES) & 1);
+    wg::fence_acc(sacc);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < T::KS; ++kk)
+      wg::wgmma_ss_n64(sacc,
+                       wg::desc_sw128(qw + (kk / 4) * T::Q_BOX + (kk % 4) * 32, 16, wg::SW_ROWS8),
+                       wg::desc_sw128(kt + (kk / 4) * T::KV_BOX + (kk % 4) * 32, 16, wg::SW_ROWS8),
+                       kk);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_acc(sacc);
+
+    // p = exp2(min(s, 80)), 0 for keys at or past Sk; P's register-A
+    // fragments (k16 step kk: rows g / g + 8, keys 16 kk + 2c (+8)) are the
+    // score accumulators 8 kk .. 8 kk + 7 in order, rounded to bf16 pairs
+    const int key0 = it * GBK + 2 * (lane % 4);
+    const bool ragged = (it + 1) * GBK > a.Sk;
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r, key = key0 + 8 * (i >> 2);
+        float p0 = exp2f(fminf(sacc[i], kClip)), p1 = exp2f(fminf(sacc[i + 1], kClip));
+        if (ragged) {
+          p0 = key < a.Sk ? p0 : 0.f;
+          p1 = key + 1 < a.Sk ? p1 : 0.f;
+        }
+        lsum[r & 1] += p0 + p1;
+        __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
+        pf[kk][r] = *reinterpret_cast<uint32_t*>(&pb);
+      }
+
+    wg::fence_frag(pf);
+#pragma unroll
+    for (int n = 0; n < T::NB; ++n) wg::fence_acc(oacc[n]);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < T::NB; ++n)
+        wg::wgmma_rs_n64(oacc[n], pf[kk],
+                         wg::desc_sw128(vt + n * T::KV_BOX + kk * 16 * 128, T::KV_BOX,
+                                        wg::SW_ROWS8));
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < T::NB; ++n) wg::fence_acc(oacc[n]);
+    wg::fence_frag(pf);
+    if (t == 0) wg::bar_arrive(empty(s));
+  }
+
+  // row sums over the quad; out = O / max(l, 1e-30), one rounding, 16-byte
+  // stores of 8 columns after a transpose across the quad
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = lsum[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    lc[r] = fmaxf(l, 1e-30f);
+  }
+  const int C = a.H * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wgi * 64 + warp * 16 + lane / 4 + 8 * r;
+#pragma unroll
+    for (int n = 0; n < T::NB; ++n)
+#pragma unroll
+      for (int g4 = 0; g4 < 2; ++g4) {
+        float2 p[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int i = (4 * g4 + jj) * 4 + 2 * r;
+          p[jj] = make_float2(oacc[n][i], oacc[n][i + 1]);
+        }
+        float o[8];
+        wg::quad_transpose(p, o);
+        const int col = 64 * n + 32 * g4 + 8 * (lane % 4);
+        if (qi >= a.Sq || col >= D) continue;
+        uint4 val;
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h2[e] = __floats2bfloat162_rn(o[2 * e] / lc[r], o[2 * e + 1] / lc[r]);
+        *reinterpret_cast<uint4*>(a.out + ((long long)b * a.Sq + qi) * C + h * D + col) = val;
+      }
+  }
 }
 
 // K5: Sk <= TINY_BK. The head's whole K and V are staged once, in 16-row
@@ -417,20 +611,57 @@ attn_tiny_kv_bf16(Operand q, Operand k, Operand v, __nv_bfloat16* __restrict__ o
   store_output<D>(oacc, Sw, LDS, l, out_row(out, Sq, H, D, q0 + warp * 16 + prow), lane);
 }
 
-using BF16Kernel = void (*)(Operand, Operand, Operand, __nv_bfloat16*, int, int, int, float);
+template <int D>
+cudaError_t launch_tiny(Operand q, Operand k, Operand v, void* out, int B, int Sq, int Sk, int H,
+                        float qscale, cudaStream_t stream) {
+  const size_t smem = wmma_smem_bytes<D, TINY_BK>();
+  cudaError_t err = cudaFuncSetAttribute(attn_tiny_kv_bf16<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + WBQ - 1) / WBQ, H, B);
+  attn_tiny_kv_bf16<D><<<grid, WTHREADS, smem, stream>>>(
+      q, k, v, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, qscale);
+  return cudaGetLastError();
+}
+
+// the tensor map of one operand: its buffer's rows (B, S, ..) up to the
+// operand's last column, boxes of 64 columns x `rows` rows of one batch.
+// Columns before the operand's first are never addressed.
+bool operand_map(CUtensorMap* map, const Operand& o, int S, int B, int last_col, int rows) {
+  const uint64_t dims[3] = {(uint64_t)last_col, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)o.row_stride * 2, (uint64_t)o.batch_stride * 2};
+  const uint32_t box[3] = {64, (uint32_t)rows, 1};
+  return wg::make_map(map, o.ptr, 3, dims, strides, box);
+}
+
+template <int D>
+cudaError_t launch_wgmma(Operand q, Operand k, Operand v, void* out, int B, int Sq, int Sk, int H,
+                         float qscale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const int C = H * D;
+  if (!operand_map(&tq, q, Sq, B, (int)q.col_offset + C, GBQ) ||
+      !operand_map(&tk, k, Sk, B, (int)k.col_offset + C, GBK) ||
+      !operand_map(&tv, v, Sk, B, (int)v.col_offset + C, GBK))
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles<D>::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const WgmmaArgs a{static_cast<__nv_bfloat16*>(out), Sq, Sk, H, (int)q.col_offset,
+                    (int)k.col_offset, (int)v.col_offset, qscale};
+  dim3 grid((Sq + GBQ - 1) / GBQ, H, B);
+  attn_wgmma_bf16<D><<<grid, wg::THREADS, Tiles<D>::SMEM, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
 
 template <int D>
 cudaError_t launch_bf16(bool tiny_kv, Operand q, Operand k, Operand v, void* out, int B, int Sq,
                         int Sk, int H, float qscale, cudaStream_t stream) {
-  BF16Kernel kernel = tiny_kv ? &attn_tiny_kv_bf16<D> : &attn_wmma_bf16<D>;
-  const size_t smem = tiny_kv ? wmma_smem_bytes<D, TINY_BK>() : wmma_smem_bytes<D, LOOP_BK>();
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + WBQ - 1) / WBQ, H, B);
-  kernel<<<grid, WTHREADS, smem, stream>>>(q, k, v, static_cast<__nv_bfloat16*>(out), Sq, Sk,
-                                           H, qscale);
-  return cudaGetLastError();
+  return tiny_kv ? launch_tiny<D>(q, k, v, out, B, Sq, Sk, H, qscale, stream)
+                 : launch_wgmma<D>(q, k, v, out, B, Sq, Sk, H, qscale, stream);
 }
 
 template <int D>
@@ -455,7 +686,7 @@ bool aligned16(const Operand& o) {
 
 }  // namespace
 
-// kernel: 0 = attn_scalar_f32 (float32), 1 = attn_wmma_bf16, 2 = attn_tiny_kv_bf16
+// kernel: 0 = attn_scalar_f32 (float32), 1 = attn_wgmma_bf16, 2 = attn_tiny_kv_bf16
 // (both bfloat16). qscale = scale*log2(e), rounded to the operand dtype.
 // Returns a cudaError_t (0 on success), or -1 when the kernel has no instance
 // for this head dim, key count or operand alignment (nothing is launched).

@@ -2,7 +2,10 @@
 // linear_wgmma_bf16) and the bf16 3x3 conv as an implicit GEMM (conv3x3.cu,
 // conv_wgmma_bf16): TMA loads into a ring of shared-memory stages, one
 // producer thread, two consumer warpgroups issuing wgmma, and an epilogue
-// straight from the accumulator registers.
+// straight from the accumulator registers. The attention kernel
+// (flash_attention.cu, attn_wgmma_bf16) and the 3xTF32 conv (conv3x3.cu,
+// conv_wgmma_tf32x3) keep that shape with rings of their own and use the
+// barriers, TMA loads, descriptors and instructions below.
 //
 //   block tile   BM = 128 rows x BN = 128 or 256 columns, K in steps of BK = 64
 //                (one 128-byte swizzle row of bf16);
@@ -110,6 +113,14 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -134,9 +145,19 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma boundaries
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// the same for register-A fragments: they stay alive and unmoved until the
+// wgmma that reads them asynchronously has been waited for
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&f)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) asm volatile("" : "+r"(f[i][v])::"memory");
 }
 
 // shared-memory matrix descriptor, 128-byte swizzle; lbo / sbo in bytes
@@ -187,6 +208,57 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : WG_ACC64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#define WG_ACC32 WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+#define WG_D32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64, f32) = A (64 x 16, shared, K-major) * B (16 x 64, shared,
+// K-major), plus d when accumulate is nonzero (attention's S = Q K^T: K rows
+// are head-dim contiguous, so K^T is K-major as it lies)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// tf32 (k = 8; A and B K-major only: tf32 has no transpose): d (64 x N) =
+// A (64 x 8, registers: thread (g = lane / 4, c = lane % 4) of warp w holds
+// rows 16 w + g, + 8 at columns c, c + 4) * B (8 x N, shared, K-major), plus
+// d when accumulate is nonzero
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : WG_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}"
+      ", {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
@@ -453,13 +525,14 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a bf16 tensor map (rank <= 4) with 128-byte swizzle and zero fill out of
-// range: dims and box innermost first, strides in bytes of dims 1..rank-1.
-// Encoded per launch: the C entry's whole host time, both encodes included,
-// is ~5 us on an H100 host (chip_smoke.py --host-time), a quarter of the
-// Python wrapper's.
+// a bf16 (or f32) tensor map (rank <= 4) with 128-byte swizzle and zero fill
+// out of range: dims and box innermost first, strides in bytes of dims
+// 1..rank-1. Encoded per launch: the C entry's whole host time, both encodes
+// included, is ~5 us on an H100 host (chip_smoke.py --host-time), a quarter
+// of the Python wrapper's.
 bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-              const uint64_t* strides, const uint32_t* box) {
+              const uint64_t* strides, const uint32_t* box,
+              CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled enc = encoder();
   if (!enc) return false;
   cuuint64_t d[5], s[4];
@@ -470,7 +543,7 @@ bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s, b, e,
+  return enc(map, dtype, rank, const_cast<void*>(base), d, s, b, e,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -10,7 +10,9 @@ What bounds it on the H100: at the SDXL UNet shapes (K = 9*Cin = 2880 to
 ~295 FLOP/B balance point, so it is bound by tensor-core throughput and by
 how well the A operand keeps the tensor cores fed; at SD1.5's 8^2 level
 (128 output pixels a batch) by reading the weight once; the f32 VAE convs
-by f32 FMA throughput.
+by the tensor cores' tf32 rate (three tf32 products for each f32 one) and
+the L2 traffic of re-reading each block's share of the split weight; the
+decoder's conv_out (Cout 3) by reading x.
 
 What the design does about it: an implicit GEMM (M = B*H*W, N = Cout,
 K = 9*Cin) with no im2col matrix and no padded copy. bf16 operands that TMA
@@ -20,7 +22,14 @@ convs) go to the wgmma kernel: the TMA + wgmma mainloop of
 A operand, whose out-of-range pixels TMA fills with zeros (the SAME
 border), and a pixel tile and K split from ``wgmma_plan.conv_plan`` (the
 8^2 and 16^2 levels split K over blocks). conv_in (Cin 4) and conv_out
-(Cout 4) go to the WMMA kernel, which gathers A by index; f32 to the scalar
+(Cout 4) go to the WMMA kernel, which gathers A by index. f32 convs with Cin
+% 8 == 0 (all of the VAE decoder's but conv_in) go to the 3xTF32 wgmma
+kernel, which keeps f32 accuracy on the tensor cores: the wrapper splits the
+weight into a K-major (Cout_pad, 9*Cin) big part exact in tf32 and the small
+rest (:func:`tf32_split`, plain torch on the weight at every launch, no
+cache: ``chip_smoke.py`` times it beside each f32 conv, PERF.md has the
+numbers), the kernel splits x the same way in registers and sums three
+tf32 products. Other f32 convs (the decoder's conv_in, Cin 4) go to the scalar
 kernel. The launch key names the kernel (:func:`conv_variant`).
 
 Routing is by shape, as in ``conv2d_direct`` of the JAX package: a 3x3,
@@ -92,6 +101,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #            Cin, Cout, act, dtype, gn_scale, gn_shift, gn_act, *variant, stream)
 _CONV_ARGTYPES = ([_P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 7
                   + [_P, _P, _I, ctypes.POINTER(_I), _P])
+# st_conv3x3_tf32x3(x, w_big, w_small, bias, bias_dtype, bias_bstride,
+#                   residual, out, B, H, W, Cin, Cout, cout_pad, act, tw, th,
+#                   tb, stream)
+_TF32_ARGTYPES = [_P, _P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 10 + [_P]
 # st_conv3x3_wgmma(x, w, bias, bias_dtype, bias_bstride, residual, out, ws,
 #                  B, H, W, Cin, Cout, act, gn_scale, gn_shift, gn_act,
 #                  tw, th, tb, bn, splits, stream)
@@ -104,11 +117,24 @@ def conv_variant(x_shape: tuple[int, ...], cout: int, dtype: torch.dtype,
     """The kernel that takes a 3x3 conv of x (B, H, W, Cin) to ``cout``
     channels: "wgmma_bf16" where TMA takes the bf16 operands (``aligned``:
     every operand's base is 16-byte aligned), "wmma_bf16" for the other
-    bf16 shapes, "scalar" for float32."""
+    bf16 shapes; in float32 "wgmma_tf32x3" for Cin % 8 == 0 with x aligned
+    (no GroupNorm prologue), "scalar" for the rest."""
     if dtype != torch.bfloat16:
-        return "scalar"
+        return "wgmma_tf32x3" if x_shape[3] % 8 == 0 and aligned and not gn else "scalar"
     fits = wgmma_plan.conv_fits(*x_shape, cout, aligned, gn=gn)
     return "wgmma_bf16" if fits else "wmma_bf16"
+
+
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 HWIO weight (3, 3, Cin, Cout) as the tf32 kernel's K-major B
+    operand: two (Cout_pad, 9*Cin) f32 matrices, Cout padded to a multiple
+    of 8 with zero rows, big = w with its low 13 mantissa bits cleared
+    (exact in tf32) and small = w - big (exact in f32), so big + small == w."""
+    cin, cout = w.shape[2], w.shape[3]
+    wt = w.float().reshape(9 * cin, cout).t()
+    wt = F.pad(wt, (0, 0, 0, -cout % 8)).contiguous()
+    big = (wt.view(torch.int32) & -8192).view(torch.float32)  # -8192 = 0xFFFFE000
+    return big, wt - big
 
 
 def _check_conv(x, w, b, residual, act):
@@ -177,6 +203,19 @@ def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor
                 *gn_args, tile.tw, tile.th, tile.tb, plan.bn, plan.splits, stream)
             check(code, "st_conv3x3_wgmma")
             return out, key
+        if variant == "wgmma_tf32x3":
+            if dtype != torch.float32 or gn is not None or cin % 8 or x.data_ptr() % 16:
+                raise ValueError("the tf32 conv kernel takes float32 x with Cin % 8 == 0 and a "
+                                 "16-byte aligned base, and no GroupNorm prologue")
+            big, small = tf32_split(w)
+            tile = wgmma_plan.conv_tile(n, h, wd)
+            code = function("st_conv3x3_tf32x3", _TF32_ARGTYPES)(
+                x.data_ptr(), big.data_ptr(), small.data_ptr(), *bias_args, res_ptr,
+                out.data_ptr(), n, h, wd, cin, cout, big.shape[0], ACT_CODES[act], tile.tw,
+                tile.th, tile.tb, stream)
+            check(code, "st_conv3x3_tf32x3")
+            return out, (f"wgmma_tf32x3 b={n} {h}x{wd} {cin}->{cout} "
+                         f"tile={tile.tw}x{tile.th}x{tile.tb}")
         launched = ctypes.c_int(-1)
         code = function("st_conv3x3", _CONV_ARGTYPES)(
             x.data_ptr(), w.data_ptr(), *bias_args, res_ptr, out.data_ptr(),

@@ -11,14 +11,15 @@ not pack; the VAE mid-block, h=1, d=512, f32); and ``_single_kv_kernel``
 attention against 77 keys). :func:`attention_class` is that rule; each
 launch is counted under its class.
 
-On the card, bf16 runs ``attn_wmma_bf16<D>`` (K1-K4: JAX splits them only by
-VMEM) or ``attn_tiny_kv_bf16<D>`` (K5) for D in {40, 64, 80, 160}; f32 runs
-the scalar kernel for D in {64, 512}. What bounds them and what their design
-does about it is in the source's note: the shift-free softmax
-``exp2(min(s, 80))`` of the JAX kernels needs no running max, so the
-accumulator is never rescaled and stays in tensor-core fragments across KV
-tiles; q, k and v are read straight out of the fused projection buffers by
-(row stride, column offset), so no split copies are made.
+On the card, bf16 runs ``attn_wgmma_bf16<D>`` (K1-K4: JAX splits them only
+by VMEM; TMA loads of K and V tiles and wgmma products with the scores and
+P kept in registers) or ``attn_tiny_kv_bf16<D>`` (K5) for D in {40, 64, 80,
+160}; f32 runs the scalar kernel for D in {64, 512}. What bounds them and
+what their design does about it is in the source's note: the shift-free
+softmax ``exp2(min(s, 80))`` of the JAX kernels needs no running max, so the
+accumulator is never rescaled and stays in registers across KV tiles; q, k
+and v are read straight out of the fused projection buffers by (row stride,
+column offset), so no split copies are made.
 
 The plain version (:func:`attention_plain`) computes the same function in
 PyTorch; the wrappers use it only for tensors that lie on the CPU. A CUDA
@@ -65,6 +66,15 @@ def attention_class(h: int, d: int, sk: int) -> str:
     return "K4" if sk <= 1024 else "K3"
 
 
+def kernel_name(cls: str, dtype: torch.dtype) -> str:
+    """The CUDA kernel that runs a launch of class ``cls``: in bf16 the
+    tiny-KV kernel for K5 and the wgmma kernel for K1-K4; in f32 the scalar
+    kernel."""
+    if dtype != torch.bfloat16:
+        return "scalar_f32"
+    return "tinykv_bf16" if cls == "K5" else "wgmma_bf16"
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     num_heads: int = 1, scale: float | None = None) -> torch.Tensor:
     """The kernels' function in plain PyTorch: q (B, Sq, H*D), k/v (B, Sk, H*D)
@@ -92,16 +102,15 @@ _ATTN_ARGTYPES = (
     + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 )
 # C entry point's kernel codes
-_SCALAR_F32, _WMMA_BF16, _TINY_KV_BF16 = 0, 1, 2
-_KERNEL_NAMES = {_SCALAR_F32: "scalar_f32", _WMMA_BF16: "wmma_bf16",
-                 _TINY_KV_BF16: "tinykv_bf16"}
+_KERNEL_CODES = {"scalar_f32": 0, "wgmma_bf16": 1, "tinykv_bf16": 2}
 
 
 def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
-            scale) -> torch.Tensor:
+            scale, kernel=None) -> torch.Tensor:
     """Launch a kernel on (buffer, column offset) operands: each buffer is a
     (B, S, X) tensor whose last dim is contiguous; the head-h columns of the
-    operand start at ``offset + h*d``."""
+    operand start at ``offset + h*d``. ``kernel`` names the kernel, else
+    :func:`kernel_name` picks it by class."""
     bufs = (q_buf, k_buf, v_buf)
     dev = q_buf.device
     dtype = q_buf.dtype
@@ -119,14 +128,13 @@ def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
         raise ValueError("attention needs at least one key")
     cls = attention_class(num_heads, d, sk)
     if dtype == torch.bfloat16:
-        # 16-byte vector loads: base, strides and column offsets in 8-element units
+        # 16-byte vector loads and TMA rows: base, strides and column offsets
+        # in 8-element units
         if any(t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8 for t in bufs) or any(
                 off % 8 for off in (q_off, k_off, v_off)):
             raise ValueError("bf16 attention operands must be 16-byte aligned "
                              "(base, row and batch strides, column offsets)")
-        kernel = _TINY_KV_BF16 if cls == "K5" else _WMMA_BF16
-    else:
-        kernel = _SCALAR_F32
+    kernel = kernel or kernel_name(cls, dtype)
     b = q_buf.shape[0]
     c = num_heads * d
     if scale is None:
@@ -141,13 +149,13 @@ def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
             q_buf.data_ptr(), q_buf.stride(0), q_buf.stride(1), q_off,
             k_buf.data_ptr(), k_buf.stride(0), k_buf.stride(1), k_off,
             v_buf.data_ptr(), v_buf.stride(0), v_buf.stride(1), v_off,
-            out.data_ptr(), b, sq, sk, num_heads, d, kernel, qscale, stream,
+            out.data_ptr(), b, sq, sk, num_heads, d, _KERNEL_CODES[kernel], qscale, stream,
         )
     if code == -1:
-        raise ValueError(f"attention kernel {_KERNEL_NAMES[kernel]} has no instance for "
+        raise ValueError(f"attention kernel {kernel} has no instance for "
                          f"d={d} sk={sk}")
     check(code, "st_flash_attention")
-    LAUNCHES.add(f"{cls} {_KERNEL_NAMES[kernel]} b={b} h={num_heads} d={d} sq={sq} sk={sk}")
+    LAUNCHES.add(f"{cls} {kernel} b={b} h={num_heads} d={d} sq={sq} sk={sk}")
     return out
 
 

@@ -96,9 +96,58 @@ def test_gpu_attention_routes_by_class(cuda_device, d, h, sq, sk, form, cls):
     torch.cuda.synchronize()
     new = {k: n - before.get(k, 0) for k, n in tfa.LAUNCHES.by_key.items()
            if n != before.get(k, 0)}
-    kernel = "tinykv_bf16" if cls == "K5" else "wmma_bf16"
+    kernel = "tinykv_bf16" if cls == "K5" else "wgmma_bf16"
     assert new == {f"{cls} {kernel} b=2 h={h} d={d} sq={sq} sk={sk}": 1}
     assert _rel_err(out, ref) <= 2e-2
+
+
+def _wgmma_attention(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, h, d):
+    """attn_wgmma_bf16 launched at any class (SD1.5's d = 40, 80, 160 go to
+    the tiny-KV kernel below 129 keys); one launch, under its own key."""
+    before = dict(tfa.LAUNCHES.by_key)
+    out = tfa._launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, sq=sq, sk=sk, num_heads=h, d=d,
+                      scale=None, kernel="wgmma_bf16")
+    torch.cuda.synchronize()
+    new = {k: n - before.get(k, 0) for k, n in tfa.LAUNCHES.by_key.items()
+           if n != before.get(k, 0)}
+    assert list(new.values()) == [1] and next(iter(new)).split()[1] == "wgmma_bf16"
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sk", [1, 77, 1023, 1024, 4096])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_gpu_wgmma_attention_cross_vs_plain(cuda_device, d, sk):
+    """q a column slice of a fused QKV buffer, k and v column slices of the
+    first Sk rows of a wider fused KV buffer whose rows past Sk hold 1e4:
+    keys past Sk must give p = 0 and their values must never be read. Sq =
+    200 is no multiple of the 128-row query tile."""
+    h, sq = 2, 200
+    c = h * d
+    gen = torch.Generator(device=cuda_device).manual_seed(d + sk)
+    qkv = torch.randn((2, sq, 3 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+    kv = torch.randn((2, sk + 70, 2 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+    kv[:, sk:] = 1e4
+    kv_rows = kv[:, :sk]
+    out = _wgmma_attention(qkv, c, kv_rows, 0, kv_rows, c, sq=sq, sk=sk, h=h, d=d)
+    ref = tfa.attention_plain(qkv[..., c:2 * c], kv_rows[..., :c], kv_rows[..., c:], num_heads=h)
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [77, 200, 1023])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_gpu_wgmma_attention_self_vs_plain(cuda_device, d, s):
+    """Self-attention read out of one fused (B, S, 3C) buffer: three column
+    slices of one tensor map's rows, the last head's V box past the buffer's
+    last column."""
+    h = 3
+    c = h * d
+    gen = torch.Generator(device=cuda_device).manual_seed(d * s)
+    qkv = torch.randn((2, s, 3 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+    out = _wgmma_attention(qkv, 0, qkv, c, qkv, 2 * c, sq=s, sk=s, h=h, d=d)
+    assert _rel_err(out, tfa.attention_plain(*qkv.chunk(3, -1), num_heads=h)) <= 2e-2
 
 
 @pytest.mark.gpu
@@ -135,6 +184,45 @@ def test_gpu_conv_kernel_vs_plain(cuda_device, dtype, cin, cout, tol):
     ref = tconv.conv3x3_plain(x, w, bias, residual=res, act="silu")
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout,bias_kind,res,act", [
+    (128, 128, "shared", True, None),    # the VAE's resnet conv2 form
+    (256, 128, "batch", False, "silu"),
+    (512, 512, "shared", True, "silu"),  # two column tiles
+    (128, 3, "shared", False, None),     # conv_out: Cout padded to 8, 3 stored
+    (128, 40, "batch", True, None),
+    (64, 8, None, False, "silu"),
+    (24, 16, "shared", True, None),      # a ragged 32-channel chunk
+])
+def test_gpu_tf32_conv_vs_plain(cuda_device, cin, cout, bias_kind, res, act):
+    """conv_wgmma_tf32x3 against the f32 plain conv (TF32 off): every
+    epilogue form, ragged pixel tiles and the image borders (13 x 17)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(cin + cout)
+    x = torch.randn((2, 13, 17, cin), generator=gen, device=cuda_device)
+    w = torch.randn((3, 3, cin, cout), generator=gen, device=cuda_device) / (9 * cin) ** 0.5
+    bias = (None if bias_kind is None else
+            torch.randn((2, cout) if bias_kind == "batch" else (cout,), generator=gen,
+                        device=cuda_device))
+    r = torch.randn((2, 13, 17, cout), generator=gen, device=cuda_device) if res else None
+    before = dict(tconv.LAUNCHES.by_key)
+    out = tconv.conv3x3(x, w, bias, residual=r, act=act)
+    torch.cuda.synchronize()
+    assert [k.split()[0] for k in _new_keys(tconv.LAUNCHES, before)] == ["wgmma_tf32x3"]
+    assert _rel_err(out, tconv.conv3x3_plain(x, w, bias, residual=r, act=act)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cout", [128, 3])
+def test_gpu_tf32_conv_at_1024(cuda_device, cout):
+    """The VAE decoder's last level: 1024^2, 128 channels in."""
+    gen = torch.Generator(device=cuda_device).manual_seed(cout)
+    x = torch.randn((1, 1024, 1024, 128), generator=gen, device=cuda_device)
+    w = torch.randn((3, 3, 128, cout), generator=gen, device=cuda_device) / (9 * 128) ** 0.5
+    bias = torch.randn((cout,), generator=gen, device=cuda_device)
+    out = tconv.conv3x3(x, w, bias)
+    assert _rel_err(out, tconv.conv3x3_plain(x, w, bias)) <= 1e-4
 
 
 @pytest.mark.gpu

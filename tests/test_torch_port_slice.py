@@ -91,16 +91,16 @@ def slice_case():
     neg1, neg2 = c1.empty_prompt_ids(batch), c2.empty_prompt_ids(batch)
     images = {}
 
-    def jax_images(binding: dict) -> np.ndarray:
+    def jax_images(binding: dict, guidance: float = GUIDANCE) -> np.ndarray:
         """The JAX pipeline's images, traced under ``binding``."""
-        key = tuple(sorted(binding.items()))
+        key = (tuple(sorted(binding.items())), guidance)
         if key in images:
             return images[key]
 
         def unet_step(p, sample, t, ctx, text_embeds, time_ids):
             return junet.unet_apply(ju, p, sample, t, ctx, text_embeds, time_ids)
 
-        loop = jmake_loop(unet_step, schedule, guidance_scale=GUIDANCE)
+        loop = jmake_loop(unet_step, schedule, guidance_scale=guidance)
 
         @jax.jit
         def program(p, ids1_all, ids2_all, latents):
@@ -156,6 +156,46 @@ def test_txt2img_slice_matches_jax(slice_case, backend, monkeypatch):
                        guidance_scale=GUIDANCE)
     assert got.shape == want.shape == (2, SIZE, SIZE, 3)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("guidance", [0.0, 0.5, 1.0])
+def test_txt2img_without_cfg_matches_jax(slice_case, guidance, monkeypatch):
+    """guidance_scale <= 1 runs the cond branch alone in both packages (the
+    JAX loop's no_cfg mode): f32, reference binding, 2 Euler steps, the same
+    injected noise, max abs 1e-4 on images of std ~0.5 (summation order)."""
+    params, ids1, ids2, noise, jax_images = slice_case
+    want = jax_images(jresolve_binding(JCompileConfig(backend="reference")), guidance)
+    monkeypatch.setattr(tpipe, "initial_noise",
+                        lambda seeds, shape, device: torch.from_numpy(noise))
+    pipe = tpipe.make_tiny_pipeline(BINDINGS["reference"][0], params=params_from_numpy(params))
+    got = pipe.txt2img(ids1, ids2, height=SIZE, width=SIZE, steps=STEPS,
+                       guidance_scale=guidance)
+    assert got.shape == want.shape == (2, SIZE, SIZE, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("guidance,rows", [(1.0, 2), (5.0, 4)])
+def test_unet_batch_rows_follow_guidance(guidance, rows, monkeypatch):
+    """One step at batch 2: the UNet sees the B cond rows alone when
+    guidance_scale <= 1 (its cross K/V precompute too), and the 2B CFG pair
+    otherwise."""
+    seen = []
+    real_apply, real_pre = tpipe.unet_apply, tpipe.precompute_cross_kv
+
+    def apply(cfg, p, sample, t, ctx, te, tid, **kw):
+        seen.append(("unet", sample.shape[0], t.shape[0], te.shape[0], tid.shape[0]))
+        return real_apply(cfg, p, sample, t, ctx, te, tid, **kw)
+
+    def pre(cfg, p, ctx):
+        seen.append(("precompute", ctx.shape[0]))
+        return real_pre(cfg, p, ctx)
+
+    monkeypatch.setattr(tpipe, "unet_apply", apply)
+    monkeypatch.setattr(tpipe, "precompute_cross_kv", pre)
+    pipe = tpipe.make_tiny_pipeline()
+    ids = _ids(pipe.clip_config, np.random.default_rng(0), 2)
+    pipe.txt2img(ids, ids, height=SIZE, width=SIZE, steps=1, guidance_scale=guidance)
+    assert seen == [("precompute", rows), ("unet", rows, rows, rows, rows)]
 
 
 def test_txt2img_seeds_and_signature_cache():

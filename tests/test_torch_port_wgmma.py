@@ -11,8 +11,10 @@ grids that leave SMs idle; and that summing f32 partials over the planned K
 ranges in split order (what ``splitk_reduce`` does) computes the function of
 the unsplit plain versions and of JAX's ``fused_linear`` and
 ``conv3x3_direct`` (interpret mode). Tolerance 1e-4 of the largest output,
-float32: only the summation order differs. The kernels themselves run on
-the card in tests/test_torch_port_gpu.py.
+float32: only the summation order differs. For the wgmma attention kernel:
+which classes reach it, and its box layout's arithmetic against
+``attention_plain``. The kernels themselves run on the
+card in tests/test_torch_port_gpu.py.
 """
 
 import math
@@ -25,6 +27,7 @@ import torch
 from stabletriton_tpu.kernels.conv_direct import conv3x3_direct
 from stabletriton_tpu.kernels.linear import fused_linear
 from stabletriton_tpu_torch.kernels import conv_direct as tconv
+from stabletriton_tpu_torch.kernels import flash_attention as tfa
 from stabletriton_tpu_torch.kernels import linear as tlinear
 from stabletriton_tpu_torch.kernels import wgmma_plan as wp
 
@@ -81,7 +84,9 @@ def test_conv_routes_by_tma_terms(shape, cout, want):
     assert tconv.conv_variant(shape, cout, BF16) == want
     assert tconv.conv_variant(shape, cout, BF16, gn=True) == want
     assert tconv.conv_variant(shape, cout, BF16, aligned=False) == "wmma_bf16"
-    assert tconv.conv_variant(shape, cout, torch.float32) == "scalar"
+    f32 = "wgmma_tf32x3" if shape[3] % 8 == 0 else "scalar"
+    assert tconv.conv_variant(shape, cout, torch.float32) == f32
+    assert tconv.conv_variant(shape, cout, torch.float32, aligned=False) == "scalar"
 
 
 def test_conv_prologue_routes_by_staging_room():
@@ -272,3 +277,70 @@ def test_bias_dtype_reaches_the_plain_versions_unchanged():
     xc = torch.from_numpy(rng.standard_normal((1, 5, 5, 8)).astype(np.float32)).to(BF16)
     wc = torch.from_numpy(rng.standard_normal((3, 3, 8, 8)).astype(np.float32) / 8).to(BF16)
     assert torch.equal(tconv.conv3x3(xc, wc, b[:8]), tconv.conv3x3(xc, wc, b[:8].float()))
+
+
+# --------------------------------------------------------------------------
+# the wgmma attention kernel (attn_wgmma_bf16<D>): routing and tiles
+# --------------------------------------------------------------------------
+
+# (h, d, sk) of the SDXL and SD1.5 paths' attention launches -> the kernel
+ATTENTION_KERNELS = {(20, 64, 1024): "wgmma_bf16", (10, 64, 77): "wgmma_bf16",
+                     (20, 64, 77): "wgmma_bf16", (10, 64, 4096): "wgmma_bf16",
+                     (8, 40, 4096): "wgmma_bf16", (8, 80, 1024): "wgmma_bf16",
+                     (8, 160, 256): "wgmma_bf16", (8, 40, 77): "tinykv_bf16",
+                     (8, 160, 64): "tinykv_bf16"}
+
+
+@pytest.mark.parametrize("h,d,sk", sorted(ATTENTION_KERNELS))
+def test_attention_classes_route_to_kernels(h, d, sk):
+    """K1-K4 run the wgmma kernel, K5 the tiny-KV one; f32 the scalar one."""
+    cls = tfa.attention_class(h, d, sk)
+    assert tfa.kernel_name(cls, BF16) == ATTENTION_KERNELS[(h, d, sk)]
+    assert (cls == "K5") == (ATTENTION_KERNELS[(h, d, sk)] == "tinykv_bf16")
+    assert tfa.kernel_name(cls, torch.float32) == "scalar_f32"
+
+
+def _box_attention(qkv, h, d, sk_pad):
+    """attn_wgmma_bf16's arithmetic on a fused (B, S, 3C) buffer, in plain
+    PyTorch: each operand read as ceil(D / 64) boxes of 64 columns from the
+    head's first column (the next head's columns, TMA's zeros past the
+    operand's last), Q prescaled and rounded with its columns from D on
+    zeroed, S over ceil(D / 16) k16 steps, keys padded with zero rows to
+    tiles of 64 and masked by index, P rounded to bf16, O over every box
+    column, the first D kept."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    boxes, k_steps = -(-d // 64), -(-d // 16)
+    width = 64 * boxes
+    qscale = torch.tensor(tfa.LOG2E / math.sqrt(d), dtype=BF16)
+    outs = []
+    for head in range(h):
+        def box(off, rows):
+            cols = qkv[:, :, off + head * d: off + c].float()   # the map ends at off + C
+            cols = torch.nn.functional.pad(cols, (0, max(0, width - cols.shape[2])))[..., :width]
+            return torch.nn.functional.pad(cols, (0, 0, 0, rows - s))
+        q = (box(0, s).to(BF16) * qscale).float()
+        q[..., d:] = 0
+        k, v = box(c, sk_pad), box(2 * c, sk_pad)
+        sc = q[..., : 16 * k_steps] @ k[..., : 16 * k_steps].transpose(1, 2)
+        p = torch.exp2(torch.clamp(sc, max=tfa.SOFTMAX_CLIP))
+        p[..., s:] = 0
+        o = p.to(BF16).float() @ v
+        outs.append((o / p.sum(-1, keepdim=True).clamp(min=1e-30))[..., :d])
+    return torch.cat(outs, -1).to(BF16)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_wgmma_attention_boxes_compute_attention(d):
+    """The head-dim padding of the box layout adds exactly 0 to the scores
+    and nothing to the stored columns: with the next head's columns in every
+    box, the box arithmetic equals attention_plain (bf16 outputs, f32 sums:
+    at most 0.1% of the outputs one rounding apart)."""
+    h, s = 3, 77
+    rng = np.random.default_rng(d)
+    qkv = torch.from_numpy(rng.standard_normal((2, s, 3 * h * d)).astype(np.float32)).to(BF16)
+    got = _box_attention(qkv, h, d, sk_pad=128)
+    want = tfa.attention_plain(*qkv.chunk(3, -1), num_heads=h)
+    assert got.shape == want.shape
+    assert (got != want).float().mean().item() <= 1e-3
+    assert _rel(got.float(), want.float()) <= 1e-2
