@@ -25,17 +25,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
      op's cuDNN conv for the bf16 convs, F.conv2d with TF32 off for the f32
      ones); each attention launch must carry its class (the JAX package's
      Pallas kernel it stands in for, K1-K5) and its kernel in its launch key
-     (K1-K4 on attn_wgmma_bf16); the convs run on the kernel the routing
-     picks (bf16: wgmma, or WMMA for Cin or Cout 4; f32: the 3xTF32 wgmma
-     kernel, or the scalar one for the VAE's conv_in, Cin 4), the wgmma ones
-     also beside the kernel they replaced at the same shape (WMMA, scalar
-     f32), SD1.5's 16^2 and 8^2 levels included, and the tf32 rows beside
-     their bound in 3xTF32 on the tensor cores as well;
+     (K1-K4 on attn_wgmma_bf16, f32 on the 3xTF32 GEMM wgmma_tf32x3, whose
+     row also prints its bound at the f32 FMA peak and the time of its
+     operand split); the convs run on the kernel the routing picks (bf16:
+     wgmma, conv_in's Cin 4 padded to 8 and conv_out's Cout 4 on the
+     8-column tile, with the padding's time printed; f32: the 3xTF32 wgmma
+     kernel, beside the scalar kernel it replaced, or the scalar one for the
+     VAE's conv_in, Cin 4), SD1.5's 16^2 and 8^2 levels included, and the
+     tf32 rows beside their bound in 3xTF32 on the tensor cores as well;
   3b. fused-op kernels: GroupNorm (K9, beside F.group_norm), LayerNorm /
      RMSNorm (K10, beside F.layer_norm / F.rms_norm), GEGLU (K11) and the
      GN-fused 3x3 conv (K8) against their plain versions at the same path's
-     shapes; K8 also beside the WMMA kernel and the unfused pair (K9 apply,
-     K6);
+     shapes; K8 also beside the unfused pair (K9 apply, K6);
   3c. SD1.5 attention: the bf16 kernels at the SD1.5 512^2 path's shapes
      (K3 at d=40, K4 at d=80 and 160, K5 against 77 keys and the mid-block's
      64), then phase 3's d=64 rows again;
@@ -59,19 +60,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      fused-op launches K8 35, K9 11, K10 210, K11 70; all-kernel also K12 2
      and K13 463 + 70 in the precompute, every linear dispatch on the
      kernel and none on the reference (cuBLAS) op, 512 of the 533 on the
-     wgmma kernel and 21 (M = 2) on the skinny one; under every binding 36
-     of the 38 convs on the wgmma kernel, conv_in and conv_out on WMMA;
+     wgmma kernel and 21 (M = 2) on the skinny one; under every binding all
+     38 convs on the wgmma kernel;
   4c. one full-width SD1.5 UNet step (64^2 latent, CFG batch 2, bf16) under
      the three bindings against the reference binding, MSE under 1e-3;
      attention launches per step K3 5, K4 10, K5 17 and no K1 or K2; K8 45,
      K9 16, K10 48, K11 16; all-kernel K12 1, K13 152 + 16 (144 wgmma, 24
-     skinny); 47 of the 49 convs on wgmma;
+     skinny); all 49 convs on wgmma;
   5. serving: a ServingEngine over a full-width SDXL-base pipeline answers
      three 1024^2 requests (4 Euler steps, guidance 5); the images must be
      finite, (1024, 1024, 3) and inside [-1, 1], and the attention (K1, K2,
      K3) and conv launch counters must have moved during this phase, every
      K1/K2 launch on attn_wgmma_bf16 and each image's f32 decode on the
-     3xTF32 conv 32 times and the scalar conv once (conv_in);
+     3xTF32 conv 32 times and the scalar conv once (conv_in), its attention
+     once on the 3xTF32 GEMM;
   5b. a second ServingEngine, over a pipeline with the fused-op binding,
      answers two co-batched 1024^2 requests and one alone; same image
      checks, and the launch counters of K8-K11 must match the per-step
@@ -86,14 +88,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      under SD1.5's default binding in 5c), and a kernel binding by at most
      SOLO_VS_BATCHED_RATIO times the reference binding's diff; then one
      1024^2 f32 decode under the default binding against the reference
-     binding's (TF32 off): max abs, MSE and each decode's time, logged;
+     binding's (TF32 off): max abs (at most DECODE_MAX_ABS), MSE and each
+     decode's time, logged;
   5c. with the SDXL weights freed, a ServingEngine over a full-width SD1.5
      pipeline (CLIP-L, one encoder; VAE scaling 0.18215) answers two
      co-batched 512^2 requests and one alone (4 Euler steps, guidance 7.5);
      the images must be finite, (512, 512, 3) and inside [-1, 1]; the
      K3/K4/K5 bf16 launches must be the per-step counts times the UNet
      steps run (K3 and K4 on attn_wgmma_bf16), plus one f32 K3 launch per
-     image for the VAE; the decode convs as in phase 5.
+     image for the VAE on the 3xTF32 GEMM; the decode convs as in phase 5.
+
+Each phase logs its peak device memory.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -119,6 +124,10 @@ sys.path.insert(0, REPO)
 BF16_REL_TOL = 2e-2   # bf16 outputs: ~2-3 bf16 ulps of the largest value
 F32_REL_TOL = 1e-4    # f32: summation order only
 STEP_MSE_GATE = 1e-3  # the JAX package's fidelity gate
+# one 1024^2 f32 decode under the default binding against the reference
+# binding's (cuDNN, cuBLAS, SDPA; TF32 off), images in [-1, 1]: the kernels
+# compute the same f32 function, 3xTF32 keeping ~f32 accuracy
+DECODE_MAX_ABS = 5e-5
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores, f32 outside them, HBM3. The 3xTF32 conv does its f32
 # products as three tf32 ones on the tensor cores, so its bound (and share)
@@ -289,10 +298,9 @@ def phase_fused_kernels(dev):
                        op_label="default-binding op"))
         del proj, state, gate
 
-    # K8: GroupNorm + SiLU fused into the 3x3 conv, on the kernel the
-    # routing picks (wgmma, or WMMA for conv_out's Cout = 4); beside it the
-    # WMMA kernel at the same shape and the unfused pair (K9 apply, then
-    # K6) on the same scale / shift
+    # K8: GroupNorm + SiLU fused into the 3x3 conv, on the wgmma kernel
+    # (conv_out's Cout = 4 on its 8-column tile); beside it the unfused pair
+    # (K9 apply, then K6) on the same scale / shift
     for label, (b_, hh, ww, cin, cout), bias_kind, with_res in [
             ("resnet conv1 128x128 320->320 batch-bias", (2, 128, 128, 320, 320), "bb", False),
             ("resnet conv2 64x64 640->640 bias+residual", (2, 64, 64, 640, 640), "b", True),
@@ -313,13 +321,10 @@ def phase_fused_kernels(dev):
         kernel = cd.conv_variant(tuple(x.shape), cout, bf16, gn=True)
         kfn = lambda a=args, r=res: cd.gn_conv3x3(*a, residual=r, gn_act="silu")
         pfn = lambda a=args, r=res: cd.gn_conv3x3_plain(*a, residual=r, gn_act="silu")
-        wfn = (lambda a=args, r=res: cd._launch(a[0], a[3], a[4], r, None,
-                                                (a[1], a[2], "silu"), variant="wmma_bf16")[0])
         name = f"gn_conv3x3 {label}"
         flops = 2 * b_ * hh * ww * cout * 9 * cin
         moved = nbytes(x, w, bias, res, scale, shift) + b_ * hh * ww * cout * 2
-        r = compare(name, kfn, pfn, BF16_REL_TOL, 10, bound_ms=bound(flops, moved, bf16),
-                    old_fn=wfn if kernel == "wgmma_bf16" else None, old_label="WMMA kernel")
+        r = compare(name, kfn, pfn, BF16_REL_TOL, 10, bound_ms=bound(flops, moved, bf16))
         unfused = lambda a=args, r=res: cd.conv3x3(gn.apply(a[0], a[1], a[2], "silu"), a[3],
                                                      a[4], residual=r)
         r["unfused_ms"] = timed_ms(unfused, 10)
@@ -401,8 +406,20 @@ def attention_cases(randn, cases, record=True):
         moved = nbytes(*inputs) + b * sq * c * qh.element_size()
         before = dict(fa.LAUNCHES.by_key)
         name = f"flash_attention {label}"
-        r = compare(name, kfn, pfn, tol, iters, bound_ms=bound(flops, moved, dtype),
+        f32 = dtype == torch.float32
+        r = compare(name, kfn, pfn, tol, iters,
+                    bound_ms=bound(flops, moved, dtype, TF32X3_FLOPS if f32 else None),
                     library_fn=lfn, library_label="SDPA")
+        if f32:
+            # the 3xTF32 GEMM's bound (above) and the f32 FMA one; the operand
+            # split (plain torch, inside the kernel's time)
+            r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
+            r["prep_ms"] = timed_ms(lambda k=k, v=v, h=h: fa.tf32_attention_operands(k, v, h),
+                                    iters)
+            log(f"  bound in 3xTF32 (above); at the f32 FMA peak {r['bound_f32_fma_ms']:.4f} ms; "
+                f"the wrapper's K / V^T split (tf32_attention_operands, inside the kernel's "
+                f"time) {r['prep_ms']:.4f} ms; {fa.attention_chunk_rows(b * h, sq, sk)} query "
+                f"rows a chunk")
         keys = {k for k, n in fa.LAUNCHES.by_key.items() if n != before.get(k, 0)}
         want = fa.kernel_name(tpu, dtype)
         if {tuple(k.split()[:2]) for k in keys} != {(tpu, want)}:
@@ -621,8 +638,9 @@ def phase_kernels(dev):
             wc = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # OIHW, channels last
             lfn = lambda xc=xc, wc=wc, bias=bias: F.conv2d(xc, wc, bias, padding=1)
             label_l = "F.conv2d f32"
-        # the kernel a redesigned route replaced, at the same shape
-        old = {"wgmma_bf16": "wmma_bf16", "wgmma_tf32x3": "scalar"}.get(kernel)
+        # the kernel a redesigned route replaced, at the same shape, where
+        # the tree still has it
+        old = {"wgmma_tf32x3": "scalar"}.get(kernel)
         ofn = ((lambda x=x, w=w, bias=bias, res=res, act=act, old=old: cd._launch(
             x, w, bias, res, act, variant=old)[0]) if old else None)
         iters = 3 if dtype == torch.float32 else 10
@@ -633,13 +651,20 @@ def phase_kernels(dev):
         r = compare(name, kfn, pfn, tol, iters,
                     bound_ms=bound(flops, moved, dtype, TF32X3_FLOPS if tf32 else None),
                     library_fn=lfn, library_label=label_l, old_fn=ofn,
-                    old_label={"wmma_bf16": "WMMA kernel", "scalar": "scalar f32 kernel"}.get(old))
+                    old_label="scalar f32 kernel")
         if tf32:
             r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
             prep_ms = timed_ms(lambda w=w: cd.tf32_split(w), iters)
             log(f"  bound in 3xTF32 (above); at the f32 FMA peak {r['bound_f32_fma_ms']:.4f} ms; "
                 f"the wrapper's weight split (tf32_split, inside the kernel's time) "
                 f"{prep_ms:.4f} ms")
+        if dtype == bf16 and (cin % 8 or cout <= 8):
+            # conv_in's Cin padded to 8, conv_out's K-major 8-row weight
+            # (inside the kernel's time)
+            r["prep_ms"] = timed_ms(lambda x=x, w=w: (
+                cd.n8_weight(w) if cout <= 8 else cd._pad_cin(x, w, None)), iters)
+            log(f"  the wrapper's {'8-row weight' if cout <= 8 else 'Cin padding'} (inside "
+                f"the kernel's time) {r['prep_ms']:.4f} ms")
         log(f"  {kernel}")
         r.update(name=name, source="stabletriton_tpu_torch/csrc/conv3x3.cu", tpu="K6",
                  kernel=kernel)
@@ -843,13 +868,16 @@ ATTN_PER_STEP = {"K1": 130, "K2": 10, "K3": 0, "K4": 0, "K5": 0}
 SD15_ATTN_PER_STEP = {"K1": 0, "K2": 0, "K3": 5, "K4": 10, "K5": 17}
 # the kernels of one image's f32 VAE decode 3x3 convs (SDXL's and SD1.5's
 # decoder alike): conv_in (Cin 4) on the scalar kernel, the other 32 (mid
-# and up resnets, upsamplers, conv_out) on the 3xTF32 wgmma kernel
+# and up resnets, upsamplers, conv_out) on the 3xTF32 wgmma kernel; its one
+# mid-block attention on the 3xTF32 GEMM
 DECODE_CONVS = {"wgmma_tf32x3": 32, "scalar": 1}
-# the kernels of a step's bf16 3x3 convs (K6 and K8 together): conv_in (Cin
-# 4) and conv_out (Cout 4) on WMMA, the rest on wgmma. SDXL-base: 34 resnet
-# convs + 2 upsamplers; SD1.5: 44 + 3
-CONV_SPLIT = {"wgmma_bf16": 36, "wmma_bf16": 2}
-SD15_CONV_SPLIT = {"wgmma_bf16": 47, "wmma_bf16": 2}
+DECODE_ATTENTION = "wgmma_tf32x3"
+# the kernels of a step's bf16 3x3 convs (K6 and K8 together): all on wgmma,
+# conv_in (Cin 4, padded to 8) and conv_out (Cout 4, the 8-column tile)
+# included. SDXL-base: conv_in, 34 resnet convs, 2 upsamplers, conv_out;
+# SD1.5: conv_in, 44 + 3, conv_out
+CONV_SPLIT = {"wgmma_bf16": 38}
+SD15_CONV_SPLIT = {"wgmma_bf16": 49}
 # the all-kernel step's K13 launches (precompute included) by kernel: M = 2
 # on the skinny kernel (a time projection per resnet, the time MLP's 2, and
 # for SDXL the add embedding's 2), every other GEMM on wgmma
@@ -912,7 +940,7 @@ class LinearDispatches:
 
 def attention_by_class(by_key: dict, kernel: str = "") -> dict:
     """Attention launches summed by class (the key's first field), counting
-    only keys of ``kernel`` (e.g. "wmma_bf16") when it is given."""
+    only keys of ``kernel`` (e.g. "wgmma_bf16") when it is given."""
     out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
     for key, n in by_key.items():
         cls, name = key.split()[:2]
@@ -956,10 +984,11 @@ def profile_step(run, label):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         raise AssertionError(f"{label}: the profiler saw no kernel on the device")
-    families = {"wgmma conv": ("conv_wgmma", "conv_gn_wgmma"), "WMMA conv": ("conv_wmma",),
+    families = {"wgmma conv": ("conv_wgmma", "conv_gn_wgmma"),
                 "wgmma linear": ("linear_wgmma",), "split-K reduce": ("splitk_reduce",),
                 "skinny/scalar linear": ("linear_skinny", "linear_scalar"),
-                "attention": ("attn_",), "GroupNorm/LayerNorm/GEGLU/time_embed": (
+                "attention": ("attn_", "gemm_wgmma_tf32x3"),
+                "GroupNorm/LayerNorm/GEGLU/time_embed": (
                     "gn_apply", "gn_stats", "ln_rows", "geglu_kernel", "time_embed_kernel"),
                 "cuBLAS/cuDNN": ("gemm", "nvjet", "sm90_", "cutlass", "cudnn", "xmma", "conv2d")}
     by, counts, busy, end = {}, {}, 0.0, spans[0][0]
@@ -1220,6 +1249,17 @@ def check_decode_convs(conv_by_key: dict, images: int, label: str) -> None:
         raise AssertionError(f"{label}: f32 decode convs {got}, expected {want}")
 
 
+def check_decode_attention(attn_by_key: dict, images: int, label: str) -> None:
+    """Each image's f32 decode ran its mid-block attention (K3, h=1, d=512)
+    once, on the 3xTF32 GEMM."""
+    got = attention_by_class(attn_by_key, DECODE_ATTENTION)
+    want = {**dict.fromkeys(got, 0), "K3": images}
+    log(f"{label}: f32 attention on {DECODE_ATTENTION} {json.dumps(got)} for {images} images")
+    if got != want:
+        raise AssertionError(f"{label}: f32 attention on {DECODE_ATTENTION} {got}, expected "
+                             f"{want}")
+
+
 def unet_steps(conv_by_key: dict, ucfg, kernel: str) -> int:
     """UNet steps run, from the conv_out launches (one conv with Cout = 4
     per step) of the given conv kernel counter's keys."""
@@ -1303,11 +1343,15 @@ def phase_decode_deviation(dev, vcfg, vae_params):
     got, ref = images["default"], images["reference"]
     if got.shape != (1, 1024, 1024, 3) or not torch.isfinite(got).all():
         raise AssertionError(f"decode: {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+    max_abs = (got - ref).abs().max().item()
     log(f"decode deviation, 1024^2 f32, default binding vs reference binding (TF32 off): "
-        f"max_abs={(got - ref).abs().max().item():.3e} "
+        f"max_abs={max_abs:.3e} (limit {DECODE_MAX_ABS:g}) "
         f"mse={(got - ref).square().mean().item():.3e}; image rms "
         f"{ref.square().mean().sqrt().item():.4f}; decode ms (host clock, two runs each): "
         + ", ".join(f"{k}={v[0]:.1f}/{v[1]:.1f}" for k, v in times.items()))
+    if not max_abs <= DECODE_MAX_ABS:
+        raise AssertionError(f"decode: max abs {max_abs:.3e} against the reference binding "
+                             f"exceeds {DECODE_MAX_ABS:g}")
 
 
 def phase_serving(dev, ucfg, unet_params, other):
@@ -1331,9 +1375,10 @@ def phase_serving(dev, ucfg, unet_params, other):
     for k in ("K1", "K2", "K3"):
         if attn[k] == 0:
             raise AssertionError(f"no attention launch of class {k} during serving")
-    check_attention(by_key["flash_attention"], unet_steps(by_key["conv3x3"], ucfg, "wmma_bf16"),
+    check_attention(by_key["flash_attention"], unet_steps(by_key["conv3x3"], ucfg, "wgmma_bf16"),
                     "default-binding serving")
     check_decode_convs(by_key["conv3x3"], len(done), "default-binding serving")
+    check_decode_attention(by_key["flash_attention"], len(done), "default-binding serving")
     return by_key, diff
 
 
@@ -1351,7 +1396,7 @@ def phase_serving_fused(dev, ucfg, unet_params, other):
         counters=counters, prompts=[("a red fox in snow", 21), ("a glass teapot", 22)],
         solo=("a red fox in snow", 21))
     diff = solo_vs_batched(done, "fused-op")
-    steps = unet_steps(by_key["K8"], ucfg, "wmma_bf16")
+    steps = unet_steps(by_key["K8"], ucfg, "wgmma_bf16")
     vae_norms = sum(1 for k in other[1]["vae"] if k.endswith(
         ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")))
     k9_f32 = sum(n for key, n in by_key["K9"].items() if key.startswith("f32"))
@@ -1369,6 +1414,7 @@ def phase_serving_fused(dev, ucfg, unet_params, other):
         raise AssertionError(f"K9: {k9_f32} f32 launches, expected {vae_norms * len(done)}")
     check_attention(by_key["attention"], steps, "fused-op serving")
     check_decode_convs(by_key["K6"], len(done), "fused-op serving")
+    check_decode_attention(by_key["attention"], len(done), "fused-op serving")
     return counts, by_key, diff
 
 
@@ -1387,7 +1433,7 @@ def phase_serving_all(dev, ucfg, unet_params, other):
         counters=counters, prompts=[("a paper boat on a pond", 41), ("a clock tower", 42)],
         solo=("a paper boat on a pond", 41))
     diff = solo_vs_batched(done, "all-kernel")
-    steps = unet_steps(by_key["K8"], ucfg, "wmma_bf16")
+    steps = unet_steps(by_key["K8"], ucfg, "wgmma_bf16")
     gens, images = steps // SERVE_STEPS, len(done)
     vae_norms = sum(1 for k in other[1]["vae"] if k.endswith(
         ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")))
@@ -1410,6 +1456,7 @@ def phase_serving_all(dev, ucfg, unet_params, other):
                              f"{PRECOMPUTE_LINEARS * gens} and {VAE_LINEARS * images}")
     check_attention(by_key["attention"], steps, "all-kernel serving")
     check_decode_convs(by_key["K6"], images, "all-kernel serving")
+    check_decode_attention(by_key["attention"], images, "all-kernel serving")
     return counts, by_key, diff
 
 
@@ -1429,20 +1476,17 @@ def phase_serving_sd15(dev, ucfg, unet_params, other):
         prompts=[("a watercolor of a harbour", 31), ("an owl on a branch", 32)],
         solo=("a watercolor of a harbour", 31), size=512, guidance=7.5)
     check_solo_vs_batched({"default": solo_vs_batched(done, "SD1.5 default")}, "SD1.5")
-    steps = unet_steps(by_key["conv3x3"], ucfg, "wmma_bf16")
+    steps = unet_steps(by_key["conv3x3"], ucfg, "wgmma_bf16")
     bf16 = attention_by_class(by_key["flash_attention"], "wgmma_bf16")
     tiny = attention_by_class(by_key["flash_attention"], "tinykv_bf16")
-    f32 = attention_by_class(by_key["flash_attention"], "scalar_f32")
     got = {k: bf16[k] + tiny[k] for k in bf16}
     want = {k: n * steps for k, n in SD15_ATTN_PER_STEP.items()}
-    log(f"SD1.5 serving: {steps} UNet steps, {len(done)} images; bf16 attention {got}, "
-        f"f32 attention {f32}")
+    log(f"SD1.5 serving: {steps} UNet steps, {len(done)} images; bf16 attention {got}")
     if steps == 0 or got != want or tiny["K5"] != want["K5"] or bf16 != {**want, "K5": 0}:
         raise AssertionError(f"SD1.5 serving: bf16 attention launches {got} (wgmma kernel "
                              f"{bf16}, tiny-KV kernel {tiny['K5']}), expected {want}")
-    if f32 != {**{k: 0 for k in f32}, "K3": len(done)}:
-        raise AssertionError(f"SD1.5 serving: f32 attention {f32}, expected K3 {len(done)}")
     check_decode_convs(by_key["conv3x3"], len(done), "SD1.5 serving")
+    check_decode_attention(by_key["flash_attention"], len(done), "SD1.5 serving")
     return by_key
 
 
@@ -1461,6 +1505,16 @@ REPLACES = {
     "K13": "stabletriton_tpu/kernels/linear.py:29",
     "K14": "stabletriton_tpu/kernels/dropout.py:25",
 }
+
+
+def with_peak(label, fn, *args, **kwargs):
+    """fn(*args, **kwargs), logging the peak device memory it allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    log(f"peak device memory, {label}: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return out
 
 
 def free(*objs):
@@ -1513,40 +1567,46 @@ def main() -> int:
         return 0
     if "--plans" in args:
         phase_plans(dev)
-    kernel_results = (phase_kernels(dev) + phase_fused_kernels(dev) + phase_sd15_attention(dev)
-                      + phase_optional_kernels(dev))
+    kernel_results = (with_peak("phase 3", phase_kernels, dev)
+                      + with_peak("phase 3b", phase_fused_kernels, dev)
+                      + with_peak("phase 3c", phase_sd15_attention, dev)
+                      + with_peak("phase 3d", phase_optional_kernels, dev))
 
     # SDXL-base at 1024^2: phases 4, 4b, 4d, 5, 5b, 5d
     ucfg = sdxl_base_unet_config()
     sdxl = {"unet": make_unet_params(dev, ucfg)}
-    phase_step_deviation(dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev), ALL_PER_STEP,
-                         PRECOMPUTE_LINEARS, ATTN_PER_STEP, CONV_SPLIT, LINEAR_SPLIT, "SDXL-base",
-                         profile)
+    with_peak("phases 4, 4b, 4d (weights included)", phase_step_deviation, dev, ucfg,
+              sdxl["unet"], sdxl_step_inputs(dev), ALL_PER_STEP, PRECOMPUTE_LINEARS,
+              ATTN_PER_STEP, CONV_SPLIT, LINEAR_SPLIT, "SDXL-base", profile)
     sdxl["other"] = make_other_params(dev)
     diffs = {}
-    by_key, diffs["default"] = phase_serving(dev, ucfg, sdxl["unet"], sdxl["other"])
-    fused_counts, fused_by_key, diffs["fused-op"] = phase_serving_fused(
-        dev, ucfg, sdxl["unet"], sdxl["other"])
-    all_counts, all_by_key, diffs["all-kernel"] = phase_serving_all(
-        dev, ucfg, sdxl["unet"], sdxl["other"])
-    diffs["reference"] = phase_serving_reference(dev, ucfg, sdxl["unet"], sdxl["other"])
+    by_key, diffs["default"] = with_peak("phase 5", phase_serving, dev, ucfg, sdxl["unet"],
+                                         sdxl["other"])
+    fused_counts, fused_by_key, diffs["fused-op"] = with_peak(
+        "phase 5b", phase_serving_fused, dev, ucfg, sdxl["unet"], sdxl["other"])
+    all_counts, all_by_key, diffs["all-kernel"] = with_peak(
+        "phase 5d", phase_serving_all, dev, ucfg, sdxl["unet"], sdxl["other"])
+    diffs["reference"] = with_peak("phase 5e serving", phase_serving_reference, dev, ucfg,
+                                   sdxl["unet"], sdxl["other"])
     check_solo_vs_batched(diffs, "SDXL-base")
-    phase_decode_deviation(dev, sdxl["other"][0][2], sdxl["other"][1]["vae"])
+    with_peak("phase 5e decode", phase_decode_deviation, dev, sdxl["other"][0][2],
+              sdxl["other"][1]["vae"])
     free(sdxl)
 
     # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 5c
     ucfg = sd15_unet_config()
     sd15 = {"unet": make_unet_params(dev, ucfg)}
-    phase_step_deviation(dev, ucfg, sd15["unet"], sd15_step_inputs(dev), SD15_ALL_PER_STEP,
-                         SD15_PRECOMPUTE_LINEARS, SD15_ATTN_PER_STEP, SD15_CONV_SPLIT,
-                         SD15_LINEAR_SPLIT, "SD1.5", profile)
+    with_peak("phase 4c (weights included)", phase_step_deviation, dev, ucfg, sd15["unet"],
+              sd15_step_inputs(dev), SD15_ALL_PER_STEP, SD15_PRECOMPUTE_LINEARS,
+              SD15_ATTN_PER_STEP, SD15_CONV_SPLIT, SD15_LINEAR_SPLIT, "SD1.5", profile)
     sd15["other"] = make_sd15_other_params(dev)
-    sd15_by_key = phase_serving_sd15(dev, ucfg, sd15["unet"], sd15["other"])
+    sd15_by_key = with_peak("phase 5c", phase_serving_sd15, dev, ucfg, sd15["unet"],
+                            sd15["other"])
     free(sd15)
 
     # launches of each kernel on its path: the serving phases (5, 5b, 5c,
-    # 5d), by the first two fields of its launch key ("K3 wmma_bf16") for
-    # attention and by the first (the kernel: "wgmma_bf16", "wmma_bf16",
+    # 5d), by the first two fields of its launch key ("K3 wgmma_tf32x3") for
+    # attention and by the first (the kernel: "wgmma_bf16", "wgmma_tf32x3",
     # "scalar", "skinny_bf16" ...) for the conv (K6, K8) and K13; K14's op
     # dispatch in phase 3d
     attention = [*by_key["flash_attention"].items(), *sd15_by_key["flash_attention"].items()]
@@ -1574,7 +1634,7 @@ def main() -> int:
         "source": r["source"], "replaces": REPLACES[r["tpu"]], "launches": launches(r),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        **{k: r[k] for k in ("old_ms", "old_kernel", "bound_f32_fma_ms") if k in r},
+        **{k: r[k] for k in ("old_ms", "old_kernel", "bound_f32_fma_ms", "prep_ms") if k in r},
     } for r in kernel_results]
     for k in kernels:
         if k["launches"] == 0:

@@ -22,27 +22,35 @@
 // image stay exactly 0: the conv pads the NORMALIZED input with zeros, and
 // normalize(0) != 0.
 //
-// Five kernels:
-//   conv_wgmma_bf16  - bf16 with Cin % 8 == 0, Cout % 8 == 0 and 16-byte
-//                      aligned operands: the Hopper mainloop of wgmma.cuh.
-//                      The A operand is one TMA box per (tap, 64-channel
-//                      chunk): a 4-D box of 64 channels x tw x th pixels x tb
-//                      images (128 pixels) at (c0, x0+kx-1, y0+ky-1, b0), whose
-//                      out-of-range pixels TMA fills with zeros, so the SAME
-//                      border costs nothing. B is the weight as the (9*Cin,
-//                      Cout) matrix, as in linear_wgmma_bf16. Small levels
-//                      (SD1.5's 8^2 and 16^2, SDXL's 32^2) split the K steps
-//                      over blocks; the splits meet in splitk_reduce.
+// Four kernels:
+//   conv_wgmma_bf16  - bf16 with Cin % 8 == 0, Cout % 8 == 0 or Cout <= 8,
+//                      and 16-byte aligned x and w: the Hopper mainloop of
+//                      wgmma.cuh. The A operand is one TMA box per (tap,
+//                      64-channel chunk): a 4-D box of 64 channels x tw x th
+//                      pixels x tb images (128 pixels) at (c0, x0+kx-1,
+//                      y0+ky-1, b0), whose out-of-range pixels and channels
+//                      TMA fills with zeros, so the SAME border costs
+//                      nothing. B is the weight as the (9*Cin, Cout) matrix,
+//                      as in linear_wgmma_bf16. Small levels (SD1.5's 8^2
+//                      and 16^2, SDXL's 32^2) split the K steps over blocks;
+//                      the splits meet in splitk_reduce. Cout <= 8 (the
+//                      UNet's conv_out, Cout 4) runs an 8-column block tile
+//                      (BN = 8, m64n8k16) on the weight as a K-major (8,
+//                      9*Cin) matrix with rows past Cout zero, which the
+//                      wrapper makes, and stores the real columns with
+//                      element stores; a 128-wide tile would compute 124
+//                      columns of padding. Cin % 8 != 0 (conv_in, Cin 4)
+//                      comes padded by the wrapper to 8 zero-filled channels
+//                      (0.5 MB at 128^2): TMA reads rows of 16 bytes, and the
+//                      64-channel box over 8 channels reads zeros past them.
 //   conv_gn_wgmma_bf16 - the same with the GroupNorm prologue: a TMA box of the
 //                      tile's halo per 64-channel chunk, normalised once in
 //                      shared memory (scale / shift staged once per block,
 //                      SiLU, bf16; zero outside the image, since TMA's zero is
 //                      a raw zero), then each of the 9 taps loads its A
 //                      fragments from the halo at its offset (ldmatrix) for a
-//                      register-A wgmma.
-//   conv_wmma_bf16   - bf16 shapes TMA cannot take (conv_in's Cin = 4,
-//                      conv_out's Cout = 4): WMMA 16x16x16, 128x128 block
-//                      tile, 8 warps of 32x64, the SAME padding by index.
+//                      register-A wgmma. BN = 128, or 8 for Cout <= 8 (the
+//                      UNet's norm_out + SiLU + conv_out).
 //   conv_wgmma_tf32x3 - f32 with Cin % 8 == 0 (every 3x3 conv of the VAE
 //                      decoder but conv_in): the same TMA + wgmma shape in
 //                      3xTF32. The weight comes prepared by the wrapper as
@@ -57,7 +65,7 @@
 //                      product). Cout <= 8 (the decoder's conv_out, Cout 3)
 //                      runs an 8-wide block tile, so its 3 channels cost 8
 //                      columns, not 64.
-//   conv_scalar<T>   - f32 FMA, 64x64 block tile, 4x4 outputs per thread.
+//   conv_scalar      - f32 FMA, 64x64 block tile, 4x4 outputs per thread.
 //                      The f32 convs the tf32 kernel does not take (the
 //                      decoder's conv_in, Cin = 4).
 //
@@ -71,64 +79,40 @@
 // TFLOP/s) 1.9 ms; conv_out (128->3) is bound by reading x once (0.16 ms).
 // The tf32 kernel's stage reloads the block's weight share (big and small,
 // 32 KB at BN = 128) beside 16 KB of A, so L2 traffic is its second limit.
-
-#include <mma.h>
+// The UNet's conv_out (320->4) is bound by reading x once (0.0063 ms), and
+// at BN = 8 each pixel's 320 channels are read 9 times from L2 (190 MB at
+// 128^2), which bounds its 8-column kernel.
 
 #include "vec.cuh"
 #include "wgmma.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-using stv::from_f32;
 using stv::silu;
-using stv::to_f32;
 
+// the f32 scalar kernel's arguments
 struct ConvArgs {
-  const void* x;         // (B, H, W, Cin)
-  const void* w;         // (3, 3, Cin, Cout)
+  const float* x;        // (B, H, W, Cin)
+  const float* w;        // (3, 3, Cin, Cout)
   const void* bias;      // (Cout,) or (B, Cout) of bias_dtype, or null
   long long bias_bstride;  // 0 for a shared bias, Cout for per-batch
   int bias_dtype;        // 0 f32, 1 bf16
-  const void* residual;  // (B, H, W, Cout) or null
-  void* out;             // (B, H, W, Cout)
+  const float* residual;  // (B, H, W, Cout) or null
+  float* out;            // (B, H, W, Cout)
   int B, H, W, Cin, Cout, act;
   const float* gn_scale;  // (B, Cin) GroupNorm prologue, or null
   const float* gn_shift;  // (B, Cin)
   int gn_act;             // 1: SiLU after the GroupNorm apply
 };
 
-// GroupNorm apply (+ SiLU) of one in-image input element, rounded to T
-template <typename T>
+// GroupNorm apply (+ SiLU) of one in-image input element
 __device__ __forceinline__ float gn_prologue(const ConvArgs& a, int b, int ci, float v) {
   const long long o = (long long)b * a.Cin + ci;
   v = fmaf(v, __ldg(a.gn_scale + o), __ldg(a.gn_shift + o));
-  if (a.gn_act) v = silu(v);
-  return to_f32(from_f32<T>(v));
-}
-
-// the prologue on 8 bf16 channels ci..ci+7 of batch b, packed in one uint4;
-// scale / shift come in as two 16-byte loads each (Cin % 8 == 0)
-__device__ __forceinline__ uint4 gn_prologue8(const ConvArgs& a, int b, int ci, uint4 raw) {
-  const long long o = (long long)b * a.Cin + ci;
-  const float4* sc = reinterpret_cast<const float4*>(a.gn_scale + o);
-  const float4* sh = reinterpret_cast<const float4*>(a.gn_shift + o);
-  const float4 s0 = __ldg(sc), s1 = __ldg(sc + 1), h0 = __ldg(sh), h1 = __ldg(sh + 1);
-  const float scale[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-  const float shift[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v = fmaf(__bfloat162float(e[i]), scale[i], shift[i]);
-    if (a.gn_act) v = silu(v);
-    e[i] = __float2bfloat16(v);
-  }
-  return raw;
+  return a.gn_act ? silu(v) : v;
 }
 
 // A[m][k] of the implicit GEMM, zero outside the image or past M / K.
-template <typename T>
 __device__ __forceinline__ float load_a(const ConvArgs& a, int m, int k) {
   const int M = a.B * a.H * a.W;
   const int K = 9 * a.Cin;
@@ -139,12 +123,10 @@ __device__ __forceinline__ float load_a(const ConvArgs& a, int m, int k) {
   int b = m / hw, r = m - b * hw;
   int y = r / a.W + ky - 1, xx = r % a.W + kx - 1;
   if (y < 0 || y >= a.H || xx < 0 || xx >= a.W) return 0.f;
-  const T* x = static_cast<const T*>(a.x);
-  const float v = to_f32(x[(((long long)b * a.H + y) * a.W + xx) * a.Cin + ci]);
-  return a.gn_scale ? gn_prologue<T>(a, b, ci, v) : v;
+  const float v = a.x[(((long long)b * a.H + y) * a.W + xx) * a.Cin + ci];
+  return a.gn_scale ? gn_prologue(a, b, ci, v) : v;
 }
 
-template <typename T>
 __device__ __forceinline__ void store_out(const ConvArgs& a, int m, int n, float acc) {
   const int M = a.B * a.H * a.W;
   if (m >= M || n >= a.Cout) return;
@@ -154,9 +136,9 @@ __device__ __forceinline__ void store_out(const ConvArgs& a, int m, int n, float
     acc += a.bias_dtype == 1 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[bo])
                              : static_cast<const float*>(a.bias)[bo];
   }
-  if (a.residual) acc += to_f32(static_cast<const T*>(a.residual)[o]);
+  if (a.residual) acc += a.residual[o];
   if (a.act == 1) acc = silu(acc);
-  static_cast<T*>(a.out)[o] = from_f32<T>(acc);
+  a.out[o] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -165,7 +147,6 @@ __device__ __forceinline__ void store_out(const ConvArgs& a, int m, int n, float
 // ---------------------------------------------------------------------------
 constexpr int CBM = 64, CBN = 64, CBK = 16, CTHREADS = 256;
 
-template <typename T>
 __global__ void __launch_bounds__(CTHREADS) conv_scalar(ConvArgs a) {
   __shared__ float As[CBK][CBM + 4];
   __shared__ float Bs[CBK][CBN + 4];
@@ -174,19 +155,18 @@ __global__ void __launch_bounds__(CTHREADS) conv_scalar(ConvArgs a) {
   const int n0 = blockIdx.y * CBN;
   const int K = 9 * a.Cin;
   const int tm = tid / 16, tn = tid % 16;
-  const T* w = static_cast<const T*>(a.w);
   float acc[4][4] = {};
 
   for (int k0 = 0; k0 < K; k0 += CBK) {
     // A: consecutive threads take consecutive k (contiguous channels)
     for (int idx = tid; idx < CBM * CBK; idx += CTHREADS) {
       int kk = idx % CBK, mm = idx / CBK;
-      As[kk][mm] = load_a<T>(a, m0 + mm, k0 + kk);
+      As[kk][mm] = load_a(a, m0 + mm, k0 + kk);
     }
     for (int idx = tid; idx < CBK * CBN; idx += CTHREADS) {
       int kk = idx / CBN, nn = idx % CBN;
       int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < a.Cout) ? to_f32(w[(long long)k * a.Cout + n]) : 0.f;
+      Bs[kk][nn] = (k < K && n < a.Cout) ? a.w[(long long)k * a.Cout + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -206,142 +186,15 @@ __global__ void __launch_bounds__(CTHREADS) conv_scalar(ConvArgs a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) store_out<T>(a, m0 + tm + 16 * i, n0 + tn + 16 * j, acc[i][j]);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 WMMA kernel: BM=128 x BN=128 tile, BK=32, 8 warps as 4 (M) x 2 (N),
-// each warp 32x64 = 2x4 fragments. 16-byte vector loads where Cin (for A)
-// and Cout (for B) are multiples of 8 and the base is 16-byte aligned;
-// element loads otherwise.
-// ---------------------------------------------------------------------------
-constexpr int WBM = 128, WBN = 128, WBK = 32, WTHREADS = 256;
-constexpr int LDA = WBK + 8;   // bf16 pitch, multiple of 8
-constexpr int LDB = WBN + 8;
-
-__global__ void __launch_bounds__(WTHREADS) conv_wmma_bf16(ConvArgs a, int vec_a, int vec_b) {
-  __shared__ __align__(128) __nv_bfloat16 As[WBM * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[WBK * LDB];
-  __shared__ __align__(128) float stage[8][16 * 16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.x * WBM;
-  const int n0 = blockIdx.y * WBN;
-  const int M = a.B * a.H * a.W;
-  const int K = 9 * a.Cin;
-  const int hw = a.H * a.W;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
-
-  // vector A path: this thread's two (row, 8-channel chunk) slots per k-tile
-  int arow[2], ab[2], ay[2], ax[2];
-  bool avalid[2];
-  const int achunk = tid % 4;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    arow[s] = tid / 4 + 64 * s;
-    int m = m0 + arow[s];
-    avalid[s] = m < M;
-    int mm = avalid[s] ? m : 0;
-    ab[s] = mm / hw;
-    int r = mm - ab[s] * hw;
-    ay[s] = r / a.W;
-    ax[s] = r % a.W;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += WBK) {
-    if (vec_a) {
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        int k = k0 + achunk * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (avalid[s] && k < K) {
-          int tap = k / a.Cin, ci = k - tap * a.Cin;
-          int ky = tap / 3, kx = tap - ky * 3;
-          int y = ay[s] + ky - 1, xx = ax[s] + kx - 1;
-          if (y >= 0 && y < a.H && xx >= 0 && xx < a.W) {
-            val = *reinterpret_cast<const uint4*>(
-                x + (((long long)ab[s] * a.H + y) * a.W + xx) * a.Cin + ci);
-            if (a.gn_scale) val = gn_prologue8(a, ab[s], ci, val);
-          }
-        }
-        *reinterpret_cast<uint4*>(As + arow[s] * LDA + achunk * 8) = val;
-      }
-    } else {
-      for (int idx = tid; idx < WBM * WBK; idx += WTHREADS) {
-        int mm = idx / WBK, kk = idx % WBK;
-        As[mm * LDA + kk] = __float2bfloat16(load_a<__nv_bfloat16>(a, m0 + mm, k0 + kk));
-      }
-    }
-    if (vec_b) {
-      for (int idx = tid; idx < WBK * (WBN / 8); idx += WTHREADS) {
-        int kk = idx / (WBN / 8), c = (idx % (WBN / 8)) * 8;
-        int k = k0 + kk, n = n0 + c;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (k < K && n < a.Cout)
-          val = *reinterpret_cast<const uint4*>(w + (long long)k * a.Cout + n);
-        *reinterpret_cast<uint4*>(Bs + kk * LDB + c) = val;
-      }
-    } else {
-      for (int idx = tid; idx < WBK * WBN; idx += WTHREADS) {
-        int kk = idx / WBN, nn = idx % WBN;
-        int k = k0 + kk, n = n0 + nn;
-        Bs[kk * LDB + nn] = (k < K && n < a.Cout) ? w[(long long)k * a.Cout + n]
-                                                  : __float2bfloat16(0.f);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * LDB + wn * 64 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: stage each 16x16 fragment through shared memory, then each
-  // lane finishes 8 of its elements
-  float* st = stage[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      int mb = m0 + wm * 32 + i * 16;
-      int nb = n0 + wn * 64 + j * 16;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        int idx = lane + 32 * e;
-        store_out<__nv_bfloat16>(a, mb + idx / 16, nb + idx % 16, st[idx]);
-      }
-      __syncwarp();
-    }
+    for (int j = 0; j < 4; ++j) store_out(a, m0 + tm + 16 * i, n0 + tn + 16 * j, acc[i][j]);
 }
 
 // ---------------------------------------------------------------------------
 // bf16 wgmma kernel (the mainloop of wgmma.cuh): a block tile is 128 output
 // pixels (tb images x th rows x tw columns) by BN output channels; K steps
 // run over the 9 taps x ceil(Cin / 64) channel chunks, blockIdx.z taking a
-// contiguous share of them
+// contiguous share of them. At BN = 8 the weight is K-major (8 rows) and the
+// K steps are not split.
 // ---------------------------------------------------------------------------
 struct ConvWgmmaArgs {
   wg::Epilogue e;
@@ -351,6 +204,14 @@ struct ConvWgmmaArgs {
   int B, H, W, Cin;
   int tw, th, tb, ntx, nty;  // the pixel tile and the tiles across W and H
   int splits, gn_act;
+
+  // the output pixel of tile row `row` in pixel tile (x0, y0, b0), or -1
+  __device__ long long pixel(int x0, int y0, int b0, int row) const {
+    const int per_img = th * tw;
+    const int b = b0 + row / per_img;
+    const int y = y0 + row % per_img / tw, x = x0 + row % tw;
+    return (b < B && y < H && x < W) ? ((long long)b * H + y) * W + x : -1;
+  }
 };
 
 template <int BN, int STAGES, int CTAS>
@@ -370,7 +231,6 @@ __global__ void __launch_bounds__(wg::THREADS, CTAS)
   int k0, k1;
   wg::split_range(9 * ncc, a.splits, blockIdx.z, k0, k1);
   const int wgi = threadIdx.x / 128;
-  const int per_img = a.th * a.tw;
   if (wgi == 2) {
     if (threadIdx.x == 256) {
       const CUtensorMap* mx = &tmap_x;
@@ -379,9 +239,17 @@ __global__ void __launch_bounds__(wg::THREADS, CTAS)
         const int kb = k0 + it, tap = kb / ncc, c0 = (kb - tap * ncc) * 64;
         const int ky = tap / 3, kx = tap - 3 * ky;
         wg::tma_load_4d(r.a(s), mx, r.full(s), c0, x0 + kx - 1, y0 + ky - 1, b0);
-        wg::load_b(r, s, mw, n0, tap * a.Cin + c0);
+        if constexpr (BN == 8) wg::tma_load_2d(r.b(s), mw, r.full(s), tap * a.Cin + c0, 0);
+        else wg::load_b(r, s, mw, n0, tap * a.Cin + c0);
       });
     }
+    return;
+  }
+  auto row_m = [&](int row) { return a.pixel(x0, y0, b0, row); };
+  if constexpr (BN == 8) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    wg::consume_ss_n8(r, k1 - k0, wgi, acc);
+    wg::store_n8(acc, wgi, row_m, a.e);
   } else {
     float acc[BN / 128][64];
 #pragma unroll
@@ -389,20 +257,14 @@ __global__ void __launch_bounds__(wg::THREADS, CTAS)
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
     wg::consume_ss(r, k1 - k0, wgi, acc);
-    const long long M = a.e.M;
-    wg::store_tile<BN>(
-        acc, wgi, n0,
-        [&](int row) -> long long {
-          const int b = b0 + row / per_img;
-          const int y = y0 + row % per_img / a.tw, x = x0 + row % a.tw;
-          return (b < a.B && y < a.H && x < a.W) ? ((long long)b * a.H + y) * a.W + x : -1;
-        },
-        a.e, a.splits > 1 ? a.ws + blockIdx.z * M * a.e.N : nullptr);
+    wg::store_tile<BN>(acc, wgi, n0, row_m, a.e,
+                       a.splits > 1 ? a.ws + blockIdx.z * a.e.M * a.e.N : nullptr);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 wgmma kernel with the GroupNorm prologue (K8), block tile 128 x 128.
+// bf16 wgmma kernel with the GroupNorm prologue (K8), block tile 128 x BN
+// (128, or 8 with the K-major 8-row weight for Cout <= 8).
 // K steps run channel chunk by channel chunk (step kb: chunk kb / 9, tap
 // kb % 9). For each chunk the producer loads the tile's halo once, (th + 2)
 // x (tw + 2) pixels x 64 channels of each image, zero outside the tensor;
@@ -414,7 +276,7 @@ __global__ void __launch_bounds__(wg::THREADS, CTAS)
 // ring, a stage a step, as in the plain conv.
 // ---------------------------------------------------------------------------
 constexpr int GN_B_STAGES = 4, GN_HALO_STAGES = 2;
-constexpr int GN_B_BYTES = wg::BK * 128 * 2;
+__host__ __device__ constexpr int gn_b_bytes(int bn) { return wg::BK * bn * 2; }
 
 // the halo ring stage of the tile, rounded to the 1024-byte swizzle atom
 __host__ __device__ __forceinline__ int gn_halo_bytes(int tw, int th, int tb) {
@@ -424,8 +286,8 @@ __host__ __device__ __forceinline__ int gn_halo_stride(int tw, int th, int tb) {
   return (gn_halo_bytes(tw, th, tb) + 1023) / 1024 * 1024;
 }
 // [pad to 1024][B ring][halo ring][fullB, emptyB, fullH, emptyH][(scale, shift)]
-__host__ __device__ __forceinline__ int gn_smem_bytes(int tw, int th, int tb, int cin) {
-  return 1024 + GN_B_STAGES * GN_B_BYTES + GN_HALO_STAGES * gn_halo_stride(tw, th, tb) +
+__host__ __device__ __forceinline__ int gn_smem_bytes(int tw, int th, int tb, int cin, int bn) {
+  return 1024 + GN_B_STAGES * gn_b_bytes(bn) + GN_HALO_STAGES * gn_halo_stride(tw, th, tb) +
          16 * (GN_B_STAGES + GN_HALO_STAGES) + tb * cin * 8;
 }
 
@@ -449,14 +311,16 @@ __device__ __forceinline__ uint4 gn_apply8(uint4 raw, const float2 (&ss)[8], int
   return raw;
 }
 
+template <int BN>
 __global__ void __launch_bounds__(wg::THREADS, 1)
     conv_gn_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_halo,
                        const __grid_constant__ CUtensorMap tmap_w, ConvWgmmaArgs a) {
+  constexpr int B_BYTES = gn_b_bytes(BN);
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t base = wg::smem_u32(smem);
   const uint32_t b_ring = (base + 1023u) & ~1023u;
   const int halo_stride = gn_halo_stride(a.tw, a.th, a.tb);
-  const uint32_t h_ring = b_ring + GN_B_STAGES * GN_B_BYTES;
+  const uint32_t h_ring = b_ring + GN_B_STAGES * B_BYTES;
   const uint32_t bars = h_ring + GN_HALO_STAGES * halo_stride;
   auto full_b = [&](int s) { return bars + 8 * s; };
   auto empty_b = [&](int s) { return bars + 8 * (GN_B_STAGES + s); };
@@ -479,8 +343,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   __syncthreads();
 
   int mt, nt;
-  wg::block_tile((a.e.N + 127) / 128, mt, nt);
-  const int n0 = nt * 128;
+  wg::block_tile((a.e.N + BN - 1) / BN, mt, nt);
+  const int n0 = nt * BN;
   const int x0 = (mt % a.ntx) * a.tw;
   const int y0 = (mt / a.ntx % a.nty) * a.th;
   const int b0 = mt / (a.ntx * a.nty) * a.tb;
@@ -507,17 +371,21 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
         }
         const int s = it % GN_B_STAGES;
         wg::bar_wait(empty_b(s), ((it / GN_B_STAGES) & 1) ^ 1);
-        wg::bar_expect_tx(full_b(s), GN_B_BYTES);
+        wg::bar_expect_tx(full_b(s), B_BYTES);
+        if constexpr (BN == 8) {
+          wg::tma_load_2d(b_ring + s * B_BYTES, mw, full_b(s), tap * a.Cin + cc * 64, 0);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wg::tma_load_2d(b_ring + s * GN_B_BYTES + j * wg::BOX_BYTES, mw, full_b(s),
-                          n0 + 64 * j, tap * a.Cin + cc * 64);
+          for (int j = 0; j < 2; ++j)
+            wg::tma_load_2d(b_ring + s * B_BYTES + j * wg::BOX_BYTES, mw, full_b(s),
+                            n0 + 64 * j, tap * a.Cin + cc * 64);
+        }
       }
     }
   } else {
-    float acc[1][64];
+    float acc[1][BN == 8 ? 4 : 64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[0][i] = 0.f;
+    for (int i = 0; i < (BN == 8 ? 4 : 64); ++i) acc[0][i] = 0.f;
     // scale / shift of the tile's images as (scale, shift) pairs
     for (int i = threadIdx.x; i < a.tb * a.Cin; i += 256) {
       const int bi = i / a.Cin, c = i - bi * a.Cin;
@@ -600,8 +468,13 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       wg::fence_acc(acc[0]);
       wg::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wg::wgmma_rs(acc[0], f[kk], wg::desc_b(b_ring + s * GN_B_BYTES, 0, kk));
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t b = b_ring + s * B_BYTES;
+        if constexpr (BN == 8)
+          wg::wgmma_rs_n8(acc[0], f[kk], wg::desc_sw128(b + kk * 32, 16, wg::SW_ROWS8));
+        else
+          wg::wgmma_rs(acc[0], f[kk], wg::desc_b(b, 0, kk));
+      }
       wg::wgmma_commit();
       wg::fence_acc(acc[0]);
     };
@@ -624,15 +497,12 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       if (it + 2 < nk) fragments(it + 2, fa);
       retire(it + 1, fb);
     }
-    const long long M = a.e.M;
-    wg::store_tile<128>(
-        acc, wgi, n0,
-        [&](int row) -> long long {
-          const int b = b0 + row / per_img;
-          const int y = y0 + row % per_img / a.tw, x = x0 + row % a.tw;
-          return (b < a.B && y < a.H && x < a.W) ? ((long long)b * a.H + y) * a.W + x : -1;
-        },
-        a.e, a.splits > 1 ? a.ws + blockIdx.z * M * a.e.N : nullptr);
+    auto row_m = [&](int row) { return a.pixel(x0, y0, b0, row); };
+    if constexpr (BN == 8)
+      wg::store_n8(acc[0], wgi, row_m, a.e);
+    else
+      wg::store_tile<128>(acc, wgi, n0, row_m, a.e,
+                          a.splits > 1 ? a.ws + blockIdx.z * a.e.M * a.e.N : nullptr);
   }
 }
 
@@ -714,42 +584,16 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   // the tile row whose 16-byte pieces this lane addresses for ldmatrix
   const int lrow = wgi * 64 + warp * 16 + lane % 16;
   // part: one stage's sum on the tensor cores; acc: the sum over stages in
-  // f32 adds, rounded to nearest (the tensor cores' own f32 accumulation
-  // rounds less well, and over K = 1152 .. 4608 that costs digits)
+  // f32 adds, rounded to nearest (over K = 1152 .. 4608 the tensor cores'
+  // own accumulation costs digits)
   float acc[BN / 2], part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
   for (int it = 0; it < nk; ++it) {
     const int s = it % TF_STAGES;
-    const uint32_t st = ring + s * STAGE, wb = st + TF_A_BYTES, ws = wb + BN * 128;
+    const uint32_t st = ring + s * STAGE, wb = st + TF_A_BYTES;
     wg::bar_wait(full(s), (it / TF_STAGES) & 1);
-    uint32_t big[4][4], small[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wg::ldmatrix_x4(st + lrow * 128 + (((2 * kk + lane / 16) ^ (lrow & 7)) << 4), big[kk]);
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const uint32_t x = big[kk][v];
-        big[kk][v] = x & 0xFFFFE000u;
-        small[kk][v] = __float_as_uint(__uint_as_float(x) - __uint_as_float(big[kk][v]));
-      }
-    }
-    wg::fence_frag(big);
-    wg::fence_frag(small);
-    wg::fence_acc(part);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = wg::desc_sw128(wb + kk * 32, 16, wg::SW_ROWS8);
-      wg::wgmma_tf32_rs(part, small[kk], db, kk);
-      wg::wgmma_tf32_rs(part, big[kk], wg::desc_sw128(ws + kk * 32, 16, wg::SW_ROWS8), 1);
-      wg::wgmma_tf32_rs(part, big[kk], db, 1);
-    }
-    wg::wgmma_commit();
-    wg::wgmma_wait<0>();
-    wg::fence_acc(part);
-    wg::fence_frag(big);
-    wg::fence_frag(small);
+    wg::tf32x3_stage(st, wb, wb + BN * 128, lrow, 1.f, part);
     if (threadIdx.x % 128 == 0) wg::bar_arrive(empty(s));
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
@@ -816,47 +660,36 @@ int launch_conv(Kernel kernel, const CUtensorMap& tx, const CUtensorMap& tw,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. act: 0 = none, 1 = SiLU.
-// bias (of bias_dtype: 0 f32, 1 bf16) and residual may be null. gn_scale / gn_shift: (B, Cin) f32
-// GroupNorm prologue, or null; gn_act: 1 = SiLU after it. Returns a
-// cudaError_t (0 on success). *variant receives 1 for the WMMA kernel, 0 for
-// the scalar kernel.
-extern "C" int st_conv3x3(const void* x, const void* w, const void* bias, int bias_dtype,
-                          long long bias_bstride, const void* residual, void* out,
-                          int B, int H, int W, int Cin, int Cout, int act, int dtype,
+// The f32 scalar conv (the convs the tf32 kernel does not take): x (B, H,
+// W, Cin), w (3, 3, Cin, Cout), residual and out (B, H, W, Cout), f32.
+// act: 0 = none, 1 = SiLU. bias (of bias_dtype: 0 f32, 1 bf16; (Cout,) with
+// bias_bstride 0, or (B, Cout) with bias_bstride Cout) and residual may be
+// null. gn_scale / gn_shift: (B, Cin) f32 GroupNorm prologue, or null;
+// gn_act: 1 = SiLU after it. Returns a cudaError_t (0 on success).
+extern "C" int st_conv3x3(const float* x, const float* w, const void* bias, int bias_dtype,
+                          long long bias_bstride, const float* residual, float* out,
+                          int B, int H, int W, int Cin, int Cout, int act,
                           const float* gn_scale, const float* gn_shift, int gn_act,
-                          int* variant, void* stream_ptr) {
+                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  ConvArgs a{x, w, bias, bias_bstride, bias_dtype, residual, out, B, H, W, Cin, Cout, act,
-             gn_scale, gn_shift, gn_act};
+  const ConvArgs a{x, w, bias, bias_bstride, bias_dtype, residual, out, B, H, W, Cin, Cout, act,
+                   gn_scale, gn_shift, gn_act};
   const long long M = (long long)B * H * W;
-  if (dtype == 1) {
-    *variant = 1;
-    int vec_a = (Cin % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                (reinterpret_cast<uintptr_t>(gn_scale) % 16 == 0) &&
-                (reinterpret_cast<uintptr_t>(gn_shift) % 16 == 0);
-    int vec_b = (Cout % 8 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-    dim3 grid((unsigned)((M + WBM - 1) / WBM), (Cout + WBN - 1) / WBN);
-    conv_wmma_bf16<<<grid, WTHREADS, 0, stream>>>(a, vec_a, vec_b);
-    return (int)cudaGetLastError();
-  }
-  if (dtype == 0) {
-    *variant = 0;
-    dim3 grid((unsigned)((M + CBM - 1) / CBM), (Cout + CBN - 1) / CBN);
-    conv_scalar<float><<<grid, CTHREADS, 0, stream>>>(a);
-    return (int)cudaGetLastError();
-  }
-  return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((M + CBM - 1) / CBM), (Cout + CBN - 1) / CBN);
+  conv_scalar<<<grid, CTHREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// The bf16 wgmma conv: x (B, H, W, Cin), w (3, 3, Cin, Cout), residual and
-// out (B, H, W, Cout), contiguous bf16 with Cin % 8 == 0, Cout % 8 == 0 and
-// 16-byte aligned bases; bias of bias_dtype with bias_bstride as st_conv3x3;
-// gn_scale / gn_shift (B, Cin) f32 for the GroupNorm prologue or null. The
-// plan: the pixel tile tw x th x tb (= 128), the block tile's width bn (128
-// or 256; 128 with the prologue) and the K split (1 <= splits <= 9 *
-// ceil(Cin / 64)), with ws a (splits, B*H*W, Cout) f32 workspace when
-// splits > 1. Returns a cudaError_t.
+// The bf16 wgmma conv: x (B, H, W, Cin), residual and out (B, H, W, Cout),
+// contiguous bf16 with Cin % 8 == 0 and x, w 16-byte aligned; w the (3, 3,
+// Cin, Cout) weight, or at bn = 8 (Cout <= 8) the K-major (8, 9 * Cin)
+// weight with rows past Cout zero; bias of bias_dtype with bias_bstride as
+// st_conv3x3; gn_scale / gn_shift (B, Cin) f32 for the GroupNorm prologue or
+// null. The plan: the pixel tile tw x th x tb (= 128), the block tile's
+// width bn (128 or 256 with Cout % 8 == 0 and 16-byte aligned residual and
+// out, 128 with the prologue; 8 for Cout <= 8) and the K split (1 <= splits
+// <= 9 * ceil(Cin / 64); 1 at bn = 8), with ws a (splits, B*H*W, Cout) f32
+// workspace when splits > 1. Returns a cudaError_t.
 extern "C" int st_conv3x3_wgmma(const void* x, const void* w, const void* bias, int bias_dtype,
                                 long long bias_bstride, const void* residual, void* out,
                                 float* ws, int B, int H, int W, int Cin, int Cout, int act,
@@ -865,16 +698,19 @@ extern "C" int st_conv3x3_wgmma(const void* x, const void* w, const void* bias, 
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool gn = gn_scale != nullptr;
   const int nk = 9 * ((Cin + 63) / 64);
+  // the epilogue's 16-byte vectors at bn 128 / 256; element stores at bn 8
+  const uintptr_t out_align = bn == 8 ? 2 : 16;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(residual) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 8 || Cout % 8 || !aligned ||
+                       reinterpret_cast<uintptr_t>(residual) % out_align == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % out_align == 0;
+  const bool width_ok = bn == 8 ? Cout <= 8 && splits == 1
+                                : Cout % 8 == 0 && (bn == 128 || (bn == 256 && !gn));
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 8 || !width_ok || !aligned ||
       act < 0 || act > 1 || gn_act < 0 || gn_act > 1 || bias_dtype < 0 || bias_dtype > 1 ||
       (gn && (!gn_shift || (tw * th) % 16)) || tw < 1 || th < 1 || tb < 1 || tw > 256 ||
-      th > 256 || tb > 256 ||
-      tw * th * tb != wg::BM || (bn != 128 && bn != 256) || (gn && bn != 128) || splits < 1 ||
-      splits > nk || (splits > 1 && !ws))
+      th > 256 || tb > 256 || tw * th * tb != wg::BM || splits < 1 || splits > nk ||
+      (splits > 1 && !ws))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tx, twm;
   const uint64_t xdims[4] = {(uint64_t)Cin, (uint64_t)W, (uint64_t)H, (uint64_t)B};
@@ -883,8 +719,13 @@ extern "C" int st_conv3x3_wgmma(const void* x, const void* w, const void* bias, 
   // the A box: the pixel tile, or with the prologue its halo
   const uint32_t xbox[4] = {64, (uint32_t)(tw + (gn ? 2 : 0)), (uint32_t)(th + (gn ? 2 : 0)),
                             (uint32_t)tb};
+  // B: the (9 * Cin, Cout) weight in 64-column boxes, or at bn = 8 the
+  // K-major (8, 9 * Cin) one in boxes of 64 k x 8 rows
+  const uint64_t w8_dims[2] = {9ull * Cin, 8}, w8_strides[1] = {9ull * Cin * 2};
+  const uint32_t w8_box[2] = {64, 8};
   if (!wg::make_map(&tx, x, 4, xdims, xstrides, xbox) ||
-      !wg::make_b_map(&twm, w, 9LL * Cin, Cout))
+      !(bn == 8 ? wg::make_map(&twm, w, 2, w8_dims, w8_strides, w8_box)
+                : wg::make_b_map(&twm, w, 9LL * Cin, Cout)))
     return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * H * W;
   const wg::Epilogue e{bias, bias_bstride, (long long)H * W,
@@ -895,10 +736,18 @@ extern "C" int st_conv3x3_wgmma(const void* x, const void* w, const void* bias, 
   const ConvWgmmaArgs a{e, ws, gn_scale, gn_shift, B, H, W, Cin, tw, th, tb, ntx, nty,
                         splits, gn_act};
   int code;
-  if (gn) {
+  if (gn && bn == 8) {
     static bool set = false;
-    code = launch_conv(conv_gn_wgmma_bf16, tx, twm, a, 128, mt, gn_smem_bytes(tw, th, tb, Cin),
-                       set, stream);
+    code = launch_conv(conv_gn_wgmma_bf16<8>, tx, twm, a, 8, mt,
+                       gn_smem_bytes(tw, th, tb, Cin, 8), set, stream);
+  } else if (gn) {
+    static bool set = false;
+    code = launch_conv(conv_gn_wgmma_bf16<128>, tx, twm, a, 128, mt,
+                       gn_smem_bytes(tw, th, tb, Cin, 128), set, stream);
+  } else if (bn == 8) {
+    static bool set = false;
+    code = launch_conv(conv_wgmma_bf16<8, 6, 2>, tx, twm, a, 8, mt, wg::Ring<8, 6>::bytes(), set,
+                       stream);
   } else if (bn == 256) {
     static bool set = false;
     code = launch_conv(conv_wgmma_bf16<256, 4, 1>, tx, twm, a, 256, mt,

@@ -27,9 +27,11 @@
 //                          over KV tiles of 64 keys. K1-K4.
 //   attn_tiny_kv_bf16<D> - bf16, the same D, Sk <= 128: the head's whole K and
 //                          V staged once, one score pass, no KV loop. K5.
-//   attn_scalar_f32<D>   - f32, D in {64, 512}: FMA on f32 tiles in shared
-//                          memory (the VAE's d=512 needs full f32 products;
-//                          TF32 would lose digits). K3 in f32.
+//   gemm_wgmma_tf32x3<MODE> - f32, D in {64, 512} (the VAE's mid-block, h=1,
+//                          d=512): attention as two launches of one 3xTF32
+//                          GEMM a chunk of query rows, S = Q K^T with the
+//                          softmax numerator in its epilogue, then O = P V
+//                          divided by the row sums. K3 in f32.
 //
 // What bounds them on the H100. Attention does 4*D FLOPs per score element
 // against one exp2 on the SFU (16 a clock an SM against ~4,000 bf16 FLOPs
@@ -82,8 +84,35 @@
 // is the per-block fixed work (staging a head's K and V, the softmax pass),
 // which it keeps to one pass over the key fragments up to the last real key
 // (5 of the 8 fragments of its 128-row K buffer at Sk = 77). At D = 160 its
-// shared memory (159 KB) leaves one block per SM. The scalar f32 kernel is
-// bound by f32 FMA throughput.
+// shared memory (159 KB) leaves one block per SM.
+//
+// gemm_wgmma_tf32x3<MODE>. At d = 512 the two products are 4 Sq Sk D = 550
+// GFLOP at S = 16384, and f32 accuracy is kept (one tf32 product alone is
+// ~1e-3 off) by 3xTF32, the scheme of the f32 conv (conv3x3.cu
+// conv_wgmma_tf32x3): A split into big / small in registers, B's big and
+// small parts from shared memory, a_small b_big + a_big b_small + a_big
+// b_big on the tensor cores, each stage's sum carried into the running sum
+// in f32 adds (wgmma.cuh tf32x3_stage). Bound: 3 x 550 GFLOP at the tf32
+// peak, 3.3 ms; the f32 FMA peak would give 8.2 ms. A fused flash kernel
+// does not fit at d = 512: a 64-row Q tile in big and small tf32 is 256 KB,
+// over the 227 KB of shared memory a block may use. So the score matrix
+// goes through device memory in f32, a chunk of query rows at a time (P
+// at most 256 MiB; the wrapper picks the rows), ~0.6 ms of writes and reads
+// at 16384^2:
+//   MODE 0: S = (Q qscale) K^T, a 128 x 128 tile a block (A = Q read in
+//           place, scaled in registers as JAX's q * f32(scale log2e), one
+//           rounding; B = K as it lies, keys x d, K-major, split by the
+//           wrapper); the epilogue writes p = exp2(min(s, 80)), 0 for keys
+//           at or past Sk (TMA's zero rows give s = 0), and the tile's row
+//           sums of p, one f32 partial a 128-key tile (no atomics: a run
+//           repeats bit for bit).
+//   MODE 1: O = P V (A = P, K-major; B = V^T, d x keys, key-contiguous,
+//           transposed and split by the wrapper: tf32 wgmma has no
+//           transpose); the epilogue sums the row's partials in a fixed
+//           order and stores acc / max(l, 1e-30).
+// A block is 128 rows x 128 columns over k steps of 32 f32 (one 128-byte
+// swizzle row): a 4-stage TMA ring of 48 KB stages (A, B big, B small), one
+// producer warp, two consumer warpgroups of 64 rows; one block an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -104,124 +133,6 @@ struct Operand {
   long long row_stride;    // elements
   long long col_offset;    // elements
 };
-
-// ---------------------------------------------------------------------------
-// scalar f32 kernel: BQ=32 query rows x BK=32 keys per tile, 256 threads.
-// Thread t owns rows 2*(t/16) + {0,1}; for S it owns key columns t%16 + {0,16},
-// for the output it owns head-dim columns t%16 + 16*j.
-// ---------------------------------------------------------------------------
-constexpr int SBQ = 32;
-constexpr int SBK = 32;
-constexpr int STHREADS = 256;
-
-template <int D>
-constexpr size_t scalar_smem_bytes() {
-  return sizeof(float) * (SBQ * (D + 1) + SBK * (D + 1) + SBK * D + SBQ * (SBK + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(STHREADS)
-attn_scalar_f32(Operand q, Operand k, Operand v, float* __restrict__ out,
-                int Sq, int Sk, int H, float qscale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [SBQ][D+1]
-  float* Ks = Qs + SBQ * (D + 1);      // [SBK][D+1]
-  float* Vs = Ks + SBK * (D + 1);      // [SBK][D]
-  float* Ps = Vs + SBK * D;            // [SBQ][SBK+1]
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * SBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float* qp = static_cast<const float*>(q.ptr) + b * q.batch_stride + q.col_offset + h * D;
-  const float* kp = static_cast<const float*>(k.ptr) + b * k.batch_stride + k.col_offset + h * D;
-  const float* vp = static_cast<const float*>(v.ptr) + b * v.batch_stride + v.col_offset + h * D;
-
-  // q tile, pre-scaled by scale*log2(e); rows past Sq are zero
-  for (int idx = tid; idx < SBQ * D; idx += STHREADS) {
-    int r = idx / D, c = idx % D;
-    int qi = q0 + r;
-    Qs[r * (D + 1) + c] = qi < Sq ? qp[qi * q.row_stride + c] * qscale : 0.f;
-  }
-
-  const int r0 = 2 * (tid / 16);
-  const int lane16 = tid % 16;
-  constexpr int DJ = D / 16;
-  float acc[2][DJ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < Sk; k0 += SBK) {
-    __syncthreads();
-    for (int idx = tid; idx < SBK * D; idx += STHREADS) {
-      int r = idx / D, c = idx % D;
-      int ki = k0 + r;
-      bool ok = ki < Sk;
-      Ks[r * (D + 1) + c] = ok ? kp[ki * k.row_stride + c] : 0.f;
-      Vs[r * D + c] = ok ? vp[ki * v.row_stride + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    const float* qa = Qs + r0 * (D + 1);
-    const float* qb = qa + (D + 1);
-    const float* ka = Ks + lane16 * (D + 1);
-    const float* kb = Ks + (lane16 + 16) * (D + 1);
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float x0 = qa[d], x1 = qb[d], y0 = ka[d], y1 = kb[d];
-      s[0][0] = fmaf(x0, y0, s[0][0]);
-      s[0][1] = fmaf(x0, y1, s[0][1]);
-      s[1][0] = fmaf(x1, y0, s[1][0]);
-      s[1][1] = fmaf(x1, y1, s[1][1]);
-    }
-    float psum[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float pa = (k0 + lane16 < Sk) ? exp2f(fminf(s[i][0], kClip)) : 0.f;
-      float pb = (k0 + lane16 + 16 < Sk) ? exp2f(fminf(s[i][1], kClip)) : 0.f;
-      Ps[(r0 + i) * (SBK + 1) + lane16] = pa;
-      Ps[(r0 + i) * (SBK + 1) + lane16 + 16] = pb;
-      psum[i] = pa + pb;
-    }
-    // row sums over the 16 threads of this half-warp
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      psum[0] += __shfl_xor_sync(0xffffffffu, psum[0], off);
-      psum[1] += __shfl_xor_sync(0xffffffffu, psum[1], off);
-    }
-    l[0] += psum[0];
-    l[1] += psum[1];
-    __syncthreads();
-
-    const float* pa = Ps + r0 * (SBK + 1);
-    const float* pb = pa + (SBK + 1);
-    for (int kk = 0; kk < SBK; ++kk) {
-      float w0 = pa[kk], w1 = pb[kk];
-      const float* vr = Vs + kk * D + lane16;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        float vv = vr[16 * j];
-        acc[0][j] = fmaf(w0, vv, acc[0][j]);
-        acc[1][j] = fmaf(w1, vv, acc[1][j]);
-      }
-    }
-  }
-
-  const int C = H * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int qi = q0 + r0 + i;
-    if (qi >= Sq) continue;
-    float lc = fmaxf(l[i], 1e-30f);
-    float* orow = out + ((long long)b * Sq + qi) * C + h * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[lane16 + 16 * j] = acc[i][j] / lc;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 WMMA kernel (K5): 4 warps, BQ=64 query rows (16 per warp). A warp owns
@@ -664,18 +575,154 @@ cudaError_t launch_bf16(bool tiny_kv, Operand q, Operand k, Operand v, void* out
                  : launch_wgmma<D>(q, k, v, out, B, Sq, Sk, H, qscale, stream);
 }
 
-template <int D>
-cudaError_t launch_scalar(Operand q, Operand k, Operand v, void* out, int B, int Sq, int Sk,
-                          int H, float qscale, cudaStream_t stream) {
-  constexpr size_t smem = scalar_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(attn_scalar_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + SBQ - 1) / SBQ, H, B);
-  attn_scalar_f32<D><<<grid, STHREADS, smem, stream>>>(q, k, v, static_cast<float*>(out), Sq,
-                                                       Sk, H, qscale);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// gemm_wgmma_tf32x3<MODE> (K3 in f32): see the note at the top
+// ---------------------------------------------------------------------------
+constexpr int TG_BN = 128;                               // block tile columns
+constexpr int TG_STAGES = 4;
+constexpr int TG_A_BYTES = wg::BM * 128;                 // 128 rows x 32 f32
+constexpr int TG_STAGE = TG_A_BYTES + 2 * TG_BN * 128;   // A, B big, B small
+constexpr int TG_SMEM = 1024 + TG_STAGES * TG_STAGE + 16 * TG_STAGES;
+
+struct Tf32GemmArgs {
+  int M, N, K;           // this launch's rows, columns and depth
+  int n_tiles;           // column tiles (blockIdx.x = row tile * n_tiles + column tile)
+  // A (3-D map: column, row, z'): row a_row0 + r, column a_col0 +
+  // (z % a_heads) * a_head_cols + k, z' = z / a_heads (Q: z = b * H + h)
+  int a_row0, a_col0, a_heads, a_head_cols;
+  float a_scale;         // A's values times this before the split
+  int keys;              // MODE 0: columns at or past it give p = 0
+  float* p;              // MODE 0: P, (z, rows, p_ld)
+  int p_ld;
+  long long p_z;
+  float* l;              // row sums of p a column tile, (z, rows, l_ld): MODE 0
+  int l_ld;              // writes them, MODE 1 reads them
+  long long l_z;
+  float* out;            // MODE 1: out[z / heads][out_row0 + r][(z % heads) * head_cols + n]
+  long long out_b, out_ld;
+  int out_row0, heads, head_cols;
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    gemm_wgmma_tf32x3(const __grid_constant__ CUtensorMap tmap_a,
+                      const __grid_constant__ CUtensorMap tmap_big,
+                      const __grid_constant__ CUtensorMap tmap_small, Tf32GemmArgs a) {
+  extern __shared__ __align__(16) uint8_t tsmem[];
+  const uint32_t ring = (wg::smem_u32(tsmem) + 1023u) & ~1023u;
+  auto full = [&](int s) { return ring + TG_STAGES * TG_STAGE + 8 * s; };
+  auto empty = [&](int s) { return full(TG_STAGES + s); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TG_STAGES; ++s) {
+      wg::bar_init(full(s), 1);
+      wg::bar_init(empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int mt, nt;
+  wg::block_tile(a.n_tiles, mt, nt);
+  const int m0 = mt * wg::BM, n0 = nt * TG_BN, z = blockIdx.z;
+  const int nk = (a.K + 31) / 32;
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    if (threadIdx.x == 256) {
+      const int a_col = a.a_col0 + (z % a.a_heads) * a.a_head_cols, a_z = z / a.a_heads;
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % TG_STAGES;
+        const uint32_t st = ring + s * TG_STAGE;
+        wg::bar_wait(empty(s), ((it / TG_STAGES) & 1) ^ 1);
+        wg::bar_expect_tx(full(s), TG_STAGE);
+        wg::tma_load_3d(st, &tmap_a, full(s), a_col + 32 * it, a.a_row0 + m0, a_z);
+        wg::tma_load_3d(st + TG_A_BYTES, &tmap_big, full(s), 32 * it, n0, z);
+        wg::tma_load_3d(st + TG_A_BYTES + TG_BN * 128, &tmap_small, full(s), 32 * it, n0, z);
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int lrow = wgi * 64 + warp * 16 + lane % 16;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % TG_STAGES;
+    const uint32_t st = ring + s * TG_STAGE, wb = st + TG_A_BYTES;
+    wg::bar_wait(full(s), (it / TG_STAGES) & 1);
+    wg::tf32x3_stage(st, wb, wb + TG_BN * 128, lrow, a.a_scale, part);
+    if (threadIdx.x % 128 == 0) wg::bar_arrive(empty(s));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+
+  // accumulator i lies at tile row 16 warp + lane / 4 + 8 ((i >> 1) & 1) and
+  // column 8 (i >> 2) + 2 (lane % 4) + (i & 1). A quad of lanes holds one
+  // row: its sums meet in two xor exchanges, which give every lane of the
+  // quad the same bits.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + wgi * 64 + warp * 16 + lane / 4 + 8 * r;
+    if constexpr (MODE == 0) {
+      float* prow = a.p + z * a.p_z + (long long)row * a.p_ld;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TG_BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * (lane % 4);
+        const float p0 = n < a.keys ? exp2f(fminf(acc[4 * j + 2 * r], kClip)) : 0.f;
+        const float p1 = n + 1 < a.keys ? exp2f(fminf(acc[4 * j + 2 * r + 1], kClip)) : 0.f;
+        sum += p0 + p1;
+        if (row < a.M) *reinterpret_cast<float2*>(prow + n) = make_float2(p0, p1);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (row < a.M && lane % 4 == 0) a.l[z * a.l_z + (long long)row * a.l_ld + nt] = sum;
+    } else {
+      // l: lane q of the quad sums the row's partials q, q + 4, ... in order
+      float l = 0.f;
+      if (row < a.M)
+        for (int t = lane % 4; t < a.l_ld; t += 4) l += a.l[z * a.l_z + (long long)row * a.l_ld + t];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (row >= a.M) continue;
+      const float lc = fmaxf(l, 1e-30f);
+      float* orow = a.out + (z / a.heads) * a.out_b + (long long)(a.out_row0 + row) * a.out_ld +
+                    (z % a.heads) * a.head_cols;
+#pragma unroll
+      for (int j = 0; j < TG_BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * (lane % 4);
+        if (n < a.N)
+          *reinterpret_cast<float2*>(orow + n) =
+              make_float2(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
+      }
+    }
+  }
+}
+
+// an f32 3-D tensor map (dims innermost first, strides of dims 1 and 2 in
+// elements), boxes of 32 columns x 128 rows x 1
+bool f32_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+             uint64_t s1, uint64_t s2) {
+  const uint64_t dims[3] = {d0, d1, d2};
+  const uint64_t strides[2] = {s1 * 4, s2 * 4};
+  const uint32_t box[3] = {32, 128, 1};
+  return wg::make_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+template <int MODE>
+int launch_tf32_gemm(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& ts,
+                     const Tf32GemmArgs& a, int zs, cudaStream_t stream) {
+  static bool set = false;
+  if (!set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_wgmma_tf32x3<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    set = true;
+  }
+  const dim3 grid((unsigned)((a.M + wg::BM - 1) / wg::BM * a.n_tiles), 1, zs);
+  gemm_wgmma_tf32x3<MODE><<<grid, wg::THREADS, TG_SMEM, stream>>>(ta, tb, ts, a);
+  return (int)cudaGetLastError();
 }
 
 bool aligned16(const Operand& o) {
@@ -686,10 +733,10 @@ bool aligned16(const Operand& o) {
 
 }  // namespace
 
-// kernel: 0 = attn_scalar_f32 (float32), 1 = attn_wgmma_bf16, 2 = attn_tiny_kv_bf16
-// (both bfloat16). qscale = scale*log2(e), rounded to the operand dtype.
-// Returns a cudaError_t (0 on success), or -1 when the kernel has no instance
-// for this head dim, key count or operand alignment (nothing is launched).
+// kernel: 1 = attn_wgmma_bf16, 2 = attn_tiny_kv_bf16 (bfloat16 operands).
+// qscale = scale*log2(e), rounded to bfloat16. Returns a cudaError_t (0 on
+// success), or -1 when the kernel has no instance for this head dim, key
+// count or operand alignment (nothing is launched).
 extern "C" int st_flash_attention(
     const void* q, long long q_sb, long long q_ss, long long q_off,
     const void* k, long long k_sb, long long k_ss, long long k_off,
@@ -698,11 +745,6 @@ extern "C" int st_flash_attention(
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Operand oq{q, q_sb, q_ss, q_off}, ok{k, k_sb, k_ss, k_off}, ov{v, v_sb, v_ss, v_off};
-  if (kernel == 0) {
-    if (D == 64) return (int)launch_scalar<64>(oq, ok, ov, out, B, Sq, Sk, H, qscale, stream);
-    if (D == 512) return (int)launch_scalar<512>(oq, ok, ov, out, B, Sq, Sk, H, qscale, stream);
-    return -1;
-  }
   if ((kernel != 1 && kernel != 2) || !(aligned16(oq) && aligned16(ok) && aligned16(ov)))
     return -1;
   const bool tiny_kv = kernel == 2;
@@ -715,4 +757,55 @@ extern "C" int st_flash_attention(
                                            stream);
     default: return -1;
   }
+}
+
+// f32 attention (K3) on gemm_wgmma_tf32x3: q read in place as (base, batch
+// stride, row stride, column offset) in elements (base 16-byte aligned,
+// strides multiples of 4); k_big / k_small the (B*H, Sk, D) parts of K and
+// vt_big / vt_small the (B*H, D, keys) parts of V^T, keys = Sk rounded up
+// to 128 with zero columns (kernels/flash_attention.py
+// tf32_attention_operands); p (B*H, rows, keys) and l (B*H, rows, keys /
+// 128) f32 workspaces; out (B, Sq, H*D) f32. Query rows go in chunks of
+// `rows` (a multiple of 128), two launches each. qscale = f32(scale *
+// log2(e)). Returns a cudaError_t (0 on success).
+extern "C" int st_attention_tf32x3(const float* q, long long q_sb, long long q_ss, long long q_off,
+                                   const float* k_big, const float* k_small, const float* vt_big,
+                                   const float* vt_small, float* p, float* l, float* out, int B,
+                                   int Sq, int Sk, int H, int D, int rows, float qscale,
+                                   void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int keys = (Sk + 127) / 128 * 128, key_tiles = keys / 128, BH = B * H;
+  const auto a16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || D % 32 || rows <= 0 || rows % 128 ||
+      BH > 65535 || q_off < 0 || q_ss % 4 || q_sb % 4 || !a16(q) || !a16(k_big) ||
+      !a16(k_small) || !a16(vt_big) || !a16(vt_small) || !a16(p) ||
+      reinterpret_cast<uintptr_t>(out) % 8)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tkb, tks, tp, tvb, tvs;
+  if (!f32_map(&tq, q, q_off + (long long)H * D, Sq, B, q_ss, q_sb) ||
+      !f32_map(&tkb, k_big, D, Sk, BH, D, (uint64_t)Sk * D) ||
+      !f32_map(&tks, k_small, D, Sk, BH, D, (uint64_t)Sk * D) ||
+      !f32_map(&tp, p, keys, rows, BH, keys, (uint64_t)rows * keys) ||
+      !f32_map(&tvb, vt_big, keys, D, BH, keys, (uint64_t)D * keys) ||
+      !f32_map(&tvs, vt_small, keys, D, BH, keys, (uint64_t)D * keys))
+    return (int)cudaErrorInvalidValue;
+  for (int r0 = 0; r0 < Sq; r0 += rows) {
+    const int M = Sq - r0 < rows ? Sq - r0 : rows;
+    Tf32GemmArgs s{};
+    s.M = M, s.N = keys, s.K = D, s.n_tiles = key_tiles;
+    s.a_row0 = r0, s.a_col0 = (int)q_off, s.a_heads = H, s.a_head_cols = D, s.a_scale = qscale;
+    s.keys = Sk, s.p = p, s.p_ld = keys, s.p_z = (long long)rows * keys;
+    s.l = l, s.l_ld = key_tiles, s.l_z = (long long)rows * key_tiles;
+    int code = launch_tf32_gemm<0>(tq, tkb, tks, s, BH, stream);
+    if (code != 0) return code;
+    Tf32GemmArgs o{};
+    o.M = M, o.N = D, o.K = keys, o.n_tiles = (D + TG_BN - 1) / TG_BN;
+    o.a_row0 = 0, o.a_col0 = 0, o.a_heads = 1, o.a_head_cols = 0, o.a_scale = 1.f;
+    o.l = l, o.l_ld = key_tiles, o.l_z = (long long)rows * key_tiles;
+    o.out = out, o.out_b = (long long)Sq * H * D, o.out_ld = (long long)H * D;
+    o.out_row0 = r0, o.heads = H, o.head_cols = D;
+    code = launch_tf32_gemm<1>(tp, tvb, tvs, o, BH, stream);
+    if (code != 0) return code;
+  }
+  return 0;
 }

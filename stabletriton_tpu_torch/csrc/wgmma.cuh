@@ -2,10 +2,11 @@
 // linear_wgmma_bf16) and the bf16 3x3 conv as an implicit GEMM (conv3x3.cu,
 // conv_wgmma_bf16): TMA loads into a ring of shared-memory stages, one
 // producer thread, two consumer warpgroups issuing wgmma, and an epilogue
-// straight from the accumulator registers. The attention kernel
-// (flash_attention.cu, attn_wgmma_bf16) and the 3xTF32 conv (conv3x3.cu,
-// conv_wgmma_tf32x3) keep that shape with rings of their own and use the
-// barriers, TMA loads, descriptors and instructions below.
+// straight from the accumulator registers. The attention kernels
+// (flash_attention.cu: attn_wgmma_bf16, and gemm_wgmma_tf32x3 for f32) and
+// the 3xTF32 conv (conv3x3.cu, conv_wgmma_tf32x3) keep that shape with
+// rings of their own and use the barriers, TMA loads, descriptors,
+// instructions and the 3xTF32 stage below.
 //
 //   block tile   BM = 128 rows x BN = 128 or 256 columns, K in steps of BK = 64
 //                (one 128-byte swizzle row of bf16);
@@ -16,6 +17,8 @@
 //                swizzle; the conv's producer loads it as a 4-D box of pixels;
 //   B            the (K, N) row-major weight, N contiguous: MN-major for wgmma
 //                (transpose flag), one 64-column box per 64 columns of the tile;
+//                at BN = 8 (the 3x3 conv to Cout <= 8) the weight as a K-major
+//                8-row matrix, one 64 x 8 box a stage, m64n8k16, element stores;
 //   stages       full / empty mbarrier pairs; the producer waits for a stage to
 //                be released, arms its full barrier with the stage's bytes and
 //                issues the loads; a consumer warpgroup waits on the full
@@ -261,11 +264,78 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// bf16 with an 8-row K-major B (the 3x3 conv to Cout <= 8, its weight
+// padded to 8 rows): d (64 x 8, f32) += A (64 x 16, shared, K-major) *
+// B (16 x 8, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
+      ", %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+// the same with A from registers
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
+      ", {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// One stage of a 3xTF32 product for a consumer warpgroup (the f32 conv and
+// the f32 GEMM of attention): the A fragments of its 64 rows from the
+// stage's A tile (rows of 32 f32 = 128 bytes, 128-byte swizzle; ldmatrix
+// reads the 32-bit words as pairs of b16; lrow: the tile row this lane
+// addresses), each value a times a_scale (one f32 rounding, never fused),
+// split into big = a with its low 13 mantissa bits cleared (exact in tf32)
+// and small = a - big (exact in f32), then a_small w_big + a_big w_small +
+// a_big w_big as register-A tf32 wgmmas (k = 8) into part, which starts
+// from 0; wb / ws: the stage's (N x 32) K-major tiles of B's big and small
+// parts. The dropped a_small w_small is ~2^-22 of a product. Returns when
+// the wgmmas are done, so the caller can add part to its running sum in
+// f32 (the tensor cores' own f32 accumulation rounds less well, and over
+// thousands of k steps that costs digits).
+template <int N>
+__device__ __forceinline__ void tf32x3_stage(uint32_t a_tile, uint32_t wb, uint32_t ws, int lrow,
+                                             float a_scale, float (&part)[N]) {
+  const int lane = threadIdx.x % 32;
+  uint32_t big[4][4], small[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldmatrix_x4(a_tile + lrow * 128 + (((2 * kk + lane / 16) ^ (lrow & 7)) << 4), big[kk]);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float x = __fmul_rn(__uint_as_float(big[kk][v]), a_scale);
+      big[kk][v] = __float_as_uint(x) & 0xFFFFE000u;
+      small[kk][v] = __float_as_uint(x - __uint_as_float(big[kk][v]));
+    }
+  }
+  fence_frag(big);
+  fence_frag(small);
+  fence_acc(part);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_sw128(wb + kk * 32, 16, SW_ROWS8);
+    wgmma_tf32_rs(part, small[kk], db, kk);
+    wgmma_tf32_rs(part, big[kk], desc_sw128(ws + kk * 32, 16, SW_ROWS8), 1);
+    wgmma_tf32_rs(part, big[kk], db, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(part);
+  fence_frag(big);
+  fence_frag(small);
 }
 
 // the 256 consumer threads meet here (named barrier 1; the producer
@@ -361,6 +431,30 @@ __device__ __forceinline__ void consume_ss(const Ring<BN, STAGES>& r, int nk, in
   wgmma_wait<0>();
 #pragma unroll
   for (int j = 0; j < BN / 128; ++j) fence_acc(acc[j]);
+}
+
+// the same at BN = 8: B is the stage's 8-row K-major tile (one 1 KB box of
+// the weight padded to 8 rows), one m64n8k16 a k16 slice
+template <int STAGES>
+__device__ __forceinline__ void consume_ss_n8(const Ring<8, STAGES>& r, int nk, int wgi,
+                                              float (&acc)[4]) {
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % STAGES;
+    bar_wait(r.full(s), (it / STAGES) & 1);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss_n8(acc, desc_a(r.a(s), wgi * 64, kk), desc_sw128(r.b(s) + kk * 32, 16, SW_ROWS8));
+    wgmma_commit();
+    fence_acc(acc);
+    if (it > 0) {
+      wgmma_wait<1>();
+      release(r, it - 1, nk);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -466,6 +560,37 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 128][64], int
           epilogue8(e, m, n, o);
         }
       }
+  }
+}
+
+// A consumer warpgroup's m64n8 accumulators to the first e.N (<= 8)
+// columns of the output: accumulator 2r + c lies at tile row 16 * warp +
+// lane / 4 + 8r and column 2 (lane % 4) + c. Bias, residual and activation
+// as in epilogue8, one rounding and an element store each (a row of N < 8
+// bf16 is no 16-byte vector).
+template <class RowMap>
+__device__ __forceinline__ void store_n8(const float (&acc)[4], int wgi, RowMap row_m,
+                                         const Epilogue& e) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long m = row_m(wgi * 64 + warp * 16 + lane / 4 + 8 * r);
+    if (m < 0) continue;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int n = 2 * (lane % 4) + c;
+      if (n >= e.N) continue;
+      float v = acc[2 * r + c];
+      if (e.bias) {
+        const long long o = (e.bias_bstride ? (m / e.rows_per_batch) * e.bias_bstride : 0) + n;
+        v += e.bias_dtype == 1 ? __bfloat162float(static_cast<const __nv_bfloat16*>(e.bias)[o])
+                               : static_cast<const float*>(e.bias)[o];
+      }
+      if (e.residual) v += __bfloat162float(e.residual[m * e.N + n]);
+      if (e.act == 1) v = v / (1.f + expf(-v));
+      else if (e.act == 2) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+      e.out[m * e.N + n] = __float2bfloat16(v);
+    }
   }
 }
 

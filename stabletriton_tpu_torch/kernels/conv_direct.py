@@ -15,14 +15,18 @@ the L2 traffic of re-reading each block's share of the split weight; the
 decoder's conv_out (Cout 3) by reading x.
 
 What the design does about it: an implicit GEMM (M = B*H*W, N = Cout,
-K = 9*Cin) with no im2col matrix and no padded copy. bf16 operands that TMA
-takes (Cin and Cout multiples of 8, 16-byte aligned bases: 36 of SDXL's 38
-convs) go to the wgmma kernel: the TMA + wgmma mainloop of
-``csrc/wgmma.cuh`` with one 4-D TMA box per (tap, 64-channel chunk) as the
-A operand, whose out-of-range pixels TMA fills with zeros (the SAME
-border), and a pixel tile and K split from ``wgmma_plan.conv_plan`` (the
-8^2 and 16^2 levels split K over blocks). conv_in (Cin 4) and conv_out
-(Cout 4) go to the WMMA kernel, which gathers A by index. f32 convs with Cin
+K = 9*Cin) with no im2col matrix and no padded copy of the image borders.
+Every bf16 conv (all 38 of SDXL's, 49 of SD1.5's) goes to the wgmma kernel:
+the TMA + wgmma mainloop of ``csrc/wgmma.cuh`` with one 4-D TMA box per
+(tap, 64-channel chunk) as the A operand, whose out-of-range pixels TMA
+fills with zeros (the SAME border), and a pixel tile and K split from
+``wgmma_plan.conv_plan`` (the 8^2 and 16^2 levels split K over blocks).
+TMA reads rows of 16 bytes, so conv_in (Cin 4) gets x and w padded to 8
+zero channels (:func:`_pad_cin`, 0.5 MB at SDXL's 128^2, inside the
+kernel's time), and conv_out (Cout 4) runs an 8-column block tile on the
+weight as a K-major (8, 9*Cin) matrix (:func:`n8_weight`, 23 KB, made at
+every launch), storing its 4 real channels. A misaligned base is copied to
+an aligned one. f32 convs with Cin
 % 8 == 0 (all of the VAE decoder's but conv_in) go to the 3xTF32 wgmma
 kernel, which keeps f32 accuracy on the tensor cores: the wrapper splits the
 weight into a K-major (Cout_pad, 9*Cin) big part exact in tf32 and the small
@@ -53,7 +57,7 @@ tile's halo once per 64-channel chunk, normalises it in shared memory
 (scale and shift staged once per block; the border and channels past Cin
 set to 0, since TMA's zero fill is a raw zero) and feeds all 9 taps from it
 as register-A wgmma operands, so each input element is normalised once, not
-once per tap; the WMMA kernel applies it in its A-tile gather. The moments
+once per tap; the f32 scalar kernel applies it in its A-tile gather. The moments
 come from the GroupNorm stats kernels (``kernels/group_norm.py``), which
 read x once.
 """
@@ -98,9 +102,8 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = Non
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # st_conv3x3(x, w, bias, bias_dtype, bias_bstride, residual, out, B, H, W,
-#            Cin, Cout, act, dtype, gn_scale, gn_shift, gn_act, *variant, stream)
-_CONV_ARGTYPES = ([_P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 7
-                  + [_P, _P, _I, ctypes.POINTER(_I), _P])
+#            Cin, Cout, act, gn_scale, gn_shift, gn_act, stream): f32 only
+_CONV_ARGTYPES = [_P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P, _P, _I, _P]
 # st_conv3x3_tf32x3(x, w_big, w_small, bias, bias_dtype, bias_bstride,
 #                   residual, out, B, H, W, Cin, Cout, cout_pad, act, tw, th,
 #                   tb, stream)
@@ -113,16 +116,42 @@ _WGMMA_ARGTYPES = ([_P, _P, _P, _I, ctypes.c_longlong, _P, _P, _P] + [_I] * 6
 
 
 def conv_variant(x_shape: tuple[int, ...], cout: int, dtype: torch.dtype,
-                 aligned: bool = True, gn: bool = False) -> str:
+                 aligned: bool = True, gn: bool = False) -> str | None:
     """The kernel that takes a 3x3 conv of x (B, H, W, Cin) to ``cout``
-    channels: "wgmma_bf16" where TMA takes the bf16 operands (``aligned``:
-    every operand's base is 16-byte aligned), "wmma_bf16" for the other
-    bf16 shapes; in float32 "wgmma_tf32x3" for Cin % 8 == 0 with x aligned
-    (no GroupNorm prologue), "scalar" for the rest."""
+    channels: in bf16 "wgmma_bf16" where ``wgmma_plan.conv_fits`` (Cout a
+    multiple of 8 or at most 8; any Cin; room for the prologue's staging),
+    else None: no kernel takes it; in float32 "wgmma_tf32x3" for Cin % 8 ==
+    0 with x aligned (``aligned``: x's base is 16-byte aligned) and no
+    GroupNorm prologue, "scalar" for the rest."""
     if dtype != torch.bfloat16:
         return "wgmma_tf32x3" if x_shape[3] % 8 == 0 and aligned and not gn else "scalar"
-    fits = wgmma_plan.conv_fits(*x_shape, cout, aligned, gn=gn)
-    return "wgmma_bf16" if fits else "wmma_bf16"
+    return "wgmma_bf16" if wgmma_plan.conv_fits(*x_shape, cout, gn=gn) else None
+
+
+def n8_weight(w: torch.Tensor) -> torch.Tensor:
+    """The HWIO weight (3, 3, Cin, Cout <= 8) as the 8-column kernel's B
+    operand: K-major (8, 9*Cin), row n holding w[ky, kx, ci, n] at k = (3 ky
+    + kx) Cin + ci, rows past Cout zero."""
+    cin, cout = w.shape[2], w.shape[3]
+    return F.pad(w.reshape(9 * cin, cout).t(), (0, 0, 0, wgmma_plan.N8 - cout)).contiguous()
+
+
+def _pad_cin(x, w, gn):
+    """x, w and the prologue's scale / shift with Cin padded to a multiple
+    of 8 by zero channels (TMA reads rows of 16 bytes): a zero channel
+    normalises to SiLU(0 * 0 + 0) = 0 and meets zero weights."""
+    pad = -x.shape[3] % 8
+    if not pad:
+        return x, w, gn
+    if gn is not None:
+        gn = (F.pad(gn[0], (0, pad)), F.pad(gn[1], (0, pad)), gn[2])
+    return F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad)), gn
+
+
+def _aligned(t):
+    """t, or a copy whose base is 16-byte aligned (TMA's and the 16-byte
+    vector stores' terms)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -132,9 +161,7 @@ def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (exact in tf32) and small = w - big (exact in f32), so big + small == w."""
     cin, cout = w.shape[2], w.shape[3]
     wt = w.float().reshape(9 * cin, cout).t()
-    wt = F.pad(wt, (0, 0, 0, -cout % 8)).contiguous()
-    big = (wt.view(torch.int32) & -8192).view(torch.float32)  # -8192 = 0xFFFFE000
-    return big, wt - big
+    return wgmma_plan.tf32_parts(F.pad(wt, (0, 0, 0, -cout % 8)))
 
 
 def _check_conv(x, w, b, residual, act):
@@ -152,9 +179,10 @@ def _check_conv(x, w, b, residual, act):
 
 @functools.lru_cache(maxsize=None)
 def _wgmma_route(n, h, wd, cin, cout, gn):
-    """The wgmma conv's pixel tile, plan and launch key at one shape
-    (cached: the host time of a launch is the step's budget)."""
-    tile, plan = wgmma_plan.conv_plan(n, h, wd, cin, cout, gn=gn)
+    """The wgmma conv's pixel tile, plan and launch key at one shape (Cin as
+    the caller gave it; the plan's at Cin padded to 8; cached: the host
+    time of a launch is the step's budget)."""
+    tile, plan = wgmma_plan.conv_plan(n, h, wd, -(-cin // 8) * 8, cout, gn=gn)
     return tile, plan, (f"wgmma_bf16 b={n} {h}x{wd} {cin}->{cout} "
                         f"tile={tile.tw}x{tile.th}x{tile.tb} bn={plan.bn} split={plan.splits}")
 
@@ -183,8 +211,17 @@ def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("conv kernel takes contiguous operands")
     if variant is None:
-        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, residual) if t is not None)
-        variant = conv_variant(tuple(x.shape), cout, dtype, aligned, gn is not None)
+        variant = conv_variant(tuple(x.shape), cout, dtype, x.data_ptr() % 16 == 0,
+                               gn is not None)
+    if variant is None:
+        raise ValueError(f"no conv kernel takes {tuple(x.shape)} -> {cout} in {dtype}"
+                         + (" with the GroupNorm prologue" if gn is not None else ""))
+    wgmma = variant == "wgmma_bf16" and dtype == torch.bfloat16
+    if wgmma:
+        tile, plan, key = _wgmma_route(n, h, wd, cin, cout, gn is not None)
+        x, w, gn = _pad_cin(_aligned(x), w, gn)
+        w = n8_weight(w) if plan.bn == wgmma_plan.N8 else _aligned(w)
+        residual = _aligned(residual)
     out = torch.empty((n, h, wd, cout), dtype=dtype, device=dev)
     bias_args = ((None, 0, 0) if b is None else
                  (b.data_ptr(), DTYPE_CODES[b.dtype], cout if b.dim() == 2 else 0))
@@ -193,14 +230,14 @@ def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor
                (gn[0].data_ptr(), gn[1].data_ptr(), ACT_CODES[gn[2]]))
     with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if variant == "wgmma_bf16":
-            tile, plan, key = _wgmma_route(n, h, wd, cin, cout, gn is not None)
+        if wgmma:
             ws = (torch.empty((plan.splits, n * h * wd, cout), dtype=torch.float32, device=dev)
                   if plan.splits > 1 else None)
             code = function("st_conv3x3_wgmma", _WGMMA_ARGTYPES)(
                 x.data_ptr(), w.data_ptr(), *bias_args, res_ptr, out.data_ptr(),
-                None if ws is None else ws.data_ptr(), n, h, wd, cin, cout, ACT_CODES[act],
-                *gn_args, tile.tw, tile.th, tile.tb, plan.bn, plan.splits, stream)
+                None if ws is None else ws.data_ptr(), n, h, wd, x.shape[3], cout,
+                ACT_CODES[act], *gn_args, tile.tw, tile.th, tile.tb, plan.bn, plan.splits,
+                stream)
             check(code, "st_conv3x3_wgmma")
             return out, key
         if variant == "wgmma_tf32x3":
@@ -216,14 +253,12 @@ def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor
             check(code, "st_conv3x3_tf32x3")
             return out, (f"wgmma_tf32x3 b={n} {h}x{wd} {cin}->{cout} "
                          f"tile={tile.tw}x{tile.th}x{tile.tb}")
-        launched = ctypes.c_int(-1)
+        if variant != "scalar" or dtype != torch.float32:
+            raise ValueError(f"conv kernel {variant!r} does not take {dtype} operands")
         code = function("st_conv3x3", _CONV_ARGTYPES)(
             x.data_ptr(), w.data_ptr(), *bias_args, res_ptr, out.data_ptr(),
-            n, h, wd, cin, cout, ACT_CODES[act], DTYPE_CODES[dtype], *gn_args,
-            ctypes.byref(launched), stream)
+            n, h, wd, cin, cout, ACT_CODES[act], *gn_args, stream)
     check(code, "st_conv3x3")
-    if launched.value != (1 if variant == "wmma_bf16" else 0):
-        raise ValueError(f"conv kernel {variant!r} does not take {dtype} operands")
     return out, f"{variant} b={n} {h}x{wd} {cin}->{cout}"
 
 
@@ -295,10 +330,11 @@ def gn_conv2d_fused(x, gamma, beta, w, b=None, *, num_groups=32, eps=1e-5,
     input read: the stats kernels read x once, the fold runs in PyTorch on
     (B, C), and the conv kernel normalizes its input as it gathers it.
     Ineligible shapes (not 3x3 stride 1 SAME, C not divisible by the groups,
-    an activation the kernel does not take) compose ``group_norm`` ->
+    an activation or a shape no kernel takes) compose ``group_norm`` ->
     ``conv2d`` through the active binding, as in the JAX package."""
     if (_is_conv3x3_s1(w, stride, padding) and act in SILU_ACTS and gn_act in SILU_ACTS
-            and x.shape[3] % num_groups == 0):
+            and x.shape[3] % num_groups == 0
+            and conv_variant(tuple(x.shape), w.shape[3], x.dtype, gn=True) is not None):
         s1, s2 = group_norm.moments(x)
         scale, shift = group_norm.fold(s1, s2, gamma, beta, hw=x.shape[1] * x.shape[2],
                                        num_groups=num_groups, eps=eps)

@@ -14,12 +14,21 @@ launch is counted under its class.
 On the card, bf16 runs ``attn_wgmma_bf16<D>`` (K1-K4: JAX splits them only
 by VMEM; TMA loads of K and V tiles and wgmma products with the scores and
 P kept in registers) or ``attn_tiny_kv_bf16<D>`` (K5) for D in {40, 64, 80,
-160}; f32 runs the scalar kernel for D in {64, 512}. What bounds them and
-what their design does about it is in the source's note: the shift-free
-softmax ``exp2(min(s, 80))`` of the JAX kernels needs no running max, so the
-accumulator is never rescaled and stays in registers across KV tiles; q, k
-and v are read straight out of the fused projection buffers by (row stride,
-column offset), so no split copies are made.
+160}. What bounds them and what their design does about it is in the
+source's note: the shift-free softmax ``exp2(min(s, 80))`` of the JAX
+kernels needs no running max, so the accumulator is never rescaled and
+stays in registers across KV tiles; q, k and v are read straight out of the
+fused projection buffers by (row stride, column offset), so no split copies
+are made.
+
+f32 (D in {64, 512}: the VAE's mid-block attention, h=1, d=512) runs as two
+launches of one 3xTF32 GEMM, ``gemm_wgmma_tf32x3``, a chunk of query rows
+at a time (:func:`attention_chunk_rows`): S = Q K^T with p = exp2(min(s,
+80)) and its row sums in the epilogue, written to a workspace in f32, then
+O = P V divided by the row sums. tf32 wgmma has no transpose, so K (as it
+lies: keys x d) and V^T (d x keys) come split into big / small parts by
+:func:`tf32_attention_operands` (plain torch, inside the kernel's time); q
+is read in place and scaled in the kernel's registers.
 
 The plain version (:func:`attention_plain`) computes the same function in
 PyTorch; the wrappers use it only for tensors that lie on the CPU. A CUDA
@@ -33,6 +42,7 @@ import math
 
 import torch
 
+from stabletriton_tpu_torch.kernels import wgmma_plan
 from stabletriton_tpu_torch.kernels.build import LaunchCounter, check, function, on_device
 from stabletriton_tpu_torch.ops.registry import register
 
@@ -68,10 +78,10 @@ def attention_class(h: int, d: int, sk: int) -> str:
 
 def kernel_name(cls: str, dtype: torch.dtype) -> str:
     """The CUDA kernel that runs a launch of class ``cls``: in bf16 the
-    tiny-KV kernel for K5 and the wgmma kernel for K1-K4; in f32 the scalar
-    kernel."""
+    tiny-KV kernel for K5 and the wgmma kernel for K1-K4; in f32 the 3xTF32
+    GEMM, whatever the class."""
     if dtype != torch.bfloat16:
-        return "scalar_f32"
+        return "wgmma_tf32x3"
     return "tinykv_bf16" if cls == "K5" else "wgmma_bf16"
 
 
@@ -101,8 +111,40 @@ _ATTN_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] * 3
     + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 )
-# C entry point's kernel codes
-_KERNEL_CODES = {"scalar_f32": 0, "wgmma_bf16": 1, "tinykv_bf16": 2}
+# st_attention_tf32x3(q, q_sb, q_ss, q_off, k_big, k_small, vt_big, vt_small,
+#                     p, l, out, B, Sq, Sk, H, D, rows, qscale, stream)
+_TF32_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 7
+                  + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+# the bf16 C entry point's kernel codes
+_KERNEL_CODES = {"wgmma_bf16": 1, "tinykv_bf16": 2}
+# the f32 kernel's tiles: 128 query rows x 128 keys; the score workspace of
+# one chunk of query rows (f32 P) is held to this many bytes
+TF32_TILE = 128
+P_WORKSPACE_BYTES = 256 << 20
+
+
+def attention_chunk_rows(bh: int, sq: int, sk: int) -> int:
+    """Query rows of one chunk of the f32 kernel: as many 128-row tiles as
+    keep P, (bh, rows, keys rounded up to 128) in f32, within
+    P_WORKSPACE_BYTES, at least one tile and at most Sq rounded up. A row's
+    arithmetic is the same in any chunk, so the chunking changes no bit of
+    the output."""
+    keys = -(-sk // TF32_TILE) * TF32_TILE
+    rows = P_WORKSPACE_BYTES // (4 * keys * bh) // TF32_TILE * TF32_TILE
+    return max(TF32_TILE, min(rows, -(-sq // TF32_TILE) * TF32_TILE))
+
+
+def tf32_attention_operands(k: torch.Tensor, v: torch.Tensor, num_heads: int):
+    """The f32 kernel's B operands from k, v (B, Sk, H*D): K as it lies per
+    head, (B*H, Sk, D), and V^T, (B*H, D, keys) with keys = Sk rounded up to
+    128 by zero columns (a TMA row is 16-byte aligned and the P V product
+    runs over whole 128-key tiles), each as its tf32 big and small parts."""
+    b, sk, c = k.shape
+    d = c // num_heads
+    kh = k.reshape(b, sk, num_heads, d).transpose(1, 2).reshape(b * num_heads, sk, d)
+    vt = v.reshape(b, sk, num_heads, d).permute(0, 2, 3, 1).reshape(b * num_heads, d, sk)
+    vt = torch.nn.functional.pad(vt, (0, -sk % TF32_TILE))
+    return (*wgmma_plan.tf32_parts(kh), *wgmma_plan.tf32_parts(vt))
 
 
 def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
@@ -142,21 +184,46 @@ def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
     # scale*log2(e) rounded to the operand dtype, as JAX's asarray(.., q.dtype)
     qscale = torch.tensor(scale * LOG2E, dtype=dtype).item()
     out = torch.empty((b, sq, c), dtype=dtype, device=dev)
-    fn = function("st_flash_attention", _ATTN_ARGTYPES)
     with on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(
-            q_buf.data_ptr(), q_buf.stride(0), q_buf.stride(1), q_off,
-            k_buf.data_ptr(), k_buf.stride(0), k_buf.stride(1), k_off,
-            v_buf.data_ptr(), v_buf.stride(0), v_buf.stride(1), v_off,
-            out.data_ptr(), b, sq, sk, num_heads, d, _KERNEL_CODES[kernel], qscale, stream,
-        )
-    if code == -1:
-        raise ValueError(f"attention kernel {kernel} has no instance for "
-                         f"d={d} sk={sk}")
-    check(code, "st_flash_attention")
+        if kernel == "wgmma_tf32x3":
+            _launch_tf32(q_buf, q_off, k_buf[..., k_off:k_off + c], v_buf[..., v_off:v_off + c],
+                         out, sq=sq, sk=sk, num_heads=num_heads, qscale=qscale, stream=stream)
+        else:
+            code = function("st_flash_attention", _ATTN_ARGTYPES)(
+                q_buf.data_ptr(), q_buf.stride(0), q_buf.stride(1), q_off,
+                k_buf.data_ptr(), k_buf.stride(0), k_buf.stride(1), k_off,
+                v_buf.data_ptr(), v_buf.stride(0), v_buf.stride(1), v_off,
+                out.data_ptr(), b, sq, sk, num_heads, d, _KERNEL_CODES[kernel], qscale, stream,
+            )
+            if code == -1:
+                raise ValueError(f"attention kernel {kernel} has no instance for "
+                                 f"d={d} sk={sk}")
+            check(code, "st_flash_attention")
     LAUNCHES.add(f"{cls} {kernel} b={b} h={num_heads} d={d} sq={sq} sk={sk}")
     return out
+
+
+def _launch_tf32(q_buf, q_off, k, v, out, *, sq, sk, num_heads, qscale, stream):
+    """The f32 kernel: k, v (B, Sk, C) split into its B operands, q read in
+    place where TMA takes it (16-byte base, strides and column offset in
+    4-float units; else a contiguous copy of its columns), the P and row-sum
+    workspaces of one chunk of query rows."""
+    b, c = out.shape[0], out.shape[2]
+    d = c // num_heads
+    if q_buf.data_ptr() % 16 or q_buf.stride(0) % 4 or q_buf.stride(1) % 4 or q_off % 4:
+        q_buf, q_off = q_buf[..., q_off:q_off + c].contiguous(), 0
+    parts = tf32_attention_operands(k, v, num_heads)
+    rows = attention_chunk_rows(b * num_heads, sq, sk)
+    keys = parts[2].shape[2]
+    p = torch.empty((b * num_heads, rows, keys), dtype=torch.float32, device=out.device)
+    l = torch.empty((b * num_heads, rows, keys // TF32_TILE), dtype=torch.float32,
+                    device=out.device)
+    code = function("st_attention_tf32x3", _TF32_ARGTYPES)(
+        q_buf.data_ptr(), q_buf.stride(0), q_buf.stride(1), q_off,
+        *(t.data_ptr() for t in parts), p.data_ptr(), l.data_ptr(), out.data_ptr(),
+        b, sq, sk, num_heads, d, rows, qscale, stream)
+    check(code, "st_attention_tf32x3")
 
 
 def _check_shapes(q, k, v, num_heads):

@@ -1,12 +1,14 @@
 """Tile width, pixel tile and K split of the Hopper wgmma kernels
-(``csrc/wgmma.cuh``: ``linear_wgmma_bf16``, ``conv_wgmma_bf16``).
+(``csrc/wgmma.cuh``: ``linear_wgmma_bf16``, ``conv_wgmma_bf16``), and the
+split of f32 operands into tf32 parts that the 3xTF32 kernels take.
 
 A pure function of the shape: the same shape always gets the same plan, so
 a launch repeats bit for bit and the CPU tests cover every choice. Plans are
 cached by shape: the eager step launches ~550 GEMMs and convs, and the
 search costs tens of microseconds of host time.
 
-A block computes a 128-row output tile of width ``bn`` (128 or 256) over a
+A block computes a 128-row output tile of width ``bn`` (128 or 256; 8 for a
+3x3 conv to Cout <= 8, which runs unsplit) over a
 share of the K steps (64 wide); one block runs on each of the card's 132
 SMs at a time (two at width 128, to overlap one block's epilogue with the
 other's mainloop). Where the output tiles alone leave SMs idle (SDXL's
@@ -33,9 +35,12 @@ import functools
 import math
 from dataclasses import dataclass
 
+import torch
+
 SMS = 132                  # H100 SXM streaming multiprocessors
 BM, BK = 128, 64           # the block tile's rows and K step (csrc/wgmma.cuh)
 WIDTHS = (128, 256)        # the block tile's widths
+N8 = 8                     # the 3x3 conv's width for Cout <= 8
 MAX_SPLITS = 16
 PEAK_FLOPS = 989e12        # bf16 dense tensor-core rate
 MEMORY_BYTES_PER_S = 3.35e12
@@ -112,13 +117,25 @@ def conv_tile(b: int, h: int, w: int) -> ConvTile:
 @functools.lru_cache(maxsize=None)
 def conv_plan(b: int, h: int, w: int, cin: int, cout: int, *,
               gn: bool = False) -> tuple[ConvTile, Plan]:
-    """The pixel tile and plan of a 3x3 conv; the GroupNorm prologue runs at
-    width 128 only."""
+    """The pixel tile and plan of a 3x3 conv; a conv to Cout <= 8 (the
+    UNet's conv_out) runs at width 8 unsplit, the GroupNorm prologue at
+    width 128 otherwise."""
     tile = conv_tile(b, h, w)
+    if cout <= N8:
+        return tile, Plan(bn=N8, splits=1)
     m_tiles = math.prod(tile.counts(b, h, w))
     steps = 9 * math.ceil(cin / BK)
     moved = (b * h * w * (cin + cout) + 9 * cin * cout) * 2
     return tile, plan(m_tiles, cout, steps, b * h * w, moved, (128,) if gn else WIDTHS)
+
+
+def tf32_parts(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 t as contiguous big + small, the B operand of the 3xTF32 kernels:
+    big = t with its low 13 mantissa bits cleared (exact in tf32), small =
+    t - big (exact in f32), so big + small == t."""
+    t = t.float().contiguous()
+    big = (t.view(torch.int32) & -8192).view(torch.float32)  # -8192 = 0xFFFFE000
+    return big, t - big
 
 
 def gemm_fits(m: int, k: int, n: int, aligned: bool) -> bool:
@@ -129,9 +146,11 @@ def gemm_fits(m: int, k: int, n: int, aligned: bool) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def conv_fits(b: int, h: int, w: int, cin: int, cout: int, aligned: bool, *,
-              gn: bool = False) -> bool:
-    """Whether the wgmma conv takes the shape (TMA's terms as for the GEMM;
-    with the prologue, the images' scale and shift must fit beside the ring)."""
-    return (aligned and cin % 8 == 0 and cout % 8 == 0
-            and (not gn or conv_tile(b, h, w).tb * cin * 8 <= GN_STAGING_BYTES))
+def conv_fits(b: int, h: int, w: int, cin: int, cout: int, *, gn: bool = False) -> bool:
+    """Whether the wgmma conv takes the shape: Cout a multiple of 8 (TMA's
+    16-byte rows, as for the GEMM) or at most 8 (the 8-column tile); any
+    Cin, which the wrapper pads to a multiple of 8; with the prologue, the
+    images' scale and shift must fit beside the ring."""
+    cin8 = -(-cin // 8) * 8
+    return ((cout % 8 == 0 or cout <= N8)
+            and (not gn or conv_tile(b, h, w).tb * cin8 * 8 <= GN_STAGING_BYTES))

@@ -10,6 +10,8 @@ Tolerances, relative to the largest plain output: 2e-2 for bf16 (a few bf16
 ulps), 1e-4 for float32 (summation order only).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -42,7 +44,7 @@ def cuda_device():
 @pytest.mark.parametrize("dtype,d,h,sq,sk,tol", [
     (torch.bfloat16, 64, 4, 200, 77, 2e-2),    # cross, WMMA kernel, ragged tiles
     (torch.bfloat16, 64, 2, 300, 300, 2e-2),   # self, several KV tiles
-    (torch.float32, 512, 1, 100, 130, 1e-4),   # VAE head dim, scalar kernel
+    (torch.float32, 512, 1, 100, 130, 1e-4),   # VAE head dim, 3xTF32 kernel
     (torch.float32, 64, 2, 70, 33, 1e-4),
 ])
 def test_gpu_attention_kernel_vs_plain(cuda_device, dtype, d, h, sq, sk, tol):
@@ -148,6 +150,53 @@ def test_gpu_wgmma_attention_self_vs_plain(cuda_device, d, s):
     qkv = torch.randn((2, s, 3 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
     out = _wgmma_attention(qkv, 0, qkv, c, qkv, 2 * c, sq=s, sk=s, h=h, d=d)
     assert _rel_err(out, tfa.attention_plain(*qkv.chunk(3, -1), num_heads=h)) <= 2e-2
+
+
+def _tf32_attention_key(b, h, d, sq, sk):
+    return f"K3 wgmma_tf32x3 b={b} h={h} d={d} sq={sq} sk={sk}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("d", [64, 512])
+@pytest.mark.parametrize("sq", [4097, 16384])
+@pytest.mark.parametrize("sk", [1, 77, 300, 16384])
+def test_gpu_tf32_attention_vs_plain(cuda_device, sk, sq, d, b):
+    """The f32 attention (two 3xTF32 GEMM launches a chunk of query rows)
+    against attention_plain at full f32 (TF32 off): one key, ragged key
+    tiles, the VAE's 16384; Sq = 4097 one row past a chunk boundary (4096
+    rows at b = 1, Sk = 16384); h = 1 as in the VAE."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sk + sq + d + b)
+    q = torch.randn((b, sq, d), generator=gen, device=cuda_device)
+    k, v = (torch.randn((b, sk, d), generator=gen, device=cuda_device) for _ in range(2))
+    before = dict(tfa.LAUNCHES.by_key)
+    out = tfa.flash_attention(q, k, v, num_heads=1)
+    torch.cuda.synchronize()
+    assert _new_keys(tfa.LAUNCHES, before) == {_tf32_attention_key(b, 1, d, sq, sk): 1}
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, tfa.attention_plain(q, k, v, num_heads=1)) <= 1e-4
+    assert torch.equal(out, tfa.flash_attention(q, k, v, num_heads=1))  # no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sk", [1, 77, 300])
+@pytest.mark.parametrize("d,h", [(512, 1), (64, 3)])
+def test_gpu_tf32_attention_masks_keys_past_sk(cuda_device, d, h, sk):
+    """k and v column slices of the first Sk rows of a wider fused KV buffer
+    whose rows past Sk hold 1e4, q a column slice of a fused QKV buffer:
+    the keys past Sk (TMA's zero rows, up to the 128-key tile) must give p =
+    0 and the planted rows must never be read."""
+    c = h * d
+    gen = torch.Generator(device=cuda_device).manual_seed(3 * sk + d)
+    qkv = torch.randn((2, 130, 3 * c), generator=gen, device=cuda_device)
+    kv = torch.randn((2, sk + 70, 2 * c), generator=gen, device=cuda_device)
+    kv[:, sk:] = 1e4
+    kv_rows = kv[:, :sk]
+    q = qkv[..., c:2 * c]
+    out = tfa.flash_attention_kv(q, kv_rows, num_heads=h)
+    ref = tfa.attention_plain(q, kv_rows[..., :c], kv_rows[..., c:], num_heads=h)
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, ref) <= 1e-4
 
 
 @pytest.mark.gpu
@@ -312,7 +361,7 @@ def test_gpu_geglu_kernel_on_strided_halves(cuda_device, dtype, n, tol):
     (torch.bfloat16, 64, 96, "batch", False, 2e-2),
     (torch.bfloat16, 64, 48, "shared", True, 2e-2),
     (torch.bfloat16, 32, 4, "shared", False, 2e-2),   # conv_out-like Cout = 4
-    (torch.bfloat16, 12, 8, "batch", False, 2e-2),    # element loads (Cin % 8)
+    (torch.bfloat16, 12, 8, "batch", False, 2e-2),    # Cin padded to 16
     (torch.float32, 32, 40, "batch", True, 1e-4),
 ])
 def test_gpu_gn_conv_kernel_vs_plain(cuda_device, dtype, cin, cout, bias_kind, res, tol):
@@ -528,6 +577,76 @@ def test_gpu_wgmma_gn_conv_operand_equals_unfused_pair(cuda_device, force_plan, 
     (k8,), (k6,) = _new_keys(tconv.GN_LAUNCHES, before[0]), _new_keys(tconv.LAUNCHES, before[1])
     assert k8 == f"{k6} gn_act=silu" and k6.startswith("wgmma_bf16 ")
     assert torch.equal(fused, pair)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("center", [-3.0, 0.0])
+def test_gpu_wgmma_gn_conv_cout4_equals_unfused_pair(cuda_device, center):
+    """The 8-column tile (Cout 4, the UNet's norm_out + SiLU + conv_out):
+    at Cin 64 K8 equals K9's apply followed by the plain conv bit for bit,
+    both on the 8-column wgmma kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    x = torch.randn((2, 16, 16, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    scale = torch.rand((2, 64), generator=gen, device=cuda_device) + 0.5
+    shift = torch.randn((2, 64), generator=gen, device=cuda_device) + center
+    w = (torch.randn((3, 3, 64, 4), generator=gen, device=cuda_device) / 24).to(torch.bfloat16)
+    bias = torch.randn(4, generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = dict(tconv.GN_LAUNCHES.by_key), dict(tconv.LAUNCHES.by_key)
+    fused = tconv.gn_conv3x3(x, scale, shift, w, bias, gn_act="silu")
+    pair = tconv.conv3x3(tgn.apply(x, scale, shift, "silu"), w, bias)
+    (k8,), (k6,) = _new_keys(tconv.GN_LAUNCHES, before[0]), _new_keys(tconv.LAUNCHES, before[1])
+    assert k8 == f"{k6} gn_act=silu"
+    assert k6 == "wgmma_bf16 b=2 16x16 64->4 tile=16x8x1 bn=8 split=1"
+    assert torch.equal(fused, pair)
+    assert _rel_err(fused, tconv.gn_conv3x3_plain(x, scale, shift, w, bias, gn_act="silu")) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout,gn,bias_kind,res,act", [
+    (4, 320, False, "shared", False, None),   # the UNet's conv_in: Cin padded to 8
+    (320, 4, False, "shared", False, None),   # its conv_out: the 8-column tile
+    (320, 4, True, "shared", False, None),    # norm_out + SiLU + conv_out (K8)
+    (4, 4, False, "batch", True, "silu"),     # both, every epilogue input
+    (3, 5, True, "batch", True, "silu"),
+])
+def test_gpu_unet_conv_in_and_out_vs_plain(cuda_device, cin, cout, gn, bias_kind, res, act):
+    """conv_in and conv_out at the SDXL latent (2 x 128 x 128) on the wgmma
+    kernel against conv3x3_plain, and again from operands whose bases are
+    not 16-byte aligned (copied to aligned ones): the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(cin * cout + gn)
+    shape = (2, 128, 128)
+
+    def make(*dims, scale=1.0):
+        """A bf16 tensor and a copy of it at a base 2 bytes past an aligned one."""
+        t = (torch.randn(dims, generator=gen, device=cuda_device) * scale).to(torch.bfloat16)
+        off = torch.empty(math.prod(dims) + 1, dtype=t.dtype, device=cuda_device)[1:].view(dims)
+        off.copy_(t)
+        return t, off
+
+    x, x_off = make(*shape, cin)
+    w, w_off = make(3, 3, cin, cout, scale=1 / (9 * cin) ** 0.5)
+    bias = torch.randn((2, cout) if bias_kind == "batch" else (cout,), generator=gen,
+                       device=cuda_device)
+    r, r_off = make(*shape, cout) if res else (None, None)
+    g = ((torch.rand((2, cin), generator=gen, device=cuda_device) + 0.5,
+          torch.randn((2, cin), generator=gen, device=cuda_device) + 2.0) if gn else None)
+
+    def run(x, w, r):
+        if gn:
+            return tconv.gn_conv3x3(x, *g, w, bias, residual=r, act=act, gn_act="silu")
+        return tconv.conv3x3(x, w, bias, residual=r, act=act)
+
+    counter = tconv.GN_LAUNCHES if gn else tconv.LAUNCHES
+    before = dict(counter.by_key)
+    out = run(x, w, r)
+    keys = _new_keys(counter, before)
+    assert len(keys) == 1 and next(iter(keys)).startswith(
+        f"wgmma_bf16 b=2 128x128 {cin}->{cout} tile=16x8x1 bn={8 if cout <= 8 else ''}")
+    ref = (tconv.gn_conv3x3_plain(x, *g, w, bias, residual=r, act=act, gn_act="silu") if gn
+           else tconv.conv3x3_plain(x, w, bias, residual=r, act=act))
+    assert _rel_err(out, ref) <= 2e-2
+    assert x_off.data_ptr() % 16 and w_off.data_ptr() % 16
+    assert torch.equal(run(x_off, w_off, r_off), out)
 
 
 @pytest.mark.gpu

@@ -11,10 +11,11 @@ grids that leave SMs idle; and that summing f32 partials over the planned K
 ranges in split order (what ``splitk_reduce`` does) computes the function of
 the unsplit plain versions and of JAX's ``fused_linear`` and
 ``conv3x3_direct`` (interpret mode). Tolerance 1e-4 of the largest output,
-float32: only the summation order differs. For the wgmma attention kernel:
-which classes reach it, and its box layout's arithmetic against
-``attention_plain``. The kernels themselves run on the
-card in tests/test_torch_port_gpu.py.
+float32: only the summation order differs. The 3x3 conv's 8-column tile
+(Cout <= 8) and its padded operands (Cin to 8, the K-major weight) against
+the plain and Pallas convs. For the wgmma attention kernel: which classes
+reach it, and its box layout's arithmetic against ``attention_plain``. The
+kernels themselves run on the card in tests/test_torch_port_gpu.py.
 """
 
 import math
@@ -69,9 +70,9 @@ def test_linear_routes_past_the_grid_limit_to_wmma():
     assert tconv.conv_variant((2, 2048, 2048, 64), 64, BF16) == "wgmma_bf16"
 
 
-# every bf16 3x3 conv of the SDXL 1024^2 UNet (CFG batch 2): conv_in and
-# conv_out go to WMMA, the other 36 (resnets, upsamplers) to wgmma
-SDXL_CONVS = [((2, 128, 128, 4), 320, "wmma_bf16"), ((2, 128, 128, 320), 4, "wmma_bf16"),
+# every bf16 3x3 conv shape of the SDXL 1024^2 UNet (CFG batch 2): all 38
+# go to wgmma, conv_in with Cin padded to 8, conv_out at the 8-column tile
+SDXL_CONVS = [((2, 128, 128, 4), 320, "wgmma_bf16"), ((2, 128, 128, 320), 4, "wgmma_bf16"),
               ((2, 128, 128, 320), 320, "wgmma_bf16"), ((2, 64, 64, 320), 640, "wgmma_bf16"),
               ((2, 64, 64, 640), 640, "wgmma_bf16"), ((2, 32, 32, 640), 1280, "wgmma_bf16"),
               ((2, 32, 32, 1280), 1280, "wgmma_bf16"), ((2, 32, 32, 2560), 1280, "wgmma_bf16"),
@@ -83,7 +84,8 @@ SDXL_CONVS = [((2, 128, 128, 4), 320, "wmma_bf16"), ((2, 128, 128, 320), 4, "wmm
 def test_conv_routes_by_tma_terms(shape, cout, want):
     assert tconv.conv_variant(shape, cout, BF16) == want
     assert tconv.conv_variant(shape, cout, BF16, gn=True) == want
-    assert tconv.conv_variant(shape, cout, BF16, aligned=False) == "wmma_bf16"
+    # a misaligned bf16 base is copied to an aligned one: the same kernel
+    assert tconv.conv_variant(shape, cout, BF16, aligned=False) == "wgmma_bf16"
     f32 = "wgmma_tf32x3" if shape[3] % 8 == 0 else "scalar"
     assert tconv.conv_variant(shape, cout, torch.float32) == f32
     assert tconv.conv_variant(shape, cout, torch.float32, aligned=False) == "scalar"
@@ -91,13 +93,17 @@ def test_conv_routes_by_tma_terms(shape, cout, want):
 
 def test_conv_prologue_routes_by_staging_room():
     """The GroupNorm prologue stages (scale, shift) of the tile's images
-    beside the ring: Cin past what fits goes to the WMMA kernel."""
+    beside the ring: Cin past what fits has no kernel (the wrapper raises,
+    gn_conv2d "fused" composes GroupNorm and conv); so has a bf16 Cout
+    neither a multiple of 8 nor at most 8."""
     fits = wp.GN_STAGING_BYTES // 8  # channels at one image a tile
     assert tconv.conv_variant((2, 32, 32, fits // 8 * 8), 64, BF16, gn=True) == "wgmma_bf16"
-    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 64, BF16, gn=True) == "wmma_bf16"
+    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 64, BF16, gn=True) is None
     assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 64, BF16) == "wgmma_bf16"
     # 8 x 8 images: two to a tile, half the channels
-    assert tconv.conv_variant((2, 8, 8, fits // 8 * 8), 64, BF16, gn=True) == "wmma_bf16"
+    assert tconv.conv_variant((2, 8, 8, fits // 8 * 8), 64, BF16, gn=True) is None
+    assert tconv.conv_variant((2, 8, 8, 64), 12, BF16) is None
+    assert tconv.conv_variant((2, 8, 8, 64), 12, torch.float32) == "wgmma_tf32x3"
 
 
 # --------------------------------------------------------------------------
@@ -171,6 +177,79 @@ def test_conv_tiles_cover_every_pixel_once(b, h, w):
             if bb < b and y < h and x < w:
                 seen[bb, y, x] += 1
     assert (seen == 1).all()
+
+
+# (b, h, w, cin, cout) of convs to Cout <= 8: SDXL's and SD1.5's conv_out,
+# ragged tiles, Cout 8 itself
+N8_CONVS = [(2, 128, 128, 320, 4), (2, 64, 64, 320, 4), (1, 128, 128, 320, 4),
+            (2, 13, 17, 72, 3), (1, 8, 8, 8, 8), (3, 5, 6, 64, 1)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", N8_CONVS)
+def test_conv_plan_at_width_8_covers_outputs_once(b, h, w, cin, cout):
+    """Cout <= 8 runs the 8-column tile, unsplit, with or without the
+    prologue: one column tile, every K step in its one block, and the
+    grid's blocks (blockIdx.x -> pixel tile) reach every output once; the
+    epilogue stores columns 2 (lane % 4) + c < Cout of each row."""
+    for gn in (False, True):
+        tile, plan = wp.conv_plan(b, h, w, cin, cout, gn=gn)
+        assert plan == wp.Plan(wp.N8, 1) and (tile, plan) == wp.conv_plan(b, h, w, cin, cout, gn=gn)
+    assert tconv.conv_variant((b, h, w, cin), cout, BF16) == "wgmma_bf16"
+    steps = 9 * math.ceil(cin / wp.BK)
+    assert wp.split_ranges(steps, 1) == [(0, steps)]
+    ntx, nty, ntb = tile.counts(b, h, w)
+    n_tiles = math.ceil(cout / wp.N8)
+    assert n_tiles == 1
+    seen = np.zeros((b, h, w, cout), np.int64)
+    for bx in range(ntx * nty * ntb * n_tiles):
+        mt, nt = divmod(bx, n_tiles)
+        x0, y0, b0 = (mt % ntx) * tile.tw, (mt // ntx % nty) * tile.th, mt // (ntx * nty) * tile.tb
+        for row in range(wp.BM):
+            bb = b0 + row // (tile.th * tile.tw)
+            y, x = y0 + row % (tile.th * tile.tw) // tile.tw, x0 + row % tile.tw
+            if bb < b and y < h and x < w:
+                for lane in range(4):
+                    for c in range(2):
+                        n = nt * wp.N8 + 2 * lane + c
+                        if n < cout:
+                            seen[bb, y, x, n] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 320), (320, 4), (4, 4), (3, 5)])
+def test_padded_conv_operands_compute_the_conv(cin, cout):
+    """What the wrapper hands the wgmma kernel for conv_in and conv_out: x
+    and w with Cin padded to 8 by zero channels, and for Cout <= 8 the
+    K-major (8, 9*Cin) weight with zero rows past Cout. The implicit GEMM
+    over them (K step kb: tap kb, the padded channels) is the conv of the
+    plain version and of JAX's Pallas kernel (interpret mode), f32, 1e-5."""
+    rng = np.random.default_rng(cin * cout)
+    x = rng.standard_normal((2, 6, 7, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) / math.sqrt(9 * cin)).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, bias))
+    xp, wpad, _ = tconv._pad_cin(xt, wt, None)
+    cin8 = xp.shape[3]
+    assert cin8 == -(-cin // 8) * 8 and torch.equal(xp[..., :cin], xt) and not xp[..., cin:].any()
+    if cout <= wp.N8:
+        b_op = tconv.n8_weight(wpad)                        # (8, 9 * cin8), K-major
+        assert b_op.shape == (wp.N8, 9 * cin8) and b_op.is_contiguous()
+        assert not b_op[cout:].any()
+        b_op = b_op.t()
+    else:
+        b_op = wpad.reshape(9 * cin8, cout)
+    xpad = torch.nn.functional.pad(xp, (0, 0, 1, 1, 1, 1)).double()
+    acc = torch.zeros((2, 6, 7, b_op.shape[1]), dtype=torch.float64)
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        acc += xpad[:, ky:ky + 6, kx:kx + 7] @ b_op[tap * cin8:(tap + 1) * cin8].double()
+    got = (acc[..., :cout].float() + bt).numpy()
+    plain = tconv.conv3x3_plain(xt, wt, bt).numpy()
+    pallas = np.asarray(conv3x3_direct(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                                       interpret=True))
+    scale = np.abs(plain).max()
+    assert np.abs(got - plain).max() <= 1e-5 * scale
+    assert np.abs(got - pallas).max() <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("cin,cout", [(320, 320), (1280, 1280), (2560, 1280), (64, 96), (40, 8)])
@@ -293,11 +372,11 @@ ATTENTION_KERNELS = {(20, 64, 1024): "wgmma_bf16", (10, 64, 77): "wgmma_bf16",
 
 @pytest.mark.parametrize("h,d,sk", sorted(ATTENTION_KERNELS))
 def test_attention_classes_route_to_kernels(h, d, sk):
-    """K1-K4 run the wgmma kernel, K5 the tiny-KV one; f32 the scalar one."""
+    """K1-K4 run the wgmma kernel, K5 the tiny-KV one; f32 the 3xTF32 GEMM."""
     cls = tfa.attention_class(h, d, sk)
     assert tfa.kernel_name(cls, BF16) == ATTENTION_KERNELS[(h, d, sk)]
     assert (cls == "K5") == (ATTENTION_KERNELS[(h, d, sk)] == "tinykv_bf16")
-    assert tfa.kernel_name(cls, torch.float32) == "scalar_f32"
+    assert tfa.kernel_name(cls, torch.float32) == "wgmma_tf32x3"
 
 
 def _box_attention(qkv, h, d, sk_pad):
