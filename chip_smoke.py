@@ -9,9 +9,9 @@ binding to phases 4 and 4c (device time by kernel family, idle share);
 ``--plans`` times the wgmma kernels at forced tile widths and K splits
 beside the planner's choice and a plain wave-filling rule's (before phase
 3). ``--host-time`` only builds the kernels and prints the host time a
-launch of the linear and conv wrappers, of the package in DIR (a copy of
-another tree, to compare two in one run) or of this checkout; it prints no
-result line.
+launch of the linear, conv and GroupNorm wrappers and of the fused GN conv
+op, of the package in DIR (a copy of another tree, to compare two in one
+run) or of this checkout; it prints no result line.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -33,22 +33,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      kernel, beside the scalar kernel it replaced, or the scalar one for the
      VAE's conv_in, Cin 4), SD1.5's 16^2 and 8^2 levels included, and the
      tf32 rows beside their bound in 3xTF32 on the tensor cores as well;
-  3b. fused-op kernels: GroupNorm (K9, beside F.group_norm), LayerNorm /
-     RMSNorm (K10, beside F.layer_norm / F.rms_norm), GEGLU (K11) and the
-     GN-fused 3x3 conv (K8) against their plain versions at the same path's
-     shapes; K8 also beside the unfused pair (K9 apply, K6);
+  3b. fused-op kernels: GroupNorm (K9: stats, device fold and apply behind
+     one C entry, beside F.group_norm, its device time from the profiler
+     beside the wrapper's), LayerNorm / RMSNorm (K10, beside F.layer_norm /
+     F.rms_norm), GEGLU (K11) and the GN-fused 3x3 conv (K8, its scale /
+     shift from the GroupNorm fold kernel) against their plain versions at
+     the same path's shapes; K8 also beside the unfused pair (K9 apply, K6);
   3c. SD1.5 attention: the bf16 kernels at the SD1.5 512^2 path's shapes
      (K3 at d=40, K4 at d=80 and 160, K5 against 77 keys and the mid-block's
      64), then phase 3's d=64 rows again;
   3d. the rest of the opt-in kernels: the timestep embedding (K12) at
      (2,)->(2,320) and (12,)->(12,256); linear (K13) at every GEMM shape of
-     both paths (wgmma, skinny and f32 scalar variants, SiLU and GELU
-     epilogues), each beside cuBLAS's addmm of the same GEMM and the wgmma
-     rows beside the WMMA kernel (element loads, the route of the shapes TMA
-     cannot take); seeded dropout (K14) through ops.dispatch
-     under a ("dropout", "cuda") binding, bit for bit against its plain
-     version, deterministic, seed-sensitive, and dropping a fraction within
-     4 sigma of the rate;
+     both paths (wgmma, skinny and the f32 3xTF32 GEMM, SiLU and GELU
+     epilogues), each beside cuBLAS's addmm of the same GEMM (f32 with TF32
+     off), the wgmma rows beside the WMMA kernel (element loads, the route
+     of the shapes TMA cannot take), the f32 rows beside their f32-FMA bound
+     and the time of the wrapper's weight split; seeded dropout (K14)
+     through ops.dispatch under a ("dropout", "cuda") binding, bit for bit
+     against its plain version, deterministic, seed-sensitive, and dropping
+     a fraction within 4 sigma of the rate;
   4, 4b, 4d. step deviation: one full-width SDXL-base UNet step (128^2
      latent, CFG batch 2, bf16, random weights, fused projections and the
      cross K/V precompute) under the default binding, the fused-op binding
@@ -170,6 +173,29 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> tuple[float, float, dict]:
+    """Device time of one fn() call, its kernel launches a call and its
+    device time a call by kernel name: the sums of its kernels' durations
+    (torch.profiler's CUDA kernel events) over ``iters`` calls after one
+    warm-up, so the host's gaps between launches do not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("the profiler saw no kernel on the device")
+    by_name = {}
+    for name, us in spans:
+        by_name[name] = by_name.get(name, 0.0) + us / iters / 1e3
+    return sum(by_name.values()), len(spans) / iters, by_name
+
+
 def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
             library_label="library call", old_fn=None, old_label="old kernel", op_fn=None,
             op_label="reference-binding op"):
@@ -258,11 +284,15 @@ def phase_fused_kernels(dev):
         nchw = x.permute(0, 3, 1, 2).contiguous()
         lfn = lambda x=nchw, g=g, b=b: F.group_norm(x, 32, g, b, 1e-5)
         name = f"group_norm {tuple(shape)} {'bf16' if dtype == bf16 else 'f32'} act={act}"
-        record("K9", name, "group_norm.cu",
-               compare(name, kfn, pfn, BF16_REL_TOL if dtype == bf16 else F32_REL_TOL,
-                       iters, bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, b), dtype),
-                       library_fn=lfn, library_label="F.group_norm", op_fn=ofn,
-                       op_label="default-binding op"))
+        r = compare(name, kfn, pfn, BF16_REL_TOL if dtype == bf16 else F32_REL_TOL, iters,
+                    bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, b), dtype), library_fn=lfn,
+                    library_label="F.group_norm", op_fn=ofn, op_label="default-binding op")
+        r["device_ms"], per_call, _ = device_ms(kfn, iters)
+        lib_dev = device_ms(lfn, iters)[0]
+        log(f"  device time (profiler, kernels only): {r['device_ms']:.4f} ms in "
+            f"{per_call:g} kernels a call, {r['bound_ms'] / r['device_ms']:.1%} of bound; "
+            f"F.group_norm {lib_dev:.4f} ms")
+        record("K9", name, "group_norm.cu", r)
         del x, nchw
 
     # K10: the transformer LayerNorms, and RMSNorm through the same kernel
@@ -310,10 +340,8 @@ def phase_fused_kernels(dev):
              False),
             ("conv_out 128x128 320->4", (2, 128, 128, 320, 4), "b", False)]:
         x = randn(b_, hh, ww, cin, scale=2.0, shift=0.5)
-        s1, s2 = gn.moments(x)
-        scale, shift = gn.fold(s1, s2, randn(cin, dtype=f32, scale=0.2, shift=1.0),
-                               randn(cin, dtype=f32, scale=0.2), hw=hh * ww, num_groups=32,
-                               eps=1e-5)
+        scale, shift = gn.scale_shift(x, randn(cin, dtype=f32, scale=0.2, shift=1.0),
+                                      randn(cin, dtype=f32, scale=0.2), num_groups=32, eps=1e-5)
         w = randn(3, 3, cin, cout, scale=1.0 / math.sqrt(9 * cin))
         bias = randn(b_, cout, dtype=f32) if bias_kind == "bb" else randn(cout)
         res = randn(b_, hh, ww, cout) if with_res else None
@@ -466,7 +494,8 @@ LINEAR_CASES = [
     ("SD1.5 to_qkv (8192,320)@(320,960)", 8192, 320, 960, False, None, torch.bfloat16, 20),
     ("SD1.5 8x8 level (128,1280)@(1280,1280)+b", 128, 1280, 1280, True, None, torch.bfloat16,
      50),
-    ("VAE f32 (16384,512)@(512,512)+b", 16384, 512, 512, True, None, torch.float32, 5),
+    ("VAE f32 (16384,512)@(512,512)+b", 16384, 512, 512, True, None, torch.float32, 10),
+    ("SD1.5 VAE f32 (4096,512)@(512,512)+b", 4096, 512, 512, True, None, torch.float32, 20),
     ("act=silu (2,320)@(320,1280)+b", 2, 320, 1280, True, "silu", torch.bfloat16, 50),
     ("act=gelu (2048,1280)@(1280,5120)+b", 2048, 1280, 5120, True, "gelu", torch.bfloat16, 10),
 ]
@@ -516,16 +545,30 @@ def phase_optional_kernels(dev):
         before = dict(lin.LAUNCHES.by_key)
         name = f"linear {label}" + (f" act={act}" if act and "act=" not in label else "")
         kernel = lin.variant(m, k, n, dtype)
+        f32 = dtype == torch.float32
+        flops, moved = 2 * m * n * k, nbytes(x, w, b) + m * n * x.element_size()
         r = compare(name, lambda x=x, w=w, b=b, act=act: lin.linear(x, w, b, act=act),
                     lambda x=x, w=w, b=b, act=act: lin.linear_plain(x, w, b, act=act),
-                    BF16_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL, iters,
-                    bound_ms=bound(2 * m * n * k, nbytes(x, w, b) + m * n * x.element_size(),
-                                   dtype),
+                    F32_REL_TOL if f32 else BF16_REL_TOL, iters,
+                    bound_ms=bound(flops, moved, dtype,
+                                   TF32X3_FLOPS if kernel == "wgmma_tf32x3" else None),
                     library_fn=(lambda x=x, w=w, b=b: torch.addmm(b, x, w)) if b is not None
                     else (lambda x=x, w=w: x @ w), library_label="cuBLAS addmm",
                     old_fn=(lambda x=x, w=w, b=b, act=act: lin._launch(x, w, b, act,
                                                                       "wmma_bf16")[0])
                     if kernel == "wgmma_bf16" else None, old_label="WMMA kernel")
+        if kernel == "wgmma_tf32x3":
+            # the 3xTF32 GEMM's bound (above) and the f32 FMA one; on the
+            # device, the w^T split kernel (inside the row's time) and the GEMM
+            r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
+            r["device_ms"], _, by_name = device_ms(
+                lambda x=x, w=w, b=b, act=act: lin.linear(x, w, b, act=act), iters)
+            r["prep_ms"] = sum(ms for kn, ms in by_name.items() if "tf32_split" in kn)
+            gemm_ms = sum(ms for kn, ms in by_name.items() if "gemm_wgmma_tf32x3" in kn)
+            log(f"  bound in 3xTF32 (above); at the f32 FMA peak {r['bound_f32_fma_ms']:.4f} ms; "
+                f"device time (profiler) {r['device_ms']:.4f} ms: the w^T split kernel "
+                f"{r['prep_ms']:.4f} ms, the GEMM {gemm_ms:.4f} ms "
+                f"({r['bound_ms'] / max(gemm_ms, 1e-9):.1%} of bound)")
         keys = {key for key, c in lin.LAUNCHES.by_key.items() if c != before.get(key, 0)}
         if len(keys) != 1 or not next(iter(keys)).startswith(kernel + " "):
             raise AssertionError(f"{name}: launched {sorted(keys)}, expected {kernel}")
@@ -759,6 +802,7 @@ def phase_plans(dev):
 # convs the wgmma kernels take, with and without a K split
 HOST_GEMMS = [(8192, 640, 1920), (2048, 5120, 1280), (154, 2048, 2560), (128, 1280, 1280)]
 HOST_CONVS = [(2, 128, 128, 320, 320), (2, 32, 32, 1280, 1280), (2, 8, 8, 1280, 1280)]
+HOST_NORMS = [(2, 128, 128, 320), (2, 32, 32, 1280)]  # GroupNorm, and GN + SiLU + conv
 HOST_ROUNDS = 7
 
 
@@ -779,15 +823,17 @@ def host_us(fn, calls: int = 100) -> float:
 def phase_host_time(dev):
     """``--host-time [DIR]``: the host time a launch of the package in DIR
     (default: this checkout), for each shape above: the public wrapper
-    (linear, conv3x3), linear's internal launch on the wgmma route and on
-    the WMMA route, and the wgmma kernels' bare C entries at the planned
-    plan. The host is shared, so each is measured in HOST_ROUNDS
-    interleaved rounds and printed as its least and its median round. Run
-    it on two trees in one call to compare them."""
+    (linear, conv3x3, group_norm), linear's internal launch on the wgmma
+    route and on the WMMA route, the wgmma kernels' bare C entries at the
+    planned plan, and the fused GN conv's whole op (gn_conv2d_fused: the
+    GroupNorm stats and fold, then the conv). The host is shared, so each is
+    measured in HOST_ROUNDS interleaved rounds and printed as its least and
+    its median round. Run it on two trees in one call to compare them."""
     import statistics
 
     from stabletriton_tpu_torch.kernels import build
     from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import group_norm as gn
     from stabletriton_tpu_torch.kernels import linear as lin
     from stabletriton_tpu_torch.kernels import wgmma_plan as wp
 
@@ -824,6 +870,14 @@ def phase_host_time(dev):
                 conv(x.data_ptr(), w.data_ptr(), bias.data_ptr(), 0, s[4], None, out.data_ptr(),
                      ws.data_ptr(), *s, 1, None, None, 0, tile.tw, tile.th, tile.tb, plan.bn,
                      plan.splits, stream)}))
+    for bsz, h, wd, c in HOST_NORMS:
+        x = torch.randn((bsz, h, wd, c), generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(c, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((3, 3, c, c), generator=gen, device=dev).to(torch.bfloat16)
+        cases.append((f"group norm {bsz}x{h}x{wd}x{c} g=32 +silu", {
+            "K9 wrapper": lambda x=x, g=g: gn.group_norm(x, g, g, num_groups=32, act="silu"),
+            "gn_conv2d_fused op": lambda x=x, g=g, w=w: cd.gn_conv2d_fused(
+                x, g, g, w, g, num_groups=32, gn_act="silu")}))
     rounds = {(label, what): [] for label, fns in cases for what in fns}
     for _ in range(HOST_ROUNDS):
         for label, fns in cases:
@@ -986,10 +1040,11 @@ def profile_step(run, label):
         raise AssertionError(f"{label}: the profiler saw no kernel on the device")
     families = {"wgmma conv": ("conv_wgmma", "conv_gn_wgmma"),
                 "wgmma linear": ("linear_wgmma",), "split-K reduce": ("splitk_reduce",),
-                "skinny/scalar linear": ("linear_skinny", "linear_scalar"),
+                "skinny linear": ("linear_skinny",),
                 "attention": ("attn_", "gemm_wgmma_tf32x3"),
                 "GroupNorm/LayerNorm/GEGLU/time_embed": (
-                    "gn_apply", "gn_stats", "ln_rows", "geglu_kernel", "time_embed_kernel"),
+                    "gn_apply", "gn_stats", "gn_fold", "ln_rows", "geglu_kernel",
+                    "time_embed_kernel"),
                 "cuBLAS/cuDNN": ("gemm", "nvjet", "sm90_", "cutlass", "cudnn", "xmma", "conv2d")}
     by, counts, busy, end = {}, {}, 0.0, spans[0][0]
     for t0, t1, name in spans:
@@ -1442,7 +1497,7 @@ def phase_serving_all(dev, ucfg, unet_params, other):
     want["K13"] += PRECOMPUTE_LINEARS * gens + VAE_LINEARS * images
     # the precompute's GEMMs are the only ones over the 2048-wide context
     precompute = sum(n for key, n in by_key["K13"].items() if " k=2048 " in key)
-    vae = sum(n for key, n in by_key["K13"].items() if key.startswith("scalar_f32 "))
+    vae = sum(n for key, n in by_key["K13"].items() if key.startswith("wgmma_tf32x3 "))
     log(f"all-kernel serving: {steps} UNet steps, {gens} generations, {images} images; "
         f"K13 precompute launches {precompute}, VAE launches {vae}")
     if steps == 0 or steps % SERVE_STEPS:
@@ -1634,7 +1689,8 @@ def main() -> int:
         "source": r["source"], "replaces": REPLACES[r["tpu"]], "launches": launches(r),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        **{k: r[k] for k in ("old_ms", "old_kernel", "bound_f32_fma_ms", "prep_ms") if k in r},
+        **{k: r[k] for k in ("old_ms", "old_kernel", "bound_f32_fma_ms", "prep_ms", "device_ms")
+           if k in r},
     } for r in kernel_results]
     for k in kernels:
         if k["launches"] == 0:

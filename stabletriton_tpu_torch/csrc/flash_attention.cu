@@ -31,7 +31,8 @@
 //                          d=512): attention as two launches of one 3xTF32
 //                          GEMM a chunk of query rows, S = Q K^T with the
 //                          softmax numerator in its epilogue, then O = P V
-//                          divided by the row sums. K3 in f32.
+//                          divided by the row sums. K3 in f32. The GEMM is
+//                          in tf32_gemm.cuh, shared with the f32 linear.
 //
 // What bounds them on the H100. Attention does 4*D FLOPs per score element
 // against one exp2 on the SFU (16 a clock an SM against ~4,000 bf16 FLOPs
@@ -86,7 +87,7 @@
 // (5 of the 8 fragments of its 128-row K buffer at Sk = 77). At D = 160 its
 // shared memory (159 KB) leaves one block per SM.
 //
-// gemm_wgmma_tf32x3<MODE>. At d = 512 the two products are 4 Sq Sk D = 550
+// gemm_wgmma_tf32x3<MODE> (tf32_gemm.cuh). At d = 512 the two products are 4 Sq Sk D = 550
 // GFLOP at S = 16384, and f32 accuracy is kept (one tf32 product alone is
 // ~1e-3 off) by 3xTF32, the scheme of the f32 conv (conv3x3.cu
 // conv_wgmma_tf32x3): A split into big / small in registers, B's big and
@@ -119,13 +120,12 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "tf32_gemm.cuh"
 #include "wgmma.cuh"
 
 using namespace nvcuda;
 
 namespace {
-
-constexpr float kClip = 80.0f;
 
 struct Operand {
   const void* ptr;
@@ -573,156 +573,6 @@ cudaError_t launch_bf16(bool tiny_kv, Operand q, Operand k, Operand v, void* out
                         int Sk, int H, float qscale, cudaStream_t stream) {
   return tiny_kv ? launch_tiny<D>(q, k, v, out, B, Sq, Sk, H, qscale, stream)
                  : launch_wgmma<D>(q, k, v, out, B, Sq, Sk, H, qscale, stream);
-}
-
-// ---------------------------------------------------------------------------
-// gemm_wgmma_tf32x3<MODE> (K3 in f32): see the note at the top
-// ---------------------------------------------------------------------------
-constexpr int TG_BN = 128;                               // block tile columns
-constexpr int TG_STAGES = 4;
-constexpr int TG_A_BYTES = wg::BM * 128;                 // 128 rows x 32 f32
-constexpr int TG_STAGE = TG_A_BYTES + 2 * TG_BN * 128;   // A, B big, B small
-constexpr int TG_SMEM = 1024 + TG_STAGES * TG_STAGE + 16 * TG_STAGES;
-
-struct Tf32GemmArgs {
-  int M, N, K;           // this launch's rows, columns and depth
-  int n_tiles;           // column tiles (blockIdx.x = row tile * n_tiles + column tile)
-  // A (3-D map: column, row, z'): row a_row0 + r, column a_col0 +
-  // (z % a_heads) * a_head_cols + k, z' = z / a_heads (Q: z = b * H + h)
-  int a_row0, a_col0, a_heads, a_head_cols;
-  float a_scale;         // A's values times this before the split
-  int keys;              // MODE 0: columns at or past it give p = 0
-  float* p;              // MODE 0: P, (z, rows, p_ld)
-  int p_ld;
-  long long p_z;
-  float* l;              // row sums of p a column tile, (z, rows, l_ld): MODE 0
-  int l_ld;              // writes them, MODE 1 reads them
-  long long l_z;
-  float* out;            // MODE 1: out[z / heads][out_row0 + r][(z % heads) * head_cols + n]
-  long long out_b, out_ld;
-  int out_row0, heads, head_cols;
-};
-
-template <int MODE>
-__global__ void __launch_bounds__(wg::THREADS, 1)
-    gemm_wgmma_tf32x3(const __grid_constant__ CUtensorMap tmap_a,
-                      const __grid_constant__ CUtensorMap tmap_big,
-                      const __grid_constant__ CUtensorMap tmap_small, Tf32GemmArgs a) {
-  extern __shared__ __align__(16) uint8_t tsmem[];
-  const uint32_t ring = (wg::smem_u32(tsmem) + 1023u) & ~1023u;
-  auto full = [&](int s) { return ring + TG_STAGES * TG_STAGE + 8 * s; };
-  auto empty = [&](int s) { return full(TG_STAGES + s); };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < TG_STAGES; ++s) {
-      wg::bar_init(full(s), 1);
-      wg::bar_init(empty(s), 2);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  int mt, nt;
-  wg::block_tile(a.n_tiles, mt, nt);
-  const int m0 = mt * wg::BM, n0 = nt * TG_BN, z = blockIdx.z;
-  const int nk = (a.K + 31) / 32;
-  const int wgi = threadIdx.x / 128;
-  if (wgi == 2) {
-    if (threadIdx.x == 256) {
-      const int a_col = a.a_col0 + (z % a.a_heads) * a.a_head_cols, a_z = z / a.a_heads;
-      for (int it = 0; it < nk; ++it) {
-        const int s = it % TG_STAGES;
-        const uint32_t st = ring + s * TG_STAGE;
-        wg::bar_wait(empty(s), ((it / TG_STAGES) & 1) ^ 1);
-        wg::bar_expect_tx(full(s), TG_STAGE);
-        wg::tma_load_3d(st, &tmap_a, full(s), a_col + 32 * it, a.a_row0 + m0, a_z);
-        wg::tma_load_3d(st + TG_A_BYTES, &tmap_big, full(s), 32 * it, n0, z);
-        wg::tma_load_3d(st + TG_A_BYTES + TG_BN * 128, &tmap_small, full(s), 32 * it, n0, z);
-      }
-    }
-    return;
-  }
-
-  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-  const int lrow = wgi * 64 + warp * 16 + lane % 16;
-  float acc[64], part[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
-  for (int it = 0; it < nk; ++it) {
-    const int s = it % TG_STAGES;
-    const uint32_t st = ring + s * TG_STAGE, wb = st + TG_A_BYTES;
-    wg::bar_wait(full(s), (it / TG_STAGES) & 1);
-    wg::tf32x3_stage(st, wb, wb + TG_BN * 128, lrow, a.a_scale, part);
-    if (threadIdx.x % 128 == 0) wg::bar_arrive(empty(s));
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
-  }
-
-  // accumulator i lies at tile row 16 warp + lane / 4 + 8 ((i >> 1) & 1) and
-  // column 8 (i >> 2) + 2 (lane % 4) + (i & 1). A quad of lanes holds one
-  // row: its sums meet in two xor exchanges, which give every lane of the
-  // quad the same bits.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + wgi * 64 + warp * 16 + lane / 4 + 8 * r;
-    if constexpr (MODE == 0) {
-      float* prow = a.p + z * a.p_z + (long long)row * a.p_ld;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TG_BN / 8; ++j) {
-        const int n = n0 + 8 * j + 2 * (lane % 4);
-        const float p0 = n < a.keys ? exp2f(fminf(acc[4 * j + 2 * r], kClip)) : 0.f;
-        const float p1 = n + 1 < a.keys ? exp2f(fminf(acc[4 * j + 2 * r + 1], kClip)) : 0.f;
-        sum += p0 + p1;
-        if (row < a.M) *reinterpret_cast<float2*>(prow + n) = make_float2(p0, p1);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (row < a.M && lane % 4 == 0) a.l[z * a.l_z + (long long)row * a.l_ld + nt] = sum;
-    } else {
-      // l: lane q of the quad sums the row's partials q, q + 4, ... in order
-      float l = 0.f;
-      if (row < a.M)
-        for (int t = lane % 4; t < a.l_ld; t += 4) l += a.l[z * a.l_z + (long long)row * a.l_ld + t];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      if (row >= a.M) continue;
-      const float lc = fmaxf(l, 1e-30f);
-      float* orow = a.out + (z / a.heads) * a.out_b + (long long)(a.out_row0 + row) * a.out_ld +
-                    (z % a.heads) * a.head_cols;
-#pragma unroll
-      for (int j = 0; j < TG_BN / 8; ++j) {
-        const int n = n0 + 8 * j + 2 * (lane % 4);
-        if (n < a.N)
-          *reinterpret_cast<float2*>(orow + n) =
-              make_float2(acc[4 * j + 2 * r] / lc, acc[4 * j + 2 * r + 1] / lc);
-      }
-    }
-  }
-}
-
-// an f32 3-D tensor map (dims innermost first, strides of dims 1 and 2 in
-// elements), boxes of 32 columns x 128 rows x 1
-bool f32_map(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-             uint64_t s1, uint64_t s2) {
-  const uint64_t dims[3] = {d0, d1, d2};
-  const uint64_t strides[2] = {s1 * 4, s2 * 4};
-  const uint32_t box[3] = {32, 128, 1};
-  return wg::make_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
-}
-
-template <int MODE>
-int launch_tf32_gemm(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& ts,
-                     const Tf32GemmArgs& a, int zs, cudaStream_t stream) {
-  static bool set = false;
-  if (!set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_wgmma_tf32x3<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    set = true;
-  }
-  const dim3 grid((unsigned)((a.M + wg::BM - 1) / wg::BM * a.n_tiles), 1, zs);
-  gemm_wgmma_tf32x3<MODE><<<grid, wg::THREADS, TG_SMEM, stream>>>(ta, tb, ts, a);
-  return (int)cudaGetLastError();
 }
 
 bool aligned16(const Operand& o) {

@@ -1,10 +1,10 @@
 // Linear layer for Hopper (sm_90a): out = act(x @ w + b), x (M, K) and w
 // (K, N) row-major, f32 accumulation, the (N,) bias (read in its own dtype,
-// f32 or bf16) and the activation (SiLU, or the exact erf GELU) applied to
-// the f32 sum in the epilogue, one rounding to the input dtype. Computes the
-// function of the Pallas TPU kernel stabletriton_tpu/kernels/linear.py:
-// _linear_kernel, whose GELU carries its own erf polynomial only because
-// Mosaic has none; here erff.
+// f32 or bf16) and the activation (SiLU, or the exact erf GELU: stv::act)
+// applied to the f32 sum in the epilogue, one rounding to the input dtype.
+// Computes the function of the Pallas TPU kernel
+// stabletriton_tpu/kernels/linear.py:_linear_kernel, whose GELU carries its
+// own erf polynomial only because Mosaic has none; here erff.
 //
 // Four kernels:
 //
@@ -31,18 +31,31 @@
 //                        reads one column of w (a warp reads 32 neighbouring
 //                        values of a row), x comes in as warp-wide broadcasts,
 //                        and the 16 partial sums meet in shared memory.
-//   linear_scalar_f32  - f32 FMA, 64x64 block tile, 4x4 outputs a thread, no
-//                        TF32 rounding: the VAE decoder's f32 mid-attention
-//                        projections.
+//   gemm_wgmma_tf32x3<2> - f32 with M > 16 (the VAE decoder's mid-attention
+//                        projections, (16384, 512) @ (512, 512) an image at
+//                        1024^2): the 3xTF32 GEMM of tf32_gemm.cuh, shared
+//                        with the f32 attention, in its plain-GEMM mode. A is
+//                        x as it lies (K-major), B is w^T (N, K) split into a
+//                        big part exact in tf32 and the small rest by
+//                        tf32_split_t, launched first by the same C entry
+//                        (tf32 wgmma has no transpose); the GEMM splits x the
+//                        same way in registers and sums three tf32 products,
+//                        so the result keeps ~f32 accuracy on the tensor
+//                        cores. TMA takes rows of 16 bytes (K % 4 == 0) from
+//                        16-byte aligned bases: the wrapper pads K or copies
+//                        x where it must.
 //
 // What bounds them on the H100: the large GEMMs are compute-bound (hundreds
 // of FLOPs a byte, against the card's ~295 FLOP/B balance), so the wgmma
-// kernel keeps the tensor cores fed from a TMA ring and stores straight from
-// registers; grids of fewer tiles than the 132 SMs split K. The skinny GEMMs
-// are bound by reading w once.
+// kernels keep the tensor cores fed from a TMA ring and store straight from
+// registers; grids of fewer tiles than the 132 SMs split K (bf16). The f32
+// GEMM is bound by the tf32 rate over three (165 TFLOP/s), against the 67 of
+// f32 FMAs outside the tensor cores. The skinny GEMMs are bound by reading w
+// once.
 
 #include <mma.h>
 
+#include "tf32_gemm.cuh"
 #include "vec.cuh"
 #include "wgmma.cuh"
 
@@ -65,9 +78,7 @@ struct LinearArgs {
 // bias and activation on the f32 sum of output column n
 __device__ __forceinline__ float epilogue(const LinearArgs& a, int n, float acc) {
   if (a.bias) acc += stv::load_param(a.bias, a.bias_dtype, n);
-  if (a.act == 1) acc = acc / (1.f + expf(-acc));
-  else if (a.act == 2) acc = 0.5f * acc * (1.f + erff(acc * 0.70710678118654752f));
-  return acc;
+  return stv::act(acc, a.act);
 }
 
 template <typename T>
@@ -196,50 +207,34 @@ __global__ void __launch_bounds__(KCOLS * KSLICES) linear_skinny(LinearArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// scalar f32 kernel: BM=64 x BN=64 tile, BK=16, 256 threads, 4x4 outputs each
-// at rows tm + 16*i and columns tn + 16*j (conflict-free shared reads)
+// the B operand of the f32 GEMM: w (Kw, N) row-major -> big / small (N, K)
+// K-major, w^T with zero columns at k >= Kw, split as tf32x3_stage splits A
+// (big = w with its low 13 mantissa bits cleared, exact in tf32; small = w -
+// big, exact in f32). A 32 x 32 tile a block through shared memory, so the
+// reads (along n) and the writes (along k) are both coalesced. Its plain
+// version is kernels/linear.py tf32_weight.
 // ---------------------------------------------------------------------------
-constexpr int SBM = 64, SBN = 64, SBK = 16, STHREADS = 256;
-
-__global__ void __launch_bounds__(STHREADS) linear_scalar_f32(LinearArgs a) {
-  __shared__ float As[SBK][SBM + 4];
-  __shared__ float Bs[SBK][SBN + 4];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * SBM, n0 = blockIdx.y * SBN;
-  const int tm = tid / 16, tn = tid % 16;
-  const float* x = static_cast<const float*>(a.x);
-  const float* w = static_cast<const float*>(a.w);
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < a.K; k0 += SBK) {
-    // A: consecutive threads take consecutive k (one row of x)
-    for (int idx = tid; idx < SBM * SBK; idx += STHREADS) {
-      const int kk = idx % SBK, mm = idx / SBK, m = m0 + mm, k = k0 + kk;
-      As[kk][mm] = (m < a.M && k < a.K) ? x[(long long)m * a.K + k] : 0.f;
-    }
-    for (int idx = tid; idx < SBK * SBN; idx += STHREADS) {
-      const int kk = idx / SBN, nn = idx % SBN, k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < a.K && n < a.N) ? w[(long long)k * a.N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SBK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][tm + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tn + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+__global__ void __launch_bounds__(256) tf32_split_t(const float* __restrict__ w,
+                                                    float* __restrict__ big,
+                                                    float* __restrict__ small, int Kw, int N,
+                                                    int K) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += 8) {
+    const int k = k0 + i, n = n0 + tx;
+    tile[i][tx] = (k < Kw && n < N) ? w[(long long)k * N + n] : 0.f;
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) store_out<float>(a, m0 + tm + 16 * i, n0 + tn + 16 * j, acc[i][j]);
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int n = n0 + i, k = k0 + tx;
+    if (n < N && k < K) {
+      const float v = tile[tx][i];
+      const float b = __uint_as_float(__float_as_uint(v) & 0xFFFFE000u);
+      big[(long long)n * K + k] = b;
+      small[(long long)n * K + k] = v - b;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -311,8 +306,8 @@ int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tw, const WgmmaArgs& 
 
 // x (M, K), w (K, N), out (M, N) contiguous, of one dtype (0 = f32, 1 =
 // bf16); bias (N,) of bias_dtype (0 = f32, 1 = bf16) or null. act: 0 none,
-// 1 SiLU, 2 GELU. variant: 0 the scalar f32 kernel, 1 the bf16 WMMA kernel,
-// 2 the skinny kernel (M <= 16). Returns a cudaError_t (0 on success).
+// 1 SiLU, 2 GELU. variant: 1 the bf16 WMMA kernel, 2 the skinny kernel (M <=
+// 16, either dtype). Returns a cudaError_t (0 on success).
 extern "C" int st_linear(const void* x, const void* w, const void* bias, int bias_dtype,
                          void* out, int M, int N, int K, int act, int dtype, int variant,
                          void* stream_ptr) {
@@ -332,9 +327,6 @@ extern "C" int st_linear(const void* x, const void* w, const void* bias, int bia
   } else if (variant == 1 && dtype == 1) {
     const dim3 grid((M + WBM - 1) / WBM, (N + WBN - 1) / WBN);
     linear_wmma_bf16<<<grid, WTHREADS, 0, stream>>>(a);
-  } else if (variant == 0 && dtype == 0) {
-    const dim3 grid((M + SBM - 1) / SBM, (N + SBN - 1) / SBN);
-    linear_scalar_f32<<<grid, STHREADS, 0, stream>>>(a);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -371,4 +363,41 @@ extern "C" int st_linear_wgmma(const void* x, const void* w, const void* bias, i
                              : launch_wgmma<128, 3, 2>(tx, tw, a, stream);
   if (code != 0 || splits == 1) return code;
   return wg::launch_reduce(ws, splits, e, stream);
+}
+
+// The f32 linear on the 3xTF32 wgmma kernel, two launches: tf32_split_t
+// makes B from w, then gemm_wgmma_tf32x3<2>. x (M, K) f32 with K % 4 == 0
+// and a 16-byte aligned base; w (Kw, N) f32 row-major with Kw <= K (x's
+// columns at or past Kw meet zero rows); ws: 2 N K f32 scratch, 16-byte
+// aligned (big, then small); out (M, N) f32 8-byte aligned; bias (N,) of
+// bias_dtype (0 = f32, 1 = bf16) or null; act as st_linear. Returns a
+// cudaError_t (0 on success).
+extern "C" int st_linear_tf32x3(const float* x, const float* w, float* ws, const void* bias,
+                                int bias_dtype, float* out, int M, int N, int K, int Kw, int act,
+                                void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const auto a16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  if (act < 0 || act > 2 || M <= 0 || N <= 0 || K <= 0 || K % 4 || Kw < 0 || Kw > K ||
+      (N + 31) / 32 > 65535 || bias_dtype < 0 || bias_dtype > 1 || !a16(x) || !a16(ws) ||
+      reinterpret_cast<uintptr_t>(out) % 8)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (M + wg::BM - 1) / wg::BM * (long long)((N + TG_BN - 1) / TG_BN);
+  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  float* w_big = ws;
+  float* w_small = ws + (long long)N * K;
+  CUtensorMap tx, tb, ts;
+  if (!f32_map(&tx, x, K, M, 1, K, (uint64_t)M * K) ||
+      !f32_map(&tb, w_big, K, N, 1, K, (uint64_t)N * K) ||
+      !f32_map(&ts, w_small, K, N, 1, K, (uint64_t)N * K))
+    return (int)cudaErrorInvalidValue;
+  tf32_split_t<<<dim3((K + 31) / 32, (N + 31) / 32), 256, 0, stream>>>(w, w_big, w_small, Kw, N,
+                                                                        K);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  Tf32GemmArgs g{};
+  g.M = M, g.N = N, g.K = K, g.n_tiles = (N + TG_BN - 1) / TG_BN;
+  g.a_row0 = 0, g.a_col0 = 0, g.a_heads = 1, g.a_head_cols = 0, g.a_scale = 1.f;
+  g.out = out, g.out_b = 0, g.out_ld = N, g.out_row0 = 0, g.heads = 1, g.head_cols = 0;
+  g.bias = bias, g.bias_dtype = bias_dtype, g.act = act;
+  return launch_tf32_gemm<2>(tx, tb, ts, g, 1, stream);
 }

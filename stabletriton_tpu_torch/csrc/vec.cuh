@@ -1,8 +1,9 @@
-// Conversions, SiLU and 16-byte vector loads and stores shared by the
-// kernels (conv3x3.cu, group_norm.cu, layer_norm.cu, geglu.cu). V values of
-// T go through one uint4 when V * sizeof(T) == 16 (8 bf16 or 4 f32), element
-// by element otherwise (V == 1). The caller guarantees 16-byte alignment for
-// the vector form.
+// Conversions, activations and 16-byte vector loads and stores shared by the
+// kernels (conv3x3.cu, group_norm.cu, layer_norm.cu, geglu.cu, linear.cu and
+// the epilogues of wgmma.cuh and tf32_gemm.cuh). V values of T go through one
+// uint4 when V * sizeof(T) == 16 (8 bf16 or 4 f32), element by element
+// otherwise (V == 1). The caller guarantees 16-byte alignment for the vector
+// form.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,5 +58,14 @@ __device__ __forceinline__ float load_param(const void* p, int pdtype, int i) {
 // but the f32 VAE's; the GroupNorm apply kernel and the conv's GroupNorm
 // prologue share it, so the fused and the unfused pair normalise alike
 __device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.f + __expf(-x)); }
+
+// the linear kernels' epilogue activation on an f32 sum: act 0 none, 1 SiLU
+// (precise expf and division), 2 GELU with erff (the Pallas kernel's erf
+// polynomial exists only because Mosaic has no erf)
+__device__ __forceinline__ float act(float x, int code) {
+  if (code == 1) return x / (1.f + expf(-x));
+  if (code == 2) return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+  return x;
+}
 
 }  // namespace stv

@@ -494,10 +494,7 @@ __device__ __forceinline__ void epilogue8(const Epilogue& e, long long m, int n,
     for (int i = 0; i < 8; ++i) v[i] += r[i];
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (e.act == 1) v[i] = v[i] / (1.f + expf(-v[i]));
-    else if (e.act == 2) v[i] = 0.5f * v[i] * (1.f + erff(v[i] * 0.70710678118654752f));
-  }
+  for (int i = 0; i < 8; ++i) v[i] = stv::act(v[i], e.act);
   stv::store_vec<__nv_bfloat16, 8>(e.out + m * e.N + n, v);
 }
 
@@ -587,8 +584,7 @@ __device__ __forceinline__ void store_n8(const float (&acc)[4], int wgi, RowMap 
                                : static_cast<const float*>(e.bias)[o];
       }
       if (e.residual) v += __bfloat162float(e.residual[m * e.N + n]);
-      if (e.act == 1) v = v / (1.f + expf(-v));
-      else if (e.act == 2) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+      v = stv::act(v, e.act);
       e.out[m * e.N + n] = __float2bfloat16(v);
     }
   }

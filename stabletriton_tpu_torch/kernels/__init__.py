@@ -4,11 +4,11 @@
                     (csrc/flash_attention.cu)
   conv_direct     - conv2d -> "direct" (csrc/conv3x3.cu for 3x3 stride-1 SAME);
                     gn_conv2d -> "fused" (the same kernel with a GroupNorm
-                    prologue, moments from csrc/group_norm.cu)
+                    prologue, scale / shift from csrc/group_norm.cu)
   group_norm      - group_norm -> "cuda" (csrc/group_norm.cu)
   layer_norm      - layer_norm, rms_norm -> "cuda" (csrc/layer_norm.cu)
   geglu           - geglu -> "cuda" (csrc/geglu.cu)
-  linear          - linear -> "cuda" (csrc/linear.cu)
+  linear          - linear -> "cuda" (csrc/linear.cu; f32 on csrc/tf32_gemm.cuh)
   time_embed      - time_embed -> "cuda" (csrc/time_embed.cu)
   dropout         - dropout -> "cuda" (csrc/dropout.cu) and "reference" (its
                     plain version; no model path reaches dropout)

@@ -57,9 +57,10 @@ tile's halo once per 64-channel chunk, normalises it in shared memory
 (scale and shift staged once per block; the border and channels past Cin
 set to 0, since TMA's zero fill is a raw zero) and feeds all 9 taps from it
 as register-A wgmma operands, so each input element is normalised once, not
-once per tap; the f32 scalar kernel applies it in its A-tile gather. The moments
-come from the GroupNorm stats kernels (``kernels/group_norm.py``), which
-read x once.
+once per tap; the f32 scalar kernel applies it in its A-tile gather. The scale
+and shift come from the GroupNorm stats and fold kernels
+(``kernels/group_norm.py`` :func:`scale_shift`), which read x once, so K8
+normalises with the very values K9's apply kernel would.
 """
 
 from __future__ import annotations
@@ -292,7 +293,7 @@ def gn_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
                residual: torch.Tensor | None = None, act: str | None = None,
                gn_act: str | None = "silu") -> torch.Tensor:
     """The 3x3 conv with the GroupNorm apply fused into its input read:
-    ``gn_scale`` / ``gn_shift`` (B, Cin) f32 from :func:`group_norm.fold`.
+    ``gn_scale`` / ``gn_shift`` (B, Cin) f32 from :func:`group_norm.scale_shift`.
     CPU tensors take the plain version."""
     _check_conv(x, w, b, residual, act)
     if gn_act not in SILU_ACTS:
@@ -327,17 +328,16 @@ def conv2d_direct(x, w, b=None, *, stride=1, padding=1, residual=None, act=None)
 def gn_conv2d_fused(x, gamma, beta, w, b=None, *, num_groups=32, eps=1e-5,
                     gn_act="silu", stride=1, padding=1, residual=None, act=None):
     """GroupNorm(+gn_act) -> 3x3 conv with the GN apply fused into the conv's
-    input read: the stats kernels read x once, the fold runs in PyTorch on
-    (B, C), and the conv kernel normalizes its input as it gathers it.
+    input read: the GroupNorm stats and fold kernels (one C entry) read x
+    once and write (B, C) scale / shift, and the conv kernel normalizes its
+    input as it gathers it.
     Ineligible shapes (not 3x3 stride 1 SAME, C not divisible by the groups,
     an activation or a shape no kernel takes) compose ``group_norm`` ->
     ``conv2d`` through the active binding, as in the JAX package."""
     if (_is_conv3x3_s1(w, stride, padding) and act in SILU_ACTS and gn_act in SILU_ACTS
             and x.shape[3] % num_groups == 0
             and conv_variant(tuple(x.shape), w.shape[3], x.dtype, gn=True) is not None):
-        s1, s2 = group_norm.moments(x)
-        scale, shift = group_norm.fold(s1, s2, gamma, beta, hw=x.shape[1] * x.shape[2],
-                                       num_groups=num_groups, eps=eps)
+        scale, shift = group_norm.scale_shift(x, gamma, beta, num_groups=num_groups, eps=eps)
         return gn_conv3x3(x, scale, shift, w.to(x.dtype), b, residual=residual, act=act,
                           gn_act=gn_act)
     h = dispatch("group_norm", x, gamma, beta, num_groups=num_groups, eps=eps, act=gn_act)

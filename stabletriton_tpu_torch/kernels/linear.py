@@ -20,8 +20,17 @@ wgmma mainloop of ``csrc/wgmma.cuh``, block tile 128 x 128 or 256 and a K
 split from the planner of ``wgmma_plan.py``) when TMA takes the operands (K
 and N multiples of 8, 16-byte aligned bases), else to the WMMA kernel;
 M <= 16 to a skinny kernel whose blocks each read a 32-column slice of w
-once, with the K reduction split over 16 warps; f32 with M > 16 to an
-FMA-tiled kernel with no TF32 rounding. The bias is read in its own dtype.
+once, with the K reduction split over 16 warps; f32 with M > 16 to the
+3xTF32 wgmma GEMM (``csrc/tf32_gemm.cuh``, shared with the f32 attention),
+which keeps f32 accuracy on the tensor cores: A is x as it lies, B is w^T
+(N, K) split into a big part exact in tf32 and the small rest by a
+transpose kernel that the same C entry launches first (its plain version
+is :func:`tf32_weight`; one ctypes call, one scratch allocation), and the
+GEMM splits x the same way in registers and sums three tf32 products. TMA
+takes rows of 16 bytes from 16-byte aligned bases, so where K % 4 != 0 x
+gets zero columns (w^T's come from the split kernel), and a misaligned x
+is copied to an aligned base (:func:`_tf32_rows`). The bias is read in its
+own dtype.
 
 CUDA C++ rather than Triton: the repo has one build route (``build.py``),
 one launch check and one library.
@@ -38,6 +47,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from stabletriton_tpu_torch.kernels import wgmma_plan
 from stabletriton_tpu_torch.kernels.build import (
@@ -49,13 +59,15 @@ LAUNCHES = LaunchCounter()
 
 SKINNY_MAX_M = 16  # rows the skinny kernel takes (csrc/linear.cu SKINNY_MAX_M)
 # the kernel's variant codes in st_linear
-_VARIANTS = {"scalar_f32": 0, "wmma_bf16": 1, "skinny_f32": 2, "skinny_bf16": 2}
+_VARIANTS = {"wmma_bf16": 1, "skinny_f32": 2, "skinny_bf16": 2}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # st_linear(x, w, bias, bias_dtype, out, M, N, K, act, dtype, variant, stream)
 _LINEAR_ARGTYPES = [_P, _P, _P, _I, _P] + [_I] * 6 + [_P]
 # st_linear_wgmma(x, w, bias, bias_dtype, out, ws, M, N, K, act, bn, splits, stream)
 _WGMMA_ARGTYPES = [_P, _P, _P, _I, _P, _P] + [_I] * 6 + [_P]
+# st_linear_tf32x3(x, w, ws, bias, bias_dtype, out, M, N, K, Kw, act, stream)
+_TF32_ARGTYPES = [_P, _P, _P, _P, _I, _P] + [_I] * 5 + [_P]
 
 
 def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
@@ -78,8 +90,33 @@ def variant(m: int, k: int, n: int, dtype: torch.dtype, aligned: bool = True) ->
     if m <= SKINNY_MAX_M:
         return f"skinny_{name}"
     if dtype != torch.bfloat16:
-        return "scalar_f32"
+        return "wgmma_tf32x3"  # the wrapper pads or copies what TMA cannot take
     return "wgmma_bf16" if wgmma_plan.gemm_fits(m, k, n, aligned) else "wmma_bf16"
+
+
+def _tf32_k(k: int) -> int:
+    """The depth the 3xTF32 GEMM reads: K rounded up to a multiple of 4
+    (TMA's 16-byte rows of f32), at least 4."""
+    return max(4, -(-k // 4) * 4)
+
+
+def tf32_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The B operand of the 3xTF32 GEMM: w (K, N) transposed to K-major
+    (N, K'), zero columns up to K' = :func:`_tf32_k`, split into big + small
+    (``wgmma_plan.tf32_parts``). The plain version of the C entry's split
+    kernel (``tf32_split_t``), bit for bit."""
+    wt = w.t()
+    pad = _tf32_k(w.shape[0]) - w.shape[0]
+    return wgmma_plan.tf32_parts(F.pad(wt, (0, pad)) if pad else wt)
+
+
+def _tf32_rows(x2: torch.Tensor) -> torch.Tensor:
+    """x (M, K) f32 as TMA takes it: zero columns up to :func:`_tf32_k`, or
+    a copy at an aligned base where the view's base is off 16 bytes."""
+    pad = _tf32_k(x2.shape[1]) - x2.shape[1]
+    if pad:
+        return F.pad(x2, (0, pad))
+    return x2.clone() if x2.data_ptr() % 16 else x2
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,7 +146,13 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, act: str |
     bias_args = (None, 0) if b is None else (b.data_ptr(), DTYPE_CODES[b.dtype])
     with on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan is not None:
+        if name == "wgmma_tf32x3":
+            x2 = _tf32_rows(x.reshape(m, k))
+            ws = torch.empty(2 * n * x2.shape[1], dtype=torch.float32, device=x.device)
+            code = function("st_linear_tf32x3", _TF32_ARGTYPES)(
+                x2.data_ptr(), w.data_ptr(), ws.data_ptr(), *bias_args, out.data_ptr(), m, n,
+                x2.shape[1], k, ACT_CODES[act], stream)
+        elif plan is not None:
             ws = (torch.empty((plan.splits, m, n), dtype=torch.float32, device=x.device)
                   if plan.splits > 1 else None)
             code = function("st_linear_wgmma", _WGMMA_ARGTYPES)(
@@ -120,7 +163,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, act: str |
             code = function("st_linear", _LINEAR_ARGTYPES)(
                 x.data_ptr(), w.data_ptr(), *bias_args, out.data_ptr(), m, n, k,
                 ACT_CODES[act], DTYPE_CODES[x.dtype], _VARIANTS[name], stream)
-    check(code, "st_linear_wgmma" if plan is not None else "st_linear")
+    check(code, f"linear kernel {name}")
     return out, key
 
 

@@ -67,16 +67,19 @@ def test_group_norm_vs_pallas(shape, groups, act):
 
 
 def test_group_norm_moments_and_fold():
-    """The stats the kernels produce, folded, reproduce the reference op; the
-    fold clamps a negative E[x^2] - mean^2 at 0 (a constant group)."""
+    """The stats, folded, reproduce the reference op; the fold clamps a
+    negative E[x^2] - mean^2 at 0 (a constant group); the fold kernel's
+    wrapper (scale_shift) takes the same plain path on the CPU."""
     rng = np.random.default_rng(21)
     x = torch.from_numpy(_arr(rng, 2, 5, 6, 16, scale=2.0))
     x[1, ..., :4] = 3.0  # group 0 of image 1 is constant
     g, b = torch.from_numpy(_arr(rng, 16)), torch.from_numpy(_arr(rng, 16))
-    s1, s2 = tgn.moments(x)
+    s1, s2 = tgn.moments_plain(x)
     np.testing.assert_allclose(s1.numpy(), x.sum(dim=(1, 2)).numpy(), rtol=1e-5)
     scale, shift = tgn.fold(s1, s2, g, b, hw=30, num_groups=4, eps=1e-5)
     assert scale.shape == shift.shape == (2, 16) and scale.dtype == torch.float32
+    wrapped = tgn.scale_shift(x, g, b, num_groups=4, eps=1e-5)
+    assert torch.equal(wrapped[0], scale) and torch.equal(wrapped[1], shift)
     assert torch.isfinite(scale).all()
     np.testing.assert_allclose(tgn.apply(x, scale, shift, "silu").numpy(),
                                tops.reference.group_norm(x, g, b, num_groups=4,

@@ -320,6 +320,90 @@ def test_gpu_group_norm_kernel_vs_plain(cuda_device, dtype, shape, act, tol):
     assert torch.equal(again[: shape[0]], out) and torch.equal(again[shape[0]:], out)
 
 
+def _bf16_ulps(out, ref):
+    """The largest |out - ref| in bf16 ulps (8 significant bits) of the
+    largest |ref|: the outputs' scale. (An output that cancels to near 0
+    carries the f32 rounding of x * scale + shift, far more of its own
+    tiny ulps.)"""
+    ulp = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+    return ((out.float() - ref.float()).abs().max() / ulp).item()
+
+
+# chip_smoke.py's K9 shapes, then C not a multiple of the vector (vec = 1)
+GN_SHAPES = [((2, 64, 64, 640), torch.bfloat16, None),
+             ((2, 128, 128, 320), torch.bfloat16, "silu"),
+             ((1, 128, 128, 512), torch.float32, "silu"),
+             ((1, 1024, 1024, 128), torch.float32, "silu"),
+             ((2, 9, 7, 20), torch.bfloat16, "silu"),
+             ((3, 5, 6, 10), torch.float32, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,act", GN_SHAPES)
+def test_gpu_group_norm_one_entry_vs_plain(cuda_device, shape, dtype, act):
+    """st_group_norm (stats, device fold, apply) against group_norm_plain:
+    within 1 bf16 ulp of the largest output, or 1e-5 of the largest f32
+    output (the moments are summed in another order); one launch counted;
+    the same bits in a second run and for each image of a batch of two."""
+    groups = 32 if shape[3] % 32 == 0 else 5
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 2 + 0.5).to(dtype)
+    g = (torch.randn(shape[3], generator=gen, device=cuda_device) + 1).to(dtype)
+    b = torch.randn(shape[3], generator=gen, device=cuda_device).to(dtype)
+    before = tgn.LAUNCHES.count
+    out = tgn.group_norm(x, g, b, num_groups=groups, act=act)
+    assert tgn.LAUNCHES.count == before + 1
+    ref = tgn.group_norm_plain(x, g, b, num_groups=groups, act=act)
+    if dtype == torch.bfloat16:
+        assert _bf16_ulps(out, ref) <= 1
+    else:
+        assert _rel_err(out, ref) <= 1e-5
+    assert torch.equal(tgn.group_norm(x, g, b, num_groups=groups, act=act), out)
+    if x.numel() <= 2**23:
+        other = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+        pair = tgn.group_norm(torch.cat([x[:1], other[:1]]), g, b, num_groups=groups, act=act)
+        assert torch.equal(pair[:1], out[:1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,groups,pdtype", [
+    ((2, 32, 32, 320), torch.bfloat16, 32, torch.float32),   # 10 channels a group
+    ((2, 16, 16, 2560), torch.bfloat16, 32, torch.bfloat16),  # 80
+    ((1, 33, 31, 128), torch.float32, 32, torch.float32),
+    ((2, 5, 6, 80), torch.float32, 16, torch.bfloat16),       # 5: straddles the vectors
+])
+def test_gpu_group_norm_fold_vs_plain(cuda_device, shape, dtype, groups, pdtype):
+    """st_group_norm_fold's scale / shift against fold(moments_plain(x))
+    within 1e-5 (the moments' summation order), gamma / beta read in their
+    own dtype; K9 is the apply kernel on exactly these scale / shift, bit
+    for bit, the values K8's prologue reads."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 3 - 1).to(dtype)
+    g = (torch.randn(shape[3], generator=gen, device=cuda_device) * 0.2 + 1).to(pdtype)
+    b = torch.randn(shape[3], generator=gen, device=cuda_device).to(pdtype)
+    scale, shift = tgn.scale_shift(x, g, b, num_groups=groups, eps=1e-5)
+    s1, s2 = tgn.moments_plain(x)
+    rs, rh = tgn.fold(s1, s2, g, b, hw=shape[1] * shape[2], num_groups=groups, eps=1e-5)
+    assert scale.dtype == shift.dtype == torch.float32 and scale.shape == (shape[0], shape[3])
+    assert _rel_err(scale, rs) <= 1e-5 and _rel_err(shift, rh) <= 1e-5
+    assert torch.equal(tgn.group_norm(x, g, b, num_groups=groups, act="silu"),
+                       tgn.apply(x, scale.contiguous(), shift.contiguous(), "silu"))
+
+
+@pytest.mark.gpu
+def test_gpu_group_norm_clamps_a_near_constant_group(cuda_device):
+    """C3: x = 1000 + N(0, 1e-3), where E[x^2] - mean^2 rounds below 0 in
+    f32; the fold kernel clamps it, so every output is finite."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for c0 in (1000.0, 3000.0):
+        x = torch.randn((1, 16, 16, 64), generator=gen, device=cuda_device) * 1e-3 + c0
+        ones = torch.ones(64, device=cuda_device)
+        out = tgn.group_norm(x, ones, torch.zeros_like(ones), num_groups=32)
+        assert torch.isfinite(out).all()
+        scale, _ = tgn.scale_shift(x, ones, torch.zeros_like(ones), num_groups=32)
+        assert (scale <= (1 + 1e-6) / math.sqrt(1e-5)).all()  # rstd at most rsqrt(eps)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rows,c,rms,affine,tol", [
     (torch.bfloat16, 37, 640, False, True, 2e-2),   # 80 vectors: a masked tail
@@ -437,8 +521,8 @@ def _linear_key(kernel, m, k, n, bias, act):
     (torch.bfloat16, 154, 2816, 136, False, None, "wgmma_bf16"),  # precompute-like, deep K
     (torch.bfloat16, 2, 1280, 40, True, "silu", "skinny_bf16"),   # time MLP rows
     (torch.bfloat16, 12, 33, 4, False, "gelu", "skinny_bf16"),
-    (torch.float32, 100, 70, 40, True, "gelu", "scalar_f32"),
-    (torch.float32, 65, 512, 130, True, None, "scalar_f32"),
+    (torch.float32, 100, 70, 40, True, "gelu", "wgmma_tf32x3"),  # K % 4 != 0: padded
+    (torch.float32, 65, 512, 130, True, None, "wgmma_tf32x3"),
     (torch.float32, 16, 300, 77, True, "silu", "skinny_f32"),
 ])
 def test_gpu_linear_kernel_vs_plain(cuda_device, dtype, m, k, n, bias, act, kernel):
@@ -478,6 +562,49 @@ def test_gpu_linear_on_misaligned_operands(cuda_device):
     assert _new_keys(tlinear.LAUNCHES, before) == {
         _linear_key("wgmma_bf16", 150, 128, 64, False, None): 1,
         "wmma_bf16 m=150 k=128 n=64 bias=0 act=silu": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(16384, 512, 512), (4096, 512, 512), (154, 512, 512),
+                                   (300, 64, 45), (130, 70, 64), (17, 3, 1)])
+@pytest.mark.parametrize("bias,act", [(None, None), (torch.float32, "silu"),
+                                      (torch.bfloat16, "gelu"), (torch.float32, None)])
+def test_gpu_tf32_linear_vs_plain(cuda_device, m, k, n, bias, act):
+    """The f32 linear on the 3xTF32 GEMM at the VAE's shapes, odd M, odd N
+    (element stores), K % 4 != 0 (zero-padded), each bias dtype and act,
+    against linear_plain in full f32 (TF32 off): within 1e-5 of the
+    largest output; the same bits in a second run (no atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn((m, k), generator=gen, device=cuda_device)
+    w = torch.randn((k, n), generator=gen, device=cuda_device) / k**0.5
+    b = None if bias is None else torch.randn(n, generator=gen, device=cuda_device).to(bias)
+    before = dict(tlinear.LAUNCHES.by_key)
+    out = tlinear.linear(x, w, b, act=act)
+    torch.cuda.synchronize()
+    assert _new_keys(tlinear.LAUNCHES, before) == {
+        _linear_key("wgmma_tf32x3", m, k, n, b is not None, act): 1}
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    assert _rel_err(out, tlinear.linear_plain(x, w, b, act=act)) <= 1e-5
+    assert torch.equal(tlinear.linear(x, w, b, act=act), out)
+
+
+@pytest.mark.gpu
+def test_gpu_tf32_linear_on_misaligned_and_strided_operands(cuda_device):
+    """A contiguous f32 view whose base is off 16 bytes is copied to an
+    aligned base; a strided one to a contiguous one; both on the 3xTF32
+    GEMM, right within 1e-5."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    w = torch.randn((128, 96), generator=gen, device=cuda_device) / 12
+    flat = torch.randn(150 * 128 + 1, generator=gen, device=cuda_device)
+    x = flat[1:].view(150, 128)
+    assert x.data_ptr() % 16 != 0
+    buf = torch.randn((3, 50, 129), generator=gen, device=cuda_device)
+    before = dict(tlinear.LAUNCHES.by_key)
+    for xi in (x, buf[..., 1:]):
+        assert _rel_err(tlinear.linear(xi, w, act="silu"),
+                        tlinear.linear_plain(xi, w, act="silu")) <= 1e-5
+    assert _new_keys(tlinear.LAUNCHES, before) == {
+        _linear_key("wgmma_tf32x3", 150, 128, 96, False, "silu"): 2}
 
 
 @pytest.mark.gpu

@@ -108,14 +108,15 @@ def test_linear_flattens_leading_dims_and_refuses_bad_operands():
 
 def test_linear_variant_by_rows_and_dtype():
     """M <= 16 takes the skinny kernel; above it bf16 takes the wgmma kernel
-    where TMA takes the operands (else the WMMA kernel) and f32 the scalar
-    kernel."""
+    where TMA takes the operands (else the WMMA kernel) and f32 the 3xTF32
+    wgmma GEMM, whose wrapper pads or copies what TMA cannot take."""
     assert tlinear.variant(2, 1280, 1280, torch.bfloat16) == "skinny_bf16"
     assert tlinear.variant(16, 64, 64, torch.float32) == "skinny_f32"
     assert tlinear.variant(17, 64, 64, torch.bfloat16) == "wgmma_bf16"
     assert tlinear.variant(154, 2048, 2560, torch.bfloat16) == "wgmma_bf16"
     assert tlinear.variant(154, 2048, 2560, torch.bfloat16, aligned=False) == "wmma_bf16"
-    assert tlinear.variant(16384, 512, 512, torch.float32) == "scalar_f32"
+    assert tlinear.variant(16384, 512, 512, torch.float32) == "wgmma_tf32x3"
+    assert tlinear.variant(17, 70, 45, torch.float32, aligned=False) == "wgmma_tf32x3"
 
 
 def test_silu_only_kernels_refuse_gelu():

@@ -55,7 +55,7 @@ def test_linear_routes_bf16_by_tma_terms(m, k, n, aligned, want):
 
 
 def test_linear_routes_f32_by_rows():
-    assert tlinear.variant(16384, 512, 512, torch.float32) == "scalar_f32"
+    assert tlinear.variant(16384, 512, 512, torch.float32) == "wgmma_tf32x3"
     assert tlinear.variant(16, 512, 512, torch.float32) == "skinny_f32"
 
 
