@@ -9,16 +9,21 @@ binding to phases 4 and 4c (device time by kernel family, idle share);
 ``--plans`` times the wgmma kernels at forced tile widths and K splits
 beside the planner's choice and a plain wave-filling rule's (before phase
 3). ``--host-time`` only builds the kernels and prints the host time a
-launch of the linear, conv and GroupNorm wrappers and of the fused GN conv
-op, of the package in DIR (a copy of another tree, to compare two in one
-run) or of this checkout; it prints no result line.
+launch of the linear, conv, GroupNorm and LayerNorm wrappers, of bare C
+entries and of the fused GN conv op, of the package in DIR (a copy of
+another tree, to compare two in one run) or of this checkout, with the
+skinny linear's and LayerNorm's device time and their PyTorch calls'; it
+prints no result line.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
   1. device: the card's name and power limit from nvidia-smi;
   2. build: compile the CUDA kernels from stabletriton_tpu_torch/csrc/ for sm_90a;
   3. kernels: each kernel against its plain PyTorch version at the shapes the
-     SDXL-base 1024^2 path gives it (max abs / max relative error, times),
+     SDXL-base 1024^2 path gives it (max abs / max relative error, times:
+     CUDA events through the wrapper, and in this and every later kernel
+     phase the device time a call from torch.profiler's kernel events, for
+     the kernel and the library call, since short rows read host time),
      beside its bound (operations over the peak rate or bytes over the
      memory rate, whichever is longer) and one PyTorch call computing the
      same function where there is one (SDPA for attention; the reference
@@ -44,8 +49,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      64), then phase 3's d=64 rows again;
   3d. the rest of the opt-in kernels: the timestep embedding (K12) at
      (2,)->(2,320) and (12,)->(12,256); linear (K13) at every GEMM shape of
-     both paths (wgmma, skinny and the f32 3xTF32 GEMM, SiLU and GELU
-     epilogues), each beside cuBLAS's addmm of the same GEMM (f32 with TF32
+     both paths (wgmma, the f32 3xTF32 GEMM, SiLU and GELU epilogues, and
+     the skinny kernel at each M = 2 shape of the steps, whose launches are
+     counted by shape), each beside cuBLAS's addmm of the same GEMM (f32 with TF32
      off), the wgmma rows beside the WMMA kernel (element loads, the route
      of the shapes TMA cannot take), the f32 rows beside their f32-FMA bound
      and the time of the wrapper's weight split; seeded dropout (K14)
@@ -110,6 +116,7 @@ Weights are random, made from fixed seeds; it needs no network.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import math
@@ -182,12 +189,16 @@ def device_ms(fn, iters: int) -> tuple[float, float, dict]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(3):  # a session now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            break
+        log(f"  (profiler session {attempt + 1} recorded no kernel; profiling again)")
     if not spans:
         raise AssertionError("the profiler saw no kernel on the device")
     by_name = {}
@@ -221,6 +232,12 @@ def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
     r = {"max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
          "library_ms": timed_ms(library_fn, iters) if library_fn is not None else None}
+    # the device's own time a call, without the host's gaps between launches
+    r["device_ms"], per_call, r["device_by_name"] = device_ms(kernel_fn, iters)
+    dev_extra = ""
+    if library_fn is not None:
+        r["library_device_ms"] = device_ms(library_fn, iters)[0]
+        dev_extra = f", {library_label} {r['library_device_ms']:.4f} ms"
     extra = ""
     if old_fn is not None:
         r["old_ms"], r["old_kernel"] = timed_ms(old_fn, iters), old_label
@@ -230,8 +247,10 @@ def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
     if op_fn is not None:
         extra += f", {op_label} {timed_ms(op_fn, iters):.4f} ms"
     log(f"kernel {name}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol {tol:g}) "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}; bound {bound_ms[0]:.4f} ms "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}; bound {bound_ms[0] * 1e3:.4g} us "
         f"({bound_ms[1]}), {bound_ms[0] / ms:.1%} of bound")
+    log(f"  device time (profiler, kernels only): {r['device_ms']:.4f} ms in {per_call:g} "
+        f"kernels a call, {bound_ms[0] / r['device_ms']:.1%} of bound{dev_extra}")
     if not rel <= tol:
         raise AssertionError(f"{name}: relative error {rel:.3e} exceeds {tol:g}")
     return r
@@ -284,15 +303,10 @@ def phase_fused_kernels(dev):
         nchw = x.permute(0, 3, 1, 2).contiguous()
         lfn = lambda x=nchw, g=g, b=b: F.group_norm(x, 32, g, b, 1e-5)
         name = f"group_norm {tuple(shape)} {'bf16' if dtype == bf16 else 'f32'} act={act}"
-        r = compare(name, kfn, pfn, BF16_REL_TOL if dtype == bf16 else F32_REL_TOL, iters,
-                    bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, b), dtype), library_fn=lfn,
-                    library_label="F.group_norm", op_fn=ofn, op_label="default-binding op")
-        r["device_ms"], per_call, _ = device_ms(kfn, iters)
-        lib_dev = device_ms(lfn, iters)[0]
-        log(f"  device time (profiler, kernels only): {r['device_ms']:.4f} ms in "
-            f"{per_call:g} kernels a call, {r['bound_ms'] / r['device_ms']:.1%} of bound; "
-            f"F.group_norm {lib_dev:.4f} ms")
-        record("K9", name, "group_norm.cu", r)
+        record("K9", name, "group_norm.cu", compare(
+            name, kfn, pfn, BF16_REL_TOL if dtype == bf16 else F32_REL_TOL, iters,
+            bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, b), dtype), library_fn=lfn,
+            library_label="F.group_norm", op_fn=ofn, op_label="default-binding op"))
         del x, nchw
 
     # K10: the transformer LayerNorms, and RMSNorm through the same kernel
@@ -491,6 +505,8 @@ LINEAR_CASES = [
     ("SDXL time MLP (2,1280)@(1280,1280)+b", 2, 1280, 1280, True, None, torch.bfloat16, 50),
     ("SDXL add embedding (2,2816)@(2816,1280)+b", 2, 2816, 1280, True, None, torch.bfloat16,
      50),
+    ("SDXL time_emb_proj (2,1280)@(1280,320)+b", 2, 1280, 320, True, None, torch.bfloat16, 50),
+    ("SDXL time_emb_proj (2,1280)@(1280,640)+b", 2, 1280, 640, True, None, torch.bfloat16, 50),
     ("SD1.5 to_qkv (8192,320)@(320,960)", 8192, 320, 960, False, None, torch.bfloat16, 20),
     ("SD1.5 8x8 level (128,1280)@(1280,1280)+b", 128, 1280, 1280, True, None, torch.bfloat16,
      50),
@@ -538,8 +554,8 @@ def phase_optional_kernels(dev):
     # wrapper's internal launch
     for label, m, k, n, has_bias, act, dtype, iters in LINEAR_CASES:
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-        if label.startswith("SDXL time MLP"):
-            x = torch.nn.functional.silu(x)  # linear_2 of the time MLP reads silu(h)
+        if "time MLP" in label or "time_emb_proj" in label:
+            x = torch.nn.functional.silu(x)  # these read silu of the time embedding
         w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(dtype)
         b = torch.randn(n, generator=gen, device=dev).to(dtype) if has_bias else None
         before = dict(lin.LAUNCHES.by_key)
@@ -561,19 +577,17 @@ def phase_optional_kernels(dev):
             # the 3xTF32 GEMM's bound (above) and the f32 FMA one; on the
             # device, the w^T split kernel (inside the row's time) and the GEMM
             r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
-            r["device_ms"], _, by_name = device_ms(
-                lambda x=x, w=w, b=b, act=act: lin.linear(x, w, b, act=act), iters)
+            by_name = r["device_by_name"]
             r["prep_ms"] = sum(ms for kn, ms in by_name.items() if "tf32_split" in kn)
             gemm_ms = sum(ms for kn, ms in by_name.items() if "gemm_wgmma_tf32x3" in kn)
             log(f"  bound in 3xTF32 (above); at the f32 FMA peak {r['bound_f32_fma_ms']:.4f} ms; "
-                f"device time (profiler) {r['device_ms']:.4f} ms: the w^T split kernel "
-                f"{r['prep_ms']:.4f} ms, the GEMM {gemm_ms:.4f} ms "
-                f"({r['bound_ms'] / max(gemm_ms, 1e-9):.1%} of bound)")
+                f"on the device the w^T split kernel {r['prep_ms']:.4f} ms, the GEMM "
+                f"{gemm_ms:.4f} ms ({r['bound_ms'] / max(gemm_ms, 1e-9):.1%} of bound)")
         keys = {key for key, c in lin.LAUNCHES.by_key.items() if c != before.get(key, 0)}
         if len(keys) != 1 or not next(iter(keys)).startswith(kernel + " "):
             raise AssertionError(f"{name}: launched {sorted(keys)}, expected {kernel}")
         log(f"  launch key: {sorted(keys)[0]}")
-        record("K13", name, "linear.cu", r, kernel=kernel)
+        record("K13", name, "linear.cu", r, kernel=kernel, shape=(m, k, n))
         del x, w, b
 
     # K14: through the op dispatch, its path; bit-equal to the plain version
@@ -608,10 +622,11 @@ def phase_optional_kernels(dev):
         r = {"max_abs_err": (out.float() - plain.float()).abs().max().item(), "max_rel_err": 0.0,
              "ms": timed_ms(lambda x=x: dr.dropout(x, seed, rate=rate), 20),
              "plain_ms": timed_ms(lambda x=x: dr.dropout_plain(x, seed, rate=rate), 5),
-             "library_ms": None}
+             "library_ms": None,
+             "device_ms": device_ms(lambda x=x: dr.dropout(x, seed, rate=rate), 20)[0]}
         r["bound_ms"], r["bound_by"] = bound(0, 2 * nbytes(x), dtype)
         log(f"  kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms (bytes)")
+            f"{r['bound_ms']:.4f} ms (bytes); device time (profiler) {r['device_ms']:.4f} ms")
         record("K14", name, "dropout.cu", r, launches=launches)
         del x, out, again, plain, other
     torch.cuda.empty_cache()
@@ -722,6 +737,8 @@ def phase_kernels(dev):
 # SD1.5 paths' shapes with the most launches or time a step
 PLAN_GEMMS = [(8192, 640, 1920), (8192, 640, 640), (2048, 1280, 10240), (2048, 5120, 1280),
               (2048, 1280, 1280), (154, 2048, 2560), (8192, 320, 960), (128, 1280, 1280)]
+# the skinny linear's (K, N) at M = 2 on the SDXL and SD1.5 steps
+SKINNY_STEP_SHAPES = [(320, 1280), (1280, 320), (1280, 640), (1280, 1280), (2816, 1280)]
 PLAN_CONVS = [(2, 128, 128, 320, 320), (2, 64, 64, 640, 640), (2, 32, 32, 1280, 1280),
               (2, 32, 32, 2560, 1280), (2, 16, 16, 1280, 1280), (2, 8, 8, 1280, 1280)]
 
@@ -741,7 +758,9 @@ def phase_plans(dev):
     """``--plans``: each wgmma shape above at every width and a range of K
     splits, launched through the C entry points (no wrapper host time),
     beside the plan wgmma_plan picks (the data its model was fitted to) and
-    the plan of :func:`wave_rule`."""
+    the plan of :func:`wave_rule`; and the skinny linear at each of its
+    step shapes at every slice width and a range of K splits, beside the
+    plan of linear.skinny_plan."""
     from stabletriton_tpu_torch.kernels import build
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.kernels import linear as lin
@@ -790,6 +809,31 @@ def phase_plans(dev):
                                       out.data_ptr(), None if ws is None else ws.data_ptr(),
                                       b, h, wd, cin, cout, 0, None, None, 0, tile.tw, tile.th,
                                       tile.tb, bn, sp, stream))
+    # the skinny kernel at each M = 2 shape of the steps: every slice width
+    # and a range of K splits, device time a launch (profiler), through the
+    # C entry, beside the plan skinny_plan picks
+    skinny = build.function("st_linear_skinny", lin._SKINNY_ARGTYPES)
+    for k, n in SKINNY_STEP_SHAPES:
+        x = torch.randn((2, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        out = torch.empty((2, n), device=dev, dtype=torch.bfloat16)
+        chosen = lin.skinny_plan(2, k, n, 2)
+        plans = {chosen}
+        for cols in (64, 32, 16):
+            for want in (1, 2, 4, 6, 7, 8):
+                rows = math.ceil(k / want)
+                plans.add(lin.SkinnyPlan(cols, math.ceil(k / rows), rows))
+        times = {}
+        for plan in plans:
+            dims = lin.SkinnyDims(2, n, k, 0, 1, 0, *plan)
+            times[plan] = device_ms(lambda dims=dims: skinny(
+                x.data_ptr(), w.data_ptr(), None, out.data_ptr(), stream,
+                ctypes.addressof(dims)), 20)[0]
+        best = min(times, key=times.get)
+        log(f"plans skinny (2,{k})@({k},{n}): chosen cols={chosen.cols} split={chosen.splits} "
+            f"{times[chosen] * 1e3:.2f} us, fastest cols={best.cols} split={best.splits} "
+            f"{times[best] * 1e3:.2f} us (device, profiler); " + ", ".join(
+                f"{p.cols}/{p.splits} {t * 1e3:.2f}" for p, t in sorted(times.items())))
     slower = sum(r > 1.05 for r in model_vs_rule)
     faster = sum(r < 1 / 1.05 for r in model_vs_rule)
     log(f"plans: the wave rule is more than 5% slower than the model's plan at {slower} of "
@@ -803,6 +847,10 @@ def phase_plans(dev):
 HOST_GEMMS = [(8192, 640, 1920), (2048, 5120, 1280), (154, 2048, 2560), (128, 1280, 1280)]
 HOST_CONVS = [(2, 128, 128, 320, 320), (2, 32, 32, 1280, 1280), (2, 8, 8, 1280, 1280)]
 HOST_NORMS = [(2, 128, 128, 320), (2, 32, 32, 1280)]  # GroupNorm, and GN + SiLU + conv
+# the skinny linear's (M = 2, bias) and LayerNorm's (bf16, affine) shapes of the
+# SDXL step, each beside the one PyTorch call computing the same function
+HOST_SKINNY = [(2, 1280, 1280), (2, 2816, 1280)]
+HOST_LAYER_NORMS = [(8192, 640), (2048, 1280)]
 HOST_ROUNDS = 7
 
 
@@ -820,20 +868,45 @@ def host_us(fn, calls: int = 100) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def skinny_entry(lin, x, w, b, out, stream):
+    """The bare C entry of the skinny linear kernel of the package ``lin``
+    at its planned launch, as a call: st_linear_skinny where the package
+    has it, else st_linear's skinny variant (the trees before it)."""
+    from stabletriton_tpu_torch.kernels import build
+
+    (m, k), n = x.shape, w.shape[1]
+    if hasattr(lin, "skinny_plan"):
+        fn = build.function("st_linear_skinny", lin._SKINNY_ARGTYPES)
+        dims = lin.SkinnyDims(m, n, k, 0, 1, 1, *lin.skinny_plan(m, k, n, x.element_size()))
+        return lambda: fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), stream,
+                          ctypes.addressof(dims))
+    fn = build.function("st_linear", lin._LINEAR_ARGTYPES)
+    return lambda: fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), 1, out.data_ptr(), m, n, k, 0,
+                      1, 2, stream)
+
+
 def phase_host_time(dev):
     """``--host-time [DIR]``: the host time a launch of the package in DIR
     (default: this checkout), for each shape above: the public wrapper
-    (linear, conv3x3, group_norm), linear's internal launch on the wgmma
-    route and on the WMMA route, the wgmma kernels' bare C entries at the
-    planned plan, and the fused GN conv's whole op (gn_conv2d_fused: the
-    GroupNorm stats and fold, then the conv). The host is shared, so each is
-    measured in HOST_ROUNDS interleaved rounds and printed as its least and
-    its median round. Run it on two trees in one call to compare them."""
+    (linear, conv3x3, group_norm, layer_norm), linear's internal launch on
+    the wgmma route and on the WMMA route, the kernels' bare C entries (the
+    wgmma kernels at the planned plan, the skinny linear, LayerNorm), the
+    fused GN conv's whole op (gn_conv2d_fused: the GroupNorm stats and fold,
+    then the conv), and for the skinny linear and LayerNorm the one PyTorch
+    call computing the same function (torch.addmm, F.layer_norm). The host
+    is shared, so each is measured in HOST_ROUNDS interleaved rounds and
+    printed as its least and its median round. The skinny linear and
+    LayerNorm rows also print the device time a call of the wrapper and of
+    the PyTorch call (torch.profiler, kernels only). Run it on two trees in
+    one call to compare them."""
     import statistics
+
+    import torch.nn.functional as F
 
     from stabletriton_tpu_torch.kernels import build
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.kernels import group_norm as gn
+    from stabletriton_tpu_torch.kernels import layer_norm as ln
     from stabletriton_tpu_torch.kernels import linear as lin
     from stabletriton_tpu_torch.kernels import wgmma_plan as wp
 
@@ -878,6 +951,36 @@ def phase_host_time(dev):
             "K9 wrapper": lambda x=x, g=g: gn.group_norm(x, g, g, num_groups=32, act="silu"),
             "gn_conv2d_fused op": lambda x=x, g=g, w=w: cd.gn_conv2d_fused(
                 x, g, g, w, g, num_groups=32, gn_act="silu")}))
+    devices = []  # (label, {what: fn}) whose device time a call is printed too
+    for m, k, n in HOST_SKINNY:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(torch.bfloat16)
+        b = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+        out = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
+        fns = {"wrapper": lambda x=x, w=w, b=b: lin.linear(x, w, b),
+               "C entry": skinny_entry(lin, x, w, b, out, stream),
+               "torch.addmm": lambda x=x, w=w, b=b: torch.addmm(b, x, w)}
+        cases.append((f"skinny linear ({m},{k})@({k},{n})+b", fns))
+        devices.append(cases[-1])
+    ln_entry = build.function("st_layer_norm", ln._LN_ARGTYPES)
+    for rows, c in HOST_LAYER_NORMS:
+        x = torch.randn((rows, c), generator=gen, device=dev).to(torch.bfloat16)
+        g, b = (torch.randn(c, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        out = torch.empty_like(x)
+        if hasattr(ln, "LnDims"):  # the entry with its integer arguments in one struct
+            dims = ln.LnDims(1, 1, rows, c, 0, 1e-6)
+            entry = (lambda x=x, g=g, b=b, out=out, dims=dims: ln_entry(
+                x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(), stream,
+                ctypes.addressof(dims)))
+        else:
+            entry = (lambda x=x, g=g, b=b, out=out, rows=rows, c=c: ln_entry(
+                x.data_ptr(), g.data_ptr(), b.data_ptr(), 1, out.data_ptr(), rows, c, 1e-6, 0, 1,
+                stream))
+        fns = {"wrapper": lambda x=x, g=g, b=b: ln.layer_norm(x, g, b, eps=1e-6),
+               "C entry": entry,
+               "F.layer_norm": lambda x=x, g=g, b=b, c=c: F.layer_norm(x, (c,), g, b, 1e-6)}
+        cases.append((f"layer norm ({rows},{c}) bf16", fns))
+        devices.append(cases[-1])
     rounds = {(label, what): [] for label, fns in cases for what in fns}
     for _ in range(HOST_ROUNDS):
         for label, fns in cases:
@@ -888,6 +991,10 @@ def phase_host_time(dev):
             f"{what} {min(rounds[(label, what)]):.1f} "
             f"(median {statistics.median(rounds[(label, what)]):.1f})" for what in fns)
             + " us a launch")
+    for label, fns in devices:
+        log(f"device {label}: " + ", ".join(
+            f"{what} {device_ms(fns[what], 50)[0] * 1e3:.2f}" for what in fns if what != "C entry")
+            + " us a call")
     torch.cuda.empty_cache()
 
 
@@ -1676,8 +1783,13 @@ def main() -> int:
         if r["tpu"] == "K12":
             return all_counts["K12"]
         if r["tpu"] == "K13":
-            return sum(n for key, n in all_by_key["K13"].items()
-                       if key.startswith(r["kernel"] + " "))
+            # the skinny kernel's launches by (K, N) (each of the step's
+            # skinny GEMMs has its row; M is 2 alone, 4 co-batched); the
+            # other kernels' in all
+            _, k, n = r["shape"]
+            shape = f" k={k} n={n} " if r["kernel"].startswith("skinny") else ""
+            return sum(c for key, c in all_by_key["K13"].items()
+                       if key.startswith(r["kernel"] + " ") and shape in key)
         if r["tpu"] == "K14":
             return r["launches"]
         if r["tpu"] in FUSED_PER_STEP:
@@ -1689,8 +1801,8 @@ def main() -> int:
         "source": r["source"], "replaces": REPLACES[r["tpu"]], "launches": launches(r),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        **{k: r[k] for k in ("old_ms", "old_kernel", "bound_f32_fma_ms", "prep_ms", "device_ms")
-           if k in r},
+        **{k: r[k] for k in ("old_ms", "old_kernel", "bound_f32_fma_ms", "prep_ms", "device_ms",
+                             "library_device_ms") if k in r},
     } for r in kernel_results]
     for k in kernels:
         if k["launches"] == 0:

@@ -4,21 +4,32 @@
 // mean subtraction), x_hat = (x - mean) * rsqrt(var + eps), optional gamma
 // and beta in f32, one rounding to the input dtype.
 //
+// What bounds it on the H100: one read and one write of x (a few FLOPs a
+// byte), so the design keeps x's bytes in flight and touches them once.
+//
 // One warp per row, the row held in registers: each lane loads NV 16-byte
 // vectors (V = 8 bf16 or 4 f32 values) at columns (lane + 32 j) * V; lanes
 // past the row's last vector (640 bf16 = 80 vectors over 32 lanes) hold
 // zeros and are masked out of the variance. The warp reductions are xor
-// butterflies, so every run gives the same bits. 8 rows per 256-thread block.
+// butterflies, so every run gives the same bits. gamma and beta are read as
+// vectors of the lane's own V columns (8, 16 or 32 bytes: their dtype may
+// differ from x's), element by element only where a base is not 16-byte
+// aligned, and only in the apply loop, so they take registers only there
+// and the stats keep the occupancy. Blocks of 8 warps, or 4 where that
+// leaves fewer than two blocks an SM (the 2048-row LayerNorms), so that
+// rows spread over all 132 SMs.
+
+#include <type_traits>
 
 #include "vec.cuh"
 
 namespace {
 
-using stv::load_param;
 using stv::load_vec;
 using stv::store_vec;
+using stv::to_f32;
 
-constexpr int ROWS_PER_BLOCK = 8;
+constexpr int MAX_WARPS = 8, SMS = 132;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -26,12 +37,32 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int V, int NV>
-__global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) ln_rows(
-    const T* __restrict__ x, const void* gamma, const void* beta, int pdtype,
-    T* __restrict__ out, int rows, int C, float eps, int rms) {
+// V parameter values of PT at p (aligned to V * sizeof(PT), which is 8, 16
+// or 32 bytes) as one or two vector loads, or element by element
+template <typename PT, int V>
+__device__ __forceinline__ void load_params(const PT* p, bool vec, float (&v)[V]) {
+  constexpr int BYTES = V * sizeof(PT);
+  using Word = std::conditional_t<BYTES % 16 == 0, uint4, uint2>;
+  if (vec) {
+    Word raw[BYTES / sizeof(Word)];
+#pragma unroll
+    for (int q = 0; q < BYTES / (int)sizeof(Word); ++q)
+      raw[q] = reinterpret_cast<const Word*>(p)[q];
+    const PT* e = reinterpret_cast<const PT*>(raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f32(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_f32(p[i]);
+  }
+}
+
+template <typename T, typename PT, int V, int NV>
+__global__ void __launch_bounds__(32 * MAX_WARPS) ln_rows(
+    const T* __restrict__ x, const PT* __restrict__ gamma, const PT* __restrict__ beta,
+    bool pvec, T* __restrict__ out, int rows, int C, float eps, int rms) {
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (row >= rows) return;  // whole warps leave together
   const int CV = C / V;
   const T* xr = x + (long long)row * C;
@@ -67,30 +98,36 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK) ln_rows(
   for (int j = 0; j < NV; ++j) {
     const int cv = lane + 32 * j;
     if (cv >= CV) continue;
+    float g[V], b[V];
+    if (gamma) load_params<PT, V>(gamma + cv * V, pvec, g);
+    if (beta) load_params<PT, V>(beta + cv * V, pvec, b);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const int c = cv * V + i;
       float y = (v[j][i] - mean) * rstd;
-      if (gamma) y *= load_param(gamma, pdtype, c);
-      if (beta) y += load_param(beta, pdtype, c);
+      if (gamma) y *= g[i];
+      if (beta) y += b[i];
       v[j][i] = y;
     }
     store_vec<T, V>(orow + cv * V, v[j]);
   }
 }
 
-template <typename T, int V>
-int launch(const void* x, const void* gamma, const void* beta, int pdtype, void* out,
-           int rows, int C, float eps, int rms, cudaStream_t stream) {
+template <typename T, typename PT, int V>
+int launch(const void* x, const void* gamma, const void* beta, void* out, int rows, int C,
+           float eps, int rms, cudaStream_t stream) {
   const int nv = (C / V + 31) / 32;
-  const dim3 grid((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-  const dim3 block(32 * ROWS_PER_BLOCK);
+  const int warps = (rows + MAX_WARPS - 1) / MAX_WARPS >= 2 * SMS ? MAX_WARPS : MAX_WARPS / 2;
+  const dim3 grid((rows + warps - 1) / warps);
+  const dim3 block(32 * warps);
+  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool pvec = a16(gamma) && a16(beta);
   const T* xt = static_cast<const T*>(x);
+  const PT* gt = static_cast<const PT*>(gamma);
+  const PT* bt = static_cast<const PT*>(beta);
   T* ot = static_cast<T*>(out);
-#define ST_LN_CASE(N)                                                                   \
-  case N:                                                                               \
-    ln_rows<T, V, N><<<grid, block, 0, stream>>>(xt, gamma, beta, pdtype, ot, rows, C, \
-                                                 eps, rms);                            \
+#define ST_LN_CASE(N)                                                                        \
+  case N:                                                                                    \
+    ln_rows<T, PT, V, N><<<grid, block, 0, stream>>>(xt, gt, bt, pvec, ot, rows, C, eps, rms); \
     break;
   switch (nv) {
     ST_LN_CASE(1) ST_LN_CASE(2) ST_LN_CASE(3) ST_LN_CASE(4)
@@ -102,19 +139,39 @@ int launch(const void* x, const void* gamma, const void* beta, int pdtype, void*
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V>
+int launch_p(const void* x, const void* gamma, const void* beta, int pdtype, void* out,
+             int rows, int C, float eps, int rms, cudaStream_t stream) {
+  return pdtype == 1
+             ? launch<T, __nv_bfloat16, V>(x, gamma, beta, out, rows, C, eps, rms, stream)
+             : launch<T, float, V>(x, gamma, beta, out, rows, C, eps, rms, stream);
+}
+
 }  // namespace
 
+// The launch's other arguments, one struct: a call's signature fixes them,
+// so the wrapper keeps one per signature and the call passes six pointers
+// (ctypes converts each argument on every call). dtype 0 = f32, 1 = bf16;
+// pdtype gamma's and beta's (0 where there are none); rms = 1 for RMSNorm.
+struct LnDims {
+  int dtype, pdtype, rows, C, rms;
+  float eps;
+};
+
 // x, out (rows, C) contiguous and 16-byte aligned, C a multiple of 8 (bf16)
-// or 4 (f32) and at most 256 vectors; dtype 0 = f32, 1 = bf16. gamma / beta
-// (C,) of dtype pdtype (0 f32, 1 bf16), or null. rms = 1 for RMSNorm.
-// Returns a cudaError_t (0 on success).
-extern "C" int st_layer_norm(const void* x, const void* gamma, const void* beta, int pdtype,
-                             void* out, int rows, int C, float eps, int rms, int dtype,
-                             void* stream_ptr) {
+// or 4 (f32) and at most 256 vectors. gamma / beta (C,) or null; any
+// alignment (vector loads where both bases are 16-byte aligned). Returns a
+// cudaError_t (0 on success).
+extern "C" int st_layer_norm(const void* x, const void* gamma, const void* beta, void* out,
+                             void* stream_ptr, const LnDims* d) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!d) return (int)cudaErrorInvalidValue;
+  const int dtype = d->dtype, pdtype = d->pdtype, rows = d->rows, C = d->C, rms = d->rms;
+  const float eps = d->eps;
+  if (rows <= 0 || pdtype < 0 || pdtype > 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && C % 8 == 0)
-    return launch<__nv_bfloat16, 8>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stream);
+    return launch_p<__nv_bfloat16, 8>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stream);
   if (dtype == 0 && C % 4 == 0)
-    return launch<float, 4>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stream);
+    return launch_p<float, 4>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stream);
   return (int)cudaErrorInvalidValue;
 }

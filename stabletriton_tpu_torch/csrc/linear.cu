@@ -26,11 +26,12 @@
 //                        loads. Every shape is right.
 //   linear_skinny<T>   - M <= 16 rows (the time-embedding MLPs and the
 //                        resnets' time projections run at M = 2): a 128-row
-//                        tile would leave 98% of its rows empty. Each block
-//                        takes 32 columns; its 16 warps split K, each lane
-//                        reads one column of w (a warp reads 32 neighbouring
-//                        values of a row), x comes in as warp-wide broadcasts,
-//                        and the 16 partial sums meet in shared memory.
+//                        tile would leave 98% of its rows empty. w is read
+//                        once as 16-byte vectors by enough blocks to fill
+//                        the card (a column slice each, K split over a
+//                        thread block cluster), x staged once in shared
+//                        memory, the splits summed in rank order through
+//                        distributed shared memory.
 //   gemm_wgmma_tf32x3<2> - f32 with M > 16 (the VAE decoder's mid-attention
 //                        projections, (16384, 512) @ (512, 512) an image at
 //                        1024^2): the 3xTF32 GEMM of tf32_gemm.cuh, shared
@@ -53,6 +54,7 @@
 // f32 FMAs outside the tensor cores. The skinny GEMMs are bound by reading w
 // once.
 
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include "tf32_gemm.cuh"
@@ -60,6 +62,7 @@
 #include "wgmma.cuh"
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -172,38 +175,198 @@ __global__ void __launch_bounds__(WTHREADS) linear_wmma_bf16(LinearArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// skinny kernel: M <= SKINNY_MAX_M
+// skinny kernel: M <= SKINNY_MAX_M. Bound by reading w once (2 FLOPs a
+// weight at M = 2), so the design is about bytes in flight: a block of 256
+// threads takes `cols` output columns (BC = cols / V 16-byte vectors of a w
+// row, BC in {8, 4, 2}) and `rows` rows of K; its threads read w as 16-byte
+// vectors, neighbouring lanes on neighbouring addresses, RP = 256 / BC rows
+// a pass, each thread a group of U passes in flight ahead of its FMAs. x
+// (M x rows) is staged once in shared memory as f32. The K split's blocks
+// form one thread block cluster (cluster rank = split): each block sums its
+// 8 warps in shared memory, then the cluster's blocks read each other's
+// partials through distributed shared memory and add them in rank order.
+// Every sum runs in a fixed order (a thread's FMA chain along k, an
+// xor-butterfly over a warp's rows, the warps in order, the splits in
+// order) with no atomics and no workspace, so two launches give the same
+// bits. The wrapper's planner (kernels/linear.py skinny_plan) picks cols and
+// the split: whole 128-byte lines of a row where N allows, and enough
+// blocks to fill the 132 SMs where K allows.
 // ---------------------------------------------------------------------------
-constexpr int SKINNY_MAX_M = 16, KCOLS = 32, KSLICES = 16;
+constexpr int SKINNY_MAX_M = 16, SK_THREADS = 256, SK_WARPS = SK_THREADS / 32;
+constexpr int SK_MAX_SPLITS = 8;  // the portable cluster size
+constexpr int SK_XROWS = 256;     // rows of x a shared-memory stage holds (a multiple of RP)
 
-template <typename T>
-__global__ void __launch_bounds__(KCOLS * KSLICES) linear_skinny(LinearArgs a) {
-  __shared__ float part[KSLICES][SKINNY_MAX_M][KCOLS + 1];
-  const int lane = threadIdx.x % KCOLS, g = threadIdx.x / KCOLS;
-  const int n = blockIdx.x * KCOLS + lane;
+struct SkinnyArgs {
+  LinearArgs a;
+  int cols, splits, rows;  // columns and K rows a block takes; blocks a cluster
+};
+
+// V values of T at w + off as the raw 16 bytes of one vector: one 16-byte
+// load (VEC: aligned, N a multiple of V) or element loads of the `valid`
+// leading columns (the rest zero)
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_w(const T* w, long long off, int valid) {
+  constexpr int V = 16 / sizeof(T);
+  if constexpr (VEC) {
+    return valid > 0 ? __ldg(reinterpret_cast<const uint4*>(w + off)) : make_uint4(0, 0, 0, 0);
+  } else {
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (i < valid) e[i] = w[off + i];
+    return raw;
+  }
+}
+
+template <typename T, int MM, bool VEC>
+__global__ void __launch_bounds__(SK_THREADS) linear_skinny(SkinnyArgs sa) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int MAX_COLS = 8 * V;
+  constexpr int U = MM <= 4 ? 8 : 4;  // passes a thread keeps in flight
+  constexpr int XS = SK_XROWS * MM, RED = SK_WARPS * MM * MAX_COLS;
+  __shared__ __align__(16) float buf[XS > RED ? XS : RED];  // x stage, then warp partials
+  __shared__ float part[MM * MAX_COLS];                      // the block's partial sums
+
+  const LinearArgs& a = sa.a;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank();
+  const int slice = blockIdx.x / sa.splits;
+  const int cols = sa.cols, bc = cols / V, rp = SK_THREADS / bc;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cv = lane % bc;              // this thread's vector in the slice
+  const int r = warp * (32 / bc) + lane / bc;  // its row in a pass
+  const int n = slice * cols + cv * V;   // its first column
+  const int valid = min(V, a.N - n);
   const T* x = static_cast<const T*>(a.x);
   const T* w = static_cast<const T*>(a.w);
-  float acc[SKINNY_MAX_M];
+  const int k0 = split * sa.rows, k1 = min(a.K, k0 + sa.rows);
+
+  float acc[MM][V];
 #pragma unroll
-  for (int m = 0; m < SKINNY_MAX_M; ++m) acc[m] = 0.f;
-  if (n < a.N) {
-#pragma unroll 4
-    for (int k = g; k < a.K; k += KSLICES) {
-      const float wv = to_f32(w[(long long)k * a.N + n]);
+  for (int m = 0; m < MM; ++m)
 #pragma unroll
-      for (int m = 0; m < SKINNY_MAX_M; ++m)
-        if (m < a.M) acc[m] = fmaf(to_f32(x[(long long)m * a.K + k]), wv, acc[m]);
+    for (int i = 0; i < V; ++i) acc[m][i] = 0.f;
+
+  for (int c0 = k0; c0 < k1; c0 += SK_XROWS) {
+    const int c1 = min(k1, c0 + SK_XROWS);
+    // the first group of w loads goes out before x is staged
+    uint4 nxt[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = c0 + r + u * rp;
+      nxt[u] = k < c1 ? load_w<T, VEC>(w, (long long)k * a.N + n, valid) : make_uint4(0, 0, 0, 0);
     }
-  }
+    // x's (M x chunk) values, a thread's loads all issued before its stores
+    constexpr int XI = SK_XROWS * MM / SK_THREADS;
+    float xv[XI];
 #pragma unroll
-  for (int m = 0; m < SKINNY_MAX_M; ++m) part[g][m][lane] = acc[m];
+    for (int j = 0; j < XI; ++j) {
+      const int i = tid + j * SK_THREADS, m = i / (c1 - c0), kk = i % (c1 - c0);
+      xv[j] = m < a.M ? to_f32(x[(long long)m * a.K + c0 + kk]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < XI; ++j) {
+      const int i = tid + j * SK_THREADS, m = i / (c1 - c0), kk = i % (c1 - c0);
+      if (m < MM) buf[kk * MM + m] = xv[j];
+    }
+    __syncthreads();
+    for (int kb = c0 + r; kb < c1; kb += U * rp) {
+      uint4 cur[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        cur[u] = nxt[u];
+        const int k = kb + (U + u) * rp;
+        nxt[u] = k < c1 ? load_w<T, VEC>(w, (long long)k * a.N + n, valid)
+                        : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = kb + u * rp;
+        if (k < c1) {
+          const T* e = reinterpret_cast<const T*>(&cur[u]);
+          const float* xk = buf + (k - c0) * MM;
+#pragma unroll
+          for (int m = 0; m < MM; ++m) {
+            const float xv = xk[m];
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[m][i] = fmaf(xv, to_f32(e[i]), acc[m][i]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // buf is restaged or reused for the warp partials
+  }
+
+  // the warp's rows (lanes cv, cv + bc, ...) meet in an xor butterfly, all
+  // of a thread's sums at each step, so their shuffles overlap
+  for (int o = bc; o < 32; o <<= 1) {
+#pragma unroll
+    for (int m = 0; m < MM; ++m)
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[m][i] += __shfl_xor_sync(0xffffffffu, acc[m][i], o);
+  }
+  if (lane < bc) {
+#pragma unroll
+    for (int m = 0; m < MM; ++m)
+#pragma unroll
+      for (int i = 0; i < V; ++i) buf[(warp * MM + m) * MAX_COLS + cv * V + i] = acc[m][i];
+  }
   __syncthreads();
-  for (int m = g; m < a.M; m += KSLICES) {
+  for (int o = tid; o < a.M * cols; o += SK_THREADS) {
+    const int m = o / cols, c = o % cols;
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < KSLICES; ++i) s += part[i][m][lane];
-    store_out<T>(a, m, n, s);
+    for (int q = 0; q < SK_WARPS; ++q) s += buf[(q * MM + m) * MAX_COLS + c];
+    part[o] = s;
   }
+  cluster.sync();  // every split's partials are in its block's shared memory
+  for (int o = split * SK_THREADS + tid; o < a.M * cols; o += sa.splits * SK_THREADS) {
+    const int m = o / cols, nc = slice * cols + o % cols;
+    if (nc >= a.N) continue;
+    float p[SK_MAX_SPLITS];  // every split's partial in flight at once
+#pragma unroll
+    for (int q = 0; q < SK_MAX_SPLITS; ++q)
+      p[q] = q < sa.splits ? cluster.map_shared_rank(part, q)[o] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < SK_MAX_SPLITS; ++q)
+      if (q < sa.splits) s += p[q];
+    static_cast<T*>(a.out)[(long long)m * a.N + nc] = from_f32<T>(epilogue(a, nc, s));
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
+template <typename T, int MM, bool VEC>
+int launch_skinny(const SkinnyArgs& sa, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((sa.a.N + sa.cols - 1) / sa.cols * sa.splits));
+  cfg.blockDim = dim3(SK_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sa.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, linear_skinny<T, MM, VEC>, sa);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+int launch_skinny_m(const SkinnyArgs& sa, cudaStream_t stream) {
+  if (sa.a.M <= 2) return launch_skinny<T, 2, VEC>(sa, stream);
+  if (sa.a.M <= 4) return launch_skinny<T, 4, VEC>(sa, stream);
+  if (sa.a.M <= 8) return launch_skinny<T, 8, VEC>(sa, stream);
+  return launch_skinny<T, 16, VEC>(sa, stream);
+}
+
+template <typename T>
+int launch_skinny_t(const SkinnyArgs& sa, cudaStream_t stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(sa.a.w) % 16 == 0 &&
+                   ((long long)sa.a.N * sizeof(T)) % 16 == 0;
+  return vec ? launch_skinny_m<T, true>(sa, stream) : launch_skinny_m<T, false>(sa, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -304,33 +467,54 @@ int launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tw, const WgmmaArgs& 
 
 }  // namespace
 
-// x (M, K), w (K, N), out (M, N) contiguous, of one dtype (0 = f32, 1 =
-// bf16); bias (N,) of bias_dtype (0 = f32, 1 = bf16) or null. act: 0 none,
-// 1 SiLU, 2 GELU. variant: 1 the bf16 WMMA kernel, 2 the skinny kernel (M <=
-// 16, either dtype). Returns a cudaError_t (0 on success).
+// The bf16 WMMA kernel: x (M, K), w (K, N), out (M, N) contiguous bf16 (dtype
+// 1; any alignment); bias (N,) of bias_dtype (0 = f32, 1 = bf16) or null.
+// act: 0 none, 1 SiLU, 2 GELU. variant: 1 (the WMMA kernel; the only one).
+// Returns a cudaError_t (0 on success).
 extern "C" int st_linear(const void* x, const void* w, const void* bias, int bias_dtype,
                          void* out, int M, int N, int K, int act, int dtype, int variant,
                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const LinearArgs a{x, w, bias, out, M, N, K, act, bias_dtype};
-  if (act < 0 || act > 2 || M <= 0 || N <= 0 || K < 0 || bias_dtype < 0 || bias_dtype > 1)
+  if (act < 0 || act > 2 || M <= 0 || N <= 0 || K < 0 || bias_dtype < 0 || bias_dtype > 1 ||
+      variant != 1 || dtype != 1)
     return (int)cudaErrorInvalidValue;
-  if (variant == 2) {
-    if (M > SKINNY_MAX_M) return (int)cudaErrorInvalidValue;
-    const dim3 grid((N + KCOLS - 1) / KCOLS);
-    if (dtype == 1)
-      linear_skinny<__nv_bfloat16><<<grid, KCOLS * KSLICES, 0, stream>>>(a);
-    else if (dtype == 0)
-      linear_skinny<float><<<grid, KCOLS * KSLICES, 0, stream>>>(a);
-    else
-      return (int)cudaErrorInvalidValue;
-  } else if (variant == 1 && dtype == 1) {
-    const dim3 grid((M + WBM - 1) / WBM, (N + WBN - 1) / WBN);
-    linear_wmma_bf16<<<grid, WTHREADS, 0, stream>>>(a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((M + WBM - 1) / WBM, (N + WBN - 1) / WBN);
+  linear_wmma_bf16<<<grid, WTHREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The skinny kernel's integer arguments, one struct: a launch's signature
+// fixes them, so the wrapper keeps one per signature and the call passes
+// six pointers (ctypes converts each argument on every call)
+struct SkinnyDims {
+  int M, N, K, act, dtype, bias_dtype, cols, splits, rows;
+};
+
+// The skinny kernel, M <= 16: x (M, K), w (K, N), out (M, N) contiguous, of
+// one dtype (0 = f32, 1 = bf16; any alignment: 16-byte vector loads of w
+// where its base is aligned and N * sizeof a multiple of 16, element loads
+// otherwise); bias (N,) of bias_dtype or null; act as st_linear. The launch
+// from the wrapper's planner: blocks of `cols` columns (8, 4 or 2 vectors of
+// 16 bytes) over `rows` rows of K, `splits` of them (a cluster) covering K.
+// Returns a cudaError_t (0 on success).
+extern "C" int st_linear_skinny(const void* x, const void* w, const void* bias, void* out,
+                                void* stream_ptr, const SkinnyDims* d) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!d) return (int)cudaErrorInvalidValue;
+  const int M = d->M, N = d->N, K = d->K, act = d->act, dtype = d->dtype;
+  const int bias_dtype = d->bias_dtype, cols = d->cols, splits = d->splits, rows = d->rows;
+  const int v = dtype == 1 ? 8 : 4;
+  const int bc = cols / v;
+  if (act < 0 || act > 2 || M <= 0 || M > SKINNY_MAX_M || N <= 0 || K < 0 || bias_dtype < 0 ||
+      bias_dtype > 1 || (dtype != 0 && dtype != 1) || cols != bc * v ||
+      (bc != 8 && bc != 4 && bc != 2) || splits < 1 || splits > SK_MAX_SPLITS || rows < 1 ||
+      (long long)splits * rows < K || (long long)(splits - 1) * rows >= (K > 0 ? K : 1) ||
+      (long long)(N + cols - 1) / cols * splits > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  const SkinnyArgs sa{{x, w, bias, out, M, N, K, act, bias_dtype}, cols, splits, rows};
+  return dtype == 1 ? launch_skinny_t<__nv_bfloat16>(sa, stream)
+                    : launch_skinny_t<float>(sa, stream);
 }
 
 // The bf16 wgmma GEMM: x (M, K), w (K, N), out (M, N) contiguous bf16 with

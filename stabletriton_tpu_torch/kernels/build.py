@@ -151,6 +151,14 @@ def on_device(device: torch.device):
     return torch.cuda.device(device)
 
 
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a C entry,
+    through the accessor PyTorch's own generated launchers use: it makes no
+    ``torch.cuda.Stream`` object, which costs microseconds of host time on
+    every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")

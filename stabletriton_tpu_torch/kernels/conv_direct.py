@@ -73,7 +73,8 @@ import torch.nn.functional as F
 
 from stabletriton_tpu_torch.kernels import group_norm, wgmma_plan
 from stabletriton_tpu_torch.kernels.build import (
-    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, function, on_device)
+    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, current_stream, function,
+    on_device)
 from stabletriton_tpu_torch.ops import reference
 from stabletriton_tpu_torch.ops.registry import dispatch, register
 
@@ -230,7 +231,7 @@ def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor
     gn_args = ((None, None, 0) if gn is None else
                (gn[0].data_ptr(), gn[1].data_ptr(), ACT_CODES[gn[2]]))
     with on_device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = current_stream(dev)
         if wgmma:
             ws = (torch.empty((plan.splits, n * h * wd, cout), dtype=torch.float32, device=dev)
                   if plan.splits > 1 else None)

@@ -28,7 +28,7 @@ import math
 import torch
 
 from stabletriton_tpu_torch.kernels.build import (
-    DTYPE_CODES, LaunchCounter, check, function, on_device)
+    DTYPE_CODES, LaunchCounter, check, current_stream, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 LAUNCHES = LaunchCounter()
@@ -117,7 +117,7 @@ def dropout(x: torch.Tensor, seed, *, rate: float = 0.1) -> torch.Tensor:
         return out
     fn = function("st_dropout", _DROPOUT_ARGTYPES)
     with on_device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = current_stream(x.device)
         code = fn(xc.data_ptr(), out.data_ptr(), n, *_key(seed), _threshold(rate),
                   _scale(rate), DTYPE_CODES[x.dtype], stream)
     check(code, "st_dropout")

@@ -43,7 +43,8 @@ import math
 import torch
 
 from stabletriton_tpu_torch.kernels import wgmma_plan
-from stabletriton_tpu_torch.kernels.build import LaunchCounter, check, function, on_device
+from stabletriton_tpu_torch.kernels.build import (
+    LaunchCounter, check, current_stream, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 LOG2E = 1.4426950408889634
@@ -185,7 +186,7 @@ def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
     qscale = torch.tensor(scale * LOG2E, dtype=dtype).item()
     out = torch.empty((b, sq, c), dtype=dtype, device=dev)
     with on_device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = current_stream(dev)
         if kernel == "wgmma_tf32x3":
             _launch_tf32(q_buf, q_off, k_buf[..., k_off:k_off + c], v_buf[..., v_off:v_off + c],
                          out, sq=sq, sk=sk, num_heads=num_heads, qscale=qscale, stream=stream)

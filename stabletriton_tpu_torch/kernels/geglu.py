@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from stabletriton_tpu_torch.kernels.build import (
-    DTYPE_CODES, LaunchCounter, check, function, on_device)
+    DTYPE_CODES, LaunchCounter, check, current_stream, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 
@@ -87,7 +87,7 @@ def geglu(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     out = torch.empty(state.shape, dtype=state.dtype, device=state.device)
     fn = function("st_geglu", _GEGLU_ARGTYPES)
     with on_device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
+        stream = current_stream(state.device)
         code = fn(state.data_ptr(), gate.data_ptr(), rs, out.data_ptr(), rows, n,
                   DTYPE_CODES[state.dtype], vec, stream)
     check(code, "st_geglu")

@@ -51,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from stabletriton_tpu_torch.kernels.build import (
-    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, function, on_device)
+    ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, current_stream, function,
+    on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 STATS_BLOCKS_PER_IMAGE = 132  # one stats block per SM for a single image
@@ -177,7 +178,7 @@ def scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     ws, nchunks = _workspace(x, vec)
     fn = function("st_group_norm_fold", _FOLD_ARGTYPES)
     with on_device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = current_stream(x.device)
         code = fn(x.data_ptr(), gamma.data_ptr(), DTYPE_CODES[gamma.dtype], beta.data_ptr(),
                   DTYPE_CODES[beta.dtype], ws.data_ptr(), n, h * w, c, num_groups, eps, nchunks,
                   DTYPE_CODES[x.dtype], vec, stream)
@@ -204,7 +205,7 @@ def apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     out = torch.empty_like(x)
     fn = function("st_group_norm_apply", _APPLY_ARGTYPES)
     with on_device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = current_stream(x.device)
         code = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n,
                   h * w, c, ACT_CODES[act], DTYPE_CODES[x.dtype], _vec(x), stream)
     check(code, "st_group_norm_apply")
@@ -231,7 +232,7 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     out = torch.empty_like(x)
     fn = function("st_group_norm", _GN_ARGTYPES)
     with on_device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = current_stream(x.device)
         code = fn(x.data_ptr(), gamma.data_ptr(), DTYPE_CODES[gamma.dtype], beta.data_ptr(),
                   DTYPE_CODES[beta.dtype], out.data_ptr(), ws.data_ptr(), n, h * w, c,
                   num_groups, eps, ACT_CODES[act], nchunks, DTYPE_CODES[x.dtype], vec, stream)

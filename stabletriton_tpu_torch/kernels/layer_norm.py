@@ -13,8 +13,15 @@ What the design does about it: one warp per row with the row held in
 registers (C = 640 or 1280 bf16 is 20-40 values a lane), loaded and stored
 as 16-byte vectors, so x is read once; f32 two-pass mean and variance from
 the registers; xor-butterfly warp sums, so every run gives the same bits;
-the affine in f32 and one rounding. This is not the default binding's
-``bf16apply`` form, which rounds after each op.
+gamma and beta read as vectors of each lane's columns; the affine in f32
+and one rounding. This is not the default binding's ``bf16apply`` form,
+which rounds after each op.
+
+The launch path is short, since the UNet step launches 210 of these: what
+depends only on the signature (shapes and dtypes: the checks, the launch
+key and the C entry's integer arguments) is worked out once by the cached
+:func:`_route`; a call checks x's layout and the parameters' devices, makes
+the output and makes one ctypes call.
 
 CUDA C++ rather than Triton: the repo has one build route (``build.py``),
 one launch check and one library.
@@ -27,11 +34,14 @@ goes to the kernel or the wrapper raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from stabletriton_tpu_torch.kernels.build import (
-    DTYPE_CODES, LaunchCounter, check, function, on_device)
+    DTYPE_CODES, LaunchCounter, check, current_stream, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 MAX_VECTORS_PER_LANE = 8  # the kernel's register budget: C <= 2048 bf16 / 1024 f32
@@ -57,44 +67,91 @@ def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor | None,
     return out.to(x.dtype)
 
 
-_LN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-                + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2
-                + [ctypes.c_void_p])
+# st_layer_norm(x, gamma, beta, out, stream, dims): dims points at an LnDims
+_LN_ARGTYPES = [ctypes.c_void_p] * 6
 
 
-def _row_norm(x, gamma, beta, eps, rmsnorm):
-    c = x.shape[-1]
-    for p in (gamma, beta):
-        if p is not None and p.shape != (c,):
-            raise ValueError(f"norm parameter {tuple(p.shape)} is not ({c},)")
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, gamma, beta, eps=eps, rmsnorm=rmsnorm)
-    if x.dtype not in DTYPE_CODES:
-        raise ValueError(f"layer norm kernel takes float32 or bfloat16, got {x.dtype}")
-    vec = 16 // x.element_size()
+class LnDims(ctypes.Structure):
+    """st_layer_norm's other arguments (csrc/layer_norm.cu LnDims), made once
+    per signature: ctypes converts every argument of every call."""
+    _fields_ = [("dtype", ctypes.c_int), ("pdtype", ctypes.c_int), ("rows", ctypes.c_int),
+                ("c", ctypes.c_int), ("rms", ctypes.c_int), ("eps", ctypes.c_float)]
+
+
+class Route(NamedTuple):
+    """What a signature decides about one launch of the kernel."""
+    key: str
+    fields: tuple  # LnDims's: dtype, pdtype (0 where there are none), rows, c, rms, eps
+    dims: LnDims   # made of them
+    address: int   # of dims, which the route keeps alive
+
+
+def _check_params(c: int, *shapes) -> None:
+    for shape in shapes:
+        if shape is not None and tuple(shape) != (c,):
+            raise ValueError(f"norm parameter {tuple(shape)} is not ({c},)")
+
+
+@functools.lru_cache(maxsize=None)
+def _route(shape: tuple, dtype: torch.dtype, gamma_shape: tuple | None,
+           gamma_dtype: torch.dtype | None, beta_shape: tuple | None,
+           beta_dtype: torch.dtype | None, rmsnorm: bool, eps: float) -> Route:
+    """A launch's signature, checked (the ValueError of a bad operand; the
+    cache keeps no exception, so a bad call raises anew every time) and
+    routed: the launch key and the C entry's other arguments. Pure and
+    cached."""
+    c = shape[-1]
+    _check_params(c, gamma_shape, beta_shape)
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"layer norm kernel takes float32 or bfloat16, got {dtype}")
+    vec = 16 // dtype.itemsize
     if c % vec or c > 32 * vec * MAX_VECTORS_PER_LANE:
         raise ValueError(f"layer norm kernel takes C a multiple of {vec} up to "
                          f"{32 * vec * MAX_VECTORS_PER_LANE}, got {c}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("layer norm kernel takes a contiguous, 16-byte aligned x")
-    params = [p for p in (gamma, beta) if p is not None]
-    pdtypes = {p.dtype for p in params}
+    pdtypes = {d for d in (gamma_dtype, beta_dtype) if d is not None}
     if len(pdtypes) > 1 or not pdtypes <= set(DTYPE_CODES):
         raise ValueError(f"gamma and beta must share one of {list(DTYPE_CODES)}, got {pdtypes}")
-    if any(p.device != x.device or not p.is_contiguous() for p in params):
+    rows = math.prod(shape[:-1])
+    key = (f"{'rms' if rmsnorm else 'ln'} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+           f"rows={rows} c={c}")
+    fields = (DTYPE_CODES[dtype], DTYPE_CODES[pdtypes.pop()] if pdtypes else 0, rows, c,
+              int(rmsnorm), eps)
+    dims = LnDims(*fields)
+    return Route(key, fields, dims, ctypes.addressof(dims))
+
+
+def check_call(contiguous: bool, x_ptr: int, x_device, gamma_device, beta_device,
+               params_contiguous: bool) -> None:
+    """The checks of one call that its signature does not decide: x's layout
+    and the parameters' device and layout (a None device: no parameter)."""
+    if not contiguous or x_ptr % 16:
+        raise ValueError("layer norm kernel takes a contiguous, 16-byte aligned x")
+    if (not params_contiguous or (gamma_device is not None and gamma_device != x_device)
+            or (beta_device is not None and beta_device != x_device)):
         raise ValueError("gamma and beta must be contiguous on x's device")
-    pdtype = DTYPE_CODES[pdtypes.pop()] if params else 0
-    rows = x.numel() // c
+
+
+def _row_norm(x, gamma, beta, eps, rmsnorm):
+    if x.is_cpu:
+        _check_params(x.shape[-1], None if gamma is None else gamma.shape,
+                      None if beta is None else beta.shape)
+        return layer_norm_plain(x, gamma, beta, eps=eps, rmsnorm=rmsnorm)
+    route = _route(x.shape, x.dtype, None if gamma is None else gamma.shape,
+                   None if gamma is None else gamma.dtype, None if beta is None else beta.shape,
+                   None if beta is None else beta.dtype, rmsnorm, eps)
+    x_ptr = x.data_ptr()
+    check_call(x.is_contiguous(), x_ptr, x.get_device(),
+               None if gamma is None else gamma.get_device(),
+               None if beta is None else beta.get_device(),
+               (gamma is None or gamma.is_contiguous()) and (beta is None or beta.is_contiguous()))
     out = torch.empty_like(x)
-    fn = function("st_layer_norm", _LN_ARGTYPES)
     with on_device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), None if gamma is None else gamma.data_ptr(),
-                  None if beta is None else beta.data_ptr(), pdtype, out.data_ptr(),
-                  rows, c, float(eps), int(rmsnorm), DTYPE_CODES[x.dtype], stream)
+        code = function("st_layer_norm", _LN_ARGTYPES)(
+            x_ptr, None if gamma is None else gamma.data_ptr(),
+            None if beta is None else beta.data_ptr(), out.data_ptr(), current_stream(x.device),
+            route.address)
     check(code, "st_layer_norm")
-    LAUNCHES.add(f"{'rms' if rmsnorm else 'ln'} "
-                 f"{'bf16' if x.dtype == torch.bfloat16 else 'f32'} rows={rows} c={c}")
+    LAUNCHES.add(route.key)
     return out
 
 

@@ -26,7 +26,8 @@ import math
 
 import torch
 
-from stabletriton_tpu_torch.kernels.build import LaunchCounter, check, function, on_device
+from stabletriton_tpu_torch.kernels.build import (
+    LaunchCounter, check, current_stream, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
 LAUNCHES = LaunchCounter()
@@ -77,7 +78,7 @@ def time_embed(t: torch.Tensor, *, dim: int, max_period: float = 10000.0,
     tf = t.to(torch.float32).contiguous()
     fn = function("st_time_embed", _TIME_EMBED_ARGTYPES)
     with on_device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
+        stream = current_stream(t.device)
         code = fn(tf.data_ptr(), out.data_ptr(), b, half, coef, int(flip_sin_to_cos), stream)
     check(code, "st_time_embed")
     LAUNCHES.add(f"b={b} dim={dim} flip={int(flip_sin_to_cos)} shift={downscale_freq_shift:g}")

@@ -422,6 +422,38 @@ def test_gpu_layer_norm_kernel_vs_plain(cuda_device, dtype, rows, c, rms, affine
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32, None])
+@pytest.mark.parametrize("dtype,rows,c", [
+    (torch.bfloat16, 8192, 640), (torch.bfloat16, 2048, 1280), (torch.bfloat16, 77, 320),
+    (torch.float32, 300, 320), (torch.float32, 2048, 1024),
+])
+def test_gpu_layer_norm_at_unet_shapes(cuda_device, dtype, rows, c, pdtype):
+    """K10 at the UNet's LayerNorm shapes and C = 320, gamma / beta in bf16,
+    in f32 (either may differ from x's dtype) or none, LayerNorm and
+    RMSNorm; the same bits twice; parameters at a base off 16 bytes take
+    the element loads and give the same bits as aligned ones."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = (torch.randn((rows, c), generator=gen, device=cuda_device) * 2 + 0.3).to(dtype)
+    g = b = None
+    if pdtype is not None:
+        g = (torch.randn(c, generator=gen, device=cuda_device) + 1).to(pdtype)
+        b = torch.randn(c, generator=gen, device=cuda_device).to(pdtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for rms, fn in ((False, tln.layer_norm), (True, tln.rms_norm)):
+        out = fn(x, g, b, eps=1e-6)
+        assert torch.equal(out, fn(x, g, b, eps=1e-6))
+        assert _rel_err(out, tln.layer_norm_plain(x, g, b, eps=1e-6, rmsnorm=rms)) <= tol
+        if pdtype is not None:
+            gbuf = torch.empty(c + 1, device=cuda_device, dtype=pdtype)
+            bbuf = torch.empty(c + 1, device=cuda_device, dtype=pdtype)
+            gm, bm = gbuf[1:], bbuf[1:]
+            gm.copy_(g)
+            bm.copy_(b)
+            assert gm.data_ptr() % 16
+            assert torch.equal(fn(x, gm, bm, eps=1e-6), out)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,n,tol", [
     (torch.bfloat16, 40, 2e-2), (torch.bfloat16, 13, 2e-2), (torch.float32, 24, 1e-4),
 ])
@@ -510,6 +542,9 @@ def _linear_key(kernel, m, k, n, bias, act):
     if kernel == "wgmma_bf16":
         plan = twp.gemm_plan(m, k, n)
         return f"{head} bn={plan.bn} split={plan.splits}"
+    if kernel.startswith("skinny"):
+        plan = tlinear.skinny_plan(m, k, n, 2 if kernel == "skinny_bf16" else 4)
+        return f"{head} cols={plan.cols} split={plan.splits}"
     return head
 
 
@@ -539,6 +574,58 @@ def test_gpu_linear_kernel_vs_plain(cuda_device, dtype, m, k, n, bias, act, kern
     assert out.shape == (m, n) and out.dtype == dtype
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert _rel_err(out, tlinear.linear_plain(x, w, b, act=act)) <= tol
+
+
+# the M <= 16 GEMMs of the SDXL and SD1.5 steps, (K, N), and ragged ones:
+# N % 8 != 0 (element loads), K odd, K past one shared-memory stage of x
+SKINNY_SHAPES = [(320, 1280), (1280, 320), (1280, 640), (1280, 1280), (2816, 1280),
+                 (1279, 44), (333, 1001), (3000, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 2, 5, 16])
+@pytest.mark.parametrize("k,n", SKINNY_SHAPES)
+def test_gpu_skinny_linear_vs_plain(cuda_device, k, n, m, dtype):
+    """The skinny kernel at every M <= 16 shape of the steps and at ragged
+    ones, against its plain version, the launch counted under its plan; a
+    second launch gives the same bits (the splits meet in a fixed order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.nn.functional.silu(torch.randn((m, k), generator=gen, device=cuda_device)).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=cuda_device) / k**0.5).to(dtype)
+    b = torch.randn(n, generator=gen, device=cuda_device).to(dtype)
+    act = "silu" if k == 320 else None
+    kernel = "skinny_bf16" if dtype == torch.bfloat16 else "skinny_f32"
+    before = dict(tlinear.LAUNCHES.by_key)
+    out = tlinear.linear(x, w, b, act=act)
+    again = tlinear.linear(x, w, b, act=act)
+    torch.cuda.synchronize()
+    assert _new_keys(tlinear.LAUNCHES, before) == {_linear_key(kernel, m, k, n, True, act): 2}
+    assert torch.equal(out, again)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_err(out, tlinear.linear_plain(x, w, b, act=act)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gpu_skinny_linear_on_misaligned_operands(cuda_device, dtype):
+    """x and w at bases off 16 bytes (w then takes element loads), a bias in
+    the other dtype, with and without act: right, and the same bits twice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    k, n = 1280, 640
+    xbuf = torch.randn(2 * k + 1, generator=gen, device=cuda_device).to(dtype)
+    wbuf = (torch.randn(k * n + 1, generator=gen, device=cuda_device) / k**0.5).to(dtype)
+    x, w = xbuf[1:].view(2, k), wbuf[1:].view(k, n)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    b = torch.randn(n, generator=gen, device=cuda_device).to(other)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for act in (None, "gelu"):
+        out = tlinear.linear(x, w, b, act=act)
+        assert torch.equal(out, tlinear.linear(x, w, b, act=act))
+        assert _rel_err(out, tlinear.linear_plain(x, w, b, act=act)) <= tol
+    xa, wa = x.clone(), w.clone()  # the same values at aligned bases: 16-byte loads
+    assert _rel_err(tlinear.linear(xa, wa, b), tlinear.linear(x, w, b)) <= tol
 
 
 @pytest.mark.gpu
