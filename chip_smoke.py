@@ -5,12 +5,14 @@
     python3 chip_smoke.py --host-time [DIR]
 
 ``--profile`` adds a torch.profiler breakdown of one step under each
-binding to phases 4 and 4c (device time by kernel family, idle share);
+binding to phases 4 and 4c (device time by kernel family, idle share, the
+attention kernels by name) and of the default binding's 1024^2 decode to
+phase 5e (the same, and its 12 longest kernels);
 ``--plans`` times the wgmma kernels at forced tile widths and K splits
 beside the planner's choice and a plain wave-filling rule's (before phase
 3). ``--host-time`` only builds the kernels and prints the host time a
-launch of the linear, conv, GroupNorm and LayerNorm wrappers, of bare C
-entries and of the fused GN conv op, of the package in DIR (a copy of
+launch of the linear, conv, GroupNorm, LayerNorm and attention wrappers,
+of bare C entries and of the fused GN conv op, of the package in DIR (a copy of
 another tree, to compare two in one run) or of this checkout, with the
 skinny linear's and LayerNorm's device time and their PyTorch calls'; it
 prints no result line.
@@ -30,14 +32,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
      op's cuDNN conv for the bf16 convs, F.conv2d with TF32 off for the f32
      ones); each attention launch must carry its class (the JAX package's
      Pallas kernel it stands in for, K1-K5) and its kernel in its launch key
-     (K1-K4 on attn_wgmma_bf16, f32 on the 3xTF32 GEMM wgmma_tf32x3, whose
+     (bf16 at most 128 keys on attn_tinykv_wgmma_bf16, above on
+     attn_wgmma_bf16, f32 on the 3xTF32 GEMM wgmma_tf32x3, whose
      row also prints its bound at the f32 FMA peak and the time of its
      operand split); the convs run on the kernel the routing picks (bf16:
      wgmma, conv_in's Cin 4 padded to 8 and conv_out's Cout 4 on the
      8-column tile, with the padding's time printed; f32: the 3xTF32 wgmma
-     kernel, beside the scalar kernel it replaced, or the scalar one for the
-     VAE's conv_in, Cin 4), SD1.5's 16^2 and 8^2 levels included, and the
-     tf32 rows beside their bound in 3xTF32 on the tensor cores as well;
+     kernel, beside the scalar kernel it replaced, or for the VAE's conv_in
+     (Cin 4, SDXL's 128^2 and SD1.5's 64^2) the direct kernel, beside the
+     scalar kernel it replaced and the 3xTF32 conv on Cin padded to 8),
+     SD1.5's 16^2 and 8^2 levels included, and the tf32 rows beside their
+     bound in 3xTF32 on the tensor cores as well; each bf16 attention row
+     with Sk <= 128 (K5, and K1's cross-attention) also prints the device
+     time of every bf16 kernel at the same operands;
   3b. fused-op kernels: GroupNorm (K9: stats, device fold and apply behind
      one C entry, beside F.group_norm, its device time from the profiler
      beside the wrapper's), LayerNorm / RMSNorm (K10, beside F.layer_norm /
@@ -45,8 +52,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      shift from the GroupNorm fold kernel) against their plain versions at
      the same path's shapes; K8 also beside the unfused pair (K9 apply, K6);
   3c. SD1.5 attention: the bf16 kernels at the SD1.5 512^2 path's shapes
-     (K3 at d=40, K4 at d=80 and 160, K5 against 77 keys and the mid-block's
-     64), then phase 3's d=64 rows again;
+     (K3 at d=40, K4 at d=80 and 160, K5 on attn_tinykv_wgmma_bf16 against
+     77 keys and the mid-block's 64), then phase 3's d=64 rows again;
   3d. the rest of the opt-in kernels: the timestep embedding (K12) at
      (2,)->(2,320) and (12,)->(12,256); linear (K13) at every GEMM shape of
      both paths (wgmma, the f32 3xTF32 GEMM, SiLU and GELU epilogues, and
@@ -64,8 +71,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (CompileConfig.overrides: group_norm, layer_norm, geglu -> "cuda",
      gn_conv2d -> "fused") and the all-kernel binding (the fused-op binding
      plus linear and time_embed -> "cuda"), each against the "reference"
-     binding: MSE under 1e-3; attention launches per step K1 130, K2 10,
-     every one on attn_wgmma_bf16;
+     binding: MSE under 1e-3; attention launches per step K1 130, K2 10:
+     K1's 70 cross-attention launches (77 keys) on attn_tinykv_wgmma_bf16,
+     the 60 self and K2 on attn_wgmma_bf16;
      fused-op launches K8 35, K9 11, K10 210, K11 70; all-kernel also K12 2
      and K13 463 + 70 in the precompute, every linear dispatch on the
      kernel and none on the reference (cuBLAS) op, 512 of the 533 on the
@@ -73,15 +81,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      38 convs on the wgmma kernel;
   4c. one full-width SD1.5 UNet step (64^2 latent, CFG batch 2, bf16) under
      the three bindings against the reference binding, MSE under 1e-3;
-     attention launches per step K3 5, K4 10, K5 17 and no K1 or K2; K8 45,
+     attention launches per step K3 5, K4 10, K5 17 (all on the tiny-KV
+     kernel) and no K1 or K2; K8 45,
      K9 16, K10 48, K11 16; all-kernel K12 1, K13 152 + 16 (144 wgmma, 24
      skinny); all 49 convs on wgmma;
   5. serving: a ServingEngine over a full-width SDXL-base pipeline answers
      three 1024^2 requests (4 Euler steps, guidance 5); the images must be
      finite, (1024, 1024, 3) and inside [-1, 1], and the attention (K1, K2,
      K3) and conv launch counters must have moved during this phase, every
-     K1/K2 launch on attn_wgmma_bf16 and each image's f32 decode on the
-     3xTF32 conv 32 times and the scalar conv once (conv_in), its attention
+     K1/K2 launch on its kernel as in phase 4 and each image's f32 decode on the
+     3xTF32 conv 32 times and the direct conv once (conv_in), its attention
      once on the 3xTF32 GEMM;
   5b. a second ServingEngine, over a pipeline with the fused-op binding,
      answers two co-batched 1024^2 requests and one alone; same image
@@ -104,7 +113,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      co-batched 512^2 requests and one alone (4 Euler steps, guidance 7.5);
      the images must be finite, (512, 512, 3) and inside [-1, 1]; the
      K3/K4/K5 bf16 launches must be the per-step counts times the UNet
-     steps run (K3 and K4 on attn_wgmma_bf16), plus one f32 K3 launch per
+     steps run (K3 and K4 on attn_wgmma_bf16, K5 on the tiny-KV kernel),
+     plus one f32 K3 launch per
      image for the VAE on the 3xTF32 GEMM; the decode convs as in phase 5.
 
 Each phase logs its peak device memory.
@@ -241,7 +251,8 @@ def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
     extra = ""
     if old_fn is not None:
         r["old_ms"], r["old_kernel"] = timed_ms(old_fn, iters), old_label
-        extra += f", {old_label} {r['old_ms']:.4f} ms"
+        r["old_device_ms"] = device_ms(old_fn, iters)[0]
+        extra += f", {old_label} {r['old_ms']:.4f} ms (device {r['old_device_ms']:.4f})"
     if r["library_ms"] is not None:
         extra += f", {library_label} {r['library_ms']:.4f} ms"
     if op_fn is not None:
@@ -463,12 +474,25 @@ def attention_cases(randn, cases, record=True):
                 f"time) {r['prep_ms']:.4f} ms; {fa.attention_chunk_rows(b * h, sq, sk)} query "
                 f"rows a chunk")
         keys = {k for k, n in fa.LAUNCHES.by_key.items() if n != before.get(k, 0)}
-        want = fa.kernel_name(tpu, dtype)
+        want = fa.kernel_name(dtype, sk)
         if {tuple(k.split()[:2]) for k in keys} != {(tpu, want)}:
             raise AssertionError(f"{name}: launched {sorted(keys)}, expected class {tpu} on "
                                  f"{want}")
         key = sorted(keys)[0]
         log(f"  launch key: {key}")
+        if dtype == torch.bfloat16 and sk <= fa.LANES:
+            # every bf16 kernel of the C entry at the same operands (launched
+            # past the route, after the key check), device time a call: the
+            # measurement behind which kernel the route gives Sk <= 128 (K5,
+            # and SDXL's K1 cross-attention)
+            operands = ((qkv, 0, qkv, c, qkv, 2 * c) if kind == "qkv" else (q, 0, kv, 0, kv, c))
+            r["alt_device_ms"] = {name: device_ms(
+                lambda name=name: fa._launch(*operands, sq=sq, sk=sk, num_heads=h, d=c // h,
+                                             scale=None, kernel=name), iters)[0]
+                for name in fa._KERNEL_CODES}
+            log(f"  {tpu} {label}, device ms a call by kernel at the same operands: "
+                + ", ".join(f"{n} {ms:.4f}" for n, ms in r["alt_device_ms"].items())
+                + f", SDPA {r['library_device_ms']:.4f}; bound {r['bound_ms'] * 1e3:.4g} us")
         r.update(name=name, source="stabletriton_tpu_torch/csrc/flash_attention.cu", tpu=tpu,
                  kernel=" ".join(key.split()[:2]))
         if record:
@@ -670,6 +694,7 @@ def phase_kernels(dev):
         ("unet conv_in 128x128 4->320", (2, 128, 128, 4, 320), bf16, "b", None),
         ("unet conv_out 128x128 320->4", (2, 128, 128, 320, 4), bf16, "b", None),
         ("vae conv_in 128x128 4->512 f32", (1, 128, 128, 4, 512), torch.float32, "b", None),
+        ("SD1.5 vae conv_in 64x64 4->512 f32", (1, 64, 64, 4, 512), torch.float32, "b", None),
         ("vae 128x128 512->512 f32", (1, 128, 128, 512, 512), torch.float32, "b", "res"),
         ("vae 1024x1024 128->128 f32", (1, 1024, 1024, 128, 128), torch.float32, "b", None),
         ("vae conv_out 1024x1024 128->3 f32", (1, 1024, 1024, 128, 3), torch.float32, "b", None),
@@ -698,7 +723,7 @@ def phase_kernels(dev):
             label_l = "F.conv2d f32"
         # the kernel a redesigned route replaced, at the same shape, where
         # the tree still has it
-        old = {"wgmma_tf32x3": "scalar"}.get(kernel)
+        old = {"wgmma_tf32x3": "scalar", "direct_f32": "scalar"}.get(kernel)
         ofn = ((lambda x=x, w=w, bias=bias, res=res, act=act, old=old: cd._launch(
             x, w, bias, res, act, variant=old)[0]) if old else None)
         iters = 3 if dtype == torch.float32 else 10
@@ -710,6 +735,20 @@ def phase_kernels(dev):
                     bound_ms=bound(flops, moved, dtype, TF32X3_FLOPS if tf32 else None),
                     library_fn=lfn, library_label=label_l, old_fn=ofn,
                     old_label="scalar f32 kernel")
+        if dtype == torch.float32 and cin % 8:
+            # the other design for a small Cin: the 3xTF32 conv on x and w
+            # padded to 8 channels (the pad made outside the timed call),
+            # device time of the conv kernel alone and with its weight split
+            pad = -cin % 8
+            xp, wp = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
+            _, _, by_name = device_ms(lambda xp=xp, wp=wp, bias=bias, res=res, act=act: cd._launch(
+                xp, wp, bias, res, act, variant="wgmma_tf32x3")[0], iters)
+            conv_ms = sum(t for kn, t in by_name.items() if "conv_wgmma_tf32x3" in kn)
+            r["tf32_padded_device_ms"] = conv_ms
+            log(f"  3xTF32 conv on Cin padded to {cin + pad} (pad outside the timing), device: "
+                f"conv kernel {conv_ms:.4f} ms, with its weight split "
+                f"{sum(by_name.values()):.4f} ms")
+            del xp, wp
         if tf32:
             r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
             prep_ms = timed_ms(lambda w=w: cd.tf32_split(w), iters)
@@ -851,6 +890,9 @@ HOST_NORMS = [(2, 128, 128, 320), (2, 32, 32, 1280)]  # GroupNorm, and GN + SiLU
 # SDXL step, each beside the one PyTorch call computing the same function
 HOST_SKINNY = [(2, 1280, 1280), (2, 2816, 1280)]
 HOST_LAYER_NORMS = [(8192, 640), (2048, 1280)]
+# the attention wrapper's cross-attention against the fused KV buffer: SDXL's
+# K1 (h = 10, d = 64) and SD1.5's K5 (h = 8, d = 40), as (B, Sq, Sk, C, H)
+HOST_ATTENTION = [(2, 4096, 77, 640, 10), (2, 4096, 77, 320, 8)]
 HOST_ROUNDS = 7
 
 
@@ -892,8 +934,9 @@ def phase_host_time(dev):
     the wgmma route and on the WMMA route, the kernels' bare C entries (the
     wgmma kernels at the planned plan, the skinny linear, LayerNorm), the
     fused GN conv's whole op (gn_conv2d_fused: the GroupNorm stats and fold,
-    then the conv), and for the skinny linear and LayerNorm the one PyTorch
-    call computing the same function (torch.addmm, F.layer_norm). The host
+    then the conv), the attention wrapper against a fused KV buffer, and for
+    the skinny linear, LayerNorm and attention the one PyTorch call
+    computing the same function (torch.addmm, F.layer_norm, SDPA). The host
     is shared, so each is measured in HOST_ROUNDS interleaved rounds and
     printed as its least and its median round. The skinny linear and
     LayerNorm rows also print the device time a call of the wrapper and of
@@ -905,6 +948,7 @@ def phase_host_time(dev):
 
     from stabletriton_tpu_torch.kernels import build
     from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import flash_attention as fa
     from stabletriton_tpu_torch.kernels import group_norm as gn
     from stabletriton_tpu_torch.kernels import layer_norm as ln
     from stabletriton_tpu_torch.kernels import linear as lin
@@ -981,6 +1025,14 @@ def phase_host_time(dev):
                "F.layer_norm": lambda x=x, g=g, b=b, c=c: F.layer_norm(x, (c,), g, b, 1e-6)}
         cases.append((f"layer norm ({rows},{c}) bf16", fns))
         devices.append(cases[-1])
+    for bsz, sq, sk, c, h in HOST_ATTENTION:
+        q = torch.randn((bsz, sq, c), generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn((bsz, sk, 2 * c), generator=gen, device=dev).to(torch.bfloat16)
+        qh, kh, vh = (t.reshape(bsz, -1, h, c // h).transpose(1, 2).contiguous()
+                      for t in (q, *kv.chunk(2, -1)))
+        cases.append((f"attention kv ({bsz},{sq},{c}) x ({bsz},{sk},{2 * c}) h={h}", {
+            "wrapper": lambda q=q, kv=kv, h=h: fa.flash_attention_kv(q, kv, num_heads=h),
+            "SDPA": lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh)}))
     rounds = {(label, what): [] for label, fns in cases for what in fns}
     for _ in range(HOST_ROUNDS):
         for label, fns in cases:
@@ -1021,17 +1073,19 @@ FUSED_PER_STEP = {k: ALL_PER_STEP[k] for k in ("K8", "K9", "K10", "K11")}
 PRECOMPUTE_LINEARS = 70
 SD15_PRECOMPUTE_LINEARS = 16
 VAE_LINEARS = 4  # the f32 VAE decoder's mid-attention q, k, v, out per image
-# attention launches per UNet step by class, under either kernel binding.
-# SDXL-base: self at 64^2 (h=10) 10 x K2, self at 32^2 (h=20) 60 x K1, 70
-# cross x K1. SD1.5: self at 64^2 (d=40) 5 x K3, at 32^2 (d=80) and 16^2
-# (d=160) 10 x K4, mid self at 8^2 (d=160) 1 + 16 cross x K5.
-ATTN_PER_STEP = {"K1": 130, "K2": 10, "K3": 0, "K4": 0, "K5": 0}
-SD15_ATTN_PER_STEP = {"K1": 0, "K2": 0, "K3": 5, "K4": 10, "K5": 17}
+# bf16 attention launches per UNet step by kernel and class, under either
+# kernel binding. SDXL-base: self at 64^2 (h=10) 10 x K2 and at 32^2 (h=20)
+# 60 x K1 on attn_wgmma_bf16, 70 cross (77 keys) x K1 on the tiny-KV kernel.
+# SD1.5: self at 64^2 (d=40) 5 x K3, at 32^2 (d=80) and 16^2 (d=160) 10 x K4
+# on attn_wgmma_bf16, mid self at 8^2 (d=160) 1 + 16 cross x K5 on the
+# tiny-KV kernel.
+ATTN_PER_STEP = {"wgmma_bf16": {"K1": 60, "K2": 10}, "tinykv_wgmma_bf16": {"K1": 70}}
+SD15_ATTN_PER_STEP = {"wgmma_bf16": {"K3": 5, "K4": 10}, "tinykv_wgmma_bf16": {"K5": 17}}
 # the kernels of one image's f32 VAE decode 3x3 convs (SDXL's and SD1.5's
-# decoder alike): conv_in (Cin 4) on the scalar kernel, the other 32 (mid
+# decoder alike): conv_in (Cin 4) on the direct kernel, the other 32 (mid
 # and up resnets, upsamplers, conv_out) on the 3xTF32 wgmma kernel; its one
 # mid-block attention on the 3xTF32 GEMM
-DECODE_CONVS = {"wgmma_tf32x3": 32, "scalar": 1}
+DECODE_CONVS = {"wgmma_tf32x3": 32, "direct_f32": 1}
 DECODE_ATTENTION = "wgmma_tf32x3"
 # the kernels of a step's bf16 3x3 convs (K6 and K8 together): all on wgmma,
 # conv_in (Cin 4, padded to 8) and conv_out (Cout 4, the 8-column tile)
@@ -1110,6 +1164,24 @@ def attention_by_class(by_key: dict, kernel: str = "") -> dict:
     return out
 
 
+def expected_attention(per_kernel: dict, steps: int = 1) -> dict:
+    """The launches by class of each bf16 attention kernel of ``per_kernel``
+    (ATTN_PER_STEP's form), times ``steps``, as attention_by_class gives them."""
+    return {kernel: {**dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0),
+                     **{cls: n * steps for cls, n in by_class.items()}}
+            for kernel, by_class in per_kernel.items()}
+
+
+def check_bf16_attention(by_key: dict, per_kernel: dict, steps: int, label: str) -> None:
+    """Every bf16 attention launch of a run on the kernel and under the class
+    of ``per_kernel``: its per-step counts times the UNet steps run."""
+    got = {kernel: attention_by_class(by_key, kernel) for kernel in per_kernel}
+    want = expected_attention(per_kernel, steps)
+    if got != want:
+        raise AssertionError(f"{label}: bf16 attention launches by kernel {got} in {steps} "
+                             f"steps, expected {want}")
+
+
 def sdxl_step_inputs(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     return dict(
@@ -1129,10 +1201,12 @@ def sd15_step_inputs(dev):
         time_ids=torch.zeros((2, 0), device=dev))
 
 
-def profile_step(run, label):
+def profile_step(run, label, *, unit="step", top=0):
     """Device time of two runs of ``run`` by kernel family, and the share of
     the device span in which no kernel ran (torch.profiler's CUDA kernel
-    events; ``--profile`` only)."""
+    events; ``--profile`` only). Then the attention family by kernel name
+    (the K5 launches' total among them), and with ``top`` the longest
+    ``top`` kernels by name."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1146,6 +1220,7 @@ def profile_step(run, label):
     if not spans:
         raise AssertionError(f"{label}: the profiler saw no kernel on the device")
     families = {"wgmma conv": ("conv_wgmma", "conv_gn_wgmma"),
+                "direct conv": ("conv_direct_f32",), "scalar conv": ("conv_scalar",),
                 "wgmma linear": ("linear_wgmma",), "split-K reduce": ("splitk_reduce",),
                 "skinny linear": ("linear_skinny",),
                 "attention": ("attn_", "gemm_wgmma_tf32x3"),
@@ -1153,19 +1228,37 @@ def profile_step(run, label):
                     "gn_apply", "gn_stats", "gn_fold", "ln_rows", "geglu_kernel",
                     "time_embed_kernel"),
                 "cuBLAS/cuDNN": ("gemm", "nvjet", "sm90_", "cutlass", "cudnn", "xmma", "conv2d")}
-    by, counts, busy, end = {}, {}, 0.0, spans[0][0]
+    by, counts, names, busy, end = {}, {}, {}, 0.0, spans[0][0]
     for t0, t1, name in spans:
         fam = next((f for f, keys in families.items() if any(k in name for k in keys)), "glue")
         by[fam] = by.get(fam, 0.0) + (t1 - t0) / 2e3
         counts[fam] = counts.get(fam, 0) + 1
+        ms, n = names.get(name, (0.0, 0))
+        names[name] = (ms + (t1 - t0) / 2e3, n + 1)
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
     span = end - spans[0][0]
-    log(f"profile, {label} (2 steps; ms a step by kernel family, launches a step): "
+    total = sum(by.values())
+    log(f"profile, {label} (2 {unit}s; ms a {unit} by kernel family, launches a {unit}): "
         + ", ".join(f"{f} {ms:.2f} ({counts[f] // 2})" for f, ms in sorted(
             by.items(), key=lambda kv: -kv[1]))
-        + f"; kernel time {sum(by.values()):.1f} ms a step, device span {span / 2e3:.1f} ms a "
-          f"step, idle {1 - busy / span:.1%}")
+        + f"; kernel time {total:.1f} ms a {unit}, device span {span / 2e3:.1f} ms a "
+          f"{unit}, idle {1 - busy / span:.1%}")
+
+    def short(name):  # the kernel's name and template arguments, no namespace or parameters
+        name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+        return name.split("(")[0][:90]
+
+    attn = sorted(((n, v) for n, v in names.items() if any(
+        k in n for k in families["attention"])), key=lambda kv: -kv[1][0])
+    if attn:
+        log(f"  attention by kernel, {label} (ms a {unit}, launches a {unit}): " + ", ".join(
+            f"{short(n)} {ms:.4f} ({c // 2})" for n, (ms, c) in attn))
+    if top:
+        log(f"  top {top} kernels, {label} (ms a {unit}, launches a {unit}, share of kernel "
+            f"time): " + ", ".join(
+                f"{short(n)} {ms:.3f} ({c // 2}, {ms / total:.1%})" for n, (ms, c) in sorted(
+                    names.items(), key=lambda kv: -kv[1][0])[:top]))
 
 
 def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_linears,
@@ -1225,7 +1318,6 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
             convs = by_kernel(counters["K6"], counters["K8"])
             linears = by_kernel(counters["K13"])
             attn = attention_by_class(fa.LAUNCHES.by_key)
-            attn_wgmma = attention_by_class(fa.LAUNCHES.by_key, "wgmma_bf16")
             if not (torch.isfinite(out_k).all() and torch.isfinite(out_r).all()):
                 raise AssertionError(f"{label} UNet step output is not finite ({name} binding)")
             mse = (out_k - out_r).square().mean().item()
@@ -1239,13 +1331,12 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
             if not mse < STEP_MSE_GATE:
                 raise AssertionError(f"{label} {name} step deviation mse {mse:.3e} exceeds "
                                      f"{STEP_MSE_GATE:g}")
-            if attn != attn_per_step:
+            want_attn = {cls: sum(by_kernel[cls] for by_kernel in expected_attention(
+                attn_per_step).values()) for cls in attn}
+            if attn != want_attn:
                 raise AssertionError(f"{label} {name}: attention launches {attn} in one step, "
-                                     f"expected {attn_per_step}")
-            if attn_wgmma != {**attn_per_step, "K5": 0}:
-                raise AssertionError(f"{label} {name}: attention launches on attn_wgmma_bf16 "
-                                     f"{attn_wgmma}, expected every K1-K4 launch of "
-                                     f"{attn_per_step}")
+                                     f"expected {want_attn}")
+            check_bf16_attention(fa.LAUNCHES.by_key, attn_per_step, 1, f"{label} {name}")
             got = {k: counts[k] for k in expect[name]}
             if got != expect[name]:
                 raise AssertionError(f"{label} {name}: launches {got} in one step, expected "
@@ -1390,16 +1481,6 @@ def serve(dev, ucfg, unet_params, other, compile_config, prompts, counters, solo
     return done, counts, by_key
 
 
-def check_attention(attn_by_key: dict, steps: int, label: str) -> None:
-    """Every K1-K4 launch of the serving run on attn_wgmma_bf16: the SDXL
-    per-step counts times the UNet steps run."""
-    got = attention_by_class(attn_by_key, "wgmma_bf16")
-    want = {k: n * steps for k, n in ATTN_PER_STEP.items()}
-    if got != want:
-        raise AssertionError(f"{label}: attention on attn_wgmma_bf16 {got} in {steps} steps, "
-                             f"expected {want}")
-
-
 def check_decode_convs(conv_by_key: dict, images: int, label: str) -> None:
     """Each image's f32 decode launched its 3x3 convs on the kernels of
     DECODE_CONVS (the UNet's convs are bf16 and named otherwise)."""
@@ -1476,11 +1557,12 @@ def check_solo_vs_batched(diffs: dict, label: str) -> None:
                                  f"differs by {diff:.3e} (reference binding {ref})")
 
 
-def phase_decode_deviation(dev, vcfg, vae_params):
+def phase_decode_deviation(dev, vcfg, vae_params, profile=False):
     """One 1024^2 f32 decode (random latents from a seed) under the default
     binding (the tf32 conv, the f32 attention, linear and GroupNorm paths)
     against the reference binding's (cuDNN and cuBLAS with TF32 off), each
-    timed on the host clock around a synchronised decode."""
+    timed on the host clock around a synchronised decode; with ``profile``
+    the default binding's decode by kernel."""
     from stabletriton_tpu_torch import ops
     from stabletriton_tpu_torch.compile import CompileConfig, resolve_binding
     from stabletriton_tpu_torch.runtime.pipeline import _decode_images
@@ -1500,6 +1582,10 @@ def phase_decode_deviation(dev, vcfg, vae_params):
                     images[name] = _decode_images(vcfg, vae_params, lat).float()
                     torch.cuda.synchronize()
                     times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            if profile:
+                with ops.use_backends(resolve_binding(CompileConfig())):
+                    profile_step(lambda: _decode_images(vcfg, vae_params, lat),
+                                 "1024^2 f32 decode, default binding", unit="decode", top=12)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     got, ref = images["default"], images["reference"]
@@ -1537,8 +1623,9 @@ def phase_serving(dev, ucfg, unet_params, other):
     for k in ("K1", "K2", "K3"):
         if attn[k] == 0:
             raise AssertionError(f"no attention launch of class {k} during serving")
-    check_attention(by_key["flash_attention"], unet_steps(by_key["conv3x3"], ucfg, "wgmma_bf16"),
-                    "default-binding serving")
+    steps = unet_steps(by_key["conv3x3"], ucfg, "wgmma_bf16")
+    check_bf16_attention(by_key["flash_attention"], ATTN_PER_STEP, steps,
+                         "default-binding serving")
     check_decode_convs(by_key["conv3x3"], len(done), "default-binding serving")
     check_decode_attention(by_key["flash_attention"], len(done), "default-binding serving")
     return by_key, diff
@@ -1574,7 +1661,7 @@ def phase_serving_fused(dev, ucfg, unet_params, other):
                                  f"expected {n}")
     if k9_f32 != vae_norms * len(done):
         raise AssertionError(f"K9: {k9_f32} f32 launches, expected {vae_norms * len(done)}")
-    check_attention(by_key["attention"], steps, "fused-op serving")
+    check_bf16_attention(by_key["attention"], ATTN_PER_STEP, steps, "fused-op serving")
     check_decode_convs(by_key["K6"], len(done), "fused-op serving")
     check_decode_attention(by_key["attention"], len(done), "fused-op serving")
     return counts, by_key, diff
@@ -1616,7 +1703,7 @@ def phase_serving_all(dev, ucfg, unet_params, other):
     if precompute != PRECOMPUTE_LINEARS * gens or vae != VAE_LINEARS * images:
         raise AssertionError(f"K13: {precompute} precompute and {vae} VAE launches, expected "
                              f"{PRECOMPUTE_LINEARS * gens} and {VAE_LINEARS * images}")
-    check_attention(by_key["attention"], steps, "all-kernel serving")
+    check_bf16_attention(by_key["attention"], ATTN_PER_STEP, steps, "all-kernel serving")
     check_decode_convs(by_key["K6"], images, "all-kernel serving")
     check_decode_attention(by_key["attention"], images, "all-kernel serving")
     return counts, by_key, diff
@@ -1639,14 +1726,10 @@ def phase_serving_sd15(dev, ucfg, unet_params, other):
         solo=("a watercolor of a harbour", 31), size=512, guidance=7.5)
     check_solo_vs_batched({"default": solo_vs_batched(done, "SD1.5 default")}, "SD1.5")
     steps = unet_steps(by_key["conv3x3"], ucfg, "wgmma_bf16")
-    bf16 = attention_by_class(by_key["flash_attention"], "wgmma_bf16")
-    tiny = attention_by_class(by_key["flash_attention"], "tinykv_bf16")
-    got = {k: bf16[k] + tiny[k] for k in bf16}
-    want = {k: n * steps for k, n in SD15_ATTN_PER_STEP.items()}
-    log(f"SD1.5 serving: {steps} UNet steps, {len(done)} images; bf16 attention {got}")
-    if steps == 0 or got != want or tiny["K5"] != want["K5"] or bf16 != {**want, "K5": 0}:
-        raise AssertionError(f"SD1.5 serving: bf16 attention launches {got} (wgmma kernel "
-                             f"{bf16}, tiny-KV kernel {tiny['K5']}), expected {want}")
+    log(f"SD1.5 serving: {steps} UNet steps, {len(done)} images")
+    if steps == 0:
+        raise AssertionError("SD1.5 serving: no UNet step ran")
+    check_bf16_attention(by_key["flash_attention"], SD15_ATTN_PER_STEP, steps, "SD1.5 serving")
     check_decode_convs(by_key["conv3x3"], len(done), "SD1.5 serving")
     check_decode_attention(by_key["flash_attention"], len(done), "SD1.5 serving")
     return by_key
@@ -1752,7 +1835,7 @@ def main() -> int:
                                    sdxl["unet"], sdxl["other"])
     check_solo_vs_batched(diffs, "SDXL-base")
     with_peak("phase 5e decode", phase_decode_deviation, dev, sdxl["other"][0][2],
-              sdxl["other"][1]["vae"])
+              sdxl["other"][1]["vae"], profile)
     free(sdxl)
 
     # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 5c
@@ -1801,8 +1884,9 @@ def main() -> int:
         "source": r["source"], "replaces": REPLACES[r["tpu"]], "launches": launches(r),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        **{k: r[k] for k in ("old_ms", "old_kernel", "bound_f32_fma_ms", "prep_ms", "device_ms",
-                             "library_device_ms") if k in r},
+        **{k: r[k] for k in ("old_ms", "old_kernel", "old_device_ms", "bound_f32_fma_ms",
+                             "prep_ms", "device_ms", "library_device_ms", "alt_device_ms",
+                             "tf32_padded_device_ms") if k in r},
     } for r in kernel_results]
     for k in kernels:
         if k["launches"] == 0:

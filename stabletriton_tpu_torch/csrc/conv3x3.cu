@@ -22,7 +22,7 @@
 // image stay exactly 0: the conv pads the NORMALIZED input with zeros, and
 // normalize(0) != 0.
 //
-// Four kernels:
+// Five kernels:
 //   conv_wgmma_bf16  - bf16 with Cin % 8 == 0, Cout % 8 == 0 or Cout <= 8,
 //                      and 16-byte aligned x and w: the Hopper mainloop of
 //                      wgmma.cuh. The A operand is one TMA box per (tap,
@@ -65,9 +65,34 @@
 //                      product). Cout <= 8 (the decoder's conv_out, Cout 3)
 //                      runs an 8-wide block tile, so its 3 channels cost 8
 //                      columns, not 64.
+//   conv_direct_f32<CIN> - f32 with Cin <= 4 and no GroupNorm prologue (the
+//                      VAE decoders' conv_in, Cin 4 -> 512): a direct
+//                      convolution, weight-stationary. K = 9 Cin is 36, so
+//                      an implicit GEMM's operand staging outweighs its 36
+//                      FMAs an output; here a thread owns 2 consecutive
+//                      output channels, whose 9 Cin x 2 weights (72
+//                      registers at Cin 4) it loads once, and a block of
+//                      256 threads spans 512 channels. A tile is a segment
+//                      of 32 pixels of one image row; its 3 x 34-pixel halo
+//                      (Cin padded to 4, one float4 a pixel, 0 outside the
+//                      image) is staged in shared memory, where all lanes of
+//                      a warp read one address (a broadcast). A thread sums
+//                      4 pixels at once (8 independent FMA chains) in f32
+//                      FMAs, tap-major and channel inner (conv3x3_plain's
+//                      order of K; no TF32), then adds bias, residual and
+//                      SiLU as store_out does; a warp's store is 64
+//                      consecutive channels of one pixel, 256 bytes. Up to
+//                      two blocks an SM walk the tiles, the next tile's halo
+//                      fetched into registers under this tile's sums.
 //   conv_scalar      - f32 FMA, 64x64 block tile, 4x4 outputs per thread.
-//                      The f32 convs the tf32 kernel does not take (the
-//                      decoder's conv_in, Cin = 4).
+//                      What neither f32 kernel above takes: f32 with the
+//                      GroupNorm prologue, f32 Cin > 4 that is no multiple
+//                      of 8, and f32 x whose base is not 16-byte aligned at
+//                      Cin % 8 == 0. No path of chip_smoke.py launches it
+//                      (the VAE decoder's GroupNorms are not fused into its
+//                      convs, and its Cin are 4 or multiples of 8);
+//                      chip_smoke.py times it beside the direct kernel and a
+//                      card test holds it against the plain conv.
 //
 // What bounds it on the H100: at the UNet's shapes (K = 9*Cin = 2880 to
 // 23040) the implicit GEMM is compute-bound, so the wgmma kernel keeps the
@@ -81,7 +106,10 @@
 // 32 KB at BN = 128) beside 16 KB of A, so L2 traffic is its second limit.
 // The UNet's conv_out (320->4) is bound by reading x once (0.0063 ms), and
 // at BN = 8 each pixel's 320 channels are read 9 times from L2 (190 MB at
-// 128^2), which bounds its 8-column kernel.
+// 128^2), which bounds its 8-column kernel. The decoder's conv_in (128^2,
+// 4 -> 512) writes 33.5 MB of f32 (10.0 us at 3.35 TB/s) and does 0.30 G
+// FMAs (9.0 us at the f32 FMA peak): the direct kernel issues little beyond
+// its FMAs and stores, so both limits overlap.
 
 #include "vec.cuh"
 #include "wgmma.cuh"
@@ -187,6 +215,148 @@ __global__ void __launch_bounds__(CTHREADS) conv_scalar(ConvArgs a) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) store_out(a, m0 + tm + 16 * i, n0 + tn + 16 * j, acc[i][j]);
+}
+
+// ---------------------------------------------------------------------------
+// f32 direct kernel for Cin <= 4 (the VAE decoders' conv_in): the weight in
+// registers, the input tile's halo in shared memory; see the note at the top
+// ---------------------------------------------------------------------------
+constexpr int DTHREADS = 256;                // a block
+constexpr int DCPT = 2;                      // consecutive output channels a thread owns
+constexpr int DCOLS = DTHREADS * DCPT;       // output channels a block (512)
+constexpr int DTW = 32;                      // pixels of a tile: a row segment
+constexpr int DPG = 4;                       // pixels a thread sums at once
+constexpr int DHALO = 3 * (DTW + 2);         // halo pixels of a tile (3 rows x 34)
+constexpr int DIRECT_MAX_CIN = 4;
+
+struct DirectArgs {
+  const float* x;          // (B, H, W, CIN)
+  const float* w;          // (3, 3, CIN, Cout)
+  const void* bias;        // (Cout,) or (B, Cout) of bias_dtype, or null
+  long long bias_bstride;  // 0 for a shared bias, Cout for per-batch
+  const float* residual;   // (B, H, W, Cout) or null
+  float* out;              // (B, H, W, Cout)
+  int B, H, W, Cout, bias_dtype, act;
+  int segs;                // DTW-pixel segments a row
+  int n_tiles;             // B * H * segs
+  int vec2;                // 1: float2 stores and residual loads (Cout even, 8-byte bases)
+};
+
+__device__ __forceinline__ float bias_at(const DirectArgs& a, long long o) {
+  return a.bias_dtype == 1 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.bias)[o])
+                           : static_cast<const float*>(a.bias)[o];
+}
+
+// this thread's halo pixel of tile `tile` (threads below DHALO; zero outside
+// the image and past the last tile): its CIN channels, padded to 4
+template <int CIN>
+__device__ __forceinline__ float4 direct_fetch(const DirectArgs& a, int tile) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  if (threadIdx.x < DHALO && tile < a.n_tiles) {
+    const int row = tile / a.segs, b = row / a.H, y = row - b * a.H;
+    const int yy = y + static_cast<int>(threadIdx.x) / (DTW + 2) - 1;
+    const int xx = (tile - row * a.segs) * DTW + static_cast<int>(threadIdx.x) % (DTW + 2) - 1;
+    if (yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) {
+      const float* src = a.x + (((long long)b * a.H + yy) * a.W + xx) * CIN;
+#pragma unroll
+      for (int ci = 0; ci < CIN; ++ci) c[ci] = __ldg(src + ci);
+    }
+  }
+  return make_float4(c[0], c[1], c[2], c[3]);
+}
+
+template <int CIN>
+__global__ void __launch_bounds__(DTHREADS, 2) conv_direct_f32(DirectArgs a) {
+  __shared__ float4 halo[2][DHALO];
+  const int n = blockIdx.y * DCOLS + DCPT * threadIdx.x;
+  const bool live = n < a.Cout, pair = n + 1 < a.Cout;
+  // the thread's weight: w[ky, kx, ci, n .. n + 1], 0 past Cout
+  float w[9][CIN][DCPT];
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+    for (int ci = 0; ci < CIN; ++ci) {
+      const float* src = a.w + (long long)(tap * CIN + ci) * a.Cout + n;
+      w[tap][ci][0] = live ? __ldg(src) : 0.f;
+      w[tap][ci][1] = pair ? __ldg(src + 1) : 0.f;
+    }
+  float bias[DCPT] = {0.f, 0.f};
+  if (a.bias && !a.bias_bstride) {
+    bias[0] = live ? bias_at(a, n) : 0.f;
+    bias[1] = pair ? bias_at(a, n + 1) : 0.f;
+  }
+
+  // tiles blockIdx.x, + gridDim.x, ...: the next tile's halo is fetched into
+  // registers before this tile's sums and stored to the other buffer after
+  int tile = blockIdx.x, cur = 0;
+  float4 next = direct_fetch<CIN>(a, tile);
+  if (threadIdx.x < DHALO) halo[0][threadIdx.x] = next;
+  __syncthreads();
+  for (; tile < a.n_tiles; tile += gridDim.x, cur ^= 1) {
+    next = direct_fetch<CIN>(a, tile + gridDim.x);
+    const int row = tile / a.segs, b = row / a.H;
+    const int x0 = (tile - row * a.segs) * DTW;
+    if (a.bias && a.bias_bstride) {
+      bias[0] = live ? bias_at(a, b * a.bias_bstride + n) : 0.f;
+      bias[1] = pair ? bias_at(a, b * a.bias_bstride + n + 1) : 0.f;
+    }
+#pragma unroll 1
+    for (int g = 0; g < DTW / DPG; ++g) {
+      // acc[p][c]: pixel x0 + DPG g + p, channel n + c, summed tap-major
+      // (ky, kx), channel inner: conv3x3_plain's order of K
+      float acc[DPG][DCPT] = {};
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        float4 win[DPG + 2];  // halo row ky, the DPG + 2 columns the group reads
+#pragma unroll
+        for (int j = 0; j < DPG + 2; ++j) win[j] = halo[cur][ky * (DTW + 2) + DPG * g + j];
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+          for (int ci = 0; ci < CIN; ++ci)
+#pragma unroll
+            for (int p = 0; p < DPG; ++p) {
+              const float xv = reinterpret_cast<const float*>(&win[p + kx])[ci];
+#pragma unroll
+              for (int c = 0; c < DCPT; ++c)
+                acc[p][c] = fmaf(xv, w[3 * ky + kx][ci][c], acc[p][c]);
+            }
+      }
+      // bias, residual, SiLU in f32 (store_out's order); a warp's 32 lanes
+      // write 64 consecutive channels of one pixel
+#pragma unroll
+      for (int p = 0; p < DPG; ++p) {
+        const int x = x0 + DPG * g + p;
+        if (!live || x >= a.W) continue;
+        const long long o = ((long long)row * a.W + x) * a.Cout + n;
+        float v[DCPT];
+#pragma unroll
+        for (int c = 0; c < DCPT; ++c) v[c] = acc[p][c] + bias[c];
+        if (a.residual) {
+          if (a.vec2) {
+            const float2 r = *reinterpret_cast<const float2*>(a.residual + o);
+            v[0] += r.x;
+            v[1] += r.y;
+          } else {
+            v[0] += a.residual[o];
+            if (pair) v[1] += a.residual[o + 1];
+          }
+        }
+        if (a.act == 1) {
+          v[0] = silu(v[0]);
+          v[1] = silu(v[1]);
+        }
+        if (a.vec2) {
+          *reinterpret_cast<float2*>(a.out + o) = make_float2(v[0], v[1]);
+        } else {
+          a.out[o] = v[0];
+          if (pair) a.out[o + 1] = v[1];
+        }
+      }
+    }
+    if (threadIdx.x < DHALO) halo[cur ^ 1][threadIdx.x] = next;
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -677,6 +847,40 @@ extern "C" int st_conv3x3(const float* x, const float* w, const void* bias, int 
   const long long M = (long long)B * H * W;
   const dim3 grid((unsigned)((M + CBM - 1) / CBM), (Cout + CBN - 1) / CBN);
   conv_scalar<<<grid, CTHREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The f32 direct conv for Cin <= 4: x (B, H, W, Cin), w (3, 3, Cin, Cout),
+// residual and out (B, H, W, Cout), f32, any alignment; bias and act as
+// st_conv3x3. The grid: up to two blocks an SM walking the row segments,
+// one column of blocks per 512 output channels. Returns a cudaError_t.
+extern "C" int st_conv3x3_direct(const float* x, const float* w, const void* bias, int bias_dtype,
+                                 long long bias_bstride, const float* residual, float* out,
+                                 int B, int H, int W, int Cin, int Cout, int act,
+                                 void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long segs = (W + DTW - 1) / DTW, tiles = (long long)B * H * segs;
+  if (B <= 0 || H <= 0 || W <= 0 || Cin < 1 || Cin > DIRECT_MAX_CIN || Cout <= 0 || act < 0 ||
+      act > 1 || bias_dtype < 0 || bias_dtype > 1 || tiles > 0x7FFFFFFFLL ||
+      (Cout + DCOLS - 1) / DCOLS > 65535)
+    return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const auto a8 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; };
+  const DirectArgs a{x, w, bias, bias_bstride, residual, out, B, H, W, Cout, bias_dtype, act,
+                     (int)segs, (int)tiles, Cout % 2 == 0 && a8(out) && a8(residual)};
+  const dim3 grid((unsigned)(tiles < 2LL * sms ? tiles : 2LL * sms), (Cout + DCOLS - 1) / DCOLS);
+  switch (Cin) {
+    case 1: conv_direct_f32<1><<<grid, DTHREADS, 0, stream>>>(a); break;
+    case 2: conv_direct_f32<2><<<grid, DTHREADS, 0, stream>>>(a); break;
+    case 3: conv_direct_f32<3><<<grid, DTHREADS, 0, stream>>>(a); break;
+    default: conv_direct_f32<4><<<grid, DTHREADS, 0, stream>>>(a); break;
+  }
   return (int)cudaGetLastError();
 }
 

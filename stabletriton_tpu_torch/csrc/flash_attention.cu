@@ -6,27 +6,30 @@
 //   _flash_kernel            (K3, head-major, KV blocked),
 //   _single_kv_kernel_bh     (K4, head-major, whole KV in one block),
 //   _single_kv_kernel        (K5, all heads, tiny KV of at most 128 keys).
-// JAX splits K1-K4 by VMEM and lane packing; on Hopper one templated kernel
-// (attn_wgmma_bf16<D>) computes all four in bf16. The routing rule that names
-// each launch's class lives in kernels/flash_attention.py.
+// JAX splits K1-K5 by VMEM, lane packing and key count; on Hopper two
+// templated kernels on one set of device steps (prescale_q, score_tile,
+// softmax_pv, store_rows) compute all five in bf16. The routing rule that
+// names each launch's class lives in kernels/flash_attention.py.
 //
 // Numerics follow the JAX kernels: q is multiplied by scale*log2(e) (the
 // caller passes it already rounded to the operand dtype) and rounded to the
 // operand dtype, as JAX's `q * asarray(scale * LOG2E, q.dtype)`; the
 // shift-free base-2 softmax p = exp2(min(s, 80)) (no running max, so no
-// rescale of the accumulator between KV tiles); padded keys give p = 0
-// (exp2(-1e30) == 0); f32 row sum l of the unrounded p, f32 accumulator of
-// bf16(p) . v; output acc / max(l, 1e-30), rounded once.
+// rescale of the accumulator between KV tiles); padded keys give p = 0;
+// f32 row sum l of the unrounded p, f32 accumulator of bf16(p) . v; output
+// acc * (1 / max(l, 1e-30)), rounded once.
 //
 // Operands are addressed by (base, batch stride, row stride, column offset),
 // so q, k and v may be column slices of one fused (B, S, 3C) QKV buffer or
 // of a fused (B, Sk, 2C) KV buffer: no split copies are made.
 //
 // Three kernels:
-//   attn_wgmma_bf16<D>   - bf16, D in {40, 64, 80, 160}: TMA + wgmma, a loop
-//                          over KV tiles of 64 keys. K1-K4.
-//   attn_tiny_kv_bf16<D> - bf16, the same D, Sk <= 128: the head's whole K and
-//                          V staged once, one score pass, no KV loop. K5.
+//   attn_wgmma_bf16<D>   - bf16, D in {40, 64, 80, 160}: TMA + wgmma, a block
+//                          a 128-row query tile, a loop over KV tiles of 64
+//                          keys. K1-K4.
+//   attn_tinykv_wgmma_bf16<D> - the same D, Sk <= 128: the head's whole K
+//                          and V resident (one TMA load), a block walking
+//                          several query tiles. K5.
 //   gemm_wgmma_tf32x3<MODE> - f32, D in {64, 512} (the VAE's mid-block, h=1,
 //                          d=512): attention as two launches of one 3xTF32
 //                          GEMM a chunk of query rows, S = Q K^T with the
@@ -53,14 +56,41 @@
 // past Sk would give s = 0, p = 1), sums the unrounded p per row in
 // registers, rounds p to bf16 in registers and feeds it as the register-A
 // operand of O += P V (V MN-major through the transpose flag): no score or P
-// tile goes through shared memory. The shift-free softmax needs no running
-// max and no rescale, so O and the row sums accumulate across KV tiles; the
-// row sums are reduced over the quad of lanes sharing a row once, at the end.
-// At D <= 64 a block takes 96 registers a thread and 80 KB, so two blocks
-// fit an SM and four consumer warpgroups can interleave their exponentials
-// and products. (A second score buffer, to compute the next tile's S under
-// this tile's exponentials, took 156 registers, left one block an SM and
-// measured slower.)
+// tile goes through shared memory. The shift-free
+// softmax needs no running max and no rescale, so O and the row sums
+// accumulate across KV tiles; the row sums are reduced over the quad of
+// lanes sharing a row once, at the end. At D <= 64 a block takes 96
+// registers a thread and 80 KB, so two blocks fit an SM and four consumer
+// warpgroups can interleave their exponentials and products. (A second
+// score buffer, to compute the next tile's S under this tile's
+// exponentials, took 156 registers, left one block an SM and measured
+// slower.)
+//
+// attn_tinykv_wgmma_bf16<D> (every bf16 launch with Sk <= 128: K5, SD1.5's
+// cross-attention against 77 keys and its mid-block self-attention over
+// 64, and K1's, SDXL's cross-attention). At Sk = 77 the work of a 128-row
+// tile is small (two 64-key score tiles, 5 k16 steps of P V, 80
+// exponentials a row), so a block of attn_wgmma_bf16 spends most of its
+// life on fixed work: barrier init, the K / V ring's loads and the wait for
+// its one Q tile. Here a block takes `tiles` consecutive query tiles of one
+// (batch, head) (the wrapper's tiny_kv_plan: enough blocks to fill the SMs,
+// two an SM at D <= 64, and at most 64 KB of Q). It has no producer warp
+// and no ring: thread 0 issues every load at the start, the head's whole K
+// and V (both 64-key halves, or one at Sk <= 64, of NB boxes each) onto one
+// barrier and each query tile onto its own, so the later tiles arrive under
+// the first one's math. Each consumer warpgroup prescales its rows of a
+// tile, runs score_tile and softmax_pv on each resident half (on the last
+// half only the k16 steps holding a key below Sk: 1 of 4 at Sk = 77; at D
+// <= 64 both halves' score tiles in one wgmma group, the first half's P V
+// running under the last half's exponentials) and stores its rows; a
+// warpgroup whose 64 rows lie past Sq (the mid block's Sq = 64) stops.
+// Without the producer warp a block is 256 threads, so two blocks an SM
+// get 128 registers a thread at D <= 64 (with the warp, 96 and spills).
+// Shared memory: K and V 8 KB a box and half, Q 16 KB a box and tile: 97 KB
+// at most at D <= 64, 129 KB at D = 80, 145 KB at D = 160 (one tile). With
+// so little math a tile, the per-tile instructions decide its time: the
+// prescale is one bf16x2 multiply a pair and the epilogue one reciprocal a
+// row (an f32 division an element cost the SD1.5 K5 launches 8-30%).
 //
 // Head dims. Q, K and V are read as boxes of 64 columns (one 128-byte
 // swizzle row): NB = ceil(D / 64) boxes at the head's first column, so a box
@@ -70,22 +100,13 @@
 // extra K columns add exactly 0; O's columns at or past D are computed and
 // never stored. Padding cost: S over 48 columns at D = 40 (20%), none at 64,
 // 80 and 160; O over 64 NB columns, 60% at D = 40 and 80, 20% at 160.
-// Shared memory: Q 16 KB and a stage (K + V) 16 KB per box; 4 / 3 / 2
-// stages at NB = 1 / 2 / 3 (80 / 128 / 144 KB). Registers: O takes 32 NB
-// f32 a thread (96 at D = 160) beside the 32 of S and 16 of P.
+// attn_wgmma_bf16's shared memory: Q 16 KB and a stage (K + V) 16 KB per
+// box; 4 / 3 / 2 stages at NB = 1 / 2 / 3 (80 / 128 / 144 KB). Registers: O
+// takes 32 NB f32 a thread (96 at D = 160) beside the 32 of S and 16 of P.
 //
 // q's prescale: Q arrives by TMA as it lies and each consumer warpgroup
 // multiplies its 64 rows by qscale in place, rounding to bf16 (JAX's
 // q * asarray(scale * LOG2E, q.dtype)), before its first wgmma.
-//
-// attn_tiny_kv_bf16<D> (WMMA 16x16x16 tiles, 4 warps of 16 query rows)
-// stages the head dim padded to a multiple of 16 with zero columns (20% at
-// D = 40). At Sk = 77 it reads q once and writes the output once (5.2 MB
-// each at B = 2, Sq = 4096, C = 320); its products are small and the bound
-// is the per-block fixed work (staging a head's K and V, the softmax pass),
-// which it keeps to one pass over the key fragments up to the last real key
-// (5 of the 8 fragments of its 128-row K buffer at Sk = 77). At D = 160 its
-// shared memory (159 KB) leaves one block per SM.
 //
 // gemm_wgmma_tf32x3<MODE> (tf32_gemm.cuh). At d = 512 the two products are 4 Sq Sk D = 550
 // GFLOP at S = 16384, and f32 accuracy is kept (one tf32 product alone is
@@ -117,13 +138,10 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "tf32_gemm.cuh"
 #include "wgmma.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -135,154 +153,13 @@ struct Operand {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 WMMA kernel (K5): 4 warps, BQ=64 query rows (16 per warp). A warp owns
-// its 16 rows through the whole kernel: scores, softmax, PV and the output.
-// The PV accumulator fragments stay in registers (D/16 fragments: 10 at
-// D=160, 80 registers a thread). The head dim is staged padded to DP =
-// round_up(D, 16).
+// bf16 attention on TMA + wgmma (K1-K5): the tiles, then the steps a
+// consumer warpgroup takes on one 128-row query tile, shared by
+// attn_wgmma_bf16 and attn_tinykv_wgmma_bf16
 // ---------------------------------------------------------------------------
-constexpr int WBQ = 64;
-constexpr int WTHREADS = 128;
-constexpr int TINY_BK = 128;   // the tiny-KV kernel's whole key buffer (K5)
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <int D>
-struct Head {
-  static constexpr int DP = (D + 15) / 16 * 16;  // padded head dim
-  static constexpr int LDH = DP + 8;              // bf16 operand row pitch
-  static constexpr int NF = DP / 16;              // 16-wide fragments across D
-};
-
-// shared memory: Q [WBQ][LDH], K and V [BK][LDH], P bf16 [WBQ][BK+8],
-// S f32 [WBQ][BK+4] (pitches multiples of 8 bf16 / 4 f32, as WMMA needs)
-template <int D, int BK>
-constexpr size_t wmma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * ((WBQ + 2 * BK) * Head<D>::LDH + WBQ * (BK + 8))
-       + sizeof(float) * WBQ * (BK + 4);
-}
-
-// Rows [row0, row0 + nrows) of one head's D columns -> dst[r][0, DP), 16-byte
-// loads; rows at or past `limit` and the pad columns [D, DP) are zero. With
-// SCALE each value is multiplied by qscale and rounded to bf16.
-template <int D, bool SCALE>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int row0, int nrows,
-                                          int limit, float qscale, int tid) {
-  constexpr int CH = Head<D>::DP / 8;
-  for (int idx = tid; idx < nrows * CH; idx += WTHREADS) {
-    int r = idx / CH, c = (idx % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (c < D && row0 + r < limit) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-      if (SCALE) {
-        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float2 f = __bfloat1622float2(h2[i]);
-          h2[i] = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * Head<D>::LDH + c) = val;
-  }
-}
-
-// dst (16 rows x 16 keys, f32, row-major, pitch lds) = Qw (16 x DP) . Kn^T,
-// Kn the 16 key rows of this fragment
-template <int D>
-__device__ __forceinline__ void score_fragment(float* dst, int lds, const __nv_bfloat16* Qw,
-                                               const __nv_bfloat16* Kn) {
-  constexpr int LDH = Head<D>::LDH;
-  AccFrag sacc;
-  wmma::fill_fragment(sacc, 0.f);
-#pragma unroll
-  for (int kk = 0; kk < Head<D>::NF; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bk;
-    wmma::load_matrix_sync(a, Qw + kk * 16, LDH);
-    wmma::load_matrix_sync(bk, Kn + kk * 16, LDH);
-    wmma::mma_sync(sacc, a, bk, sacc);
-  }
-  wmma::store_matrix_sync(dst, sacc, lds, wmma::mem_row_major);
-}
-
-// p = exp2(min(s, 80)) over columns [col0, col0 + ncols) of one row; columns at
-// or past `valid` are padded keys (p = 0). Writes bf16(p); returns the f32 sum.
-__device__ __forceinline__ float softmax_cols(const float* Srow, __nv_bfloat16* Prow,
-                                              int col0, int ncols, int valid) {
-  float l = 0.f;
-#pragma unroll 8
-  for (int c = col0; c < col0 + ncols; ++c) {
-    float p = c < valid ? exp2f(fminf(Srow[c], kClip)) : 0.f;
-    l += p;
-    Prow[c] = __float2bfloat16(p);
-  }
-  return l;
-}
-
-// oacc += Pw (16 x 16*nkf) . V (16*nkf x DP)
-template <int D>
-__device__ __forceinline__ void pv_accumulate(AccFrag (&oacc)[Head<D>::NF],
-                                              const __nv_bfloat16* Pw, int ldp,
-                                              const __nv_bfloat16* Vs, int nkf) {
-  constexpr int LDH = Head<D>::LDH;
-  for (int kk = 0; kk < nkf; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, Pw + kk * 16, ldp);
-#pragma unroll
-    for (int n = 0; n < Head<D>::NF; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-      wmma::load_matrix_sync(bv, Vs + kk * 16 * LDH + n * 16, LDH);
-      wmma::mma_sync(oacc[n], a, bv, oacc[n]);
-    }
-  }
-}
-
-// The warp's 16 output rows: acc / max(l, 1e-30), one bf16 rounding. Each
-// fragment passes through the warp's 16x16 f32 scratch Sw; lane (r, half)
-// stores 8 columns of row r = lane/2 as one 16-byte store. Columns at or past
-// D (the zero pad) are not stored; orow is null for a row past Sq.
-template <int D>
-__device__ __forceinline__ void store_output(AccFrag (&oacc)[Head<D>::NF], float* Sw, int lds,
-                                             float l, __nv_bfloat16* orow, int lane) {
-  const float lc = fmaxf(l, 1e-30f);
-  const int half = (lane % 2) * 8;
-  const float* src = Sw + (lane / 2) * lds + half;
-#pragma unroll
-  for (int n = 0; n < Head<D>::NF; ++n) {
-    __syncwarp();
-    wmma::store_matrix_sync(Sw, oacc[n], lds, wmma::mem_row_major);
-    __syncwarp();
-    const int col = n * 16 + half;
-    if (orow != nullptr && col < D) {
-      uint4 val;
-      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        h2[i] = __floats2bfloat162_rn(src[2 * i] / lc, src[2 * i + 1] / lc);
-      *reinterpret_cast<uint4*>(orow + col) = val;
-    }
-  }
-}
-
-// per-block operand pointers of head blockIdx.y, batch blockIdx.z
-__device__ __forceinline__ const __nv_bfloat16* head_ptr(const Operand& o, int D) {
-  return static_cast<const __nv_bfloat16*>(o.ptr) + blockIdx.z * o.batch_stride + o.col_offset
-       + blockIdx.y * D;
-}
-
-__device__ __forceinline__ __nv_bfloat16* out_row(__nv_bfloat16* out, int Sq, int H, int D,
-                                                  int qi) {
-  return qi < Sq ? out + ((long long)blockIdx.z * Sq + qi) * (H * D) + blockIdx.y * D
-                 : nullptr;
-}
-
-// ---------------------------------------------------------------------------
-// attn_wgmma_bf16<D> (K1-K4): see the note at the top
-// ---------------------------------------------------------------------------
-constexpr int GBQ = 128;  // query rows a block: two consumer warpgroups of 64
+constexpr int GBQ = 128;  // query rows a tile: two consumer warpgroups of 64
 constexpr int GBK = 64;   // keys a KV tile
+constexpr int TINY_SK = 2 * GBK;  // keys the tiny-KV kernel holds resident
 
 template <int D>
 struct Tiles {
@@ -295,6 +172,11 @@ struct Tiles {
   static constexpr int STAGE = 2 * NB * KV_BOX;  // the K boxes, then the V boxes
   // [pad to 1024][Q][STAGES x (K, V)][q_full, full[STAGES], empty[STAGES]]
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE + 8 * (1 + 2 * STAGES);
+  // the tiny-KV kernel: [pad to 1024][tiles x Q][halves x K][halves x V]
+  // [kv_full, q_full[tiles]], a half being the NB boxes of 64 keys
+  static constexpr int tiny_smem(int tiles, int halves) {
+    return 1024 + tiles * Q_BYTES + 2 * halves * NB * KV_BOX + 8 * (1 + tiles);
+  }
 };
 
 struct WgmmaArgs {
@@ -302,8 +184,225 @@ struct WgmmaArgs {
   int Sq, Sk, H;
   int q_col, k_col, v_col;      // the operands' first columns in their buffers
   float qscale;
+  int tiles;                    // 128-row query tiles a block stages (tiny-KV kernel)
 };
 
+// Q: this warpgroup's 64 rows of the tile at qt times qscale, rounded to
+// bf16, in place; columns at or past D zeroed. Piece i is 16 bytes: box i /
+// 512, row (i / 8) % 64 of the warpgroup, physical chunk i % 8 (the 128-byte
+// swizzle puts logical chunk c of row r at c ^ (r % 8)). qscale is a bf16
+// value, so a bf16x2 multiply (the exact product, rounded once) gives the
+// bits of the f32 product rounded to bf16, in one instruction a pair. Ends
+// with the warpgroup's 128 threads met (named barrier 2 + wgi), the writes
+// visible to wgmma.
+template <int D>
+__device__ __forceinline__ void prescale_q(uint8_t* qt, int wgi, float qscale) {
+  using T = Tiles<D>;
+  const int t = threadIdx.x % 128;
+  const __nv_bfloat162 s2 = __float2bfloat162_rn(qscale);
+  for (int i = t; i < T::NB * 64 * 8; i += 128) {
+    const int j = i / 512, row = wgi * 64 + (i / 8) % 64, pc = i % 8;
+    const int col = 64 * j + 8 * (pc ^ (row & 7));
+    uint4* piece = reinterpret_cast<uint4*>(qt + j * T::Q_BOX + row * 128 + pc * 16);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (col < D) {
+      v = *piece;
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h2[e] = __hmul2(h2[e], s2);
+    }
+    *piece = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wgi) : "memory");
+}
+
+// sacc = S = Q K^T of this warpgroup's 64 rows (qw: their first row in the
+// Q tile) against the 64 keys of the K boxes at kt (Q and K both K-major:
+// a K row is head-dim contiguous); returns when the wgmmas are done.
+// Accumulator i of an m64nN tile lies at row 16 warp + g + 8 ((i >> 1) & 1)
+// and column 8 (i >> 2) + 2 c + (i & 1), g = lane / 4, c = lane % 4.
+template <int D>
+__device__ __forceinline__ void score_tile(float (&sacc)[32], uint32_t qw, uint32_t kt) {
+  using T = Tiles<D>;
+  wg::fence_acc(sacc);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::KS; ++kk)
+    wg::wgmma_ss_n64(sacc,
+                     wg::desc_sw128(qw + (kk / 4) * T::Q_BOX + (kk % 4) * 32, 16, wg::SW_ROWS8),
+                     wg::desc_sw128(kt + (kk / 4) * T::KV_BOX + (kk % 4) * 32, 16, wg::SW_ROWS8),
+                     kk);
+  wg::wgmma_commit();
+  wg::wgmma_wait<0>();
+  wg::fence_acc(sacc);
+}
+
+// p = exp2(min(s, 80)) on the score tile of keys key0 .. key0 + 63, 0 for
+// keys at or past Sk (TMA's zero fill past Sk would give s = 0, p = 1);
+// the unrounded p summed into lsum (rows g and g + 8: this thread's share)
+// and rounded to bf16 pairs as P's register-A fragments: P's fragment of
+// k16 step kk (rows g / g + 8, keys 16 kk + 2c (+8)) is the score
+// accumulators 8 kk .. 8 kk + 7 in order. Only the first STEPS k16 steps
+// are taken (the tiny-KV kernel's last half: those holding a key below
+// Sk); a compile-time count, since a branch around the exponentials or the
+// wgmmas costs attn_wgmma_bf16 a third of its time (ptxas fences the
+// accumulators around a wgmma under a branch, C7519, and the exponentials
+// of a k16 step no longer interleave with the next step's).
+template <int STEPS>
+__device__ __forceinline__ void softmax_frags(const float (&sacc)[32], uint32_t (&pf)[STEPS][4],
+                                              float (&lsum)[2], int key0, int Sk) {
+  const int lane = threadIdx.x % 32;
+  const bool ragged = key0 + 16 * STEPS > Sk;
+  const int kq = key0 + 2 * (lane % 4);
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 8 * kk + 2 * r, key = kq + 8 * (i >> 2);
+      float p0 = exp2f(fminf(sacc[i], kClip)), p1 = exp2f(fminf(sacc[i + 1], kClip));
+      if (ragged) {
+        p0 = key < Sk ? p0 : 0.f;
+        p1 = key + 1 < Sk ? p1 : 0.f;
+      }
+      lsum[r & 1] += p0 + p1;
+      __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
+      pf[kk][r] = *reinterpret_cast<uint32_t*>(&pb);
+    }
+}
+
+// O += P V over STEPS k16 steps, P from registers, V (the NB boxes at vt)
+// MN-major through the transpose flag: the wgmmas issued after a fence of
+// the fragments, not committed
+template <int D, int STEPS>
+__device__ __forceinline__ void issue_pv(uint32_t (&pf)[STEPS][4],
+                                         float (&oacc)[Tiles<D>::NB][32], uint32_t vt) {
+  using T = Tiles<D>;
+  wg::fence_frag(pf);
+#pragma unroll
+  for (int n = 0; n < T::NB; ++n) wg::fence_acc(oacc[n]);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk)
+#pragma unroll
+    for (int n = 0; n < T::NB; ++n)
+      wg::wgmma_rs_n64(oacc[n], pf[kk],
+                       wg::desc_sw128(vt + n * T::KV_BOX + kk * 16 * 128, T::KV_BOX,
+                                      wg::SW_ROWS8));
+}
+
+template <int D, int STEPS = 4>
+__device__ __forceinline__ void softmax_pv(const float (&sacc)[32],
+                                           float (&oacc)[Tiles<D>::NB][32], float (&lsum)[2],
+                                           uint32_t vt, int key0, int Sk) {
+  uint32_t pf[STEPS][4];
+  softmax_frags<STEPS>(sacc, pf, lsum, key0, Sk);
+  issue_pv<D, STEPS>(pf, oacc, vt);
+  wg::wgmma_commit();
+  wg::wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < Tiles<D>::NB; ++n) wg::fence_acc(oacc[n]);
+  wg::fence_frag(pf);
+}
+
+// The tiny-KV kernel's tile at 64 < Sk <= 128: both halves' score tiles in
+// one wgmma group, then the first half's P V in flight under the last
+// half's exponentials (two waits a tile, not four). STEPS: the last half's
+// k16 steps holding a key below Sk.
+template <int D, int STEPS>
+__device__ __forceinline__ void two_halves(float (&s0)[32], float (&s1)[32],
+                                           float (&oacc)[Tiles<D>::NB][32], float (&lsum)[2],
+                                           uint32_t qw, uint32_t kt, uint32_t vt, int Sk) {
+  using T = Tiles<D>;
+  constexpr int HALF = T::NB * T::KV_BOX;
+  wg::fence_acc(s0);
+  wg::fence_acc(s1);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::KS; ++kk) {
+    const uint64_t dq = wg::desc_sw128(qw + (kk / 4) * T::Q_BOX + (kk % 4) * 32, 16, wg::SW_ROWS8);
+    const uint32_t ko = (kk / 4) * T::KV_BOX + (kk % 4) * 32;
+    wg::wgmma_ss_n64(s0, dq, wg::desc_sw128(kt + ko, 16, wg::SW_ROWS8), kk);
+    wg::wgmma_ss_n64(s1, dq, wg::desc_sw128(kt + HALF + ko, 16, wg::SW_ROWS8), kk);
+  }
+  wg::wgmma_commit();
+  wg::wgmma_wait<0>();
+  wg::fence_acc(s0);
+  wg::fence_acc(s1);
+  uint32_t p0[4][4], p1[STEPS][4];
+  softmax_frags<4>(s0, p0, lsum, 0, Sk);
+  issue_pv<D, 4>(p0, oacc, vt);
+  wg::wgmma_commit();
+  softmax_frags<STEPS>(s1, p1, lsum, GBK, Sk);
+  issue_pv<D, STEPS>(p1, oacc, vt + HALF);
+  wg::wgmma_commit();
+  wg::wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < T::NB; ++n) wg::fence_acc(oacc[n]);
+  wg::fence_frag(p0);
+  wg::fence_frag(p1);
+}
+
+// row sums over the quad; out = O * (1 / max(l, 1e-30)), one rounding,
+// 16-byte stores of 8 columns after a transpose across the quad (a division
+// an element was a fifth of the tiny-KV kernel's time; the reciprocal moves
+// an output by at most an f32 ulp before its bf16 rounding). Query rows
+// from q0 + 64 wgi; rows at or past Sq and columns at or past D are not
+// stored.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&oacc)[Tiles<D>::NB][32],
+                                           const float (&lsum)[2], const WgmmaArgs& a, int b,
+                                           int h, int q0, int wgi) {
+  using T = Tiles<D>;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = lsum[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    lc[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+  const int C = a.H * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wgi * 64 + warp * 16 + lane / 4 + 8 * r;
+#pragma unroll
+    for (int n = 0; n < T::NB; ++n)
+#pragma unroll
+      for (int g4 = 0; g4 < 2; ++g4) {
+        float2 p[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int i = (4 * g4 + jj) * 4 + 2 * r;
+          p[jj] = make_float2(oacc[n][i], oacc[n][i + 1]);
+        }
+        float o[8];
+        wg::quad_transpose(p, o);
+        const int col = 64 * n + 32 * g4 + 8 * (lane % 4);
+        if (qi >= a.Sq || col >= D) continue;
+        uint4 val;
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h2[e] = __floats2bfloat162_rn(o[2 * e] * lc[r], o[2 * e + 1] * lc[r]);
+        *reinterpret_cast<uint4*>(a.out + ((long long)b * a.Sq + qi) * C + h * D + col) = val;
+      }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero_acc(float (&oacc)[Tiles<D>::NB][32], float (&lsum)[2]) {
+#pragma unroll
+  for (int n = 0; n < Tiles<D>::NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[n][i] = 0.f;
+  lsum[0] = lsum[1] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// attn_wgmma_bf16<D> (K1-K4): see the note at the top
+// ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(wg::THREADS, 1)
     attn_wgmma_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -351,188 +450,114 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     return;
   }
 
-  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
-  // Q: this warpgroup's 64 rows times qscale, rounded to bf16, in place;
-  // columns at or past D zeroed. Piece i is 16 bytes: box i / 512, row
-  // (i / 8) % 64 of the warpgroup, physical chunk i % 8 (the 128-byte
-  // swizzle puts logical chunk c of row r at c ^ (r % 8)).
   wg::bar_wait(q_full, 0);
-  for (int i = t; i < T::NB * 64 * 8; i += 128) {
-    const int j = i / 512, row = wgi * 64 + (i / 8) % 64, pc = i % 8;
-    const int col = 64 * j + 8 * (pc ^ (row & 7));
-    uint4* piece =
-        reinterpret_cast<uint4*>(gsmem + (qt - base) + j * T::Q_BOX + row * 128 + pc * 16);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (col < D) {
-      v = *piece;
-      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        h2[e] = __floats2bfloat162_rn(f.x * a.qscale, f.y * a.qscale);
-      }
-    }
-    *piece = v;
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wgi) : "memory");
-
-  // accumulator i of an m64nN tile lies at row 16 warp + g + 8 ((i >> 1) & 1)
-  // and column 8 (i >> 2) + 2 c + (i & 1), g = lane / 4, c = lane % 4
-  float sacc[32], oacc[T::NB][32];
+  prescale_q<D>(gsmem + (qt - base), wgi, a.qscale);
+  float sacc[32], oacc[T::NB][32], lsum[2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
-#pragma unroll
-  for (int n = 0; n < T::NB; ++n)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) oacc[n][i] = 0.f;
-  float lsum[2] = {0.f, 0.f};  // rows g and g + 8: this thread's share
+  zero_acc<D>(oacc, lsum);
   const uint32_t qw = qt + wgi * 64 * 128;
   for (int it = 0; it < nt; ++it) {
     const int s = it % T::STAGES;
-    const uint32_t kt = ring + s * T::STAGE, vt = kt + T::NB * T::KV_BOX;
+    const uint32_t kt = ring + s * T::STAGE;
     wg::bar_wait(full(s), (it / T::STAGES) & 1);
-    wg::fence_acc(sacc);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < T::KS; ++kk)
-      wg::wgmma_ss_n64(sacc,
-                       wg::desc_sw128(qw + (kk / 4) * T::Q_BOX + (kk % 4) * 32, 16, wg::SW_ROWS8),
-                       wg::desc_sw128(kt + (kk / 4) * T::KV_BOX + (kk % 4) * 32, 16, wg::SW_ROWS8),
-                       kk);
-    wg::wgmma_commit();
-    wg::wgmma_wait<0>();
-    wg::fence_acc(sacc);
-
-    // p = exp2(min(s, 80)), 0 for keys at or past Sk; P's register-A
-    // fragments (k16 step kk: rows g / g + 8, keys 16 kk + 2c (+8)) are the
-    // score accumulators 8 kk .. 8 kk + 7 in order, rounded to bf16 pairs
-    const int key0 = it * GBK + 2 * (lane % 4);
-    const bool ragged = (it + 1) * GBK > a.Sk;
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = 8 * kk + 2 * r, key = key0 + 8 * (i >> 2);
-        float p0 = exp2f(fminf(sacc[i], kClip)), p1 = exp2f(fminf(sacc[i + 1], kClip));
-        if (ragged) {
-          p0 = key < a.Sk ? p0 : 0.f;
-          p1 = key + 1 < a.Sk ? p1 : 0.f;
-        }
-        lsum[r & 1] += p0 + p1;
-        __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
-        pf[kk][r] = *reinterpret_cast<uint32_t*>(&pb);
-      }
-
-    wg::fence_frag(pf);
-#pragma unroll
-    for (int n = 0; n < T::NB; ++n) wg::fence_acc(oacc[n]);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < T::NB; ++n)
-        wg::wgmma_rs_n64(oacc[n], pf[kk],
-                         wg::desc_sw128(vt + n * T::KV_BOX + kk * 16 * 128, T::KV_BOX,
-                                        wg::SW_ROWS8));
-    wg::wgmma_commit();
-    wg::wgmma_wait<0>();
-#pragma unroll
-    for (int n = 0; n < T::NB; ++n) wg::fence_acc(oacc[n]);
-    wg::fence_frag(pf);
-    if (t == 0) wg::bar_arrive(empty(s));
+    score_tile<D>(sacc, qw, kt);
+    softmax_pv<D>(sacc, oacc, lsum, kt + T::NB * T::KV_BOX, it * GBK, a.Sk);
+    if (threadIdx.x % 128 == 0) wg::bar_arrive(empty(s));
   }
-
-  // row sums over the quad; out = O / max(l, 1e-30), one rounding, 16-byte
-  // stores of 8 columns after a transpose across the quad
-  float lc[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = lsum[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    lc[r] = fmaxf(l, 1e-30f);
-  }
-  const int C = a.H * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + wgi * 64 + warp * 16 + lane / 4 + 8 * r;
-#pragma unroll
-    for (int n = 0; n < T::NB; ++n)
-#pragma unroll
-      for (int g4 = 0; g4 < 2; ++g4) {
-        float2 p[4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int i = (4 * g4 + jj) * 4 + 2 * r;
-          p[jj] = make_float2(oacc[n][i], oacc[n][i + 1]);
-        }
-        float o[8];
-        wg::quad_transpose(p, o);
-        const int col = 64 * n + 32 * g4 + 8 * (lane % 4);
-        if (qi >= a.Sq || col >= D) continue;
-        uint4 val;
-        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          h2[e] = __floats2bfloat162_rn(o[2 * e] / lc[r], o[2 * e + 1] / lc[r]);
-        *reinterpret_cast<uint4*>(a.out + ((long long)b * a.Sq + qi) * C + h * D + col) = val;
-      }
-  }
+  store_rows<D>(oacc, lsum, a, b, h, q0, wgi);
 }
 
-// K5: Sk <= TINY_BK. The head's whole K and V are staged once, in 16-row
-// fragments up to the last real key; one score pass over them, no KV loop.
-template <int D>
-__global__ void __launch_bounds__(WTHREADS)
-attn_tiny_kv_bf16(Operand q, Operand k, Operand v, __nv_bfloat16* __restrict__ out,
-                  int Sq, int Sk, int H, float qscale) {
-  constexpr int BK = TINY_BK, LDH = Head<D>::LDH, LDP = BK + 8, LDS = BK + 4;
-  extern __shared__ __align__(128) unsigned char wsmem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(wsmem);
-  __nv_bfloat16* Ks = Qs + WBQ * LDH;
-  __nv_bfloat16* Vs = Ks + BK * LDH;
-  __nv_bfloat16* Ps = Vs + BK * LDH;
-  float* Ss = reinterpret_cast<float*>(Ps + WBQ * LDP);
+// ---------------------------------------------------------------------------
+// attn_tinykv_wgmma_bf16<D> (K5, Sk <= 128): see the note at the top
+// ---------------------------------------------------------------------------
+constexpr int TINY_THREADS = 256;  // two consumer warpgroups, no producer warp
+constexpr int TINY_MAX_Q = 64 * 1024;  // bytes of Q tiles a block stages
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * WBQ;
-  const int nkf = (Sk + 15) / 16;  // key fragments holding real keys
-  load_rows<D, true>(Qs, head_ptr(q, D), q.row_stride, q0, WBQ, Sq, qscale, tid);
-  load_rows<D, false>(Ks, head_ptr(k, D), k.row_stride, 0, nkf * 16, Sk, 0.f, tid);
-  load_rows<D, false>(Vs, head_ptr(v, D), v.row_stride, 0, nkf * 16, Sk, 0.f, tid);
+template <int D>
+__global__ void __launch_bounds__(TINY_THREADS, D <= 64 ? 2 : 1)
+    attn_tinykv_wgmma_bf16(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, WgmmaArgs a) {
+  using T = Tiles<D>;
+  extern __shared__ __align__(16) uint8_t gsmem[];
+  const uint32_t base = wg::smem_u32(gsmem);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q_tiles = (a.Sq + GBQ - 1) / GBQ, tile0 = blockIdx.x * a.tiles;
+  const int ntiles = min(a.tiles, q_tiles - tile0), halves = a.Sk > GBK ? 2 : 1;
+  const uint32_t qs = (base + 1023u) & ~1023u;          // the block's Q tiles
+  const uint32_t kt = qs + a.tiles * T::Q_BYTES;         // the halves' K boxes
+  const uint32_t vt = kt + halves * T::NB * T::KV_BOX;   // the halves' V boxes
+  const uint32_t kv_full = vt + halves * T::NB * T::KV_BOX;
+  auto q_full = [&](int i) { return kv_full + 8 * (1 + i); };
+  if (threadIdx.x == 0) {
+    wg::bar_init(kv_full, 1);
+    for (int i = 0; i < ntiles; ++i) wg::bar_init(q_full(i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // every load at once: the head's K and V (both halves), then the
+    // block's query tiles in order, each on its own barrier
+    wg::bar_expect_tx(kv_full, 2 * halves * T::NB * T::KV_BOX);
+    for (int hf = 0; hf < halves; ++hf)
+#pragma unroll
+      for (int j = 0; j < T::NB; ++j) {
+        const uint32_t o = (hf * T::NB + j) * T::KV_BOX;
+        wg::tma_load_3d(kt + o, &tk, kv_full, a.k_col + h * D + 64 * j, hf * GBK, b);
+        wg::tma_load_3d(vt + o, &tv, kv_full, a.v_col + h * D + 64 * j, hf * GBK, b);
+      }
+    for (int i = 0; i < ntiles; ++i) {
+      wg::bar_expect_tx(q_full(i), T::Q_BYTES);
+#pragma unroll
+      for (int j = 0; j < T::NB; ++j)
+        wg::tma_load_3d(qs + i * T::Q_BYTES + j * T::Q_BOX, &tq, q_full(i),
+                        a.q_col + h * D + 64 * j, (tile0 + i) * GBQ, b);
+    }
+  }
   __syncthreads();
 
-  const __nv_bfloat16* Qw = Qs + warp * 16 * LDH;
-  __nv_bfloat16* Pw = Ps + warp * 16 * LDP;
-  float* Sw = Ss + warp * 16 * LDS;
-  for (int n = 0; n < nkf; ++n) score_fragment<D>(Sw + n * 16, LDS, Qw, Ks + n * 16 * LDH);
-  __syncwarp();
-  // lane -> row lane/2, half of the nkf*16 staged key columns
-  const int prow = lane / 2;
-  float l = softmax_cols(Sw + prow * LDS, Pw + prow * LDP, (lane % 2) * nkf * 8, nkf * 8, Sk);
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  __syncwarp();
-
-  AccFrag oacc[Head<D>::NF];
+  const int wgi = threadIdx.x / 128;
+  const int steps = (a.Sk - (halves - 1) * GBK + 15) / 16;  // the last half's live k16 steps
+  float s0[32], s1[32], oacc[T::NB][32], lsum[2];
 #pragma unroll
-  for (int n = 0; n < Head<D>::NF; ++n) wmma::fill_fragment(oacc[n], 0.f);
-  pv_accumulate<D>(oacc, Pw, LDP, Vs, nkf);
-  store_output<D>(oacc, Sw, LDS, l, out_row(out, Sq, H, D, q0 + warp * 16 + prow), lane);
-}
-
-template <int D>
-cudaError_t launch_tiny(Operand q, Operand k, Operand v, void* out, int B, int Sq, int Sk, int H,
-                        float qscale, cudaStream_t stream) {
-  const size_t smem = wmma_smem_bytes<D, TINY_BK>();
-  cudaError_t err = cudaFuncSetAttribute(attn_tiny_kv_bf16<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + WBQ - 1) / WBQ, H, B);
-  attn_tiny_kv_bf16<D><<<grid, WTHREADS, smem, stream>>>(
-      q, k, v, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, qscale);
-  return cudaGetLastError();
+  for (int i = 0; i < 32; ++i) s0[i] = s1[i] = 0.f;
+  wg::bar_wait(kv_full, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int q0 = (tile0 + i) * GBQ;
+    if (q0 + wgi * 64 >= a.Sq) break;  // this warpgroup's rows all lie past Sq
+    const uint32_t qt = qs + i * T::Q_BYTES, qw = qt + wgi * 64 * 128;
+    wg::bar_wait(q_full(i), 0);
+    prescale_q<D>(gsmem + (qt - base), wgi, a.qscale);
+    zero_acc<D>(oacc, lsum);
+    // each half in turn; at one box (D <= 64) two halves at once (with more
+    // boxes the second score tile's registers cost more than the overlap)
+    auto each_half = [&] {
+      for (int hf = 0; hf < halves; ++hf) {
+        const uint32_t v = vt + hf * T::NB * T::KV_BOX;
+        const int key0 = hf * GBK;
+        score_tile<D>(s0, qw, kt + hf * T::NB * T::KV_BOX);
+        switch (hf + 1 < halves ? 4 : steps) {
+          case 1: softmax_pv<D, 1>(s0, oacc, lsum, v, key0, a.Sk); break;
+          case 2: softmax_pv<D, 2>(s0, oacc, lsum, v, key0, a.Sk); break;
+          case 3: softmax_pv<D, 3>(s0, oacc, lsum, v, key0, a.Sk); break;
+          default: softmax_pv<D>(s0, oacc, lsum, v, key0, a.Sk);
+        }
+      }
+    };
+    if constexpr (T::NB == 1) {
+      if (halves == 2) {
+        switch (steps) {
+          case 1: two_halves<D, 1>(s0, s1, oacc, lsum, qw, kt, vt, a.Sk); break;
+          case 2: two_halves<D, 2>(s0, s1, oacc, lsum, qw, kt, vt, a.Sk); break;
+          case 3: two_halves<D, 3>(s0, s1, oacc, lsum, qw, kt, vt, a.Sk); break;
+          default: two_halves<D, 4>(s0, s1, oacc, lsum, qw, kt, vt, a.Sk);
+        }
+      } else {
+        each_half();
+      }
+    } else {
+      each_half();
+    }
+    store_rows<D>(oacc, lsum, a, b, h, q0, wgi);
+  }
 }
 
 // the tensor map of one operand: its buffer's rows (B, S, ..) up to the
@@ -545,65 +570,82 @@ bool operand_map(CUtensorMap* map, const Operand& o, int S, int B, int last_col,
   return wg::make_map(map, o.ptr, 3, dims, strides, box);
 }
 
+// kernel 1: attn_wgmma_bf16, a block a 128-row query tile; kernel 2:
+// attn_tinykv_wgmma_bf16, a block `tiles` query tiles of one (batch, head),
+// at most TINY_MAX_Q bytes of them
 template <int D>
-cudaError_t launch_wgmma(Operand q, Operand k, Operand v, void* out, int B, int Sq, int Sk, int H,
-                         float qscale, cudaStream_t stream) {
+cudaError_t launch_bf16(int kernel, Operand q, Operand k, Operand v, void* out, int B, int Sq,
+                        int Sk, int H, float qscale, int tiles, cudaStream_t stream) {
+  using T = Tiles<D>;
   CUtensorMap tq, tk, tv;
   const int C = H * D;
   if (!operand_map(&tq, q, Sq, B, (int)q.col_offset + C, GBQ) ||
       !operand_map(&tk, k, Sk, B, (int)k.col_offset + C, GBK) ||
       !operand_map(&tv, v, Sk, B, (int)v.col_offset + C, GBK))
     return cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles<D>::SMEM);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
   const WgmmaArgs a{static_cast<__nv_bfloat16*>(out), Sq, Sk, H, (int)q.col_offset,
-                    (int)k.col_offset, (int)v.col_offset, qscale};
-  dim3 grid((Sq + GBQ - 1) / GBQ, H, B);
-  attn_wgmma_bf16<D><<<grid, wg::THREADS, Tiles<D>::SMEM, stream>>>(tq, tk, tv, a);
+                    (int)k.col_offset, (int)v.col_offset, qscale, tiles};
+  const int q_tiles = (Sq + GBQ - 1) / GBQ;
+  if (kernel == 1) {
+    static bool attr_set = false;
+    if (!attr_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          attn_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      if (err != cudaSuccess) return err;
+      attr_set = true;
+    }
+    attn_wgmma_bf16<D><<<dim3(q_tiles, H, B), wg::THREADS, T::SMEM, stream>>>(tq, tk, tv, a);
+  } else {
+    constexpr int max_tiles = TINY_MAX_Q / T::Q_BYTES;
+    if (tiles > max_tiles) return cudaErrorInvalidValue;
+    static bool attr_set = false;
+    if (!attr_set) {
+      const cudaError_t err = cudaFuncSetAttribute(attn_tinykv_wgmma_bf16<D>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   T::tiny_smem(max_tiles, 2));
+      if (err != cudaSuccess) return err;
+      attr_set = true;
+    }
+    const int smem = T::tiny_smem(tiles, Sk > GBK ? 2 : 1);
+    attn_tinykv_wgmma_bf16<D><<<dim3((q_tiles + tiles - 1) / tiles, H, B), TINY_THREADS, smem,
+                                stream>>>(tq, tk, tv, a);
+  }
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(bool tiny_kv, Operand q, Operand k, Operand v, void* out, int B, int Sq,
-                        int Sk, int H, float qscale, cudaStream_t stream) {
-  return tiny_kv ? launch_tiny<D>(q, k, v, out, B, Sq, Sk, H, qscale, stream)
-                 : launch_wgmma<D>(q, k, v, out, B, Sq, Sk, H, qscale, stream);
-}
-
 bool aligned16(const Operand& o) {
-  // 16-byte vector loads of bf16 rows: base, strides and offset in 8-element units
+  // 16-byte TMA rows: base, strides and offset in 8-element units
   return (reinterpret_cast<uintptr_t>(o.ptr) % 16 == 0) && (o.row_stride % 8 == 0) &&
          (o.batch_stride % 8 == 0) && (o.col_offset % 8 == 0);
 }
 
 }  // namespace
 
-// kernel: 1 = attn_wgmma_bf16, 2 = attn_tiny_kv_bf16 (bfloat16 operands).
-// qscale = scale*log2(e), rounded to bfloat16. Returns a cudaError_t (0 on
-// success), or -1 when the kernel has no instance for this head dim, key
-// count or operand alignment (nothing is launched).
+// kernel: 1 = attn_wgmma_bf16, 2 = attn_tinykv_wgmma_bf16 (bfloat16
+// operands; Sk <= 128, `tiles` query tiles of 128 rows a block, 1 to
+// 64 KB / (16 KB x ceil(D / 64))). qscale =
+// scale*log2(e), rounded to bfloat16. Returns a cudaError_t (0 on success),
+// or -1 when the kernel has no instance for this head dim, key count or
+// operand alignment (nothing is launched).
 extern "C" int st_flash_attention(
     const void* q, long long q_sb, long long q_ss, long long q_off,
     const void* k, long long k_sb, long long k_ss, long long k_off,
     const void* v, long long v_sb, long long v_ss, long long v_off,
-    void* out, int B, int Sq, int Sk, int H, int D, int kernel, float qscale,
+    void* out, int B, int Sq, int Sk, int H, int D, int kernel, float qscale, int tiles,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Operand oq{q, q_sb, q_ss, q_off}, ok{k, k_sb, k_ss, k_off}, ov{v, v_sb, v_ss, v_off};
-  if ((kernel != 1 && kernel != 2) || !(aligned16(oq) && aligned16(ok) && aligned16(ov)))
+  if ((kernel != 1 && kernel != 2) || !(aligned16(oq) && aligned16(ok) && aligned16(ov)) ||
+      (kernel == 2 && (Sk > TINY_SK || tiles < 1)))
     return -1;
-  const bool tiny_kv = kernel == 2;
-  if (tiny_kv && Sk > TINY_BK) return -1;
   switch (D) {
-    case 40: return (int)launch_bf16<40>(tiny_kv, oq, ok, ov, out, B, Sq, Sk, H, qscale, stream);
-    case 64: return (int)launch_bf16<64>(tiny_kv, oq, ok, ov, out, B, Sq, Sk, H, qscale, stream);
-    case 80: return (int)launch_bf16<80>(tiny_kv, oq, ok, ov, out, B, Sq, Sk, H, qscale, stream);
-    case 160: return (int)launch_bf16<160>(tiny_kv, oq, ok, ov, out, B, Sq, Sk, H, qscale,
+    case 40: return (int)launch_bf16<40>(kernel, oq, ok, ov, out, B, Sq, Sk, H, qscale, tiles,
+                                         stream);
+    case 64: return (int)launch_bf16<64>(kernel, oq, ok, ov, out, B, Sq, Sk, H, qscale, tiles,
+                                         stream);
+    case 80: return (int)launch_bf16<80>(kernel, oq, ok, ov, out, B, Sq, Sk, H, qscale, tiles,
+                                         stream);
+    case 160: return (int)launch_bf16<160>(kernel, oq, ok, ov, out, B, Sq, Sk, H, qscale, tiles,
                                            stream);
     default: return -1;
   }

@@ -33,8 +33,14 @@ weight into a K-major (Cout_pad, 9*Cin) big part exact in tf32 and the small
 rest (:func:`tf32_split`, plain torch on the weight at every launch, no
 cache: ``chip_smoke.py`` times it beside each f32 conv, PERF.md has the
 numbers), the kernel splits x the same way in registers and sums three
-tf32 products. Other f32 convs (the decoder's conv_in, Cin 4) go to the scalar
-kernel. The launch key names the kernel (:func:`conv_variant`).
+tf32 products. f32 convs with Cin <= 4 (the decoders' conv_in, Cin 4 ->
+512, which writes 33.5 MB at 128^2 after 36 FMAs an output) go to the
+direct kernel: each thread holds its 2 output channels' weights in
+registers, a block of 256 spans 512 channels, the input's halo sits in
+shared memory and a warp stores 256 contiguous bytes. The rest of f32
+(the GroupNorm prologue, Cin > 4 and no multiple of 8, a misaligned base)
+goes to the scalar kernel. The launch key names the kernel
+(:func:`conv_variant`).
 
 Routing is by shape, as in ``conv2d_direct`` of the JAX package: a 3x3,
 stride-1, padding-1 conv goes to the kernel; the strided downsamplers, the
@@ -115,6 +121,10 @@ _TF32_ARGTYPES = [_P, _P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 10 + [
 #                  tw, th, tb, bn, splits, stream)
 _WGMMA_ARGTYPES = ([_P, _P, _P, _I, ctypes.c_longlong, _P, _P, _P] + [_I] * 6
                    + [_P, _P, _I] + [_I] * 5 + [_P])
+# st_conv3x3_direct(x, w, bias, bias_dtype, bias_bstride, residual, out, B, H,
+#                   W, Cin, Cout, act, stream): f32, Cin <= DIRECT_MAX_CIN
+_DIRECT_ARGTYPES = [_P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P]
+DIRECT_MAX_CIN = 4  # the direct kernel's largest instance (csrc/conv3x3.cu)
 
 
 def conv_variant(x_shape: tuple[int, ...], cout: int, dtype: torch.dtype,
@@ -122,11 +132,16 @@ def conv_variant(x_shape: tuple[int, ...], cout: int, dtype: torch.dtype,
     """The kernel that takes a 3x3 conv of x (B, H, W, Cin) to ``cout``
     channels: in bf16 "wgmma_bf16" where ``wgmma_plan.conv_fits`` (Cout a
     multiple of 8 or at most 8; any Cin; room for the prologue's staging),
-    else None: no kernel takes it; in float32 "wgmma_tf32x3" for Cin % 8 ==
-    0 with x aligned (``aligned``: x's base is 16-byte aligned) and no
-    GroupNorm prologue, "scalar" for the rest."""
+    else None: no kernel takes it; in float32 without a GroupNorm prologue
+    "direct_f32" for Cin <= DIRECT_MAX_CIN (any alignment) and
+    "wgmma_tf32x3" for Cin % 8 == 0 with x aligned (``aligned``: x's base
+    is 16-byte aligned); "scalar" for the rest."""
     if dtype != torch.bfloat16:
-        return "wgmma_tf32x3" if x_shape[3] % 8 == 0 and aligned and not gn else "scalar"
+        if gn:
+            return "scalar"
+        if x_shape[3] <= DIRECT_MAX_CIN:
+            return "direct_f32"
+        return "wgmma_tf32x3" if x_shape[3] % 8 == 0 and aligned else "scalar"
     return "wgmma_bf16" if wgmma_plan.conv_fits(*x_shape, cout, gn=gn) else None
 
 
@@ -255,6 +270,15 @@ def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor
             check(code, "st_conv3x3_tf32x3")
             return out, (f"wgmma_tf32x3 b={n} {h}x{wd} {cin}->{cout} "
                          f"tile={tile.tw}x{tile.th}x{tile.tb}")
+        if variant == "direct_f32":
+            if dtype != torch.float32 or gn is not None or cin > DIRECT_MAX_CIN:
+                raise ValueError(f"the direct conv kernel takes float32 x with Cin <= "
+                                 f"{DIRECT_MAX_CIN} and no GroupNorm prologue")
+            code = function("st_conv3x3_direct", _DIRECT_ARGTYPES)(
+                x.data_ptr(), w.data_ptr(), *bias_args, res_ptr, out.data_ptr(), n, h, wd, cin,
+                cout, ACT_CODES[act], stream)
+            check(code, "st_conv3x3_direct")
+            return out, f"direct_f32 b={n} {h}x{wd} {cin}->{cout}"
         if variant != "scalar" or dtype != torch.float32:
             raise ValueError(f"conv kernel {variant!r} does not take {dtype} operands")
         code = function("st_conv3x3", _CONV_ARGTYPES)(

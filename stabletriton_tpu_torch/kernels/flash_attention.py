@@ -11,15 +11,17 @@ not pack; the VAE mid-block, h=1, d=512, f32); and ``_single_kv_kernel``
 attention against 77 keys). :func:`attention_class` is that rule; each
 launch is counted under its class.
 
-On the card, bf16 runs ``attn_wgmma_bf16<D>`` (K1-K4: JAX splits them only
-by VMEM; TMA loads of K and V tiles and wgmma products with the scores and
-P kept in registers) or ``attn_tiny_kv_bf16<D>`` (K5) for D in {40, 64, 80,
-160}. What bounds them and what their design does about it is in the
-source's note: the shift-free softmax ``exp2(min(s, 80))`` of the JAX
-kernels needs no running max, so the accumulator is never rescaled and
-stays in registers across KV tiles; q, k and v are read straight out of the
-fused projection buffers by (row stride, column offset), so no split copies
-are made.
+On the card, bf16 runs ``attn_wgmma_bf16<D>`` (K1-K4 above 128 keys: TMA
+loads of K and V tiles and wgmma products with the scores and P kept in
+registers) or ``attn_tinykv_wgmma_bf16<D>`` (at most 128 keys: K5 and K1's
+cross-attention; the same device steps with the head's whole K and V
+resident, a block taking the query tiles of :func:`tiny_kv_plan`) for D in
+{40, 64, 80, 160}; each launch is still counted under its class. What
+bounds them and what their design does about it is in the source's note:
+the shift-free softmax ``exp2(min(s, 80))`` of the JAX kernels needs no
+running max, so the accumulator is never rescaled and stays in registers
+across KV tiles; q, k and v are read straight out of the fused projection
+buffers by (row stride, column offset), so no split copies are made.
 
 f32 (D in {64, 512}: the VAE's mid-block attention, h=1, d=512) runs as two
 launches of one 3xTF32 GEMM, ``gemm_wgmma_tf32x3``, a chunk of query rows
@@ -32,13 +34,17 @@ is read in place and scaled in the kernel's registers.
 
 The plain version (:func:`attention_plain`) computes the same function in
 PyTorch; the wrappers use it only for tensors that lie on the CPU. A CUDA
-tensor goes to a kernel or the wrapper raises.
+tensor goes to a kernel or the wrapper raises. What a launch's signature
+decides (checks, class, kernel, the rounded q scale, the tile plan, the
+launch key) is computed once per signature (:func:`_route`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -77,13 +83,38 @@ def attention_class(h: int, d: int, sk: int) -> str:
     return "K4" if sk <= 1024 else "K3"
 
 
-def kernel_name(cls: str, dtype: torch.dtype) -> str:
-    """The CUDA kernel that runs a launch of class ``cls``: in bf16 the
-    tiny-KV kernel for K5 and the wgmma kernel for K1-K4; in f32 the 3xTF32
-    GEMM, whatever the class."""
+def kernel_name(dtype: torch.dtype, sk: int) -> str:
+    """The CUDA kernel that runs a launch, whatever its class: in bf16 the
+    tiny-KV wgmma kernel for at most TINY_KV_KEYS keys (K5, and K1's
+    cross-attention against 77 keys, where it measured faster than the KV
+    loop at both SDXL shapes, PERF.md) and the wgmma kernel above; in f32
+    the 3xTF32 GEMM."""
     if dtype != torch.bfloat16:
         return "wgmma_tf32x3"
-    return "tinykv_bf16" if cls == "K5" else "wgmma_bf16"
+    return "tinykv_wgmma_bf16" if sk <= TINY_KV_KEYS else "wgmma_bf16"
+
+
+QUERY_TILE = 128  # query rows of a tile of the bf16 kernels
+TINY_KV_KEYS = 128  # keys the tiny-KV kernel holds resident
+TINY_KV_Q_BOXES = 4  # 16 KB boxes of query tiles a tiny-KV block stages (64 KB)
+
+
+class TinyKvPlan(NamedTuple):
+    tiles: int   # consecutive 128-row query tiles of one (batch, head) a block takes
+    blocks: int  # the grid: b * h * ceil(query tiles / tiles)
+
+
+def tiny_kv_plan(b: int, h: int, sq: int, d: int) -> TinyKvPlan:
+    """The tiny-KV kernel's grid: the fewest query tiles a block that still
+    fit the card's resident blocks in one wave (two an SM at d <= 64, where
+    a block takes 128 registers a thread; one above), so a block pays its
+    barrier init and K / V load once for several tiles; at most the tiles
+    whose Q fits TINY_KV_Q_BOXES boxes of 64 columns."""
+    q_tiles = -(-sq // QUERY_TILE)
+    slots = wgmma_plan.SMS * (2 if d <= 64 else 1)
+    cap = TINY_KV_Q_BOXES // -(-d // 64)
+    tiles = min(cap, max(1, -(-(b * h * q_tiles) // slots)))
+    return TinyKvPlan(tiles, b * h * -(-q_tiles // tiles))
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,16 +139,18 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype).transpose(1, 2).reshape(b, sq, c)
 
 
+# st_flash_attention(3 x (ptr, batch stride, row stride, column offset), out,
+#                    B, Sq, Sk, H, D, kernel, qscale, tiles, stream)
 _ATTN_ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] * 3
-    + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 # st_attention_tf32x3(q, q_sb, q_ss, q_off, k_big, k_small, vt_big, vt_small,
 #                     p, l, out, B, Sq, Sk, H, D, rows, qscale, stream)
 _TF32_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 7
                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 # the bf16 C entry point's kernel codes
-_KERNEL_CODES = {"wgmma_bf16": 1, "tinykv_bf16": 2}
+_KERNEL_CODES = {"wgmma_bf16": 1, "tinykv_wgmma_bf16": 2}
 # the f32 kernel's tiles: 128 query rows x 128 keys; the score workspace of
 # one chunk of query rows (f32 P) is held to this many bytes
 TF32_TILE = 128
@@ -148,60 +181,100 @@ def tf32_attention_operands(k: torch.Tensor, v: torch.Tensor, num_heads: int):
     return (*wgmma_plan.tf32_parts(kh), *wgmma_plan.tf32_parts(vt))
 
 
+class Route(NamedTuple):
+    """What a launch's signature decides."""
+    cls: str       # the JAX package's Pallas kernel it stands in for (K1-K5)
+    kernel: str
+    qscale: float  # scale * log2(e) rounded to the operand dtype
+    tiles: int     # query tiles a block walks (the tiny-KV kernel's plan; else 1)
+    key: str       # the launch key
+
+
+@functools.lru_cache(maxsize=None)
+def _route(dtype: torch.dtype, b: int, sq: int, sk: int, num_heads: int, d: int,
+           scale: float | None, kernel: str | None, offsets: tuple) -> Route:
+    """A launch's signature, checked (the ValueError of a bad one; the
+    cache keeps no exception, so a bad call raises anew every time) and
+    routed. ``kernel`` names the kernel, else :func:`kernel_name` picks it
+    by dtype and key count. Pure and cached: the host item of the rounded q
+    scale and the key's string are made once, not on each of a step's
+    launches."""
+    if dtype not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes float32 or bfloat16 operands, got {dtype}")
+    if d not in HEAD_DIMS[dtype]:
+        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS[dtype]} "
+                         f"in {dtype}, got {d}")
+    if sk < 1:
+        raise ValueError("attention needs at least one key")
+    if dtype == torch.bfloat16 and any(off % 8 for off in offsets):
+        raise ValueError("bf16 attention operands must be 16-byte aligned "
+                         "(base, row and batch strides, column offsets)")
+    cls = attention_class(num_heads, d, sk)
+    kernel = kernel or kernel_name(dtype, sk)
+    if kernel not in (_KERNEL_CODES if dtype == torch.bfloat16 else ("wgmma_tf32x3",)):
+        raise ValueError(f"attention kernel {kernel} does not take {dtype} operands")
+    if kernel == "tinykv_wgmma_bf16" and sk > TINY_KV_KEYS:
+        raise ValueError(f"attention kernel {kernel} takes at most {TINY_KV_KEYS} keys, "
+                         f"got {sk}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    # scale*log2(e) rounded to the operand dtype, as JAX's asarray(.., q.dtype)
+    qscale = torch.tensor(scale * LOG2E, dtype=dtype).item()
+    tiles = tiny_kv_plan(b, num_heads, sq, d).tiles if kernel == "tinykv_wgmma_bf16" else 1
+    return Route(cls, kernel, qscale, tiles,
+                 f"{cls} {kernel} b={b} h={num_heads} d={d} sq={sq} sk={sk}")
+
+
+def _check_buffers(bufs, dtype) -> None:
+    """The checks of one launch that its signature does not decide: the
+    buffers' device, dtype and layout."""
+    dev = bufs[0].device
+    for t in bufs:
+        if t.device != dev:
+            raise ValueError("attention operands lie on different devices")
+        if t.dtype != dtype:
+            raise ValueError(f"attention kernel takes float32 or bfloat16 operands "
+                             f"of one dtype, got {[t.dtype for t in bufs]}")
+        if t.dim() != 3 or t.stride(2) != 1:
+            raise ValueError("attention operands must be (B, S, X) with a contiguous last dim")
+        # 16-byte TMA rows: base, strides in 8-element units
+        if dtype == torch.bfloat16 and (t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8):
+            raise ValueError("bf16 attention operands must be 16-byte aligned "
+                             "(base, row and batch strides, column offsets)")
+
+
 def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
             scale, kernel=None) -> torch.Tensor:
     """Launch a kernel on (buffer, column offset) operands: each buffer is a
     (B, S, X) tensor whose last dim is contiguous; the head-h columns of the
     operand start at ``offset + h*d``. ``kernel`` names the kernel, else
-    :func:`kernel_name` picks it by class."""
-    bufs = (q_buf, k_buf, v_buf)
-    dev = q_buf.device
+    :func:`kernel_name` picks it."""
     dtype = q_buf.dtype
-    if any(t.device != dev for t in bufs):
-        raise ValueError("attention operands lie on different devices")
-    if any(t.dtype != dtype for t in bufs) or dtype not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes float32 or bfloat16 operands "
-                         f"of one dtype, got {[t.dtype for t in bufs]}")
-    if d not in HEAD_DIMS[dtype]:
-        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS[dtype]} "
-                         f"in {dtype}, got {d}")
-    if any(t.dim() != 3 or t.stride(2) != 1 for t in bufs):
-        raise ValueError("attention operands must be (B, S, X) with a contiguous last dim")
-    if sk < 1:
-        raise ValueError("attention needs at least one key")
-    cls = attention_class(num_heads, d, sk)
-    if dtype == torch.bfloat16:
-        # 16-byte vector loads and TMA rows: base, strides and column offsets
-        # in 8-element units
-        if any(t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8 for t in bufs) or any(
-                off % 8 for off in (q_off, k_off, v_off)):
-            raise ValueError("bf16 attention operands must be 16-byte aligned "
-                             "(base, row and batch strides, column offsets)")
-    kernel = kernel or kernel_name(cls, dtype)
-    b = q_buf.shape[0]
-    c = num_heads * d
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    # scale*log2(e) rounded to the operand dtype, as JAX's asarray(.., q.dtype)
-    qscale = torch.tensor(scale * LOG2E, dtype=dtype).item()
+    route = _route(dtype, q_buf.shape[0], sq, sk, num_heads, d, scale, kernel,
+                   (q_off, k_off, v_off))
+    _check_buffers((q_buf, k_buf, v_buf), dtype)
+    dev = q_buf.device
+    b, c = q_buf.shape[0], num_heads * d
     out = torch.empty((b, sq, c), dtype=dtype, device=dev)
     with on_device(dev):
         stream = current_stream(dev)
-        if kernel == "wgmma_tf32x3":
+        if route.kernel == "wgmma_tf32x3":
             _launch_tf32(q_buf, q_off, k_buf[..., k_off:k_off + c], v_buf[..., v_off:v_off + c],
-                         out, sq=sq, sk=sk, num_heads=num_heads, qscale=qscale, stream=stream)
+                         out, sq=sq, sk=sk, num_heads=num_heads, qscale=route.qscale,
+                         stream=stream)
         else:
             code = function("st_flash_attention", _ATTN_ARGTYPES)(
                 q_buf.data_ptr(), q_buf.stride(0), q_buf.stride(1), q_off,
                 k_buf.data_ptr(), k_buf.stride(0), k_buf.stride(1), k_off,
                 v_buf.data_ptr(), v_buf.stride(0), v_buf.stride(1), v_off,
-                out.data_ptr(), b, sq, sk, num_heads, d, _KERNEL_CODES[kernel], qscale, stream,
+                out.data_ptr(), b, sq, sk, num_heads, d, _KERNEL_CODES[route.kernel],
+                route.qscale, route.tiles, stream,
             )
             if code == -1:
-                raise ValueError(f"attention kernel {kernel} has no instance for "
+                raise ValueError(f"attention kernel {route.kernel} has no instance for "
                                  f"d={d} sk={sk}")
             check(code, "st_flash_attention")
-    LAUNCHES.add(f"{cls} {kernel} b={b} h={num_heads} d={d} sq={sq} sk={sk}")
+    LAUNCHES.add(route.key)
     return out
 
 

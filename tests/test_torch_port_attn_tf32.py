@@ -107,9 +107,10 @@ def test_f32_attention_routes_to_the_tf32_kernel():
     takes both f32 head dims; bf16 keeps its kernels."""
     for h, d, sk in [(1, 512, 16384), (1, 512, 4096), (1, 64, 300), (2, 64, 77), (3, 64, 2000)]:
         cls = tfa.attention_class(h, d, sk)
-        assert tfa.kernel_name(cls, torch.float32) == "wgmma_tf32x3"
-    assert tfa.kernel_name("K3", torch.float32) == "wgmma_tf32x3"
-    assert tfa.kernel_name("K3", torch.bfloat16) == "wgmma_bf16"
+        assert cls in ("K1", "K3", "K5")
+        assert tfa.kernel_name(torch.float32, sk) == "wgmma_tf32x3"
+    assert tfa.kernel_name(torch.float32, 16384) == "wgmma_tf32x3"
+    assert tfa.kernel_name(torch.bfloat16, 16384) == "wgmma_bf16"
     assert tfa.HEAD_DIMS[torch.float32] == (64, 512)
     assert all(d % 32 == 0 for d in tfa.HEAD_DIMS[torch.float32])  # k steps of 32 f32
 

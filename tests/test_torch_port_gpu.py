@@ -42,7 +42,7 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,h,sq,sk,tol", [
-    (torch.bfloat16, 64, 4, 200, 77, 2e-2),    # cross, WMMA kernel, ragged tiles
+    (torch.bfloat16, 64, 4, 200, 77, 2e-2),    # cross, tiny-KV kernel, ragged tiles
     (torch.bfloat16, 64, 2, 300, 300, 2e-2),   # self, several KV tiles
     (torch.float32, 512, 1, 100, 130, 1e-4),   # VAE head dim, 3xTF32 kernel
     (torch.float32, 64, 2, 70, 33, 1e-4),
@@ -70,7 +70,7 @@ def test_gpu_attention_kernel_vs_plain(cuda_device, dtype, d, h, sq, sk, tol):
     (80, 2, 130, 77, "kv", "K5"),
     (160, 2, 64, 64, "qkv", "K5"),     # SD1.5 mid self-attention
     (64, 3, 50, 100, "kv", "K5"),      # d=64 with 3 heads does not pack
-    (40, 2, 100, 17, "kv", "K5"),      # 15 pad keys in the staged fragments: the
+    (40, 2, 100, 17, "kv", "K5"),      # 15 pad keys in the last k16 step: the
     (160, 2, 64, 33, "kv", "K5"),      # mask, not the tolerance, keeps them out
     (40, 2, 300, 300, "qkv", "K4"),    # several KV tiles, ragged last tile
     (80, 2, 256, 256, "qkv", "K4"),
@@ -98,7 +98,7 @@ def test_gpu_attention_routes_by_class(cuda_device, d, h, sq, sk, form, cls):
     torch.cuda.synchronize()
     new = {k: n - before.get(k, 0) for k, n in tfa.LAUNCHES.by_key.items()
            if n != before.get(k, 0)}
-    kernel = "tinykv_bf16" if cls == "K5" else "wgmma_bf16"
+    kernel = "tinykv_wgmma_bf16" if sk <= 128 else "wgmma_bf16"
     assert new == {f"{cls} {kernel} b=2 h={h} d={d} sq={sq} sk={sk}": 1}
     assert _rel_err(out, ref) <= 2e-2
 
@@ -217,6 +217,123 @@ def test_gpu_attention_refuses_what_no_kernel_takes(cuda_device):
     assert tfa.LAUNCHES.count == before
 
 
+# the SD1.5 512^2 path's K5 launches (CFG batch 2, 8 heads): cross against
+# 77 keys at the three levels, the mid block's self-attention over 64
+SD15_K5 = [(40, 4096, 77, "kv"), (80, 1024, 77, "kv"), (160, 256, 77, "kv"),
+           (160, 64, 64, "qkv")]
+
+
+def _tinykv(d, sq, sk, form, h=8, seed=0):
+    """Operands of a K5 launch (bf16; q and the fused buffers) and its two
+    runs: the wrapper and the plain version."""
+    c = h * d
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if form == "qkv":
+        qkv = torch.randn((2, sq, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+        return (lambda: tfa.flash_attention_qkv(qkv, num_heads=h),
+                lambda: tfa.attention_plain(*qkv.chunk(3, -1), num_heads=h))
+    q = torch.randn((2, sq, c), generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.randn((2, sk, 2 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    return (lambda: tfa.flash_attention_kv(q, kv, num_heads=h),
+            lambda: tfa.attention_plain(q, *kv.chunk(2, -1), num_heads=h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,sq,sk,form", SD15_K5)
+def test_gpu_tinykv_at_sd15_shapes(cuda_device, d, sq, sk, form):
+    """attn_tinykv_wgmma_bf16 at the SD1.5 path's full K5 shapes, against
+    attention_plain; one launch under its class and kernel; a second launch
+    gives the same bits (no atomics, a fixed order)."""
+    run, plain = _tinykv(d, sq, sk, form, seed=d + sq)
+    assert tfa.attention_class(8, d, sk) == "K5"
+    before = dict(tfa.LAUNCHES.by_key)
+    out = run()
+    torch.cuda.synchronize()
+    assert _new_keys(tfa.LAUNCHES, before) == {
+        f"K5 tinykv_wgmma_bf16 b=2 h=8 d={d} sq={sq} sk={sk}": 1}
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, plain()) <= 2e-2
+    assert torch.equal(run(), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,sq", [(10, 4096), (20, 1024)])
+def test_gpu_tinykv_runs_sdxl_cross_attention_as_k1(cuda_device, h, sq):
+    """SDXL's cross-attention (d = 64 heads packed, 77 keys) on the tiny-KV
+    kernel at its full shapes, counted under K1; the same bits twice."""
+    run, plain = _tinykv(64, sq, 77, "kv", h=h, seed=h)
+    before = dict(tfa.LAUNCHES.by_key)
+    out = run()
+    torch.cuda.synchronize()
+    assert _new_keys(tfa.LAUNCHES, before) == {
+        f"K1 tinykv_wgmma_bf16 b=2 h={h} d=64 sq={sq} sk=77": 1}
+    assert _rel_err(out, plain()) <= 2e-2
+    assert torch.equal(run(), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sk", [1, 17, 64, 77, 128])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_gpu_tinykv_key_counts_vs_plain(cuda_device, d, sk):
+    """One key, a ragged k16 step, exactly one and two 64-key halves: k and
+    v are column slices of the first Sk rows of a wider fused KV buffer
+    whose rows past Sk hold 1e4, so a key past Sk that was not masked, or a
+    V row read past Sk, shows. Sq = 300 walks three query tiles, the last
+    ragged; h = 3 does not pack at d = 64."""
+    h, sq = 3, 300
+    c = h * d
+    gen = torch.Generator(device=cuda_device).manual_seed(5 * d + sk)
+    q = torch.randn((2, sq, c), generator=gen, device=cuda_device).to(torch.bfloat16)
+    kv = torch.randn((2, sk + 40, 2 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+    kv[:, sk:] = 1e4
+    kv_rows = kv[:, :sk]
+    before = dict(tfa.LAUNCHES.by_key)
+    out = tfa.flash_attention_kv(q, kv_rows, num_heads=h)
+    torch.cuda.synchronize()
+    assert [k.split()[:2] for k in _new_keys(tfa.LAUNCHES, before)] == [
+        ["K5", "tinykv_wgmma_bf16"]]
+    assert torch.isfinite(out).all()
+    ref = tfa.attention_plain(q, kv_rows[..., :c], kv_rows[..., c:], num_heads=h)
+    assert _rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", [1, 2, 3, 4])
+def test_gpu_tinykv_any_tile_plan(cuda_device, tiles, monkeypatch):
+    """The kernel's result does not depend on how many query tiles a block
+    takes (up to its 64 KB of Q; a block's last tiles past Sq): the same
+    bits at every plan, and tiny_kv_plan's own among them."""
+    run, plain = _tinykv(40, 1000, 77, "kv", seed=3)
+    want = run()
+    monkeypatch.setattr(tfa, "tiny_kv_plan", lambda b, h, sq, d: tfa.TinyKvPlan(tiles, 0))
+    tfa._route.cache_clear()
+    try:
+        got = run()
+    finally:
+        monkeypatch.undo()
+        tfa._route.cache_clear()
+    assert torch.equal(got, want)
+    assert _rel_err(got, plain()) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_gpu_tinykv_refuses_misaligned_and_long_kv(cuda_device):
+    """A misaligned bf16 operand raises before any launch, as for the other
+    kernels; more than 128 keys on the tiny-KV kernel raises."""
+    before = tfa.LAUNCHES.count
+    buf = torch.randn((2, 64, 8 * 40 + 4), device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.randn((2, 77, 2 * 8 * 40), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention_kv(buf[..., 4:], kv, num_heads=8)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._launch(buf, 4, kv, 0, kv, 320, sq=64, sk=77, num_heads=8, d=40, scale=None)
+    long_kv = torch.randn((2, 129, 2 * 8 * 40), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 128 keys"):
+        tfa._launch(buf[..., :320].contiguous(), 0, long_kv, 0, long_kv, 320, sq=64, sk=129,
+                    num_heads=8, d=40, scale=None, kernel="tinykv_wgmma_bf16")
+    assert tfa.LAUNCHES.count == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,cin,cout,tol", [
     (torch.bfloat16, 64, 96, 2e-2), (torch.bfloat16, 4, 3, 2e-2),
@@ -260,6 +377,67 @@ def test_gpu_tf32_conv_vs_plain(cuda_device, cin, cout, bias_kind, res, act):
     torch.cuda.synchronize()
     assert [k.split()[0] for k in _new_keys(tconv.LAUNCHES, before)] == ["wgmma_tf32x3"]
     assert _rel_err(out, tconv.conv3x3_plain(x, w, bias, residual=r, act=act)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cout", [((1, 128, 128, 4), 512), ((1, 37, 53, 4), 512),
+                                        ((2, 37, 53, 3), 70), ((1, 9, 33, 1), 5)])
+@pytest.mark.parametrize("bias_kind,res,act", [("shared", False, None), ("batch", True, "silu"),
+                                               ("bf16", True, None), (None, False, "silu")])
+def test_gpu_direct_conv_vs_plain(cuda_device, shape, cout, bias_kind, res, act):
+    """conv_direct_f32 (Cin <= 4) against the f32 plain conv (TF32 off)
+    within 1e-5 of the largest output: the VAE decoder's conv_in at 128^2,
+    ragged row segments (W = 53, 33) and rows, Cout odd and below a block's
+    512, every epilogue form; one launch of the direct kernel; the same bits
+    twice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape) + cout)
+    x = torch.randn(shape, generator=gen, device=cuda_device)
+    cin = shape[3]
+    w = torch.randn((3, 3, cin, cout), generator=gen, device=cuda_device) / (9 * cin) ** 0.5
+    bias = (None if bias_kind is None else
+            torch.randn((shape[0], cout) if bias_kind == "batch" else (cout,), generator=gen,
+                        device=cuda_device))
+    if bias_kind == "bf16":
+        bias = bias.to(torch.bfloat16)
+    r = torch.randn((*shape[:3], cout), generator=gen, device=cuda_device) if res else None
+    before = dict(tconv.LAUNCHES.by_key)
+    out = tconv.conv3x3(x, w, bias, residual=r, act=act)
+    torch.cuda.synchronize()
+    b, h, wd, _ = shape
+    assert _new_keys(tconv.LAUNCHES, before) == {f"direct_f32 b={b} {h}x{wd} {cin}->{cout}": 1}
+    assert _rel_err(out, tconv.conv3x3_plain(x, w, bias, residual=r, act=act)) <= 1e-5
+    assert torch.equal(tconv.conv3x3(x, w, bias, residual=r, act=act), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,gn,offset", [(12, False, 0), (8, False, 1), (4, True, 0),
+                                           (32, True, 0)])
+def test_gpu_scalar_conv_on_the_shapes_it_keeps(cuda_device, cin, gn, offset):
+    """conv_scalar takes what neither the direct nor the 3xTF32 kernel
+    does: f32 Cin > 4 that is no multiple of 8, an f32 base off 16 bytes at
+    Cin % 8 == 0, and the GroupNorm prologue in f32; against the plain
+    versions (TF32 off)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(cin + offset)
+    n = 2 * 11 * 13 * cin
+    x = torch.randn(n + offset, generator=gen, device=cuda_device)[offset:].view(2, 11, 13, cin)
+    w = torch.randn((3, 3, cin, 24), generator=gen, device=cuda_device) / (9 * cin) ** 0.5
+    bias = torch.randn((2, 24), generator=gen, device=cuda_device)
+    r = torch.randn((2, 11, 13, 24), generator=gen, device=cuda_device)
+    assert tconv.conv_variant(tuple(x.shape), 24, torch.float32, x.data_ptr() % 16 == 0,
+                              gn) == "scalar"
+    counter = tconv.GN_LAUNCHES if gn else tconv.LAUNCHES
+    before = dict(counter.by_key)
+    if gn:
+        scale = torch.rand((2, cin), generator=gen, device=cuda_device) + 0.5
+        shift = torch.randn((2, cin), generator=gen, device=cuda_device)
+        out = tconv.gn_conv3x3(x, scale, shift, w, bias, residual=r, act="silu")
+        ref = tconv.gn_conv3x3_plain(x, scale, shift, w, bias, residual=r, act="silu")
+    else:
+        out = tconv.conv3x3(x, w, bias, residual=r, act="silu")
+        ref = tconv.conv3x3_plain(x, w, bias, residual=r, act="silu")
+    torch.cuda.synchronize()
+    assert [k.split()[0] for k in _new_keys(counter, before)] == ["scalar"]
+    assert _rel_err(out, ref) <= 1e-4
 
 
 @pytest.mark.gpu

@@ -49,7 +49,7 @@ def test_tf32_split_is_exact(cin, cout):
 
 def test_vae_decoder_convs_route_to_tf32():
     """Of the SDXL VAE decoder's 33 3x3 convs, the 32 with Cin % 8 == 0 go
-    to the tf32 kernel and conv_in (Cin = 4) to the scalar kernel."""
+    to the tf32 kernel and conv_in (Cin = 4) to the direct kernel."""
     shapes = tvae.vae_decoder_param_shapes(tvae.sdxl_vae_config())
     routes = {}
     for name, shape in shapes.items():
@@ -57,7 +57,7 @@ def test_vae_decoder_convs_route_to_tf32():
             route = tconv.conv_variant((1, 128, 128, shape[2]), shape[3], torch.float32)
             routes.setdefault(route, []).append(name)
     assert len(routes["wgmma_tf32x3"]) == 32
-    assert routes["scalar"] == ["decoder.conv_in.weight"]
+    assert routes["direct_f32"] == ["decoder.conv_in.weight"]
 
 
 def _tf32(t: torch.Tensor) -> torch.Tensor:

@@ -86,9 +86,12 @@ def test_conv_routes_by_tma_terms(shape, cout, want):
     assert tconv.conv_variant(shape, cout, BF16, gn=True) == want
     # a misaligned bf16 base is copied to an aligned one: the same kernel
     assert tconv.conv_variant(shape, cout, BF16, aligned=False) == "wgmma_bf16"
-    f32 = "wgmma_tf32x3" if shape[3] % 8 == 0 else "scalar"
+    # f32: Cin 4 on the direct kernel at any alignment, Cin % 8 == 0 on the
+    # 3xTF32 one where x is aligned, else the scalar one
+    f32 = "wgmma_tf32x3" if shape[3] % 8 == 0 else "direct_f32"
     assert tconv.conv_variant(shape, cout, torch.float32) == f32
-    assert tconv.conv_variant(shape, cout, torch.float32, aligned=False) == "scalar"
+    assert tconv.conv_variant(shape, cout, torch.float32, aligned=False) == (
+        "scalar" if shape[3] % 8 == 0 else "direct_f32")
 
 
 def test_conv_prologue_routes_by_staging_room():
@@ -363,20 +366,22 @@ def test_bias_dtype_reaches_the_plain_versions_unchanged():
 # --------------------------------------------------------------------------
 
 # (h, d, sk) of the SDXL and SD1.5 paths' attention launches -> the kernel
-ATTENTION_KERNELS = {(20, 64, 1024): "wgmma_bf16", (10, 64, 77): "wgmma_bf16",
-                     (20, 64, 77): "wgmma_bf16", (10, 64, 4096): "wgmma_bf16",
+ATTENTION_KERNELS = {(20, 64, 1024): "wgmma_bf16", (10, 64, 77): "tinykv_wgmma_bf16",
+                     (20, 64, 77): "tinykv_wgmma_bf16", (10, 64, 4096): "wgmma_bf16",
                      (8, 40, 4096): "wgmma_bf16", (8, 80, 1024): "wgmma_bf16",
-                     (8, 160, 256): "wgmma_bf16", (8, 40, 77): "tinykv_bf16",
-                     (8, 160, 64): "tinykv_bf16"}
+                     (8, 160, 256): "wgmma_bf16", (8, 40, 77): "tinykv_wgmma_bf16",
+                     (8, 160, 64): "tinykv_wgmma_bf16"}
 
 
 @pytest.mark.parametrize("h,d,sk", sorted(ATTENTION_KERNELS))
 def test_attention_classes_route_to_kernels(h, d, sk):
-    """K1-K4 run the wgmma kernel, K5 the tiny-KV one; f32 the 3xTF32 GEMM."""
+    """bf16 at most 128 keys (K5, K1's cross-attention) runs the tiny-KV
+    wgmma kernel, above it the wgmma kernel; f32 the 3xTF32 GEMM."""
     cls = tfa.attention_class(h, d, sk)
-    assert tfa.kernel_name(cls, BF16) == ATTENTION_KERNELS[(h, d, sk)]
-    assert (cls == "K5") == (ATTENTION_KERNELS[(h, d, sk)] == "tinykv_bf16")
-    assert tfa.kernel_name(cls, torch.float32) == "wgmma_tf32x3"
+    assert tfa.kernel_name(BF16, sk) == ATTENTION_KERNELS[(h, d, sk)]
+    assert (sk <= 128) == (ATTENTION_KERNELS[(h, d, sk)] == "tinykv_wgmma_bf16")
+    assert cls != "K5" or sk <= 128
+    assert tfa.kernel_name(torch.float32, sk) == "wgmma_tf32x3"
 
 
 def _box_attention(qkv, h, d, sk_pad):
