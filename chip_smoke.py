@@ -11,11 +11,11 @@ phase 5e (the same, and its 12 longest kernels);
 ``--plans`` times the wgmma kernels at forced tile widths and K splits
 beside the planner's choice and a plain wave-filling rule's (before phase
 3). ``--host-time`` only builds the kernels and prints the host time a
-launch of the linear, conv, GroupNorm, LayerNorm and attention wrappers,
-of bare C entries and of the fused GN conv op, of the package in DIR (a copy of
-another tree, to compare two in one run) or of this checkout, with the
-skinny linear's and LayerNorm's device time and their PyTorch calls'; it
-prints no result line.
+launch of the linear, conv, GroupNorm, LayerNorm, attention, timestep
+embedding and dropout wrappers, of bare C entries and of the fused GN conv
+op, of the package in DIR (a copy of another tree, to compare two in one
+run) or of this checkout, with the skinny linear's, LayerNorm's and
+dropout's device time and their PyTorch calls'; it prints no result line.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -54,17 +54,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
   3c. SD1.5 attention: the bf16 kernels at the SD1.5 512^2 path's shapes
      (K3 at d=40, K4 at d=80 and 160, K5 on attn_tinykv_wgmma_bf16 against
      77 keys and the mid-block's 64), then phase 3's d=64 rows again;
+  3e. C4: the bf16 attention kernels (K1 self and cross, K2, K3 at d=40,
+     K4 at d=80 and 160, K5 at d=40, 80 and 160 and the mid block's S=64)
+     on inputs where each output is an exact f32 quotient x / l whose bf16
+     rounding differs from that of x * f32(1 / l): every output must be
+     bf16(x / l) bit for bit, as JAX's o / l.clip(1e-30) gives it; and
+     on inputs that put zeros, quotients under 2^-99 or over 2^99,
+     infinities and NaN (by position) beside in-range outputs in one warp's
+     rows, which the epilogue stores again with the division;
   3d. the rest of the opt-in kernels: the timestep embedding (K12) at
-     (2,)->(2,320) and (12,)->(12,256); linear (K13) at every GEMM shape of
+     (2,)->(2,320) and (12,)->(12,256), bit for bit against its plain
+     version, beside the launch floor (the device time of an empty
+     kernel); linear (K13) at every GEMM shape of
      both paths (wgmma, the f32 3xTF32 GEMM, SiLU and GELU epilogues, and
      the skinny kernel at each M = 2 shape of the steps, whose launches are
      counted by shape), each beside cuBLAS's addmm of the same GEMM (f32 with TF32
      off), the wgmma rows beside the WMMA kernel (element loads, the route
      of the shapes TMA cannot take), the f32 rows beside their f32-FMA bound
      and the time of the wrapper's weight split; seeded dropout (K14)
-     through ops.dispatch under a ("dropout", "cuda") binding, bit for bit
-     against its plain version, deterministic, seed-sensitive, and dropping
-     a fraction within 4 sigma of the rate;
+     through ops.dispatch under a ("dropout", "cuda") binding at (2, 4096,
+     640) in bf16 and f32 and at 2^20 f32 elements, bit for bit against
+     its plain version, deterministic, seed-sensitive, and dropping a
+     fraction within 4 sigma of the rate;
   4, 4b, 4d. step deviation: one full-width SDXL-base UNet step (128^2
      latent, CFG batch 2, bf16, random weights, fused projections and the
      cross K/V precompute) under the default binding, the fused-op binding
@@ -517,6 +528,97 @@ def phase_sd15_attention(dev):
     return results
 
 
+# C4: (form, b, sq, sk, h, d, live keys, class) of division_probe on each
+# route of the bf16 kernels: K1 self off the fused QKV buffer and cross off
+# the fused KV buffer (the tiny-KV kernel at Sk <= 128, the KV loop above;
+# SDXL's 77 keys with 56 live), K2 past 1024 keys, K3 bf16 at d = 40 (h = 1
+# on both kernels, unpacked heads past 1024 keys), K4 at d = 80 and 160, K5
+# at d = 40, 80, 160 and SD1.5's mid-block self-attention (S = 64 with 56
+# live keys: a power-of-two row sum divides exactly either way); the list of
+# tests/test_torch_port_gpu.py's C4 test
+C4_ROUTES = (
+    [("qkv", 2, s, s, 2, 64, s, "K1") for s in (28, 56, 112, 224)]
+    + [("kv", 2, 300, s, 2, 64, s, "K1") for s in (28, 56, 112)]
+    + [("kv", 2, 1024, 77, 10, 64, 56, "K1"),
+       ("qkv", 1, 1792, 1792, 2, 64, 1792, "K2"),
+       ("sep", 2, 300, 28, 1, 40, 28, "K3"),
+       ("sep", 2, 300, 224, 1, 40, 224, "K3"),
+       ("qkv", 1, 1792, 1792, 2, 40, 1792, "K3")]
+    + [("qkv", 2, s, s, 2, d, s, "K4") for d in (80, 160) for s in (224, 448)]
+    + [("kv", 2, 300, s, 2, d, s, "K5") for d in (40, 80, 160) for s in (28, 56, 112)]
+    + [("qkv", 2, 64, 64, 8, 160, 56, "K5")]
+)
+
+
+# the epilogue's out-of-range outputs: (form, b, sq, sk, h, d, live keys a
+# half, class) of range_probe on each bf16 kernel and head dim; the list of
+# tests/test_torch_port_gpu.py's out-of-range test
+RANGE_ROUTES = [
+    ("kv", 2, 300, 56, 2, 64, 28, "K1"),
+    ("kv", 2, 300, 77, 10, 64, 28, "K1"),
+    ("qkv", 2, 224, 224, 2, 64, 112, "K1"),
+    ("sep", 2, 300, 224, 1, 40, 112, "K3"),
+    ("qkv", 2, 224, 224, 2, 80, 112, "K4"),
+    ("kv", 2, 300, 112, 2, 40, 56, "K5"),
+    ("kv", 2, 300, 112, 2, 80, 56, "K5"),
+    ("kv", 2, 300, 112, 2, 160, 56, "K5"),
+    ("qkv", 2, 64, 64, 8, 160, 28, "K5"),
+]
+
+
+def probe_run(fa, dev, form, h, q, k, v):
+    """One launch of the bf16 attention on a probe's operands (fa: the
+    attention module; q, k, v float32 holding bf16 values)."""
+    q, k, v = (t.to(torch.bfloat16).to(dev) for t in (q, k, v))
+    if form == "qkv":
+        out = fa.flash_attention_qkv(torch.cat([q, k, v], -1), num_heads=h)
+    elif form == "kv":
+        out = fa.flash_attention_kv(q, torch.cat([k, v], -1), num_heads=h)
+    else:
+        out = fa.flash_attention(q, k, v, num_heads=h)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_c4(dev):
+    """Phase 3e: C4 on every route of the bf16 attention kernels (K1-K5):
+    each output of division_probe is the f32 quotient x / l rounded once
+    to bf16, on inputs where x * f32(1 / l) rounds to another bf16 for every
+    output; and so is each output of range_probe, whose zeros, tiny, huge,
+    infinite and NaN outputs (NaN by position) the epilogue stores with the
+    division. Fails on any output that differs and on a launch off its
+    class or kernel."""
+    from stabletriton_tpu_torch.kernels import flash_attention as fa
+
+    outputs = 0
+    cases = ([("C4", r, fa.division_probe(*r[1:7], seed=r[3] + r[5] + r[4])) for r in C4_ROUTES]
+             + [("range", r, fa.range_probe(*r[1:7], seed=r[3] + r[5] + r[4]))
+                for r in RANGE_ROUTES])
+    for probe, (form, b, sq, sk, h, d, live, cls), ops in cases:
+        before = dict(fa.LAUNCHES.by_key)
+        out = probe_run(fa, dev, form, h, *ops[:3])
+        if probe == "C4":
+            want = (ops[3] / live).to(torch.bfloat16)[:, None, :].expand(-1, sq, -1)
+        else:
+            want = (ops[3] / ops[4][..., None]).to(torch.bfloat16)
+        want = want.to(dev)
+        keys = sorted(k for k, n in fa.LAUNCHES.by_key.items() if n != before.get(k, 0))
+        kernel = fa.kernel_name(torch.bfloat16, sk)
+        nan = want.isnan()
+        differ = int((out.isnan() != nan).sum()) + int(
+            (out.view(torch.int16)[~nan] != want.view(torch.int16)[~nan]).sum())
+        log(f"{probe} {form} b={b} sq={sq} sk={sk} h={h} d={d} l={live}: {keys}, {differ} of "
+            f"{out.numel()} outputs differ from bf16(x / l)")
+        if [k.split()[:2] for k in keys] != [[cls, kernel]]:
+            raise AssertionError(f"{probe} {form} sk={sk} d={d}: launched {keys}, expected "
+                                 f"{cls} on {kernel}")
+        if differ:
+            raise AssertionError(f"{probe} {form} sk={sk} d={d}: {differ} outputs differ")
+        outputs += out.numel()
+    log(f"C4: {len(cases)} launches ({len(RANGE_ROUTES)} with outputs out of the Markstein "
+        f"step's range), all {outputs} outputs bf16(x / l) bit for bit")
+
+
 # K13 at the shapes of both paths: (label, M, K, N, bias, act, dtype, timing
 # iterations); "+b" marks a bias
 LINEAR_CASES = [
@@ -550,6 +652,7 @@ def phase_optional_kernels(dev):
     with the seed, and drop a fraction within 4 sigma of the rate."""
     from stabletriton_tpu_torch import ops
     from stabletriton_tpu_torch.compile import CompileConfig, resolve_binding
+    from stabletriton_tpu_torch.kernels import build
     from stabletriton_tpu_torch.kernels import dropout as dr
     from stabletriton_tpu_torch.kernels import linear as lin
     from stabletriton_tpu_torch.kernels import time_embed as te
@@ -563,14 +666,23 @@ def phase_optional_kernels(dev):
         results.append(r)
 
     # K12: the SDXL timesteps (and SD1.5's, the same shape) and time_ids; no
-    # single PyTorch call computes the sinusoidal embedding
+    # single PyTorch call computes the sinusoidal embedding. Beside each row
+    # the launch floor: the device time of an empty kernel (one block of 32
+    # threads, st_launch_floor), the least a launch takes
+    floor_entry = build.function("st_launch_floor", [ctypes.c_void_p])
+    floor_ms = device_ms(lambda: floor_entry(build.current_stream(dev)), 50)[0]
     for t_vals, dim in [([999.0, 999.0], 320), ([1024.0, 1024, 0, 0, 1024, 1024] * 2, 256)]:
         t = torch.tensor(t_vals, device=dev)
         name = f"time_embed ({len(t_vals)},)->({len(t_vals)},{dim}) f32"
-        record("K12", name, "time_embed.cu", compare(
-            name, lambda t=t, dim=dim: te.time_embed(t, dim=dim),
-            lambda t=t, dim=dim: te.time_embed_plain(t, dim=dim), F32_REL_TOL, 50,
-            bound_ms=bound(0, nbytes(t) * (1 + dim), torch.float32)))
+        r = compare(name, lambda t=t, dim=dim: te.time_embed(t, dim=dim),
+                    lambda t=t, dim=dim: te.time_embed_plain(t, dim=dim), F32_REL_TOL, 50,
+                    bound_ms=bound(0, nbytes(t) * (1 + dim), torch.float32))
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{name}: not the plain version's bits")
+        r["launch_floor_ms"] = floor_ms
+        log(f"  launch floor (an empty kernel, device time) {floor_ms:.4f} ms; K12 "
+            f"{r['device_ms']:.4f} ms, {r['device_ms'] / floor_ms:.2f}x the floor")
+        record("K12", name, "time_embed.cu", r)
 
     # K13: each variant at the paths' shapes, cuBLAS's addmm of the same GEMM
     # as the library call; the wgmma rows also time the WMMA kernel (element
@@ -618,7 +730,9 @@ def phase_optional_kernels(dev):
     binding = resolve_binding(CompileConfig(backend="reference",
                                             overrides=(("dropout", "cuda"),)))
     rate, seed = 0.1, 20260417
-    for shape, dtype in [((2, 4096, 640), torch.bfloat16), ((1 << 20,), torch.float32)]:
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for shape, dtype in [((2, 4096, 640), torch.bfloat16), ((2, 4096, 640), torch.float32),
+                         ((1 << 20,), torch.float32)]:
         x = torch.randn(shape, generator=gen, device=dev).to(dtype)
         name = f"dropout {tuple(shape)} {'bf16' if dtype == torch.bfloat16 else 'f32'} rate={rate}"
         dr.LAUNCHES.reset()
@@ -649,10 +763,18 @@ def phase_optional_kernels(dev):
              "library_ms": None,
              "device_ms": device_ms(lambda x=x: dr.dropout(x, seed, rate=rate), 20)[0]}
         r["bound_ms"], r["bound_by"] = bound(0, 2 * nbytes(x), dtype)
+        # the kernel alone after 64 MB written over the 50 MB L2 cache: x read
+        # from device memory, as the bound counts it (the row above finds x,
+        # and the output's reused block, in L2 from the call before)
+        by_name = device_ms(lambda x=x: (flush.zero_(), dr.dropout(x, seed, rate=rate)), 20)[2]
+        r["cold_device_ms"] = sum(ms for kn, ms in by_name.items() if "dropout_kernel" in kn)
         log(f"  kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms (bytes); device time (profiler) {r['device_ms']:.4f} ms")
+            f"{r['bound_ms']:.4f} ms (bytes); device time (profiler) {r['device_ms']:.4f} ms, "
+            f"{r['bound_ms'] / r['device_ms']:.1%} of bound; L2 overwritten first "
+            f"{r['cold_device_ms']:.4f} ms, {r['bound_ms'] / r['cold_device_ms']:.1%}")
         record("K14", name, "dropout.cu", r, launches=launches)
         del x, out, again, plain, other
+    del flush
     torch.cuda.empty_cache()
     return results
 
@@ -893,6 +1015,10 @@ HOST_LAYER_NORMS = [(8192, 640), (2048, 1280)]
 # the attention wrapper's cross-attention against the fused KV buffer: SDXL's
 # K1 (h = 10, d = 64) and SD1.5's K5 (h = 8, d = 40), as (B, Sq, Sk, C, H)
 HOST_ATTENTION = [(2, 4096, 77, 640, 10), (2, 4096, 77, 320, 8)]
+# the timestep embedding's two launches of a SDXL step, (B,) -> (B, dim), and
+# dropout's shape, whose device time a call is printed too
+HOST_TIME_EMBED = [(2, 320), (12, 256)]
+HOST_DROPOUT = [((2, 4096, 640), torch.bfloat16), ((2, 4096, 640), torch.float32)]
 HOST_ROUNDS = 7
 
 
@@ -927,6 +1053,21 @@ def skinny_entry(lin, x, w, b, out, stream):
                       1, 2, stream)
 
 
+def time_embed_entry(te, t, out, dim, stream):
+    """The bare C entry of the timestep embedding of the package ``te`` on
+    SDXL's arguments, as a call: st_time_embed with its TeDims where the
+    package has them, else its seven scalar arguments (the trees before)."""
+    from stabletriton_tpu_torch.kernels import build
+
+    b, half = t.shape[0], dim // 2
+    coef = float(torch.tensor(-math.log(10000.0) / half, dtype=torch.float32))
+    fn = build.function("st_time_embed", te._TIME_EMBED_ARGTYPES)
+    if hasattr(te, "TeDims"):
+        dims = te.TeDims(b, half, coef, 1, *te.grid(b * dim))
+        return lambda: fn(t.data_ptr(), out.data_ptr(), stream, ctypes.addressof(dims))
+    return lambda: fn(t.data_ptr(), out.data_ptr(), b, half, coef, 1, stream)
+
+
 def phase_host_time(dev):
     """``--host-time [DIR]``: the host time a launch of the package in DIR
     (default: this checkout), for each shape above: the public wrapper
@@ -934,24 +1075,28 @@ def phase_host_time(dev):
     the wgmma route and on the WMMA route, the kernels' bare C entries (the
     wgmma kernels at the planned plan, the skinny linear, LayerNorm), the
     fused GN conv's whole op (gn_conv2d_fused: the GroupNorm stats and fold,
-    then the conv), the attention wrapper against a fused KV buffer, and for
-    the skinny linear, LayerNorm and attention the one PyTorch call
-    computing the same function (torch.addmm, F.layer_norm, SDPA). The host
-    is shared, so each is measured in HOST_ROUNDS interleaved rounds and
-    printed as its least and its median round. The skinny linear and
-    LayerNorm rows also print the device time a call of the wrapper and of
-    the PyTorch call (torch.profiler, kernels only). Run it on two trees in
-    one call to compare them."""
+    then the conv), the attention wrapper against a fused KV buffer, the
+    timestep embedding's wrapper and C entry (K12, both SDXL shapes) and
+    dropout's wrapper (K14), and for the skinny linear, LayerNorm and
+    attention the one PyTorch call computing the same function (torch.addmm,
+    F.layer_norm, SDPA). The host is shared, so each is measured in
+    HOST_ROUNDS interleaved rounds and printed as its least and its median
+    round. The skinny linear, LayerNorm and dropout rows also print the
+    device time a call of the wrapper and of the PyTorch call
+    (torch.profiler, kernels only). Run it on two trees in one call to
+    compare them."""
     import statistics
 
     import torch.nn.functional as F
 
     from stabletriton_tpu_torch.kernels import build
     from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import dropout as dr
     from stabletriton_tpu_torch.kernels import flash_attention as fa
     from stabletriton_tpu_torch.kernels import group_norm as gn
     from stabletriton_tpu_torch.kernels import layer_norm as ln
     from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.kernels import time_embed as te
     from stabletriton_tpu_torch.kernels import wgmma_plan as wp
 
     gen = torch.Generator(device=dev).manual_seed(77)
@@ -1033,6 +1178,17 @@ def phase_host_time(dev):
         cases.append((f"attention kv ({bsz},{sq},{c}) x ({bsz},{sk},{2 * c}) h={h}", {
             "wrapper": lambda q=q, kv=kv, h=h: fa.flash_attention_kv(q, kv, num_heads=h),
             "SDPA": lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh)}))
+    for b, dim in HOST_TIME_EMBED:
+        t = torch.full((b,), 999.0, device=dev)
+        out = torch.empty((b, dim), device=dev)
+        cases.append((f"time_embed ({b},)->({b},{dim})", {
+            "wrapper": lambda t=t, dim=dim: te.time_embed(t, dim=dim),
+            "C entry": time_embed_entry(te, t, out, dim, stream)}))
+    for shape, dtype in HOST_DROPOUT:
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        cases.append((f"dropout {shape} {dtype}", {
+            "wrapper": lambda x=x: dr.dropout(x, 20260417, rate=0.1)}))
+        devices.append(cases[-1])
     rounds = {(label, what): [] for label, fns in cases for what in fns}
     for _ in range(HOST_ROUNDS):
         for label, fns in cases:
@@ -1814,8 +1970,9 @@ def main() -> int:
         phase_plans(dev)
     kernel_results = (with_peak("phase 3", phase_kernels, dev)
                       + with_peak("phase 3b", phase_fused_kernels, dev)
-                      + with_peak("phase 3c", phase_sd15_attention, dev)
-                      + with_peak("phase 3d", phase_optional_kernels, dev))
+                      + with_peak("phase 3c", phase_sd15_attention, dev))
+    with_peak("phase 3e", phase_c4, dev)
+    kernel_results += with_peak("phase 3d", phase_optional_kernels, dev)
 
     # SDXL-base at 1024^2: phases 4, 4b, 4d, 5, 5b, 5d
     ucfg = sdxl_base_unet_config()
@@ -1886,7 +2043,8 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         **{k: r[k] for k in ("old_ms", "old_kernel", "old_device_ms", "bound_f32_fma_ms",
                              "prep_ms", "device_ms", "library_device_ms", "alt_device_ms",
-                             "tf32_padded_device_ms") if k in r},
+                             "tf32_padded_device_ms", "launch_floor_ms",
+                             "cold_device_ms") if k in r},
     } for r in kernel_results]
     for k in kernels:
         if k["launches"] == 0:

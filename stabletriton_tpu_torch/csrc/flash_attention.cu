@@ -17,7 +17,8 @@
 // shift-free base-2 softmax p = exp2(min(s, 80)) (no running max, so no
 // rescale of the accumulator between KV tiles); padded keys give p = 0;
 // f32 row sum l of the unrounded p, f32 accumulator of bf16(p) . v; output
-// acc * (1 / max(l, 1e-30)), rounded once.
+// the correctly rounded f32 quotient acc / max(l, 1e-30), rounded once to
+// the operand dtype, as JAX's o / l.clip(1e-30).
 //
 // Operands are addressed by (base, batch stride, row stride, column offset),
 // so q, k and v may be column slices of one fused (B, S, 3C) QKV buffer or
@@ -90,7 +91,8 @@
 // at most at D <= 64, 129 KB at D = 80, 145 KB at D = 160 (one tile). With
 // so little math a tile, the per-tile instructions decide its time: the
 // prescale is one bf16x2 multiply a pair and the epilogue one reciprocal a
-// row (an f32 division an element cost the SD1.5 K5 launches 8-30%).
+// row and a Markstein correction an element (div_rn; the f32 division
+// itself an element cost the SD1.5 K5 launches 8-30%).
 //
 // Head dims. Q, K and V are read as boxes of 64 columns (one 128-byte
 // swizzle row): NB = ceil(D / 64) boxes at the head's first column, so a box
@@ -343,30 +345,42 @@ __device__ __forceinline__ void two_halves(float (&s0)[32], float (&s1)[32],
   wg::fence_frag(p1);
 }
 
-// row sums over the quad; out = O * (1 / max(l, 1e-30)), one rounding,
-// 16-byte stores of 8 columns after a transpose across the quad (a division
-// an element was a fifth of the tiny-KV kernel's time; the reciprocal moves
-// an output by at most an f32 ulp before its bf16 rounding). Query rows
-// from q0 + 64 wgi; rows at or past Sq and columns at or past D are not
-// stored.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&oacc)[Tiles<D>::NB][32],
-                                           const float (&lsum)[2], const WgmmaArgs& a, int b,
-                                           int h, int q0, int wgi) {
+// acc / l correctly rounded, as the f32 division of the JAX kernels and of
+// attention_plain, from r = 1 / l correctly rounded (one a row): q = acc r
+// is within an ulp of the quotient, and one Markstein step, q + (acc - q l)
+// r with the remainder exact in an FMA, rounds it correctly (Markstein
+// 1990; Muller et al., Handbook of Floating-Point Arithmetic, 4.6) while acc
+// and q lie in [2^-100, 2^100], where the remainder neither underflows nor
+// overflows. Two FMAs an element beside the reciprocal's product, no
+// special-function op and no branch: a division an element, whose IEEE
+// sequence branches to a slow path, cost the tiny-KV kernel a fifth.
+__device__ __forceinline__ float div_rn(float acc, float l, float r) {
+  const float q = __fmul_rn(acc, r);
+  return fmaf(fmaf(-q, l, acc), r, q);
+}
+
+// a warp's rows stored, out = O / l (l = max(row sum, 1e-30), r = 1 / l):
+// MARKSTEIN, div_rn on every output, returning whether each output lies in
+// [max(2^-99, 2^-99 r), 2^99], where acc and q = acc / l lie in div_rn's
+// range (zeros, NaN, infinite, subnormal and huge sums fall outside), from
+// a row's least |out| and the sum of all (2 instructions an element, in
+// trees of 8 so no long chain waits at the end); else the division itself.
+// 16-byte stores of 8 columns after a transpose across the quad. Query
+// rows from q0 + 64 wgi; rows at or past Sq and columns at or past D are
+// neither stored nor checked.
+template <int D, bool MARKSTEIN>
+__device__ __forceinline__ bool store_tile(const float (&oacc)[Tiles<D>::NB][32],
+                                           const float (&lc)[2], const float (&rc)[2],
+                                           const WgmmaArgs& a, int b, int h, int q0, int wgi) {
   using T = Tiles<D>;
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-  float lc[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = lsum[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    lc[r] = 1.f / fmaxf(l, 1e-30f);
-  }
   const int C = a.H * D;
+  bool in_range = true;
+  float sum = 0.f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + wgi * 64 + warp * 16 + lane / 4 + 8 * r;
+    float least = 0x1p127f;
 #pragma unroll
     for (int n = 0; n < T::NB; ++n)
 #pragma unroll
@@ -381,14 +395,50 @@ __device__ __forceinline__ void store_rows(const float (&oacc)[Tiles<D>::NB][32]
         wg::quad_transpose(p, o);
         const int col = 64 * n + 32 * g4 + 8 * (lane % 4);
         if (qi >= a.Sq || col >= D) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          o[e] = MARKSTEIN ? div_rn(o[e], lc[r], rc[r]) : __fdiv_rn(o[e], lc[r]);
+        if (MARKSTEIN) {
+          float m[4], s[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            m[e] = fminf(fabsf(o[2 * e]), fabsf(o[2 * e + 1]));
+            s[e] = fabsf(o[2 * e]) + fabsf(o[2 * e + 1]);
+          }
+          least = fminf(least, fminf(fminf(m[0], m[1]), fminf(m[2], m[3])));
+          sum += (s[0] + s[1]) + (s[2] + s[3]);
+        }
         uint4 val;
         __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          h2[e] = __floats2bfloat162_rn(o[2 * e] * lc[r], o[2 * e + 1] * lc[r]);
+        for (int e = 0; e < 4; ++e) h2[e] = __floats2bfloat162_rn(o[2 * e], o[2 * e + 1]);
         *reinterpret_cast<uint4*>(a.out + ((long long)b * a.Sq + qi) * C + h * D + col) = val;
       }
+    in_range &= least >= fmaxf(0x1p-99f, 0x1p-99f * rc[r]);
   }
+  // a NaN or an |out| past 2^99 makes the sum NaN or past 2^99
+  return in_range & (sum <= 0x1p99f);
+}
+
+// row sums over the quad, l = max(sum, 1e-30) and r = 1 / l; the rows
+// stored with div_rn, checked on the way, and stored again with the
+// division by every lane of a warp where one output fell outside div_rn's
+// range (a thread's second store of an address lands after its first).
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&oacc)[Tiles<D>::NB][32],
+                                           const float (&lsum)[2], const WgmmaArgs& a, int b,
+                                           int h, int q0, int wgi) {
+  float lc[2], rc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = lsum[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    lc[r] = fmaxf(l, 1e-30f);
+    rc[r] = __frcp_rn(lc[r]);
+  }
+  if (!__all_sync(0xffffffffu, store_tile<D, true>(oacc, lc, rc, a, b, h, q0, wgi)))
+    store_tile<D, false>(oacc, lc, rc, a, b, h, q0, wgi);
 }
 
 template <int D>

@@ -145,8 +145,10 @@ def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
 def on_device(device: torch.device):
     """Makes ``device`` the current CUDA device for a launch (the C entry
     points launch on the current device); nothing to do, and no host time
-    spent, when it already is."""
-    if device.index is None or device.index == torch.cuda.current_device():
+    spent, when it already is. The caller holds a tensor on ``device``, so
+    CUDA is initialised: the current device is read without
+    ``torch.cuda.current_device``'s initialisation check."""
+    if device.index is None or device.index == torch._C._cuda_getDevice():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
 

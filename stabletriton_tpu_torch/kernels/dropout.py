@@ -13,7 +13,11 @@ Philox4x32-10, keyed by the seed with the element's group of four as the
 counter, so each element's bits depend on (seed, index) alone and the plain
 version (:func:`dropout_plain`) computes the same words with integer
 tensors: kernel and plain version agree bit for bit. JAX's CPU stream is
-``jax.random``, so against JAX only the statistics agree.
+``jax.random``, so against JAX only the statistics agree. The kernel moves
+x in 16-byte streaming loads and stores; the wrapper gives the output the
+same address modulo 16 as x (:func:`out_like`), so an offset view of x needs
+no copy: the kernel takes the elements before the first 16-byte boundary,
+and the tail, one at a time.
 
 Both backends live here, as in the JAX module: "cuda" (the kernel on CUDA
 tensors, the plain version on CPU tensors) and "reference" (the plain
@@ -99,6 +103,20 @@ def dropout_plain(x: torch.Tensor, seed, *, rate: float = 0.1) -> torch.Tensor:
     return torch.where(keep, x.float() * _scale(rate), 0.0).to(x.dtype)
 
 
+def out_like(x: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor of x's shape and dtype (x contiguous) whose
+    address equals x's modulo 16 (a view into a slightly longer buffer when
+    x's is not 16-byte aligned), so the kernel's 16-byte pieces of x and of
+    the output start at the same element."""
+    off = x.data_ptr() % 16
+    if off == 0:
+        return torch.empty_like(x)
+    pad = 16 // x.element_size()
+    buf = torch.empty(x.numel() + pad, dtype=x.dtype, device=x.device)
+    start = (off - buf.data_ptr() % 16) % 16 // x.element_size()
+    return buf[start:start + x.numel()].view(x.shape)
+
+
 @register("dropout", "cuda")
 def dropout(x: torch.Tensor, seed, *, rate: float = 0.1) -> torch.Tensor:
     """Deterministic dropout: the same (x, seed, rate) give the same output.
@@ -111,7 +129,7 @@ def dropout(x: torch.Tensor, seed, *, rate: float = 0.1) -> torch.Tensor:
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"dropout kernel takes float32 or bfloat16, got {x.dtype}")
     xc = x if x.is_contiguous() else x.contiguous()
-    out = torch.empty_like(xc)
+    out = out_like(xc)
     n = xc.numel()
     if n == 0:
         return out

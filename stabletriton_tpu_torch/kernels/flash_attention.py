@@ -139,6 +139,100 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype).transpose(1, 2).reshape(b, sq, c)
 
 
+def division_targets(live: int, bound: int = 20000) -> torch.Tensor:
+    """The integers x in [-bound, bound] whose f32 quotient x / live rounds
+    to another bf16 than x * float32(1 / live): the outputs on which an
+    epilogue that multiplies by the row's reciprocal differs from one that
+    divides, as the JAX kernels do."""
+    x = torch.arange(-bound, bound + 1, dtype=torch.float32)
+    quotient = (x / live).to(torch.bfloat16)
+    product = (x * torch.tensor(1.0 / live, dtype=torch.float32)).to(torch.bfloat16)
+    return x[quotient != product]
+
+
+def division_probe(b: int, sq: int, sk: int, h: int, d: int, live: int, *, seed: int = 0):
+    """Attention operands on which every kernel's output is an exact f32
+    quotient: q, k, v (B, Sq or Sk, H*D) float32 holding bf16 values, and
+    x (B, H*D), each output column's key sum. The first ``live`` keys score
+    0 (p = 1, so l = live) and the rest score about -2000 (p = 0): q is 0
+    but for a 1 in each head's first column when some keys are dead, and
+    those keys' k is -20480 there, the live keys' 0 (k is random elsewhere).
+    Each v column holds the bf16 parts of one of :func:`division_targets`
+    on keys 0 and live - 1 and a cancelling pair +-m on two other live keys
+    (dead keys: random values), so its f32 sum x is exact in any order and
+    every row's output is bf16(x / live)."""
+    if not 4 <= live <= sk:
+        raise ValueError(f"division_probe needs 4 <= live <= sk, got live={live} sk={sk}")
+    gen = torch.Generator().manual_seed(seed)
+    c = h * d
+    targets = division_targets(live)
+    x = targets[torch.randint(len(targets), (b, c), generator=gen)]
+    hi = x.to(torch.bfloat16).float()
+    m = (2.0 ** torch.randint(8, 15, (b, c), generator=gen)).float()
+    v = torch.randn((b, sk, c), generator=gen).to(torch.bfloat16).float()
+    v[:, :live] = 0.0
+    v[:, 0], v[:, live - 1] = hi, x - hi
+    v[:, live // 2], v[:, live // 3] = m, -m
+    k = torch.randn((b, sk, c), generator=gen).to(torch.bfloat16).float()
+    q = torch.zeros((b, sq, c))
+    heads = torch.arange(h) * d
+    k[:, :live, heads] = 0.0
+    if live < sk:
+        k[:, live:, heads] = -20480.0
+        q[:, :, heads] = 1.0
+    return q, k, v, x
+
+
+# range_probe's planted key sums, in each head's first columns: 0, targets
+# times 2^-110 (quotients under 2^-99) and times +-2^100 (over 2^99) in
+# batch 0; +inf, -inf and NaN in batch 1
+RANGE_SCALES = (0.0, 2.0 ** -110, 2.0 ** 100, -(2.0 ** 100))
+RANGE_NONFINITE = (math.inf, -math.inf, math.nan)
+RANGE_ROW = 5  # batch 0's query rows i with i % 32 == RANGE_ROW read half B
+
+
+def range_probe(b: int, sq: int, sk: int, h: int, d: int, live: int, *, seed: int = 0):
+    """Operands whose outputs fall outside the bf16 epilogue's Markstein range
+    (csrc/flash_attention.cu ``store_tile``) beside outputs inside it, in the
+    rows of one warp: q, k, v (B, Sq or Sk, H*D) float32 holding bf16 values,
+    and x (B, Sq, H*D), l (B, Sq), each output being x / l exactly before its
+    one rounding. Keys [0, live) form half A, [live, 2 live) half B, the rest
+    are dead; a query row scores 0 on one half (p = 1, l = live) and -20480
+    on every other key (p = 0). Batch 0's rows i with i % 32 == RANGE_ROW
+    (one row of warps 0 and 2 of a 64-row tile) read B, whose v columns sum
+    to division targets, scaled in each head's first columns by
+    RANGE_SCALES; every other row reads A, whose sums are division targets,
+    in range. In batch 1, A's sums are RANGE_NONFINITE in each head's first
+    columns (one key each)."""
+    if b < 2 or not 4 <= live <= sk // 2 or d < len(RANGE_SCALES):
+        raise ValueError(f"range_probe needs b >= 2, 4 <= live <= sk / 2 and d >= 4, got "
+                         f"b={b} live={live} sk={sk} d={d}")
+    _, _, va, xa = division_probe(b, 1, live, h, d, live, seed=seed)
+    _, _, vb, xb = division_probe(b, 1, live, h, d, live, seed=seed + 1)
+    c = h * d
+    heads = torch.arange(h) * d
+    scale = torch.ones(c)
+    for j, s in enumerate(RANGE_SCALES):
+        scale[heads + j] = s
+    vb[0] = vb[0] * scale + 0.0  # + 0: a zero is +0, as the kernels' sums give it
+    xb[0] = xb[0] * scale + 0.0
+    for j, bad in enumerate(RANGE_NONFINITE):
+        va[1, 0, heads + j] = bad
+        xa[1, heads + j] = bad
+    v = torch.cat([va, vb, torch.zeros((b, sk - 2 * live, c))], 1)
+    k = torch.zeros((b, sk, c))
+    k[:, :, heads] = k[:, :, heads + 1] = -20480.0
+    k[:, :live, heads] = 0.0
+    k[:, live:2 * live, heads + 1] = 0.0
+    reads_b = torch.zeros((b, sq), dtype=torch.bool)
+    reads_b[0, RANGE_ROW::32] = True
+    q = torch.zeros((b, sq, c))
+    q[:, :, heads] = (~reads_b).float()[..., None]
+    q[:, :, heads + 1] = reads_b.float()[..., None]
+    x = torch.where(reads_b[..., None], xb[:, None, :], xa[:, None, :])
+    return q, k, v, x, torch.full((b, sq), float(live))
+
+
 # st_flash_attention(3 x (ptr, batch stride, row stride, column offset), out,
 #                    B, Sq, Sk, H, D, kernel, qscale, tiles, stream)
 _ATTN_ARGTYPES = (

@@ -1069,3 +1069,165 @@ def test_gpu_dropout_kernel_matches_plain_bit_for_bit(cuda_device, dtype, shape)
     assert not torch.equal(out, tdropout.dropout(x, 17, rate=0.1))
     assert tdropout.dropout(x, 3, rate=0.0) is x
     assert tdropout.LAUNCHES.count == before + 3
+
+
+# C4: (form, b, sq, sk, h, d, live keys, class) of division_probe on every
+# route of the bf16 kernels: K1 self off the fused QKV buffer and cross off
+# the fused KV buffer (the tiny-KV kernel at Sk <= 128, the KV loop above;
+# SDXL's 77 keys with 56 live), K2 past 1024 keys, K3 bf16 at d = 40 (h = 1
+# on both kernels, and unpacked heads past 1024 keys), K4 at d = 80 and 160,
+# K5 at d = 40, 80 and 160 and SD1.5's mid-block self-attention (S = 64,
+# 56 live keys: a power-of-two row sum would divide exactly either way)
+C4_ROUTES = (
+    [("qkv", 2, s, s, 2, 64, s, "K1") for s in (28, 56, 112, 224)]
+    + [("kv", 2, 300, s, 2, 64, s, "K1") for s in (28, 56, 112)]
+    + [("kv", 2, 1024, 77, 10, 64, 56, "K1"),
+       ("qkv", 1, 1792, 1792, 2, 64, 1792, "K2"),
+       ("sep", 2, 300, 28, 1, 40, 28, "K3"),
+       ("sep", 2, 300, 224, 1, 40, 224, "K3"),
+       ("qkv", 1, 1792, 1792, 2, 40, 1792, "K3")]
+    + [("qkv", 2, s, s, 2, d, s, "K4") for d in (80, 160) for s in (224, 448)]
+    + [("kv", 2, 300, s, 2, d, s, "K5") for d in (40, 80, 160) for s in (28, 56, 112)]
+    + [("qkv", 2, 64, 64, 8, 160, 56, "K5")]
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,b,sq,sk,h,d,live,cls", C4_ROUTES)
+def test_gpu_attention_divides_like_jax(cuda_device, form, b, sq, sk, h, d, live, cls):
+    """C4: every output of the probe is bf16(x / l) for an exact f32 key sum
+    x and row sum l = live, as JAX's o / l.clip(1e-30) and attention_plain
+    give it; x is chosen so that bf16(x * f32(1 / l)) differs: an epilogue
+    that multiplies by the row's reciprocal fails on every output. Bit for
+    bit, with the launch under its class."""
+    q, k, v, x = tfa.division_probe(b, sq, sk, h, d, live, seed=sk + d + h)
+    q, k, v = (t.to(torch.bfloat16).to(cuda_device) for t in (q, k, v))
+    want = (x / live).to(torch.bfloat16)[:, None, :].expand(-1, sq, -1).to(cuda_device)
+    before = dict(tfa.LAUNCHES.by_key)
+    if form == "qkv":
+        out = tfa.flash_attention_qkv(torch.cat([q, k, v], -1), num_heads=h)
+    elif form == "kv":
+        out = tfa.flash_attention_kv(q, torch.cat([k, v], -1), num_heads=h)
+    else:
+        out = tfa.flash_attention(q, k, v, num_heads=h)
+    torch.cuda.synchronize()
+    kernel = "tinykv_wgmma_bf16" if sk <= 128 else "wgmma_bf16"
+    assert _new_keys(tfa.LAUNCHES, before) == {
+        f"{cls} {kernel} b={b} h={h} d={d} sq={sq} sk={sk}": 1}
+    differ = int((out != want).sum())
+    assert differ == 0, f"{differ} of {out.numel()} outputs differ from bf16(x / l)"
+    assert torch.equal(tfa.attention_plain(q, k, v, num_heads=h), want)
+
+
+# the epilogue's out-of-range outputs: (form, b, sq, sk, h, d, live keys a
+# half, class) of range_probe on each bf16 kernel and head dim: the tiny-KV
+# kernel at one half of K / V (d = 64) and two (d = 40 in one wgmma group,
+# 80, 160, SDXL's 77 keys, the mid block), the KV loop at d = 40, 64, 80
+RANGE_ROUTES = [
+    ("kv", 2, 300, 56, 2, 64, 28, "K1"),
+    ("kv", 2, 300, 77, 10, 64, 28, "K1"),
+    ("qkv", 2, 224, 224, 2, 64, 112, "K1"),
+    ("sep", 2, 300, 224, 1, 40, 112, "K3"),
+    ("qkv", 2, 224, 224, 2, 80, 112, "K4"),
+    ("kv", 2, 300, 112, 2, 40, 56, "K5"),
+    ("kv", 2, 300, 112, 2, 80, 56, "K5"),
+    ("kv", 2, 300, 112, 2, 160, 56, "K5"),
+    ("qkv", 2, 64, 64, 8, 160, 28, "K5"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,b,sq,sk,h,d,live,cls", RANGE_ROUTES)
+def test_gpu_attention_divides_out_of_range(cuda_device, form, b, sq, sk, h, d, live, cls):
+    """The epilogue's second store: outputs that are 0, under 2^-99, over
+    2^99, infinite or NaN, planted by range_probe in one row of a warp whose
+    other rows are in the Markstein step's range (and in every row of batch
+    1), are bf16(x / l) bit for bit (NaN by position), as are the rows of the
+    warps with none; the launch under its class and kernel."""
+    q, k, v, x, l = tfa.range_probe(b, sq, sk, h, d, live, seed=sk + d + h)
+    q, k, v = (t.to(torch.bfloat16).to(cuda_device) for t in (q, k, v))
+    want = (x / l[..., None]).to(torch.bfloat16).to(cuda_device)
+    before = dict(tfa.LAUNCHES.by_key)
+    if form == "qkv":
+        out = tfa.flash_attention_qkv(torch.cat([q, k, v], -1), num_heads=h)
+    elif form == "kv":
+        out = tfa.flash_attention_kv(q, torch.cat([k, v], -1), num_heads=h)
+    else:
+        out = tfa.flash_attention(q, k, v, num_heads=h)
+    torch.cuda.synchronize()
+    kernel = "tinykv_wgmma_bf16" if sk <= 128 else "wgmma_bf16"
+    assert _new_keys(tfa.LAUNCHES, before) == {
+        f"{cls} {kernel} b={b} h={h} d={d} sq={sq} sk={sk}": 1}
+    nan = want.isnan()
+    assert torch.equal(out.isnan(), nan)
+    differ = out.view(torch.int16)[~nan] != want.view(torch.int16)[~nan]
+    assert not differ.any(), f"{int(differ.sum())} of {out.numel()} outputs differ"
+
+def _dropout_view(dtype, n, offset, seed):
+    """n elements of dtype starting ``offset`` elements into a fresh buffer
+    (an address offset * itemsize past a 16-byte boundary)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(n + offset, generator=gen, device="cuda").to(dtype)[offset:]
+
+
+# one grid-stride pass of the dropout kernel on an H100: 132 SMs x 4 blocks
+# x 256 threads x 2 pieces of 16 bytes
+_DROPOUT_PASS_BYTES = 132 * 4 * 256 * 2 * 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n,offset,rate", [
+    *[(torch.bfloat16, n, 0, 0.1) for n in range(1, 8)],            # n < 8: no whole piece
+    *[(torch.bfloat16, n, 5, 0.5) for n in (1, 3, 7)],               # ... and misaligned
+    *[(torch.float32, n, 0, 0.1) for n in (1, 2, 3)],
+    *[(torch.bfloat16, 8 * 1000 + r, 0, 0.1) for r in range(1, 8)],  # tails of 1-7
+    *[(torch.bfloat16, 8 * 1000 + r, 1, 0.25) for r in range(8)],    # 2-byte offset: head 7
+    *[(torch.float32, 4 * 1000 + r, 1, 0.1) for r in range(4)],      # 4-byte offset: head 3
+    *[(torch.float32, 4 * 1000 + 1, o, 0.9) for o in (2, 3)],
+    (torch.bfloat16, 3 * _DROPOUT_PASS_BYTES // 2 + 5, 0, 0.1),       # three grid passes
+    (torch.bfloat16, 3 * _DROPOUT_PASS_BYTES // 2 + 3, 1, 0.1),
+    (torch.float32, 2 * _DROPOUT_PASS_BYTES // 4 + 7, 1, 0.1),
+    (torch.float32, 2 * _DROPOUT_PASS_BYTES // 4, 0, 0.75),
+])
+def test_gpu_dropout_pieces_heads_and_tails(cuda_device, dtype, n, offset, rate):
+    """The 16-byte kernel bit for bit against dropout_plain on the same
+    view: the head before x's first 16-byte boundary, the tail past its
+    last whole piece, a piece that starts inside a Philox group (a base
+    offset that is not a multiple of 4 elements) and more elements than one
+    grid-stride pass; the output shares x's address modulo 16; one launch."""
+    x = _dropout_view(dtype, n, offset, seed=n + offset)
+    assert (x.data_ptr() % 16 != 0) == (offset % (16 // x.element_size()) != 0)
+    before = tdropout.LAUNCHES.count
+    out = tdropout.dropout(x, 2**33 + n, rate=rate)
+    torch.cuda.synchronize()
+    assert tdropout.LAUNCHES.count == before + 1
+    assert out.shape == x.shape and out.is_contiguous()
+    assert out.data_ptr() % 16 == x.data_ptr() % 16
+    assert torch.equal(out, tdropout.dropout_plain(x, 2**33 + n, rate=rate))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["f32", "f64", "strided"])
+@pytest.mark.parametrize("shift", [0.0, 1.0])
+@pytest.mark.parametrize("flip", [True, False])
+@pytest.mark.parametrize("b,dim", [(2, 320), (12, 256)])
+def test_gpu_time_embed_route_same_bits(cuda_device, b, dim, flip, shift, form):
+    """K12 through its cached route gives the plain version's bits at the
+    SDXL step's shapes, with t as a contiguous f32 vector (no conversion),
+    f64 or a strided view (converted); one launch a call, under the
+    route's key, the route made once per signature."""
+    vals = torch.tensor([999.0, 1024.0, 0.0, 1.0, 500.0, 37.5, 1023.0, 250.25] * 2,
+                        device=cuda_device)[:b]
+    t = {"f32": vals, "f64": vals.double(),
+         "strided": torch.stack([vals, -vals], 1)[:, 0]}[form]
+    assert t.is_contiguous() == (form != "strided")
+    kw = dict(dim=dim, flip_sin_to_cos=flip, downscale_freq_shift=shift)
+    before = dict(ttime.LAUNCHES.by_key)
+    out = ttime.time_embed(t, **kw)
+    again = ttime.time_embed(t, **kw)
+    torch.cuda.synchronize()
+    route = ttime._route(t.device, t.shape, t.dtype, dim, 10000.0, flip, shift)
+    assert _new_keys(ttime.LAUNCHES, before) == {route.key: 2}
+    assert route.convert == (form == "f64")
+    assert out.shape == (b, dim) and out.dtype == torch.float32
+    assert torch.equal(out, ttime.time_embed_plain(t, **kw)) and torch.equal(out, again)

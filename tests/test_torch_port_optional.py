@@ -21,6 +21,7 @@ The CUDA kernels themselves are checked on the card by
 tests/test_torch_port_gpu.py.
 """
 
+import ctypes
 import math
 
 import jax.numpy as jnp
@@ -156,6 +157,62 @@ def test_time_embed_refuses_odd_dims_and_batched_timesteps():
         ttime.time_embed(torch.zeros(2, 1), dim=32)
 
 
+@pytest.fixture
+def no_library(monkeypatch):
+    """time_embed._route with its C entry looked up as a name, so the route
+    can be made where there is no kernel library; its cache cleared before
+    and after."""
+    monkeypatch.setattr(ttime, "function", lambda name, argtypes: name)
+    ttime._route.cache_clear()
+    yield
+    ttime._route.cache_clear()
+
+
+CUDA0 = torch.device("cuda", 0)
+
+
+def test_time_embed_route_is_cached_by_signature(no_library):
+    """One route per (device, t's shape and dtype, dim, max_period, flip,
+    shift): made once, holding the C entry, the f32 coefficient (the
+    double -ln(max_period) / (half - shift) rounded once, as the plain
+    version), the grid, the struct argument and the launch key; t as f32
+    needs no conversion, f64 does."""
+    sig = (CUDA0, (2,), torch.float32, 320, 10000.0, True, 0.0)
+    route = ttime._route(*sig)
+    assert ttime._route(*sig) is route and ttime._route.cache_info().misses == 1
+    for i, other in [(0, torch.device("cuda", 1)), (1, (12,)), (2, torch.float64), (3, 256),
+                     (4, 1000.0), (5, False), (6, 1.0)]:
+        assert ttime._route(*sig[:i], other, *sig[i + 1:]) is not route
+    assert ttime._route.cache_info().misses == 8
+    coef = float(torch.tensor(-math.log(10000.0) / 160, dtype=torch.float32))
+    assert route.fn == "st_time_embed" and not route.convert
+    assert route.key == "b=2 dim=320 flip=1 shift=0"
+    dims = route.dims
+    assert (dims.b, dims.half, dims.c, dims.flip, dims.blocks, dims.threads) == (
+        2, 160, coef, 1, 3, 256)
+    assert route.address == ctypes.addressof(dims)
+    assert ttime._route(CUDA0, (12,), torch.float64, 256, 10000.0, False, 1.0).convert
+    assert ttime._route(CUDA0, (0,), torch.float32, 256, 10000.0, True, 0.0).fn is None
+
+
+@pytest.mark.parametrize("shape,dim,match", [((2,), 33, "even"), ((2, 1), 32, r"\(B,\)"),
+                                             ((), 32, r"\(B,\)")])
+def test_time_embed_route_refuses_every_time(no_library, shape, dim, match):
+    """A bad signature raises on every call: the cache keeps no exception."""
+    for _ in range(2):
+        with pytest.raises(ValueError, match=match):
+            ttime._route(CUDA0, shape, torch.float32, dim, 10000.0, True, 0.0)
+    assert ttime._route.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("total", [1, 255, 256, 640, 3072, 64 * 1280 + 1])
+def test_time_embed_grid_covers_every_output(total):
+    """One thread an output, 256 a block: every output covered, no block
+    beyond the last output's."""
+    blocks, threads = ttime.grid(total)
+    assert threads == 256 and blocks * threads >= total > (blocks - 1) * threads
+
+
 # --------------------------------------------------------------------------
 # K14 seeded dropout
 # --------------------------------------------------------------------------
@@ -213,6 +270,38 @@ def test_dropout_drop_fraction_vs_jax():
                                               interpret=True)) == 0).mean())
         assert abs(port.item() - rate) <= 4 * sigma
         assert abs(jax_frac - rate) <= 4 * sigma
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", range(8))
+def test_dropout_out_like_keeps_the_address_modulo_16(dtype, offset):
+    """The wrapper's output has x's shape and dtype, is contiguous and lies
+    at x's address modulo 16, so one 16-byte boundary serves both."""
+    x = torch.zeros(101 + offset, dtype=dtype)[offset:].view(101)
+    out = tdropout.out_like(x)
+    assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
+    assert out.data_ptr() % 16 == x.data_ptr() % 16
+
+
+@pytest.mark.parametrize("itemsize,head", [(2, h) for h in range(8)] + [(4, h) for h in range(4)])
+def test_dropout_piece_words(itemsize, head):
+    """csrc/dropout.cu drop_piece: a 16-byte piece of 16 / itemsize elements
+    starting at element e0 = head + piece * width takes the words of the
+    (phase + width + 3) // 4 groups from e0 // 4 on, element k word
+    phase + k (phase = head % 4): each element's word of dropout_plain."""
+    width = 16 // itemsize
+    n = head + 3 * width
+    g = torch.arange((n + 3) // 4, dtype=torch.int64)
+    ctr = torch.stack([g, g >> 32, torch.zeros_like(g), torch.zeros_like(g)], -1)
+    words = tdropout.philox4x32_10(ctr, (11, 12)).reshape(-1)
+    phase = head % 4
+    for piece in range(3):
+        e0 = head + piece * width
+        groups = (phase + width + 3) // 4
+        g0 = torch.arange(e0 // 4, e0 // 4 + groups, dtype=torch.int64)
+        w = tdropout.philox4x32_10(torch.stack([g0, g0 >> 32, g0 * 0, g0 * 0], -1),
+                                   (11, 12)).reshape(-1)
+        assert torch.equal(w[phase:phase + width], words[e0:e0 + width])
 
 
 def test_dropout_mask_depends_on_the_index_alone():
