@@ -7,7 +7,8 @@
 ``--profile`` adds a torch.profiler breakdown of one step under each
 binding to phases 4 and 4c (device time by kernel family, idle share, the
 attention kernels by name) and of the default binding's 1024^2 decode to
-phase 5e (the same, and its 12 longest kernels);
+phase 5e (the same, and its 12 longest kernels), and phase 4e's 30-step
+request;
 ``--plans`` times the wgmma kernels at forced tile widths and K splits
 beside the planner's choice and a plain wave-filling rule's (before phase
 3). ``--host-time`` only builds the kernels and prints the host time a
@@ -96,8 +97,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
      kernel) and no K1 or K2; K8 45,
      K9 16, K10 48, K11 16; all-kernel K12 1, K13 152 + 16 (144 wgmma, 24
      skinny); all 49 convs on wgmma;
+  4e. replay: under the reference, default, fused-op and all-kernel
+     bindings, compile_unet_kv's precompute and step at the full-width
+     SDXL-base step of phase 4 (and SD1.5's of 4c), called eagerly
+     (``__wrapped__``) and by replay on the same inputs: the outputs bit for
+     bit equal (under every binding but the all-kernel one, whose step runs
+     no cuBLAS call, a difference is logged with its max abs and MSE and
+     held under the step gate against the reference binding), a replay
+     counting the eager step's launches key by key; the step timed eager
+     against replay (host clock and CUDA events), its capture and
+     instantiate time, the graph's nodes by type beside the eager step's
+     kernels from the profiler, peak memory of an eager step, the pool a
+     capture reserves and a replay's peak; with ``--profile`` the idle
+     share of both. Then four SDXL 1024^2 4-step requests (return_latents)
+     through SDXLPipeline.txt2img under each binding: two of one signature
+     (the first captures, the second replays with another prompt and seed)
+     and two with a guidance interval over the middle two steps, each equal
+     to the eager loop (the program's own, from the same
+     make_denoise_loop) on its inputs as above, one graph a signature, a
+     replay counting its signature's eager launches; each capture's host
+     seconds in pieces (the eager warm-up, torch.cuda.graph's entry, the
+     captured call, the end of the capture, instantiate); with ``--profile``
+     also a 30-step request under the default binding, captured and
+     replayed, then freed (its graph must be gone with its pipeline);
   5. serving: a ServingEngine over a full-width SDXL-base pipeline answers
-     three 1024^2 requests (4 Euler steps, guidance 5); the images must be
+     three 1024^2 requests (4 Euler steps, guidance 5), after the same three
+     with other seeds, which capture each bucket's denoise loop: the counted
+     requests replay and must count the first ones' launches key by key,
+     in every serving phase (5-5e); the images must be
      finite, (1024, 1024, 3) and inside [-1, 1], and the attention (K1, K2,
      K3) and conv launch counters must have moved during this phase, every
      K1/K2 launch on its kernel as in phase 4 and each image's f32 decode on the
@@ -145,6 +172,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -1362,7 +1390,8 @@ def profile_step(run, label, *, unit="step", top=0):
     the device span in which no kernel ran (torch.profiler's CUDA kernel
     events; ``--profile`` only). Then the attention family by kernel name
     (the K5 launches' total among them), and with ``top`` the longest
-    ``top`` kernels by name."""
+    ``top`` kernels by name. Returns the kernel time, device span (ms a
+    run), idle share and kernels a run."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1415,6 +1444,8 @@ def profile_step(run, label, *, unit="step", top=0):
             f"time): " + ", ".join(
                 f"{short(n)} {ms:.3f} ({c // 2}, {ms / total:.1%})" for n, (ms, c) in sorted(
                     names.items(), key=lambda kv: -kv[1][0])[:top]))
+    return {"kernel_ms": total, "span_ms": span / 2e3, "idle": 1 - busy / span,
+            "kernels": len(spans) / 2}
 
 
 def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_linears,
@@ -1534,6 +1565,312 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
     return result
 
 
+# phase 4e: the bindings whose UNet step and denoise loop are replayed, the
+# reference binding first (the others' replays are held against its eager
+# step where they are not bit for bit equal to their own eager runs); the
+# timed calls of each in a turn (eager, replay, replay, eager), after one
+REPLAY_ITERS = 3
+# CUgraphNodeType (cuda.h)
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait_event", 7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def replay_configs() -> dict:
+    from stabletriton_tpu_torch.compile import (ALL_KERNEL_OVERRIDES, FUSED_OP_OVERRIDES,
+                                                CompileConfig)
+
+    return {"reference": CompileConfig(backend="reference"), "default": CompileConfig(),
+            "fused_ops": CompileConfig(overrides=FUSED_OP_OVERRIDES),
+            "all_kernels": CompileConfig(overrides=ALL_KERNEL_OVERRIDES)}
+
+
+def graph_nodes(graph) -> dict:
+    """A captured graph's nodes by type, read through libcuda
+    (cuGraphGetNodes, cuGraphNodeGetType) from the cudaGraph_t that
+    ``CUDAGraph(keep_graph=True)`` keeps."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    out, kind = {}, ctypes.c_int()
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def capture_record(entry) -> dict:
+    """A captured graph's host seconds by piece and its nodes."""
+    return {k: getattr(entry, k) for k in ("warmup_s", "enter_s", "capture_s", "end_s",
+                                           "instantiate_s")} | {
+        "nodes": graph_nodes(entry.graph)}
+
+
+def eager_vs_replay(eager_fn, replay_fn) -> dict:
+    """Host ms of each synchronised call and CUDA-event ms a call over
+    REPLAY_ITERS back-to-back calls, of an eager function and its replay, in
+    turns (eager, replay, replay, eager), each turn after one call."""
+    out = {}
+    for name, fn in (("eager", eager_fn), ("replay", replay_fn), ("replay", replay_fn),
+                     ("eager", eager_fn)):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(REPLAY_ITERS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.setdefault(f"{name}_host_ms", []).append((time.perf_counter() - t0) * 1e3)
+        out.setdefault(f"{name}_event_ms", []).append(timed_ms(fn, REPLAY_ITERS))
+    return out
+
+
+def launches_by_key(counters) -> dict:
+    return {k: dict(c.by_key) for k, c in counters.items()}
+
+
+def reset(counters) -> None:
+    for c in counters.values():
+        c.reset()
+
+
+def tensors(tree) -> list:
+    from stabletriton_tpu_torch.runtime.graphs import flatten
+
+    leaves = []
+    flatten(tree, leaves)
+    return leaves
+
+
+def held_to(label, name, got, eager, reference=None) -> dict:
+    """A replay's output against its binding's eager run: bit for bit, or,
+    except under the all-kernel binding (no cuBLAS call: it must be bit for
+    bit), within the step gate (MSE against ``reference``, the reference
+    binding's eager step, where given, else against the eager run)."""
+    equal = all(torch.equal(a, b) for a, b in zip(tensors(got), tensors(eager)))
+    a, b = torch.cat([t.float().flatten() for t in tensors(got)]), torch.cat(
+        [t.float().flatten() for t in tensors(eager)])
+    rec = {"bit_equal": equal, "max_abs": (a - b).abs().max().item(),
+           "mse": (a - b).square().mean().item()}
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{label} {name}: the replay's output is not finite")
+    if not equal:
+        gate = rec["mse"] if reference is None else (
+            a - reference.float().flatten()).square().mean().item()
+        rec["gate_mse"] = gate
+        log(f"  {label} {name}: replay NOT bit for bit equal to eager: max abs "
+            f"{rec['max_abs']:.3e}, mse {rec['mse']:.3e}; gate mse {gate:.3e}")
+        if name.startswith("all_kernels") or not gate < STEP_MSE_GATE:
+            raise AssertionError(f"{label} {name}: replay differs from eager ({rec})")
+    return rec
+
+
+def phase_replay_step(dev, cfg, params, inputs, label, profile=False):
+    """Phase 4e, the step: compile_unet_kv's precompute and step under each
+    binding, eagerly (``__wrapped__``) and by replay, on the same inputs:
+    bit for bit equal (held_to), the launches a replay counts equal to the
+    eager step's key by key; the step's host and CUDA-event times, eager
+    against replay; its capture and instantiate time; its graph's nodes
+    beside the eager step's kernels from the profiler (and the replay's);
+    peak memory of an eager step, the pool a capture reserves and peak
+    memory of a replay; with ``profile`` the idle share of both."""
+    from stabletriton_tpu_torch.compile import compile_unet_kv, fuse_attention_projections
+
+    sample, ctx, pooled, time_ids = (inputs[k] for k in ("sample", "ctx", "pooled", "time_ids"))
+    t = torch.full((2,), 500.0, device=dev)
+    fused = fuse_attention_projections(params)
+    counters = kernel_counters()
+    results, ref = {}, None
+    with torch.inference_mode():
+        for name, config in replay_configs().items():
+            p = params if name == "reference" else fused
+            pre, _, step = compile_unet_kv(cfg, config)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            kv_eager = pre.__wrapped__(p, ctx)
+            reset(counters)
+            eager = step.__wrapped__(p, sample, t, kv_eager, pooled, time_ids)
+            torch.cuda.synchronize()
+            eager_launches = launches_by_key(counters)
+            eager_peak = torch.cuda.max_memory_allocated(dev) - base
+            if name == "reference":
+                ref = eager
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            pre(p, ctx)                                 # eager run, then the capture
+            kv = pre(p, ctx)                            # a replay
+            first = step(p, sample, t, kv, pooled, time_ids)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            pool = torch.cuda.memory_reserved(dev) - reserved
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            reset(counters)
+            out = step(p, sample, t, kv, pooled, time_ids)
+            torch.cuda.synchronize()
+            replay_peak = torch.cuda.max_memory_allocated(dev) - base
+            if launches_by_key(counters) != eager_launches:
+                raise AssertionError(f"{label} {name}: a replay counted "
+                                     f"{launches_by_key(counters)}, the eager step "
+                                     f"{eager_launches}")
+            rec = {"precompute": held_to(label, f"{name} precompute", kv, kv_eager),
+                   "first_call": held_to(label, name, first, eager, ref),
+                   "step": held_to(label, name, out, eager, ref)}
+            if len(step.captured) != 1 or len(pre.captured) != 1:
+                raise AssertionError(f"{label} {name}: {len(step.captured)} step graphs")
+            rec["graph"] = capture_record(next(iter(step.captured.values())))
+            rec["precompute_graph"] = capture_record(next(iter(pre.captured.values())))
+
+            def eager_fn():
+                return step.__wrapped__(p, sample, t, kv, pooled, time_ids)
+
+            def replay_fn():
+                return step(p, sample, t, kv, pooled, time_ids)
+
+            rec["eager_device_ms"], rec["eager_kernels"], _ = device_ms(eager_fn, 2)
+            rec["replay_device_ms"], rec["replay_kernels"], _ = device_ms(replay_fn, 2)
+            rec.update(eager_vs_replay(eager_fn, replay_fn))
+            rec["memory_gib"] = {"eager_step_peak": eager_peak / 2**30, "pool": pool / 2**30,
+                                 "replay_peak": replay_peak / 2**30}
+            if profile:
+                rec["profile"] = {"eager": profile_step(eager_fn, f"{label} {name} eager step"),
+                                  "replay": profile_step(replay_fn, f"{label} {name} replay")}
+            log(f"replay, {label} step, {name} binding: bit equal {rec['step']['bit_equal']} "
+                f"(precompute {rec['precompute']['bit_equal']}); host ms eager "
+                + "/".join(f"{v:.1f}" for v in rec["eager_host_ms"]) + ", replay "
+                + "/".join(f"{v:.1f}" for v in rec["replay_host_ms"]) + "; event ms eager "
+                + "/".join(f"{v:.2f}" for v in rec["eager_event_ms"]) + ", replay "
+                + "/".join(f"{v:.2f}" for v in rec["replay_event_ms"])
+                + f"; kernel ms eager {rec['eager_device_ms']:.2f} in {rec['eager_kernels']:g} "
+                f"kernels, replay {rec['replay_device_ms']:.2f} in {rec['replay_kernels']:g}; "
+                f"graph {json.dumps(rec['graph'])}; memory GiB "
+                f"{json.dumps(rec['memory_gib'])}")
+            results[name] = rec
+            del pre, step, kv, first, out
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"replay {label} step " + json.dumps(results))
+    return results
+
+
+def phase_replay_requests(dev, ucfg, unet_params, other, profile=False):
+    """Phase 4e, the loop: under each binding, four SDXL 1024^2 requests
+    (SERVE_STEPS Euler steps, return_latents) through SDXLPipeline.txt2img:
+    two of one signature (the first captures, the second replays with
+    another prompt and seed) and two with a guidance interval holding the
+    middle two steps (its own graph). Each result against the eager loop
+    of the same make_denoise_loop on the same inputs (held_to); one graph a
+    signature; a replay counts the launches of its signature's eager call,
+    key by key. With ``profile`` also a 30-step request under the default
+    binding, captured then replayed, and a profile of a replayed request.
+    Logs walls, the host seconds of each capture by piece, graph nodes and
+    peak memory."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.runtime import scheduler as sched
+    from stabletriton_tpu_torch.runtime.denoise import norm_guidance_interval
+    from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline
+
+    (c1, c2, vcfg), params = other
+    tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+    s = [float(v) for v in sched.make_schedule(sched.SchedulerConfig(), SERVE_STEPS).sigmas]
+    gi = ((s[2] + s[3]) / 2, (s[0] + s[1]) / 2)  # steps 1 and 2 of 0-3
+    requests = [("a lighthouse at dusk", 11, None), ("a bowl of ramen", 12, None),
+                ("a red fox in snow", 21, gi), ("a glass teapot", 22, gi)]
+    counters = kernel_counters()
+    results = {}
+    for name, config in replay_configs().items():
+        pipe = SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
+                            vae_config=vcfg, params={"unet": unet_params, **params},
+                            compile_config=config, device=dev)
+        binding = resolve_binding(config)
+
+        def request(prompt, seed, interval, steps=SERVE_STEPS):
+            ids1 = tok.encode_batch([prompt], max_len=c1.max_position_embeddings)
+            ids2 = tok.encode_batch([prompt], max_len=c2.max_position_embeddings, pad=0)
+            reset(counters)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            lat = pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=steps,
+                               guidance_scale=5.0, seed=seed, return_latents=True,
+                               guidance_interval=interval)
+            torch.cuda.synchronize()
+            rec = {"wall_s": time.perf_counter() - t0,
+                   "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+            prog = pipe._program(1, 1024, 1024, steps, 5.0, "euler", True,
+                                 norm_guidance_interval(interval, 5.0))
+            return lat, rec, launches_by_key(counters), prog, ids1, ids2
+
+        def eager_loop(prog, ids1, ids2, seed):
+            neg1 = c1.empty_prompt_ids(1, ids1.shape[1])
+            neg2 = c2.empty_prompt_ids(1, ids2.shape[1])
+            ids = [torch.as_tensor(np.asarray(a), dtype=torch.long).to(dev)
+                   for a in (ids1, ids2, neg1, neg2)]
+            with torch.inference_mode(), ops.use_backends(binding):
+                inputs = prog.loop_inputs(pipe.params, *ids, [seed])
+                return prog.loop.__wrapped__(pipe.params["unet"], *inputs)
+
+        rows, eager_counts = [], {}
+        for i, (prompt, seed, interval) in enumerate(requests):
+            lat, rec, counts, prog, ids1, ids2 = request(prompt, seed, interval)
+            if lat.shape != (1, 128, 128, ucfg.in_channels):
+                raise AssertionError(f"replay {name}: latents {tuple(lat.shape)}")
+            rec["vs_eager"] = held_to("SDXL 1024^2 request", name, lat,
+                                      eager_loop(prog, ids1, ids2, seed))
+            if len(prog.loop.captured) != 1:
+                raise AssertionError(f"replay {name}: {len(prog.loop.captured)} graphs for one "
+                                     f"signature")
+            if i % 2 == 0:
+                eager_counts = counts
+                rec["graph"] = capture_record(next(iter(prog.loop.captured.values())))
+            elif counts != eager_counts:
+                raise AssertionError(f"replay {name}: request {i} counted {counts}, its "
+                                     f"signature's eager call {eager_counts}")
+            rec["guidance_interval"] = interval
+            rows.append(rec)
+            log(f"replay, SDXL 1024^2 {SERVE_STEPS}-step request {i} ({'captures' if i % 2 == 0 else 'replays'}"
+                f", guidance interval {interval}), {name} binding: " + json.dumps(rec))
+        results[name] = rows
+        del lat, prog
+        if profile and name == "default":
+            long = []
+            for seed in (31, 32):
+                lat, rec, _, prog, _, _ = request("a harbour at night", seed, None, steps=30)
+                if not torch.isfinite(lat.float()).all():
+                    raise AssertionError("the 30-step request's latents are not finite")
+                long.append(rec)
+            entry = next(iter(prog.loop.captured.values()))
+            long[0]["graph"] = capture_record(entry)
+            graph_ref = weakref.ref(entry.graph)
+            pipe._cache.clear()
+            del lat, prog, entry
+            gc.collect()
+            torch.cuda.empty_cache()
+            if graph_ref() is not None:
+                raise AssertionError("the 30-step request's graph outlived its pipeline")
+            log("replay, SDXL 1024^2 30-step request, default binding (captures, replays): "
+                + json.dumps(long))
+            results["default_30_steps"] = long
+        if profile and name in ("default", "all_kernels"):
+            ids1 = tok.encode_batch(["a bowl of ramen"], max_len=c1.max_position_embeddings)
+            ids2 = tok.encode_batch(["a bowl of ramen"], max_len=c2.max_position_embeddings, pad=0)
+            results[f"{name}_profile"] = profile_step(
+                lambda: pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=SERVE_STEPS,
+                                     guidance_scale=5.0, seed=12, return_latents=True),
+                f"SDXL 1024^2 {SERVE_STEPS}-step request, {name} binding, replayed loop",
+                unit="request")
+        del pipe  # and so the graphs and the pool of its programs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 class StubTokenizer:
     """Deterministic ids without vocab files: BOS, one id per character, EOS,
     then padding (CLIP pools at argmax(ids == eos))."""
@@ -1593,8 +1930,12 @@ SERVE_STEPS = 4  # Euler steps of every served request
 def serve(dev, ucfg, unet_params, other, compile_config, prompts, counters, solo=None, *,
           size=1024, guidance=5.0):
     """A ServingEngine over a full-width pipeline: submit ``prompts`` together
-    (one signature, so they co-batch), then ``solo`` alone. The counters are
-    set to 0 just before the requests and read just after."""
+    (one signature, so they co-batch), then ``solo`` alone. The same
+    requests with other seeds go first: each bucket's first request runs its
+    denoise loop eagerly and captures it, so the counted requests replay.
+    The counters are set to 0 just before the first requests and again just
+    before the counted ones, and read just after each: the replays must
+    count the first requests' launches, key by key."""
     from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline
     from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine
 
@@ -1606,34 +1947,55 @@ def serve(dev, ucfg, unet_params, other, compile_config, prompts, counters, solo
     engine = ServingEngine(pipe, tok, tok, max_wait_s=0.5)
     kw = dict(height=size, width=size, steps=SERVE_STEPS, guidance_scale=guidance,
               solver="euler")
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        for c in counters.values():
-            c.reset()
+
+    def run(shift):
+        """The co-batched requests, then the solo one: (image, latency) each."""
         t0 = time.perf_counter()
-        futs = [engine.submit(Request(prompt=p, seed=s, **kw)) for p, s in prompts]
+        futs = [engine.submit(Request(prompt=p, seed=s + shift, **kw)) for p, s in prompts]
         done = []
         for f in futs:
             done.append((f.result(timeout=900), time.perf_counter() - t0))
         if solo is not None:
             t1 = time.perf_counter()
-            fut = engine.submit(Request(prompt=solo[0], seed=solo[1], **kw))
+            fut = engine.submit(Request(prompt=solo[0], seed=solo[1] + shift, **kw))
             done.append((fut.result(timeout=900), time.perf_counter() - t1))
+        return done
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(counters)
+        first = run(1000)
+        first_by_key = launches_by_key(counters)
+        first_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(counters)
+        done = run(0)
         counts = {k: c.count for k, c in counters.items()}
-        by_key = {k: dict(c.by_key) for k, c in counters.items()}
+        by_key = launches_by_key(counters)
         peak = torch.cuda.max_memory_allocated(dev)
+        captures = [capture_record(e) for prog in pipe._cache.values()
+                    for e in prog.loop.captured.values()]
     finally:
         engine.close()
     del pipe, engine
     gc.collect()  # the pipeline's program cache holds closures over the pipeline
     torch.cuda.empty_cache()
+    log("first requests (eager loops and their captures): latency "
+        + ", ".join(f"{t:.3f}" for _, t in first) + f" s, peak device memory "
+        f"{first_peak / 2**30:.2f} GiB; graphs " + json.dumps(captures))
     check_images(done, size)
-    log(f"peak device memory during serving: {peak / 2**30:.2f} GiB")
+    log(f"peak device memory during serving (replays): {peak / 2**30:.2f} GiB")
     log(f"kernel launches during serving: {json.dumps(counts)}")
     for name, keys in by_key.items():
         for key, n in sorted(keys.items()):
             log(f"  {name} {key}: {n}")
+    if by_key != first_by_key:
+        raise AssertionError(f"serving: the replayed requests launched {by_key}, the first "
+                             f"(eager) ones {first_by_key}")
+    if len(captures) != 1 + (solo is not None):
+        raise AssertionError(f"serving: {len(captures)} graphs for the buckets run")
     return done, counts, by_key
 
 
@@ -1909,12 +2271,15 @@ REPLACES = {
 
 
 def with_peak(label, fn, *args, **kwargs):
-    """fn(*args, **kwargs), logging the peak device memory it allocated."""
+    """fn(*args, **kwargs), logging the peak device memory it allocated and
+    the seconds it took."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
-    log(f"peak device memory, {label}: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"peak device memory, {label}: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1974,13 +2339,17 @@ def main() -> int:
     with_peak("phase 3e", phase_c4, dev)
     kernel_results += with_peak("phase 3d", phase_optional_kernels, dev)
 
-    # SDXL-base at 1024^2: phases 4, 4b, 4d, 5, 5b, 5d
+    # SDXL-base at 1024^2: phases 4, 4b, 4d, 4e, 5, 5b, 5d
     ucfg = sdxl_base_unet_config()
     sdxl = {"unet": make_unet_params(dev, ucfg)}
     with_peak("phases 4, 4b, 4d (weights included)", phase_step_deviation, dev, ucfg,
               sdxl["unet"], sdxl_step_inputs(dev), ALL_PER_STEP, PRECOMPUTE_LINEARS,
               ATTN_PER_STEP, CONV_SPLIT, LINEAR_SPLIT, "SDXL-base", profile)
     sdxl["other"] = make_other_params(dev)
+    with_peak("phase 4e step", phase_replay_step, dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev),
+              "SDXL-base", profile)
+    with_peak("phase 4e requests", phase_replay_requests, dev, ucfg, sdxl["unet"],
+              sdxl["other"], profile)
     diffs = {}
     by_key, diffs["default"] = with_peak("phase 5", phase_serving, dev, ucfg, sdxl["unet"],
                                          sdxl["other"])
@@ -1995,12 +2364,14 @@ def main() -> int:
               sdxl["other"][1]["vae"], profile)
     free(sdxl)
 
-    # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 5c
+    # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 5c
     ucfg = sd15_unet_config()
     sd15 = {"unet": make_unet_params(dev, ucfg)}
     with_peak("phase 4c (weights included)", phase_step_deviation, dev, ucfg, sd15["unet"],
               sd15_step_inputs(dev), SD15_ALL_PER_STEP, SD15_PRECOMPUTE_LINEARS,
               SD15_ATTN_PER_STEP, SD15_CONV_SPLIT, SD15_LINEAR_SPLIT, "SD1.5", profile)
+    with_peak("phase 4e SD1.5 step", phase_replay_step, dev, ucfg, sd15["unet"],
+              sd15_step_inputs(dev), "SD1.5", profile)
     sd15["other"] = make_sd15_other_params(dev)
     sd15_by_key = with_peak("phase 5c", phase_serving_sd15, dev, ucfg, sd15["unet"],
                             sd15["other"])

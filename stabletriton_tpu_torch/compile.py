@@ -1,8 +1,10 @@
-"""Compile options and the op -> backend binding.
+"""Compile options, the op -> backend binding and the compile API.
 
-Counterpart of ``stabletriton_tpu/compile.py``. PyTorch runs eagerly, so
-there is no jit step: "compiling" here is choosing the binding that the
-model runs under and preparing the parameters (fused projections, dtype).
+Counterpart of ``stabletriton_tpu/compile.py``. "Compiling" is choosing the
+binding the model runs under, preparing the parameters (fused projections,
+dtype) and, where JAX jits the step, wrapping it in a graphed callable
+(``runtime/graphs.py``): on the card each signature's first call runs
+eagerly and is captured as a CUDA graph, and every later call replays it.
 """
 
 from __future__ import annotations
@@ -12,6 +14,13 @@ from dataclasses import dataclass
 import torch
 
 from stabletriton_tpu_torch import ops
+from stabletriton_tpu_torch.models.unet import (
+    UNetConfig,
+    precompute_cross_kv,
+    precompute_time_cond,
+    unet_apply,
+)
+from stabletriton_tpu_torch.runtime.graphs import Graphs
 
 # ops the "cuda" backend binds to the attention kernel
 KERNEL_ATTENTION_OPS = ("attention", "attention_qkv", "attention_kv")
@@ -37,11 +46,19 @@ ALL_KERNEL_OVERRIDES = FUSED_OP_OVERRIDES + (("linear", "cuda"), ("time_embed", 
 class CompileConfig:
     """``backend``: "cuda" (hand-written Hopper kernels) or "reference"
     (plain PyTorch). ``overrides``: per-op (op, backend) pairs applied on
-    top of the backend's binding, e.g. ``FUSED_OP_OVERRIDES``."""
+    top of the backend's binding, e.g. ``FUSED_OP_OVERRIDES``.
+    ``cache_cross_kv``: the pipeline projects the text conditioning through
+    every cross-attention K/V once per generation (``precompute_cross_kv``)
+    instead of in every step; ``cache_time_cond``: it batches the
+    time-conditioning projections over all steps before the loop
+    (``precompute_time_cond``), opt-in as in the JAX package. Both compute
+    what the step would."""
 
     backend: str = "cuda"
     dtype: str = "bfloat16"
     overrides: tuple[tuple[str, str], ...] = ()
+    cache_cross_kv: bool = True
+    cache_time_cond: bool = False
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -70,6 +87,56 @@ def resolve_binding(config: CompileConfig) -> dict[str, str]:
             raise ValueError(f"override {op}->{backend}: backend not registered")
         binding[op] = backend
     return binding
+
+
+def compile_unet(unet_config: UNetConfig, config: CompileConfig = CompileConfig()):
+    """The UNet step under ``config``'s binding, as a graphed callable:
+    ``step(params, sample, timesteps, encoder_hidden_states, text_embeds,
+    time_ids) -> eps``. ``params`` (cast with :func:`cast_params`) are read
+    in place, so each must stay where it was at the signature's capture."""
+    binding = resolve_binding(config)
+    dtype = config.torch_dtype
+
+    def step(params, sample, timesteps, encoder_hidden_states, text_embeds, time_ids):
+        with ops.use_backends(binding):
+            return unet_apply(unet_config, params, sample.to(dtype), timesteps,
+                              encoder_hidden_states, text_embeds, time_ids)
+
+    return Graphs().wrap(step)
+
+
+def compile_unet_kv(unet_config: UNetConfig, config: CompileConfig = CompileConfig()):
+    """:func:`compile_unet` with the hoisted conditioning split out, as the
+    JAX package's: ``(precompute, precompute_time, step)``, three graphed
+    callables on one memory pool:
+
+      precompute(params, encoder_hidden_states) -> cross_kv
+      precompute_time(params, timesteps, text_embeds, time_ids) -> time_cond
+          ({resnet_key: (T, B, C)}; slice step i before calling step)
+      step(params, sample, t, cross_kv, text_embeds, time_ids,
+           time_cond=None) -> eps
+
+    The step computes what :func:`compile_unet`'s does: the same ops on the
+    same inputs, hoisted."""
+    binding = resolve_binding(config)
+    dtype = config.torch_dtype
+    graphs = Graphs()
+
+    def precompute(params, encoder_hidden_states):
+        with ops.use_backends(binding):
+            return precompute_cross_kv(unet_config, params, encoder_hidden_states.to(dtype))
+
+    def precompute_time(params, timesteps, text_embeds, time_ids):
+        with ops.use_backends(binding):
+            return precompute_time_cond(unet_config, params, timesteps, text_embeds, time_ids,
+                                        dtype=dtype)
+
+    def step(params, sample, timesteps, cross_kv, text_embeds, time_ids, time_cond=None):
+        with ops.use_backends(binding):
+            return unet_apply(unet_config, params, sample.to(dtype), timesteps, None,
+                              text_embeds, time_ids, cross_kv=cross_kv, time_cond=time_cond)
+
+    return graphs.wrap(precompute), graphs.wrap(precompute_time), graphs.wrap(step)
 
 
 def cast_params(params: dict[str, torch.Tensor], config: CompileConfig) -> dict:

@@ -166,22 +166,53 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
 
 
+# the tally of the CUDA graph this thread is capturing, if any (recording)
+_capturing = threading.local()
+
+
 class LaunchCounter:
-    """Counts a wrapper's kernel launches, in total and by a key naming the
-    kernel variant and shape, so a run can show that its main path really
-    went through the kernel. Only the wrapper's launch site adds to it."""
+    """Counts a wrapper's kernel launches that run, in total and by a key
+    naming the kernel variant and shape, so a run can show that its main
+    path really went through the kernel. Only the wrapper's launch site adds
+    to it. A launch made while this thread captures a CUDA graph runs only
+    when the graph replays: it goes to the graph's tally (:func:`recording`),
+    and each replay adds the tally (:func:`count_replay`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.count = 0
         self.by_key: dict[str, int] = {}
 
-    def add(self, key: str) -> None:
+    def add(self, key: str, n: int = 1) -> None:
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[self, key] = tally.get((self, key), 0) + n
+            return
         with self._lock:
-            self.count += 1
-            self.by_key[key] = self.by_key.get(key, 0) + 1
+            self.count += n
+            self.by_key[key] = self.by_key.get(key, 0) + n
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
             self.by_key = {}
+
+
+@contextlib.contextmanager
+def recording():
+    """While entered, the launches this thread's wrappers make go to the
+    yielded tally, {(counter, key): launches}, instead of their counters:
+    the launches of a CUDA graph being captured, which run at each replay."""
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
+def count_replay(tally: dict) -> None:
+    """Adds one replay of a captured graph's launches (its tally from
+    :func:`recording`) to the counters."""
+    for (counter, key), n in tally.items():
+        counter.add(key, n)

@@ -264,13 +264,16 @@ def init_unet_params(cfg: UNetConfig, seed: int = 0, *, device="cpu",
 # ---------------------------------------------------------------------------
 
 
-def _resnet(p, key: str, x, temb, cfg: UNetConfig):
+def _resnet(p, key: str, x, temb, cfg: UNetConfig, emb=None):
     """ResnetBlock2D: GN+SiLU -> conv -> +time -> GN+SiLU -> conv -> +skip.
 
     The time embedding folds into conv1's per-batch (B, Cout) f32 bias and
-    the shortcut add into conv2's epilogue (the residual argument)."""
-    emb = ops.linear(F.silu(temb), p[f"{key}.time_emb_proj.weight"],
-                     p[f"{key}.time_emb_proj.bias"])
+    the shortcut add into conv2's epilogue (the residual argument). ``emb``:
+    this resnet's time_emb_proj output from :func:`precompute_time_cond`, in
+    place of its own projection of ``temb``."""
+    if emb is None:
+        emb = ops.linear(F.silu(temb), p[f"{key}.time_emb_proj.weight"],
+                         p[f"{key}.time_emb_proj.bias"])
     bias1 = p[f"{key}.conv1.bias"].float()[None, :] + emb.float()
     h = ops.gn_conv2d(
         x, p[f"{key}.norm1.weight"], p[f"{key}.norm1.bias"],
@@ -392,6 +395,37 @@ def _time_embedding(cfg: UNetConfig, p, timesteps, text_embeds, time_ids, dtype)
     return temb
 
 
+def resnet_keys(cfg: UNetConfig) -> list[str]:
+    """Every ResnetBlock2D key prefix, in forward order."""
+    out = [f"down_blocks.{i}.resnets.{j}" for i in range(len(cfg.down_block_types))
+           for j in range(cfg.layers_per_block)]
+    out += ["mid_block.resnets.0", "mid_block.resnets.1"]
+    out += [f"up_blocks.{i}.resnets.{j}" for i in range(len(cfg.up_block_types))
+            for j in range(cfg.layers_per_block + 1)]
+    return out
+
+
+def precompute_time_cond(cfg: UNetConfig, params: dict, timesteps: torch.Tensor,
+                         text_embeds: torch.Tensor, time_ids: torch.Tensor,
+                         dtype: torch.dtype | None = None) -> dict:
+    """Every timestep-conditioned projection, batched over all T steps at
+    once: the time MLP, the add embedding and each resnet's time_emb_proj
+    run as (T*B)-row GEMMs on ``timesteps`` (T,) against the CFG-doubled
+    ``text_embeds`` / ``time_ids`` (B, ...). Returns {resnet_key: (T, B, C)};
+    step i passes {resnet_key: (B, C)}, its slice, to
+    ``unet_apply(time_cond=...)``. ``dtype``: the model's, by default
+    ``text_embeds``'."""
+    if dtype is None:
+        dtype = text_embeds.dtype
+    t_steps, batch = timesteps.shape[0], text_embeds.shape[0]
+    temb = _time_embedding(cfg, params, timesteps.repeat_interleave(batch),
+                           text_embeds.repeat(t_steps, 1), time_ids.repeat(t_steps, 1), dtype)
+    s = F.silu(temb)
+    return {key: ops.linear(s, params[f"{key}.time_emb_proj.weight"],
+                            params[f"{key}.time_emb_proj.bias"]).reshape(t_steps, batch, -1)
+            for key in resnet_keys(cfg)}
+
+
 def transformer2d_keys(cfg: UNetConfig) -> list[tuple[str, int]]:
     """Every Transformer2DModel key prefix and its depth, in forward order."""
     out: list[tuple[str, int]] = []
@@ -431,20 +465,27 @@ def precompute_cross_kv(cfg: UNetConfig, params: dict, encoder_hidden_states):
 def unet_apply(cfg: UNetConfig, params: dict, sample: torch.Tensor,
                timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor | None,
                text_embeds: torch.Tensor, time_ids: torch.Tensor,
-               cross_kv: dict | None = None) -> torch.Tensor:
+               cross_kv: dict | None = None, time_cond: dict | None = None) -> torch.Tensor:
     """One denoising forward pass.
 
     sample: (B, H, W, C_in) NHWC latents; timesteps: (B,) or scalar;
     encoder_hidden_states: (B, S, cross_attention_dim), or None when
     ``cross_kv`` (from :func:`precompute_cross_kv`) holds every cross K/V;
     text_embeds: (B, pooled); time_ids: (B, 6); both (B, 0) for a config
-    without added conditioning (SD1.x). Returns the predicted noise, same
-    shape as sample."""
+    without added conditioning (SD1.x). ``time_cond``: this step's
+    {resnet_key: (B, C)} slice of :func:`precompute_time_cond`, which then
+    replaces the time embedding. Returns the predicted noise, same shape as
+    sample."""
     p = params
     dtype = sample.dtype
     if timesteps.dim() == 0:
         timesteps = timesteps.expand(sample.shape[0])
-    temb = _time_embedding(cfg, p, timesteps, text_embeds, time_ids, dtype)
+    temb = (None if time_cond is not None
+            else _time_embedding(cfg, p, timesteps, text_embeds, time_ids, dtype))
+
+    def resnet(key, h):
+        return _resnet(p, key, h, temb, cfg, None if time_cond is None else time_cond[key])
+
     if encoder_hidden_states is None:
         if cross_kv is None:
             raise ValueError("need encoder_hidden_states or cross_kv")
@@ -456,7 +497,7 @@ def unet_apply(cfg: UNetConfig, params: dict, sample: torch.Tensor,
     skips = [h]
     for i, btype in enumerate(cfg.down_block_types):
         for j in range(cfg.layers_per_block):
-            h = _resnet(p, f"down_blocks.{i}.resnets.{j}", h, temb, cfg)
+            h = resnet(f"down_blocks.{i}.resnets.{j}", h)
             if btype == "CrossAttnDownBlock2D":
                 h = _transformer2d(p, f"down_blocks.{i}.attentions.{j}", h, ctx, cfg,
                                    cfg.transformer_layers_per_block[i], cross_kv=cross_kv)
@@ -465,16 +506,16 @@ def unet_apply(cfg: UNetConfig, params: dict, sample: torch.Tensor,
             h = _downsample(p, f"down_blocks.{i}.downsamplers.0", h)
             skips.append(h)
 
-    h = _resnet(p, "mid_block.resnets.0", h, temb, cfg)
+    h = resnet("mid_block.resnets.0", h)
     h = _transformer2d(p, "mid_block.attentions.0", h, ctx, cfg,
                        cfg.mid_transformer_layers, cross_kv=cross_kv)
-    h = _resnet(p, "mid_block.resnets.1", h, temb, cfg)
+    h = resnet("mid_block.resnets.1", h)
 
     for i, btype in enumerate(cfg.up_block_types):
         tf_layers = tuple(reversed(cfg.transformer_layers_per_block))[i]
         for j in range(cfg.layers_per_block + 1):
             h = torch.cat([h, skips.pop()], dim=-1)
-            h = _resnet(p, f"up_blocks.{i}.resnets.{j}", h, temb, cfg)
+            h = resnet(f"up_blocks.{i}.resnets.{j}", h)
             if btype == "CrossAttnUpBlock2D":
                 h = _transformer2d(p, f"up_blocks.{i}.attentions.{j}", h, ctx, cfg,
                                    tf_layers, cross_kv=cross_kv)

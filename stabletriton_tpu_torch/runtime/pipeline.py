@@ -5,10 +5,14 @@ micro-conditioning); SD1.x on one (final states, or penultimate with
 ``clip_skip >= 2``) and nothing added.
 
 Counterpart of ``SDXLPipeline.txt2img`` in ``stabletriton_tpu/runtime/pipeline.py``.
-JAX traces the whole program into one executable; PyTorch runs it eagerly.
-The op binding is entered inside :meth:`SDXLPipeline.txt2img`, on the
-thread that runs the model, and the model runs under
-``torch.inference_mode()``.
+JAX traces the whole program into one executable. Here the denoise loop (the
+cross K/V precompute, every Euler step with its CFG combine, the update) is
+the executable: on the card it is captured as one CUDA graph per signature at
+its first call and replayed at every later one (``runtime/graphs.py``); the
+text encoders, the initial noise and the VAE decode around it run eagerly
+(:meth:`SDXLPipeline._build` says why). The op binding is entered inside
+:meth:`SDXLPipeline.txt2img`, on the thread that runs the model, and the model
+runs under ``torch.inference_mode()``.
 
 Token ids in, images out: tokenization stays with the caller.
 """
@@ -36,11 +40,13 @@ from stabletriton_tpu_torch.models.unet import (
     UNetConfig,
     init_unet_params,
     precompute_cross_kv,
+    precompute_time_cond,
     tiny_unet_config,
     unet_apply,
 )
 from stabletriton_tpu_torch.runtime import scheduler as sched
-from stabletriton_tpu_torch.runtime.denoise import make_denoise_loop
+from stabletriton_tpu_torch.runtime.denoise import make_denoise_loop, norm_guidance_interval
+from stabletriton_tpu_torch.runtime.graphs import Graphs
 
 logger = logging.getLogger("stabletriton_tpu_torch")
 
@@ -78,7 +84,13 @@ def initial_noise(seeds: list[int], shape: tuple[int, ...], device) -> torch.Ten
 
 @dataclass
 class SDXLPipeline:
-    """Holds configs and params; builds one denoise program per signature."""
+    """Holds configs and params; builds one txt2img program per signature,
+    whose denoise loop replays one CUDA graph on the card.
+
+    The params are fused and cast once, in ``__post_init__``, and must not
+    move afterwards: the graphs read them at the addresses they had when
+    each graph was captured. Code that replaces params must drop the
+    pipeline's programs (``_cache``) with them."""
 
     unet_config: UNetConfig
     clip_config: clip_mod.CLIPTextConfig
@@ -96,6 +108,8 @@ class SDXLPipeline:
     device: Any = "cuda"
     _cache: dict[Any, Any] = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    # the memory pool, side stream and replay lock of every program's graph
+    _graphs: Graphs = field(default_factory=Graphs, repr=False)
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -115,65 +129,102 @@ class SDXLPipeline:
         if height % step or width % step:
             raise ValueError(f"height/width must be multiples of {step}; got {height}x{width}")
 
+    def _unet_step_fns(self):
+        """(unet_step, precompute, precompute_time) for make_denoise_loop.
+        With ``cache_cross_kv`` (default) the step reads the precomputed
+        cross-attention K/V in place of the context; with ``cache_time_cond``
+        (opt-in) it reads its slice of the time-conditioning projections,
+        batched over all steps before the loop. Either computes what the
+        step would."""
+        ucfg = self.unet_config
+        use_kv = self.compile_config.cache_cross_kv
+        use_tc = self.compile_config.cache_time_cond
+
+        def unet_step(unet_params, sample, t, cond, text_embeds, time_ids, tc=None):
+            ctx, kv = (None, cond) if use_kv else (cond, None)
+            return unet_apply(ucfg, unet_params, sample, t, ctx, text_embeds, time_ids,
+                              cross_kv=kv, time_cond=tc)
+
+        def kv_pre(unet_params, ctx):
+            return precompute_cross_kv(ucfg, unet_params, ctx)
+
+        def time_pre(unet_params, timesteps, text_embeds, time_ids):
+            return precompute_time_cond(ucfg, unet_params, timesteps, text_embeds, time_ids)
+
+        return unet_step, (kv_pre if use_kv else None), (time_pre if use_tc else None)
+
     def _build(self, *, batch, height, width, steps, guidance_scale, solver,
-               return_latents):
-        """The txt2img program for one signature."""
+               return_latents, guidance_interval=None):
+        """The txt2img program for one signature. The denoise loop is a
+        graphed callable whose static inputs are the latents, ctx, pooled and
+        time ids; the params are read in place. Eager around it, each for a
+        reason:
+
+          * CLIP and the time ids: ``torch.tensor(..., device=)`` is a copy
+            from the host, which a capture refuses;
+          * the initial noise: one generator per image, seeded per request;
+          * the f32 VAE decode: it is device-bound (under 2% idle on an
+            H100, PERF.md §5), and its 1024^2 activations would stay
+            reserved in the pool.
+
+        The program carries its loop (``program.loop``, whose ``__wrapped__``
+        is the eager loop) and the eager part that makes the loop's inputs
+        (``program.loop_inputs``)."""
         binding = resolve_binding(self.compile_config)
         dtype = self.compile_config.torch_dtype
         schedule = sched.make_schedule(self.scheduler_config, steps)
         ucfg = self.unet_config
         f = self.vae_config.spatial_scale_factor
         lat_h, lat_w = height // f, width // f
+        unet_step, kv_pre, time_pre = self._unet_step_fns()
+        loop = self._graphs.wrap(make_denoise_loop(
+            unet_step, schedule, guidance_scale=guidance_scale, solver=solver,
+            precompute=kv_pre, precompute_time=time_pre,
+            guidance_interval=guidance_interval))
 
-        # the text conditioning is the same at every step, so the cross K/V
-        # projections run once per generation (precompute) and every step
-        # reads the cache
-        def unet_step(unet_params, sample, t, cross_kv, text_embeds, time_ids):
-            return unet_apply(ucfg, unet_params, sample, t, None, text_embeds, time_ids,
-                              cross_kv=cross_kv)
-
-        def kv_pre(unet_params, ctx):
-            return precompute_cross_kv(ucfg, unet_params, ctx)
-
-        loop = make_denoise_loop(unet_step, schedule, guidance_scale=guidance_scale,
-                                 solver=solver, precompute=kv_pre)
+        def loop_inputs(params, ids1, ids2, neg_ids1, neg_ids2, seeds):
+            """(latents, ctx, pooled, time_ids), under the caller's binding."""
+            ids1_all = torch.cat([neg_ids1, ids1])
+            if ucfg.has_addition_embedding:
+                # SDXL: dual encoders, penultimate states + pooled bigG
+                ctx, pooled = clip_mod.encode_sdxl_prompts(
+                    self.clip_config, params["text_encoder"],
+                    self.clip2_config, params["text_encoder_2"],
+                    ids1_all, torch.cat([neg_ids2, ids2]),
+                )
+                ctx, pooled = ctx.to(dtype), pooled.to(dtype)
+                # SDXL micro-conditioning: [oh, ow, ct, cl, th, tw]
+                tid = torch.tensor([height, width, 0, 0, height, width],
+                                   dtype=torch.float32, device=self.device)
+                time_ids = tid.expand(2 * batch, 6)
+            else:
+                # SD1.x: one encoder, final (or clip-skipped) states, no
+                # added conditioning; ids2 is not read
+                pen, final, _ = clip_mod.clip_apply_chunked(
+                    self.clip_config, params["text_encoder"], ids1_all)
+                ctx = (pen if self.clip_skip >= 2 else final).to(dtype)
+                pooled = torch.zeros((2 * batch, 0), dtype=dtype, device=self.device)
+                time_ids = torch.zeros((2 * batch, 0), dtype=torch.float32,
+                                       device=self.device)
+            noise = initial_noise(seeds, (lat_h, lat_w, ucfg.in_channels), self.device)
+            latents = (noise * schedule.init_noise_sigma).to(dtype)
+            return latents, ctx, pooled, time_ids
 
         def program(params, ids1, ids2, neg_ids1, neg_ids2, seeds):
             with torch.inference_mode(), ops.use_backends(binding):
-                ids1_all = torch.cat([neg_ids1, ids1])
-                if ucfg.has_addition_embedding:
-                    # SDXL: dual encoders, penultimate states + pooled bigG
-                    ctx, pooled = clip_mod.encode_sdxl_prompts(
-                        self.clip_config, params["text_encoder"],
-                        self.clip2_config, params["text_encoder_2"],
-                        ids1_all, torch.cat([neg_ids2, ids2]),
-                    )
-                    ctx, pooled = ctx.to(dtype), pooled.to(dtype)
-                    # SDXL micro-conditioning: [oh, ow, ct, cl, th, tw]
-                    tid = torch.tensor([height, width, 0, 0, height, width],
-                                       dtype=torch.float32, device=self.device)
-                    time_ids = tid.expand(2 * batch, 6)
-                else:
-                    # SD1.x: one encoder, final (or clip-skipped) states, no
-                    # added conditioning; ids2 is not read
-                    pen, final, _ = clip_mod.clip_apply_chunked(
-                        self.clip_config, params["text_encoder"], ids1_all)
-                    ctx = (pen if self.clip_skip >= 2 else final).to(dtype)
-                    pooled = torch.zeros((2 * batch, 0), dtype=dtype, device=self.device)
-                    time_ids = torch.zeros((2 * batch, 0), dtype=torch.float32,
-                                           device=self.device)
-                noise = initial_noise(seeds, (lat_h, lat_w, ucfg.in_channels), self.device)
-                latents = (noise * schedule.init_noise_sigma).to(dtype)
-                latents = loop(params["unet"], latents, ctx, pooled, time_ids)
+                latents = loop(params["unet"], *loop_inputs(
+                    params, ids1, ids2, neg_ids1, neg_ids2, seeds))
                 if return_latents:
                     return latents
                 return _decode_images(self.vae_config, params["vae"], latents)
 
+        program.loop, program.loop_inputs = loop, loop_inputs
         return program
 
     def _program(self, batch, height, width, steps, guidance_scale, solver,
-                 return_latents):
-        sig = (batch, height, width, steps, guidance_scale, solver, return_latents)
+                 return_latents, guidance_interval=None):
+        sig = (batch, height, width, steps, guidance_scale, solver, return_latents,
+               guidance_interval)
         fn = self._cache.get(sig)
         if fn is None:
             with self._lock:
@@ -182,20 +233,25 @@ class SDXLPipeline:
                     logger.info("building txt2img program for signature %s", sig)
                     fn = self._build(batch=batch, height=height, width=width,
                                      steps=steps, guidance_scale=guidance_scale,
-                                     solver=solver, return_latents=return_latents)
+                                     solver=solver, return_latents=return_latents,
+                                     guidance_interval=guidance_interval)
                     self._cache[sig] = fn
         return fn
 
     def txt2img(self, ids1, ids2, *, neg_ids1=None, neg_ids2=None,
                 height: int = 1024, width: int = 1024, steps: int = 30,
                 guidance_scale: float = 5.0, solver: str = "euler", seed=0,
-                return_latents: bool = False) -> torch.Tensor:
+                return_latents: bool = False,
+                guidance_interval: tuple[float, float] | None = None) -> torch.Tensor:
         """Token ids (B, 77) per encoder -> images (B, height, width, 3) in
         [-1, 1] on the pipeline's device (or the final latents).
 
         A missing negative prompt is the empty prompt "" (BOS, EOS, pad), as
         diffusers tokenizes it. ``seed``: an int (image i gets seed + i) or
-        one seed per image."""
+        one seed per image. ``guidance_interval=(sigma_lo, sigma_hi)``: CFG
+        only inside the sigma window, the cond branch alone outside it (see
+        make_denoise_loop). On the card the first call of a signature
+        captures its denoise loop; later calls replay it."""
         self._check_resolution(height, width)
         batch = int(ids1.shape[0])
         if neg_ids1 is None:
@@ -203,7 +259,8 @@ class SDXLPipeline:
         if neg_ids2 is None:
             neg_ids2 = self.clip2_config.empty_prompt_ids(batch, int(ids2.shape[1]))
         fn = self._program(batch, height, width, steps, float(guidance_scale), solver,
-                           return_latents)
+                           return_latents,
+                           norm_guidance_interval(guidance_interval, guidance_scale))
         ids = [torch.as_tensor(np.asarray(a), dtype=torch.long).to(self.device)
                for a in (ids1, ids2, neg_ids1, neg_ids2)]
         return fn(self.params, *ids, _seed_vector(seed, batch))

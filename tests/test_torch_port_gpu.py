@@ -1231,3 +1231,185 @@ def test_gpu_time_embed_route_same_bits(cuda_device, b, dim, flip, shift, form):
     assert route.convert == (form == "f64")
     assert out.shape == (b, dim) and out.dtype == torch.float32
     assert torch.equal(out, ttime.time_embed_plain(t, **kw)) and torch.equal(out, again)
+
+
+# --------------------------------------------------------------------------
+# the whole-loop replay (runtime/graphs.py) on a small pipeline the kernels
+# take: head dim 64, channels 64 / 128, the tiny test pipeline's CLIP and VAE
+# --------------------------------------------------------------------------
+
+REPLAY = dict(height=64, width=64, steps=3, return_latents=True)
+
+
+def _replay_pipeline(device, **cache):
+    """A small SDXL-shaped pipeline under the all-kernel binding, bf16;
+    ``cache``: CompileConfig's cache_cross_kv / cache_time_cond."""
+    from stabletriton_tpu_torch.compile import ALL_KERNEL_OVERRIDES, CompileConfig
+    from stabletriton_tpu_torch.models import clip as tclip
+    from stabletriton_tpu_torch.models import vae as tvae
+    from stabletriton_tpu_torch.models.unet import UNetConfig, init_unet_params
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    _, c1, c2, vcfg = tpipe.tiny_configs()
+    ucfg = UNetConfig(block_out_channels=(64, 128),
+                      down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+                      layers_per_block=1, transformer_layers_per_block=(1, 1),
+                      attention_head_dim=64, cross_attention_dim=c1.hidden_size + c2.hidden_size,
+                      norm_num_groups=8, addition_time_embed_dim=8,
+                      projection_class_embeddings_input_dim=8 * 6 + c2.projection_dim)
+    params = {"unet": init_unet_params(ucfg, 0, device=device),
+              "text_encoder": tclip.init_clip_params(c1, 1, device=device),
+              "text_encoder_2": tclip.init_clip_params(c2, 2, device=device),
+              "vae": tvae.init_vae_params(vcfg, 3, device=device)}
+    return tpipe.SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
+                              vae_config=vcfg, params=params, device=device,
+                              compile_config=CompileConfig(overrides=ALL_KERNEL_OVERRIDES,
+                                                           **cache))
+
+
+def _replay_ids(pipe, batch, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.full((batch, pipe.clip_config.max_position_embeddings),
+                     pipe.clip_config.eos_token_id, dtype=torch.long)
+    ids[:, 0] = pipe.clip_config.bos_token_id
+    ids[:, 1:6] = torch.randint(0, 90, (batch, 5), generator=gen)
+    return ids
+
+
+def _eager_loop(pipe, ids, seeds, **kw):
+    """The program's own eager loop (``program.loop.__wrapped__``, from the
+    same make_denoise_loop) on the inputs txt2img makes for ``ids``."""
+    from stabletriton_tpu_torch import ops as tops
+    from stabletriton_tpu_torch.compile import resolve_binding
+
+    batch = ids.shape[0]
+    prog = pipe._program(batch, kw["height"], kw["width"], kw["steps"], 5.0, "euler", True,
+                         kw.get("guidance_interval"))
+    neg = torch.as_tensor(pipe.clip_config.empty_prompt_ids(batch, ids.shape[1]),
+                          dtype=torch.long)
+    args = [t.to(pipe.device) for t in (ids, ids, neg, neg)]
+    with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
+        inputs = prog.loop_inputs(pipe.params, *args, seeds)
+        return prog.loop.__wrapped__(pipe.params["unet"], *inputs), prog
+
+
+def _all_launches():
+    from stabletriton_tpu_torch.kernels import conv_direct, flash_attention, geglu, group_norm
+    from stabletriton_tpu_torch.kernels import layer_norm, linear, time_embed
+
+    counters = (conv_direct.LAUNCHES, conv_direct.GN_LAUNCHES, flash_attention.LAUNCHES,
+                geglu.LAUNCHES, group_norm.LAUNCHES, layer_norm.LAUNCHES, linear.LAUNCHES,
+                time_embed.LAUNCHES)
+    return [dict(c.by_key) for c in counters]
+
+
+def _launched(before):
+    return [{k: n - b.get(k, 0) for k, n in now.items() if n != b.get(k, 0)}
+            for now, b in zip(_all_launches(), before)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [{}, {"cache_time_cond": True}, {"cache_cross_kv": False}])
+def test_gpu_replay_equals_eager_bit_for_bit(cuda_device, cache):
+    """The first call of a signature (the eager warm-up, then the capture)
+    and the second (a replay) give the eager loop's latents bit for bit
+    under the all-kernel binding, with a guidance interval too, and with
+    the time cache on or the cross K/V cache off; the replay counts the
+    launches the eager call made."""
+    pipe = _replay_pipeline(cuda_device, **cache)
+    ids = _replay_ids(pipe, 2, 0)
+    for gi in (None, (0.0, 5.0)):
+        before = _all_launches()
+        first = pipe.txt2img(ids, ids, seed=[1, 2], guidance_interval=gi, **REPLAY)
+        eager_counts = _launched(before)
+        before = _all_launches()
+        second = pipe.txt2img(ids, ids, seed=[1, 2], guidance_interval=gi, **REPLAY)
+        torch.cuda.synchronize()
+        assert _launched(before) == eager_counts and any(eager_counts)
+        eager, prog = _eager_loop(pipe, ids, [1, 2], guidance_interval=gi, **REPLAY)
+        assert len(prog.loop.captured) == 1 and prog.loop._graphs is pipe._graphs
+        assert torch.isfinite(first.float()).all()
+        assert torch.equal(first, eager) and torch.equal(second, eager)
+
+
+@pytest.mark.gpu
+def test_gpu_replay_takes_new_inputs_without_recapture(cuda_device):
+    """A later call with other prompts and seeds replays the one graph of
+    its signature (its static inputs copied in place) and gives the eager
+    loop's result on those inputs; another batch size is its own graph."""
+    pipe = _replay_pipeline(cuda_device)
+    pipe.txt2img(_replay_ids(pipe, 2, 0), _replay_ids(pipe, 2, 0), seed=[1, 2], **REPLAY)
+    for seed in (1, 2):
+        ids = _replay_ids(pipe, 2, seed)
+        got = pipe.txt2img(ids, ids, seed=[seed + 10, seed + 20], **REPLAY)
+        eager, prog = _eager_loop(pipe, ids, [seed + 10, seed + 20], **REPLAY)
+        (entry,) = prog.loop.captured.values()
+        assert torch.equal(got, eager)
+        assert got.data_ptr() != entry.outputs[0].data_ptr()  # a clone, not the buffer
+    solo = _replay_ids(pipe, 1, 5)
+    got = pipe.txt2img(solo, solo, seed=3, **REPLAY)
+    got_again = pipe.txt2img(solo, solo, seed=3, **REPLAY)
+    assert torch.equal(got, got_again) and len(pipe.cache_signatures()) == 2
+
+
+@pytest.mark.gpu
+def test_gpu_replay_from_two_threads_equals_serial_calls(cuda_device):
+    """Three threads call txt2img at once on a fresh pipeline (two of one
+    signature, one of another, so captures and replays meet): each gets
+    the serial calls' result bit for bit."""
+    import threading
+
+    serial = _replay_pipeline(cuda_device)
+    jobs = [(_replay_ids(serial, 2, 0), [1, 2]), (_replay_ids(serial, 2, 1), [3, 4]),
+            (_replay_ids(serial, 1, 2), [5])]
+    want = [serial.txt2img(ids, ids, seed=s, **REPLAY) for ids, s in jobs]
+    pipe = _replay_pipeline(cuda_device)
+    got, errors = [None] * len(jobs), []
+    start = threading.Barrier(len(jobs))
+
+    def run(i):
+        try:
+            start.wait(timeout=60)
+            ids, seeds = jobs[i]
+            with torch.inference_mode():
+                got[i] = pipe.txt2img(ids, ids, seed=seeds, **REPLAY)
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_gpu_failed_capture_raises(cuda_device, monkeypatch):
+    """A step that synchronises the device while the loop is captured (a
+    call a capture refuses) makes txt2img raise; nothing runs eagerly in
+    the graph's place and nothing is kept; the pipeline captures again once
+    the step is capturable."""
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    pipe = _replay_pipeline(cuda_device)
+    ids = _replay_ids(pipe, 1, 0)
+    real = tpipe.unet_apply
+
+    def refusing(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tpipe, "unet_apply", refusing)
+    with pytest.raises(RuntimeError, match="capturing"):
+        pipe.txt2img(ids, ids, seed=1, **REPLAY)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()  # given back
+    prog = pipe._program(1, 64, 64, 3, 5.0, "euler", True, None)
+    assert prog.loop.captured == {}
+    monkeypatch.undo()
+    first = pipe.txt2img(ids, ids, seed=1, **REPLAY)
+    assert torch.equal(pipe.txt2img(ids, ids, seed=1, **REPLAY), first)
