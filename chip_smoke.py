@@ -7,8 +7,9 @@
 ``--profile`` adds a torch.profiler breakdown of one step under each
 binding to phases 4 and 4c (device time by kernel family, idle share, the
 attention kernels by name) and of the default binding's 1024^2 decode to
-phase 5e (the same, and its 12 longest kernels), and phase 4e's 30-step
-request;
+phase 5e (the same, and its 12 longest kernels), phase 4e's 30-step
+request and phase 4f's 30-step Heun request (the capture cost of a graph
+of two UNet evaluations a step);
 ``--plans`` times the wgmma kernels at forced tile widths and K splits
 beside the planner's choice and a plain wave-filling rule's (before phase
 3). ``--host-time`` only builds the kernels and prints the host time a
@@ -120,6 +121,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      captured call, the end of the capture, instantiate); with ``--profile``
      also a 30-step request under the default binding, captured and
      replayed, then freed (its graph must be gone with its pipeline);
+  4f. solvers and DeepCache: the shallow pass (unet_apply_shallow on the
+     cache of unet_apply(return_cache=True), cross K/V precompute) against
+     the full pass on the same inputs, bit for bit, at full width, CFG batch
+     2, bf16: SDXL-base at 128^2 with the split at depth 1 (no attention in
+     the shallow pass) and 2 (K1, K2 live), SD1.5 at 64^2 at depth 1 (K3,
+     K5), under the default, fused-op and all-kernel bindings; each pass's
+     launches by kernel (attention by launch key), both graphed, each replay
+     bit for bit its eager run (held as in 4e) and timed against it; then
+     compile_unet_deepcache's (full, shallow) under each binding, eager
+     against replay. Then SDXL 1024^2 4-step requests (batch 1,
+     return_latents) under the default and all-kernel bindings in each mode:
+     plain Euler, deep_cache=2, deep_cache=(2, 2), heun, dpmpp_2m, euler_a,
+     and heun with deep_cache=2 and a guidance interval over the middle two
+     steps; each mode twice (the first captures, the second replays with
+     another prompt and seed), both bit for bit the eager loop on their
+     inputs, one graph a signature, the replay counting the first call's
+     launches key by key; each mode's replayed wall beside plain Euler's,
+     its first call's pieces, and its deviation against the reference
+     binding's eager loop of the same mode (max abs, MSE): at most
+     MODE_MSE_RATIO x the binding's plain Euler MSE, all finite; and the
+     ancestral noise of an image alone and in slot 1 of a batch of two,
+     bit for bit (SD1.5's step cases run after 4e's SD1.5 step);
   5. serving: a ServingEngine over a full-width SDXL-base pipeline answers
      three 1024^2 requests (4 Euler steps, guidance 5), after the same three
      with other seeds, which capture each bucket's denoise loop: the counted
@@ -1871,6 +1894,324 @@ def phase_replay_requests(dev, ucfg, unet_params, other, profile=False):
     return results
 
 
+# phase 4f: the shallow pass's cases (the depths a family runs: SDXL's split
+# at 1 runs no attention, at 2 keeps the 640-channel level's K1 / K2 live;
+# SD1.5's at 1 runs its outermost CrossAttnUpBlock2D, K3 and K5), the
+# bindings they run under, and the request modes, each against plain Euler
+DEEP_CACHE_DEPTHS = {"SDXL-base": {1: set(), 2: {"K1", "K2"}}, "SD1.5": {1: {"K3", "K5"}}}
+DEEP_CACHE_BINDINGS = ("default", "fused_ops", "all_kernels")
+MODE_BINDINGS = ("default", "all_kernels")
+# a mode's deviation from the reference binding's request of the same mode,
+# prompt and seed may be at most this many times the binding's deviation on
+# plain Euler: a wrong cache slice or a misplaced correction is O(1) off
+MODE_MSE_RATIO = 10.0
+
+
+def launch_summary(by_key: dict) -> dict:
+    """Launches by counter: attention by launch key (its class and kernel
+    lead it), the others summed by kernel (the key's first field)."""
+    out = {}
+    for name, keys in by_key.items():
+        if not keys:
+            continue
+        out[name] = dict(sorted(keys.items())) if name == "attention" else {
+            k: sum(n for key, n in keys.items() if key.split()[0] == k)
+            for k in sorted({key.split()[0] for key in keys})}
+    return out
+
+
+def phase_deep_cache_steps(dev, cfg, params, inputs, label):
+    """Phase 4f, the step: for each depth of DEEP_CACHE_DEPTHS[label] under
+    each binding of DEEP_CACHE_BINDINGS, the full pass (``return_cache``)
+    and the shallow pass on its cache, CFG batch 2, bf16, on the cross K/V
+    precompute: the shallow eps equals the full eps bit for bit; the
+    launches of each by kernel (the shallow pass's attention classes as
+    DEEP_CACHE_DEPTHS says); both passes graphed on one pool, replays equal
+    to their eager runs bit for bit and timed against them (host clock, CUDA
+    events). Then compile_unet_deepcache's pair (depth 1, the context in
+    place of the K/V cache) under each binding, eager against replay."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import (compile_unet_deepcache,
+                                                fuse_attention_projections, resolve_binding)
+    from stabletriton_tpu_torch.models.unet import (precompute_cross_kv, unet_apply,
+                                                    unet_apply_shallow)
+    from stabletriton_tpu_torch.runtime.graphs import Graphs
+
+    sample, ctx, pooled, time_ids = (inputs[k] for k in ("sample", "ctx", "pooled", "time_ids"))
+    t = torch.full((2,), 500.0, device=dev)
+    fused = fuse_attention_projections(params)
+    counters = kernel_counters()
+    configs = replay_configs()
+    results = {}
+    with torch.inference_mode():
+        for name in DEEP_CACHE_BINDINGS:
+            binding = resolve_binding(configs[name])
+            with ops.use_backends(binding):
+                kv = precompute_cross_kv(cfg, fused, ctx)
+            for depth, classes in DEEP_CACHE_DEPTHS[label].items():
+                def full(p, x, tt, kv, te, tid, depth=depth):
+                    with ops.use_backends(binding):
+                        return unet_apply(cfg, p, x, tt, None, te, tid, cross_kv=kv,
+                                          return_cache=True, cache_depth=depth)
+
+                def shallow(p, x, tt, kv, te, tid, cache, depth=depth):
+                    with ops.use_backends(binding):
+                        return unet_apply_shallow(cfg, p, x, tt, None, te, tid, cache,
+                                                  cross_kv=kv, cache_depth=depth)
+
+                args = (fused, sample, t, kv, pooled, time_ids)
+                reset(counters)
+                eps, cache = full(*args)
+                torch.cuda.synchronize()
+                full_launches = launches_by_key(counters)
+                reset(counters)
+                eps_shallow = shallow(*args, cache)
+                torch.cuda.synchronize()
+                shallow_launches = launches_by_key(counters)
+                case = f"{label} depth {depth}, {name} binding"
+                if not torch.equal(eps_shallow, eps):
+                    d = (eps_shallow.float() - eps.float()).abs().max().item()
+                    raise AssertionError(f"deep cache, {case}: the shallow pass on the full "
+                                         f"pass's cache differs from it (max abs {d:.3e})")
+                got = {key.split()[0] for key in shallow_launches["attention"]}
+                if got != classes:
+                    raise AssertionError(f"deep cache, {case}: the shallow pass launched "
+                                         f"attention classes {sorted(got)}, expected "
+                                         f"{sorted(classes)}")
+                graphs = Graphs()
+                full_g, shallow_g = graphs.wrap(full), graphs.wrap(shallow)
+                full_g(*args)                                # eager run, then the capture
+                shallow_g(*args, cache)
+                rec = {"shallow_bit_equal_full": True,
+                       "replay_full": held_to(case, "all_kernels full" if name == "all_kernels"
+                                              else "full", full_g(*args), (eps, cache)),
+                       "replay_shallow": held_to(case, "all_kernels shallow"
+                                                 if name == "all_kernels" else "shallow",
+                                                 shallow_g(*args, cache), eps)}
+                for g in (full_g, shallow_g):
+                    if len(g.captured) != 1:
+                        raise AssertionError(f"deep cache, {case}: {len(g.captured)} graphs")
+                rec["full_graph"] = capture_record(next(iter(full_g.captured.values())))
+                rec["shallow_graph"] = capture_record(next(iter(shallow_g.captured.values())))
+                rec["full"] = eager_vs_replay(lambda: full(*args), lambda: full_g(*args))
+                rec["shallow"] = eager_vs_replay(lambda: shallow(*args, cache),
+                                                 lambda: shallow_g(*args, cache))
+                rec["launches"] = {"full": launch_summary(full_launches),
+                                   "shallow": launch_summary(shallow_launches)}
+                log(f"deep cache, {case}: shallow == full bit for bit; launches of one step "
+                    f"by kernel, shallow {json.dumps(rec['launches']['shallow'])}; full "
+                    f"{json.dumps(rec['launches']['full'])}")
+                log(f"  event ms eager / replay: full "
+                    + "/".join(f"{v:.2f}" for v in rec["full"]["eager_event_ms"]) + " / "
+                    + "/".join(f"{v:.2f}" for v in rec["full"]["replay_event_ms"])
+                    + ", shallow "
+                    + "/".join(f"{v:.2f}" for v in rec["shallow"]["eager_event_ms"]) + " / "
+                    + "/".join(f"{v:.2f}" for v in rec["shallow"]["replay_event_ms"])
+                    + f"; graph nodes full {rec['full_graph']['nodes']}, shallow "
+                    f"{rec['shallow_graph']['nodes']}")
+                results[f"depth {depth}, {name}"] = rec
+                del full_g, shallow_g, graphs, eps, cache, eps_shallow
+                gc.collect()
+                torch.cuda.empty_cache()
+            del kv
+        for name in DEEP_CACHE_BINDINGS:
+            full_g, shallow_g = compile_unet_deepcache(cfg, configs[name])
+            args = (fused, sample, t, ctx, pooled, time_ids)
+            eps, cache = full_g.__wrapped__(*args)
+            full_g(*args)
+            shallow_g(*args, cache)
+            case = f"{label} compile_unet_deepcache, {name} binding"
+            rec = {"full": held_to(case, "all_kernels full" if name == "all_kernels" else "full",
+                                   full_g(*args), (eps, cache)),
+                   "shallow": held_to(case, "all_kernels shallow" if name == "all_kernels"
+                                      else "shallow", shallow_g(*args, cache), eps),
+                   "full_ms": eager_vs_replay(lambda: full_g.__wrapped__(*args),
+                                              lambda: full_g(*args)),
+                   "shallow_ms": eager_vs_replay(lambda: shallow_g.__wrapped__(*args, cache),
+                                                 lambda: shallow_g(*args, cache))}
+            if not torch.equal(shallow_g.__wrapped__(*args, cache), eps):
+                raise AssertionError(f"{case}: the shallow pass differs from the full pass")
+            log(f"{case}: replays bit equal {rec['full']['bit_equal']} / "
+                f"{rec['shallow']['bit_equal']}; event ms eager / replay: full "
+                + "/".join(f"{v:.2f}" for v in rec["full_ms"]["eager_event_ms"]) + " / "
+                + "/".join(f"{v:.2f}" for v in rec["full_ms"]["replay_event_ms"]) + ", shallow "
+                + "/".join(f"{v:.2f}" for v in rec["shallow_ms"]["eager_event_ms"]) + " / "
+                + "/".join(f"{v:.2f}" for v in rec["shallow_ms"]["replay_event_ms"]))
+            results[f"compile_unet_deepcache, {name}"] = rec
+            del full_g, shallow_g, eps, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"deep cache {label} steps " + json.dumps(results))
+    return results
+
+
+def request_modes() -> dict:
+    """Phase 4f's request modes: txt2img keywords (plain Euler first)."""
+    from stabletriton_tpu_torch.runtime import scheduler as sched
+
+    s = [float(v) for v in sched.make_schedule(sched.SchedulerConfig(), SERVE_STEPS).sigmas]
+    middle = ((s[2] + s[3]) / 2, (s[0] + s[1]) / 2)  # steps 1 and 2 of 0-3
+    return {"euler": {}, "deep_cache=2": {"deep_cache": 2},
+            "deep_cache=(2, 2)": {"deep_cache": (2, 2)}, "heun": {"solver": "heun"},
+            "dpmpp_2m": {"solver": "dpmpp_2m"}, "euler_a": {"solver": "euler_a"},
+            "heun, deep_cache=2, interval": {"solver": "heun", "deep_cache": 2,
+                                             "guidance_interval": middle}}
+
+
+def phase_mode_requests(dev, ucfg, unet_params, other, profile=False, size=1024):
+    """Phase 4f, the requests: each mode of request_modes() as SDXL
+    ``size``^2 SERVE_STEPS-step requests (batch 1, return_latents) under each binding
+    of MODE_BINDINGS, twice (the first captures, the second replays with
+    another prompt and seed, its wall timed over REPLAY_ITERS replays):
+    both equal to the eager loop on their inputs
+    bit for bit, one graph a signature, the replay counting the first
+    call's launches key by key. The reference binding's eager loop on the
+    second request's inputs is each mode's yardstick: a binding's MSE under
+    a mode may be at most MODE_MSE_RATIO times its MSE under plain Euler,
+    and every output is finite. Then the ancestral noise of an image alone
+    against the same image in slot 1 of a batch of two, bit for bit. With
+    ``profile`` also a 30-step Heun request under the default binding,
+    captured and replayed, and its graph freed with its pipeline."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.runtime.denoise import norm_deep_cache, norm_guidance_interval
+    from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline, ancestral_noise
+
+    (c1, c2, vcfg), params = other
+    tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+    modes = request_modes()
+    calls = [("a lighthouse at dusk", 11), ("a bowl of ramen", 12)]
+    counters = kernel_counters()
+
+    def tokens(prompt):
+        return (tok.encode_batch([prompt], max_len=c1.max_position_embeddings),
+                tok.encode_batch([prompt], max_len=c2.max_position_embeddings, pad=0))
+
+    def program(pipe, kw, steps=SERVE_STEPS):
+        return pipe._program(1, size, size, steps, 5.0, kw.get("solver", "euler"), True,
+                             norm_guidance_interval(kw.get("guidance_interval"), 5.0),
+                             norm_deep_cache(kw.get("deep_cache")))
+
+    def eager_loop(pipe, kw, prompt, seed):
+        ids1, ids2 = tokens(prompt)
+        ids = [torch.as_tensor(np.asarray(a), dtype=torch.long).to(dev) for a in (
+            ids1, ids2, c1.empty_prompt_ids(1, ids1.shape[1]),
+            c2.empty_prompt_ids(1, ids2.shape[1]))]
+        prog = program(pipe, kw)
+        with torch.inference_mode(), ops.use_backends(resolve_binding(pipe.compile_config)):
+            return prog.loop.__wrapped__(pipe.params["unet"], *prog.loop_inputs(
+                pipe.params, *ids, [seed]))
+
+    def make_pipe(name):
+        return SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2, vae_config=vcfg,
+                            params={"unet": unet_params, **params},
+                            compile_config=replay_configs()[name], device=dev)
+
+    pipe = make_pipe("reference")
+    reference = {mode: eager_loop(pipe, kw, *calls[1]) for mode, kw in modes.items()}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = {}
+    for name in MODE_BINDINGS:
+        pipe = make_pipe(name)
+        rows = {}
+        for mode, kw in modes.items():
+            rec, outs, counts = {"replay_s": []}, [], []
+            for i, (prompt, seed) in enumerate(calls):
+                ids1, ids2 = tokens(prompt)
+                for n in range(1 if i == 0 else REPLAY_ITERS):  # the replay timed 3 times
+                    reset(counters)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lat = pipe.txt2img(ids1, ids2, height=size, width=size,
+                                       steps=SERVE_STEPS, guidance_scale=5.0, seed=seed,
+                                       return_latents=True, **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    if i == 0:
+                        rec["first_s"] = wall
+                    else:
+                        rec["replay_s"].append(wall)
+                    if n == 0:
+                        counts.append(launches_by_key(counters))
+                        outs.append(lat)
+                    elif not torch.equal(lat, outs[-1]):
+                        raise AssertionError(f"{mode}, {name}: a replay of the same request "
+                                             f"gave other latents")
+            prog = program(pipe, kw)
+            if len(prog.loop.captured) != 1:
+                raise AssertionError(f"{mode}, {name}: {len(prog.loop.captured)} graphs for "
+                                     f"one signature")
+            if counts[1] != counts[0]:
+                raise AssertionError(f"{mode}, {name}: the replay counted {counts[1]}, the "
+                                     f"first call {counts[0]}")
+            for i, (prompt, seed) in enumerate(calls):
+                if not torch.equal(outs[i], eager_loop(pipe, kw, prompt, seed)):
+                    raise AssertionError(f"{mode}, {name}: call {i} differs from the eager "
+                                         f"loop on its inputs")
+            if not all(torch.isfinite(o.float()).all() for o in outs):
+                raise AssertionError(f"{mode}, {name}: latents not finite")
+            diff = outs[1].float() - reference[mode].float()
+            rec["vs_reference"] = {"max_abs": diff.abs().max().item(),
+                                   "mse": diff.square().mean().item()}
+            rec["graph"] = capture_record(next(iter(prog.loop.captured.values())))
+            rows[mode] = rec
+            log(f"mode {mode}, SDXL {size}^2 {SERVE_STEPS}-step request, {name} binding: "
+                f"bit equal to the eager loop (capture and replay); " + json.dumps(rec))
+        euler = rows["euler"]
+        for mode, rec in rows.items():
+            rec["replay_vs_euler"] = min(rec["replay_s"]) / min(euler["replay_s"])
+            if rec["vs_reference"]["mse"] > MODE_MSE_RATIO * euler["vs_reference"]["mse"]:
+                raise AssertionError(f"{mode}, {name}: MSE against the reference binding "
+                                     f"{rec['vs_reference']['mse']:.3e}, over "
+                                     f"{MODE_MSE_RATIO:g} x plain Euler's "
+                                     f"{euler['vs_reference']['mse']:.3e}")
+        log(f"modes, {name} binding (replayed walls s, the least x plain Euler's; MSE "
+            f"against the reference binding): " + ", ".join(
+                f"{m} " + "/".join(f"{v:.3f}" for v in r["replay_s"])
+                + f" ({r['replay_vs_euler']:.2f}x; {r['vs_reference']['mse']:.3e})"
+                for m, r in rows.items()))
+        results[name] = rows
+        if profile and name == "default":
+            kw = {"solver": "heun"}
+            long = []
+            for prompt, seed in calls:
+                ids1, ids2 = tokens(prompt)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lat = pipe.txt2img(ids1, ids2, height=size, width=size, steps=30,
+                                   guidance_scale=5.0, seed=seed, return_latents=True, **kw)
+                torch.cuda.synchronize()
+                long.append({"wall_s": time.perf_counter() - t0})
+                if not torch.isfinite(lat.float()).all():
+                    raise AssertionError("the 30-step Heun request's latents are not finite")
+            entry = next(iter(program(pipe, kw, steps=30).loop.captured.values()))
+            long[0]["graph"] = capture_record(entry)
+            graph_ref = weakref.ref(entry.graph)
+            pipe._cache.clear()
+            del lat, entry
+            gc.collect()
+            torch.cuda.empty_cache()
+            if graph_ref() is not None:
+                raise AssertionError("the 30-step Heun request's graph outlived its program")
+            log(f"mode heun, SDXL {size}^2 30-step request, default binding (captures, replays): "
+                + json.dumps(long))
+            results["default_heun_30_steps"] = long
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    lat = size // vcfg.spatial_scale_factor
+    shape = (lat, lat, ucfg.in_channels)
+    alone = ancestral_noise([12], SERVE_STEPS, shape, dev)
+    pair = ancestral_noise([11, 12], SERVE_STEPS, shape, dev)
+    if alone.shape != (SERVE_STEPS, 1, *shape) or not torch.equal(pair[:, 1], alone[:, 0]):
+        raise AssertionError("the ancestral noise of an image alone differs from its noise "
+                             "in slot 1 of a batch of two")
+    log("ancestral noise: an image alone and in slot 1 of a batch of two, bit for bit")
+    return results
+
+
 class StubTokenizer:
     """Deterministic ids without vocab files: BOS, one id per character, EOS,
     then padding (CLIP pools at argmax(ids == eos))."""
@@ -2339,7 +2680,7 @@ def main() -> int:
     with_peak("phase 3e", phase_c4, dev)
     kernel_results += with_peak("phase 3d", phase_optional_kernels, dev)
 
-    # SDXL-base at 1024^2: phases 4, 4b, 4d, 4e, 5, 5b, 5d
+    # SDXL-base at 1024^2: phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5d
     ucfg = sdxl_base_unet_config()
     sdxl = {"unet": make_unet_params(dev, ucfg)}
     with_peak("phases 4, 4b, 4d (weights included)", phase_step_deviation, dev, ucfg,
@@ -2349,6 +2690,10 @@ def main() -> int:
     with_peak("phase 4e step", phase_replay_step, dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev),
               "SDXL-base", profile)
     with_peak("phase 4e requests", phase_replay_requests, dev, ucfg, sdxl["unet"],
+              sdxl["other"], profile)
+    with_peak("phase 4f steps", phase_deep_cache_steps, dev, ucfg, sdxl["unet"],
+              sdxl_step_inputs(dev), "SDXL-base")
+    with_peak("phase 4f requests", phase_mode_requests, dev, ucfg, sdxl["unet"],
               sdxl["other"], profile)
     diffs = {}
     by_key, diffs["default"] = with_peak("phase 5", phase_serving, dev, ucfg, sdxl["unet"],
@@ -2364,7 +2709,7 @@ def main() -> int:
               sdxl["other"][1]["vae"], profile)
     free(sdxl)
 
-    # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 5c
+    # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 4f, 5c
     ucfg = sd15_unet_config()
     sd15 = {"unet": make_unet_params(dev, ucfg)}
     with_peak("phase 4c (weights included)", phase_step_deviation, dev, ucfg, sd15["unet"],
@@ -2372,6 +2717,8 @@ def main() -> int:
               SD15_ATTN_PER_STEP, SD15_CONV_SPLIT, SD15_LINEAR_SPLIT, "SD1.5", profile)
     with_peak("phase 4e SD1.5 step", phase_replay_step, dev, ucfg, sd15["unet"],
               sd15_step_inputs(dev), "SD1.5", profile)
+    with_peak("phase 4f SD1.5 steps", phase_deep_cache_steps, dev, ucfg, sd15["unet"],
+              sd15_step_inputs(dev), "SD1.5")
     sd15["other"] = make_sd15_other_params(dev)
     sd15_by_key = with_peak("phase 5c", phase_serving_sd15, dev, ucfg, sd15["unet"],
                             sd15["other"])

@@ -10,7 +10,8 @@ linears), the same pipeline and serving engine. It imports neither JAX nor
   ops/        op registry and plain-PyTorch reference backends
   kernels/    wrappers of the CUDA kernels in csrc/, built at first use
   models/     UNet, CLIP text encoders, VAE decoder
-  runtime/    Euler schedule, CFG denoise loop, txt2img pipeline, serving
+  runtime/    schedule and solvers, the CFG denoise loop (guidance interval,
+              DeepCache), its CUDA-graph replay, txt2img pipeline, serving
   io/         conversion of the JAX package's parameters
 """
 

@@ -19,6 +19,7 @@ from stabletriton_tpu_torch.models.unet import (
     precompute_cross_kv,
     precompute_time_cond,
     unet_apply,
+    unet_apply_shallow,
 )
 from stabletriton_tpu_torch.runtime.graphs import Graphs
 
@@ -137,6 +138,38 @@ def compile_unet_kv(unet_config: UNetConfig, config: CompileConfig = CompileConf
                               text_embeds, time_ids, cross_kv=cross_kv, time_cond=time_cond)
 
     return graphs.wrap(precompute), graphs.wrap(precompute_time), graphs.wrap(step)
+
+
+def compile_unet_deepcache(unet_config: UNetConfig, config: CompileConfig = CompileConfig()):
+    """The DeepCache pair for callers that own the step loop, as the JAX
+    package's: ``(full, shallow)``, two graphed callables on one memory
+    pool:
+
+      full(params, sample, t, encoder_hidden_states, text_embeds, time_ids)
+          -> (eps, cache)
+      shallow(params, sample, t, encoder_hidden_states, text_embeds,
+              time_ids, cache) -> eps
+
+    ``cache`` is the deep-feature tensor entering the last up block
+    (``unet_apply(return_cache=True)``, ``unet_apply_shallow``). The
+    pipeline carries the cache inside its replayed loop instead
+    (``make_denoise_loop(deep_cache=)``)."""
+    binding = resolve_binding(config)
+    dtype = config.torch_dtype
+    graphs = Graphs()
+
+    def full(params, sample, timesteps, encoder_hidden_states, text_embeds, time_ids):
+        with ops.use_backends(binding):
+            return unet_apply(unet_config, params, sample.to(dtype), timesteps,
+                              encoder_hidden_states, text_embeds, time_ids, return_cache=True)
+
+    def shallow(params, sample, timesteps, encoder_hidden_states, text_embeds, time_ids,
+                cache):
+        with ops.use_backends(binding):
+            return unet_apply_shallow(unet_config, params, sample.to(dtype), timesteps,
+                                      encoder_hidden_states, text_embeds, time_ids, cache)
+
+    return graphs.wrap(full), graphs.wrap(shallow)
 
 
 def cast_params(params: dict[str, torch.Tensor], config: CompileConfig) -> dict:

@@ -465,7 +465,8 @@ def precompute_cross_kv(cfg: UNetConfig, params: dict, encoder_hidden_states):
 def unet_apply(cfg: UNetConfig, params: dict, sample: torch.Tensor,
                timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor | None,
                text_embeds: torch.Tensor, time_ids: torch.Tensor,
-               cross_kv: dict | None = None, time_cond: dict | None = None) -> torch.Tensor:
+               cross_kv: dict | None = None, time_cond: dict | None = None,
+               return_cache: bool = False, cache_depth: int = 1):
     """One denoising forward pass.
 
     sample: (B, H, W, C_in) NHWC latents; timesteps: (B,) or scalar;
@@ -475,9 +476,64 @@ def unet_apply(cfg: UNetConfig, params: dict, sample: torch.Tensor,
     without added conditioning (SD1.x). ``time_cond``: this step's
     {resnet_key: (B, C)} slice of :func:`precompute_time_cond`, which then
     replaces the time embedding. Returns the predicted noise, same shape as
-    sample."""
-    p = params
+    sample.
+
+    ``return_cache``: also return the hidden state entering up block
+    ``len(up) - cache_depth``, right after the preceding upsample (the
+    DeepCache split point, shape :func:`deep_cache_shape`): everything below
+    the outermost ``cache_depth`` levels reaches the rest of the UNet only
+    through it, so :func:`unet_apply_shallow` can reuse it. Returns
+    ``(eps, cache)``."""
+    return _unet_pass(cfg, params, sample, timesteps, encoder_hidden_states, text_embeds,
+                      time_ids, cross_kv, time_cond, cache_depth,
+                      keep_cache=return_cache)
+
+
+def deep_cache_shape(cfg: UNetConfig, batch: int, lat_h: int, lat_w: int,
+                     cache_depth: int = 1) -> tuple[int, int, int, int]:
+    """The DeepCache feature's shape for a (batch, lat_h, lat_w) latent: it
+    enters up block ``len(up) - cache_depth``, so it has
+    ``block_out_channels[cache_depth]`` channels at the resolution of level
+    ``cache_depth - 1``. A depth outside [1, levels - 1] raises."""
+    _check_cache_depth(cfg, cache_depth)
+    s = cache_depth - 1
+    return (batch, lat_h >> s, lat_w >> s, cfg.block_out_channels[cache_depth])
+
+
+def _check_cache_depth(cfg: UNetConfig, cache_depth: int) -> None:
+    levels = len(cfg.block_out_channels)
+    if not 1 <= cache_depth < levels:
+        raise ValueError(f"deep_cache depth must be in [1, {levels - 1}] for this "
+                         f"{levels}-level UNet, got {cache_depth}")
+
+
+def unet_apply_shallow(cfg: UNetConfig, params: dict, sample: torch.Tensor,
+                       timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor | None,
+                       text_embeds: torch.Tensor, time_ids: torch.Tensor,
+                       cache: torch.Tensor, cross_kv: dict | None = None,
+                       time_cond: dict | None = None, cache_depth: int = 1) -> torch.Tensor:
+    """The DeepCache pass: only the outermost ``cache_depth`` levels, with
+    ``cache`` (from ``unet_apply(..., return_cache=True)``) in place of
+    everything deeper. Runs conv_in and down blocks [0, cache_depth) for
+    their skips, then the up path from block ``len(up) - cache_depth`` on.
+    On a cache from a full pass on the same inputs it gives that pass's eps
+    bit for bit (the shallow levels see the same operands); on a cache of
+    an earlier step it is DeepCache's approximation. SDXL's depth-1 pass
+    runs no attention."""
+    return _unet_pass(cfg, params, sample, timesteps, encoder_hidden_states, text_embeds,
+                      time_ids, cross_kv, time_cond, cache_depth, cache=cache)
+
+
+def _unet_pass(cfg: UNetConfig, p: dict, sample, timesteps, encoder_hidden_states,
+               text_embeds, time_ids, cross_kv, time_cond, cache_depth: int, *,
+               cache=None, keep_cache: bool = False):
+    """The level walk of :func:`unet_apply` (``cache`` None: every level,
+    the mid block, the cache kept where ``keep_cache``) and of
+    :func:`unet_apply_shallow` (the outermost ``cache_depth`` levels around
+    ``cache``)."""
     dtype = sample.dtype
+    if cache is not None or keep_cache:
+        _check_cache_depth(cfg, cache_depth)
     if timesteps.dim() == 0:
         timesteps = timesteps.expand(sample.shape[0])
     temb = (None if time_cond is not None
@@ -493,37 +549,49 @@ def unet_apply(cfg: UNetConfig, params: dict, sample: torch.Tensor,
     else:
         ctx = encoder_hidden_states.to(dtype)
 
+    n = len(cfg.down_block_types)
+    down = n if cache is None else cache_depth
     h = ops.conv2d(sample, p["conv_in.weight"], p["conv_in.bias"])
     skips = [h]
-    for i, btype in enumerate(cfg.down_block_types):
+    for i in range(down):
         for j in range(cfg.layers_per_block):
             h = resnet(f"down_blocks.{i}.resnets.{j}", h)
-            if btype == "CrossAttnDownBlock2D":
+            if cfg.down_block_types[i] == "CrossAttnDownBlock2D":
                 h = _transformer2d(p, f"down_blocks.{i}.attentions.{j}", h, ctx, cfg,
                                    cfg.transformer_layers_per_block[i], cross_kv=cross_kv)
             skips.append(h)
-        if i < len(cfg.down_block_types) - 1:
+        if i < down - 1:
             h = _downsample(p, f"down_blocks.{i}.downsamplers.0", h)
             skips.append(h)
 
-    h = resnet("mid_block.resnets.0", h)
-    h = _transformer2d(p, "mid_block.attentions.0", h, ctx, cfg,
-                       cfg.mid_transformer_layers, cross_kv=cross_kv)
-    h = resnet("mid_block.resnets.1", h)
+    if cache is None:
+        h = resnet("mid_block.resnets.0", h)
+        h = _transformer2d(p, "mid_block.attentions.0", h, ctx, cfg,
+                           cfg.mid_transformer_layers, cross_kv=cross_kv)
+        h = resnet("mid_block.resnets.1", h)
+        first = 0
+    else:
+        h = cache.to(dtype)
+        first = n - cache_depth
 
-    for i, btype in enumerate(cfg.up_block_types):
+    kept = None
+    up_types = cfg.up_block_types
+    for i in range(first, n):
+        if keep_cache and i == n - cache_depth:
+            kept = h  # the DeepCache split point
         tf_layers = tuple(reversed(cfg.transformer_layers_per_block))[i]
         for j in range(cfg.layers_per_block + 1):
             h = torch.cat([h, skips.pop()], dim=-1)
             h = resnet(f"up_blocks.{i}.resnets.{j}", h)
-            if btype == "CrossAttnUpBlock2D":
+            if up_types[i] == "CrossAttnUpBlock2D":
                 h = _transformer2d(p, f"up_blocks.{i}.attentions.{j}", h, ctx, cfg,
                                    tf_layers, cross_kv=cross_kv)
-        if i < len(cfg.up_block_types) - 1:
+        if i < n - 1:
             h = _upsample(p, f"up_blocks.{i}.upsamplers.0", h)
 
-    return ops.gn_conv2d(
+    out = ops.gn_conv2d(
         h, p["conv_norm_out.weight"], p["conv_norm_out.bias"],
         p["conv_out.weight"], p["conv_out.bias"],
         num_groups=cfg.norm_num_groups, eps=cfg.norm_eps, gn_act="silu",
     )
+    return (out, kept) if keep_cache else out

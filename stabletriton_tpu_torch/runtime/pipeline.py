@@ -1,4 +1,5 @@
-"""End-to-end txt2img: CLIP -> Euler CFG denoise loop -> VAE decode.
+"""End-to-end txt2img: CLIP -> CFG denoise loop (Euler, Euler-Ancestral, Heun
+or DPM-Solver++(2M), with the guidance interval and DeepCache) -> VAE decode.
 
 SDXL conditions on two encoders (penultimate states, pooled bigG, size
 micro-conditioning); SD1.x on one (final states, or penultimate with
@@ -6,11 +7,11 @@ micro-conditioning); SD1.x on one (final states, or penultimate with
 
 Counterpart of ``SDXLPipeline.txt2img`` in ``stabletriton_tpu/runtime/pipeline.py``.
 JAX traces the whole program into one executable. Here the denoise loop (the
-cross K/V precompute, every Euler step with its CFG combine, the update) is
-the executable: on the card it is captured as one CUDA graph per signature at
-its first call and replayed at every later one (``runtime/graphs.py``); the
-text encoders, the initial noise and the VAE decode around it run eagerly
-(:meth:`SDXLPipeline._build` says why). The op binding is entered inside
+cross K/V precompute, every step's UNet evaluations with their CFG combine,
+the solver's update) is the executable: on the card it is captured as one
+CUDA graph per signature at its first call and replayed at every later one
+(``runtime/graphs.py``); the text encoders, the noise and the VAE decode
+around it run eagerly (:meth:`SDXLPipeline._build` says why). The op binding is entered inside
 :meth:`SDXLPipeline.txt2img`, on the thread that runs the model, and the model
 runs under ``torch.inference_mode()``.
 
@@ -38,14 +39,20 @@ from stabletriton_tpu_torch.models import clip as clip_mod
 from stabletriton_tpu_torch.models import vae as vae_mod
 from stabletriton_tpu_torch.models.unet import (
     UNetConfig,
+    deep_cache_shape,
     init_unet_params,
     precompute_cross_kv,
     precompute_time_cond,
     tiny_unet_config,
     unet_apply,
+    unet_apply_shallow,
 )
 from stabletriton_tpu_torch.runtime import scheduler as sched
-from stabletriton_tpu_torch.runtime.denoise import make_denoise_loop, norm_guidance_interval
+from stabletriton_tpu_torch.runtime.denoise import (
+    make_denoise_loop,
+    norm_deep_cache,
+    norm_guidance_interval,
+)
 from stabletriton_tpu_torch.runtime.graphs import Graphs
 
 logger = logging.getLogger("stabletriton_tpu_torch")
@@ -80,6 +87,23 @@ def initial_noise(seeds: list[int], shape: tuple[int, ...], device) -> torch.Ten
         gen = torch.Generator(device=device).manual_seed(s)
         out.append(torch.randn(shape, generator=gen, dtype=torch.float32, device=device))
     return torch.stack(out)
+
+
+def ancestral_noise(seeds: list[int], steps: int, shape: tuple[int, ...], device
+                    ) -> torch.Tensor:
+    """(steps, B, *shape) float32 standard normal noise for an ancestral
+    solver: one chain per image, from a generator seeded by that image's
+    seed mixed with 1 (``numpy.random.SeedSequence([seed, 1])``), so the
+    chain is disjoint from the image's initial noise and batching never
+    changes an image. Its bits are not those of the JAX package's
+    ``jax.random`` chain."""
+    out = []
+    for s in seeds:
+        derived = int(np.random.SeedSequence([s, 1]).generate_state(1, np.uint64)[0])
+        gen = torch.Generator(device=device).manual_seed(derived)
+        out.append(torch.randn((steps, *shape), generator=gen, dtype=torch.float32,
+                               device=device))
+    return torch.stack(out, dim=1)
 
 
 @dataclass
@@ -153,23 +177,51 @@ class SDXLPipeline:
 
         return unet_step, (kv_pre if use_kv else None), (time_pre if use_tc else None)
 
+    def _deep_cache_tuple(self, deep_cache, lat_h, lat_w):
+        """make_denoise_loop's ``deep_cache`` for a normalised (interval,
+        depth): full and shallow UNet passes bound as :meth:`_unet_step_fns`'
+        step is (the cross K/V cache, the time cache), and the cache's
+        (H, W, C) from ``deep_cache_shape``."""
+        if deep_cache is None:
+            return None
+        interval, depth = deep_cache
+        ucfg = self.unet_config
+        use_kv = self.compile_config.cache_cross_kv
+
+        def full_fn(unet_params, sample, t, cond, text_embeds, time_ids, tc=None):
+            ctx, kv = (None, cond) if use_kv else (cond, None)
+            return unet_apply(ucfg, unet_params, sample, t, ctx, text_embeds, time_ids,
+                              cross_kv=kv, time_cond=tc, return_cache=True,
+                              cache_depth=depth)
+
+        def shallow_fn(unet_params, sample, t, cond, text_embeds, time_ids, tc, cache):
+            ctx, kv = (None, cond) if use_kv else (cond, None)
+            return unet_apply_shallow(ucfg, unet_params, sample, t, ctx, text_embeds,
+                                      time_ids, cache, cross_kv=kv, time_cond=tc,
+                                      cache_depth=depth)
+
+        hwc = deep_cache_shape(ucfg, 1, lat_h, lat_w, cache_depth=depth)[1:]
+        return (interval, full_fn, shallow_fn, hwc)
+
     def _build(self, *, batch, height, width, steps, guidance_scale, solver,
-               return_latents, guidance_interval=None):
+               return_latents, guidance_interval=None, deep_cache=None):
         """The txt2img program for one signature. The denoise loop is a
         graphed callable whose static inputs are the latents, ctx, pooled and
-        time ids; the params are read in place. Eager around it, each for a
-        reason:
+        time ids (and an ancestral solver's noise); the params are read in
+        place. Eager around it, each for a reason:
 
           * CLIP and the time ids: ``torch.tensor(..., device=)`` is a copy
             from the host, which a capture refuses;
-          * the initial noise: one generator per image, seeded per request;
+          * the initial and ancestral noise: one generator per image, seeded
+            per request;
           * the f32 VAE decode: it is device-bound (under 2% idle on an
             H100, PERF.md §5), and its 1024^2 activations would stay
             reserved in the pool.
 
         The program carries its loop (``program.loop``, whose ``__wrapped__``
         is the eager loop) and the eager part that makes the loop's inputs
-        (``program.loop_inputs``)."""
+        (``program.loop_inputs``: latents, ctx, pooled, time ids, and under
+        "euler_a" the noise)."""
         binding = resolve_binding(self.compile_config)
         dtype = self.compile_config.torch_dtype
         schedule = sched.make_schedule(self.scheduler_config, steps)
@@ -180,10 +232,12 @@ class SDXLPipeline:
         loop = self._graphs.wrap(make_denoise_loop(
             unet_step, schedule, guidance_scale=guidance_scale, solver=solver,
             precompute=kv_pre, precompute_time=time_pre,
-            guidance_interval=guidance_interval))
+            guidance_interval=guidance_interval,
+            deep_cache=self._deep_cache_tuple(deep_cache, lat_h, lat_w)))
 
         def loop_inputs(params, ids1, ids2, neg_ids1, neg_ids2, seeds):
-            """(latents, ctx, pooled, time_ids), under the caller's binding."""
+            """(latents, ctx, pooled, time_ids[, noise]), under the caller's
+            binding."""
             ids1_all = torch.cat([neg_ids1, ids1])
             if ucfg.has_addition_embedding:
                 # SDXL: dual encoders, penultimate states + pooled bigG
@@ -206,8 +260,12 @@ class SDXLPipeline:
                 pooled = torch.zeros((2 * batch, 0), dtype=dtype, device=self.device)
                 time_ids = torch.zeros((2 * batch, 0), dtype=torch.float32,
                                        device=self.device)
-            noise = initial_noise(seeds, (lat_h, lat_w, ucfg.in_channels), self.device)
+            shape = (lat_h, lat_w, ucfg.in_channels)
+            noise = initial_noise(seeds, shape, self.device)
             latents = (noise * schedule.init_noise_sigma).to(dtype)
+            if solver == "euler_a":
+                return latents, ctx, pooled, time_ids, ancestral_noise(
+                    seeds, steps, shape, self.device)
             return latents, ctx, pooled, time_ids
 
         def program(params, ids1, ids2, neg_ids1, neg_ids2, seeds):
@@ -222,9 +280,9 @@ class SDXLPipeline:
         return program
 
     def _program(self, batch, height, width, steps, guidance_scale, solver,
-                 return_latents, guidance_interval=None):
+                 return_latents, guidance_interval=None, deep_cache=None):
         sig = (batch, height, width, steps, guidance_scale, solver, return_latents,
-               guidance_interval)
+               guidance_interval, deep_cache)
         fn = self._cache.get(sig)
         if fn is None:
             with self._lock:
@@ -234,7 +292,8 @@ class SDXLPipeline:
                     fn = self._build(batch=batch, height=height, width=width,
                                      steps=steps, guidance_scale=guidance_scale,
                                      solver=solver, return_latents=return_latents,
-                                     guidance_interval=guidance_interval)
+                                     guidance_interval=guidance_interval,
+                                     deep_cache=deep_cache)
                     self._cache[sig] = fn
         return fn
 
@@ -242,14 +301,20 @@ class SDXLPipeline:
                 height: int = 1024, width: int = 1024, steps: int = 30,
                 guidance_scale: float = 5.0, solver: str = "euler", seed=0,
                 return_latents: bool = False,
-                guidance_interval: tuple[float, float] | None = None) -> torch.Tensor:
+                guidance_interval: tuple[float, float] | None = None,
+                deep_cache: int | tuple[int, int] | None = None) -> torch.Tensor:
         """Token ids (B, 77) per encoder -> images (B, height, width, 3) in
         [-1, 1] on the pipeline's device (or the final latents).
 
         A missing negative prompt is the empty prompt "" (BOS, EOS, pad), as
         diffusers tokenizes it. ``seed``: an int (image i gets seed + i) or
-        one seed per image. ``guidance_interval=(sigma_lo, sigma_hi)``: CFG
-        only inside the sigma window, the cond branch alone outside it (see
+        one seed per image. ``solver``: "euler", "euler_a", "heun" or
+        "dpmpp_2m". ``guidance_interval=(sigma_lo, sigma_hi)``: CFG only
+        inside the sigma window, the cond branch alone outside it.
+        ``deep_cache=N`` (DeepCache): the full UNet every N-th step and only
+        the outermost level, around the carried deep features, in between;
+        ``(N, depth)`` recomputes the outermost ``depth`` levels. Both draft
+        knobs compose with each other and with ``guidance_scale <= 1`` (see
         make_denoise_loop). On the card the first call of a signature
         captures its denoise loop; later calls replay it."""
         self._check_resolution(height, width)
@@ -260,7 +325,8 @@ class SDXLPipeline:
             neg_ids2 = self.clip2_config.empty_prompt_ids(batch, int(ids2.shape[1]))
         fn = self._program(batch, height, width, steps, float(guidance_scale), solver,
                            return_latents,
-                           norm_guidance_interval(guidance_interval, guidance_scale))
+                           norm_guidance_interval(guidance_interval, guidance_scale),
+                           norm_deep_cache(deep_cache))
         ids = [torch.as_tensor(np.asarray(a), dtype=torch.long).to(self.device)
                for a in (ids1, ids2, neg_ids1, neg_ids2)]
         return fn(self.params, *ids, _seed_vector(seed, batch))

@@ -1,11 +1,18 @@
-"""Euler noise schedule for the denoise loop.
+"""Noise schedule and solver steps for the denoise loop.
 
-Counterpart of ``stabletriton_tpu/runtime/scheduler.py`` (Euler only). The
-schedule tables are numpy, computed on the host exactly as in the JAX
-package; the step functions run on tensors. Semantics match diffusers'
-EulerDiscreteScheduler as SDXL configures it (scaled-linear betas
-0.00085 -> 0.012 over 1000 train steps, "leading" spacing, steps_offset 1,
-epsilon prediction).
+Counterpart of ``stabletriton_tpu/runtime/scheduler.py``: the schedule and
+the Euler, Euler-Ancestral, Heun and DPM-Solver++(2M) steps. The schedule
+tables are numpy, computed on the host exactly as in the JAX package.
+Semantics match diffusers' EulerDiscreteScheduler as SDXL configures it
+(scaled-linear betas 0.00085 -> 0.012 over 1000 train steps, "leading"
+spacing, steps_offset 1, epsilon prediction).
+
+The step functions run on tensors; every scalar of a step (a sigma
+difference, sigma_down / sigma_up, DPM++'s h, r0 and expm1(-h)) is a
+constant of the schedule, computed on the host in float32 as JAX computes
+it on its float32 sigmas inside the scan, and the collapses at
+``sigma_next == 0`` and DPM++'s first step are Python branches: a step
+launches the same kernels at every call, so the loop stays capturable.
 """
 
 from __future__ import annotations
@@ -87,3 +94,79 @@ def euler_step(sample: torch.Tensor, eps: torch.Tensor, sigma: float,
     """One Euler step under epsilon prediction: sample + eps * (sigma_next - sigma)."""
     dt = np.float32(sigma_next) - np.float32(sigma)
     return (sample + eps.float() * float(dt)).to(sample.dtype)
+
+
+def ancestral_sigmas(sigma: float, sigma_next: float) -> tuple[np.float32, np.float32]:
+    """(sigma_down, sigma_up) of an ancestral step (k-diffusion
+    ``get_ancestral_step``, eta=1), in float32: the deterministic part steps
+    to sigma_down and fresh noise at sigma_up restores the marginal at
+    sigma_next (sigma_down^2 + sigma_up^2 == sigma_next^2)."""
+    s, sn = np.float32(sigma), np.float32(sigma_next)
+    zero = np.float32(0.0)
+    var_up = sn * sn * (s * s - sn * sn) / np.maximum(s * s, np.float32(1e-20))
+    sigma_up = np.sqrt(np.maximum(var_up, zero))
+    sigma_down = np.sqrt(np.maximum(sn * sn - sigma_up * sigma_up, zero))
+    return sigma_down, sigma_up
+
+
+def euler_ancestral_step(sample: torch.Tensor, eps: torch.Tensor, sigma: float,
+                         sigma_next: float, noise: torch.Tensor) -> torch.Tensor:
+    """One Euler-Ancestral step (epsilon prediction, eta=1): the Euler step
+    to sigma_down, then fresh gaussian ``noise`` scaled by sigma_up. At
+    ``sigma_next == 0`` both vanish and the step lands on pred_x0."""
+    sigma_down, sigma_up = ancestral_sigmas(sigma, sigma_next)
+    x = sample.float() + eps.float() * float(sigma_down - np.float32(sigma))
+    x = x + noise.float() * float(sigma_up)
+    return x.to(sample.dtype)
+
+
+def heun_step(sample: torch.Tensor, eps: torch.Tensor, eps_next: torch.Tensor | None,
+              sigma: float, sigma_next: float) -> torch.Tensor:
+    """One Heun (2nd order) step under epsilon prediction: ``eps`` is the
+    derivative at sigma, ``eps_next`` the one at the Euler proposal at
+    sigma_next (k-diffusion ``sample_heun``). At ``sigma_next == 0`` the
+    trapezoid is skipped and the step is the Euler step (pred_x0), so
+    ``eps_next`` is not read there and may be None."""
+    if np.float32(sigma_next) == 0:
+        return euler_step(sample, eps, sigma, sigma_next)
+    dt = float(np.float32(sigma_next) - np.float32(sigma))
+    x = sample.float() + 0.5 * (eps.float() + eps_next.float()) * dt
+    return x.to(sample.dtype)
+
+
+def dpmpp_2m_coefficients(sigma: float, sigma_next: float, sigma_prev: float
+                          ) -> tuple[np.float32, ...]:
+    """DPM-Solver++(2M)'s scalars in float32, as JAX's ``dpmpp_2m_step``
+    computes them, with its floors (1e-10 on each sigma, on h and on r0):
+    (s_next / s_cur, expm1(-h), 1 + 1 / (2 r0), 1 / (2 r0)), where
+    lambda(s) = -log(s), h = lambda(s_next) - lambda(s_cur) and
+    r0 = (lambda(s_cur) - lambda(s_prev)) / h."""
+    floor = np.float32(1e-10)
+    s_cur, s_next, s_prev = (np.maximum(np.float32(v), floor)
+                             for v in (sigma, sigma_next, sigma_prev))
+    h = -np.log(s_next) - -np.log(s_cur)
+    h_prev = -np.log(s_cur) - -np.log(s_prev)
+    r0 = h_prev / np.maximum(h, floor)
+    half_r = np.float32(1.0) / (np.float32(2.0) * np.maximum(r0, floor))
+    return s_next / s_cur, np.expm1(-h), np.float32(1.0) + half_r, half_r
+
+
+def dpmpp_2m_step(sample: torch.Tensor, eps: torch.Tensor, sigma: float, sigma_next: float,
+                  prev_x0: torch.Tensor, have_prev: bool, sigma_prev: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One DPM-Solver++(2M) step (epsilon prediction, deterministic), the
+    k-diffusion ``sample_dpmpp_2m`` update in sigma-space:
+
+        x' = (s_next / s_cur) * x - expm1(-h) * D
+
+    with D = pred_x0 on the first step (``have_prev`` False) and the 2M
+    extrapolation of this and the previous pred_x0 (``prev_x0``, float32)
+    after. At ``sigma_next == 0`` it is pred_x0. Returns (new sample,
+    pred_x0 in float32), the multistep state of the next step."""
+    x = sample.float()
+    x0 = x - eps.float() * float(np.float32(sigma))
+    if np.float32(sigma_next) == 0:
+        return x0.to(sample.dtype), x0
+    ratio, expm1_h, c_cur, c_prev = dpmpp_2m_coefficients(sigma, sigma_next, sigma_prev)
+    d = x0 * float(c_cur) - prev_x0 * float(c_prev) if have_prev else x0
+    return (x * float(ratio) - d * float(expm1_h)).to(sample.dtype), x0

@@ -4,8 +4,9 @@ Counterpart of ``stabletriton_tpu/runtime/serving.py``, with the same
 behaviour:
 
   * requests queue up; a worker thread groups them by signature
-    (resolution, steps, guidance, solver, guidance interval) so one program,
-    and on the card one replayed graph a bucket, serves the group;
+    (resolution, steps, guidance, solver, guidance interval, DeepCache) so
+    one program, and on the card one replayed graph a bucket, serves the
+    group;
   * a group's batch pads up to a bucket size (1/2/4/8);
   * per-request seeds ride along, so batching never changes a request's image.
 
@@ -23,7 +24,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from stabletriton_tpu_torch.runtime.denoise import norm_guidance_interval
+from stabletriton_tpu_torch.runtime.denoise import norm_deep_cache, norm_guidance_interval
 
 _BUCKETS = (1, 2, 4, 8)
 
@@ -38,16 +39,19 @@ class Request:
     guidance_scale: float = 5.0
     solver: str = "euler"
     seed: int = 0
-    # CFG only inside this sigma window (see SDXLPipeline.txt2img): part of
-    # the batching signature, since requests share a program only if they
-    # sample alike
+    # the draft knobs (see SDXLPipeline.txt2img), part of the batching
+    # signature, since requests share a program only if they sample alike:
+    # CFG only inside this sigma window; DeepCache's interval (and depth)
     guidance_interval: tuple[float, float] | None = None
+    deep_cache: int | tuple[int, int] | None = None
 
     @property
     def signature(self):
-        # the interval normalised as the pipeline's program key holds it
+        # the knobs normalised as the pipeline's program key holds them, so
+        # deep_cache=2 and (2, 1) co-batch
         return (self.height, self.width, self.steps, float(self.guidance_scale), self.solver,
-                norm_guidance_interval(self.guidance_interval, self.guidance_scale))
+                norm_guidance_interval(self.guidance_interval, self.guidance_scale),
+                norm_deep_cache(self.deep_cache))
 
 
 def _bucket(n: int) -> int:
@@ -121,7 +125,7 @@ class ServingEngine:
             neg_ids2=self.tok2.encode_batch(negatives, max_len=seq2, pad=0),
             height=r0.height, width=r0.width, steps=r0.steps,
             guidance_scale=r0.guidance_scale, solver=r0.solver,
-            guidance_interval=r0.guidance_interval,
+            guidance_interval=r0.guidance_interval, deep_cache=r0.deep_cache,
             seed=[r.seed for r in reqs] + [0] * pad,
         )
         return imgs.float().cpu().numpy()

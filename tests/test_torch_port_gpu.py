@@ -1413,3 +1413,112 @@ def test_gpu_failed_capture_raises(cuda_device, monkeypatch):
     monkeypatch.undo()
     first = pipe.txt2img(ids, ids, seed=1, **REPLAY)
     assert torch.equal(pipe.txt2img(ids, ids, seed=1, **REPLAY), first)
+
+
+@pytest.fixture(scope="module")
+def full_width_unets():
+    """SDXL-base's and SD1.5's UNets at full width, random bf16 weights on
+    the card, fused projections; made once for the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stabletriton_tpu_torch.compile import fuse_attention_projections
+    from stabletriton_tpu_torch.models.unet import (init_unet_params, sd15_unet_config,
+                                                    sdxl_base_unet_config)
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for family, cfg in (("sdxl", sdxl_base_unet_config()), ("sd15", sd15_unet_config())):
+        out[family] = (cfg, fuse_attention_projections(
+            init_unet_params(cfg, 0, device=dev, dtype=torch.bfloat16)))
+    yield out
+    out.clear()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("binding", ["default", "all_kernels"])
+@pytest.mark.parametrize("family,latent,depth,classes", [
+    ("sdxl", 128, 1, set()), ("sdxl", 128, 2, {"K1", "K2"}), ("sd15", 64, 1, {"K3", "K5"})])
+def test_gpu_shallow_pass_equals_full_pass(cuda_device, full_width_unets, family, latent, depth,
+                                           classes, binding):
+    """At full width, CFG batch 2, bf16, on the cross K/V cache: the shallow
+    pass on the full pass's cache gives the full pass's eps bit for bit, and
+    launches the attention classes its outermost levels hold (none for
+    SDXL's depth-1 split)."""
+    from stabletriton_tpu_torch import ops as tops
+    from stabletriton_tpu_torch.compile import (ALL_KERNEL_OVERRIDES, CompileConfig,
+                                                resolve_binding)
+    from stabletriton_tpu_torch.models.unet import (precompute_cross_kv, unet_apply,
+                                                    unet_apply_shallow)
+
+    cfg, params = full_width_unets[family]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    sample = torch.randn((2, latent, latent, 4), generator=gen, device=cuda_device)
+    ctx = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen, device=cuda_device)
+    if cfg.has_addition_embedding:
+        te = torch.randn((2, 1280), generator=gen, device=cuda_device).to(torch.bfloat16)
+        tid = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device=cuda_device)
+    else:
+        te = torch.zeros((2, 0), device=cuda_device, dtype=torch.bfloat16)
+        tid = torch.zeros((2, 0), device=cuda_device)
+    t = torch.full((2,), 500.0, device=cuda_device)
+    config = CompileConfig(overrides=ALL_KERNEL_OVERRIDES if binding == "all_kernels" else ())
+    with torch.inference_mode(), tops.use_backends(resolve_binding(config)):
+        kv = precompute_cross_kv(cfg, params, ctx.to(torch.bfloat16))
+        args = (cfg, params, sample.to(torch.bfloat16), t, None, te, tid)
+        eps, cache = unet_apply(*args, cross_kv=kv, return_cache=True, cache_depth=depth)
+        before = dict(tfa.LAUNCHES.by_key)
+        shallow = unet_apply_shallow(*args, cache, cross_kv=kv, cache_depth=depth)
+        torch.cuda.synchronize()
+    launched = {k.split()[0] for k, n in tfa.LAUNCHES.by_key.items() if n != before.get(k, 0)}
+    assert launched == classes
+    assert torch.isfinite(eps.float()).all() and torch.equal(shallow, eps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    {"solver": "heun", "deep_cache": 2, "guidance_interval": (0.5, 8.0)},
+    {"solver": "euler_a", "deep_cache": (2, 1)},
+    {"solver": "dpmpp_2m"}])
+def test_gpu_mode_replay_equals_eager_bit_for_bit(cuda_device, kw):
+    """A solver / DeepCache mode through txt2img on the card: the first
+    call (eager, then the capture) and a replay with another prompt and
+    seed each equal the eager loop on their inputs bit for bit, under the
+    all-kernel binding; one graph; the replay counts the first call's
+    launches."""
+    from stabletriton_tpu_torch import ops as tops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.runtime.denoise import norm_deep_cache, norm_guidance_interval
+
+    pipe = _replay_pipeline(cuda_device)
+    outs, counts = [], []
+    for seed in (1, 2):
+        ids = _replay_ids(pipe, 1, seed)
+        before = _all_launches()
+        outs.append((ids, seed, pipe.txt2img(ids, ids, seed=seed, **REPLAY, **kw)))
+        torch.cuda.synchronize()
+        counts.append(_launched(before))
+    assert counts[0] == counts[1] and any(counts[0])
+    prog = pipe._program(1, REPLAY["height"], REPLAY["width"], REPLAY["steps"], 5.0,
+                         kw["solver"], True,
+                         norm_guidance_interval(kw.get("guidance_interval"), 5.0),
+                         norm_deep_cache(kw.get("deep_cache")))
+    assert len(prog.loop.captured) == 1
+    for ids, seed, got in outs:
+        neg = torch.as_tensor(pipe.clip_config.empty_prompt_ids(1, ids.shape[1]),
+                              dtype=torch.long)
+        args = [a.to(cuda_device) for a in (ids, ids, neg, neg)]
+        with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
+            eager = prog.loop.__wrapped__(pipe.params["unet"], *prog.loop_inputs(
+                pipe.params, *args, [seed]))
+        assert torch.isfinite(got.float()).all() and torch.equal(got, eager)
+    assert not torch.equal(outs[0][2], outs[1][2])
+
+
+@pytest.mark.gpu
+def test_gpu_ancestral_noise_is_per_image(cuda_device):
+    from stabletriton_tpu_torch.runtime.pipeline import ancestral_noise
+
+    alone = ancestral_noise([12], 4, (16, 16, 4), cuda_device)
+    pair = ancestral_noise([11, 12], 4, (16, 16, 4), cuda_device)
+    assert alone.device.type == "cuda" and torch.equal(pair[:, 1], alone[:, 0])

@@ -8,7 +8,10 @@ in the loop, the pipeline and ``Request``, and the runtime's own pieces that
 a CPU can reach: the graphed callable's signature keying and the launch
 counters' capture tally and replay accounting. On the CPU a graphed callable
 runs its function as it is; its capture and replay are held on the card
-(``tests/test_torch_port_gpu.py``, ``chip_smoke.py`` phase 4e).
+(``tests/test_torch_port_gpu.py``, ``chip_smoke.py`` phases 4e and 4f). The
+stand-in cases at the end (``fake_cuda``) also replay the other solvers' and
+DeepCache's loops; ``tests/test_torch_port_solvers.py`` and
+``tests/test_torch_port_deep_cache.py`` hold those against JAX.
 
 The same numpy weights and inputs (from seeds) go through both packages, in
 float32 under the reference binding (the "cuda" binding on CPU tensors runs
@@ -326,7 +329,7 @@ def test_txt2img_guidance_interval_matches_jax(monkeypatch, window):
     kw = dict(height=SIZE, width=SIZE, steps=4, seed=[1, 2], guidance_interval=gi)
     want = np.asarray(jp.txt2img(jnp.asarray(ids), jnp.asarray(ids), **kw))
     np.testing.assert_allclose(tp.txt2img(ids, ids, **kw).numpy(), want, atol=1e-4, rtol=0)
-    assert [sig[-1] for sig in tp.cache_signatures()] == [gi]
+    assert [sig[-2:] for sig in tp.cache_signatures()] == [(gi, None)]
 
 
 def test_guidance_interval_is_inert_without_cfg():
@@ -338,7 +341,7 @@ def test_guidance_interval_is_inert_without_cfg():
     a = tp.txt2img(ids, ids, guidance_interval=(1.0, 5.0), **kw)
     b = tp.txt2img(ids, ids, **kw)
     assert torch.equal(a, b)
-    assert len(tp.cache_signatures()) == 1 and tp.cache_signatures()[0][-1] is None
+    assert len(tp.cache_signatures()) == 1 and tp.cache_signatures()[0][-2] is None
 
 
 def _fake_unet_torch(params, sample, t, ctx, text_embeds, time_ids):
@@ -419,7 +422,7 @@ def test_request_signature_normalises_guidance_interval():
     assert Request(guidance_interval=(1, 2), **kw).signature != Request(**kw).signature
     for r in (inert, Request(guidance_interval=[1, 2], **kw)):
         j = JRequest(guidance_scale=r.guidance_scale, guidance_interval=r.guidance_interval, **kw)
-        assert r.signature == j.signature[:-1]  # JAX's also holds deep_cache
+        assert r.signature == j.signature  # deep_cache (None) last, as JAX's
 
 
 class _Tok:
@@ -452,7 +455,7 @@ def test_engine_co_batches_equal_intervals():
     finally:
         eng.close()
     assert len(calls) == 1 and calls[0][0] == 2
-    assert [s[-1] for s in pipe.cache_signatures()] == [(1.0, 20.0)]
+    assert [s[-2:] for s in pipe.cache_signatures()] == [((1.0, 20.0), None)]
 
 
 # --------------------------------------------------------------------------
@@ -762,3 +765,118 @@ def test_failed_capture_raises_and_keeps_nothing(fake_cuda):
     fail[0] = False
     assert torch.equal(g({}, torch.zeros(2)), torch.ones(2)) and len(g.captured) == 1
     assert torch.equal(g({}, torch.ones(2)), torch.full((2,), 2.0))
+
+
+# --------------------------------------------------------------------------
+# the solvers and DeepCache under the replay runtime, the card stood in for
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def recorded_loops(fake_cuda, monkeypatch):
+    """The pipeline's loops, each registering its body with the stand-in
+    capture so that a replay runs it again on the static buffers."""
+    real = tpipe.make_denoise_loop
+
+    def make(*args, **kwargs):
+        loop = real(*args, **kwargs)
+
+        def replayable(params, latents, ctx, text_embeds, time_ids, noise=None):
+            tail = () if noise is None else (noise,)
+            out = loop(params, latents, ctx, text_embeds, time_ids, *tail)
+            fake_cuda.record(lambda: loop(params, latents, ctx, text_embeds, time_ids, *tail),
+                             out)
+            return out
+
+        return replayable
+
+    monkeypatch.setattr(tpipe, "make_denoise_loop", make)
+    return fake_cuda
+
+
+def _eager(pipe, prog, ids, seeds):
+    neg = torch.as_tensor(pipe.clip_config.empty_prompt_ids(len(seeds), ids.shape[1]),
+                          dtype=torch.long)
+    tids = torch.as_tensor(ids, dtype=torch.long)
+    with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
+        inputs = prog.loop_inputs(pipe.params, tids, tids, neg, neg, seeds)
+        return prog.loop.__wrapped__(pipe.params["unet"], *inputs), inputs
+
+
+@pytest.mark.parametrize("solver,deep_cache,gi", [
+    ("euler", 2, None), ("heun", (2, 1), (0.5, 5.0)), ("dpmpp_2m", 3, None),
+    ("euler_a", None, None), ("euler_a", 2, (0.5, 5.0))])
+def test_solver_and_deep_cache_loops_capture_once(recorded_loops, solver, deep_cache, gi):
+    """A DeepCache or non-Euler loop through txt2img: the first call
+    captures, a later one with another prompt and seed replays the one graph
+    of its signature and gives the eager loop's latents on its own inputs;
+    an ancestral solver's noise is one more static input, copied in at each
+    call (a copy: the caller's tensor is not the buffer)."""
+    pipe = tpipe.make_tiny_pipeline()
+    kw = dict(height=SIZE, width=SIZE, steps=3, solver=solver, deep_cache=deep_cache,
+              guidance_interval=gi, return_latents=True)
+    first_ids, ids = _ids(pipe.clip_config, 1, 0), _ids(pipe.clip_config, 1, 1)
+    first = pipe.txt2img(first_ids, first_ids, seed=5, **kw)
+    got = pipe.txt2img(ids, ids, seed=6, **kw)
+    (prog,) = pipe._cache.values()
+    (entry,) = prog.loop.captured.values()
+    assert entry.graph.replays == 1
+    eager, inputs = _eager(pipe, prog, ids, [6])
+    assert torch.equal(got, eager) and not torch.equal(got, first)
+    assert torch.equal(first, _eager(pipe, prog, first_ids, [5])[0])
+    assert len(entry.inputs) == len(inputs) == 4 + (solver == "euler_a")
+    if solver == "euler_a":
+        noise, lat = inputs[-1], SIZE // pipe.vae_config.spatial_scale_factor
+        assert noise.shape == (3, 1, lat, lat, 4)
+        assert torch.equal(entry.inputs[-1], noise) and entry.inputs[-1] is not noise
+
+
+def test_deep_cache_and_solver_split_graphs(recorded_loops):
+    """deep_cache and solver are part of a program's signature: each
+    combination is its own program and graph; deep_cache=2 and (2, 1)
+    replay one graph."""
+    pipe = tpipe.make_tiny_pipeline()
+    ids = _ids(pipe.clip_config, 1)
+    kw = dict(height=SIZE, width=SIZE, steps=2, return_latents=True)
+    for solver, dc in [("euler", None), ("euler", 2), ("euler", (2, 1)), ("euler", 3),
+                       ("heun", 2), ("euler_a", 2), ("euler_a", None)]:
+        pipe.txt2img(ids, ids, seed=1, solver=solver, deep_cache=dc, **kw)
+    sigs = pipe.cache_signatures()
+    assert len(sigs) == 6
+    assert all(len(prog.loop.captured) == 1 for prog in pipe._cache.values())
+    replays = {(sig[5], sig[-1]): next(iter(pipe._cache[sig].loop.captured.values())).graph.replays
+               for sig in sigs}
+    assert replays[("euler", (2, 1))] == 1 and sum(replays.values()) == 1
+
+
+def test_deep_cache_loop_tally_counts_its_passes(fake_cuda):
+    """A captured DeepCache loop (4 Euler steps, interval 2, CFG) counts its
+    full and shallow passes once a replay, as the eager loop runs them."""
+    counter = build.LaunchCounter()
+    schedule = tsched.make_schedule(tsched.SchedulerConfig(), 4)
+
+    def full(params, inp, t, ctx, te, tid, tc=None):
+        counter.add(f"full {inp.shape[0]}")
+        return _fake_unet_torch(params, inp, t, ctx, te, tid), 0.5 * inp
+
+    def shallow(params, inp, t, ctx, te, tid, tc, cache):
+        counter.add(f"shallow {inp.shape[0]}")
+        return _fake_unet_torch(params, inp, t, ctx, te, tid) + 0.01 * cache
+
+    loop = tmake_loop(_fake_unet_torch, schedule, deep_cache=(2, full, shallow, (4, 4, 4)))
+
+    def fn(params, latents, ctx):
+        out = loop(params, latents, ctx, None, None)
+        fake_cuda.record(lambda: loop(params, latents, ctx, None, None), out)
+        return out
+
+    g = tgraphs.Graphs().wrap(fn)
+    rng = np.random.default_rng(2)
+    ctx = torch.from_numpy(rng.standard_normal((2, 3, 5)).astype(np.float32))
+    g({}, torch.ones(1, 4, 4, 4), ctx)
+    assert counter.by_key == {"full 2": 2, "shallow 2": 2}  # the warm-up counts
+    (entry,) = g.captured.values()
+    assert entry.tally == {(counter, "full 2"): 2, (counter, "shallow 2"): 2}
+    lat = torch.from_numpy(rng.standard_normal((1, 4, 4, 4)).astype(np.float32))
+    assert torch.equal(g({}, lat, ctx), loop({}, lat, ctx, None, None))
+    assert counter.by_key == {"full 2": 6, "shallow 2": 6}  # replay + the eager check
