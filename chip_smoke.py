@@ -177,6 +177,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
      steps run (K3 and K4 on attn_wgmma_bf16, K5 on the tiny-KV kernel),
      plus one f32 K3 launch per
      image for the VAE on the 3xTF32 GEMM; the decode convs as in phase 5.
+  6k. (after 3d) the twins at the shapes the image-conditioned paths give
+     them and no earlier path did, against their plain versions as in phase
+     3: the f32 VAE encoder's convs (conv_in Cin 3 -> 128 at 1024^2 on the
+     direct kernel, 512^2 and 256^2 levels, conv_out 512 -> 8), the 9-channel
+     inpainting conv_in, the SDXL refiner's GroupNorm-fused convs (Cin 384,
+     1152, 2304), Transformer2D GroupNorm (768), LayerNorm, GEGLU and
+     projections at its widths, its 5-slot time ids and its attention at
+     h=12 and 24 (K2 S=4096, K1 S=1024 and 256, cross-attention on the
+     tiny-KV kernel);
+  6. (after 5e, before 5c) the image-conditioned paths at 1024^2, random
+     weights, 4 Euler steps, batch 1, with the launch counters set to 0
+     just before and read just after: one f32 VAE encode under the default
+     and all-kernel bindings against the reference binding (TF32 off; max
+     abs at most F32_REL_TOL of the largest latent), timed, with its
+     launches by route and an encode -> decode round trip; then under the
+     default and all-kernel bindings warmup followed by the same
+     signature's first txt2img request (which must capture nothing),
+     img2img_image on SDXL-base (strength 0.5), inpaint on the 9-channel
+     SDXL UNet (SDXL-base's tensors with a new conv_in; a centred square
+     mask; Euler, and Heun with a guidance interval and deep_cache=2) and
+     TwoStageSDXL with the SDXL refiner (refiner_strength 0.25), each kind
+     twice (the first call captures, the second replays): both bit for bit
+     the eager loop on their inputs, the replay counting the first call's
+     launches, the plain kinds' launches as their pieces count them (the
+     refiner's per step from its config, written beside SDXL-base's), graph
+     nodes, the first call's pieces, the replayed wall, and the MSE of the
+     latents against the reference binding's same request (eager) at most
+     MODE_MSE_RATIO x the binding's plain Euler txt2img MSE.
 
 Each phase logs its peak device memory.
 
@@ -252,11 +280,14 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> tuple[float, float, dict]:
+def device_ms(fn, iters: int) -> tuple[float, float | None, dict | None]:
     """Device time of one fn() call, its kernel launches a call and its
     device time a call by kernel name: the sums of its kernels' durations
     (torch.profiler's CUDA kernel events) over ``iters`` calls after one
-    warm-up, so the host's gaps between launches do not count."""
+    warm-up, so the host's gaps between launches do not count. Where three
+    sessions running record no kernel (on the card's machine a profiler
+    that did so once kept doing so for the rest of the process), the time
+    by CUDA events instead, logged as such, with None for the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -272,11 +303,22 @@ def device_ms(fn, iters: int) -> tuple[float, float, dict]:
             break
         log(f"  (profiler session {attempt + 1} recorded no kernel; profiling again)")
     if not spans:
-        raise AssertionError("the profiler saw no kernel on the device")
+        log("  (the profiler recorded no kernel; CUDA events instead, host gaps included)")
+        return timed_ms(fn, iters), None, None
     by_name = {}
     for name, us in spans:
         by_name[name] = by_name.get(name, 0.0) + us / iters / 1e3
     return sum(by_name.values()), len(spans) / iters, by_name
+
+
+def named_ms(by_name: dict | None, part: str) -> float | None:
+    """The device ms a call of the kernels whose names hold ``part``, from
+    device_ms's by-name times; None where the profiler recorded none."""
+    return None if by_name is None else sum(ms for kn, ms in by_name.items() if part in kn)
+
+
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
@@ -306,6 +348,8 @@ def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
          "library_ms": timed_ms(library_fn, iters) if library_fn is not None else None}
     # the device's own time a call, without the host's gaps between launches
     r["device_ms"], per_call, r["device_by_name"] = device_ms(kernel_fn, iters)
+    if per_call is None:
+        r["device_ms_source"] = "cuda events (the profiler recorded no kernel)"
     dev_extra = ""
     if library_fn is not None:
         r["library_device_ms"] = device_ms(library_fn, iters)[0]
@@ -322,7 +366,7 @@ def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
     log(f"kernel {name}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol {tol:g}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}; bound {bound_ms[0] * 1e3:.4g} us "
         f"({bound_ms[1]}), {bound_ms[0] / ms:.1%} of bound")
-    log(f"  device time (profiler, kernels only): {r['device_ms']:.4f} ms in {per_call:g} "
+    log(f"  device time (profiler, kernels only): {r['device_ms']:.4f} ms in {per_call} "
         f"kernels a call, {bound_ms[0] / r['device_ms']:.1%} of bound{dev_extra}")
     if not rel <= tol:
         raise AssertionError(f"{name}: relative error {rel:.3e} exceeds {tol:g}")
@@ -764,12 +808,12 @@ def phase_optional_kernels(dev):
             # the 3xTF32 GEMM's bound (above) and the f32 FMA one; on the
             # device, the w^T split kernel (inside the row's time) and the GEMM
             r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
-            by_name = r["device_by_name"]
-            r["prep_ms"] = sum(ms for kn, ms in by_name.items() if "tf32_split" in kn)
-            gemm_ms = sum(ms for kn, ms in by_name.items() if "gemm_wgmma_tf32x3" in kn)
+            r["prep_ms"] = named_ms(r["device_by_name"], "tf32_split")
+            gemm_ms = named_ms(r["device_by_name"], "gemm_wgmma_tf32x3")
             log(f"  bound in 3xTF32 (above); at the f32 FMA peak {r['bound_f32_fma_ms']:.4f} ms; "
-                f"on the device the w^T split kernel {r['prep_ms']:.4f} ms, the GEMM "
-                f"{gemm_ms:.4f} ms ({r['bound_ms'] / max(gemm_ms, 1e-9):.1%} of bound)")
+                f"on the device the w^T split kernel {ms_text(r['prep_ms'])}, the GEMM "
+                f"{ms_text(gemm_ms)}" + ("" if gemm_ms is None else
+                                         f" ({r['bound_ms'] / max(gemm_ms, 1e-9):.1%} of bound)"))
         keys = {key for key, c in lin.LAUNCHES.by_key.items() if c != before.get(key, 0)}
         if len(keys) != 1 or not next(iter(keys)).startswith(kernel + " "):
             raise AssertionError(f"{name}: launched {sorted(keys)}, expected {kernel}")
@@ -818,11 +862,11 @@ def phase_optional_kernels(dev):
         # from device memory, as the bound counts it (the row above finds x,
         # and the output's reused block, in L2 from the call before)
         by_name = device_ms(lambda x=x: (flush.zero_(), dr.dropout(x, seed, rate=rate)), 20)[2]
-        r["cold_device_ms"] = sum(ms for kn, ms in by_name.items() if "dropout_kernel" in kn)
+        r["cold_device_ms"] = named_ms(by_name, "dropout_kernel")
         log(f"  kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms (bytes); device time (profiler) {r['device_ms']:.4f} ms, "
             f"{r['bound_ms'] / r['device_ms']:.1%} of bound; L2 overwritten first "
-            f"{r['cold_device_ms']:.4f} ms, {r['bound_ms'] / r['cold_device_ms']:.1%}")
+            f"{ms_text(r['cold_device_ms'])}")
         record("K14", name, "dropout.cu", r, launches=launches)
         del x, out, again, plain, other
     del flush
@@ -914,13 +958,13 @@ def phase_kernels(dev):
             # device time of the conv kernel alone and with its weight split
             pad = -cin % 8
             xp, wp = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
-            _, _, by_name = device_ms(lambda xp=xp, wp=wp, bias=bias, res=res, act=act: cd._launch(
-                xp, wp, bias, res, act, variant="wgmma_tf32x3")[0], iters)
-            conv_ms = sum(t for kn, t in by_name.items() if "conv_wgmma_tf32x3" in kn)
-            r["tf32_padded_device_ms"] = conv_ms
+            padded_ms, _, by_name = device_ms(
+                lambda xp=xp, wp=wp, bias=bias, res=res, act=act: cd._launch(
+                    xp, wp, bias, res, act, variant="wgmma_tf32x3")[0], iters)
+            r["tf32_padded_device_ms"] = named_ms(by_name, "conv_wgmma_tf32x3")
             log(f"  3xTF32 conv on Cin padded to {cin + pad} (pad outside the timing), device: "
-                f"conv kernel {conv_ms:.4f} ms, with its weight split "
-                f"{sum(by_name.values()):.4f} ms")
+                f"conv kernel {ms_text(r['tf32_padded_device_ms'])}, with its weight split "
+                f"{padded_ms:.4f} ms")
             del xp, wp
         if tf32:
             r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
@@ -1769,8 +1813,8 @@ def phase_replay_step(dev, cfg, params, inputs, label, profile=False):
                 + "/".join(f"{v:.1f}" for v in rec["replay_host_ms"]) + "; event ms eager "
                 + "/".join(f"{v:.2f}" for v in rec["eager_event_ms"]) + ", replay "
                 + "/".join(f"{v:.2f}" for v in rec["replay_event_ms"])
-                + f"; kernel ms eager {rec['eager_device_ms']:.2f} in {rec['eager_kernels']:g} "
-                f"kernels, replay {rec['replay_device_ms']:.2f} in {rec['replay_kernels']:g}; "
+                + f"; kernel ms eager {rec['eager_device_ms']:.2f} in {rec['eager_kernels']} "
+                f"kernels, replay {rec['replay_device_ms']:.2f} in {rec['replay_kernels']}; "
                 f"graph {json.dumps(rec['graph'])}; memory GiB "
                 f"{json.dumps(rec['memory_gib'])}")
             results[name] = rec
@@ -2594,6 +2638,622 @@ def phase_serving_sd15(dev, ucfg, unet_params, other):
     return by_key
 
 
+# phase 6: the image-conditioned paths at 1024^2 (the VAE encoder, img2img
+# from pixels, inpainting on the 9-channel SDXL UNet, base + refiner, the
+# warm-up), IMAGE_STEPS Euler steps, batch 1 (CFG batch 2), random weights.
+# Launches of each piece of a request by kernel: the SDXL refiner's step
+# from its config (44 transformer blocks: 2 x 4 down at each of the 768 and
+# 1536 levels, 3 x 4 up at each, 4 in the mid block; 22 resnets: 8 down, 2
+# mid, 12 up; 11 Transformer2D): self-attention at 64^2 (h=12) 20 x K2 and
+# at 32^2 and the mid block's 16^2 (h=24) 24 x K1 on attn_wgmma_bf16, 44
+# cross (77 keys) x K1 on the tiny-KV kernel; 49 bf16 3x3 convs (conv_in,
+# 44 resnet convs, 3 upsamplers, conv_out); all-kernel K8 45 (resnets x 2 +
+# conv_out), K9 11, K10 132, K11 44, K12 2, K13 312 (blocks x 6 + 22
+# Transformer2D projections + 22 time projections + the time MLP's 2 + the
+# add embedding's 2) + 44 in the precompute. The 9-channel UNet launches
+# SDXL-base's. One image's f32 encode: conv_in (Cin 3) on the direct
+# kernel, 21 convs (20 resnet convs, conv_out 512 -> 8) on the 3xTF32 wgmma
+# kernel (the 3 stride-2 downsamplers and the 1x1 shortcuts on the plain
+# conv, as in the JAX package), its mid attention once on the 3xTF32 GEMM;
+# all-kernel K9 22 (f32: 10 resnets x 2, the mid attention's, conv_norm_out)
+# and K13 4 (f32: q, k, v, out).
+IMAGE_STEPS = 4
+REFINER_ATTN_PER_STEP = {"wgmma_bf16": {"K1": 24, "K2": 20}, "tinykv_wgmma_bf16": {"K1": 44}}
+REFINER_ALL_PER_STEP = {"K8": 45, "K9": 11, "K10": 132, "K11": 44, "K12": 2, "K13": 312}
+REFINER_PRECOMPUTE_LINEARS = 44
+ENCODE_CONVS = {"wgmma_tf32x3": 21, "direct_f32": 1}
+OPT_KERNELS = ("K8", "K9", "K10", "K11", "K12", "K13")
+
+
+def path_parts(decode_norms: int, encode_norms: int) -> dict:
+    """Launches of each piece of an image-path request: attention (bf16
+    by kernel and class, f32 in all), 3x3 convs by kernel (K6 and K8
+    together) and, under the all-kernel binding, K8-K13."""
+    return {
+        "sdxl_step": {"attention": ATTN_PER_STEP, "conv": CONV_SPLIT, "all": ALL_PER_STEP},
+        "refiner_step": {"attention": REFINER_ATTN_PER_STEP, "conv": {"wgmma_bf16": 49},
+                         "all": REFINER_ALL_PER_STEP},
+        "sdxl_generation": {"all": {"K13": PRECOMPUTE_LINEARS}},
+        "refiner_generation": {"all": {"K13": REFINER_PRECOMPUTE_LINEARS}},
+        "encode": {"conv": ENCODE_CONVS, "f32_attention": 1,
+                   "all": {"K9": encode_norms, "K13": VAE_LINEARS}},
+        "decode": {"conv": DECODE_CONVS, "f32_attention": 1,
+                   "all": {"K9": decode_norms, "K13": VAE_LINEARS}},
+    }
+
+
+def launch_summary_of(delta: dict) -> dict:
+    """A request's launches (a launches_by_key delta of kernel_counters())
+    as path_parts counts them."""
+    attn, f32 = {}, 0
+    for key, n in delta["attention"].items():
+        cls, kernel = key.split()[:2]
+        if kernel == DECODE_ATTENTION:
+            f32 += n
+        else:
+            attn[f"{cls} {kernel}"] = attn.get(f"{cls} {kernel}", 0) + n
+    conv = {}
+    for name in ("K6", "K8"):
+        for key, n in delta[name].items():
+            conv[key.split()[0]] = conv.get(key.split()[0], 0) + n
+    return {"attention": attn, "f32_attention": f32, "conv": conv,
+            "opt": {k: sum(delta[k].values()) for k in OPT_KERNELS}}
+
+
+def expected_summary(parts: dict, pieces, all_kernels: bool) -> dict:
+    """launch_summary_of's form of ``pieces`` ((piece, times), ...)."""
+    attn, f32, conv = {}, 0, {}
+    opt = dict.fromkeys(OPT_KERNELS, 0)
+    for piece, times in pieces:
+        p = parts[piece]
+        for kernel, by_class in p.get("attention", {}).items():
+            for cls, n in by_class.items():
+                attn[f"{cls} {kernel}"] = attn.get(f"{cls} {kernel}", 0) + n * times
+        f32 += p.get("f32_attention", 0) * times
+        for kernel, n in p.get("conv", {}).items():
+            conv[kernel] = conv.get(kernel, 0) + n * times
+        if all_kernels:
+            for k, n in p.get("all", {}).items():
+                opt[k] += n * times
+    return {"attention": attn, "f32_attention": f32, "conv": conv, "opt": opt}
+
+
+def delta_since(counters, before: dict) -> dict:
+    now = launches_by_key(counters)
+    return {name: {k: n - before[name].get(k, 0) for k, n in by.items()
+                   if n != before[name].get(k, 0)} for name, by in now.items()}
+
+
+class DecodeTap:
+    """While entered, records the latents every VAE decode of the pipeline
+    module receives: the denoise loop's output of a request that decodes."""
+
+    def __enter__(self):
+        from stabletriton_tpu_torch.runtime import pipeline as tp
+
+        self.module, self.real, self.latents = tp, tp._decode_images, []
+
+        def tap(cfg, params, latents):
+            self.latents.append(latents.clone())
+            return self.real(cfg, params, latents)
+
+        tp._decode_images = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.module._decode_images = self.real
+
+
+def eager_graphs():
+    """A pipeline's Graphs that graph nothing: every call of its loops runs
+    eagerly (the reference binding's requests, which are held against and
+    never replayed)."""
+    from stabletriton_tpu_torch.runtime.graphs import Graphs
+
+    class Eager(Graphs):
+        def wrap(self, fn):
+            return fn
+
+    return Eager()
+
+
+REFINER_ATTENTION_CASES = [
+    ("refiner self S=4096 h=12 bf16", "K2", "qkv", (2, 4096, 768, 12), torch.bfloat16, 10),
+    ("refiner self S=1024 h=24 bf16", "K1", "qkv", (2, 1024, 1536, 24), torch.bfloat16, 20),
+    ("refiner mid self S=256 h=24 bf16", "K1", "qkv", (2, 256, 1536, 24), torch.bfloat16, 20),
+    ("refiner cross Sq=4096 Sk=77 h=12 bf16", "K1", "kv", (2, 4096, 77, 768, 12),
+     torch.bfloat16, 20),
+    ("refiner cross Sq=1024 Sk=77 h=24 bf16", "K1", "kv", (2, 1024, 77, 1536, 24),
+     torch.bfloat16, 20),
+]
+
+
+def phase_image_kernels(dev):
+    """Phase 6k: the twins at the shapes the image-conditioned paths give
+    them and no earlier path did, each against its plain version, beside its
+    bound and one PyTorch call where one computes the same function, in
+    phase 3's manner: the f32 encoder's convs (conv_in Cin 3 on the direct
+    kernel, whose block spans 512 output channels, 384 of them idle at Cout
+    128; conv_out's Cout 8), the 9-channel conv_in (Cin padded to 16), the
+    refiner's GroupNorm-fused convs at Cin 384 and its skip concats (1152,
+    2304), its Transformer2D GroupNorm, LayerNorm, GEGLU, projections,
+    5-slot time ids and attention at h=12 / 24. Each row carries its
+    counter and the launch-key fields its launches on phase 6's path are
+    counted by (``match``: each a substring of the key with a space
+    appended)."""
+    import torch.nn.functional as F
+
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import geglu as gg
+    from stabletriton_tpu_torch.kernels import group_norm as gn
+    from stabletriton_tpu_torch.kernels import layer_norm as ln
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.kernels import time_embed as te
+    from stabletriton_tpu_torch.ops import reference
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(6006)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    results = []
+
+    def record(tpu, name, source, r, counter, match, kernel=None):
+        r.update(name=name, source=f"stabletriton_tpu_torch/csrc/{source}", tpu=tpu,
+                 kernel=kernel, counter=counter, match=match)
+        results.append(r)
+
+    # K6: the encoder's new f32 shapes and the 9-channel conv_in (bf16)
+    for label, (b, hh, ww, cin, cout), dtype in [
+            ("vae encoder conv_in 1024x1024 3->128 f32", (1, 1024, 1024, 3, 128), f32),
+            ("vae encoder 512x512 128->256 f32", (1, 512, 512, 128, 256), f32),
+            ("vae encoder 256x256 256->512 f32", (1, 256, 256, 256, 512), f32),
+            ("vae encoder conv_out 128x128 512->8 f32", (1, 128, 128, 512, 8), f32),
+            ("inpaint unet conv_in 128x128 9->320", (2, 128, 128, 9, 320), bf16)]:
+        x = randn(b, hh, ww, cin, dtype=dtype)
+        w = randn(3, 3, cin, cout, dtype=dtype, scale=1.0 / math.sqrt(9 * cin))
+        bias = randn(cout, dtype=dtype)
+        kernel = cd.conv_variant(tuple(x.shape), cout, dtype)
+        if dtype == bf16:
+            lfn = lambda x=x, w=w, bias=bias: reference.conv2d(x, w, bias)
+            label_l = "cuDNN (reference op)"
+        else:
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+            lfn = lambda xc=xc, wc=wc, bias=bias: F.conv2d(xc, wc, bias, padding=1)
+            label_l = "F.conv2d f32"
+        flops = 2 * b * hh * ww * cout * 9 * cin
+        moved = nbytes(x, w, bias) + b * hh * ww * cout * x.element_size()
+        tf32 = kernel == "wgmma_tf32x3"
+        name = f"conv3x3 {label}"
+        r = compare(name, lambda x=x, w=w, bias=bias: cd.conv3x3(x, w, bias),
+                    lambda x=x, w=w, bias=bias: cd.conv3x3_plain(x, w, bias),
+                    BF16_REL_TOL if dtype == bf16 else F32_REL_TOL, 3 if dtype == f32 else 10,
+                    bound_ms=bound(flops, moved, dtype, TF32X3_FLOPS if tf32 else None),
+                    library_fn=lfn, library_label=label_l)
+        if tf32:
+            r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
+        log(f"  {kernel}")
+        record("K6", name, "conv3x3.cu", r, "K6", [f"{kernel} b={b} {hh}x{ww} {cin}->{cout} "],
+               kernel)
+        del x, w, bias
+
+    # K8: the refiner's GroupNorm-fused convs, Cin 384 (12 channels a group)
+    # and the up path's skip concats
+    for label, (b, hh, ww, cin, cout) in [
+            ("refiner resnet conv1 128x128 384->384 batch-bias", (2, 128, 128, 384, 384)),
+            ("refiner up resnet conv1 128x128 1152->384 batch-bias", (2, 128, 128, 1152, 384)),
+            ("refiner up resnet conv1 64x64 2304->768 batch-bias", (2, 64, 64, 2304, 768))]:
+        x = randn(b, hh, ww, cin, scale=2.0, shift=0.5)
+        scale, shift = gn.scale_shift(x, randn(cin, dtype=f32, scale=0.2, shift=1.0),
+                                      randn(cin, dtype=f32, scale=0.2), num_groups=32, eps=1e-5)
+        w = randn(3, 3, cin, cout, scale=1.0 / math.sqrt(9 * cin))
+        bias = randn(b, cout, dtype=f32)
+        args = (x, scale, shift, w, bias)
+        kernel = cd.conv_variant(tuple(x.shape), cout, bf16, gn=True)
+        name = f"gn_conv3x3 {label}"
+        flops = 2 * b * hh * ww * cout * 9 * cin
+        moved = nbytes(x, w, bias, scale, shift) + b * hh * ww * cout * 2
+        r = compare(name, lambda a=args: cd.gn_conv3x3(*a, gn_act="silu"),
+                    lambda a=args: cd.gn_conv3x3_plain(*a, gn_act="silu"), BF16_REL_TOL, 10,
+                    bound_ms=bound(flops, moved, bf16))
+        log(f"  {kernel}")
+        record("K8", name, "conv3x3.cu", r, "K8", [f"{kernel} b={b} {hh}x{ww} {cin}->{cout} "],
+               kernel)
+        del x, w, args
+
+    # K9: the refiner's Transformer2D GroupNorm at 768 channels
+    shape = (2, 64, 64, 768)
+    x = randn(*shape, scale=2.0, shift=0.5)
+    g, bb = randn(768, shift=1.0), randn(768)
+    nchw = x.permute(0, 3, 1, 2).contiguous()
+    name = "group_norm (2, 64, 64, 768) bf16 act=None (refiner)"
+    record("K9", name, "group_norm.cu", compare(
+        name, lambda: gn.group_norm(x, g, bb, num_groups=32, eps=1e-6),
+        lambda: gn.group_norm_plain(x, g, bb, num_groups=32, eps=1e-6), BF16_REL_TOL, 20,
+        bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, bb), bf16),
+        library_fn=lambda: F.group_norm(nchw, 32, g, bb, 1e-6), library_label="F.group_norm"),
+        "K9", ["bf16 b=2 64x64 c=768 "])
+    del x, nchw
+
+    # K10 and K11 at the refiner's widths
+    for rows, c in [(8192, 768), (2048, 1536)]:
+        x = randn(rows, c, scale=2.0, shift=0.3)
+        g, bb = randn(c, shift=1.0), randn(c)
+        name = f"layer_norm ({rows}, {c}) bf16 (refiner)"
+        record("K10", name, "layer_norm.cu", compare(
+            name, lambda x=x, g=g, bb=bb: ln.layer_norm(x, g, bb, eps=1e-6),
+            lambda x=x, g=g, bb=bb: ln.layer_norm_plain(x, g, bb, eps=1e-6), BF16_REL_TOL, 50,
+            bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, bb), bf16),
+            library_fn=lambda x=x, g=g, bb=bb, c=c: F.layer_norm(x, (c,), g, bb, 1e-6),
+            library_label="F.layer_norm"), "K10", [f"ln bf16 rows={rows} c={c} "])
+    for b_, s_, n in [(2, 4096, 3072), (2, 1024, 6144)]:
+        proj = randn(b_, s_, 2 * n, scale=2.0)
+        state, gate = proj.chunk(2, dim=-1)
+        name = f"geglu halves of ({b_}, {s_}, {2 * n}) bf16 (refiner)"
+        record("K11", name, "geglu.cu", compare(
+            name, lambda st=state, ga=gate: gg.geglu(st, ga),
+            lambda st=state, ga=gate: gg.geglu_plain(st, ga), BF16_REL_TOL, 20,
+            bound_ms=bound(0, nbytes(proj) + nbytes(proj) // 2, bf16)),
+            "K11", [f"bf16 rows={b_ * s_} n={n} "])
+        del proj, state, gate
+
+    # K13: the refiner's projections, beside cuBLAS's addmm
+    for label, m, k, n, has_bias in [("refiner to_qkv (8192,768)@(768,2304)", 8192, 768, 2304,
+                                      False),
+                                     ("refiner ff proj (2048,1536)@(1536,12288)+b", 2048, 1536,
+                                      12288, True),
+                                     ("refiner add embedding (2,2560)@(2560,1536)+b", 2, 2560,
+                                      1536, True)]:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)).to(bf16)
+        b = torch.randn(n, generator=gen, device=dev).to(bf16) if has_bias else None
+        kernel = lin.variant(m, k, n, bf16)
+        name = f"linear {label}"
+        r = compare(name, lambda x=x, w=w, b=b: lin.linear(x, w, b),
+                    lambda x=x, w=w, b=b: lin.linear_plain(x, w, b), BF16_REL_TOL, 20,
+                    bound_ms=bound(2 * m * n * k, nbytes(x, w, b) + m * n * 2, bf16),
+                    library_fn=(lambda x=x, w=w, b=b: torch.addmm(b, x, w)) if b is not None
+                    else (lambda x=x, w=w: x @ w), library_label="cuBLAS addmm")
+        record("K13", name, "linear.cu", r, "K13", [f"{kernel} m={m} k={k} n={n} "], kernel)
+        del x, w, b
+
+    # K12: the refiner's 5-slot time ids, CFG-doubled
+    t = torch.tensor([1024.0, 1024, 0, 0, 2.5] + [1024.0, 1024, 0, 0, 6.0], device=dev)
+    name = "time_embed (10,)->(10,256) f32 (refiner time ids)"
+    r = compare(name, lambda: te.time_embed(t, dim=256), lambda: te.time_embed_plain(t, dim=256),
+                F32_REL_TOL, 50, bound_ms=bound(0, nbytes(t) * (1 + 256), f32))
+    if r["max_abs_err"] != 0:
+        raise AssertionError(f"{name}: not the plain version's bits")
+    record("K12", name, "time_embed.cu", r, "K12", ["b=10 dim=256 "])
+
+    # K1 / K2: the refiner's attention at h=12 and 24
+    for r, (_, tpu, kind, shape, _, _) in zip(attention_cases(randn, REFINER_ATTENTION_CASES),
+                                             REFINER_ATTENTION_CASES):
+        if kind == "qkv":
+            b, s, c, h = shape
+            sq = sk = s
+        else:
+            b, sq, sk, c, h = shape
+        r.update(counter="attention",
+                 match=[f"{r['kernel']} b={b} h={h} d={c // h} sq={sq} sk={sk} "])
+        results.append(r)
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return results
+
+
+def phase_images(dev, ucfg, unet_params, other, size=1024):
+    """Phase 6: the image-conditioned paths through SDXLPipeline's and
+    TwoStageSDXL's entry points at 1024^2, with the launch counters set to
+    0 just before and read just after. (a) vae_encode of one image under the
+    default and all-kernel bindings against the reference binding's (TF32
+    off): max abs, MSE, CUDA-event ms, peak memory, launches by route; an
+    encode -> decode round trip timed. Then, under the default and
+    all-kernel bindings, requests of IMAGE_STEPS Euler steps, each kind
+    twice (the first call runs the loop eagerly and captures it, the second
+    replays with another prompt, image and seed; its wall taken over
+    REPLAY_ITERS replays): (e) warmup, after which the same signature's
+    first txt2img request captures nothing (plain Euler: each binding's MSE
+    yardstick); (b) img2img_image on SDXL-base, strength 0.5; (c) inpaint on
+    the 9-channel UNet (SDXL-base's tensors with a new conv_in) with a
+    centred square mask, Euler, then Heun with a guidance interval and
+    deep_cache=2; (d) TwoStageSDXL with the SDXL refiner, refiner_strength
+    0.25. Each: the replayed loop bit for bit its eager loop on the call's
+    inputs, the replay counting the first call's launches key by key, the
+    plain kinds' launches as path_parts counts them, graph kernel nodes, the
+    first call's pieces, and the MSE of the latents against the reference
+    binding's same request (run eagerly) at most MODE_MSE_RATIO x the
+    binding's plain Euler txt2img MSE; each replayed loop alone (the
+    refiner's for (d)) timed by CUDA events. Returns the phase's launches by
+    key and its records."""
+    import dataclasses
+
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.models import vae as vae_mod
+    from stabletriton_tpu_torch.models.unet import init_unet_params, sdxl_refiner_unet_config
+    from stabletriton_tpu_torch.runtime import pipeline as tp
+    from stabletriton_tpu_torch.runtime import scheduler as sched
+
+    (c1, c2, vcfg), params = other
+    lat = size // vcfg.spatial_scale_factor
+    gen = torch.Generator(device=dev).manual_seed(66)
+    vae_full = {**params["vae"], **vae_mod.init_vae_encoder_params(vcfg, 4, device=dev)}
+    norms = ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")
+    parts = path_parts(
+        sum(1 for k in vae_full if k.startswith("decoder.") and k.endswith(norms)),
+        sum(1 for k in vae_full if k.startswith("encoder.") and k.endswith(norms)))
+    cfg9 = dataclasses.replace(ucfg, in_channels=9)
+    unet9 = {**unet_params, "conv_in.weight": (torch.randn(
+        (3, 3, 9, ucfg.block_out_channels[0]), generator=gen, device=dev) / 9.0).to(
+            torch.bfloat16)}
+    rcfg = sdxl_refiner_unet_config()
+    refiner_unet = init_unet_params(rcfg, 5, device=dev, dtype=torch.bfloat16)
+    tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+    s = [float(v) for v in sched.make_schedule(sched.SchedulerConfig(), IMAGE_STEPS).sigmas]
+    window = ((s[2] + s[3]) / 2, (s[0] + s[1]) / 2)
+
+    def image(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.rand((1, size, size, 3), generator=g, device=dev) * 2 - 1
+
+    mask = torch.zeros((1, size, size, 1), device=dev)
+    mask[:, size // 4:3 * size // 4, size // 4:3 * size // 4] = 1.0
+    calls = [("a lighthouse at dusk", 11, image(101)), ("a bowl of ramen", 12, image(102))]
+
+    def tokens(prompt):
+        ids1 = tok.encode_batch([prompt], max_len=c1.max_position_embeddings)
+        ids2 = tok.encode_batch([prompt], max_len=c2.max_position_embeddings, pad=0)
+        return ids1, ids2
+
+    def pipeline(kind, config, **kw):
+        if kind == "refiner":
+            return tp.SDXLPipeline(unet_config=rcfg, clip_config=c2, clip2_config=c2,
+                                   vae_config=vcfg,
+                                   params={"unet": refiner_unet,
+                                           "text_encoder_2": params["text_encoder_2"],
+                                           "vae": params["vae"]},
+                                   compile_config=config, device=dev, **kw)
+        return tp.SDXLPipeline(unet_config=cfg9 if kind == "inpaint" else ucfg, clip_config=c1,
+                               clip2_config=c2, vae_config=vcfg,
+                               params={"unet": unet9 if kind == "inpaint" else unet_params,
+                                       "text_encoder": params["text_encoder"],
+                                       "text_encoder_2": params["text_encoder_2"],
+                                       "vae": vae_full},
+                               compile_config=config, device=dev, **kw)
+
+    inpaint_modes = {"inpaint": {}, "inpaint heun, interval, deep_cache=2": {
+        "solver": "heun", "guidance_interval": window, "deep_cache": 2}}
+
+    def request(kind, pipes, call):
+        """The latents of a request through its entry point (the loop's
+        output, tapped before the decode where it decodes)."""
+        prompt, seed, img = call
+        ids1, ids2 = tokens(prompt)
+        with DecodeTap() as tap:
+            if kind == "txt2img":
+                pipes[0].txt2img(ids1, ids2, height=size, width=size, steps=IMAGE_STEPS,
+                                 seed=seed)
+            elif kind == "img2img_image":
+                return pipes[0].img2img_image(img, ids1, ids2, steps=IMAGE_STEPS, strength=0.5,
+                                              seed=seed, decode=False)
+            elif kind.startswith("inpaint"):
+                pipes[0].inpaint(img, mask, ids1, ids2, steps=IMAGE_STEPS, seed=seed,
+                                 **inpaint_modes[kind])
+            else:
+                tp.TwoStageSDXL(base=pipes[0], refiner=pipes[1]).txt2img(
+                    ids1, ids2, height=size, width=size, steps=IMAGE_STEPS,
+                    refiner_strength=0.25, seed=seed)
+        (latents,) = tap.latents
+        return latents
+
+    def program(pipe):
+        """A pipeline's one program (each kind runs its own pipelines)."""
+        (prog,) = pipe._cache.values()
+        return prog
+
+    def eager(kind, pipes, call):
+        """The eager loop of the request's program (``loop.__wrapped__``)
+        on the inputs its entry point makes for ``call``."""
+        prompt, seed, img = call
+        ids1, ids2 = tokens(prompt)
+        pipe = pipes[0]
+        dev_ids = [torch.as_tensor(np.asarray(a), dtype=torch.long).to(dev) for a in (
+            ids1, ids2, c1.empty_prompt_ids(1, ids1.shape[1]),
+            c2.empty_prompt_ids(1, ids2.shape[1]))]
+        with torch.inference_mode(), ops.use_backends(resolve_binding(pipe.compile_config)):
+            prog = program(pipe)
+            if kind == "txt2img":
+                args = (*dev_ids, [seed])
+            elif kind == "img2img_image":
+                args = (tp._encode_images(vcfg, pipe.params["vae"], img), *dev_ids, [seed])
+            elif kind.startswith("inpaint"):
+                args = (img, mask, *dev_ids, [seed])
+            else:
+                base_lat = prog.loop.__wrapped__(pipe.params["unet"], *prog.loop_inputs(
+                    pipe.params, *dev_ids, [seed]))
+                pipe = pipes[1]
+                prog = program(pipe)
+                args = (base_lat, None, dev_ids[1], None, dev_ids[3], [seed + 1])
+            inputs = prog.loop_inputs(pipe.params, *args)
+            return prog.loop.__wrapped__(pipe.params["unet"], *inputs), prog, (
+                pipe.params["unet"], inputs)
+
+    pieces = {
+        "txt2img": [("sdxl_step", IMAGE_STEPS), ("sdxl_generation", 1), ("decode", 1)],
+        "img2img_image": [("encode", 1), ("sdxl_step", IMAGE_STEPS // 2),
+                          ("sdxl_generation", 1)],
+        "inpaint": [("encode", 1), ("sdxl_step", IMAGE_STEPS), ("sdxl_generation", 1),
+                    ("decode", 1)],
+        "two_stage": [("sdxl_step", IMAGE_STEPS), ("sdxl_generation", 1), ("refiner_step", 1),
+                      ("refiner_generation", 1), ("decode", 1)],
+    }
+    pipe_kinds = {"txt2img": ("base",), "img2img_image": ("base",),
+                  "inpaint": ("inpaint",), "inpaint heun, interval, deep_cache=2": ("inpaint",),
+                  "two_stage": ("base", "refiner")}
+    kinds = list(pipe_kinds)
+
+    counters = kernel_counters()
+    reset(counters)
+    results = {}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # (a) the encoder
+        enc = {}
+        x = calls[0][2]
+        for name, config in replay_configs().items():
+            if name == "fused_ops":
+                continue
+            with torch.inference_mode(), ops.use_backends(resolve_binding(config)):
+                before = launches_by_key(counters)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base_mem = torch.cuda.memory_allocated(dev)
+                out = tp._encode_images(vcfg, vae_full, x)
+                torch.cuda.synchronize()
+                rec = {"peak_gib": (torch.cuda.max_memory_allocated(dev) - base_mem) / 2**30}
+                rec["launches"] = launch_summary_of(delta_since(counters, before))
+                want = expected_summary(parts, [("encode", 1)], name == "all_kernels")
+                if name != "reference" and rec["launches"] != want:
+                    raise AssertionError(f"encode, {name}: launches {rec['launches']}, "
+                                         f"expected {want}")
+                rec["ms"] = timed_ms(lambda: tp._encode_images(vcfg, vae_full, x), 2)
+                rec["round_trip_ms"] = timed_ms(lambda: tp._decode_images(
+                    vcfg, vae_full, tp._encode_images(vcfg, vae_full, x)), 2)
+            if out.shape != (1, lat, lat, 4) or not torch.isfinite(out).all():
+                raise AssertionError(f"encode, {name}: {tuple(out.shape)}, finite "
+                                     f"{bool(torch.isfinite(out).all())}")
+            enc[name] = (out, rec)
+        ref = enc["reference"][0]
+        for name, (out, rec) in enc.items():
+            d = (out - ref).float()
+            rec.update(max_abs=d.abs().max().item(), mse=d.square().mean().item(),
+                       rel=d.abs().max().item() / ref.abs().max().item())
+            log(f"encode {size}^2 f32, {name} binding: " + json.dumps(rec))
+            if not rec["rel"] <= F32_REL_TOL:
+                raise AssertionError(f"encode, {name}: max abs {rec['max_abs']:.3e} is "
+                                     f"{rec['rel']:.3e} of the largest latent (limit "
+                                     f"{F32_REL_TOL:g})")
+        results["encode"] = {k: v[1] for k, v in enc.items()}
+        del enc, ref, out
+
+        # the reference binding's requests, eager: each kind's yardstick
+        reference = {}
+        config = replay_configs()["reference"]
+        for kind in kinds:
+            pipes = [pipeline(k, config, _graphs=eager_graphs()) for k in pipe_kinds[kind]]
+            before = launches_by_key(counters)
+            reference[kind] = request(kind, pipes, calls[1])
+            if any(delta_since(counters, before)[k] for k in counters):
+                raise AssertionError(f"{kind}: the reference binding launched a kernel")
+            del pipes
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        for name in MODE_BINDINGS:
+            config = replay_configs()[name]
+            rows = {}
+            for kind in kinds:
+                pipes = [pipeline(k, config) for k in pipe_kinds[kind]]
+                rec, outs, counts = {"replay_s": []}, [], []
+                if kind == "txt2img":
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pipes[0].warmup(height=size, width=size, steps=IMAGE_STEPS)
+                    torch.cuda.synchronize()
+                    rec["warmup_s"] = time.perf_counter() - t0
+                    (prog,) = pipes[0]._cache.values()
+                    (warm,) = prog.loop.captured.values()
+                for i, call in enumerate(calls):
+                    for n in range(1 if i == 0 else REPLAY_ITERS):
+                        before = launches_by_key(counters)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        out = request(kind, pipes, call)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                        delta = delta_since(counters, before)
+                        if i == 0:
+                            rec["first_s"] = wall
+                        else:
+                            rec["replay_s"].append(wall)
+                        if n == 0:
+                            counts.append(delta)
+                            outs.append(out)
+                        elif not torch.equal(out, outs[-1]):
+                            raise AssertionError(f"{kind}, {name}: a replay of the same "
+                                                 f"request gave other latents")
+                label = f"{kind}, {name}"
+                if counts[1] != counts[0]:
+                    raise AssertionError(f"{label}: the replay counted {counts[1]}, the first "
+                                         f"call {counts[0]}")
+                rec["launches"] = launch_summary_of(counts[1])
+                if kind in pieces:
+                    want = expected_summary(parts, pieces[kind], name == "all_kernels")
+                    if rec["launches"] != want:
+                        raise AssertionError(f"{label}: launches {rec['launches']}, expected "
+                                             f"{want}")
+                for i, call in enumerate(calls):
+                    want, prog, (unet, inputs) = eager(kind, pipes, call)
+                    if not torch.equal(outs[i], want):
+                        raise AssertionError(f"{label}: call {i} differs from the eager loop "
+                                             f"on its inputs")
+                    if len(prog.loop.captured) != 1:
+                        raise AssertionError(f"{label}: {len(prog.loop.captured)} graphs for "
+                                             f"one signature")
+                if kind == "txt2img":
+                    (entry,) = prog.loop.captured.values()
+                    if entry is not warm or len(pipes[0]._cache) != 1:
+                        raise AssertionError(f"{label}: the request after warmup captured "
+                                             f"again")
+                if not all(torch.isfinite(o.float()).all() for o in outs):
+                    raise AssertionError(f"{label}: latents not finite")
+                d = outs[1].float() - reference[kind].float()
+                rec["vs_reference"] = {"max_abs": d.abs().max().item(),
+                                       "mse": d.square().mean().item()}
+                # the replayed loop alone (the refiner's for two_stage), CUDA
+                # events: its cross K/V precompute and its steps
+                with torch.inference_mode():
+                    rec["loop_event_ms"] = timed_ms(lambda: prog.loop(unet, *inputs),
+                                                    REPLAY_ITERS)
+                rec["graph"] = capture_record(next(iter(prog.loop.captured.values())))
+                if kind == "two_stage":
+                    rec["base_graph"] = capture_record(next(iter(
+                        program(pipes[0]).loop.captured.values())))
+                rows[kind] = rec
+                log(f"image path {kind}, {size}^2 {IMAGE_STEPS}-step request, {name} binding: "
+                    f"bit equal to the eager loop (capture and replay); " + json.dumps(rec))
+                del pipes, prog, outs, unet, inputs
+                gc.collect()
+                torch.cuda.empty_cache()
+            euler = rows["txt2img"]["vs_reference"]["mse"]
+            for kind, rec in rows.items():
+                rec["mse_vs_euler"] = rec["vs_reference"]["mse"] / euler
+                if rec["vs_reference"]["mse"] > MODE_MSE_RATIO * euler:
+                    raise AssertionError(f"{kind}, {name}: MSE against the reference binding "
+                                         f"{rec['vs_reference']['mse']:.3e}, over "
+                                         f"{MODE_MSE_RATIO:g} x plain Euler's {euler:.3e}")
+            log(f"image paths, {name} binding (first call s, replayed walls s, the replayed "
+                f"loop's event ms; MSE against the reference binding, x plain Euler "
+                f"txt2img's): " + ", ".join(
+                    f"{k} {r['first_s']:.3f}, " + "/".join(f"{v:.3f}" for v in r["replay_s"])
+                    + f", loop {r['loop_event_ms']:.2f} ms ({r['vs_reference']['mse']:.3e}, "
+                    f"{r['mse_vs_euler']:.2f}x)" for k, r in rows.items()))
+            results[name] = rows
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    total = launches_by_key(counters)
+    del refiner_unet, unet9, vae_full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, results
+
+
 REPLACES = {
     "K1": "stabletriton_tpu/kernels/flash_attention.py:228",
     "K2": "stabletriton_tpu/kernels/flash_attention.py:276",
@@ -2679,6 +3339,10 @@ def main() -> int:
                       + with_peak("phase 3c", phase_sd15_attention, dev))
     with_peak("phase 3e", phase_c4, dev)
     kernel_results += with_peak("phase 3d", phase_optional_kernels, dev)
+    # the image paths' kernel checks with the others, before any phase
+    # captures a graph or serves from a worker thread: after those, the
+    # profiler recorded no kernel in three sessions running (PR 14's run)
+    image_results = with_peak("phase 6k", phase_image_kernels, dev)
 
     # SDXL-base at 1024^2: phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5d
     ucfg = sdxl_base_unet_config()
@@ -2707,6 +3371,10 @@ def main() -> int:
     check_solo_vs_batched(diffs, "SDXL-base")
     with_peak("phase 5e decode", phase_decode_deviation, dev, sdxl["other"][0][2],
               sdxl["other"][1]["vae"], profile)
+    # the image-conditioned paths at 1024^2, the launch counters set to 0
+    # just before their requests and read just after
+    image_by_key, _ = with_peak("phase 6 (refiner and 9-channel conv_in included)",
+                                phase_images, dev, ucfg, sdxl["unet"], sdxl["other"])
     free(sdxl)
 
     # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 4f, 5c
@@ -2754,16 +3422,40 @@ def main() -> int:
             return fused_counts[r["tpu"]]
         return sum(n for key, n in attention if key.startswith(r["kernel"] + " "))
 
+    def image_launches(r):
+        """Launches of the row's kernel on phase 6's path: of its shape (the
+        row's ``match``) for phase 6k's rows, else as ``launches`` counts
+        them, on phase 6's counters."""
+        if "match" in r:
+            return sum(n for key, n in image_by_key[r["counter"]].items()
+                       if all(m in key + " " for m in r["match"]))
+        if r["tpu"] in ("K6", "K8"):
+            return sum(n for key, n in image_by_key[r["tpu"]].items()
+                       if key.startswith(r["kernel"] + " "))
+        if r["tpu"] == "K13":
+            _, k, n = r["shape"]
+            shape = f" k={k} n={n} " if r["kernel"].startswith("skinny") else ""
+            return sum(c for key, c in image_by_key["K13"].items()
+                       if key.startswith(r["kernel"] + " ") and shape in key)
+        if r["tpu"] in ("K9", "K10", "K11", "K12"):
+            return sum(image_by_key[r["tpu"]].values())
+        if r["tpu"] == "K14":
+            return 0
+        return sum(n for key, n in image_by_key["attention"].items()
+                   if key.startswith(r["kernel"] + " "))
+
     kernels = [{
         "name": r["name"] + (f" [{r['kernel']}]" if r.get("kernel") else ""), "route": "cuda",
-        "source": r["source"], "replaces": REPLACES[r["tpu"]], "launches": launches(r),
+        "source": r["source"], "replaces": REPLACES[r["tpu"]],
+        "launches": image_launches(r) if "match" in r else launches(r),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "image_path_launches": image_launches(r),
         **{k: r[k] for k in ("old_ms", "old_kernel", "old_device_ms", "bound_f32_fma_ms",
                              "prep_ms", "device_ms", "library_device_ms", "alt_device_ms",
                              "tf32_padded_device_ms", "launch_floor_ms",
-                             "cold_device_ms") if k in r},
-    } for r in kernel_results]
+                             "cold_device_ms", "device_ms_source") if k in r},
+    } for r in kernel_results + image_results]
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: no launch of its kernel on its path")

@@ -106,6 +106,27 @@ def sd15_unet_config() -> UNetConfig:
     )
 
 
+def sdxl_refiner_unet_config() -> UNetConfig:
+    """SDXL refiner (stabilityai/stable-diffusion-xl-refiner-1.0
+    ``unet/config.json``): 4 levels (384/768/1536/1536), the outermost and
+    innermost conv-only, 4 transformer layers at each attention level and
+    in the mid block, 1280-wide cross attention (bigG alone), a 2560-wide
+    add embedding (pooled 1280 + 5 time ids x 256: the refiner's fifth slot
+    is the aesthetic score)."""
+    return UNetConfig(
+        block_out_channels=(384, 768, 1536, 1536),
+        down_block_types=(
+            "DownBlock2D",
+            "CrossAttnDownBlock2D",
+            "CrossAttnDownBlock2D",
+            "DownBlock2D",
+        ),
+        transformer_layers_per_block=(1, 4, 4, 1),
+        cross_attention_dim=1280,
+        projection_class_embeddings_input_dim=2560,
+    )
+
+
 def tiny_unet_config() -> UNetConfig:
     """Small config with the same structural features (for CPU tests)."""
     return UNetConfig(

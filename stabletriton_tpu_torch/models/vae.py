@@ -1,10 +1,14 @@
-"""Functional VAE (AutoencoderKL) decoder in PyTorch: latents -> RGB.
+"""Functional VAE (AutoencoderKL) in PyTorch: the decoder (latents -> RGB)
+and the encoder (RGB -> latents).
 
-Counterpart of the decoder half of ``stabletriton_tpu/models/vae.py``: a flat
-``{hf_key: tensor}`` dict ("decoder.*" / "post_quant_conv.*"), HWIO convs,
-(in, out) linears, NHWC activations. The mid-block single-head attention
-over the whole latent grid goes through ``ops.attention``, so under the
-default binding it runs on the attention kernel (h=1, d=512).
+Counterpart of ``stabletriton_tpu/models/vae.py``: a flat ``{hf_key:
+tensor}`` dict ("decoder.*" / "post_quant_conv.*", and for the encoder
+"encoder.*" / "quant_conv.*"), HWIO convs, (in, out) linears, NHWC
+activations. The mid-block single-head attention over the whole latent grid
+goes through ``ops.attention``, so under the default binding it runs on the
+attention kernel (h=1, d=512). The encoder's stride-2 downsamplers (the HF
+asymmetric pad, then a valid conv) go to the plain conv, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -79,12 +83,34 @@ def vae_decoder_param_shapes(cfg: VAEConfig) -> dict[str, tuple[int, ...]]:
     return b.shapes
 
 
-def init_vae_params(cfg: VAEConfig, seed: int = 0, *, device="cpu",
-                    dtype=torch.float32) -> dict[str, torch.Tensor]:
-    """Random init with the JAX package's distribution, on ``device``."""
+def vae_encoder_param_shapes(cfg: VAEConfig) -> dict[str, tuple[int, ...]]:
+    """The encoder's table (HF "encoder.*" / "quant_conv.*" keys): RGB ->
+    posterior moments (mean and log-variance, 2 x latent_channels)."""
+    b = _ShapeBuilder()
+    ch0, top = cfg.block_out_channels[0], cfg.block_out_channels[-1]
+    b.conv("encoder.conv_in", cfg.out_channels, ch0)
+    prev = ch0
+    for i, cout in enumerate(cfg.block_out_channels):
+        for j in range(cfg.layers_per_block):
+            _resnet_shapes(b, f"encoder.down_blocks.{i}.resnets.{j}", prev, cout)
+            prev = cout
+        if i < len(cfg.block_out_channels) - 1:
+            b.conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", cout, cout)
+    _resnet_shapes(b, "encoder.mid_block.resnets.0", top, top)
+    b.norm("encoder.mid_block.attentions.0.group_norm", top)
+    for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+        b.linear(f"encoder.mid_block.attentions.0.{proj}", top, top)
+    _resnet_shapes(b, "encoder.mid_block.resnets.1", top, top)
+    b.norm("encoder.conv_norm_out", top)
+    b.conv("encoder.conv_out", top, 2 * cfg.latent_channels)
+    b.conv("quant_conv", 2 * cfg.latent_channels, 2 * cfg.latent_channels, k=1)
+    return b.shapes
+
+
+def _init(shapes: dict, seed: int, device, dtype) -> dict[str, torch.Tensor]:
     gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
-    for name, shape in sorted(vae_decoder_param_shapes(cfg).items()):
+    for name, shape in sorted(shapes.items()):
         if name.endswith(".bias"):
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
         elif ".norm" in name or "group_norm" in name:
@@ -94,6 +120,20 @@ def init_vae_params(cfg: VAEConfig, seed: int = 0, *, device="cpu",
             w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
             out[name] = (w / math.sqrt(max(fan, 1))).to(dtype)
     return out
+
+
+def init_vae_params(cfg: VAEConfig, seed: int = 0, *, device="cpu",
+                    dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The decoder's random init with the JAX package's distribution, on
+    ``device``."""
+    return _init(vae_decoder_param_shapes(cfg), seed, device, dtype)
+
+
+def init_vae_encoder_params(cfg: VAEConfig, seed: int = 0, *, device="cpu",
+                            dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The encoder's random init, as :func:`init_vae_params`; merge it into
+    the decoder's dict for a full VAE."""
+    return _init(vae_encoder_param_shapes(cfg), seed, device, dtype)
 
 
 def _resnet(p, key, x, cfg: VAEConfig):
@@ -144,3 +184,41 @@ def vae_decode(cfg: VAEConfig, params: dict, latents: torch.Tensor) -> torch.Ten
     h = ops.group_norm(h, p["decoder.conv_norm_out.weight"], p["decoder.conv_norm_out.bias"],
                        num_groups=cfg.norm_num_groups, eps=cfg.norm_eps, act="silu")
     return ops.conv2d(h, p["decoder.conv_out.weight"], p["decoder.conv_out.bias"])
+
+
+def posterior_noise(shape: tuple[int, ...], generator: torch.Generator,
+                    device) -> torch.Tensor:
+    """The standard normal draw of a sampled encode, float32, from
+    ``generator``. Its bits are not those of the JAX package's
+    ``jax.random``."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
+
+def vae_encode(cfg: VAEConfig, params: dict, images: torch.Tensor, *,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """images (B, H, W, 3) in [-1, 1] -> scaled latents (B, H/8, W/8, 4).
+
+    The posterior mean when ``generator`` is None; else the sample mean +
+    exp(0.5 clip(logvar, -30, 20)) * noise (:func:`posterior_noise`)."""
+    p = params
+    h = ops.conv2d(images, p["encoder.conv_in.weight"], p["encoder.conv_in.bias"])
+    for i in range(len(cfg.block_out_channels)):
+        for j in range(cfg.layers_per_block):
+            h = _resnet(p, f"encoder.down_blocks.{i}.resnets.{j}", h, cfg)
+        if i < len(cfg.block_out_channels) - 1:
+            # the HF downsampler: pad (0, 1) x (0, 1), then a stride-2 valid conv
+            h = ops.conv2d(h, p[f"encoder.down_blocks.{i}.downsamplers.0.conv.weight"],
+                           p[f"encoder.down_blocks.{i}.downsamplers.0.conv.bias"],
+                           stride=2, padding=((0, 1), (0, 1)))
+    h = _resnet(p, "encoder.mid_block.resnets.0", h, cfg)
+    h = _mid_attention(p, "encoder.mid_block.attentions.0", h, cfg)
+    h = _resnet(p, "encoder.mid_block.resnets.1", h, cfg)
+    h = ops.group_norm(h, p["encoder.conv_norm_out.weight"], p["encoder.conv_norm_out.bias"],
+                       num_groups=cfg.norm_num_groups, eps=cfg.norm_eps, act="silu")
+    h = ops.conv2d(h, p["encoder.conv_out.weight"], p["encoder.conv_out.bias"])
+    h = ops.conv2d(h, p["quant_conv.weight"], p["quant_conv.bias"], padding=0)
+    mean, logvar = h.chunk(2, dim=-1)
+    if generator is not None:
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        mean = mean + std * posterior_noise(tuple(mean.shape), generator, mean.device)
+    return mean * cfg.scaling_factor

@@ -87,8 +87,8 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
                       precompute_time: Callable | None = None,
                       guidance_interval: tuple[float, float] | None = None,
                       deep_cache: tuple | None = None):
-    """Build loop(params, latents, ctx, text_embeds, time_ids[, noise]) ->
-    final latents.
+    """Build loop(params, latents, ctx, text_embeds, time_ids[, noise][,
+    extra]) -> final latents.
 
     ``solver``: "euler", "euler_a" (ancestral: ``noise``, (steps, B, H, W,
     C), is required), "heun" (two UNet evaluations a step) or "dpmpp_2m".
@@ -103,7 +103,12 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
     every step. ``precompute_time(params, timesteps, text_embeds, time_ids)``
     runs once before the loop on the (T,) timesteps and returns
     {key: (T, 2B, C)}; step i passes its slice i to the UNet as a 7th
-    argument.
+    argument. ``extra`` (inpainting: the latent mask and the masked image's
+    latents, (2B, H, W, C'), CFG-doubled, uncond rows first) is
+    concatenated *unscaled* after the scaled, CFG-doubled latents on the
+    channel axis, in their dtype: its 2B rows on a guided evaluation, its
+    cond half on a cond-only one (cut once before the loop under
+    ``guidance_scale <= 1``); DeepCache's shallow pass reads it too.
 
     ``guidance_interval=(sigma_lo, sigma_hi)`` (with ``guidance_scale >
     1``): an evaluation runs the CFG pair only where sigma_lo <= sigma <=
@@ -147,10 +152,14 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
     evaluated = guided[:n] + (guided[1:n] if solver == "heun" else [])
     needs_half = not no_cfg and not all(evaluated)
 
-    def loop(params, latents, ctx, text_embeds, time_ids, noise=None):
+    def loop(params, latents, ctx, text_embeds, time_ids, noise=None, extra=None):
         if solver == "euler_a" and noise is None:
             raise ValueError("euler_a needs per-step noise (steps, *latents.shape)")
         b = latents.shape[0]
+        if extra is not None:
+            if extra.shape[0] != 2 * b:
+                raise ValueError(f"extra has {extra.shape[0]} rows; it is CFG-doubled: {2 * b}")
+            extra = extra.to(latents.dtype)  # the UNet input's dtype, cast once
         tc_all = None
         if precompute_time is not None:
             ts = torch.cat([torch.full((1,), t, dtype=torch.float32, device=latents.device)
@@ -158,7 +167,8 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
             tc_all = precompute_time(params, ts, text_embeds, time_ids)
         if no_cfg:
             # the (T, 2B, C) time cache holds the batch on axis 1
-            ctx, text_embeds, time_ids = (_half(x, b) for x in (ctx, text_embeds, time_ids))
+            ctx, text_embeds, time_ids, extra = (
+                _half(x, b) for x in (ctx, text_embeds, time_ids, extra))
             tc_all = None if tc_all is None else {k: v[:, b:] for k, v in tc_all.items()}
         cond = precompute(params, ctx) if precompute is not None else ctx
         conds = (cond, text_embeds, time_ids)
@@ -182,11 +192,13 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
             # without CFG the conditioning, time cache and cache are B rows
             # already; a cond-only evaluation under CFG takes their cond halves
             cond_only = not guided[k] and not no_cfg
-            args = conds
+            args, ext = conds, extra
             if guided[k]:
                 inp = torch.cat([inp, inp], dim=0)
             if cond_only:
-                args, tc = half, _half(tc, b)
+                args, tc, ext = half, _half(tc, b), _half(extra, b)
+            if ext is not None:
+                inp = torch.cat([inp, ext], dim=-1)
             tt = torch.full((inp.shape[0],), timesteps[k], dtype=torch.float32,
                             device=inp.device)
             if deep_cache is None:

@@ -1,18 +1,22 @@
-"""End-to-end txt2img: CLIP -> CFG denoise loop (Euler, Euler-Ancestral, Heun
-or DPM-Solver++(2M), with the guidance interval and DeepCache) -> VAE decode.
+"""End-to-end pipelines: txt2img, img2img (from latents or pixels),
+inpainting and base + refiner. CLIP -> CFG denoise loop (Euler,
+Euler-Ancestral, Heun or DPM-Solver++(2M), with the guidance interval and
+DeepCache) -> VAE decode.
 
 SDXL conditions on two encoders (penultimate states, pooled bigG, size
-micro-conditioning); SD1.x on one (final states, or penultimate with
+micro-conditioning); the SDXL refiner on bigG alone, with the aesthetic
+score in its fifth time id; SD1.x on one (final states, or penultimate with
 ``clip_skip >= 2``) and nothing added.
 
-Counterpart of ``SDXLPipeline.txt2img`` in ``stabletriton_tpu/runtime/pipeline.py``.
-JAX traces the whole program into one executable. Here the denoise loop (the
-cross K/V precompute, every step's UNet evaluations with their CFG combine,
-the solver's update) is the executable: on the card it is captured as one
-CUDA graph per signature at its first call and replayed at every later one
-(``runtime/graphs.py``); the text encoders, the noise and the VAE decode
-around it run eagerly (:meth:`SDXLPipeline._build` says why). The op binding is entered inside
-:meth:`SDXLPipeline.txt2img`, on the thread that runs the model, and the model
+Counterpart of ``SDXLPipeline`` and ``TwoStageSDXL`` in
+``stabletriton_tpu/runtime/pipeline.py``. JAX traces each program into one
+executable. Here the denoise loop (the cross K/V precompute, every step's
+UNet evaluations with their CFG combine, the solver's update) is the
+executable: on the card it is captured as one CUDA graph per signature at
+its first call and replayed at every later one (``runtime/graphs.py``); the
+text encoders, the noise, the VAE encode and the VAE decode around it run
+eagerly (:meth:`SDXLPipeline._build` says why). The op binding is entered
+inside each entry point, on the thread that runs the model, and the model
 runs under ``torch.inference_mode()``.
 
 Token ids in, images out: tokenization stays with the caller.
@@ -53,7 +57,7 @@ from stabletriton_tpu_torch.runtime.denoise import (
     norm_deep_cache,
     norm_guidance_interval,
 )
-from stabletriton_tpu_torch.runtime.graphs import Graphs
+from stabletriton_tpu_torch.runtime.graphs import Graphs, on_card
 
 logger = logging.getLogger("stabletriton_tpu_torch")
 
@@ -67,6 +71,24 @@ def _decode_images(vae_config: vae_mod.VAEConfig, vae_params: dict,
     imgs = [vae_mod.vae_decode(vae_config, vae_params, lat[i:i + 1])
             for i in range(lat.shape[0])]
     return torch.cat(imgs, dim=0).clamp(-1.0, 1.0)
+
+
+def _encode_images(vae_config: vae_mod.VAEConfig, vae_params: dict, images: torch.Tensor,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """VAE encode in float32, one image at a time as the decode (each of
+    the encoder's 128-channel maps is 512 MiB at 1024^2): the posterior
+    mean, or with ``generator`` a sample, drawn image by image."""
+    img = images.float()
+    lats = [vae_mod.vae_encode(vae_config, vae_params, img[i:i + 1], generator=generator)
+            for i in range(img.shape[0])]
+    return torch.cat(lats, dim=0)
+
+
+def latent_mask(mask: torch.Tensor, f: int) -> torch.Tensor:
+    """The nearest downsample of a (B, H, W, 1) mask by the VAE's factor f,
+    as ``jax.image.resize(..., "nearest")`` takes it: pixel f i + f // 2
+    (its half-pixel centres), not f i."""
+    return mask[:, f // 2::f, f // 2::f]
 
 
 def _seed_vector(seed, batch: int) -> list[int]:
@@ -203,8 +225,98 @@ class SDXLPipeline:
         hwc = deep_cache_shape(ucfg, 1, lat_h, lat_w, cache_depth=depth)[1:]
         return (interval, full_fn, shallow_fn, hwc)
 
-    def _build(self, *, batch, height, width, steps, guidance_scale, solver,
-               return_latents, guidance_interval=None, deep_cache=None):
+    def _one_encoder(self, params, ids, negs):
+        """SD1.x's conditioning, CFG-doubled: encoder 1's final states (the
+        penultimate ones with ``clip_skip >= 2``), pooled and time ids of
+        width 0."""
+        dtype = self.compile_config.torch_dtype
+        pen, final, _ = clip_mod.clip_apply_chunked(self.clip_config, params["text_encoder"],
+                                                    torch.cat([negs, ids]))
+        rows = 2 * ids.shape[0]
+        return ((pen if self.clip_skip >= 2 else final).to(dtype),
+                torch.zeros((rows, 0), dtype=dtype, device=self.device),
+                torch.zeros((rows, 0), dtype=torch.float32, device=self.device))
+
+    def _size_ids(self, height, width, rows):
+        """SDXL's micro-conditioning [oh, ow, ct, cl, th, tw], (rows, 6)."""
+        return torch.tensor([height, width, 0, 0, height, width], dtype=torch.float32,
+                            device=self.device).expand(rows, 6)
+
+    def _text_conditioning(self, params, ids1, ids2, neg_ids1, neg_ids2, height, width):
+        """(ctx, pooled, time_ids), CFG-doubled (uncond rows first), as
+        txt2img and inpaint condition: SDXL on both encoders and the size
+        micro-conditioning; SD1.x on encoder 1 alone (``ids2`` is not
+        read)."""
+        if not self.unet_config.has_addition_embedding:
+            return self._one_encoder(params, ids1, neg_ids1)
+        dtype = self.compile_config.torch_dtype
+        ctx, pooled = clip_mod.encode_sdxl_prompts(
+            self.clip_config, params["text_encoder"], self.clip2_config,
+            params["text_encoder_2"], torch.cat([neg_ids1, ids1]), torch.cat([neg_ids2, ids2]))
+        return ctx.to(dtype), pooled.to(dtype), self._size_ids(height, width, 2 * ids1.shape[0])
+
+    def _img2img_conditioning(self, params, ids1, ids2, neg_ids1, neg_ids2, height, width,
+                              aesthetic_scores):
+        """(ctx, pooled, time_ids), CFG-doubled, as img2img conditions: a
+        model without added conditioning (SD1.x) on one encoder (``ids1``,
+        or ``ids2`` where it is None); else bigG's states and pooled output,
+        with encoder 1's states before them where ``ids1`` is given and the
+        params hold it (SDXL-base as img2img), and bigG's alone otherwise
+        (the refiner). The refiner's 5-slot time ids are [oh, ow, ct, cl,
+        aesthetic score], one row of ``aesthetic_scores`` (uncond, cond) per
+        CFG half; other models take txt2img's 6 slots."""
+        ucfg = self.unet_config
+        if ucfg.addition_time_embed_dim is None:
+            return (self._one_encoder(params, ids2, neg_ids2) if ids1 is None
+                    else self._one_encoder(params, ids1, neg_ids1))
+        dtype = self.compile_config.torch_dtype
+        rows = 2 * ids2.shape[0]
+        ctx, _, pooled = clip_mod.clip_apply(self.clip2_config, params["text_encoder_2"],
+                                             torch.cat([neg_ids2, ids2]))
+        if ids1 is not None and "text_encoder" in params:
+            h1, _, _ = clip_mod.clip_apply(self.clip_config, params["text_encoder"],
+                                           torch.cat([neg_ids1, ids1]))
+            ctx = torch.cat([h1, ctx], dim=-1)
+        if (ucfg.projection_class_embeddings_input_dim
+                == (self.clip2_config.projection_dim or 0) + 5 * ucfg.addition_time_embed_dim):
+            # the refiner's add embedding: pooled + 5 time-id embeddings
+            tid = torch.tensor([[height, width, 0, 0, s] for s in aesthetic_scores],
+                               dtype=torch.float32, device=self.device)
+            time_ids = tid.repeat_interleave(rows // 2, dim=0)
+        else:
+            time_ids = self._size_ids(height, width, rows)
+        return ctx.to(dtype), pooled.to(dtype), time_ids
+
+    def _loop(self, schedule, *, guidance_scale, solver, lat_h, lat_w, guidance_interval,
+              deep_cache):
+        """A program's denoise loop over ``schedule``, graphed on the
+        pipeline's pool."""
+        unet_step, kv_pre, time_pre = self._unet_step_fns()
+        return self._graphs.wrap(make_denoise_loop(
+            unet_step, schedule, guidance_scale=guidance_scale, solver=solver,
+            precompute=kv_pre, precompute_time=time_pre,
+            guidance_interval=guidance_interval,
+            deep_cache=self._deep_cache_tuple(deep_cache, lat_h, lat_w)))
+
+    def _program_around(self, loop, loop_inputs, decode: bool):
+        """program(params, *args): ``loop_inputs(params, *args)`` and the
+        graphed ``loop`` on them, under the binding and inference mode, then
+        the decode where ``decode``. It carries ``program.loop`` (whose
+        ``__wrapped__`` is the eager loop) and ``program.loop_inputs``."""
+        binding = resolve_binding(self.compile_config)
+
+        def program(params, *args):
+            with torch.inference_mode(), ops.use_backends(binding):
+                latents = loop(params["unet"], *loop_inputs(params, *args))
+                if not decode:
+                    return latents
+                return _decode_images(self.vae_config, params["vae"], latents)
+
+        program.loop, program.loop_inputs = loop, loop_inputs
+        return program
+
+    def _build(self, *, height, width, steps, guidance_scale, solver, return_latents,
+               guidance_interval=None, deep_cache=None):
         """The txt2img program for one signature. The denoise loop is a
         graphed callable whose static inputs are the latents, ctx, pooled and
         time ids (and an ancestral solver's noise); the params are read in
@@ -216,51 +328,29 @@ class SDXLPipeline:
             per request;
           * the f32 VAE decode: it is device-bound (under 2% idle on an
             H100, PERF.md §5), and its 1024^2 activations would stay
-            reserved in the pool.
+            reserved in the pool; the f32 encode of img2img_image and
+            inpaint likewise (each of its 128-channel maps is 512 MiB at
+            1024^2), one image at a time as the decode.
 
         The program carries its loop (``program.loop``, whose ``__wrapped__``
         is the eager loop) and the eager part that makes the loop's inputs
         (``program.loop_inputs``: latents, ctx, pooled, time ids, and under
-        "euler_a" the noise)."""
-        binding = resolve_binding(self.compile_config)
+        "euler_a" the noise). img2img's and inpaint's programs are made the
+        same way."""
         dtype = self.compile_config.torch_dtype
         schedule = sched.make_schedule(self.scheduler_config, steps)
-        ucfg = self.unet_config
         f = self.vae_config.spatial_scale_factor
         lat_h, lat_w = height // f, width // f
-        unet_step, kv_pre, time_pre = self._unet_step_fns()
-        loop = self._graphs.wrap(make_denoise_loop(
-            unet_step, schedule, guidance_scale=guidance_scale, solver=solver,
-            precompute=kv_pre, precompute_time=time_pre,
-            guidance_interval=guidance_interval,
-            deep_cache=self._deep_cache_tuple(deep_cache, lat_h, lat_w)))
+        loop = self._loop(schedule, guidance_scale=guidance_scale, solver=solver, lat_h=lat_h,
+                          lat_w=lat_w, guidance_interval=guidance_interval,
+                          deep_cache=deep_cache)
 
         def loop_inputs(params, ids1, ids2, neg_ids1, neg_ids2, seeds):
             """(latents, ctx, pooled, time_ids[, noise]), under the caller's
             binding."""
-            ids1_all = torch.cat([neg_ids1, ids1])
-            if ucfg.has_addition_embedding:
-                # SDXL: dual encoders, penultimate states + pooled bigG
-                ctx, pooled = clip_mod.encode_sdxl_prompts(
-                    self.clip_config, params["text_encoder"],
-                    self.clip2_config, params["text_encoder_2"],
-                    ids1_all, torch.cat([neg_ids2, ids2]),
-                )
-                ctx, pooled = ctx.to(dtype), pooled.to(dtype)
-                # SDXL micro-conditioning: [oh, ow, ct, cl, th, tw]
-                tid = torch.tensor([height, width, 0, 0, height, width],
-                                   dtype=torch.float32, device=self.device)
-                time_ids = tid.expand(2 * batch, 6)
-            else:
-                # SD1.x: one encoder, final (or clip-skipped) states, no
-                # added conditioning; ids2 is not read
-                pen, final, _ = clip_mod.clip_apply_chunked(
-                    self.clip_config, params["text_encoder"], ids1_all)
-                ctx = (pen if self.clip_skip >= 2 else final).to(dtype)
-                pooled = torch.zeros((2 * batch, 0), dtype=dtype, device=self.device)
-                time_ids = torch.zeros((2 * batch, 0), dtype=torch.float32,
-                                       device=self.device)
-            shape = (lat_h, lat_w, ucfg.in_channels)
+            ctx, pooled, time_ids = self._text_conditioning(params, ids1, ids2, neg_ids1,
+                                                            neg_ids2, height, width)
+            shape = (lat_h, lat_w, self.unet_config.in_channels)
             noise = initial_noise(seeds, shape, self.device)
             latents = (noise * schedule.init_noise_sigma).to(dtype)
             if solver == "euler_a":
@@ -268,34 +358,34 @@ class SDXLPipeline:
                     seeds, steps, shape, self.device)
             return latents, ctx, pooled, time_ids
 
-        def program(params, ids1, ids2, neg_ids1, neg_ids2, seeds):
-            with torch.inference_mode(), ops.use_backends(binding):
-                latents = loop(params["unet"], *loop_inputs(
-                    params, ids1, ids2, neg_ids1, neg_ids2, seeds))
-                if return_latents:
-                    return latents
-                return _decode_images(self.vae_config, params["vae"], latents)
+        return self._program_around(loop, loop_inputs, not return_latents)
 
-        program.loop, program.loop_inputs = loop, loop_inputs
-        return program
-
-    def _program(self, batch, height, width, steps, guidance_scale, solver,
-                 return_latents, guidance_interval=None, deep_cache=None):
-        sig = (batch, height, width, steps, guidance_scale, solver, return_latents,
-               guidance_interval, deep_cache)
+    def _cached(self, sig, build):
+        """The program of ``sig``, built by ``build()`` on its first call
+        (under the lock: two threads never build one signature twice)."""
         fn = self._cache.get(sig)
         if fn is None:
             with self._lock:
                 fn = self._cache.get(sig)
                 if fn is None:
-                    logger.info("building txt2img program for signature %s", sig)
-                    fn = self._build(batch=batch, height=height, width=width,
-                                     steps=steps, guidance_scale=guidance_scale,
-                                     solver=solver, return_latents=return_latents,
-                                     guidance_interval=guidance_interval,
-                                     deep_cache=deep_cache)
-                    self._cache[sig] = fn
+                    logger.info("building program for signature %s", sig)
+                    fn = self._cache[sig] = build()
         return fn
+
+    def _program(self, batch, height, width, steps, guidance_scale, solver,
+                 return_latents, guidance_interval=None, deep_cache=None):
+        sig = (batch, height, width, steps, guidance_scale, solver, return_latents,
+               guidance_interval, deep_cache)
+        return self._cached(sig, lambda: self._build(
+            height=height, width=width, steps=steps, guidance_scale=guidance_scale,
+            solver=solver, return_latents=return_latents, guidance_interval=guidance_interval,
+            deep_cache=deep_cache))
+
+    def _ids(self, *arrays) -> list[torch.Tensor | None]:
+        """Token ids (numpy or tensors) as int64 tensors on the device; None
+        stays None."""
+        return [None if a is None else torch.as_tensor(np.asarray(a), dtype=torch.long).to(
+            self.device) for a in arrays]
 
     def txt2img(self, ids1, ids2, *, neg_ids1=None, neg_ids2=None,
                 height: int = 1024, width: int = 1024, steps: int = 30,
@@ -327,12 +417,208 @@ class SDXLPipeline:
                            return_latents,
                            norm_guidance_interval(guidance_interval, guidance_scale),
                            norm_deep_cache(deep_cache))
-        ids = [torch.as_tensor(np.asarray(a), dtype=torch.long).to(self.device)
-               for a in (ids1, ids2, neg_ids1, neg_ids2)]
-        return fn(self.params, *ids, _seed_vector(seed, batch))
+        return fn(self.params, *self._ids(ids1, ids2, neg_ids1, neg_ids2),
+                  _seed_vector(seed, batch))
+
+    def warmup(self, *, batch: int = 1, height: int = 1024, width: int = 1024,
+               steps: int = 30, guidance_scale: float = 5.0, solver: str = "euler",
+               guidance_interval: tuple[float, float] | None = None,
+               deep_cache: int | tuple[int, int] | None = None,
+               prompt_len: int | None = None) -> None:
+        """Build one txt2img signature's program ahead of its first request
+        (serving cold-start): on the card also run its denoise loop's eager
+        warm-up, capture and instantiate, on the loop inputs of all-zero
+        token ids and seeds, so that the first real request of the
+        signature replays. Decodes nothing and returns nothing. On the CPU
+        nothing is captured, so only the program is built."""
+        self._check_resolution(height, width)
+        fn = self._program(batch, height, width, steps, float(guidance_scale), solver, False,
+                           norm_guidance_interval(guidance_interval, guidance_scale),
+                           norm_deep_cache(deep_cache))
+        if not on_card(torch.empty(0, device=self.device)):
+            return
+        n1 = prompt_len or self.clip_config.max_position_embeddings
+        n2 = prompt_len or self.clip2_config.max_position_embeddings
+        ids1 = torch.zeros((batch, n1), dtype=torch.long, device=self.device)
+        ids2 = torch.zeros((batch, n2), dtype=torch.long, device=self.device)
+        with torch.inference_mode(), ops.use_backends(resolve_binding(self.compile_config)):
+            fn.loop(self.params["unet"], *fn.loop_inputs(self.params, ids1, ids2, ids1, ids2,
+                                                         [0] * batch))
+
+    def _build_img2img(self, *, lat_h, lat_w, steps, start, guidance_scale, solver,
+                       aesthetic_scores, decode, guidance_interval=None, deep_cache=None):
+        """The img2img program of one signature: the input latents noised to
+        sigmas[start], the schedule's steps from ``start`` on, the decode
+        where ``decode``. Its loop's static inputs are txt2img's."""
+        dtype = self.compile_config.torch_dtype
+        full = sched.make_schedule(self.scheduler_config, steps)
+        part = sched.Schedule(timesteps=full.timesteps[start:], sigmas=full.sigmas[start:],
+                              init_noise_sigma=float(np.sqrt(full.sigmas[start] ** 2 + 1)))
+        loop = self._loop(part, guidance_scale=guidance_scale, solver=solver, lat_h=lat_h,
+                          lat_w=lat_w, guidance_interval=guidance_interval,
+                          deep_cache=deep_cache)
+        f = self.vae_config.spatial_scale_factor
+        sigma0 = float(part.sigmas[0])
+
+        def loop_inputs(params, latents_in, ids1, ids2, neg_ids1, neg_ids2, seeds):
+            """(latents, ctx, pooled, time_ids[, noise]): the latents are
+            ``latents_in + noise * sigmas[start]``, the noise drawn per
+            image as txt2img's initial noise."""
+            ctx, pooled, time_ids = self._img2img_conditioning(
+                params, ids1, ids2, neg_ids1, neg_ids2, lat_h * f, lat_w * f, aesthetic_scores)
+            shape = tuple(latents_in.shape[1:])
+            noise = initial_noise(seeds, shape, self.device)
+            latents = (latents_in.float() + noise * sigma0).to(dtype)
+            if solver == "euler_a":
+                return latents, ctx, pooled, time_ids, ancestral_noise(
+                    seeds, steps - start, shape, self.device)
+            return latents, ctx, pooled, time_ids
+
+        return self._program_around(loop, loop_inputs, decode)
+
+    def img2img(self, latents, ids1, ids2, *, neg_ids1=None, neg_ids2=None,
+                steps: int = 30, strength: float = 0.3, guidance_scale: float = 5.0,
+                solver: str = "euler", seed=0,
+                aesthetic_scores: tuple[float, float] = (2.5, 6.0), decode: bool = True,
+                guidance_interval: tuple[float, float] | None = None,
+                deep_cache: int | tuple[int, int] | None = None) -> torch.Tensor:
+        """Refine clean (scaled) latents (B, h, w, 4): noise them to the
+        ``strength`` point of a ``steps``-step schedule and denoise the
+        remaining steps (the SDXL refiner, or img2img). ``ids1`` is None for
+        a model conditioned on one encoder's ids2 (the refiner);
+        ``aesthetic_scores`` (uncond, cond) feed the refiner's fifth time
+        id. ``decode=False`` returns the latents. The other knobs as
+        txt2img's; the first call of a signature captures its loop."""
+        batch, lat_h, lat_w = (int(n) for n in latents.shape[:3])
+        start = min(max(steps - int(round(steps * strength)), 0), steps - 1)
+        if neg_ids1 is None and ids1 is not None:
+            neg_ids1 = self.clip_config.empty_prompt_ids(batch, int(ids1.shape[1]))
+        if neg_ids2 is None:
+            neg_ids2 = self.clip2_config.empty_prompt_ids(batch, int(ids2.shape[1]))
+        scores = tuple(float(v) for v in aesthetic_scores)
+        gi = norm_guidance_interval(guidance_interval, guidance_scale)
+        dc = norm_deep_cache(deep_cache)
+        g = float(guidance_scale)
+        sig = ("i2i", batch, lat_h, lat_w, steps, start, g, solver, scores, decode, gi, dc)
+        fn = self._cached(sig, lambda: self._build_img2img(
+            lat_h=lat_h, lat_w=lat_w, steps=steps, start=start, guidance_scale=g, solver=solver,
+            aesthetic_scores=scores, decode=decode, guidance_interval=gi, deep_cache=dc))
+        latents = torch.as_tensor(latents).to(self.device)
+        return fn(self.params, latents, *self._ids(ids1, ids2, neg_ids1, neg_ids2),
+                  _seed_vector(seed, batch))
+
+    def _require_encoder(self, what: str) -> None:
+        if "encoder.conv_in.weight" not in self.params["vae"]:
+            raise ValueError(f"params['vae'] has no encoder weights; load the full VAE "
+                             f"(vae_encoder_param_shapes) to use {what}")
+
+    def img2img_image(self, image, ids1, ids2, *, encode_seed: int | None = None,
+                      **kwargs) -> torch.Tensor:
+        """img2img from pixels (B, H, W, 3) in [-1, 1]: the VAE encodes them
+        (the posterior mean, or a sample from a generator seeded with
+        ``encode_seed``), eagerly and in float32 under the pipeline's
+        binding, then :meth:`img2img` refines the latents. Needs the
+        encoder's weights ("encoder.*" / "quant_conv.*") in
+        ``params["vae"]``."""
+        self._require_encoder("image-input img2img")
+        gen = (None if encode_seed is None
+               else torch.Generator(device=self.device).manual_seed(int(encode_seed)))
+        image = torch.as_tensor(image).to(self.device)
+        with torch.inference_mode(), ops.use_backends(resolve_binding(self.compile_config)):
+            latents = _encode_images(self.vae_config, self.params["vae"], image, gen)
+        return self.img2img(latents, ids1, ids2, **kwargs)
+
+    def _build_inpaint(self, *, height, width, steps, guidance_scale, solver,
+                       guidance_interval=None, deep_cache=None):
+        """The inpainting program of one signature: txt2img's with the
+        UNet's 5 extra input channels, the latent mask and the masked
+        image's latents, a static input of the loop (``extra``,
+        CFG-doubled). The masked image is VAE-encoded eagerly in float32."""
+        dtype = self.compile_config.torch_dtype
+        schedule = sched.make_schedule(self.scheduler_config, steps)
+        f = self.vae_config.spatial_scale_factor
+        lat_h, lat_w = height // f, width // f
+        loop = self._loop(schedule, guidance_scale=guidance_scale, solver=solver, lat_h=lat_h,
+                          lat_w=lat_w, guidance_interval=guidance_interval,
+                          deep_cache=deep_cache)
+
+        def loop_inputs(params, image, mask, ids1, ids2, neg_ids1, neg_ids2, seeds):
+            """(latents, ctx, pooled, time_ids, noise or None, extra)."""
+            ctx, pooled, time_ids = self._text_conditioning(params, ids1, ids2, neg_ids1,
+                                                            neg_ids2, height, width)
+            maskf = mask.float()
+            masked_lat = _encode_images(self.vae_config, params["vae"],
+                                        image.float() * (maskf < 0.5))
+            extra = torch.cat([latent_mask(maskf, f), masked_lat], dim=-1)
+            shape = (lat_h, lat_w, self.vae_config.latent_channels)
+            latents = (initial_noise(seeds, shape, self.device)
+                       * schedule.init_noise_sigma).to(dtype)
+            noise = (ancestral_noise(seeds, steps, shape, self.device)
+                     if solver == "euler_a" else None)
+            return latents, ctx, pooled, time_ids, noise, torch.cat([extra, extra])
+
+        return self._program_around(loop, loop_inputs, True)
+
+    def inpaint(self, image, mask, ids1, ids2, *, neg_ids1=None, neg_ids2=None,
+                steps: int = 30, guidance_scale: float = 5.0, solver: str = "euler", seed=0,
+                guidance_interval: tuple[float, float] | None = None,
+                deep_cache: int | tuple[int, int] | None = None) -> torch.Tensor:
+        """Inpainting with a 9-channel UNet (4 noisy + 1 mask + 4
+        masked-image latent channels): ``image`` (B, H, W, 3) in [-1, 1],
+        ``mask`` (B, H, W, 1), 1 where the image is repainted. Needs the
+        encoder's weights in ``params["vae"]``. The knobs as txt2img's; the
+        first call of a signature captures its loop."""
+        if self.unet_config.in_channels != 9:
+            raise ValueError(f"inpaint needs a 9-channel inpaint UNet; this model has "
+                             f"in_channels={self.unet_config.in_channels}")
+        self._require_encoder("inpaint")
+        batch, height, width = (int(n) for n in image.shape[:3])
+        self._check_resolution(height, width)
+        if neg_ids1 is None:
+            neg_ids1 = self.clip_config.empty_prompt_ids(batch, int(ids1.shape[1]))
+        if neg_ids2 is None:
+            neg_ids2 = self.clip2_config.empty_prompt_ids(batch, int(ids2.shape[1]))
+        gi = norm_guidance_interval(guidance_interval, guidance_scale)
+        dc = norm_deep_cache(deep_cache)
+        g = float(guidance_scale)
+        sig = ("inpaint", batch, height, width, steps, g, solver, gi, dc)
+        fn = self._cached(sig, lambda: self._build_inpaint(
+            height=height, width=width, steps=steps, guidance_scale=g, solver=solver,
+            guidance_interval=gi, deep_cache=dc))
+        image, mask = (torch.as_tensor(a).to(self.device) for a in (image, mask))
+        return fn(self.params, image, mask, *self._ids(ids1, ids2, neg_ids1, neg_ids2),
+                  _seed_vector(seed, batch))
 
     def cache_signatures(self):
         return sorted(self._cache, key=repr)
+
+
+@dataclass
+class TwoStageSDXL:
+    """Base + refiner, as the JAX package's: the base runs its whole
+    txt2img schedule and hands its latents to the refiner, whose img2img
+    noises them again to the ``refiner_strength`` point of the same
+    schedule, denoises the tail and decodes. Each stage's loop replays its
+    own graph; the hand-off is one latent tensor on the device."""
+
+    base: SDXLPipeline
+    refiner: SDXLPipeline
+
+    def txt2img(self, ids1, ids2, *, neg_ids1=None, neg_ids2=None, height: int = 1024,
+                width: int = 1024, steps: int = 30, refiner_strength: float = 0.25,
+                guidance_scale: float = 5.0, solver: str = "euler", seed: int = 0
+                ) -> torch.Tensor:
+        """Images (B, height, width, 3) in [-1, 1]: the base's txt2img
+        latents, refined from the ``refiner_strength`` point of the same
+        ``steps``-step schedule on bigG's ids (``ids2``) with the seeds
+        ``seed + 1 + i``."""
+        latents = self.base.txt2img(ids1, ids2, neg_ids1=neg_ids1, neg_ids2=neg_ids2,
+                                    height=height, width=width, steps=steps,
+                                    guidance_scale=guidance_scale, solver=solver, seed=seed,
+                                    return_latents=True)
+        return self.refiner.img2img(latents, None, ids2, neg_ids2=neg_ids2, steps=steps,
+                                    strength=refiner_strength, guidance_scale=guidance_scale,
+                                    solver=solver, seed=seed + 1)
 
 
 def tiny_configs():
@@ -413,6 +699,49 @@ def make_tiny_sd15_pipeline(compile_config: CompileConfig | None = None, *,
         }
     return SDXLPipeline(
         unet_config=ucfg, clip_config=c1, clip2_config=c1, vae_config=vcfg,
+        params=params, device=device,
+        compile_config=compile_config or CompileConfig(backend="reference", dtype="float32"),
+    )
+
+
+def tiny_refiner_configs():
+    """(unet, clip, vae) configs of the tiny refiner-shaped test pipeline,
+    the same as the JAX package's ``make_tiny_refiner_pipeline``: one
+    encoder (bigG's slot), the 5-slot time ids, conv-only innermost level."""
+    c2 = clip_mod.CLIPTextConfig(
+        vocab_size=100, hidden_size=32, num_layers=2, num_heads=4, intermediate_size=32,
+        max_position_embeddings=16, projection_dim=16, eos_token_id=99, bos_token_id=98,
+    )
+    ucfg = UNetConfig(
+        block_out_channels=(32, 64, 64),
+        down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "DownBlock2D"),
+        layers_per_block=1,
+        transformer_layers_per_block=(1, 1, 1),
+        attention_head_dim=16,
+        cross_attention_dim=32,
+        norm_num_groups=8,
+        addition_time_embed_dim=8,
+        projection_class_embeddings_input_dim=16 + 5 * 8,
+        mid_block_layers=1,
+    )
+    return ucfg, c2, vae_mod.tiny_vae_config()
+
+
+def make_tiny_refiner_pipeline(compile_config: CompileConfig | None = None, *,
+                               params: dict | None = None, device="cpu") -> SDXLPipeline:
+    """A tiny refiner-shaped pipeline, the CPU-sized twin of the SDXL
+    refiner's: on the CPU unless ``device`` names another. ``params``
+    (optional, groups unet, text_encoder_2 and vae) replaces the seeded
+    random init, as in :func:`make_tiny_pipeline`."""
+    ucfg, c2, vcfg = tiny_refiner_configs()
+    if params is None:
+        params = {
+            "unet": init_unet_params(ucfg, 10, device=device),
+            "text_encoder_2": clip_mod.init_clip_params(c2, 11, device=device),
+            "vae": vae_mod.init_vae_params(vcfg, 12, device=device),
+        }
+    return SDXLPipeline(
+        unet_config=ucfg, clip_config=c2, clip2_config=c2, vae_config=vcfg,
         params=params, device=device,
         compile_config=compile_config or CompileConfig(backend="reference", dtype="float32"),
     )

@@ -1522,3 +1522,186 @@ def test_gpu_ancestral_noise_is_per_image(cuda_device):
     alone = ancestral_noise([12], 4, (16, 16, 4), cuda_device)
     pair = ancestral_noise([11, 12], 4, (16, 16, 4), cuda_device)
     assert alone.device.type == "cuda" and torch.equal(pair[:, 1], alone[:, 0])
+
+
+# --------------------------------------------------------------------------
+# the image-conditioned paths: the twins at their new shapes, and the
+# img2img and inpaint loops replayed
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape,cout,kernel,tol", [
+    (torch.float32, (1, 96, 80, 3), 128, "direct_f32", 1e-4),     # encoder conv_in
+    (torch.float32, (1, 40, 24, 512), 8, "wgmma_tf32x3", 1e-4),   # encoder conv_out
+    (torch.bfloat16, (2, 32, 24, 9), 320, "wgmma_bf16", 2e-2),    # inpaint conv_in
+])
+def test_gpu_image_path_convs_vs_plain(cuda_device, dtype, shape, cout, kernel, tol):
+    """The convs only the image paths run: the f32 encoder's conv_in (Cin
+    3, a direct block spanning 512 output channels of which 128 are live)
+    and conv_out (Cout 8), and the inpainting UNet's conv_in (Cin 9,
+    padded to 16), each on the kernel its route names."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    w = (torch.randn((3, 3, shape[3], cout), generator=gen, device=cuda_device)
+         / (9 * shape[3]) ** 0.5).to(dtype)
+    bias = torch.randn((cout,), generator=gen, device=cuda_device).to(dtype)
+    assert tconv.conv_variant(shape, cout, dtype) == kernel
+    before = dict(tconv.LAUNCHES.by_key)
+    out = tconv.conv3x3(x, w, bias)
+    (key,) = [k for k, n in tconv.LAUNCHES.by_key.items() if n != before.get(k, 0)]
+    assert key.startswith(f"{kernel} b={shape[0]} {shape[1]}x{shape[2]} {shape[3]}->{cout}")
+    assert _rel_err(out, tconv.conv3x3_plain(x, w, bias)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout,hw", [(384, 384, 16), (1152, 384, 16), (2304, 768, 8)])
+def test_gpu_refiner_gn_convs_vs_plain(cuda_device, cin, cout, hw):
+    """K8 at the refiner's GroupNorm widths: Cin 384 (12 channels a group)
+    and the up path's skip concats, scale / shift from the GroupNorm fold."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    x = (torch.randn((2, hw, hw, cin), generator=gen, device=cuda_device) * 2 + 0.5).to(
+        torch.bfloat16)
+    gamma = torch.rand((cin,), generator=gen, device=cuda_device) + 0.5
+    beta = torch.randn((cin,), generator=gen, device=cuda_device)
+    scale, shift = tgn.scale_shift(x, gamma, beta, num_groups=32, eps=1e-5)
+    w = (torch.randn((3, 3, cin, cout), generator=gen, device=cuda_device)
+         / (9 * cin) ** 0.5).to(torch.bfloat16)
+    bias = torch.randn((2, cout), generator=gen, device=cuda_device)
+    out = tconv.gn_conv3x3(x, scale, shift, w, bias, gn_act="silu")
+    ref = tconv.gn_conv3x3_plain(x, scale, shift, w, bias, gn_act="silu")
+    assert _rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,sq,sk,form,cls,kernel", [
+    (12, 4096, 4096, "qkv", "K2", "wgmma_bf16"), (24, 1024, 1024, "qkv", "K1", "wgmma_bf16"),
+    (24, 256, 256, "qkv", "K1", "wgmma_bf16"), (12, 4096, 77, "kv", "K1", "tinykv_wgmma_bf16"),
+    (24, 1024, 77, "kv", "K1", "tinykv_wgmma_bf16")])
+def test_gpu_refiner_attention_vs_plain(cuda_device, h, sq, sk, form, cls, kernel):
+    """The refiner's attention (d=64) at h=12 and 24: the class and kernel
+    of each launch, and the output against attention_plain."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    c = 64 * h
+    before = dict(tfa.LAUNCHES.by_key)
+    if form == "qkv":
+        qkv = torch.randn((1, sq, 3 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        out = tfa.flash_attention_qkv(qkv, num_heads=h)
+        ref = tfa.attention_plain(*qkv.chunk(3, -1), num_heads=h)
+    else:
+        q = torch.randn((1, sq, c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        kv = torch.randn((1, sk, 2 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        out = tfa.flash_attention_kv(q, kv, num_heads=h)
+        ref = tfa.attention_plain(q, *kv.chunk(2, -1), num_heads=h)
+    (key,) = [k for k, n in tfa.LAUNCHES.by_key.items() if n != before.get(k, 0)]
+    assert key.split()[:2] == [cls, kernel]
+    assert _rel_err(out, ref) <= 2e-2
+
+
+def _image_pipeline(device, in_channels):
+    """_replay_pipeline's small SDXL-shaped pipeline (all-kernel binding,
+    bf16) with ``in_channels`` UNet inputs and a small full VAE (decoder and
+    encoder, factor 2) whose mid attention has d=64, a head dim the f32
+    attention kernel takes (the tiny VAE's 16 is not one)."""
+    import dataclasses
+
+    from stabletriton_tpu_torch.models import vae as tvae
+    from stabletriton_tpu_torch.models.unet import init_unet_params
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    base = _replay_pipeline(device)
+    ucfg = dataclasses.replace(base.unet_config, in_channels=in_channels)
+    vcfg = tvae.VAEConfig(block_out_channels=(32, 64), norm_num_groups=8, layers_per_block=1)
+    params = dict(base.params)
+    params["unet"] = init_unet_params(ucfg, 7, device=device)
+    params["vae"] = {**tvae.init_vae_params(vcfg, 3, device=device),
+                     **tvae.init_vae_encoder_params(vcfg, 8, device=device)}
+    return tpipe.SDXLPipeline(unet_config=ucfg, clip_config=base.clip_config,
+                              clip2_config=base.clip2_config, vae_config=vcfg,
+                              params=params, device=device, compile_config=base.compile_config)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,kw", [
+    ("img2img_image", {"strength": 0.7}), ("img2img_image", {"strength": 0.5, "encode_seed": 3}),
+    ("inpaint", {}), ("inpaint", {"solver": "heun", "deep_cache": 2,
+                                  "guidance_interval": (0.5, 8.0)})])
+def test_gpu_image_loop_replay_equals_eager_bit_for_bit(cuda_device, kind, kw):
+    """img2img_image and inpaint on the card, all-kernel binding: the first
+    call (eager, then the capture) and a replay with another image, prompt
+    and seed each give the eager loop's latents on their inputs bit for
+    bit (inpaint's taken where its decode receives them); one graph; the
+    replay counts the first call's launches."""
+    from stabletriton_tpu_torch import ops as tops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    pipe = _image_pipeline(cuda_device, 9 if kind == "inpaint" else 4)
+    size = REPLAY["height"]
+    mask = torch.zeros((1, size, size, 1), device=cuda_device)
+    mask[:, 13:45, 20:50] = 1.0
+    outs, counts, seen = [], [], []
+    real_decode = tpipe._decode_images
+    tpipe._decode_images = lambda cfg, p, lat: seen.append(lat.clone()) or real_decode(cfg, p,
+                                                                                      lat)
+    try:
+        for seed in (1, 2):
+            gen = torch.Generator(device=cuda_device).manual_seed(seed)
+            image = torch.rand((1, size, size, 3), generator=gen, device=cuda_device) * 2 - 1
+            ids = _replay_ids(pipe, 1, seed)
+            before = _all_launches()
+            if kind == "inpaint":
+                pipe.inpaint(image, mask, ids, ids, steps=3, seed=seed, **kw)
+                got = seen[-1]
+            else:
+                got = pipe.img2img_image(image, ids, ids, steps=3, seed=seed, decode=False, **kw)
+            torch.cuda.synchronize()
+            counts.append(_launched(before))
+            outs.append((image, ids, seed, got))
+    finally:
+        tpipe._decode_images = real_decode
+    assert counts[0] == counts[1] and any(counts[0])
+    (prog,) = pipe._cache.values()
+    assert len(prog.loop.captured) == 1
+    for image, ids, seed, got in outs:
+        neg = torch.as_tensor(pipe.clip_config.empty_prompt_ids(1, ids.shape[1]),
+                              dtype=torch.long)
+        tids = [a.to(cuda_device) for a in (ids, ids, neg, neg)]
+        with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
+            if kind == "inpaint":
+                args = (image, mask, *tids, [seed])
+            else:
+                gen = (None if "encode_seed" not in kw else
+                       torch.Generator(device=cuda_device).manual_seed(kw["encode_seed"]))
+                args = (tpipe._encode_images(pipe.vae_config, pipe.params["vae"], image, gen),
+                        *tids, [seed])
+            eager = prog.loop.__wrapped__(pipe.params["unet"], *prog.loop_inputs(
+                pipe.params, *args))
+        assert torch.isfinite(got.float()).all() and torch.equal(got, eager)
+    assert not torch.equal(outs[0][3], outs[1][3])
+
+
+@pytest.mark.gpu
+def test_gpu_warmup_captures_and_the_first_request_replays(cuda_device):
+    """warmup builds and captures one txt2img signature on zero inputs;
+    the first request of that signature replays it (no new graph, no new
+    program) and gives the eager loop's images' latents bit for bit."""
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    pipe = _image_pipeline(cuda_device, 4)
+    size = REPLAY["height"]
+    pipe.warmup(height=size, width=size, steps=3)
+    (prog,) = pipe._cache.values()
+    (entry,) = prog.loop.captured.values()
+    ids = _replay_ids(pipe, 1, 4)
+    seen = []
+    real_decode = tpipe._decode_images
+    tpipe._decode_images = lambda cfg, p, lat: seen.append(lat.clone()) or real_decode(cfg, p,
+                                                                                      lat)
+    try:
+        pipe.txt2img(ids, ids, height=size, width=size, steps=3, seed=5)
+    finally:
+        tpipe._decode_images = real_decode
+    assert list(pipe._cache.values()) == [prog] and list(prog.loop.captured.values()) == [entry]
+    eager, _ = _eager_loop(pipe, ids, [5], height=size, width=size, steps=3)
+    assert torch.equal(seen[0], eager)
