@@ -205,12 +205,49 @@ Phases, each fatal on failure (non-zero exit, no result line):
      nodes, the first call's pieces, the replayed wall, and the MSE of the
      latents against the reference binding's same request (eager) at most
      MODE_MSE_RATIO x the binding's plain Euler txt2img MSE.
+  7k. (after 6k) the twins at the shapes SD2.x's 768^2 path gives them (96^2
+     latent, CFG batch 2) against their plain versions as in phase 3:
+     attention at h=5 d=64 (self S=9216 on the K3 route, the first bf16 K3
+     launch at d=64; cross against 77 keys on the K5 route), at h=10 / 20
+     (K2, K1) and the f32 VAE's at S=9216; the UNet's convs at 96^2..12^2,
+     the f32 VAE's at 96^2 and 768^2; the GN-fused conv, GroupNorm,
+     LayerNorm, GEGLU and projections at 320 channels and the cross K/V
+     precompute of a 1024-wide context; each row's launches are counted on
+     phase 7c's path;
+  7a. (after 5c) the native library (native/src/*.cpp, built with g++ into
+     build/native/ beside the CUDA build): every entry bit for bit its numpy
+     version on full-size inputs (a 1280x1280 bf16 / f16 / f32 weight, a
+     (1280, 1280, 3, 3) conv weight, a 1024^2 image and its PNG, a long
+     prompt's ids), each timed;
+  7b. a full-width SDXL-base diffusers directory (f16, about 6.9 GB: the
+     UNet, both encoders, the whole VAE, unet/config.json, synthetic
+     tokenizer files) written by the port's safetensors writer into a
+     temporary directory (the free disk checked first, the directory deleted
+     at the end); load_sdxl, two prompt strings tokenized, two 4-step 1024^2
+     requests (the first captures, the second replays), each image bit for
+     bit the same request on a pipeline built in memory from the same f16
+     arrays; the native PNG of one decodes back to to_rgb8's array; write,
+     load and request seconds and the peak memory;
+  7c. a full-width SD2.x SGM single file (f16, about 2.5 GB: the UNet, the
+     OpenCLIP-H text tower, the VAE decoder) in a temporary directory;
+     load_single_file_auto must find "sd2", set clip_skip=2 and load every
+     tensor as written; two 4-step 768^2 requests under the default and the
+     all-kernel binding (capture, replay), each bit for bit the eager loop on
+     its inputs, the launch counters set to 0 just before and read just
+     after; each binding's latent MSE against the reference binding's same
+     request, printed beside SD1.5's step MSE of phase 4c;
+  7d. a duck-typed full-width SDXL-base UNet module in torch layout (bf16 on
+     the card) through frontends.diffusers.compile: two steps (capture,
+     replay) bit for bit unet_apply on the compiled params, a DeepCache step
+     pair, one CompVisUNetShim call with a 2816-wide y.
 
 Each phase logs its peak device memory.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Weights are random, made from fixed seeds; it needs no network.
+Weights are random, made from fixed seeds; it needs no network. Phases 7b
+and 7c write their checkpoints (about 9.4 GB in all) under the temporary
+directory ($TMPDIR) and delete them.
 """
 
 from __future__ import annotations
@@ -220,10 +257,13 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -3254,6 +3294,799 @@ def phase_images(dev, ucfg, unet_params, other, size=1024):
     return total, results
 
 
+# phase 7: the front door. SD2.x at 768^2 (96^2 latent, CFG batch 2, bf16
+# UNet, f32 decode) from an SGM single file, SDXL-base from a diffusers
+# directory, the native library and the frontends. Every checkpoint is
+# written here from seeded random weights (nothing is downloaded); each is
+# deleted when its phase ends.
+SD2_SIZE = 768
+FRONT_STEPS = 4
+SD2_ATTENTION_CASES = [
+    ("SD2 self S=9216 h=5 d=64 bf16", "K3", "qkv", (2, 9216, 320, 5), torch.bfloat16, 5),
+    ("SD2 cross Sq=9216 Sk=77 h=5 d=64 bf16", "K5", "kv", (2, 9216, 77, 320, 5),
+     torch.bfloat16, 10),
+    ("SD2 self S=2304 h=10 bf16", "K2", "qkv", (2, 2304, 640, 10), torch.bfloat16, 10),
+    ("SD2 cross Sq=2304 Sk=77 h=10 bf16", "K1", "kv", (2, 2304, 77, 640, 10), torch.bfloat16,
+     20),
+    ("SD2 self S=576 h=20 bf16", "K1", "qkv", (2, 576, 1280, 20), torch.bfloat16, 20),
+    ("SD2 cross Sq=576 Sk=77 h=20 bf16", "K1", "kv", (2, 576, 77, 1280, 20), torch.bfloat16, 20),
+    ("SD2 mid self S=144 h=20 bf16", "K1", "qkv", (2, 144, 1280, 20), torch.bfloat16, 20),
+    ("SD2 mid cross Sq=144 Sk=77 h=20 bf16", "K1", "kv", (2, 144, 77, 1280, 20),
+     torch.bfloat16, 20),
+    ("SD2 vae S=9216 h=1 d=512 f32", "K3", "qkv3", (1, 9216, 512, 1), torch.float32, 3),
+]
+
+
+def phase_sd2_kernels(dev):
+    """Phase 7k: the twins at the shapes the SD2.x 768^2 path gives them and
+    no earlier path did, each against its plain version beside its bound
+    and one PyTorch call, in phase 3's manner: attention at h=5 d=64 (self
+    S=9216, the first K3-class bf16 launch at d=64; cross against 77 keys,
+    K5 on the tiny-KV kernel), h=10 and h=20 at 48^2 / 24^2 / 12^2 and the
+    f32 VAE's at S=9216; the UNet's 3x3 convs at 96^2..12^2 (conv_in Cin 4
+    padded to 8) and the f32 VAE's at 96^2 and 768^2; the GroupNorm-fused
+    conv, GroupNorm, LayerNorm, GEGLU and projections at 320 channels and
+    the cross K/V precompute's 1024-wide context. Each row carries the
+    launch-key fields its launches on phase 7c's path are counted by."""
+    import torch.nn.functional as F
+
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import geglu as gg
+    from stabletriton_tpu_torch.kernels import group_norm as gn
+    from stabletriton_tpu_torch.kernels import layer_norm as ln
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.ops import reference
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(7007)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    results = []
+
+    def record(tpu, name, source, r, counter, match, kernel=None):
+        r.update(name=name, source=f"stabletriton_tpu_torch/csrc/{source}", tpu=tpu,
+                 kernel=kernel, counter=counter, match=match, path="sd2")
+        results.append(r)
+
+    for r, (_, tpu, kind, shape, _, _) in zip(attention_cases(randn, SD2_ATTENTION_CASES),
+                                             SD2_ATTENTION_CASES):
+        if kind == "kv":
+            b, sq, sk, c, h = shape
+        else:
+            b, sq, c, h = shape
+            sk = sq
+        r.update(counter="attention", path="sd2",
+                 match=[f"{r['kernel']} b={b} h={h} d={c // h} sq={sq} sk={sk} "])
+        results.append(r)
+
+    # K6: the UNet's convs at each level, the f32 VAE's at 96^2 and 768^2
+    for label, (b, hh, ww, cin, cout), dtype in [
+            ("SD2 unet conv_in 96x96 4->320", (2, 96, 96, 4, 320), bf16),
+            ("SD2 unet 96x96 320->320", (2, 96, 96, 320, 320), bf16),
+            ("SD2 unet 48x48 640->640", (2, 48, 48, 640, 640), bf16),
+            ("SD2 unet 24x24 1280->1280", (2, 24, 24, 1280, 1280), bf16),
+            ("SD2 unet 12x12 1280->1280", (2, 12, 12, 1280, 1280), bf16),
+            ("SD2 vae conv_in 96x96 4->512 f32", (1, 96, 96, 4, 512), f32),
+            ("SD2 vae 96x96 512->512 f32", (1, 96, 96, 512, 512), f32),
+            ("SD2 vae 768x768 128->128 f32", (1, 768, 768, 128, 128), f32)]:
+        x = randn(b, hh, ww, cin, dtype=dtype)
+        w = randn(3, 3, cin, cout, dtype=dtype, scale=1.0 / math.sqrt(9 * cin))
+        bias = randn(cout, dtype=dtype)
+        kernel = cd.conv_variant(tuple(x.shape), cout, dtype)
+        if dtype == bf16:
+            lfn = lambda x=x, w=w, bias=bias: reference.conv2d(x, w, bias)
+            label_l = "cuDNN (reference op)"
+        else:
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+            lfn = lambda xc=xc, wc=wc, bias=bias: F.conv2d(xc, wc, bias, padding=1)
+            label_l = "F.conv2d f32"
+        flops = 2 * b * hh * ww * cout * 9 * cin
+        moved = nbytes(x, w, bias) + b * hh * ww * cout * x.element_size()
+        tf32 = kernel == "wgmma_tf32x3"
+        name = f"conv3x3 {label}"
+        r = compare(name, lambda x=x, w=w, bias=bias: cd.conv3x3(x, w, bias),
+                    lambda x=x, w=w, bias=bias: cd.conv3x3_plain(x, w, bias),
+                    BF16_REL_TOL if dtype == bf16 else F32_REL_TOL, 3 if dtype == f32 else 10,
+                    bound_ms=bound(flops, moved, dtype, TF32X3_FLOPS if tf32 else None),
+                    library_fn=lfn, library_label=label_l)
+        if tf32:
+            r["bound_f32_fma_ms"] = bound(flops, moved, dtype)[0]
+        log(f"  {kernel}")
+        record("K6", name, "conv3x3.cu", r, "K6", [f"{kernel} b={b} {hh}x{ww} {cin}->{cout} "],
+               kernel)
+        del x, w, bias
+
+    # K8: the resnets' GroupNorm-fused conv at 96^2, 320 channels (10 a group)
+    b, hh, ww, cin, cout = 2, 96, 96, 320, 320
+    x = randn(b, hh, ww, cin, scale=2.0, shift=0.5)
+    scale, shift = gn.scale_shift(x, randn(cin, dtype=f32, scale=0.2, shift=1.0),
+                                  randn(cin, dtype=f32, scale=0.2), num_groups=32, eps=1e-5)
+    w = randn(3, 3, cin, cout, scale=1.0 / math.sqrt(9 * cin))
+    bias = randn(b, cout, dtype=f32)
+    args = (x, scale, shift, w, bias)
+    kernel = cd.conv_variant(tuple(x.shape), cout, bf16, gn=True)
+    name = "gn_conv3x3 SD2 resnet conv1 96x96 320->320 batch-bias"
+    r = compare(name, lambda: cd.gn_conv3x3(*args, gn_act="silu"),
+                lambda: cd.gn_conv3x3_plain(*args, gn_act="silu"), BF16_REL_TOL, 10,
+                bound_ms=bound(2 * b * hh * ww * cout * 9 * cin,
+                               nbytes(*args) + b * hh * ww * cout * 2, bf16))
+    record("K8", name, "conv3x3.cu", r, "K8", [f"{kernel} b={b} {hh}x{ww} {cin}->{cout} "],
+           kernel)
+    del x, w, args
+
+    # K9: Transformer2D's GroupNorm at 96^2, 320 channels
+    x = randn(2, 96, 96, 320, scale=2.0, shift=0.5)
+    g, bb = randn(320, shift=1.0), randn(320)
+    nchw = x.permute(0, 3, 1, 2).contiguous()
+    name = "group_norm (2, 96, 96, 320) bf16 act=None (SD2)"
+    record("K9", name, "group_norm.cu", compare(
+        name, lambda: gn.group_norm(x, g, bb, num_groups=32, eps=1e-6),
+        lambda: gn.group_norm_plain(x, g, bb, num_groups=32, eps=1e-6), BF16_REL_TOL, 20,
+        bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, bb), bf16),
+        library_fn=lambda: F.group_norm(nchw, 32, g, bb, 1e-6), library_label="F.group_norm"),
+        "K9", ["bf16 b=2 96x96 c=320 "])
+    del x, nchw
+
+    # K10, K11: LayerNorm and GEGLU over the 18432 rows of level 0
+    x = randn(18432, 320, scale=2.0, shift=0.3)
+    g, bb = randn(320, shift=1.0), randn(320)
+    name = "layer_norm (18432, 320) bf16 (SD2)"
+    record("K10", name, "layer_norm.cu", compare(
+        name, lambda: ln.layer_norm(x, g, bb, eps=1e-6),
+        lambda: ln.layer_norm_plain(x, g, bb, eps=1e-6), BF16_REL_TOL, 50,
+        bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, bb), bf16),
+        library_fn=lambda: F.layer_norm(x, (320,), g, bb, 1e-6), library_label="F.layer_norm"),
+        "K10", ["ln bf16 rows=18432 c=320 "])
+    proj = randn(2, 9216, 2560, scale=2.0)
+    state, gate = proj.chunk(2, dim=-1)
+    name = "geglu halves of (2, 9216, 2560) bf16 (SD2)"
+    record("K11", name, "geglu.cu", compare(
+        name, lambda: gg.geglu(state, gate), lambda: gg.geglu_plain(state, gate), BF16_REL_TOL,
+        20, bound_ms=bound(0, nbytes(proj) + nbytes(proj) // 2, bf16)),
+        "K11", ["bf16 rows=18432 n=1280 "])
+    del x, proj, state, gate
+
+    # K13: level 0's fused QKV projection, and the cross K/V precompute of
+    # OpenCLIP-H's 1024-wide states (CFG batch 2 x 77 rows)
+    for label, m, k, n in [("SD2 to_qkv (18432,320)@(320,960)", 18432, 320, 960),
+                           ("SD2 cross K/V precompute (154,1024)@(1024,640)", 154, 1024, 640)]:
+        x = randn(m, k)
+        w = randn(k, n, scale=1.0 / math.sqrt(k))
+        kernel = lin.variant(m, k, n, bf16)
+        name = f"linear {label}"
+        r = compare(name, lambda x=x, w=w: lin.linear(x, w),
+                    lambda x=x, w=w: lin.linear_plain(x, w), BF16_REL_TOL, 20,
+                    bound_ms=bound(2 * m * n * k, nbytes(x, w) + m * n * 2, bf16),
+                    library_fn=lambda x=x, w=w: x @ w, library_label="cuBLAS matmul")
+        record("K13", name, "linear.cu", r, "K13", [f"{kernel} m={m} k={k} n={n} "], kernel)
+        del x, w
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return results
+
+
+def png_pixels(png: bytes) -> np.ndarray:
+    """The pixels of an 8-bit RGB PNG whose rows all use filter 0 (as the
+    native encoder writes them), decoded with Python's zlib: (H, W, 3)."""
+    import struct
+    import zlib
+
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(png):
+        (n,) = struct.unpack(">I", png[pos:pos + 4])
+        typ, data = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        if typ == b"IHDR":
+            w, h = struct.unpack(">II", data[:8])
+        elif typ == b"IDAT":
+            idat += data
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if png[:8] != b"\x89PNG\r\n\x1a\n" or rows[:, 0].any():
+        raise AssertionError("not a filter-0 RGB PNG")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def build_native():
+    """The native library's build, timed: (seconds, path)."""
+    from stabletriton_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    return time.perf_counter() - t0, path
+
+
+def phase_native(native_build):
+    """Phase 7a: the port's native library (built from native/src into
+    build/native/ in a thread beside the CUDA build; ``native_build`` is that
+    future), every entry against its numpy version on full-size inputs, bit
+    for bit, each timed."""
+    from stabletriton_tpu_torch import native
+    from stabletriton_tpu_torch.io.tokenizer import CLIPTokenizer, PyCLIPTokenizer
+
+    seconds, path = native_build.result()
+    if not native.have_native():
+        raise AssertionError("the native library did not build")
+    log(f"native library: {path}, built in {seconds:.2f} s (beside the CUDA build)")
+    rng = np.random.default_rng(77)
+    w = rng.standard_normal((1280, 1280)).astype(np.float32)
+    conv = rng.standard_normal((1280, 1280, 3, 3)).astype(np.float32)
+    img = rng.uniform(-1.1, 1.1, (1024, 1024, 3)).astype(np.float32)
+    bf16 = (w.view(np.uint32) >> 16).astype(np.uint16)
+    f16 = w.astype(np.float16).view(np.uint16)
+    rgb = native.to_rgb8_plain(img)
+    cases = [("bf16_to_f32 (1280, 1280)", native.bf16_to_f32, native.bf16_to_f32_plain, bf16),
+             ("f16_to_f32 (1280, 1280)", native.f16_to_f32, native.f16_to_f32_plain, f16),
+             ("transpose_2d (1280, 1280) f32", native.transpose_2d, native.transpose_2d_plain,
+              w),
+             ("oihw_to_hwio (1280, 1280, 3, 3) f32", native.oihw_to_hwio,
+              native.oihw_to_hwio_plain, conv),
+             ("to_rgb8 (1024, 1024, 3)", native.to_rgb8, native.to_rgb8_plain, img),
+             ("encode_png (1024, 1024, 3)", native.encode_png, native.encode_png_plain, rgb)]
+    rec = {}
+    for label, fn, plain, x in cases:
+        t0 = time.perf_counter()
+        got = fn(x)
+        t1 = time.perf_counter()
+        want = plain(x)
+        t2 = time.perf_counter()
+        same = got == want if isinstance(got, bytes) else np.array_equal(got, want)
+        if not same:
+            raise AssertionError(f"native {label}: differs from its numpy version")
+        rec[label] = {"native_ms": (t1 - t0) * 1e3, "plain_ms": (t2 - t1) * 1e3}
+    if not np.array_equal(png_pixels(native.encode_png(rgb)), rgb):
+        raise AssertionError("native PNG: decoded pixels differ")
+    with tempfile.TemporaryDirectory() as d:
+        write_vocab(os.path.join(d, "tok"))
+        files = (os.path.join(d, "tok", "vocab.json"), os.path.join(d, "tok", "merges.txt"))
+        tok, py = CLIPTokenizer(*files), PyCLIPTokenizer(*files)
+        prompt = ("a photo of a lighthouse at dusk, 4k, highly detailed, "
+                  "it's a cat's dream ") * 6
+        t0 = time.perf_counter()
+        ids = tok.encode(prompt)
+        t1 = time.perf_counter()
+        want = py.encode(prompt)
+        rec["tokenizer 77 ids"] = {"native_ms": (t1 - t0) * 1e3,
+                                   "plain_ms": (time.perf_counter() - t1) * 1e3}
+        if not np.array_equal(ids, want):
+            raise AssertionError("native tokenizer: ids differ from the plain version's")
+    log("native entries, each bit for bit its numpy version (host ms, native / plain): "
+        + json.dumps({k: [round(v["native_ms"], 3), round(v["plain_ms"], 3)]
+                      for k, v in rec.items()}))
+    return rec
+
+
+# the prompt words the synthetic tokenizer merges whole (the others go
+# character by character)
+VOCAB_WORDS = ("a", "photo", "of", "lighthouse", "at", "dusk", "bowl", "ramen", "cat",
+               "watercolor", "harbour", "highly", "detailed", "dream")
+
+
+def write_vocab(d) -> None:
+    """A synthetic CLIP vocabulary: every byte's symbol with and without
+    </w>, the merges that build VOCAB_WORDS, and the start / end tokens at
+    CLIP's ids 49406 / 49407."""
+    from stabletriton_tpu_torch.io.tokenizer import _byte_encoder
+
+    os.makedirs(d, exist_ok=True)
+    enc = _byte_encoder()
+    vocab = {}
+    for b in range(256):
+        vocab[enc[b]] = len(vocab)
+    for b in range(256):
+        vocab[enc[b] + "</w>"] = len(vocab)
+    merges = []
+    for word in VOCAB_WORDS:
+        syms = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(syms) > 1:
+            merges.append(f"{syms[0]} {syms[1]}")
+            syms = [syms[0] + syms[1]] + syms[2:]
+            vocab.setdefault(syms[0], len(vocab))
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+def torch_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """This package's layout -> torch's (a view): the inverse of
+    io.safetensors_io.to_framework_layout."""
+    if not name.endswith(".weight") or "embedding" in name.rsplit(".", 2)[-2]:
+        return t
+    if t.dim() == 2:
+        return t.t()
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    return t
+
+
+def need_disk(path, nbytes_needed: int, what: str) -> None:
+    free_b = shutil.disk_usage(path).free
+    if free_b < nbytes_needed * 1.1:
+        raise AssertionError(f"{what} needs {nbytes_needed / 2**30:.1f} GiB of disk under "
+                             f"{path}; {free_b / 2**30:.1f} GiB free")
+
+
+def sdxl_diffusers_config() -> dict:
+    """SDXL-base's unet/config.json (stabilityai/stable-diffusion-xl-base-1.0),
+    the fields the loader reads."""
+    return {"in_channels": 4, "out_channels": 4, "block_out_channels": [320, 640, 1280],
+            "down_block_types": ["DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"],
+            "layers_per_block": 2, "transformer_layers_per_block": [1, 2, 10],
+            "attention_head_dim": [5, 10, 20], "cross_attention_dim": 2048,
+            "norm_num_groups": 32, "addition_embed_type": "text_time",
+            "addition_time_embed_dim": 256, "projection_class_embeddings_input_dim": 2816,
+            "flip_sin_to_cos": True, "freq_shift": 0}
+
+
+def phase_loaded_sdxl(dev, size=1024):
+    """Phase 7b: a full-width SDXL-base diffusers directory (f16, seeded
+    random weights: UNet, both encoders, the whole VAE, unet/config.json,
+    synthetic tokenizer files) written by io.safetensors_io's writer into a
+    temporary directory, deleted at the end; ``load_sdxl`` loads it, two
+    prompt strings are tokenized and run as two FRONT_STEPS-step 1024^2
+    requests under the default binding (the first captures, the second
+    replays), and each image must equal bit for bit the same request on a
+    pipeline built in memory from the same f16 arrays. The PNG bytes of the
+    native encoder decode back to to_rgb8's array."""
+    from stabletriton_tpu_torch import native
+    from stabletriton_tpu_torch.compile import CompileConfig
+    from stabletriton_tpu_torch.io import pretrained
+    from stabletriton_tpu_torch.io.safetensors_io import write_safetensors
+    from stabletriton_tpu_torch.io.tokenizer import sdxl_tokenize
+    from stabletriton_tpu_torch.models import clip as clip_mod
+    from stabletriton_tpu_torch.models import vae as vae_mod
+    from stabletriton_tpu_torch.models.unet import init_unet_params, sdxl_base_unet_config
+    from stabletriton_tpu_torch.runtime import pipeline as tp
+
+    f16 = torch.float16
+    ucfg = sdxl_base_unet_config()
+    c1, c2 = clip_mod.sdxl_text_encoder_config(), clip_mod.sdxl_text_encoder_2_config()
+    vcfg = vae_mod.sdxl_vae_config()
+    comps = {"unet": init_unet_params(ucfg, 70, device=dev, dtype=f16),
+             "text_encoder": clip_mod.init_clip_params(c1, 71, device=dev, dtype=f16),
+             "text_encoder_2": clip_mod.init_clip_params(c2, 72, device=dev, dtype=f16),
+             "vae": {**vae_mod.init_vae_params(vcfg, 73, device=dev, dtype=f16),
+                     **vae_mod.init_vae_encoder_params(vcfg, 74, device=dev, dtype=f16)}}
+    files = {"unet": "diffusion_pytorch_model.safetensors",
+             "vae": "diffusion_pytorch_model.safetensors",
+             "text_encoder": "model.safetensors", "text_encoder_2": "model.safetensors"}
+    total = sum(nbytes(*d.values()) for d in comps.values())
+    root = tempfile.mkdtemp(prefix="sdxl_diffusers_")
+    rec = {"checkpoint_gib": total / 2**30}
+    try:
+        need_disk(root, total, "phase 7b's SDXL-base directory")
+        t0 = time.perf_counter()
+        for comp, params in comps.items():
+            os.makedirs(os.path.join(root, comp))
+            write_safetensors(os.path.join(root, comp, files[comp]),
+                              {k: torch_layout(k, v) for k, v in params.items()})
+        with open(os.path.join(root, "unet", "config.json"), "w") as f:
+            json.dump(sdxl_diffusers_config(), f)
+        for sub in ("tokenizer", "tokenizer_2"):
+            write_vocab(os.path.join(root, sub))
+        rec["write_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe, tok1, tok2 = pretrained.load_sdxl(root, device=dev)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0
+        decoder = set(vae_mod.vae_decoder_param_shapes(vcfg))
+        memory = tp.SDXLPipeline(
+            unet_config=ucfg, clip_config=c1, clip2_config=c2, vae_config=vcfg,
+            params={"unet": comps["unet"],
+                    **{k: {n: t.float() for n, t in comps[k].items()}
+                       for k in ("text_encoder", "text_encoder_2")},
+                    "vae": {n: t.float() for n, t in comps["vae"].items() if n in decoder}},
+            compile_config=CompileConfig(), device=dev)
+        if pipe.unet_config != ucfg or pipe.params["unet"].keys() != memory.params["unet"].keys():
+            raise AssertionError("load_sdxl: another UNet config or key set than SDXL-base's")
+        prompts = [("a photo of a lighthouse at dusk", 11), ("a bowl of ramen, highly detailed",
+                                                              12)]
+        images = {}
+        for name, p in (("loaded", pipe), ("in memory", memory)):
+            for i, (prompt, seed) in enumerate(prompts):
+                ids1, ids2 = sdxl_tokenize(tok1, tok2, [prompt])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                images[name, i] = p.txt2img(ids1, ids2, height=size, width=size,
+                                            steps=FRONT_STEPS, seed=seed)
+                torch.cuda.synchronize()
+                rec[f"{name} request {i} s"] = time.perf_counter() - t0
+            (prog,) = p._cache.values()
+            if len(prog.loop.captured) != 1:
+                raise AssertionError(f"phase 7b, {name}: {len(prog.loop.captured)} graphs")
+        for i in range(len(prompts)):
+            a, b = images["loaded", i], images["in memory", i]
+            if a.shape != (1, size, size, 3) or not torch.isfinite(a).all():
+                raise AssertionError(f"phase 7b: request {i} gave {tuple(a.shape)}")
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 7b: request {i} of the loaded pipeline differs "
+                                     f"from the in-memory pipeline's (max abs "
+                                     f"{(a - b).abs().max().item():.3e})")
+        if torch.equal(images["loaded", 0], images["loaded", 1]):
+            raise AssertionError("phase 7b: two prompts gave one image")
+        img = images["loaded", 0][0].float().cpu().numpy()
+        t0 = time.perf_counter()
+        rgb = native.to_rgb8(img)
+        png = native.encode_png(rgb)
+        rec["png_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["png_bytes"] = len(png)
+        if not np.array_equal(png_pixels(png), rgb):
+            raise AssertionError("phase 7b: the PNG does not decode to to_rgb8's array")
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"phase 7b, SDXL-base {size}^2 from a diffusers directory ({rec['checkpoint_gib']:.2f}"
+            f" GiB f16, written by the port), default binding, {FRONT_STEPS} steps: each "
+            f"request bit for bit the in-memory pipeline's (first call captures, second "
+            f"replays); " + json.dumps(rec))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def sgm_unet_names(cfg) -> dict:
+    """{diffusers key: SGM key} of a UNet config: io.single_file's tables
+    inverted."""
+    from stabletriton_tpu_torch.io import single_file as sf
+    from stabletriton_tpu_torch.models.unet import unet_param_shapes
+
+    in_map, out_map = sf._unet_block_tables(cfg)
+    inv = {v: k for k, v in {**in_map, **out_map, **sf._UNET_FIXED}.items()}
+    resnet_inv = {v: k for k, v in sf._RESNET_INNER.items()}
+    out = {}
+    for name in unet_param_shapes(cfg):
+        mod, leaf = name.rsplit(".", 1)
+        best = max((d for d in inv if mod == d or mod.startswith(d + ".")), key=len)
+        rest = mod[len(best):].lstrip(".")
+        for dmod, smod in resnet_inv.items():
+            if rest == dmod or rest.startswith(dmod + "."):
+                rest = smod + rest[len(dmod):]
+                break
+        out[name] = f"{inv[best]}.{rest}.{leaf}" if rest else f"{inv[best]}.{leaf}"
+    return out
+
+
+def sgm_vae_decoder(params: dict, levels: int) -> dict:
+    """The VAE decoder's params (this package's layout and names) -> SGM
+    names in torch layout: up blocks numbered from the bottom, the mid
+    attention's projections as 1x1 convs."""
+    out = {}
+    for name, t in params.items():
+        if not name.startswith(("decoder.", "post_quant_conv.")):
+            continue
+        t = torch_layout(name, t)
+        if name.startswith("post_quant_conv."):
+            out[name] = t
+            continue
+        mod, leaf = name[len("decoder."):].rsplit(".", 1)
+        parts = mod.split(".")
+        if mod in ("conv_in", "conv_out"):
+            sgm = f"decoder.{mod}.{leaf}"
+        elif mod == "conv_norm_out":
+            sgm = f"decoder.norm_out.{leaf}"
+        elif mod.startswith("mid_block.resnets."):
+            inner = {"conv_shortcut": "nin_shortcut"}.get(parts[3], parts[3])
+            sgm = f"decoder.mid.block_{int(parts[2]) + 1}.{inner}.{leaf}"
+        elif mod.startswith("mid_block.attentions.0."):
+            inner = mod[len("mid_block.attentions.0."):]
+            ren = {"to_q": "q", "to_k": "k", "to_v": "v", "to_out.0": "proj_out",
+                   "group_norm": "norm"}[inner]
+            if inner.startswith("to_") and leaf == "weight":
+                t = t[:, :, None, None]
+            sgm = f"decoder.mid.attn_1.{ren}.{leaf}"
+        elif parts[2] == "resnets":
+            inner = {"conv_shortcut": "nin_shortcut"}.get(parts[4], parts[4])
+            sgm = f"decoder.up.{levels - 1 - int(parts[1])}.block.{parts[3]}.{inner}.{leaf}"
+        else:
+            sgm = f"decoder.up.{levels - 1 - int(parts[1])}.upsample.conv.{leaf}"
+        out[sgm] = t
+    return out
+
+
+def openclip_text(params: dict, cfg, projection: torch.Tensor) -> dict:
+    """A CLIP text tower's params (HF names, this package's layout) ->
+    OpenCLIP's names and torch layout: q/k/v fused into in_proj, and a
+    (d, proj) text_projection as OpenCLIP stores it."""
+    p = params
+    out = {"token_embedding.weight": p["text_model.embeddings.token_embedding.weight"],
+           "positional_embedding": p["text_model.embeddings.position_embedding.weight"],
+           "ln_final.weight": p["text_model.final_layer_norm.weight"],
+           "ln_final.bias": p["text_model.final_layer_norm.bias"],
+           "text_projection": projection}
+    for i in range(cfg.num_layers):
+        hf, oc = f"text_model.encoder.layers.{i}", f"transformer.resblocks.{i}"
+        att = f"{hf}.self_attn"
+        out[f"{oc}.attn.in_proj_weight"] = torch.cat(
+            [p[f"{att}.{x}_proj.weight"].t() for x in "qkv"])
+        out[f"{oc}.attn.in_proj_bias"] = torch.cat([p[f"{att}.{x}_proj.bias"] for x in "qkv"])
+        for ours, theirs in [("self_attn.out_proj", "attn.out_proj"), ("mlp.fc1", "mlp.c_fc"),
+                             ("mlp.fc2", "mlp.c_proj"), ("layer_norm1", "ln_1"),
+                             ("layer_norm2", "ln_2")]:
+            for leaf in ("weight", "bias"):
+                t = p[f"{hf}.{ours}.{leaf}"]
+                out[f"{oc}.{theirs}.{leaf}"] = t.t() if t.dim() == 2 else t
+    return out
+
+
+def phase_sd2(dev, size=SD2_SIZE):
+    """Phase 7c: SD2.x at full width from one SGM file (UNet under
+    model.diffusion_model., OpenCLIP-H under cond_stage_model.model., the
+    decoder under first_stage_model.; f16, seeded random weights) written
+    into a temporary directory; ``load_single_file_auto`` must find "sd2",
+    set clip_skip=2 and load every tensor as written. Then FRONT_STEPS-step
+    768^2 requests under the default and the all-kernel
+    binding, each twice (the first captures, the second replays with another
+    prompt and seed), both bit for bit the eager loop on their inputs, with
+    the launch counters set to 0 just before and read just after; each
+    binding's latents against the reference binding's same request (eager):
+    MSE, at most MODE_MSE_RATIO x the default binding's. Every request
+    decodes (its loop's latents tapped at the decode): finite (1, 768, 768,
+    3) images in [-1, 1]. Returns the requests' launches by key (denoise
+    loops and decodes) and its record."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import (CompileConfig, cast_params,
+                                                fuse_attention_projections, resolve_binding)
+    from stabletriton_tpu_torch.io import pretrained
+    from stabletriton_tpu_torch.io.safetensors_io import write_safetensors
+    from stabletriton_tpu_torch.io.tokenizer import CLIPTokenizer
+    from stabletriton_tpu_torch.models import clip as clip_mod
+    from stabletriton_tpu_torch.models import vae as vae_mod
+    from stabletriton_tpu_torch.models.unet import init_unet_params, sd21_unet_config
+    from stabletriton_tpu_torch.runtime import pipeline as tp
+
+    f16 = torch.float16
+    ucfg, ccfg, vcfg = (sd21_unet_config(), clip_mod.sd2_text_encoder_config(),
+                        vae_mod.sd15_vae_config())
+    unet = init_unet_params(ucfg, 80, device=dev, dtype=f16)
+    text = clip_mod.init_clip_params(ccfg, 81, device=dev, dtype=f16)
+    vae = vae_mod.init_vae_params(vcfg, 82, device=dev, dtype=f16)
+    projection = torch.randn((ccfg.hidden_size, ccfg.hidden_size), device=dev).to(f16)
+    names = sgm_unet_names(ucfg)
+    sd = {f"model.diffusion_model.{names[k]}": torch_layout(k, v) for k, v in unet.items()}
+    sd.update({f"cond_stage_model.model.{k}": v
+               for k, v in openclip_text(text, ccfg, projection).items()})
+    sd.update({f"first_stage_model.{k}": v
+               for k, v in sgm_vae_decoder(vae, len(vcfg.block_out_channels)).items()})
+    rec = {"checkpoint_gib": nbytes(*sd.values()) / 2**30}
+    root = tempfile.mkdtemp(prefix="sd2_single_")
+    path = os.path.join(root, "sd21.safetensors")
+    counters = kernel_counters()
+    try:
+        need_disk(root, nbytes(*sd.values()), "phase 7c's SD2.x single file")
+        t0 = time.perf_counter()
+        write_safetensors(path, sd)
+        write_vocab(os.path.join(root, "tokenizer"))
+        rec["write_s"] = time.perf_counter() - t0
+        del sd
+        tok = CLIPTokenizer(os.path.join(root, "tokenizer", "vocab.json"),
+                            os.path.join(root, "tokenizer", "merges.txt"))
+        configs = replay_configs()
+        pipes = {}
+        for name in ("default", "all_kernels", "reference"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe, family = pretrained.load_single_file_auto(path, compile_config=configs[name],
+                                                            device=dev)
+            if name == "reference":  # the yardstick: held against, run eagerly
+                pipe = tp.SDXLPipeline(unet_config=pipe.unet_config,
+                                       clip_config=pipe.clip_config,
+                                       clip2_config=pipe.clip2_config,
+                                       vae_config=pipe.vae_config, params=pipe.params,
+                                       compile_config=configs[name], clip_skip=pipe.clip_skip,
+                                       device=dev, _graphs=eager_graphs())
+            torch.cuda.synchronize()
+            rec[f"load_s {name}"] = time.perf_counter() - t0
+            if (family, pipe.clip_skip, pipe.unet_config) != ("sd2", 2, ucfg):
+                raise AssertionError(f"load_single_file_auto: family {family}, clip_skip "
+                                     f"{pipe.clip_skip}, {pipe.unet_config}")
+            pipes[name] = pipe
+        # every tensor as written: the text encoder and decoder in f32, the
+        # UNet fused and cast as the pipeline's binding does
+        want = {"text_encoder": {k: v.float() for k, v in text.items()},
+                "vae": {k: v.float() for k, v in vae.items()},
+                "unet": cast_params(fuse_attention_projections(unet), configs["default"])}
+        got = pipes["default"].params
+        for group, tensors_ in want.items():
+            extra = set(got[group]) - set(tensors_) - {"text_projection.weight"}
+            if extra or any(not torch.equal(got[group][k], t) for k, t in tensors_.items()):
+                raise AssertionError(f"phase 7c: the loaded {group} differs from what was "
+                                     f"written ({sorted(extra)[:3]})")
+        del want, unet, text, vae
+
+        calls = [("a watercolor of a harbour", 21), ("a photo of a cat at dusk", 22)]
+
+        def ids(prompt):
+            return tok.encode_batch([prompt])
+
+        def eager(pipe, prompt, seed):
+            (prog,) = pipe._cache.values()
+            dev_ids = pipe._ids(ids(prompt), ids(prompt),
+                                ccfg.empty_prompt_ids(1), ccfg.empty_prompt_ids(1))
+            with torch.inference_mode(), ops.use_backends(resolve_binding(pipe.compile_config)):
+                inputs = prog.loop_inputs(pipe.params, *dev_ids, [seed])
+                return prog.loop.__wrapped__(pipe.params["unet"], *inputs), prog
+
+        def request(pipe, prompt, seed):
+            """The request's images and its loop's latents (tapped at the
+            decode)."""
+            with DecodeTap() as tap:
+                img = pipe.txt2img(ids(prompt), ids(prompt), height=size, width=size,
+                                   steps=FRONT_STEPS, seed=seed)
+            (latents,) = tap.latents
+            if img.shape != (1, size, size, 3) or not torch.isfinite(img).all() or not (
+                    -1.0 <= img.min().item() and img.max().item() <= 1.0):
+                raise AssertionError(f"phase 7c: image {tuple(img.shape)}")
+            return latents
+
+        reference = {seed: request(pipes["reference"], prompt, seed) for prompt, seed in calls}
+        reset(counters)
+        outs = {}
+        for name in ("default", "all_kernels"):
+            for i, (prompt, seed) in enumerate(calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name, i] = request(pipes[name], prompt, seed)
+                torch.cuda.synchronize()
+                rec[f"{name} request {i} s"] = time.perf_counter() - t0
+        by_key = launches_by_key(counters)
+        for name in ("default", "all_kernels"):
+            for i, (prompt, seed) in enumerate(calls):
+                want_lat, prog = eager(pipes[name], prompt, seed)
+                if not torch.equal(outs[name, i], want_lat):
+                    raise AssertionError(f"phase 7c, {name}: call {i} differs from the eager "
+                                         f"loop on its inputs")
+                if len(prog.loop.captured) != 1:
+                    raise AssertionError(f"phase 7c, {name}: {len(prog.loop.captured)} graphs")
+            d = [(outs[name, i].float() - reference[seed].float()) for i, (_, seed)
+                 in enumerate(calls)]
+            rec[f"{name} vs reference"] = {
+                "max_abs": max(x.abs().max().item() for x in d),
+                "mse": max(x.square().mean().item() for x in d)}
+        base = rec["default vs reference"]["mse"]
+        if not rec["all_kernels vs reference"]["mse"] <= MODE_MSE_RATIO * max(base, 1e-12):
+            raise AssertionError(f"phase 7c: all-kernel MSE {rec['all_kernels vs reference']}")
+        if not all(torch.isfinite(o.float()).all() for o in outs.values()):
+            raise AssertionError("phase 7c: latents not finite")
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"phase 7c, SD2.x {size}^2 from an SGM single file ({rec['checkpoint_gib']:.2f} GiB "
+            f"f16), family sd2, clip_skip 2, {FRONT_STEPS} steps: each call bit for bit the "
+            f"eager loop (first captures, second replays), default and all-kernel; "
+            + json.dumps(rec))
+        del pipes, outs, reference
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_key, rec
+
+
+class DuckUNet:
+    """A diffusers UNet as the frontend reads one: ``.config`` and
+    ``.state_dict()`` (torch layout, views of this package's tensors)."""
+
+    def __init__(self, config: dict, params: dict):
+        self.config = config
+        self._sd = {k: torch_layout(k, v) for k, v in params.items()}
+
+    def state_dict(self):
+        return self._sd
+
+
+def phase_frontends(dev, lat=128):
+    """Phase 7d: a full-width SDXL-base UNet module in torch layout (bf16 on
+    the card) through frontends.diffusers.compile under the default binding:
+    two per-step calls (the first captures, the second replays), each bit
+    for bit unet_apply on the params the compiled UNet holds under the same
+    binding; one DeepCache step pair (its full step bit for bit the plain
+    step, its shallow one unet_apply_shallow on the carried cache); one
+    CompVisUNetShim call with a 2816-wide y and zero-width time ids, bit for
+    bit unet_apply on that y."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import CompileConfig, resolve_binding
+    from stabletriton_tpu_torch.frontends import diffusers as fe
+    from stabletriton_tpu_torch.frontends.sgm import CompVisUNetShim
+    from stabletriton_tpu_torch.models.unet import (init_unet_params, sdxl_base_unet_config,
+                                                    unet_apply, unet_apply_shallow)
+
+    bf16 = torch.bfloat16
+    ucfg = sdxl_base_unet_config()
+    module = DuckUNet(sdxl_diffusers_config(), init_unet_params(ucfg, 90, device=dev,
+                                                                dtype=bf16))
+    cc = CompileConfig()
+    rec = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled = fe.compile(module, cc, device=dev)
+    torch.cuda.synchronize()
+    rec["ingest_s"] = time.perf_counter() - t0
+    if compiled.unet_config != ucfg:
+        raise AssertionError(f"frontend: config {compiled.unet_config}")
+    del module
+    binding = resolve_binding(cc)
+    gen = torch.Generator(device=dev).manual_seed(91)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    size = float(lat * 8)
+    ctx = randn(2, 77, ucfg.cross_attention_dim)
+    pooled = randn(2, ucfg.projection_class_embeddings_input_dim
+                   - 6 * ucfg.addition_time_embed_dim)
+    time_ids = torch.tensor([[size, size, 0, 0, size, size]] * 2, device=dev)
+    kw = {"added_cond_kwargs": {"text_embeds": pooled, "time_ids": time_ids}}
+
+    def nhwc(x):
+        return x.permute(0, 2, 3, 1).to(bf16).contiguous()
+
+    def nchw(x):
+        return x.float().permute(0, 3, 1, 2).to(bf16)
+
+    def direct(sample_nchw, t, fn=unet_apply, **extra):
+        with torch.inference_mode(), ops.use_backends(binding):
+            return fn(ucfg, compiled.params, nhwc(sample_nchw),
+                      torch.full((2,), float(t), device=dev), ctx, pooled, time_ids, **extra)
+
+    for i, t in enumerate((999.0, 501.0)):
+        sample = randn(2, 4, lat, lat)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = compiled(sample, t, ctx, **kw).sample
+        torch.cuda.synchronize()
+        rec[f"step {i} s"] = time.perf_counter() - t0
+        if not torch.equal(out, nchw(direct(sample, t))):
+            raise AssertionError(f"frontend step {i}: differs from unet_apply on its params")
+    (entry,) = compiled._fn.captured.values()
+    rec["graph"] = capture_record(entry)
+
+    dc = fe.CompiledUNet.from_params(ucfg, compiled.params, cc, deep_cache=2, device=dev)
+    s0, s1 = randn(2, 4, lat, lat), randn(2, 4, lat, lat)
+    full = dc(s0, 900.0, ctx, **kw).sample
+    if not torch.equal(full, compiled(s0, 900.0, ctx, **kw).sample):
+        raise AssertionError("frontend DeepCache: the full step differs from the plain step")
+    shallow = dc(s1, 800.0, ctx, **kw).sample
+    _, cache = direct(s0, 900.0, return_cache=True)
+    with torch.inference_mode(), ops.use_backends(binding):
+        want = unet_apply_shallow(ucfg, compiled.params, nhwc(s1),
+                                  torch.full((2,), 800.0, device=dev), ctx, pooled, time_ids,
+                                  cache)
+    if not torch.equal(shallow, nchw(want)):
+        raise AssertionError("frontend DeepCache: the shallow step differs from "
+                             "unet_apply_shallow on the carried cache")
+    rec["deep_cache_shallow_vs_full_max_abs"] = (
+        shallow.float() - compiled(s1, 800.0, ctx, **kw).sample.float()).abs().max().item()
+
+    from stabletriton_tpu_torch.ops import time_embed
+
+    y = torch.cat([pooled, time_embed(time_ids.reshape(-1), dim=ucfg.addition_time_embed_dim
+                                      ).to(bf16).reshape(2, -1)], dim=-1)
+    if y.shape != (2, ucfg.projection_class_embeddings_input_dim):  # 2816 for SDXL-base
+        raise AssertionError(f"y {tuple(y.shape)}")
+    shim = CompVisUNetShim(compiled)
+    x = randn(2, 4, lat, lat)
+    got = shim(x, timesteps=torch.tensor([700.0], device=dev), context=ctx, y=y)
+    with torch.inference_mode(), ops.use_backends(binding):
+        want = unet_apply(ucfg, compiled.params, nhwc(x),
+                          torch.full((2,), 700.0, device=dev), ctx, y,
+                          torch.zeros((2, 0), device=dev))
+    if not torch.equal(got, nchw(want)):
+        raise AssertionError("CompVisUNetShim: differs from unet_apply on the same y")
+    rec["y_vs_time_ids_max_abs"] = (got.float() - nchw(direct(x, 700.0)).float()).abs().max(
+        ).item()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log("phase 7d, frontends at full SDXL-base width, default binding: diffusers compile's "
+        "steps (capture, replay), the DeepCache pair and the 2816-wide y each bit for bit "
+        "unet_apply on the compiled params; " + json.dumps(rec))
+    del compiled, dc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 REPLACES = {
     "K1": "stabletriton_tpu/kernels/flash_attention.py:228",
     "K2": "stabletriton_tpu/kernels/flash_attention.py:276",
@@ -3269,6 +4102,23 @@ REPLACES = {
     "K13": "stabletriton_tpu/kernels/linear.py:29",
     "K14": "stabletriton_tpu/kernels/dropout.py:25",
 }
+
+
+def front_door(dev, native_build):
+    """Phases 7a-7d: the native library, SDXL-base from a diffusers
+    directory, SD2.x from a single file, the frontends; their seconds
+    logged. Returns phase 7c's launches by key and record."""
+    t7 = time.perf_counter()
+    seconds = {}
+    for label, fn, arg in (("7a", phase_native, native_build), ("7b", phase_loaded_sdxl, dev),
+                           ("7c", phase_sd2, dev), ("7d", phase_frontends, dev)):
+        t0 = time.perf_counter()
+        out = with_peak(f"phase {label}", fn, arg)
+        seconds[label] = time.perf_counter() - t0
+        if label == "7c":
+            sd2_by_key, sd2_rec = out
+    log(f"phase 7 seconds: {json.dumps(seconds)}, all {time.perf_counter() - t7:.1f}")
+    return sd2_by_key, sd2_rec
 
 
 def with_peak(label, fn, *args, **kwargs):
@@ -3316,6 +4166,10 @@ def main() -> int:
         log(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(build.__file__)))}")
     from stabletriton_tpu_torch.models.unet import sd15_unet_config, sdxl_base_unet_config
 
+    pool = ThreadPoolExecutor(1)
+    if not host_time:
+        # the native library (g++, phase 7a) builds beside the CUDA kernels
+        native_build = pool.submit(build_native)
     t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s ({build.build_info})")
@@ -3331,6 +4185,7 @@ def main() -> int:
 
     if host_time:
         phase_host_time(dev)
+        pool.shutdown()
         return 0
     if "--plans" in args:
         phase_plans(dev)
@@ -3343,6 +4198,7 @@ def main() -> int:
     # captures a graph or serves from a worker thread: after those, the
     # profiler recorded no kernel in three sessions running (PR 14's run)
     image_results = with_peak("phase 6k", phase_image_kernels, dev)
+    sd2_results = with_peak("phase 7k", phase_sd2_kernels, dev)
 
     # SDXL-base at 1024^2: phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5d
     ucfg = sdxl_base_unet_config()
@@ -3380,7 +4236,8 @@ def main() -> int:
     # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 4f, 5c
     ucfg = sd15_unet_config()
     sd15 = {"unet": make_unet_params(dev, ucfg)}
-    with_peak("phase 4c (weights included)", phase_step_deviation, dev, ucfg, sd15["unet"],
+    sd15_step = with_peak("phase 4c (weights included)", phase_step_deviation, dev, ucfg,
+                          sd15["unet"],
               sd15_step_inputs(dev), SD15_ALL_PER_STEP, SD15_PRECOMPUTE_LINEARS,
               SD15_ATTN_PER_STEP, SD15_CONV_SPLIT, SD15_LINEAR_SPLIT, "SD1.5", profile)
     with_peak("phase 4e SD1.5 step", phase_replay_step, dev, ucfg, sd15["unet"],
@@ -3391,6 +4248,14 @@ def main() -> int:
     sd15_by_key = with_peak("phase 5c", phase_serving_sd15, dev, ucfg, sd15["unet"],
                             sd15["other"])
     free(sd15)
+
+    sd2_by_key, sd2_rec = front_door(dev, native_build)
+    pool.shutdown()
+    log("latent MSE against the reference binding: SD2.x 768^2 4-step request (phase 7c) "
+        + ", ".join(f"{b} {sd2_rec[f'{b} vs reference']['mse']:.3e}"
+                    for b in ("default", "all_kernels"))
+        + "; SD1.5 512^2 UNet step (phase 4c) "
+        + ", ".join(f"{b} {sd15_step[b]['mse']:.3e}" for b in ("default", "all_kernels")))
 
     # launches of each kernel on its path: the serving phases (5, 5b, 5c,
     # 5d), by the first two fields of its launch key ("K3 wgmma_tf32x3") for
@@ -3444,18 +4309,26 @@ def main() -> int:
         return sum(n for key, n in image_by_key["attention"].items()
                    if key.startswith(r["kernel"] + " "))
 
+    def sd2_launches(r):
+        """Launches of a phase 7k row's kernel at its shape on phase 7c's
+        path (its requests' counters)."""
+        return sum(n for key, n in sd2_by_key[r["counter"]].items()
+                   if all(m in key + " " for m in r["match"]))
+
     kernels = [{
         "name": r["name"] + (f" [{r['kernel']}]" if r.get("kernel") else ""), "route": "cuda",
         "source": r["source"], "replaces": REPLACES[r["tpu"]],
-        "launches": image_launches(r) if "match" in r else launches(r),
+        "launches": (sd2_launches(r) if r.get("path") == "sd2"
+                     else image_launches(r) if "match" in r else launches(r)),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "image_path_launches": image_launches(r),
+        **({"sd2_path_launches": sd2_launches(r)} if r.get("path") == "sd2"
+           else {"image_path_launches": image_launches(r)}),
         **{k: r[k] for k in ("old_ms", "old_kernel", "old_device_ms", "bound_f32_fma_ms",
                              "prep_ms", "device_ms", "library_device_ms", "alt_device_ms",
                              "tf32_padded_device_ms", "launch_floor_ms",
                              "cold_device_ms", "device_ms_source") if k in r},
-    } for r in kernel_results + image_results]
+    } for r in kernel_results + image_results + sd2_results]
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: no launch of its kernel on its path")

@@ -70,6 +70,14 @@ def sd15_text_encoder_config() -> CLIPTextConfig:
     return CLIPTextConfig()
 
 
+def sd2_text_encoder_config() -> CLIPTextConfig:
+    """SD2.x text encoder: the OpenCLIP ViT-H/14 text tower (1024 wide, 24
+    layers, 16 heads, gelu). SD2.x conditions on its penultimate layer
+    (the pipeline's ``clip_skip=2``)."""
+    return CLIPTextConfig(hidden_size=1024, num_layers=24, num_heads=16,
+                          intermediate_size=4096, hidden_act="gelu")
+
+
 def tiny_clip_config() -> CLIPTextConfig:
     return CLIPTextConfig(vocab_size=100, hidden_size=32, num_layers=2, num_heads=4,
                           intermediate_size=64, max_position_embeddings=16,

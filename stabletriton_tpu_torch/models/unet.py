@@ -106,6 +106,27 @@ def sd15_unet_config() -> UNetConfig:
     )
 
 
+def sd21_unet_config() -> UNetConfig:
+    """Stable Diffusion 2.x UNet (stabilityai/stable-diffusion-2-1
+    ``unet/config.json``): SD1.x's topology with 1024-wide cross attention
+    (OpenCLIP-H) and head dim 64 at every level, so 5/10/20/20 heads."""
+    return UNetConfig(
+        block_out_channels=(320, 640, 1280, 1280),
+        down_block_types=(
+            "CrossAttnDownBlock2D",
+            "CrossAttnDownBlock2D",
+            "CrossAttnDownBlock2D",
+            "DownBlock2D",
+        ),
+        transformer_layers_per_block=(1, 1, 1, 1),
+        cross_attention_dim=1024,
+        attention_head_dim=64,
+        addition_time_embed_dim=None,
+        projection_class_embeddings_input_dim=None,
+        mid_block_layers=1,
+    )
+
+
 def sdxl_refiner_unet_config() -> UNetConfig:
     """SDXL refiner (stabilityai/stable-diffusion-xl-refiner-1.0
     ``unet/config.json``): 4 levels (384/768/1536/1536), the outermost and

@@ -19,7 +19,7 @@ eagerly (:meth:`SDXLPipeline._build` says why). The op binding is entered
 inside each entry point, on the thread that runs the model, and the model
 runs under ``torch.inference_mode()``.
 
-Token ids in, images out: tokenization stays with the caller.
+Token ids in, images out: ``io/tokenizer.py`` makes the ids from prompts.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ import torch
 
 from stabletriton_tpu.kernels import flash_attention as jfa
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TILE = tfa.TF32_TILE
 

@@ -39,6 +39,7 @@ import torch
 
 from stabletriton_tpu.kernels import flash_attention as jfa
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
 

@@ -35,6 +35,7 @@ from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.kernels import geglu as tgeglu
 from stabletriton_tpu_torch.kernels import group_norm as tgn
 from stabletriton_tpu_torch.kernels import layer_norm as tln
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NORM_ATOL = 1e-4
 CONV_ATOL = 1e-3

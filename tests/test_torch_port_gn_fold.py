@@ -22,6 +22,7 @@ import torch
 from stabletriton_tpu.kernels.conv_direct import _gn_fold as jgn_fold
 from stabletriton_tpu.kernels.group_norm import group_norm as jgroup_norm
 from stabletriton_tpu_torch.kernels import group_norm as tgn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

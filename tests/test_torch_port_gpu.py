@@ -1705,3 +1705,128 @@ def test_gpu_warmup_captures_and_the_first_request_replays(cuda_device):
     assert list(pipe._cache.values()) == [prog] and list(prog.loop.captured.values()) == [entry]
     eager, _ = _eager_loop(pipe, ids, [5], height=size, width=size, steps=3)
     assert torch.equal(seen[0], eager)
+
+
+# --------------------------------------------------------------------------
+# SD2.x at 768^2 (96^2 latent, CFG batch 2): the new shapes
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,sq,sk,h,cls", [
+    ("qkv", 9216, 9216, 5, "K3"),   # level 0 self: h=5 does not pack
+    ("kv", 9216, 77, 5, "K5"),      # level 0 cross: all heads, tiny KV
+    ("qkv", 2304, 2304, 10, "K2"),
+    ("kv", 2304, 77, 10, "K1"),
+    ("qkv", 576, 576, 20, "K1"),
+    ("kv", 576, 77, 20, "K1"),
+    ("qkv", 144, 144, 20, "K1"),    # the mid block
+    ("kv", 144, 77, 20, "K1"),
+])
+def test_gpu_sd2_attention_routes(cuda_device, form, sq, sk, h, cls):
+    """SD2.x's d=64 attention at each level's shape against the plain
+    version, bf16, on the kernel and under the class its route gives."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    c, d = h * 64, 64
+    if form == "qkv":
+        qkv = torch.randn((2, sq, 3 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        run = lambda: tfa.flash_attention_qkv(qkv, num_heads=h)
+        ref = tfa.attention_plain(*qkv.chunk(3, -1), num_heads=h)
+    else:
+        q = torch.randn((2, sq, c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        kv = torch.randn((2, sk, 2 * c), generator=gen, device=cuda_device).to(torch.bfloat16)
+        run = lambda: tfa.flash_attention_kv(q, kv, num_heads=h)
+        ref = tfa.attention_plain(q, *kv.chunk(2, -1), num_heads=h)
+    before = dict(tfa.LAUNCHES.by_key)
+    out = run()
+    torch.cuda.synchronize()
+    new = {k: n - before.get(k, 0) for k, n in tfa.LAUNCHES.by_key.items()
+           if n != before.get(k, 0)}
+    kernel = "tinykv_wgmma_bf16" if sk <= 128 else "wgmma_bf16"
+    assert new == {f"{cls} {kernel} b=2 h={h} d={d} sq={sq} sk={sk}": 1}
+    assert _rel_err(out, ref) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_gpu_sd2_vae_attention(cuda_device):
+    """The f32 VAE mid-block attention at a 96^2 latent (S=9216, d=512)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    q, k, v = (torch.randn((1, 9216, 512), generator=gen, device=cuda_device) for _ in range(3))
+    out = tfa.flash_attention(q, k, v, num_heads=1)
+    assert _rel_err(out, tfa.attention_plain(q, k, v, num_heads=1)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,cout,dtype", [
+    ((2, 96, 96, 4), 320, torch.bfloat16), ((2, 96, 96, 320), 320, torch.bfloat16),
+    ((2, 48, 48, 640), 640, torch.bfloat16), ((2, 12, 12, 1280), 1280, torch.bfloat16),
+    ((2, 96, 96, 320), 4, torch.bfloat16), ((1, 96, 96, 4), 512, torch.float32),
+    ((1, 96, 96, 512), 512, torch.float32), ((1, 768, 768, 128), 128, torch.float32),
+])
+def test_gpu_sd2_convs(cuda_device, shape, cout, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    w = (torch.randn((3, 3, shape[3], cout), generator=gen, device=cuda_device)
+         / (9 * shape[3]) ** 0.5).to(dtype)
+    bias = torch.randn(cout, generator=gen, device=cuda_device).to(dtype)
+    before = tconv.LAUNCHES.count
+    out = tconv.conv3x3(x, w, bias)
+    assert tconv.LAUNCHES.count == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_err(out, tconv.conv3x3_plain(x, w, bias)) <= tol
+
+
+@pytest.mark.gpu
+def test_gpu_sd2_norms_geglu_gn_conv_linear(cuda_device):
+    """Level 0's GroupNorm-fused conv (320 channels, 10 a group),
+    Transformer2D GroupNorm, LayerNorm and GEGLU over its 18432 rows, its
+    fused QKV projection and the cross K/V precompute of OpenCLIP-H's
+    1024-wide states."""
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=cuda_device) * scale + shift).to(dtype)
+
+    x = randn(2, 96, 96, 320, scale=2.0, shift=0.5)
+    scale, shift = tgn.scale_shift(x, randn(320, dtype=torch.float32, shift=1.0),
+                                   randn(320, dtype=torch.float32), num_groups=32, eps=1e-5)
+    w = randn(3, 3, 320, 320, scale=1 / 54.0)
+    b = randn(2, 320, dtype=torch.float32)
+    assert _rel_err(tconv.gn_conv3x3(x, scale, shift, w, b, gn_act="silu"),
+                    tconv.gn_conv3x3_plain(x, scale, shift, w, b, gn_act="silu")) <= 2e-2
+    g, beta = randn(320, shift=1.0), randn(320)
+    assert _rel_err(tgn.group_norm(x, g, beta, num_groups=32, eps=1e-6),
+                    tgn.group_norm_plain(x, g, beta, num_groups=32, eps=1e-6)) <= 2e-2
+    rows = x.reshape(18432, 320)
+    assert _rel_err(tln.layer_norm(rows, g, beta, eps=1e-6),
+                    tln.layer_norm_plain(rows, g, beta, eps=1e-6)) <= 2e-2
+    proj = randn(2, 9216, 2560, scale=2.0)
+    state, gate = proj.chunk(2, dim=-1)
+    assert _rel_err(tgeglu.geglu(state, gate), tgeglu.geglu_plain(state, gate)) <= 2e-2
+    for m, k, n in [(18432, 320, 960), (154, 1024, 640), (154, 1024, 2560)]:
+        a, wt = randn(m, k), randn(k, n, scale=k ** -0.5)
+        assert _rel_err(tlinear.linear(a, wt), tlinear.linear_plain(a, wt)) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_gpu_ingest_on_the_card_equals_the_host_route(cuda_device, tmp_path):
+    """A torch-layout state dict converted on the card, and a safetensors
+    file loaded onto it, equal the host route bit for bit."""
+    from stabletriton_tpu_torch.io.safetensors_io import (convert_state_dict, load_params,
+                                                          write_safetensors)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    sd = {"conv.weight": torch.randn((64, 32, 3, 3), generator=gen, device=cuda_device),
+          "lin.weight": torch.randn((48, 64), generator=gen, device=cuda_device),
+          "lin.bias": torch.randn(48, generator=gen, device=cuda_device),
+          "text_model.embeddings.token_embedding.weight":
+              torch.randn((100, 16), generator=gen, device=cuda_device)}
+    sd = {k: v.half() for k, v in sd.items()}
+    host = convert_state_dict({k: v.cpu() for k, v in sd.items()}, dtype=torch.bfloat16)
+    card = convert_state_dict(sd, dtype=torch.bfloat16)
+    write_safetensors(tmp_path / "x.safetensors", sd)
+    loaded = load_params(tmp_path / "x.safetensors", dtype=torch.bfloat16, device=cuda_device)
+    for k, v in host.items():
+        assert card[k].device.type == loaded[k].device.type == "cuda"
+        assert torch.equal(card[k].cpu(), v) and torch.equal(loaded[k].cpu(), v), k

@@ -25,6 +25,7 @@ from stabletriton_tpu_torch.kernels import build
 from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
 from stabletriton_tpu_torch.ops import reference as tref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-3
 

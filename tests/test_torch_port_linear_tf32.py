@@ -25,6 +25,7 @@ import torch
 from stabletriton_tpu.kernels.linear import fused_linear as jfused_linear
 from stabletriton_tpu_torch.kernels import linear as tlinear
 from stabletriton_tpu_torch.ops.reference import apply_activation
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOW13 = 0x1FFF
 

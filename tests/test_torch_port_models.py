@@ -30,6 +30,7 @@ from stabletriton_tpu_torch.models import clip as tclip
 from stabletriton_tpu_torch.models import unet as tunet
 from stabletriton_tpu_torch.models import vae as tvae
 from stabletriton_tpu_torch.runtime import scheduler as tsched
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _np(params):

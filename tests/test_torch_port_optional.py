@@ -45,6 +45,7 @@ from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.kernels import dropout as tdropout
 from stabletriton_tpu_torch.kernels import linear as tlinear
 from stabletriton_tpu_torch.kernels import time_embed as ttime
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # --------------------------------------------------------------------------
 # K13 linear

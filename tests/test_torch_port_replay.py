@@ -56,6 +56,7 @@ from stabletriton_tpu_torch.runtime import scheduler as tsched
 from stabletriton_tpu_torch.runtime.denoise import guided_steps
 from stabletriton_tpu_torch.runtime.denoise import make_denoise_loop as tmake_loop
 from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SIZE = 32
 JAX_REFERENCE = jresolve(JCompileConfig(backend="reference"))

@@ -49,6 +49,7 @@ from stabletriton_tpu_torch.models import unet as tunet
 from stabletriton_tpu_torch.models import vae as tvae
 from stabletriton_tpu_torch.runtime import pipeline as tpipe
 from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def np_init(shapes: dict, seed: int) -> dict:

@@ -33,6 +33,7 @@ from stabletriton_tpu_torch.kernels import layer_norm as tln
 from stabletriton_tpu_torch.kernels import linear as tlinear
 from stabletriton_tpu_torch.kernels import wgmma_plan as twp
 from stabletriton_tpu_torch.ops.reference import apply_activation
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the M <= 16 GEMMs of the SDXL and SD1.5 steps at full width, (M, K, N):
 # the time MLP's linear_1 (320 -> 1280) and linear_2, the add embedding's

@@ -38,6 +38,7 @@ from stabletriton_tpu_torch.compile import ALL_KERNEL_OVERRIDES, FUSED_OP_OVERRI
 from stabletriton_tpu_torch.io.convert import params_from_numpy
 from stabletriton_tpu_torch.runtime import pipeline as tpipe
 from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine, _bucket
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS, SIZE, GUIDANCE = 2, 32, 5.0
 

@@ -46,6 +46,7 @@ from stabletriton_tpu_torch.runtime import scheduler as tsched
 from stabletriton_tpu_torch.runtime.denoise import SOLVERS
 from stabletriton_tpu_torch.runtime.denoise import make_denoise_loop as tmake_loop
 from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SIZE = 32
 STEP_TOL = 2e-6

@@ -23,6 +23,7 @@ import torch
 from stabletriton_tpu.kernels.conv_direct import conv3x3_direct
 from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.models import vae as tvae
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LOW13 = 0x1FFF
 

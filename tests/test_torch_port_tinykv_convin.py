@@ -40,6 +40,7 @@ from stabletriton_tpu.kernels.conv_direct import conv3x3_direct
 from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
 from stabletriton_tpu_torch.kernels import wgmma_plan as twp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
 EDGE_KEYS = [1, 16, 17, 64, 77, 80, 128]  # one key, k16 and 64-key half edges, SD1.5's 77

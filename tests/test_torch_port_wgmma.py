@@ -31,6 +31,7 @@ from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
 from stabletriton_tpu_torch.kernels import linear as tlinear
 from stabletriton_tpu_torch.kernels import wgmma_plan as wp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
 
