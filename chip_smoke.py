@@ -239,7 +239,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
   7d. a duck-typed full-width SDXL-base UNet module in torch layout (bf16 on
      the card) through frontends.diffusers.compile: two steps (capture,
      replay) bit for bit unet_apply on the compiled params, a DeepCache step
-     pair, one CompVisUNetShim call with a 2816-wide y.
+     pair, one CompVisUNetShim call with a 2816-wide y;
+  8p. (after 7k, before any capture) runtime/profiling.py: bench_fn on K2's
+     shape (self-attention S=4096 h=10 bf16) chained through q, within 10%
+     of CUDA events on the same call; profiling.trace around a few of those
+     launches, whose Chrome trace must name the attention kernel;
+  8k. (after 8p) the turbo int8 ops at SDXL-base's 1024^2 shapes, bf16:
+     linear_int8 at to_qkv, both ff ups, the cross K/V precompute and
+     time_emb_proj at M = 2; conv2d_int8 at a 3x3 stride-1 conv with a
+     (B, C) bias, the stride-2 downsampler and a 1x1 shortcut. The int8
+     activations and int32 accumulators equal the CPU's; the output's max
+     abs difference from the CPU op; each op's time beside the bare
+     torch._int_mm (the weight as stored and row-major), the bf16
+     kernel at that shape (K13, K6), one cuBLAS / cuDNN call and its bound
+     at the int8 peak (1979 TOP/s) or the memory rate, its device time
+     split into product and glue from profiling.trace;
+  8a. (after 6) the SDXL-base step of phase 4 under CompileConfig(quantize=
+     "int8" | "int8_ff" | "int8_conv") on the default binding and int8_conv
+     on the fused-op one: the first call and a replay bit for bit the eager
+     step; the replayed step timed by bench_fn chained through the sample,
+     beside the bf16 step timed the same way and phase 4e's; its MSE and
+     relative max error against the bf16 step, finite and not equal to it;
+  8b. (after 8a) one 1024^2 4-step Euler request per turbo mode through
+     SDXLPipeline (first: eager loop and capture; second: a replay), each
+     bit for bit its eager loop, with its wall time, peak memory and the
+     quantized UNet's weight bytes beside the bf16 one's. Turbo is a draft
+     mode outside the 1e-3 fidelity gate.
 
 Each phase logs its peak device memory.
 
@@ -4121,6 +4146,424 @@ def front_door(dev, native_build):
     return sd2_by_key, sd2_rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8: runtime/profiling.py (8p, with the kernel phases, before any
+# capture) and the turbo int8 mode, CompileConfig.quantize: its ops at the
+# SDXL-base shapes (8k, also before any capture), its replayed step (8a)
+# and its 1024^2 requests (8b)
+# ---------------------------------------------------------------------------
+
+INT8_PEAK_OPS = 1979e12  # the H100 SXM's dense int8 tensor-core peak (data sheet)
+TURBO_MODES = ("int8", "int8_ff", "int8_conv")
+
+
+def trace_kernel_ms(path: str) -> dict:
+    """Device ms by kernel name in a Chrome trace written by profiling.trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    return out
+
+
+def traced_kernel_ms(fn, calls: int) -> dict:
+    """Device ms a call by kernel name of ``calls`` calls of fn, from
+    profiling.trace's Chrome trace; a session that records no kernel (on
+    the card's machine one now and then does) is traced again, at most
+    three times."""
+    from stabletriton_tpu_torch.runtime import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        for attempt in range(3):
+            with profiling.trace(log_dir=d) as path:
+                for _ in range(calls):
+                    fn()
+            by_name = trace_kernel_ms(path)
+            if by_name:
+                return {n: ms / calls for n, ms in by_name.items()}
+            log(f"  (trace session {attempt + 1} recorded no kernel; tracing again)")
+    raise AssertionError("profiling.trace recorded no kernel in three sessions")
+
+
+def phase_profiling(dev, kernel_results, card):
+    """Phase 8p: runtime/profiling.py on the card. bench_fn on phase 3's K2
+    shape (self-attention S=4096 h=10 d=64 bf16, the attention kernel's KV
+    loop) chained through q, beside CUDA events on the same call in turns
+    and phase 3's K2 row: within 10% of the events. Then trace around a
+    few of those launches: the Chrome trace must name the kernel."""
+    from stabletriton_tpu_torch.kernels import flash_attention as fa
+    from stabletriton_tpu_torch.runtime import profiling
+
+    gen = torch.Generator(device=dev).manual_seed(88)
+    q = torch.randn((2, 4096, 640), generator=gen, device=dev).to(torch.bfloat16)
+    kv = torch.randn((2, 4096, 1280), generator=gen, device=dev).to(torch.bfloat16)
+
+    def call(q):
+        return fa.flash_attention_kv(q, kv, num_heads=10)
+
+    before = dict(fa.LAUNCHES.by_key)
+    events = [timed_ms(lambda: call(q), 20)]
+    bench = [profiling.bench_fn(call, q) * 1e3]
+    bench.append(profiling.bench_fn(call, q) * 1e3)
+    events.append(timed_ms(lambda: call(q), 20))
+    keys = {k for k, n in fa.LAUNCHES.by_key.items() if n != before.get(k, 0)}
+    if {tuple(k.split()[:2]) for k in keys} != {("K2", "wgmma_bf16")}:
+        raise AssertionError(f"phase 8p: launched {sorted(keys)}, expected K2 on wgmma_bf16")
+    (row,) = [r for r in kernel_results if r["name"] == "flash_attention self S=4096 h=10 bf16"]
+    mean_events = sum(events) / len(events)
+    spread = max(abs(b - mean_events) for b in bench) / mean_events
+    by_name = traced_kernel_ms(lambda: call(q), 5)
+    named = {n: ms for n, ms in by_name.items() if "attn_wgmma_bf16" in n}
+    log(f"phase 8p, profiling.bench_fn, K2 self S=4096 h=10 bf16 chained through q ({card}): "
+        f"bench_fn {bench[0]:.4f} / {bench[1]:.4f} ms a call, CUDA events on the same call "
+        f"{events[0]:.4f} / {events[1]:.4f} ms (in turns: events, bench_fn, bench_fn, events); "
+        f"largest gap {spread:.1%}; phase 3's K2 row (off the fused qkv buffer) "
+        f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms; profiling.trace: "
+        f"{len(by_name)} kernel names, {json.dumps(named)} ms a call")
+    if not spread <= 0.10:
+        raise AssertionError(f"phase 8p: bench_fn {bench} ms against CUDA events {events} ms")
+    if not named:
+        raise AssertionError(f"phase 8p: the trace names no attention kernel: {sorted(by_name)}")
+    return {"bench_fn_ms": bench, "event_ms": events, "row_ms": row["ms"],
+            "trace_kernels": named}
+
+
+# phase 8k: (label, x shape, N) of the int8 linears and (label, x shape,
+# kernel size, Cout, stride, padding, bias) of the int8 convs at SDXL-base's
+# 1024^2 shapes, CFG batch 2, bf16
+INT8_LINEARS = [
+    ("to_qkv (8192,640)->1920", (2, 4096, 640), 1920),
+    ("ff up (8192,640)->5120", (2, 4096, 640), 5120),
+    ("ff up (2048,1280)->10240", (2, 1024, 1280), 10240),
+    ("cross K/V precompute (154,2048)->2560", (2, 77, 2048), 2560),
+    ("time_emb_proj (2,1280)->1280, M = 2", (2, 1280), 1280),
+]
+INT8_CONVS = [
+    ("3x3 s1 128x128 320->320 batch-bias", (2, 128, 128, 320), 3, 320, 1, 1, "batch"),
+    ("3x3 s2 downsampler 64x64->32x32 640->640", (2, 64, 64, 640), 3, 640, 2, 1, "cout"),
+    ("1x1 shortcut 32x32 640->1280", (2, 32, 32, 640), 1, 1280, 1, 0, "cout"),
+]
+
+
+def phase_int8_kernels(dev, card):
+    """Phase 8k: the turbo ops (ops/reference.py linear_int8, conv2d_int8)
+    at SDXL-base's shapes, bf16. Each: the int8 activations and the int32
+    accumulators on the card equal to the CPU's (rows quantize and sum
+    independently: exact), the output's max abs difference against the same
+    op on the CPU; its time by CUDA events and device time, beside the bare
+    product (torch._int_mm on the padded operands, the weight as stored,
+    output-channel-major, and row-major), the bf16 kernel at that shape (K13;
+    K6 for the 3x3 stride-1 conv) and one cuBLAS addmm / cuDNN call; its
+    device time split into product and glue from profiling.trace's Chrome
+    trace (the product's kernels named by a trace of the bare product);
+    its bound at the int8 peak or the memory rate."""
+    from stabletriton_tpu_torch.compile import quantize_linear_weights
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.ops import reference as ref
+
+    gen = torch.Generator(device=dev).manual_seed(4242)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def int_mm_status(m, b):
+        try:
+            torch._int_mm(torch.ones((m, 64), dtype=torch.int8, device=dev), b)
+            torch.cuda.synchronize()
+            return "ok"
+        except RuntimeError as e:
+            return "refused: " + str(e).splitlines()[0][:160]
+
+    # the rules pad_int8_rows and the quantizer's layout follow: cuBLASLt
+    # refuses M <= 16, and a row-major weight at some shapes (logged only)
+    w64 = torch.ones((64, 64), dtype=torch.int8, device=dev)
+    rules = {"M=16, stored": int_mm_status(16, w64.t()),
+             "M=17, stored": int_mm_status(17, w64.t()),
+             "M=17, row-major": int_mm_status(17, w64)}
+    log(f"phase 8k, torch._int_mm at K = N = 64 ({card}): {json.dumps(rules)}")
+
+    cases = [dict(label=f"linear {label}", x=randn(*xs), k=xs[-1], n=n, conv=None)
+             for label, xs, n in INT8_LINEARS]
+    cases += [dict(label=f"conv {label}", x=randn(*xs), k=ks * ks * xs[-1], n=cout,
+                   conv=(ks, stride, pad, bias))
+              for label, xs, ks, cout, stride, pad, bias in INT8_CONVS]
+    rows = []
+    for c in cases:
+        x, n, conv = c["x"], c["n"], c["conv"]
+        cin = x.shape[-1]
+        if conv is None:
+            w = randn(cin, n, scale=cin ** -0.5)
+            b = randn(n, scale=0.1)
+            dims, kw = -1, {}
+            op, plain = ref.linear_int8, ref.linear
+        else:
+            ks, stride, pad, bias = conv
+            w = randn(ks, ks, cin, n, scale=(ks * ks * cin) ** -0.5)
+            b = randn(*((x.shape[0], n) if bias == "batch" else (n,)), scale=0.1)
+            dims, kw = (1, 2, 3), dict(stride=stride, padding=pad)
+            op, plain = ref.conv2d_int8, ref.conv2d
+        pair = quantize_linear_weights({"w.weight": w}, min_dim=1, conv=conv is not None)[
+            "w.weight"]
+        cpu_pair = tuple(t.cpu() for t in pair)
+        wmat = pair[0].reshape(c["k"], n)
+
+        def operands(x):
+            xq, sx = ref._quantize_activations(x.float(), dims)
+            a = (xq.reshape(-1, c["k"]) if conv is None
+                 else ref._im2col(xq, conv[0], conv[0], conv[1], conv[2])[0])
+            return xq, sx, a
+
+        xq, sx, a = operands(x)
+        xq_c, sx_c, a_c = operands(x.cpu())
+        acc, acc_c = ref.int8_mm(a, wmat), ref.int8_mm(a_c, wmat.cpu())
+        torch.cuda.synchronize()
+        if not (torch.equal(xq.cpu(), xq_c) and torch.equal(sx.cpu(), sx_c)):
+            raise AssertionError(f"phase 8k {c['label']}: the int8 activations differ from "
+                                 f"the CPU's")
+        if not torch.equal(acc.cpu(), acc_c):
+            raise AssertionError(f"phase 8k {c['label']}: the int32 accumulators differ from "
+                                 f"the CPU's")
+        out = op(x, pair, b, **kw)
+        out_c = op(x.cpu(), cpu_pair, b.cpu(), **kw)
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"phase 8k {c['label']}: output not finite")
+        exact = plain(x, w, b, **kw)
+        m = a.shape[0]
+        r = {"name": f"int8 {c['label']}", "m": m, "k": c["k"], "n": n,
+             "max_abs_vs_cpu": (out.cpu().float() - out_c.float()).abs().max().item(),
+             "rel_vs_bf16": ((out.float() - exact.float()).abs().max()
+                             / exact.float().abs().max()).item()}
+        iters = 20
+        op_fn = lambda: op(x, pair, b, **kw)  # noqa: E731
+        pa, pb = ref.pad_int8_rows(a), wmat
+        pb_rows = pb.contiguous()  # the same weight row-major, for the layout's cost
+        r["ms"] = timed_ms(op_fn, iters)
+        r["device_ms"] = device_ms(op_fn, iters)[0]
+        r["product_ms"] = timed_ms(lambda: torch._int_mm(pa, pb), iters)
+        r["product_row_major_ms"] = timed_ms(lambda: torch._int_mm(pa, pb_rows), iters)
+        r["product_device_ms"] = device_ms(lambda: torch._int_mm(pa, pb), iters)[0]
+        product_names = set(traced_kernel_ms(lambda: torch._int_mm(pa, pb), 3))
+        for _ in range(3):  # a session that dropped kernels is traced again
+            by_name = traced_kernel_ms(op_fn, 3)
+            if sum(by_name.values()) >= 0.75 * r["device_ms"]:
+                break
+            log(f"  (the trace holds {sum(by_name.values()):.4f} of {r['device_ms']:.4f} "
+                f"device ms; tracing again)")
+        r["trace_product_ms"] = sum(ms for kn, ms in by_name.items() if kn in product_names)
+        r["trace_glue_ms"] = sum(ms for kn, ms in by_name.items() if kn not in product_names)
+        r["trace_kernels"] = len(by_name)
+        if conv is None:
+            x2 = x.reshape(-1, cin)
+            r["bf16_kernel"] = "K13 " + ("skinny_bf16" if m <= 16 else "wgmma_bf16")
+            r["bf16_kernel_ms"] = timed_ms(lambda: lin.linear(x, w, b), iters)
+            r["library"] = "cuBLAS addmm"
+            r["library_ms"] = timed_ms(lambda: torch.addmm(b, x2, w), iters)
+        else:
+            if conv[0] == 3 and conv[1] == 1:
+                r["bf16_kernel"] = "K6 wgmma_bf16"
+                r["bf16_kernel_ms"] = timed_ms(lambda: cd.conv3x3(x, w, b), iters)
+            else:
+                r["bf16_kernel"], r["bf16_kernel_ms"] = "none (cuDNN on the default binding)", None
+            r["library"] = "cuDNN (reference conv2d)"
+            r["library_ms"] = timed_ms(lambda: plain(x, w, b, **kw), iters)
+        flops = 2.0 * m * c["k"] * n
+        moved = nbytes(x, pair[0], pair[1], b, out)
+        r["bound_ms"], r["bound_by"] = bound(flops, moved, None, INT8_PEAK_OPS)
+        log(f"int8 {c['label']} ({card}): M={m} K={c['k']} N={n}; activations and int32 "
+            f"accumulators equal to the CPU's; max abs vs CPU op {r['max_abs_vs_cpu']:.3e}, "
+            f"rel vs the bf16 op {r['rel_vs_bf16']:.3e}; op {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f}), product alone {r['product_ms']:.4f} ms (device "
+            f"{r['product_device_ms']:.4f}; weight row-major {r['product_row_major_ms']:.4f})"
+            f"; trace: product {r['trace_product_ms']:.4f} + glue {r['trace_glue_ms']:.4f} ms "
+            f"in {r['trace_kernels']} kernel names; {r['bf16_kernel']} "
+            f"{ms_text(r['bf16_kernel_ms'])}, {r['library']} {r['library_ms']:.4f} ms; bound "
+            f"{r['bound_ms'] * 1e3:.4g} us ({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} "
+            f"of bound")
+        rows.append(r)
+        del xq, sx, a, acc, out, pa, pb, pb_rows
+    torch.cuda.empty_cache()
+    log("phase 8k int8 rows " + json.dumps(rows))
+    return rows
+
+
+class Int8Products:
+    """Counts the turbo ops' int32 products (ops/reference.py int8_mm)
+    while entered, in all and at M <= 16 (the rows padded for cuBLASLt), by
+    wrapping the module's int8_mm (restored on exit)."""
+
+    def __enter__(self):
+        from stabletriton_tpu_torch.ops import reference
+
+        self.ref, self.fn = reference, reference.int8_mm
+        self.calls = self.skinny = 0
+
+        def counting(a, b):
+            self.calls += 1
+            self.skinny += a.shape[0] <= 16
+            return self.fn(a, b)
+
+        reference.int8_mm = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.ref.int8_mm = self.fn
+
+
+def weight_bytes(params: dict) -> int:
+    return nbytes(*(t for v in params.values() for t in (v if isinstance(v, tuple) else (v,))))
+
+
+def turbo_configs() -> dict:
+    from stabletriton_tpu_torch.compile import FUSED_OP_OVERRIDES, CompileConfig
+
+    return {"bf16 default": CompileConfig(),
+            **{mode: CompileConfig(quantize=mode) for mode in TURBO_MODES},
+            "int8_conv fused-op": CompileConfig(quantize="int8_conv",
+                                                overrides=FUSED_OP_OVERRIDES)}
+
+
+def quantized_unet(fused: dict, config) -> dict:
+    from stabletriton_tpu_torch.compile import quantize_linear_weights
+
+    if config.quantize is None:
+        return fused
+    return quantize_linear_weights(fused, min_dim=config.quantize_min_dim,
+                                   conv=config.quantize == "int8_conv",
+                                   ff_only=config.quantize == "int8_ff")
+
+
+def phase_turbo_steps(dev, cfg, params, inputs, step_4e, card):
+    """Phase 8a: compile_unet_kv's SDXL-base step (128^2 latent, CFG batch
+    2, bf16, phase 4's weights) under the default binding in bf16 and in
+    each turbo mode, and int8_conv under the fused-op binding: the first
+    call (eager, then captured) and a replay bit for bit the eager step;
+    the replayed step timed by profiling.bench_fn chained through the
+    sample, beside the bf16 step timed the same way and phase 4e's event
+    ms; its MSE and relative max error against the bf16 step (finite, and
+    not equal to it); the UNet's weight bytes; the eager step's int8
+    products (some at M <= 16 where time_emb_proj is quantized)."""
+    from stabletriton_tpu_torch.compile import compile_unet_kv, fuse_attention_projections
+    from stabletriton_tpu_torch.runtime import profiling
+
+    sample, ctx, pooled, time_ids = (inputs[k] for k in ("sample", "ctx", "pooled", "time_ids"))
+    t = torch.full((2,), 500.0, device=dev)
+    fused = fuse_attention_projections(params)
+    results, bf16_out = {}, None
+    with torch.inference_mode():
+        for name, config in turbo_configs().items():
+            p = quantized_unet(fused, config)
+            pre, _, step = compile_unet_kv(cfg, config)
+            kv = pre.__wrapped__(p, ctx)
+            with Int8Products() as products:
+                eager = step.__wrapped__(p, sample, t, kv, pooled, time_ids)
+            if config.quantize and not products.calls or (
+                    config.quantize in ("int8", "int8_conv") and not products.skinny):
+                raise AssertionError(f"phase 8a {name}: {products.calls} int8 products, "
+                                     f"{products.skinny} at M <= 16")
+            first = step(p, sample, t, kv, pooled, time_ids)  # eager, then the capture
+            out = step(p, sample, t, kv, pooled, time_ids)    # a replay
+            torch.cuda.synchronize()
+            if not (torch.equal(first, eager) and torch.equal(out, eager)):
+                raise AssertionError(f"phase 8a {name}: the replay differs from the eager step")
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError(f"phase 8a {name}: the step's output is not finite")
+            rec = {"bench_fn_ms": [profiling.bench_fn(step, p, sample, t, kv, pooled, time_ids,
+                                                      chain_arg=1, n_long=6, reps=2) * 1e3
+                                   for _ in range(2)],
+                   "weight_gib": weight_bytes(p) / 2**30,
+                   "int8_products": products.calls, "int8_products_m_le_16": products.skinny}
+            if bf16_out is None:
+                bf16_out = out
+            else:
+                d = out.float() - bf16_out.float()
+                rec["mse_vs_bf16"] = d.square().mean().item()
+                rec["rel_max_vs_bf16"] = (d.abs().max() / bf16_out.float().abs().max()).item()
+                if torch.equal(out, bf16_out):
+                    raise AssertionError(f"phase 8a {name}: equal to the bf16 step")
+            log(f"phase 8a, SDXL-base step 128^2 B=2, {name} ({card}): replay bit for bit the "
+                f"eager step; {products.calls} int8 products ({products.skinny} at M <= 16, "
+                f"rows padded) on torch._int_mm; bench_fn "
+                + " / ".join(f"{v:.2f}" for v in rec["bench_fn_ms"])
+                + " ms a replayed step (phase 4e's default replay, CUDA events: "
+                + " / ".join(f"{v:.2f}" for v in step_4e)
+                + f" ms); weights {rec['weight_gib']:.3f} GiB"
+                + (f"; vs bf16: MSE {rec['mse_vs_bf16']:.3e}, rel max "
+                   f"{rec['rel_max_vs_bf16']:.3e}" if "mse_vs_bf16" in rec else ""))
+            results[name] = rec
+            del pre, step, kv, eager, first, out, p
+            gc.collect()
+            torch.cuda.empty_cache()
+    log("phase 8a turbo steps " + json.dumps(results))
+    return results
+
+
+def phase_turbo_requests(dev, ucfg, unet_params, other, card):
+    """Phase 8b: one SDXL-base 1024^2 4-step Euler txt2img request per
+    turbo mode through SDXLPipeline(compile_config=CompileConfig(quantize=
+    mode)) on the card, latents returned: the first request (eager loop,
+    capture) and a second of the same signature (a replay), each timed with
+    its peak memory and bit for bit the eager loop on its inputs; the
+    quantized UNet's weight bytes beside the bf16 one's."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import (CompileConfig, fuse_attention_projections,
+                                                resolve_binding)
+    from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline
+
+    (c1, c2, vcfg), params = other
+    tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+    # the default pipeline's bf16 UNet: fused, and already in bf16
+    results = {"bf16": {"weight_gib": weight_bytes(fuse_attention_projections(unet_params))
+                        / 2**30}}
+    for mode in TURBO_MODES:
+        config = CompileConfig(quantize=mode)
+        pipe = SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
+                            vae_config=vcfg, params={"unet": unet_params, **params},
+                            compile_config=config, device=dev)
+        rec = results[mode] = {"weight_gib": weight_bytes(pipe.params["unet"]) / 2**30}
+        binding = resolve_binding(config)
+        rows = []
+        for prompt, seed in (("a lighthouse at dusk", 41), ("a bowl of ramen", 42)):
+            ids1 = tok.encode_batch([prompt], max_len=c1.max_position_embeddings)
+            ids2 = tok.encode_batch([prompt], max_len=c2.max_position_embeddings, pad=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            lat = pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=SERVE_STEPS,
+                               guidance_scale=5.0, seed=seed, return_latents=True)
+            torch.cuda.synchronize()
+            row = {"wall_s": time.perf_counter() - t0,
+                   "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+            prog = pipe._program(1, 1024, 1024, SERVE_STEPS, 5.0, "euler", True)
+            ids = [torch.as_tensor(np.asarray(a), dtype=torch.long).to(dev) for a in (
+                ids1, ids2, c1.empty_prompt_ids(1, ids1.shape[1]),
+                c2.empty_prompt_ids(1, ids2.shape[1]))]
+            with torch.inference_mode(), ops.use_backends(binding):
+                eager = prog.loop.__wrapped__(pipe.params["unet"],
+                                              *prog.loop_inputs(pipe.params, *ids, [seed]))
+            if not torch.equal(lat, eager):
+                raise AssertionError(f"phase 8b {mode}: request differs from its eager loop")
+            if not torch.isfinite(lat.float()).all() or len(prog.loop.captured) != 1:
+                raise AssertionError(f"phase 8b {mode}: latents not finite or "
+                                     f"{len(prog.loop.captured)} graphs")
+            rows.append(row)
+        rec["requests"] = rows
+        log(f"phase 8b, SDXL-base 1024^2 {SERVE_STEPS}-step Euler request, {mode} ({card}): "
+            f"first (eager loop, capture) {rows[0]['wall_s']:.3f} s, replayed "
+            f"{rows[1]['wall_s']:.3f} s, each bit for bit its eager loop; peak "
+            f"{rows[0]['peak_gib']:.2f} / {rows[1]['peak_gib']:.2f} GiB; UNet weights "
+            f"{rec['weight_gib']:.3f} GiB (bf16 {results['bf16']['weight_gib']:.3f})")
+        del pipe, prog, lat, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("phase 8b turbo requests " + json.dumps(results))
+    return results
+
+
 def with_peak(label, fn, *args, **kwargs):
     """fn(*args, **kwargs), logging the peak device memory it allocated and
     the seconds it took."""
@@ -4157,7 +4600,8 @@ def main() -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -4199,6 +4643,10 @@ def main() -> int:
     # profiler recorded no kernel in three sessions running (PR 14's run)
     image_results = with_peak("phase 6k", phase_image_kernels, dev)
     sd2_results = with_peak("phase 7k", phase_sd2_kernels, dev)
+    # runtime/profiling.py and the turbo ops at their shapes, with the
+    # kernel phases: the profiler must see their kernels
+    with_peak("phase 8p", phase_profiling, dev, kernel_results, card)
+    with_peak("phase 8k", phase_int8_kernels, dev, card)
 
     # SDXL-base at 1024^2: phases 4, 4b, 4d, 4e, 4f, 5, 5b, 5d
     ucfg = sdxl_base_unet_config()
@@ -4207,8 +4655,8 @@ def main() -> int:
               sdxl["unet"], sdxl_step_inputs(dev), ALL_PER_STEP, PRECOMPUTE_LINEARS,
               ATTN_PER_STEP, CONV_SPLIT, LINEAR_SPLIT, "SDXL-base", profile)
     sdxl["other"] = make_other_params(dev)
-    with_peak("phase 4e step", phase_replay_step, dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev),
-              "SDXL-base", profile)
+    replay_step = with_peak("phase 4e step", phase_replay_step, dev, ucfg, sdxl["unet"],
+                            sdxl_step_inputs(dev), "SDXL-base", profile)
     with_peak("phase 4e requests", phase_replay_requests, dev, ucfg, sdxl["unet"],
               sdxl["other"], profile)
     with_peak("phase 4f steps", phase_deep_cache_steps, dev, ucfg, sdxl["unet"],
@@ -4231,6 +4679,10 @@ def main() -> int:
     # just before their requests and read just after
     image_by_key, _ = with_peak("phase 6 (refiner and 9-channel conv_in included)",
                                 phase_images, dev, ucfg, sdxl["unet"], sdxl["other"])
+    # turbo int8 at 1024^2: the replayed step in each mode, then requests
+    with_peak("phase 8a", phase_turbo_steps, dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev),
+              replay_step["default"]["replay_event_ms"], card)
+    with_peak("phase 8b", phase_turbo_requests, dev, ucfg, sdxl["unet"], sdxl["other"], card)
     free(sdxl)
 
     # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 4f, 5c

@@ -336,13 +336,17 @@ def gn_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
 
 
 def _is_conv3x3_s1(w, stride, padding) -> bool:
-    return w.dim() == 4 and tuple(w.shape[:2]) == (3, 3) and stride == 1 and padding == 1
+    """A 3x3 stride-1 SAME conv on an unquantized weight: a turbo (int8,
+    scale) pair steps aside, as in the JAX package."""
+    return (not isinstance(w, tuple) and w.dim() == 4 and tuple(w.shape[:2]) == (3, 3)
+            and stride == 1 and padding == 1)
 
 
 @register("conv2d", "direct")
 def conv2d_direct(x, w, b=None, *, stride=1, padding=1, residual=None, act=None):
     """3x3 stride-1 SAME convs go to the kernel; other shapes (strided, 1x1,
-    asymmetric padding) go to the plain conv, as in the JAX package."""
+    asymmetric padding) and quantized weights go to the plain conv, as in
+    the JAX package."""
     if _is_conv3x3_s1(w, stride, padding) and act in SILU_ACTS:
         return conv3x3(x, w.to(x.dtype), b, residual=residual, act=act)
     return reference.conv2d(x, w, b, stride=stride, padding=padding,
@@ -357,8 +361,9 @@ def gn_conv2d_fused(x, gamma, beta, w, b=None, *, num_groups=32, eps=1e-5,
     once and write (B, C) scale / shift, and the conv kernel normalizes its
     input as it gathers it.
     Ineligible shapes (not 3x3 stride 1 SAME, C not divisible by the groups,
-    an activation or a shape no kernel takes) compose ``group_norm`` ->
-    ``conv2d`` through the active binding, as in the JAX package."""
+    an activation or a shape no kernel takes) and quantized weights compose
+    ``group_norm`` -> ``conv2d`` through the active binding, as in the JAX
+    package (under int8_conv that conv is the int8 op)."""
     if (_is_conv3x3_s1(w, stride, padding) and act in SILU_ACTS and gn_act in SILU_ACTS
             and x.shape[3] % num_groups == 0
             and conv_variant(tuple(x.shape), w.shape[3], x.dtype, gn=True) is not None):

@@ -293,7 +293,11 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
            act: str | None = None) -> torch.Tensor:
     """x (..., K) @ w (K, N) + b (N,), then ``act`` (None, "silu" or "gelu").
     x is read as its (M, K) rows and copied only if it is not contiguous;
-    the bias is read in its own dtype (float32 or bfloat16)."""
+    the bias is read in its own dtype (float32 or bfloat16). A quantized
+    (int8, scale) pair raises: bind linear to "int8" for those."""
+    if isinstance(w, tuple):
+        raise ValueError("the linear kernel takes a float weight, not a quantized (int8, "
+                         "scale) pair; bind linear to \"int8\" (CompileConfig.quantize)")
     if x.is_cpu:
         _check_operands(x.shape[-1], w.shape, None if b is None else b.shape, act)
         return linear_plain(x, w, b, act=act)

@@ -186,6 +186,15 @@ def geglu(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     return state * F.gelu(gate, approximate="none").to(state.dtype)
 
 
+def dequantize(w):
+    """A quantized (int8, scale) pair as its float32 weight; a tensor
+    passes through."""
+    if isinstance(w, tuple):
+        wq, scale = w
+        return wq.float() * scale
+    return w
+
+
 @register("linear", "reference")
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
            act: str | None = None) -> torch.Tensor:
@@ -194,8 +203,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     the bias joins the float32 sum (``addmm``). With ``act`` the GEMM runs
     in float32 on the upcast operands (a bf16 product is exact in float32),
     the bias joins that sum and the activation applies to it in float32.
-    Either way the output rounds once to x's dtype, as in the JAX op."""
-    w = w.to(x.dtype)
+    Either way the output rounds once to x's dtype, as in the JAX op. A
+    quantized (int8, scale) pair is dequantized first (the exact path)."""
+    w = dequantize(w).to(x.dtype)
     if act is None and b is None:
         return torch.matmul(x, w)
     x2 = x.reshape(-1, x.shape[-1])
@@ -245,11 +255,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     ``padding``: int (symmetric) or ((top, bottom), (left, right)). ``b`` may
     be (Cout,) or a per-batch (B, Cout) bias. The epilogue runs in float32.
     The NHWC tensor is handed to cuDNN as a channels-last NCHW view, so no
-    layout copy is made.
+    layout copy is made. A quantized (int8, scale) pair is dequantized first.
     """
     (pt, pb), (pl, pr) = _norm_padding(padding)
     xc = x.permute(0, 3, 1, 2)
-    wc = w.to(x.dtype).permute(3, 2, 0, 1)
+    wc = dequantize(w).to(x.dtype).permute(3, 2, 0, 1)
     if pt == pb and pl == pr:
         out = F.conv2d(xc, wc, None, stride=stride, padding=(pt, pl))
     else:
@@ -275,3 +285,105 @@ def gn_conv2d(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  eps=eps, act=gn_act)
     return dispatch("conv2d", h, w, b, stride=stride, padding=padding,
                     residual=residual, act=act)
+
+
+# ---------------------------------------------------------------------------
+# the int8 "turbo" ops (CompileConfig.quantize): W8A8 with dynamic
+# activation quantization. The JAX package computes their int8 x int8 ->
+# int32 product in plain XLA, outside any Pallas kernel; here it is
+# torch._int_mm (cuBLASLt's int8 GEMM on the card). Quantize and dequantize
+# are plain torch, unfused.
+# ---------------------------------------------------------------------------
+
+# float32(1 / 127), JAX's weak-typed constant: multiplied into the abs-max in float32
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+
+
+def _quantize_activations(xf: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric abs-max int8 over ``dims`` of float32 ``xf``: (xq, sx) with
+    ``sx = max(amax, 1e-8) * f32(1/127)`` and ``xq = clip(round(xf / sx),
+    -127, 127)``, in the JAX op's order."""
+    sx = xf.abs().amax(dim=dims, keepdim=True).clamp_min(1e-8) * _INV127
+    return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+
+
+def pad_int8_rows(a: torch.Tensor) -> torch.Tensor:
+    """An (M, K) int8 operand with its rows padded with zeros to 17:
+    cuBLASLt's int8 GEMM (``torch._int_mm`` on the card) refuses M <= 16.
+    Zero rows give zero rows of the product, dropped after, so the result
+    is exact. It also refuses K or N not a multiple of 8, which no
+    supported model has: such a call raises."""
+    return F.pad(a, (0, 0, 0, 17 - a.shape[0])) if a.shape[0] < 17 else a
+
+
+def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact: one
+    ``torch._int_mm`` on :func:`pad_int8_rows`; a call it refuses raises.
+    The largest SDXL sum, 9 * 2560 terms of at most 127^2, stays far
+    inside int32."""
+    m = a.shape[0]
+    out = torch._int_mm(pad_int8_rows(a), b)
+    return out[:m] if out.shape[0] != m else out
+
+
+def _int8_epilogue(acc, sx, scale, b, residual, act, dtype):
+    """``acc * (sx * scale)``, then the bias (broadcast as given), the
+    residual and ``act`` in float32, and one cast to ``dtype``, as the JAX
+    ops do."""
+    out = acc.float() * (sx * scale.float())
+    if b is not None:
+        out = out + b.float()
+    if residual is not None:
+        out = out + residual.float()
+    return apply_activation(out, act).to(dtype)
+
+
+@register("linear", "int8")
+def linear_int8(x: torch.Tensor, w, b: torch.Tensor | None = None, *,
+                act: str | None = None) -> torch.Tensor:
+    """The W8A8 linear of the turbo bindings: ``w`` an (int8 (in, out),
+    (out,) float32 scale) pair from ``quantize_linear_weights``; x quantized
+    per token (its last axis) at run time; an exact int32 product; then the
+    float32 epilogue and one cast. An unquantized weight (the time and
+    added-conditioning embeddings) takes the reference linear."""
+    if not isinstance(w, tuple):
+        return linear(x, w, b, act=act)
+    wq, scale = w
+    xq, sx = _quantize_activations(x.float(), -1)
+    k, n = wq.shape
+    acc = int8_mm(xq.reshape(-1, k), wq).reshape(*x.shape[:-1], n)
+    return _int8_epilogue(acc, sx, scale, b, None, act, x.dtype)
+
+
+def _im2col(xq: torch.Tensor, kh: int, kw: int, stride: int, padding):
+    """The (B * Ho * Wo, kh * kw * Cin) patch rows of NHWC ``xq`` padded
+    with zeros, in HWIO's (dy, dx, cin) order, and (B, Ho, Wo)."""
+    (pt, pb), (pl, pr) = _norm_padding(padding)
+    bsz, h, w, cin = xq.shape
+    xp = F.pad(xq, (0, 0, pl, pr, pt, pb))
+    ho = (h + pt + pb - kh) // stride + 1
+    wo = (w + pl + pr - kw) // stride + 1
+    cols = [xp[:, dy:dy + stride * (ho - 1) + 1:stride, dx:dx + stride * (wo - 1) + 1:stride]
+            for dy in range(kh) for dx in range(kw)]
+    return torch.stack(cols, dim=3).reshape(bsz * ho * wo, kh * kw * cin), (bsz, ho, wo)
+
+
+@register("conv2d", "int8")
+def conv2d_int8(x: torch.Tensor, w, b: torch.Tensor | None = None, *, stride: int = 1,
+                padding=1, residual: torch.Tensor | None = None,
+                act: str | None = None) -> torch.Tensor:
+    """The W8A8 conv of ``quantize="int8_conv"``: ``w`` an (int8 HWIO,
+    (Cout,) float32 scale) pair; x quantized per sample (over H, W, C) at
+    run time; an exact int32 product of its zero-padded int8 patches (one
+    ``int8_mm``); then the float32 epilogue (``b`` (Cout,) or (B, Cout)) and
+    one cast. An unquantized weight takes the reference conv."""
+    if not isinstance(w, tuple):
+        return conv2d(x, w, b, stride=stride, padding=padding, residual=residual, act=act)
+    wq, scale = w
+    kh, kw, cin, cout = wq.shape
+    xq, sx = _quantize_activations(x.float(), (1, 2, 3))
+    cols, (bsz, ho, wo) = _im2col(xq, kh, kw, stride, padding)
+    acc = int8_mm(cols, wq.reshape(kh * kw * cin, cout)).reshape(bsz, ho, wo, cout)
+    if b is not None and b.dim() == 2:
+        b = b[:, None, None, :]
+    return _int8_epilogue(acc, sx, scale, b, residual, act, x.dtype)

@@ -24,7 +24,6 @@ Token ids in, images out: ``io/tokenizer.py`` makes the ids from prompts.
 
 from __future__ import annotations
 
-import logging
 import threading
 from dataclasses import dataclass, field
 from typing import Any
@@ -37,6 +36,7 @@ from ..compile import (
     CompileConfig,
     cast_params,
     fuse_attention_projections,
+    quantize_linear_weights,
     resolve_binding,
 )
 from stabletriton_tpu_torch.models import clip as clip_mod
@@ -58,8 +58,7 @@ from stabletriton_tpu_torch.runtime.denoise import (
     norm_guidance_interval,
 )
 from stabletriton_tpu_torch.runtime.graphs import Graphs, on_card
-
-logger = logging.getLogger("stabletriton_tpu_torch")
+from stabletriton_tpu_torch.runtime.profiling import logger
 
 
 def _decode_images(vae_config: vae_mod.VAEConfig, vae_params: dict,
@@ -133,10 +132,11 @@ class SDXLPipeline:
     """Holds configs and params; builds one txt2img program per signature,
     whose denoise loop replays one CUDA graph on the card.
 
-    The params are fused and cast once, in ``__post_init__``, and must not
-    move afterwards: the graphs read them at the addresses they had when
-    each graph was captured. Code that replaces params must drop the
-    pipeline's programs (``_cache``) with them."""
+    The params are fused, cast (and under ``CompileConfig.quantize``
+    quantized) once, in ``__post_init__``, and must not move afterwards:
+    the graphs read them at the addresses they had when each graph was
+    captured. Code that replaces params must drop the pipeline's programs
+    (``_cache``) with them."""
 
     unet_config: UNetConfig
     clip_config: clip_mod.CLIPTextConfig
@@ -166,7 +166,15 @@ class SDXLPipeline:
         unet = self.params["unet"]
         if self.compile_config.backend != "reference":
             unet = fuse_attention_projections(unet)
-        self.params["unet"] = cast_params(unet, self.compile_config)
+        unet = cast_params(unet, self.compile_config)
+        mode = self.compile_config.quantize
+        if mode:
+            # turbo: the eligible weights, already in the compile dtype, as
+            # (int8, scale) pairs; the binding takes linear (and under
+            # int8_conv conv2d) to the int8 ops
+            unet = quantize_linear_weights(unet, min_dim=self.compile_config.quantize_min_dim,
+                                           conv=mode == "int8_conv", ff_only=mode == "int8_ff")
+        self.params["unet"] = unet
 
     def _check_resolution(self, height: int, width: int) -> None:
         f = self.vae_config.spatial_scale_factor

@@ -1830,3 +1830,101 @@ def test_gpu_ingest_on_the_card_equals_the_host_route(cuda_device, tmp_path):
     for k, v in host.items():
         assert card[k].device.type == loaded[k].device.type == "cuda"
         assert torch.equal(card[k].cpu(), v) and torch.equal(loaded[k].cpu(), v), k
+
+
+# --------------------------------------------------------------------------
+# the turbo int8 mode: torch._int_mm on the card, exact against the CPU
+# --------------------------------------------------------------------------
+
+
+def _int8_case(device, x_shape, w_shape, seed):
+    """A bf16 x and a quantized (int8, scale) weight on ``device``."""
+    from stabletriton_tpu_torch.compile import quantize_linear_weights
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(x_shape, generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn(w_shape, generator=gen, device=device) * 0.05).to(torch.bfloat16)
+    pair = quantize_linear_weights({"w.weight": w}, min_dim=1, conv=len(w_shape) == 4)["w.weight"]
+    return x, pair
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 17])
+def test_gpu_linear_int8_accumulators_equal_the_cpu(cuda_device, m):
+    """At M = 1, 2 (the rows padded to 17 for cuBLASLt) and 17, the int8
+    activations and the int32 accumulators on the card equal the CPU op's
+    bit for bit, and the output is within one bf16 ulp of the CPU op's."""
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    x, (wq, scale) = _int8_case(cuda_device, (m, 1280), (1280, 640), m)
+    xq, sx = tref._quantize_activations(x.float(), -1)
+    xq_c, sx_c = tref._quantize_activations(x.cpu().float(), -1)
+    assert torch.equal(xq.cpu(), xq_c) and torch.equal(sx.cpu(), sx_c)
+    acc = tref.int8_mm(xq, wq)
+    assert acc.dtype == torch.int32 and tuple(acc.shape) == (m, 640)
+    assert torch.equal(acc.cpu(), tref.int8_mm(xq_c, wq.cpu()))
+    out = tref.linear_int8(x, (wq, scale), act="silu")
+    want = tref.linear_int8(x.cpu(), (wq.cpu(), scale.cpu()), act="silu")
+    assert _rel_err(out.cpu(), want) <= 2.0 ** -8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("padding", [1, ((0, 1), (0, 1))])
+def test_gpu_conv2d_int8_stride2_equals_the_cpu(cuda_device, padding):
+    """A stride-2 int8 conv (the UNet's downsampler, the encoder's
+    asymmetric padding): the int32 accumulators of its int8 patches on the
+    card equal the CPU's, the output within one bf16 ulp."""
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    x, (wq, scale) = _int8_case(cuda_device, (2, 33, 32, 64), (3, 3, 64, 96), 3)
+    xq, _ = tref._quantize_activations(x.float(), (1, 2, 3))
+    xq_c, _ = tref._quantize_activations(x.cpu().float(), (1, 2, 3))
+    assert torch.equal(xq.cpu(), xq_c)
+    cols, _ = tref._im2col(xq, 3, 3, 2, padding)
+    cols_c, _ = tref._im2col(xq_c, 3, 3, 2, padding)
+    wmat = wq.reshape(-1, 96)
+    assert torch.equal(tref.int8_mm(cols, wmat).cpu(), tref.int8_mm(cols_c, wmat.cpu()))
+    b = torch.linspace(-1, 1, 96, device=cuda_device)
+    out = tref.conv2d_int8(x, (wq, scale), b, stride=2, padding=padding)
+    want = tref.conv2d_int8(x.cpu(), (wq.cpu(), scale.cpu()), b.cpu(), stride=2, padding=padding)
+    assert _rel_err(out.cpu(), want) <= 2.0 ** -8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "int8_conv"])
+def test_gpu_turbo_step_replays_bit_for_bit(cuda_device, mode):
+    """compile_unet_kv's turbo step on a small SDXL-shaped UNet: the first
+    call (eager, then captured) and a replay equal the eager step bit for
+    bit, and differ from the bf16 step."""
+    from stabletriton_tpu_torch.compile import (CompileConfig, compile_unet_kv,
+                                                fuse_attention_projections,
+                                                quantize_linear_weights)
+    from stabletriton_tpu_torch.models.unet import init_unet_params
+
+    pipe = _replay_pipeline(cuda_device)
+    ucfg = pipe.unet_config
+    params = fuse_attention_projections(init_unet_params(ucfg, 0, device=cuda_device,
+                                                         dtype=torch.bfloat16))
+    qparams = quantize_linear_weights(params, min_dim=64, conv=mode == "int8_conv")
+    assert any(isinstance(v, tuple) for v in qparams.values())
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    sample = torch.randn((2, 8, 8, 4), generator=gen, device=cuda_device).to(torch.bfloat16)
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    pooled = torch.randn((2, 16), generator=gen, device=cuda_device).to(torch.bfloat16)
+    time_ids = torch.tensor([[64.0, 64, 0, 0, 64, 64]] * 2, device=cuda_device)
+    t = torch.full((2,), 500.0, device=cuda_device)
+    with torch.inference_mode():
+        pre, _, step = compile_unet_kv(ucfg, CompileConfig(quantize=mode))
+        kv = pre.__wrapped__(qparams, ctx)
+        eager = step.__wrapped__(qparams, sample, t, kv, pooled, time_ids)
+        first = step(qparams, sample, t, kv, pooled, time_ids)
+        replay = step(qparams, sample, t, kv, pooled, time_ids)
+        bpre, _, bstep = compile_unet_kv(ucfg, CompileConfig())
+        exact = bstep.__wrapped__(params, sample, t, bpre.__wrapped__(params, ctx), pooled,
+                                  time_ids)
+    torch.cuda.synchronize()
+    assert len(step.captured) == 1
+    assert torch.isfinite(eager.float()).all()
+    assert torch.equal(first, eager) and torch.equal(replay, eager)
+    assert not torch.equal(eager, exact)
