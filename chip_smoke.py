@@ -265,6 +265,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bit for bit its eager loop, with its wall time, peak memory and the
      quantized UNet's weight bytes beside the bf16 one's. Turbo is a draft
      mode outside the 1e-3 fidelity gate.
+  9t. (after 8b) autotune (kernels/autotune.py) from an empty table (no
+     packaged file, a temporary user cache): ensure_tuned_for the SDXL-base
+     1024^2 batch-1 signature under the all-kernel binding (shapes by op,
+     wall time, the shapes moved off the fitted rule); the same signature
+     through SDXLPipeline with ST_TPU_AUTOTUNE=1 tunes nothing, and every
+     launch key of its captured loop names the table's plan; then the
+     rule's two recorded misses ((154,1024)@(1024,640),
+     (128,1280)@(1280,1280)), a K8 conv (128^2 320->320) and a tiny-KV
+     attention (Sq 4096, Sk 77, h 10) tuned, each tuned plan held against
+     the plain version and timed beside the rule's plan (in turns, twice
+     each: a plan other than the rule's no slower beyond the two-run spread
+     or 0.5%) and cuBLAS's addmm / SDPA,
+     by the tuner's own measure (bench_fn over a graph of 10 launches);
+  9p. (after 9t) the replayed SDXL-base step under the default, fused-op
+     and all-kernel bindings with the packaged table beside the rules
+     (table off), fresh graphs each, in turns; a record, not a claim;
+  9f. (after 7d) fft_conv2d on the card, (1, 128, 128, 4) with a 9 x 9
+     kernel, against F.conv2d in depthwise form (TF32 off);
+  9m. (last) the mesh (runtime/mesh.py) over torch.distributed: two
+     spawned ranks on the one card over gloo with a TCP store on
+     localhost: data=1 model=2, the full-width SDXL-base step on rank-local
+     shards (heads and feed-forward split, row-parallel all-reduces)
+     against the unsharded step, MSE under the step gate; data=2 model=1,
+     a replayed 1024^2 4-step txt2img of batch 2 against the unsharded
+     pipeline's, max abs within SOLO_VS_BATCHED_BOUND. An NCCL mesh is not
+     run (one card).
 
 Each phase logs its peak device memory.
 
@@ -588,11 +614,29 @@ SD15_ATTENTION_CASES = [
 ]
 
 
+def routed_kernel(dtype, b, sq, sk, h, d, kind) -> str:
+    """The kernel the attention route launches for a shape and entry point
+    ("qkv", "kv", else the split interface): the autotune table's where it
+    has the shape, else kernel_name's rule."""
+    from stabletriton_tpu_torch.kernels import flash_attention as fa
+
+    entry = kind if kind in ("qkv", "kv") else "attention"
+    c = h * d
+    offsets = {"qkv": (0, c, 2 * c), "kv": (0, 0, c)}.get(entry, (0, 0, 0))
+    return fa._route(dtype, b, sq, sk, h, d, None, None, offsets, entry).kernel
+
+
 def attention_cases(randn, cases, record=True):
     """Each attention case: the wrapper against attention_plain on the same
     inputs, beside F.scaled_dot_product_attention on (B, h, S, d) copies made
     outside the timed call. The launch must carry the case's class in its
-    counter key."""
+    counter key, and the kernel the path launches at the shape: the
+    route's, which reads the autotune table. Where the table sends the
+    shape off the fitted rule's kernel (kernel_name), the row is named
+    "(tuned table)", and the rule's kernel is held against the plain
+    version on the same inputs too and timed (rule_kernel, rule_ms,
+    rule_max_abs_err), so each kernel stays held at every shape its rule
+    gives it."""
     import torch.nn.functional as F
 
     from stabletriton_tpu_torch.kernels import flash_attention as fa
@@ -629,7 +673,9 @@ def attention_cases(randn, cases, record=True):
         flops = 4 * b * h * sq * sk * (c // h)
         moved = nbytes(*inputs) + b * sq * c * qh.element_size()
         before = dict(fa.LAUNCHES.by_key)
-        name = f"flash_attention {label}"
+        want = routed_kernel(dtype, b, sq, sk, h, c // h, kind)
+        rule = fa.kernel_name(dtype, sk)
+        name = f"flash_attention {label}" + (" (tuned table)" if want != rule else "")
         f32 = dtype == torch.float32
         r = compare(name, kfn, pfn, tol, iters,
                     bound_ms=bound(flops, moved, dtype, TF32X3_FLOPS if f32 else None),
@@ -645,12 +691,26 @@ def attention_cases(randn, cases, record=True):
                 f"time) {r['prep_ms']:.4f} ms; {fa.attention_chunk_rows(b * h, sq, sk)} query "
                 f"rows a chunk")
         keys = {k for k, n in fa.LAUNCHES.by_key.items() if n != before.get(k, 0)}
-        want = fa.kernel_name(dtype, sk)
         if {tuple(k.split()[:2]) for k in keys} != {(tpu, want)}:
             raise AssertionError(f"{name}: launched {sorted(keys)}, expected class {tpu} on "
                                  f"{want}")
         key = sorted(keys)[0]
         log(f"  launch key: {key}")
+        if want != rule:
+            # the rule's kernel at the same inputs, named past the route
+            operands = ((qkv, 0, qkv, c, qkv, 2 * c) if kind == "qkv" else (q, 0, kv, 0, kv, c))
+            rfn = lambda operands=operands, h=h: fa._launch(  # noqa: E731
+                *operands, sq=sq, sk=sk, num_heads=h, d=c // h, scale=None, kernel=rule,
+                entry=kind)
+            ref = pfn()
+            rule_err = (rfn().float() - ref.float()).abs().max().item()
+            torch.cuda.synchronize()
+            if not rule_err <= tol * ref.float().abs().max().item():
+                raise AssertionError(f"{name}: the rule's kernel {rule} is off the plain version "
+                                     f"by {rule_err:.3e}")
+            r.update(rule_kernel=rule, rule_ms=timed_ms(rfn, iters), rule_max_abs_err=rule_err)
+            log(f"  the table's kernel {want}; the rule's {rule} at the same inputs: "
+                f"max_abs_err={rule_err:.3e}, {r['rule_ms']:.4f} ms against {r['ms']:.4f}")
         if dtype == torch.bfloat16 and sk <= fa.LANES:
             # every bf16 kernel of the C entry at the same operands (launched
             # past the route, after the key check), device time a call: the
@@ -747,7 +807,15 @@ def phase_c4(dev):
     output; and so is each output of range_probe, whose zeros, tiny, huge,
     infinite and NaN outputs (NaN by position) the epilogue stores with the
     division. Fails on any output that differs and on a launch off its
-    class or kernel."""
+    class or kernel. Each route is the fitted rule's (the autotune table
+    off), so each kernel is probed where its class puts it."""
+    from stabletriton_tpu_torch.kernels import autotune
+
+    with autotune.disabled():
+        _phase_c4(dev)
+
+
+def _phase_c4(dev):
     from stabletriton_tpu_torch.kernels import flash_attention as fa
 
     outputs = 0
@@ -1489,13 +1557,30 @@ def expected_attention(per_kernel: dict, steps: int = 1) -> dict:
 
 
 def check_bf16_attention(by_key: dict, per_kernel: dict, steps: int, label: str) -> None:
-    """Every bf16 attention launch of a run on the kernel and under the class
-    of ``per_kernel``: its per-step counts times the UNet steps run."""
-    got = {kernel: attention_by_class(by_key, kernel) for kernel in per_kernel}
-    want = expected_attention(per_kernel, steps)
+    """Every bf16 attention launch of a run under its class as ``per_kernel``
+    counts them (ATTN_PER_STEP's per-step counts by kernel and class, times
+    the UNet steps run, summed over the kernels) and on the kernel its route
+    takes: the autotune table's for the shape where the packaged table has
+    it, else the rule's, ``per_kernel``'s split. The UNet's projections are
+    fused, so self-attention reads the qkv entry point, cross the kv one."""
+    bf16 = {k: n for k, n in by_key.items() if k.split()[1] in per_kernel}
+    got = attention_by_class(bf16)
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    for by_class in per_kernel.values():
+        for cls, n in by_class.items():
+            want[cls] += n * steps
     if got != want:
-        raise AssertionError(f"{label}: bf16 attention launches by kernel {got} in {steps} "
+        raise AssertionError(f"{label}: bf16 attention launches by class {got} in {steps} "
                              f"steps, expected {want}")
+    off = []
+    for key in bf16:
+        f = dict(w.split("=", 1) for w in key.split() if "=" in w)
+        b, h, d, sq, sk = (int(f[k]) for k in ("b", "h", "d", "sq", "sk"))
+        want_kernel = routed_kernel(torch.bfloat16, b, sq, sk, h, d, "qkv" if sq == sk else "kv")
+        if key.split()[1] != want_kernel:
+            off.append((key, want_kernel))
+    if off:
+        raise AssertionError(f"{label}: bf16 attention launches off their routes' kernels: {off}")
 
 
 def sdxl_step_inputs(dev):
@@ -4564,6 +4649,557 @@ def phase_turbo_requests(dev, ucfg, unet_params, other, card):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phases 9t, 9p, 9f, 9m: autotune, the packaged table, fft_conv, the mesh
+# ---------------------------------------------------------------------------
+
+# the fitted rule's two recorded misses (wgmma_plan.gemm_plan): SD2.x's cross
+# K/V precompute and SD1.5's 8^2-level projection
+RECORDED_MISSES = [(154, 1024, 640), (128, 1280, 1280)]
+
+
+def replay_us(launch, token) -> float:
+    """us a launch of ``launch()`` (one kernel launch, or one library call),
+    as the tuner measures its candidates: bench_fn over a CUDA graph of
+    autotune.REPS launches."""
+    from stabletriton_tpu_torch.kernels import autotune
+    from stabletriton_tpu_torch.runtime.profiling import bench_fn
+
+    cand = autotune.Candidate(None, launch)
+    try:
+        return bench_fn(cand, token, chain_arg=0, min_window=0.01) / autotune.REPS * 1e6
+    finally:
+        cand.release()
+
+
+class EmptyTable:
+    """Within: the autotune table starts empty (no packaged file, a user
+    cache in a temporary directory); the table is restored after."""
+
+    def __enter__(self):
+        import pathlib
+
+        from stabletriton_tpu_torch.kernels import autotune
+
+        self.saved = autotune.PACKAGED_DIR, os.environ.get("ST_TPU_AUTOTUNE_CACHE")
+        self.tmp = tempfile.TemporaryDirectory()
+        autotune.PACKAGED_DIR = pathlib.Path(self.tmp.name) / "none"
+        self.cache = os.path.join(self.tmp.name, "user.json")
+        os.environ["ST_TPU_AUTOTUNE_CACHE"] = self.cache
+        autotune.reload()
+        return self
+
+    def __exit__(self, *exc):
+        from stabletriton_tpu_torch.kernels import autotune
+
+        autotune.PACKAGED_DIR = self.saved[0]
+        if self.saved[1] is None:
+            os.environ.pop("ST_TPU_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["ST_TPU_AUTOTUNE_CACHE"] = self.saved[1]
+        autotune.reload()
+        self.tmp.cleanup()
+
+    def entries(self) -> int:
+        return len(json.load(open(self.cache))) if os.path.exists(self.cache) else 0
+
+
+def plan_text(plan) -> str:
+    if isinstance(plan, tuple) and len(plan) == 2 and isinstance(plan[0], str):
+        return f"{plan[0]} tiles={plan[1]}"
+    if hasattr(plan, "cols"):
+        return f"cols={plan.cols} split={plan.splits}"
+    return f"bn={plan.bn} split={plan.splits}"
+
+
+def tuned_plan_mismatches(tally: dict) -> tuple[int, list]:
+    """The launch keys of a captured graph (its tally) whose plan is not the
+    autotune table's for their shape: a wgmma GEMM's bn and split, a skinny
+    GEMM's cols and split, a wgmma conv's bn and split (the table's entries
+    at its shape, any residual and act), a bf16 attention's kernel; where
+    the entry keeps the rule, the rule's (wgmma_plan's, skinny_plan,
+    kernel_name). A key of those kernels whose shape the table lacks counts
+    too. Returns (keys checked, mismatches)."""
+    from stabletriton_tpu_torch.kernels import autotune
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import flash_attention as fa
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.kernels import wgmma_plan as wp
+
+    def plan_of(e, rule, fields=("bn", "splits")):
+        """The entry's plan as the launch key writes it; the rule's where it
+        keeps the rule."""
+        if autotune.keeps_rule(e):
+            return tuple(str(getattr(rule, f)) for f in fields)
+        return tuple(str(e[f]) for f in fields)
+
+    bf16 = torch.bfloat16
+    checked, bad = 0, []
+    for (counter, key), _ in tally.items():
+        words = key.split()
+        f = dict(w.split("=", 1) for w in words if "=" in w)
+        if counter is lin.LAUNCHES and words[0] in ("wgmma_bf16", "skinny_bf16"):
+            m, k, n = int(f["m"]), int(f["k"]), int(f["n"])
+            e = autotune.lookup(autotune.linear_key(m, k, n, bf16))
+            if words[0] == "wgmma_bf16":
+                want = {plan_of(e, wp.gemm_plan(m, k, n))} if e else set()
+            else:
+                want = {plan_of(e, lin.skinny_plan(m, k, n, 2), ("cols", "splits"))} if e else set()
+            got = (f.get("bn", f.get("cols")), f["split"])
+        elif counter in (cd.LAUNCHES, cd.GN_LAUNCHES) and words[0] == "wgmma_bf16":
+            n = int(f["b"])
+            h, w = (int(v) for v in words[2].split("x"))
+            cin, cout = (int(v) for v in words[3].split("->"))
+            gn = counter is cd.GN_LAUNCHES
+            rule = wp.conv_plan(n, h, w, -(-cin // 8) * 8, cout, gn=gn)[1]
+            want = set()
+            for res in (False, True):
+                for act in (None, "silu"):
+                    e = autotune.lookup(autotune.conv_key(n, h, w, cin, cout, bf16, res, act, gn))
+                    if e:
+                        want.add(plan_of(e, rule))
+            got = (f["bn"], f["split"])
+        elif counter is fa.LAUNCHES and words[1] in fa._KERNEL_CODES:
+            b, h, d, sq, sk = (int(f[k]) for k in ("b", "h", "d", "sq", "sk"))
+            want = set()
+            for k in (autotune.attention_key(b, sq, sk, h, d, bf16),
+                      autotune.fused_attention_key("qkv" if sq == sk else "kv", b, sq, sk, h, d,
+                                                   bf16)):
+                e = autotune.lookup(k)
+                if e:
+                    want.add(fa.kernel_name(bf16, sk) if autotune.keeps_rule(e) else e["kernel"])
+            got = words[1]
+        else:
+            continue
+        checked += 1
+        if got not in want:
+            bad.append((key, sorted(want)))
+    return checked, bad
+
+
+def phase_tuning(dev, ucfg, unet_params, other, card):
+    """Phase 9t: autotune on the card (kernels/autotune.py), from an empty
+    table. (a) ensure_tuned_for the SDXL-base 1024^2 batch-1 signature
+    under the all-kernel binding, timed; (b) the same signature through the
+    pipeline's hook (ST_TPU_AUTOTUNE=1): it tunes nothing, and every launch
+    key of the captured loop names the table's plan; (c) the two recorded
+    misses, a K8 conv (128^2 320->320 with the GroupNorm prologue) and a
+    tiny-KV attention (Sq 4096, Sk 77, h 10) tuned, each tuned plan held
+    against the plain version, and timed beside the rule's plan (twice
+    each, in turns) and one library call."""
+    import torch.nn.functional as F
+
+    from stabletriton_tpu_torch.compile import ALL_KERNEL_OVERRIDES, CompileConfig, resolve_binding
+    from stabletriton_tpu_torch.kernels import autotune
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import flash_attention as fa
+    from stabletriton_tpu_torch.kernels import linear as lin
+    from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline
+
+    rec = {"card": card}
+    bf16 = torch.bfloat16
+    config = CompileConfig(overrides=ALL_KERNEL_OVERRIDES)
+    with EmptyTable() as table:
+        t0 = time.perf_counter()
+        tuned = autotune.ensure_tuned_for(resolve_binding(config), ucfg, 128, 128, 1, bf16, (2,))
+        wall = time.perf_counter() - t0
+        by_op = {}
+        for t in tuned:
+            op = t.key.split(":")[0] + (":gn" if t.key.endswith(":gn") else "")
+            by_op[op] = by_op.get(op, 0) + 1
+        moved = [t for t in tuned if not autotune.keeps_rule(t.entry)]
+        rule_sum = sum(t.times_us[t.rule] for t in tuned)
+        best_sum = sum(t.entry["t_us"] for t in tuned)
+        rec["ensure"] = {"shapes": len(tuned), "by_op": by_op, "wall_s": wall,
+                         "moved_off_rule": len(moved), "rule_us_sum": rule_sum,
+                         "tuned_us_sum": best_sum}
+        log(f"phase 9t, SDXL-base 1024^2 batch 1, all-kernel binding, from an empty table "
+            f"({card}): {len(tuned)} shapes tuned {by_op} in {wall:.1f} s; {len(moved)} off the "
+            f"rule's plan; one launch of each shape: rule {rule_sum:.1f} us, tuned "
+            f"{best_sum:.1f} us")
+        for t in sorted(moved, key=lambda t: t.entry["t_us"] - t.times_us[t.rule])[:8]:
+            log(f"  {t.key}: rule {plan_text(t.rule)} {t.times_us[t.rule]:.2f} us, tuned "
+                f"{ {k: v for k, v in t.entry.items() if k != 't_us'} } {t.entry['t_us']:.2f} us")
+
+        # (b) the pipeline's hook: nothing left to tune; the graph launches the table's plans
+        entries = table.entries()
+        (c1, c2, vcfg), params = other
+        tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+        ids1 = tok.encode_batch(["a lighthouse at dusk"], max_len=c1.max_position_embeddings)
+        ids2 = tok.encode_batch(["a lighthouse at dusk"], max_len=c2.max_position_embeddings,
+                                pad=0)
+        os.environ["ST_TPU_AUTOTUNE"] = "1"
+        try:
+            pipe = SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
+                                vae_config=vcfg, params={"unet": unet_params, **params},
+                                compile_config=config, device=dev)
+            walls = []
+            for seed in (5, 6):
+                t0 = time.perf_counter()
+                lat = pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=SERVE_STEPS,
+                                   seed=seed, return_latents=True)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if not torch.isfinite(lat).all():
+                    raise AssertionError("phase 9t: the tuned request's latents are not finite")
+        finally:
+            os.environ.pop("ST_TPU_AUTOTUNE", None)
+        if table.entries() != entries:
+            raise AssertionError(f"phase 9t: the hook tuned {table.entries() - entries} shapes "
+                                 f"of a signature already tuned")
+        prog = pipe._program(1, 1024, 1024, SERVE_STEPS, 5.0, "euler", True, None, None)
+        (entry,) = prog.loop.captured.values()
+        checked, bad = tuned_plan_mismatches(entry.tally)
+        if bad or not checked:
+            raise AssertionError(f"phase 9t: {len(bad)} of {checked} launch keys of the captured "
+                                 f"loop off the table's plans: {bad[:5]}")
+        rec["hook"] = {"walls_s": walls, "keys_checked": checked}
+        log(f"phase 9t, the same signature through the pipeline's hook: nothing tuned; "
+            f"{checked} launch keys of the captured loop name the table's plans; request "
+            f"{walls[0]:.2f} s (eager loop and capture), {walls[1]:.2f} s replayed")
+        del pipe, prog, entry, lat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the recorded misses, K8 and tiny-KV attention: rule, tuned, library
+        gen = torch.Generator(device=dev).manual_seed(71)
+        token = torch.empty(1, device=dev)
+
+        def in_turns(rule_fn, tuned_fn):
+            times = {"rule": [], "tuned": []}
+            for which in ("rule", "tuned", "tuned", "rule"):
+                times[which].append(replay_us(rule_fn if which == "rule" else tuned_fn, token))
+            return times
+
+        def report(label, t, tuned_plan, times, lib_label, lib_us, err, tol):
+            """Log a tuned shape; a tuned plan other than the rule's must be
+            no slower than the rule's beyond the two-run spread, or 0.5% of
+            the rule's time, the gap two timings of one plan showed (PR 17's
+            runs: 0.2%)."""
+            spread = max(abs(times["rule"][0] - times["rule"][1]),
+                         abs(times["tuned"][0] - times["tuned"][1]))
+            same = tuned_plan == t.rule
+            row = {"rule": plan_text(t.rule), "tuned": {k: v for k, v in t.entry.items()
+                                                        if k != "t_us"},
+                   "tuned_is_rule": same, "rule_us": times["rule"], "tuned_us": times["tuned"],
+                   "spread_us": spread, lib_label: lib_us, "max_rel_err": err}
+            log(f"phase 9t, {label} ({card}): rule {row['rule']} "
+                f"{'/'.join(f'{v:.2f}' for v in times['rule'])} us, tuned {row['tuned']}"
+                + (" (the rule's own plan) " if same else " ")
+                + f"{'/'.join(f'{v:.2f}' for v in times['tuned'])} us (two-run spread "
+                f"{spread:.2f} us), {lib_label} "
+                + ("not measured" if lib_us is None else f"{lib_us:.2f} us")
+                + f"; tuned plan vs plain: rel err {err:.3e} (tol {tol:g})")
+            if not err <= tol:
+                raise AssertionError(f"phase 9t, {label}: rel err {err:.3e} over {tol:g}")
+            margin = max(spread, 0.005 * max(times["rule"]))
+            if not same and min(times["tuned"]) > max(times["rule"]) + margin:
+                raise AssertionError(f"phase 9t, {label}: the tuned plan is slower than the "
+                                     f"rule's beyond the two-run spread: {row}")
+            return row
+
+        def rel_err(out, ref):
+            torch.cuda.synchronize()
+            return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+        rec["misses"] = []
+        for m, k, n in RECORDED_MISSES:
+            t = autotune.tune_linear(m, k, n)
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+            w = (torch.randn((k, n), generator=gen, device=dev) / k ** 0.5).to(bf16)
+            b = torch.randn(n, generator=gen, device=dev).to(bf16)
+            plan = lin._route(x.shape, w.shape, b.shape, bf16, bf16, None).plan
+            out = lin.linear(x, w, b)
+            err = rel_err(out, lin.linear_plain(x, w, b))
+            times = in_turns(lambda: lin._launch(x, w, b, None, "wgmma_bf16", plan=t.rule),
+                             lambda: lin._launch(x, w, b, None, "wgmma_bf16", plan=plan))
+            lib = replay_us(lambda: torch.addmm(b, x, w), token)
+            rec["misses"].append({"shape": (m, k, n), **report(
+                f"GEMM ({m},{k})@({k},{n})", t, plan, times, "cublas_us", lib, err,
+                BF16_REL_TOL)})
+        # K8: the first resnet conv of SDXL's 128^2 level (per-batch bias, no residual)
+        t = autotune.tune_conv(2, 128, 128, 320, 320, has_res=False, act=None, gn=True)
+        x = torch.randn((2, 128, 128, 320), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((3, 3, 320, 320), generator=gen, device=dev) / 54).to(bf16)
+        bias = torch.randn((2, 320), generator=gen, device=dev)
+        scale = torch.rand((2, 320), generator=gen, device=dev) + 0.5
+        shift = torch.randn((2, 320), generator=gen, device=dev)
+        gn = (scale, shift, "silu")
+        plan = cd._wgmma_route(2, 128, 128, 320, 320, True, False, None)[1]
+        err = rel_err(cd.gn_conv3x3(x, scale, shift, w, bias),
+                      cd.gn_conv3x3_plain(x, scale, shift, w, bias))
+        times = in_turns(lambda: cd._launch(x, w, bias, None, None, gn, "wgmma_bf16", plan=t.rule),
+                         lambda: cd._launch(x, w, bias, None, None, gn, "wgmma_bf16", plan=plan))
+        rec["k8"] = report("K8 conv 2x128x128 320->320 with the GroupNorm prologue", t, plan,
+                           times, "library_us", None, err, BF16_REL_TOL)
+        # tiny-KV attention off the fused KV buffer: SDXL's 64^2 cross-attention
+        t = autotune.tune_attention_fused(2, 4096, 77, 10, 64)
+        q = torch.randn((2, 4096, 640), generator=gen, device=dev).to(bf16)
+        kv = torch.randn((2, 77, 1280), generator=gen, device=dev).to(bf16)
+        route = fa._route(bf16, 2, 4096, 77, 10, 64, None, None, (0, 0, 640), "kv")
+        err = rel_err(fa.flash_attention_kv(q, kv, num_heads=10),
+                      fa.attention_plain(q, *kv.chunk(2, -1), num_heads=10))
+
+        def attn(kernel, tiles):
+            return fa._launch(q, 0, kv, 0, kv, 640, sq=4096, sk=77, num_heads=10, d=64,
+                              scale=None, kernel=kernel, tiles=tiles, entry="kv")
+
+        times = in_turns(lambda: attn(*t.rule), lambda: attn(route.kernel, route.tiles))
+        qh = q.reshape(2, 4096, 10, 64).transpose(1, 2).contiguous()
+        kh, vh = (u.reshape(2, 77, 10, 64).transpose(1, 2).contiguous() for u in kv.chunk(2, -1))
+        lib = replay_us(lambda: F.scaled_dot_product_attention(qh, kh, vh), token)
+        rec["tinykv"] = report("tiny-KV attention b=2 Sq=4096 Sk=77 h=10 d=64", t,
+                               (route.kernel, route.tiles), times, "sdpa_us", lib, err,
+                               BF16_REL_TOL)
+    log(f"phase 9t tuning {json.dumps(rec)}")
+    return rec
+
+
+def phase_packaged_table(dev, ucfg, unet_params, card):
+    """Phase 9p: the replayed SDXL-base step (compile_unet_kv, 128^2 CFG
+    batch 2) under the default, fused-op and all-kernel bindings with the
+    packaged table, beside the same step with the table off (the fitted
+    rules), each in fresh graphs, in turns (table, rules, rules, table);
+    CUDA events over 5 replays, 3 windows each. A record of what the table
+    does, not a claim. Without a packaged table for the card's tag the
+    rules run and there is nothing to compare."""
+    import contextlib
+
+    from stabletriton_tpu_torch.compile import compile_unet_kv, fuse_attention_projections
+    from stabletriton_tpu_torch.kernels import autotune
+
+    path = autotune.packaged_path(autotune.platform_tag())
+    if not path.exists():
+        log(f"phase 9p: no packaged table for {autotune.platform_tag()} ({card}): every route "
+            f"takes its rule")
+        return None
+    inputs = sdxl_step_inputs(dev)
+    fused = fuse_attention_projections(unet_params)
+    t = torch.full((2,), 500.0, device=dev)
+    configs = replay_configs()
+    rec = {"card": card, "entries": len(json.loads(path.read_text()))}
+    for name in ("default", "fused_ops", "all_kernels"):
+        times = {"table": [], "rules": []}
+        outs = {}
+        for which in ("table", "rules", "rules", "table"):
+            ctx = contextlib.nullcontext() if which == "table" else autotune.disabled()
+            with ctx, torch.inference_mode():
+                pre, _, step = compile_unet_kv(ucfg, configs[name])
+                kv = pre(fused, inputs["ctx"])
+                args = (fused, inputs["sample"], t, kv, inputs["pooled"], inputs["time_ids"])
+                step(*args)  # eager warm-up and capture
+                outs[which] = step(*args)  # a replay
+                torch.cuda.synchronize()
+                for _ in range(3):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(5):
+                        step(*args)
+                    end.record()
+                    end.synchronize()
+                    times[which].append(start.elapsed_time(end) / 5)
+            del pre, step, kv
+            gc.collect()
+            torch.cuda.empty_cache()
+        diff = (outs["table"].float() - outs["rules"].float())
+        rec[name] = {"table_ms": times["table"], "rules_ms": times["rules"],
+                     "table_vs_rules_mse": diff.pow(2).mean().item()}
+        log(f"phase 9p, SDXL-base step replayed, {name} binding ({card}): packaged table "
+            f"{min(times['table']):.3f}-{max(times['table']):.3f} ms, rules "
+            f"{min(times['rules']):.3f}-{max(times['rules']):.3f} ms "
+            f"({min(times['table']) / min(times['rules']) - 1:+.1%}); outputs MSE "
+            f"{rec[name]['table_vs_rules_mse']:.3e}")
+        if not torch.isfinite(outs["table"]).all():
+            raise AssertionError(f"phase 9p {name}: the step's output is not finite")
+    log(f"phase 9p packaged table {json.dumps(rec)}")
+    return rec
+
+
+def phase_fft_conv(dev):
+    """Phase 9f: fft_conv2d (torch.fft, cuFFT) on the card at (1, 128, 128,
+    4) with a 9 x 9 kernel, against F.conv2d in depthwise form (TF32 off;
+    the kernel flipped, since fft_conv2d convolves and conv2d correlates)."""
+    import torch.nn.functional as F
+
+    from stabletriton_tpu_torch.kernels.fft_conv import fft_conv2d
+
+    gen = torch.Generator(device=dev).manual_seed(81)
+    x = torch.randn((1, 128, 128, 4), generator=gen, device=dev)
+    k = torch.randn((9, 9), generator=gen, device=dev)
+    weight = k.flip(0, 1)[None, None].expand(4, 1, 9, 9).contiguous()
+
+    def direct():
+        return F.conv2d(x.permute(0, 3, 1, 2), weight, padding=4, groups=4).permute(0, 2, 3, 1)
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out, ref = fft_conv2d(x, k), direct()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        fft_ms, direct_ms = timed_ms(lambda: fft_conv2d(x, k), 20), timed_ms(direct, 20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    log(f"phase 9f, fft_conv2d (1,128,128,4) 9x9 vs F.conv2d depthwise: max abs {err:.3e} "
+        f"(largest output {scale:.3g}, tol {F32_REL_TOL:g} of it); fft {fft_ms:.4f} ms, conv2d "
+        f"{direct_ms:.4f} ms")
+    if out.shape != ref.shape or not err <= F32_REL_TOL * scale:
+        raise AssertionError(f"phase 9f: fft_conv2d {tuple(out.shape)} max abs {err:.3e}")
+    return {"max_abs": err, "fft_ms": fft_ms, "conv2d_ms": direct_ms}
+
+
+def mesh_rank(rank: int, world: int, init: str, out_path: str) -> None:
+    """One rank of phase 9m (two ranks on the one card, gloo; spawned):
+    (a) the SDXL-base UNet step at full width, bf16, eager, default binding,
+    on its shards of a data=1 model=2 mesh (rank 0 also runs the unsharded
+    step on the same inputs); (b) a 1024^2 4-step txt2img of batch 2 on a
+    data=2 model=1 mesh, captured then replayed (rank 0 also runs the
+    unsharded pipeline's batch 2). Writes its results to ``out_path % rank``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import (CompileConfig, fuse_attention_projections,
+                                                resolve_binding)
+    from stabletriton_tpu_torch.models.unet import (precompute_cross_kv, sdxl_base_unet_config,
+                                                    unet_apply)
+    from stabletriton_tpu_torch.runtime import mesh as mesh_mod
+    from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        rec = {"rank": rank}
+        ucfg = sdxl_base_unet_config()
+        params = make_unet_params(dev, ucfg)
+        inputs = sdxl_step_inputs(dev)
+        t = torch.full((2,), 500.0, device=dev)
+        binding = resolve_binding(CompileConfig())
+
+        def step(p):
+            with torch.inference_mode(), ops.use_backends(binding):
+                kv = precompute_cross_kv(ucfg, p, inputs["ctx"])
+                return unet_apply(ucfg, p, inputs["sample"], t, None, inputs["pooled"],
+                                  inputs["time_ids"], cross_kv=kv)
+
+        tp = mesh_mod.make_mesh(data=1, model=2, device_type="cuda")
+        local = mesh_mod.shard_params(params, tp)
+        rec["local_to_q"] = tuple(local[
+            "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q.weight"].shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mesh_mod.use_mesh(tp):
+            out = step(local)
+        torch.cuda.synchronize()
+        rec["tp_step_s"] = time.perf_counter() - t0
+        if rank == 0:
+            ref = step(fuse_attention_projections(params))
+            d = out.float() - ref.float()
+            rec["tp_max_abs"], rec["tp_mse"] = d.abs().max().item(), d.pow(2).mean().item()
+            rec["tp_finite"] = bool(torch.isfinite(out).all())
+            del ref, d
+        del local, out
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        (c1, c2, vcfg), other = make_other_params(dev)
+        dp = mesh_mod.make_mesh(data=2, model=1, device_type="cuda")
+        tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+        prompts = ["a lighthouse at dusk", "a bowl of ramen"]
+        ids1 = tok.encode_batch(prompts, max_len=c1.max_position_embeddings)
+        ids2 = tok.encode_batch(prompts, max_len=c2.max_position_embeddings, pad=0)
+
+        def pipeline(mesh):
+            return SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
+                                vae_config=vcfg, params={"unet": params, **other},
+                                compile_config=CompileConfig(), device=dev, mesh=mesh)
+
+        def request(pipe):
+            t0 = time.perf_counter()
+            img = pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=SERVE_STEPS,
+                               seed=41)
+            torch.cuda.synchronize()
+            return img, time.perf_counter() - t0
+
+        pipe = pipeline(dp)
+        first, rec["dp_first_s"] = request(pipe)
+        again, rec["dp_replay_s"] = request(pipe)
+        rec["dp_graphs"] = sum(len(p.loop.captured) for p in pipe._cache.values())
+        rec["dp_shape"] = tuple(again.shape)
+        rec["dp_ok"] = bool(torch.isfinite(again).all() and again.abs().max() <= 1.0)
+        rec["dp_first_vs_replay"] = (first.float() - again.float()).abs().max().item()
+        del pipe
+        torch.cuda.empty_cache()
+        if rank == 0:
+            solo, rec["unsharded_s"] = request(pipeline(None))
+            rec["dp_max_abs"] = (again.float() - solo.float()).abs().max().item()
+        with open(out_path % rank, "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(dev, card):
+    """Phase 9m: the mesh over torch.distributed, two ranks on the one card
+    over gloo (NCCL takes one rank a device), a TCP store on localhost at a
+    free port (mesh_rank): (a) data=1 model=2, the full-width SDXL-base UNet
+    step on rank-local shards against the unsharded step on the same card,
+    MSE under the step gate; (b) data=2 model=1, a replayed 1024^2 4-step
+    txt2img of batch 2 against the unsharded pipeline's batch 2, held to
+    SOLO_VS_BATCHED_BOUND (each rank runs half the rows). An NCCL mesh and
+    the capture of its all-reduce are not run: the machine has one card."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank%d.json")
+        ctx = mp.start_processes(mesh_rank, args=(2, f"tcp://127.0.0.1:{port}", out), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + 400
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 9m: the two ranks did not finish in 400 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        recs = [json.load(open(out % r)) for r in range(2)]
+    a = recs[0]
+    log(f"phase 9m (a), SDXL-base UNet step 128^2 B=2 bf16, default binding, data=1 model=2 "
+        f"(gloo, 2 ranks on one {card}): rank-local to_q {a['local_to_q']}, against the "
+        f"unsharded step: max abs {a['tp_max_abs']:.3e}, MSE {a['tp_mse']:.3e} (gate "
+        f"{STEP_MSE_GATE:g}); eager step {a['tp_step_s']:.2f} / {recs[1]['tp_step_s']:.2f} s")
+    log(f"phase 9m (b), 1024^2 {SERVE_STEPS}-step txt2img batch 2, data=2 model=1: images "
+        f"{a['dp_shape']}, first (eager loop, capture) {a['dp_first_s']:.2f} / "
+        f"{recs[1]['dp_first_s']:.2f} s, replayed {a['dp_replay_s']:.2f} / "
+        f"{recs[1]['dp_replay_s']:.2f} s, unsharded batch 2 {a['unsharded_s']:.2f} s; against "
+        f"the unsharded pipeline: max abs {a['dp_max_abs']:.3e} (bound "
+        f"{SOLO_VS_BATCHED_BOUND}); first vs replay {a['dp_first_vs_replay']:.3e}")
+    log("phase 9m: an NCCL mesh and the capture of its all-reduce are not run (one card)")
+    if not (a["tp_finite"] and a["tp_mse"] <= STEP_MSE_GATE):
+        raise AssertionError(f"phase 9m (a): MSE {a['tp_mse']:.3e} over {STEP_MSE_GATE:g}")
+    for r in recs:
+        if r["local_to_q"] != [640, 320] or r["dp_shape"] != [2, 1024, 1024, 3] or not r["dp_ok"]:
+            raise AssertionError(f"phase 9m: rank {r['rank']}: {r}")
+        if r["dp_graphs"] != 1:
+            raise AssertionError(f"phase 9m: rank {r['rank']} captured {r['dp_graphs']} graphs")
+    if not a["dp_max_abs"] <= SOLO_VS_BATCHED_BOUND:
+        raise AssertionError(f"phase 9m (b): max abs {a['dp_max_abs']:.3e} over "
+                             f"{SOLO_VS_BATCHED_BOUND}")
+    log(f"phase 9m mesh {json.dumps(recs)}")
+    return recs
+
+
 def with_peak(label, fn, *args, **kwargs):
     """fn(*args, **kwargs), logging the peak device memory it allocated and
     the seconds it took."""
@@ -4683,6 +5319,9 @@ def main() -> int:
     with_peak("phase 8a", phase_turbo_steps, dev, ucfg, sdxl["unet"], sdxl_step_inputs(dev),
               replay_step["default"]["replay_event_ms"], card)
     with_peak("phase 8b", phase_turbo_requests, dev, ucfg, sdxl["unet"], sdxl["other"], card)
+    # autotune from an empty table, then the packaged table beside the rules
+    with_peak("phase 9t", phase_tuning, dev, ucfg, sdxl["unet"], sdxl["other"], card)
+    with_peak("phase 9p", phase_packaged_table, dev, ucfg, sdxl["unet"], card)
     free(sdxl)
 
     # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 4f, 5c
@@ -4708,6 +5347,8 @@ def main() -> int:
                     for b in ("default", "all_kernels"))
         + "; SD1.5 512^2 UNet step (phase 4c) "
         + ", ".join(f"{b} {sd15_step[b]['mse']:.3e}" for b in ("default", "all_kernels")))
+    with_peak("phase 9f", phase_fft_conv, dev)
+    with_peak("phase 9m (this process)", phase_mesh, dev, card)
 
     # launches of each kernel on its path: the serving phases (5, 5b, 5c,
     # 5d), by the first two fields of its launch key ("K3 wgmma_tf32x3") for
@@ -4779,7 +5420,8 @@ def main() -> int:
         **{k: r[k] for k in ("old_ms", "old_kernel", "old_device_ms", "bound_f32_fma_ms",
                              "prep_ms", "device_ms", "library_device_ms", "alt_device_ms",
                              "tf32_padded_device_ms", "launch_floor_ms",
-                             "cold_device_ms", "device_ms_source") if k in r},
+                             "cold_device_ms", "device_ms_source", "rule_kernel", "rule_ms",
+                             "rule_max_abs_err") if k in r},
     } for r in kernel_results + image_results + sd2_results]
     for k in kernels:
         if k["launches"] == 0:

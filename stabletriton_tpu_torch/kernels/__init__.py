@@ -13,6 +13,10 @@
   dropout         - dropout -> "cuda" (csrc/dropout.cu) and "reference" (its
                     plain version; no model path reaches dropout)
 
+Beside them, registering nothing: ``wgmma_plan`` (the fitted tile / split
+rules), ``autotune`` (the measured table the routes read first) and
+``fft_conv`` (exploratory FFT convolution on torch.fft).
+
 The default binding uses flash_attention and conv2d "direct"; the others are
 opt-in through ``CompileConfig.overrides``. The CUDA sources are compiled at
 first launch (kernels/build.py); importing builds nothing.

@@ -77,7 +77,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from stabletriton_tpu_torch.kernels import group_norm, wgmma_plan
+from stabletriton_tpu_torch.kernels import autotune, group_norm, wgmma_plan
 from stabletriton_tpu_torch.kernels.build import (
     ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, current_stream, function,
     on_device)
@@ -194,20 +194,45 @@ def _check_conv(x, w, b, residual, act):
         raise ValueError(f"residual {tuple(residual.shape)} is not {(n, h, wd, cout)}")
 
 
+def tuned_plan(n, h, wd, cin, cout, gn, has_res, act) -> wgmma_plan.Plan | None:
+    """The autotune table's plan for the wgmma conv at one shape (its
+    ``conv3x3`` key, ``:gn`` with the GroupNorm prologue), checked against
+    what the kernel takes, or None where the table names no plan. An entry
+    the kernel cannot take raises, naming its key."""
+    key = autotune.conv_key(n, h, wd, cin, cout, torch.bfloat16, has_res, act, gn)
+    entry = autotune.plan_entry(key)
+    if entry is None:
+        return None
+    autotune.check_entry(key, entry, ("bn", "splits"))
+    plan = wgmma_plan.Plan(entry["bn"], entry["splits"])
+    widths = (wgmma_plan.N8,) if cout <= wgmma_plan.N8 else (128,) if gn else wgmma_plan.WIDTHS
+    steps = 1 if cout <= wgmma_plan.N8 else 9 * -(-cin // wgmma_plan.BK)
+    if plan.bn not in widths or not 1 <= plan.splits <= min(steps, wgmma_plan.MAX_SPLITS):
+        raise ValueError(f"autotune entry {key} = {entry}: the wgmma conv takes bn in {widths} "
+                         f"and 1 <= splits <= {min(steps, wgmma_plan.MAX_SPLITS)} here")
+    return plan
+
+
 @functools.lru_cache(maxsize=None)
-def _wgmma_route(n, h, wd, cin, cout, gn):
-    """The wgmma conv's pixel tile, plan and launch key at one shape (Cin as
-    the caller gave it; the plan's at Cin padded to 8; cached: the host
-    time of a launch is the step's budget)."""
-    tile, plan = wgmma_plan.conv_plan(n, h, wd, -(-cin // 8) * 8, cout, gn=gn)
+def _wgmma_route(n, h, wd, cin, cout, gn, has_res=False, act=None, plan=None):
+    """The wgmma conv's pixel tile, plan (``plan``, else the autotune
+    table's, else ``wgmma_plan.conv_plan``'s) and launch key at one shape
+    (Cin as the caller gave it; the plan's at Cin padded to 8; cached: the
+    host time of a launch is the step's budget; :func:`autotune.record`
+    clears the cache)."""
+    cin8 = -(-cin // 8) * 8
+    tile, rule = wgmma_plan.conv_plan(n, h, wd, cin8, cout, gn=gn)
+    plan = plan or tuned_plan(n, h, wd, cin, cout, gn, has_res, act) or rule
     return tile, plan, (f"wgmma_bf16 b={n} {h}x{wd} {cin}->{cout} "
                         f"tile={tile.tw}x{tile.th}x{tile.tb} bn={plan.bn} split={plan.splits}")
 
 
-def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor, str]:
+def _launch(x, w, b, residual, act, gn=None, variant=None, plan=None
+            ) -> tuple[torch.Tensor, str]:
     """Launch a conv kernel on CUDA operands; ``gn`` is (scale, shift, gn_act)
     for the GroupNorm prologue; ``variant`` names the kernel, else
-    :func:`conv_variant` picks it. Returns the output and the launch key."""
+    :func:`conv_variant` picks it; ``plan`` (the tuner's candidate) replaces
+    the wgmma kernel's route's. Returns the output and the launch key."""
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     dtype = x.dtype
@@ -235,7 +260,8 @@ def _launch(x, w, b, residual, act, gn=None, variant=None) -> tuple[torch.Tensor
                          + (" with the GroupNorm prologue" if gn is not None else ""))
     wgmma = variant == "wgmma_bf16" and dtype == torch.bfloat16
     if wgmma:
-        tile, plan, key = _wgmma_route(n, h, wd, cin, cout, gn is not None)
+        tile, plan, key = _wgmma_route(n, h, wd, cin, cout, gn is not None,
+                                       residual is not None, act, plan)
         x, w, gn = _pad_cin(_aligned(x), w, gn)
         w = n8_weight(w) if plan.bn == wgmma_plan.N8 else _aligned(w)
         residual = _aligned(residual)

@@ -48,7 +48,7 @@ from typing import NamedTuple
 
 import torch
 
-from stabletriton_tpu_torch.kernels import wgmma_plan
+from stabletriton_tpu_torch.kernels import autotune, wgmma_plan
 from stabletriton_tpu_torch.kernels.build import (
     LaunchCounter, check, current_stream, function, on_device)
 from stabletriton_tpu_torch.ops.registry import register
@@ -99,6 +99,12 @@ TINY_KV_KEYS = 128  # keys the tiny-KV kernel holds resident
 TINY_KV_Q_BOXES = 4  # 16 KB boxes of query tiles a tiny-KV block stages (64 KB)
 
 
+def tiny_kv_tiles_cap(d: int) -> int:
+    """The most query tiles a tiny-KV block takes: those whose Q fits its
+    TINY_KV_Q_BOXES boxes of 64 columns."""
+    return TINY_KV_Q_BOXES // -(-d // 64)
+
+
 class TinyKvPlan(NamedTuple):
     tiles: int   # consecutive 128-row query tiles of one (batch, head) a block takes
     blocks: int  # the grid: b * h * ceil(query tiles / tiles)
@@ -112,8 +118,7 @@ def tiny_kv_plan(b: int, h: int, sq: int, d: int) -> TinyKvPlan:
     whose Q fits TINY_KV_Q_BOXES boxes of 64 columns."""
     q_tiles = -(-sq // QUERY_TILE)
     slots = wgmma_plan.SMS * (2 if d <= 64 else 1)
-    cap = TINY_KV_Q_BOXES // -(-d // 64)
-    tiles = min(cap, max(1, -(-(b * h * q_tiles) // slots)))
+    tiles = min(tiny_kv_tiles_cap(d), max(1, -(-(b * h * q_tiles) // slots)))
     return TinyKvPlan(tiles, b * h * -(-q_tiles // tiles))
 
 
@@ -284,15 +289,42 @@ class Route(NamedTuple):
     key: str       # the launch key
 
 
+def tuned_plan(dtype: torch.dtype, b: int, sq: int, sk: int, num_heads: int, d: int,
+               entry: str) -> tuple[str, int] | None:
+    """The autotune table's (kernel, tiles) for one launch of ``entry``
+    ("attention", "qkv" or "kv"), checked against what the kernel takes, or
+    None where the table names no plan. An entry a kernel cannot take
+    raises, naming its key."""
+    key = (autotune.attention_key(b, sq, sk, num_heads, d, dtype) if entry == "attention"
+           else autotune.fused_attention_key(entry, b, sq, sk, num_heads, d, dtype))
+    got = autotune.plan_entry(key)
+    if got is None:
+        return None
+    autotune.check_entry(key, got, ("kernel", "tiles"))
+    kernel, tiles = got["kernel"], got["tiles"]
+    ok = (dtype == torch.bfloat16 and d in HEAD_DIMS[dtype]
+          and ((kernel == "wgmma_bf16" and tiles == 1)
+               or (kernel == "tinykv_wgmma_bf16" and sk <= TINY_KV_KEYS
+                   and isinstance(tiles, int) and 1 <= tiles <= tiny_kv_tiles_cap(d))))
+    if not ok:
+        raise ValueError(f"autotune entry {key} = {got}: the bf16 kernels take wgmma_bf16 at "
+                         f"tiles 1, or tinykv_wgmma_bf16 at Sk <= {TINY_KV_KEYS} and 1 <= tiles "
+                         f"<= {tiny_kv_tiles_cap(d)}")
+    return kernel, tiles
+
+
 @functools.lru_cache(maxsize=None)
 def _route(dtype: torch.dtype, b: int, sq: int, sk: int, num_heads: int, d: int,
-           scale: float | None, kernel: str | None, offsets: tuple) -> Route:
+           scale: float | None, kernel: str | None, offsets: tuple,
+           entry: str = "attention", tiles: int | None = None) -> Route:
     """A launch's signature, checked (the ValueError of a bad one; the
     cache keeps no exception, so a bad call raises anew every time) and
-    routed. ``kernel`` names the kernel, else :func:`kernel_name` picks it
-    by dtype and key count. Pure and cached: the host item of the rounded q
-    scale and the key's string are made once, not on each of a step's
-    launches."""
+    routed. ``kernel`` (and ``tiles``) name the kernel and its plan; else
+    the autotune table's entry for ``entry``'s key gives them, else
+    :func:`kernel_name` picks the kernel by dtype and key count and
+    :func:`tiny_kv_plan` the tiles. Pure and cached: the host item of the
+    rounded q scale and the key's string are made once, not on each of a
+    step's launches; :func:`autotune.record` clears the cache."""
     if dtype not in HEAD_DIMS:
         raise ValueError(f"attention kernel takes float32 or bfloat16 operands, got {dtype}")
     if d not in HEAD_DIMS[dtype]:
@@ -304,6 +336,8 @@ def _route(dtype: torch.dtype, b: int, sq: int, sk: int, num_heads: int, d: int,
         raise ValueError("bf16 attention operands must be 16-byte aligned "
                          "(base, row and batch strides, column offsets)")
     cls = attention_class(num_heads, d, sk)
+    if kernel is None:
+        kernel, tiles = tuned_plan(dtype, b, sq, sk, num_heads, d, entry) or (None, None)
     kernel = kernel or kernel_name(dtype, sk)
     if kernel not in (_KERNEL_CODES if dtype == torch.bfloat16 else ("wgmma_tf32x3",)):
         raise ValueError(f"attention kernel {kernel} does not take {dtype} operands")
@@ -314,7 +348,10 @@ def _route(dtype: torch.dtype, b: int, sq: int, sk: int, num_heads: int, d: int,
         scale = 1.0 / math.sqrt(d)
     # scale*log2(e) rounded to the operand dtype, as JAX's asarray(.., q.dtype)
     qscale = torch.tensor(scale * LOG2E, dtype=dtype).item()
-    tiles = tiny_kv_plan(b, num_heads, sq, d).tiles if kernel == "tinykv_wgmma_bf16" else 1
+    if kernel != "tinykv_wgmma_bf16":
+        tiles = 1
+    elif tiles is None:
+        tiles = tiny_kv_plan(b, num_heads, sq, d).tiles
     return Route(cls, kernel, qscale, tiles,
                  f"{cls} {kernel} b={b} h={num_heads} d={d} sq={sq} sk={sk}")
 
@@ -338,14 +375,15 @@ def _check_buffers(bufs, dtype) -> None:
 
 
 def _launch(q_buf, q_off, k_buf, k_off, v_buf, v_off, *, sq, sk, num_heads, d,
-            scale, kernel=None) -> torch.Tensor:
+            scale, kernel=None, tiles=None, entry="attention") -> torch.Tensor:
     """Launch a kernel on (buffer, column offset) operands: each buffer is a
     (B, S, X) tensor whose last dim is contiguous; the head-h columns of the
-    operand start at ``offset + h*d``. ``kernel`` names the kernel, else
-    :func:`kernel_name` picks it."""
+    operand start at ``offset + h*d``. ``kernel`` (and ``tiles``) name the
+    kernel and plan, else :func:`_route` takes them from the autotune table
+    under ``entry``'s key or from the rules."""
     dtype = q_buf.dtype
     route = _route(dtype, q_buf.shape[0], sq, sk, num_heads, d, scale, kernel,
-                   (q_off, k_off, v_off))
+                   (q_off, k_off, v_off), entry, tiles)
     _check_buffers((q_buf, k_buf, v_buf), dtype)
     dev = q_buf.device
     b, c = q_buf.shape[0], num_heads * d
@@ -428,7 +466,7 @@ def flash_attention_qkv(qkv: torch.Tensor, *, num_heads: int = 1,
     if c % num_heads:
         raise ValueError(f"channels {c} not divisible by {num_heads} heads")
     return _launch(qkv, 0, qkv, c, qkv, 2 * c, sq=s, sk=s, num_heads=num_heads,
-                   d=c // num_heads, scale=scale)
+                   d=c // num_heads, scale=scale, entry="qkv")
 
 
 @register("attention_kv", "cuda")
@@ -444,4 +482,4 @@ def flash_attention_kv(q: torch.Tensor, kv: torch.Tensor, *, num_heads: int = 1,
     if c % num_heads:
         raise ValueError(f"channels {c} not divisible by {num_heads} heads")
     return _launch(q, 0, kv, 0, kv, c, sq=sq, sk=kv.shape[1], num_heads=num_heads,
-                   d=c // num_heads, scale=scale)
+                   d=c // num_heads, scale=scale, entry="kv")

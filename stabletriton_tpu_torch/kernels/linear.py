@@ -60,7 +60,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from stabletriton_tpu_torch.kernels import wgmma_plan
+from stabletriton_tpu_torch.kernels import autotune, wgmma_plan
 from stabletriton_tpu_torch.kernels.build import (
     ACT_CODES, DTYPE_CODES, LaunchCounter, check, current_stream, function, on_device)
 from stabletriton_tpu_torch.ops.reference import apply_activation
@@ -199,16 +199,50 @@ def check_devices(x_device, w_device, b_device) -> None:
         raise ValueError("linear operands lie on different devices")
 
 
+def tuned_plan(m: int, k: int, n: int, dtype: torch.dtype,
+               name: str) -> wgmma_plan.Plan | SkinnyPlan | None:
+    """The autotune table's plan for the GEMM, checked against what kernel
+    ``name`` (:func:`variant`'s pick) takes, or None where the table names no
+    plan. An entry the kernel cannot take raises, naming its key."""
+    key = autotune.linear_key(m, k, n, dtype)
+    entry = autotune.plan_entry(key)
+    if entry is None:
+        return None
+    if name == "wgmma_bf16":
+        autotune.check_entry(key, entry, ("bn", "splits"))
+        plan = wgmma_plan.Plan(entry["bn"], entry["splits"])
+        if (plan.bn not in wgmma_plan.WIDTHS
+                or not 1 <= plan.splits <= min(-(-k // wgmma_plan.BK), wgmma_plan.MAX_SPLITS)):
+            raise ValueError(f"autotune entry {key} = {entry}: the wgmma GEMM takes bn in "
+                             f"{wgmma_plan.WIDTHS} and 1 <= splits <= K steps, at most "
+                             f"{wgmma_plan.MAX_SPLITS}")
+        return plan
+    if name.startswith("skinny"):
+        autotune.check_entry(key, entry, ("cols", "splits"))
+        cols, splits = entry["cols"], entry["splits"]
+        vec = 16 // dtype.itemsize
+        rows = -(-k // splits) if 1 <= splits <= SKINNY_MAX_SPLITS else 0
+        if (cols not in [w * vec for w in SKINNY_WIDTHS] or rows < 1
+                or -(-k // rows) != splits):
+            raise ValueError(f"autotune entry {key} = {entry}: the skinny kernel takes cols "
+                             f"in {[w * vec for w in SKINNY_WIDTHS]} and a K split of at most "
+                             f"{SKINNY_MAX_SPLITS} blocks that each take rows of K")
+        return SkinnyPlan(cols, splits, rows)
+    raise ValueError(f"autotune entry {key} = {entry}: the {name} kernel takes no plan")
+
+
 @functools.lru_cache(maxsize=None)
 def _route(x_shape: tuple, w_shape: tuple, b_shape: tuple | None, dtype: torch.dtype,
            b_dtype: torch.dtype | None, act: str | None, aligned: bool = True,
-           name: str | None = None) -> Route:
+           name: str | None = None, plan=None) -> Route:
     """A launch's signature, checked (the ValueError of a bad operand; the
     cache keeps no exception, so a bad call raises anew every time) and
     routed: the kernel (``name``, or :func:`variant`'s; ``aligned``: x's and
-    w's bases are 16-byte aligned), its plan, the launch key and the C
-    entry's integer arguments. Pure and cached: the eager step launches
-    hundreds of GEMMs of a few dozen signatures."""
+    w's bases are 16-byte aligned), its plan (``plan``, else the autotune
+    table's, else the fitted rule's: ``wgmma_plan.gemm_plan`` or
+    :func:`skinny_plan`), the launch key and the C entry's integer
+    arguments. Pure and cached: the eager step launches hundreds of GEMMs
+    of a few dozen signatures; :func:`autotune.record` clears the cache."""
     k = x_shape[-1]
     _check_operands(k, w_shape, b_shape, act)
     if dtype not in DTYPE_CODES or (b_dtype is not None and b_dtype not in DTYPE_CODES):
@@ -221,17 +255,20 @@ def _route(x_shape: tuple, w_shape: tuple, b_shape: tuple | None, dtype: torch.d
         return Route(None, "", out_shape, m, n, k, None, ())
     if max(m, n, k) >= 2**31:
         raise ValueError(f"linear kernel takes dims below 2^31, got ({m}, {k}) @ ({k}, {n})")
-    name = name or variant(m, k, n, dtype, aligned)
+    rule_name = variant(m, k, n, dtype, aligned)
+    tuned = tuned_plan(m, k, n, dtype, rule_name)
+    if name is None or name == rule_name:
+        name, plan = rule_name, plan or tuned
     bias = int(b_dtype is not None)
     codes = (m, n, k, ACT_CODES[act], DTYPE_CODES[dtype])
     bias_code = DTYPE_CODES[b_dtype] if bias else 0
     head = f"{name} m={m} k={k} n={n} bias={bias} act={act}"
     if name == "wgmma_bf16":
-        plan = wgmma_plan.gemm_plan(m, k, n)
+        plan = plan or wgmma_plan.gemm_plan(m, k, n)
         return Route(name, f"{head} bn={plan.bn} split={plan.splits}", out_shape, m, n, k,
                      plan, ())
     if name.startswith("skinny"):
-        plan = skinny_plan(m, k, n, dtype.itemsize)
+        plan = plan or skinny_plan(m, k, n, dtype.itemsize)
         ints = (*codes, bias_code, *plan)
         dims = SkinnyDims(*ints)
         return Route(name, f"{head} cols={plan.cols} split={plan.splits}", out_shape, m, n, k,
@@ -279,12 +316,13 @@ def _run(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, act: str | No
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, act: str | None,
-            name: str) -> tuple[torch.Tensor, str]:
-    """Launch kernel ``name`` on contiguous CUDA operands as :func:`_run`
-    does (the route of another kernel than the wrapper's, for timing it
-    beside); returns the output and the launch key."""
+            name: str, plan=None) -> tuple[torch.Tensor, str]:
+    """Launch kernel ``name`` (at ``plan``, else its route's) on contiguous
+    CUDA operands as :func:`_run` does (the route of another kernel than the
+    wrapper's, for timing it beside; a candidate plan, for the tuner);
+    returns the output and the launch key."""
     route = _route(x.shape, w.shape, None if b is None else b.shape, x.dtype,
-                   None if b is None else b.dtype, act, name=name)
+                   None if b is None else b.dtype, act, name=name, plan=plan)
     return _run(x, w, b, act, route), route.key
 
 

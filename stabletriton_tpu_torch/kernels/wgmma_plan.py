@@ -2,10 +2,15 @@
 (``csrc/wgmma.cuh``: ``linear_wgmma_bf16``, ``conv_wgmma_bf16``), and the
 split of f32 operands into tf32 parts that the 3xTF32 kernels take.
 
-A pure function of the shape: the same shape always gets the same plan, so
-a launch repeats bit for bit and the CPU tests cover every choice. Plans are
-cached by shape: the eager step launches ~550 GEMMs and convs, and the
-search costs tens of microseconds of host time.
+The fitted rule below is a pure function of the shape, but it comes second:
+each wrapper's route first looks the shape up in the autotune table
+(``kernels/autotune.py``: the plans measured on the card, packaged for a
+card in ``kernels/tuned/<platform>.json`` and cached per user) and takes
+this module's plan only for a shape the table lacks. Either way the same
+shape gets the same plan on one card, so a launch repeats bit for bit, and
+the CPU tests cover every choice. Plans are cached by shape: the eager step
+launches ~550 GEMMs and convs, and the search costs tens of microseconds of
+host time.
 
 A block computes a 128-row output tile of width ``bn`` (128 or 256; 8 for a
 3x3 conv to Cout <= 8, which runs unsplit) over a
@@ -77,25 +82,27 @@ def split_ranges(steps: int, splits: int) -> list[tuple[int, int]]:
     return [(z * steps // splits, (z + 1) * steps // splits) for z in range(splits)]
 
 
+def modelled_seconds(m_tiles: int, n: int, steps: int, out_rows: int, bytes_moved: int,
+                     bn: int, splits: int) -> float:
+    """The model's time of one plan (module docstring)."""
+    n_tiles = math.ceil(n / bn)
+    step_seconds = BM * bn * BK * 2 / (PEAK_FLOPS * SUSTAINED[bn] / SMS)
+    waves = math.ceil(m_tiles * n_tiles * splits / SMS)
+    seconds = LAUNCH_SECONDS + max(
+        waves * (BLOCK_SECONDS[bn] + math.ceil(steps / splits) * step_seconds),
+        bytes_moved / MEMORY_BYTES_PER_S)
+    if splits > 1:
+        seconds += REDUCE_SECONDS + 2 * splits * out_rows * n * 4 / MEMORY_BYTES_PER_S
+    return seconds
+
+
 def plan(m_tiles: int, n: int, steps: int, out_rows: int, bytes_moved: int,
          widths: tuple[int, ...] = WIDTHS) -> Plan:
     """The plan of least modelled time for ``m_tiles`` row tiles, ``n``
     output columns and ``steps`` K steps; ``out_rows`` x ``n`` outputs."""
-    best = None
-    for bn in widths:
-        n_tiles = math.ceil(n / bn)
-        step_seconds = BM * bn * BK * 2 / (PEAK_FLOPS * SUSTAINED[bn] / SMS)
-        for splits in range(1, min(steps, MAX_SPLITS) + 1):
-            waves = math.ceil(m_tiles * n_tiles * splits / SMS)
-            seconds = LAUNCH_SECONDS + max(
-                waves * (BLOCK_SECONDS[bn] + math.ceil(steps / splits) * step_seconds),
-                bytes_moved / MEMORY_BYTES_PER_S)
-            if splits > 1:
-                seconds += (REDUCE_SECONDS
-                            + 2 * splits * out_rows * n * 4 / MEMORY_BYTES_PER_S)
-            key = (seconds, splits, bn)
-            if best is None or key < best:
-                best = key
+    best = min((modelled_seconds(m_tiles, n, steps, out_rows, bytes_moved, bn, splits),
+                splits, bn)
+               for bn in widths for splits in range(1, min(steps, MAX_SPLITS) + 1))
     return Plan(bn=best[2], splits=best[1])
 
 

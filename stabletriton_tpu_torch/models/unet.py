@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from stabletriton_tpu_torch import ops
+from stabletriton_tpu_torch.runtime.mesh import row_parallel_linear
 
 # ---------------------------------------------------------------------------
 # config
@@ -338,13 +339,17 @@ def _resnet(p, key: str, x, temb, cfg: UNetConfig, emb=None):
 def _attention_layer(p, key: str, x, context, num_heads: int, cached_kv=None):
     """Multi-head attention, operands channel-packed (B, S, H*D). Four forms:
     a precomputed cross K/V (fused tensor or (k, v) tuple), fused QKV
-    weights, fused KV weights, or separate projections."""
+    weights, fused KV weights, or separate projections. Under a
+    tensor-parallel mesh (``runtime/mesh.py``) the separate projections hold
+    this rank's heads' columns, so the rank attends over its own heads and
+    to_out.0 is row-parallel."""
     if cached_kv is not None:
         q = ops.linear(x, p[f"{key}.to_q.weight"])
+        heads = num_heads * q.shape[-1] // x.shape[-1]
         if isinstance(cached_kv, tuple):
-            out = ops.attention(q, *cached_kv, num_heads=num_heads)
+            out = ops.attention(q, *cached_kv, num_heads=heads)
         else:
-            out = ops.attention_kv(q, cached_kv, num_heads=num_heads)
+            out = ops.attention_kv(q, cached_kv, num_heads=heads)
     elif f"{key}.to_qkv.weight" in p:
         qkv = ops.linear(x, p[f"{key}.to_qkv.weight"])
         out = ops.attention_qkv(qkv, num_heads=num_heads)
@@ -356,16 +361,19 @@ def _attention_layer(p, key: str, x, context, num_heads: int, cached_kv=None):
         q = ops.linear(x, p[f"{key}.to_q.weight"])
         k = ops.linear(context, p[f"{key}.to_k.weight"])
         v = ops.linear(context, p[f"{key}.to_v.weight"])
-        out = ops.attention(q, k, v, num_heads=num_heads)
-    return ops.linear(out, p[f"{key}.to_out.0.weight"], p[f"{key}.to_out.0.bias"])
+        out = ops.attention(q, k, v, num_heads=num_heads * q.shape[-1] // x.shape[-1])
+    return row_parallel_linear(out, p[f"{key}.to_out.0.weight"], p[f"{key}.to_out.0.bias"],
+                               x.shape[-1])
 
 
 def _feed_forward(p, key: str, x):
-    """GEGLU feed-forward: proj -> split -> state*gelu(gate) -> linear."""
+    """GEGLU feed-forward: proj -> split -> state*gelu(gate) -> linear (row
+    parallel under a tensor-parallel mesh)."""
     proj = ops.linear(x, p[f"{key}.net.0.proj.weight"], p[f"{key}.net.0.proj.bias"])
     state, gate = proj.chunk(2, dim=-1)
     h = ops.geglu(state, gate)
-    return ops.linear(h, p[f"{key}.net.2.weight"], p[f"{key}.net.2.bias"])
+    return row_parallel_linear(h, p[f"{key}.net.2.weight"], p[f"{key}.net.2.bias"],
+                               h.shape[-1])
 
 
 def _transformer_block(p, key: str, x, context, num_heads: int, eps: float,

@@ -20,6 +20,13 @@ inside each entry point, on the thread that runs the model, and the model
 runs under ``torch.inference_mode()``.
 
 Token ids in, images out: ``io/tokenizer.py`` makes the ids from prompts.
+
+Under a ``runtime/mesh.py`` mesh every rank runs the same call (SPMD): a
+rank takes its contiguous rows of the batch ("data"), holds its shards of
+the UNet's attention and feed-forward weights ("model"), and returns the
+whole batch, all-gathered. With ``ST_TPU_AUTOTUNE=1`` a new signature's
+kernel shapes are tuned on the card before its loop is built
+(``kernels/autotune.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stabletriton_tpu_torch import ops
 from ..compile import (
@@ -51,8 +59,10 @@ from stabletriton_tpu_torch.models.unet import (
     unet_apply,
     unet_apply_shallow,
 )
+from stabletriton_tpu_torch.runtime import mesh as mesh_mod
 from stabletriton_tpu_torch.runtime import scheduler as sched
 from stabletriton_tpu_torch.runtime.denoise import (
+    SOLVERS,
     make_denoise_loop,
     norm_deep_cache,
     norm_guidance_interval,
@@ -133,7 +143,8 @@ class SDXLPipeline:
     whose denoise loop replays one CUDA graph on the card.
 
     The params are fused, cast (and under ``CompileConfig.quantize``
-    quantized) once, in ``__post_init__``, and must not move afterwards:
+    quantized, under a mesh sharded) once, in ``__post_init__``, and must
+    not move afterwards:
     the graphs read them at the addresses they had when each graph was
     captured. Code that replaces params must drop the pipeline's programs
     (``_cache``) with them."""
@@ -152,6 +163,13 @@ class SDXLPipeline:
     # the card unless the caller asks for the CPU (the CPU-sized twins below
     # do); with no CUDA device the default raises, it never falls back
     device: Any = "cuda"
+    # multi-rank: a ("data", "model") DeviceMesh (runtime/mesh.make_mesh),
+    # entered by every rank with the same calls. Params are sharded at
+    # construction (with model > 1 the attention projections stay unfused:
+    # a contiguous split of a fused [q|k|v] weight is not head-aligned), a
+    # rank runs its rows of each batch, and every rank returns the whole
+    # batch
+    mesh: Any = None
     _cache: dict[Any, Any] = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     # the memory pool, side stream and replay lock of every program's graph
@@ -164,7 +182,7 @@ class SDXLPipeline:
                                "pass device='cpu' to run on the CPU")
         self.params = dict(self.params)
         unet = self.params["unet"]
-        if self.compile_config.backend != "reference":
+        if self.compile_config.backend != "reference" and self._tp_size() == 1:
             unet = fuse_attention_projections(unet)
         unet = cast_params(unet, self.compile_config)
         mode = self.compile_config.quantize
@@ -175,6 +193,49 @@ class SDXLPipeline:
             unet = quantize_linear_weights(unet, min_dim=self.compile_config.quantize_min_dim,
                                            conv=mode == "int8_conv", ff_only=mode == "int8_ff")
         self.params["unet"] = unet
+        if self.mesh is not None:
+            if self._tp_size() > 1 and self.device.type == "cuda":
+                backend = dist.get_backend(self.mesh.get_group(mesh_mod.MODEL_AXIS))
+                if backend != "nccl":
+                    raise ValueError(
+                        f"a tensor-parallel pipeline on the card captures its all-reduces in "
+                        f"the denoise loop's graph, and a {backend} group cannot be captured: "
+                        f"use NCCL for the mesh's \"model\" axis")
+            self.params = {group: mesh_mod.shard_params(p, self.mesh)
+                           for group, p in self.params.items()}
+
+    def _tp_size(self) -> int:
+        """The tensor-parallel ("model") axis size; 1 off a mesh."""
+        return mesh_mod.axis_size(self.mesh, mesh_mod.MODEL_AXIS)
+
+    def _shard_batch(self, batch: int, *arrays):
+        """This rank's rows of each array (None stays None) of a batch of
+        ``batch``, and how many they are: all of them off a mesh. The
+        counterpart of JAX's ``_shard_batch``; there is no ``_decode_chunk``,
+        since each rank decodes its own rows, one image at a time, so the
+        data axis decodes that many images at once."""
+        rows = mesh_mod.batch_slice(batch, self.mesh)
+        return rows.stop - rows.start, [None if a is None else a[rows] for a in arrays]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch of a rank's rows, on every rank."""
+        return mesh_mod.gather_batch(t, self.mesh)
+
+    def _ensure_tuned(self, batch, lat_h, lat_w, guidance_scale, guidance_interval) -> None:
+        """With ST_TPU_AUTOTUNE set, a bf16 pipeline on the card off a
+        tensor-parallel mesh: tune every shape of the signature (``batch``
+        this rank's rows) that the binding sends to a kernel and the table
+        lacks, before its loop is built and captured; the UNet's batch
+        multiples are the JAX pipeline's ``cfg_factors`` rule."""
+        from stabletriton_tpu_torch.kernels import autotune
+
+        if (not autotune.autotune_enabled() or self.device.type != "cuda"
+                or self.compile_config.torch_dtype != torch.bfloat16 or self._tp_size() > 1):
+            return
+        autotune.ensure_tuned_for(
+            resolve_binding(self.compile_config), self.unet_config, lat_h, lat_w, batch,
+            torch.bfloat16, autotune.cfg_factors(guidance_scale, guidance_interval),
+            fused=self.compile_config.backend != "reference")
 
     def _check_resolution(self, height: int, width: int) -> None:
         f = self.vae_config.spatial_scale_factor
@@ -182,6 +243,24 @@ class SDXLPipeline:
         step = f * unet_div
         if height % step or width % step:
             raise ValueError(f"height/width must be multiples of {step}; got {height}x{width}")
+
+    def check_txt2img(self, *, height: int, width: int, solver: str = "euler",
+                      deep_cache: int | tuple[int, int] | None = None) -> None:
+        """Raise the ValueError txt2img raises for these settings, before any
+        work on the device: a resolution the VAE and UNet do not divide, an
+        unknown solver, a DeepCache interval below 1 or a depth outside the
+        UNet's levels. A serving leader on a mesh checks each group's call
+        with it before it broadcasts the call to the other ranks."""
+        self._check_resolution(height, width)
+        if solver not in SOLVERS:
+            raise ValueError(f"unknown solver {solver!r}; one of {SOLVERS}")
+        deep_cache = norm_deep_cache(deep_cache)
+        if deep_cache is not None:
+            if deep_cache[0] < 1:
+                raise ValueError(f"deep_cache interval must be >= 1: {deep_cache[0]}")
+            f = self.vae_config.spatial_scale_factor
+            deep_cache_shape(self.unet_config, 1, height // f, width // f,
+                             cache_depth=deep_cache[1])
 
     def _unet_step_fns(self):
         """(unet_step, precompute, precompute_time) for make_denoise_loop.
@@ -295,10 +374,11 @@ class SDXLPipeline:
             time_ids = self._size_ids(height, width, rows)
         return ctx.to(dtype), pooled.to(dtype), time_ids
 
-    def _loop(self, schedule, *, guidance_scale, solver, lat_h, lat_w, guidance_interval,
-              deep_cache):
+    def _loop(self, schedule, *, batch, guidance_scale, solver, lat_h, lat_w,
+              guidance_interval, deep_cache):
         """A program's denoise loop over ``schedule``, graphed on the
-        pipeline's pool."""
+        pipeline's pool; its shapes tuned first (:meth:`_ensure_tuned`)."""
+        self._ensure_tuned(batch, lat_h, lat_w, guidance_scale, guidance_interval)
         unet_step, kv_pre, time_pre = self._unet_step_fns()
         return self._graphs.wrap(make_denoise_loop(
             unet_step, schedule, guidance_scale=guidance_scale, solver=solver,
@@ -314,7 +394,7 @@ class SDXLPipeline:
         binding = resolve_binding(self.compile_config)
 
         def program(params, *args):
-            with torch.inference_mode(), ops.use_backends(binding):
+            with torch.inference_mode(), ops.use_backends(binding), mesh_mod.use_mesh(self.mesh):
                 latents = loop(params["unet"], *loop_inputs(params, *args))
                 if not decode:
                     return latents
@@ -323,7 +403,7 @@ class SDXLPipeline:
         program.loop, program.loop_inputs = loop, loop_inputs
         return program
 
-    def _build(self, *, height, width, steps, guidance_scale, solver, return_latents,
+    def _build(self, *, batch, height, width, steps, guidance_scale, solver, return_latents,
                guidance_interval=None, deep_cache=None):
         """The txt2img program for one signature. The denoise loop is a
         graphed callable whose static inputs are the latents, ctx, pooled and
@@ -349,8 +429,8 @@ class SDXLPipeline:
         schedule = sched.make_schedule(self.scheduler_config, steps)
         f = self.vae_config.spatial_scale_factor
         lat_h, lat_w = height // f, width // f
-        loop = self._loop(schedule, guidance_scale=guidance_scale, solver=solver, lat_h=lat_h,
-                          lat_w=lat_w, guidance_interval=guidance_interval,
+        loop = self._loop(schedule, batch=batch, guidance_scale=guidance_scale, solver=solver,
+                          lat_h=lat_h, lat_w=lat_w, guidance_interval=guidance_interval,
                           deep_cache=deep_cache)
 
         def loop_inputs(params, ids1, ids2, neg_ids1, neg_ids2, seeds):
@@ -385,7 +465,7 @@ class SDXLPipeline:
         sig = (batch, height, width, steps, guidance_scale, solver, return_latents,
                guidance_interval, deep_cache)
         return self._cached(sig, lambda: self._build(
-            height=height, width=width, steps=steps, guidance_scale=guidance_scale,
+            batch=batch, height=height, width=width, steps=steps, guidance_scale=guidance_scale,
             solver=solver, return_latents=return_latents, guidance_interval=guidance_interval,
             deep_cache=deep_cache))
 
@@ -414,19 +494,21 @@ class SDXLPipeline:
         ``(N, depth)`` recomputes the outermost ``depth`` levels. Both draft
         knobs compose with each other and with ``guidance_scale <= 1`` (see
         make_denoise_loop). On the card the first call of a signature
-        captures its denoise loop; later calls replay it."""
-        self._check_resolution(height, width)
+        captures its denoise loop; later calls replay it. Under a mesh every
+        rank makes the same call; image i keeps seed + i on any mesh."""
+        self.check_txt2img(height=height, width=width, solver=solver, deep_cache=deep_cache)
         batch = int(ids1.shape[0])
         if neg_ids1 is None:
             neg_ids1 = self.clip_config.empty_prompt_ids(batch, int(ids1.shape[1]))
         if neg_ids2 is None:
             neg_ids2 = self.clip2_config.empty_prompt_ids(batch, int(ids2.shape[1]))
-        fn = self._program(batch, height, width, steps, float(guidance_scale), solver,
+        local, (ids1, ids2, neg_ids1, neg_ids2, seeds) = self._shard_batch(
+            batch, ids1, ids2, neg_ids1, neg_ids2, _seed_vector(seed, batch))
+        fn = self._program(local, height, width, steps, float(guidance_scale), solver,
                            return_latents,
                            norm_guidance_interval(guidance_interval, guidance_scale),
                            norm_deep_cache(deep_cache))
-        return fn(self.params, *self._ids(ids1, ids2, neg_ids1, neg_ids2),
-                  _seed_vector(seed, batch))
+        return self._gather(fn(self.params, *self._ids(ids1, ids2, neg_ids1, neg_ids2), seeds))
 
     def warmup(self, *, batch: int = 1, height: int = 1024, width: int = 1024,
                steps: int = 30, guidance_scale: float = 5.0, solver: str = "euler",
@@ -438,8 +520,10 @@ class SDXLPipeline:
         warm-up, capture and instantiate, on the loop inputs of all-zero
         token ids and seeds, so that the first real request of the
         signature replays. Decodes nothing and returns nothing. On the CPU
-        nothing is captured, so only the program is built."""
+        nothing is captured, so only the program is built. ``batch`` is the
+        whole batch, as txt2img's."""
         self._check_resolution(height, width)
+        batch, _ = self._shard_batch(batch)
         fn = self._program(batch, height, width, steps, float(guidance_scale), solver, False,
                            norm_guidance_interval(guidance_interval, guidance_scale),
                            norm_deep_cache(deep_cache))
@@ -449,11 +533,12 @@ class SDXLPipeline:
         n2 = prompt_len or self.clip2_config.max_position_embeddings
         ids1 = torch.zeros((batch, n1), dtype=torch.long, device=self.device)
         ids2 = torch.zeros((batch, n2), dtype=torch.long, device=self.device)
-        with torch.inference_mode(), ops.use_backends(resolve_binding(self.compile_config)):
+        with (torch.inference_mode(), ops.use_backends(resolve_binding(self.compile_config)),
+              mesh_mod.use_mesh(self.mesh)):
             fn.loop(self.params["unet"], *fn.loop_inputs(self.params, ids1, ids2, ids1, ids2,
                                                          [0] * batch))
 
-    def _build_img2img(self, *, lat_h, lat_w, steps, start, guidance_scale, solver,
+    def _build_img2img(self, *, batch, lat_h, lat_w, steps, start, guidance_scale, solver,
                        aesthetic_scores, decode, guidance_interval=None, deep_cache=None):
         """The img2img program of one signature: the input latents noised to
         sigmas[start], the schedule's steps from ``start`` on, the decode
@@ -462,8 +547,8 @@ class SDXLPipeline:
         full = sched.make_schedule(self.scheduler_config, steps)
         part = sched.Schedule(timesteps=full.timesteps[start:], sigmas=full.sigmas[start:],
                               init_noise_sigma=float(np.sqrt(full.sigmas[start] ** 2 + 1)))
-        loop = self._loop(part, guidance_scale=guidance_scale, solver=solver, lat_h=lat_h,
-                          lat_w=lat_w, guidance_interval=guidance_interval,
+        loop = self._loop(part, batch=batch, guidance_scale=guidance_scale, solver=solver,
+                          lat_h=lat_h, lat_w=lat_w, guidance_interval=guidance_interval,
                           deep_cache=deep_cache)
         f = self.vae_config.spatial_scale_factor
         sigma0 = float(part.sigmas[0])
@@ -503,17 +588,20 @@ class SDXLPipeline:
             neg_ids1 = self.clip_config.empty_prompt_ids(batch, int(ids1.shape[1]))
         if neg_ids2 is None:
             neg_ids2 = self.clip2_config.empty_prompt_ids(batch, int(ids2.shape[1]))
+        local, (latents, ids1, ids2, neg_ids1, neg_ids2, seeds) = self._shard_batch(
+            batch, latents, ids1, ids2, neg_ids1, neg_ids2, _seed_vector(seed, batch))
         scores = tuple(float(v) for v in aesthetic_scores)
         gi = norm_guidance_interval(guidance_interval, guidance_scale)
         dc = norm_deep_cache(deep_cache)
         g = float(guidance_scale)
-        sig = ("i2i", batch, lat_h, lat_w, steps, start, g, solver, scores, decode, gi, dc)
+        sig = ("i2i", local, lat_h, lat_w, steps, start, g, solver, scores, decode, gi, dc)
         fn = self._cached(sig, lambda: self._build_img2img(
-            lat_h=lat_h, lat_w=lat_w, steps=steps, start=start, guidance_scale=g, solver=solver,
-            aesthetic_scores=scores, decode=decode, guidance_interval=gi, deep_cache=dc))
+            batch=local, lat_h=lat_h, lat_w=lat_w, steps=steps, start=start, guidance_scale=g,
+            solver=solver, aesthetic_scores=scores, decode=decode, guidance_interval=gi,
+            deep_cache=dc))
         latents = torch.as_tensor(latents).to(self.device)
-        return fn(self.params, latents, *self._ids(ids1, ids2, neg_ids1, neg_ids2),
-                  _seed_vector(seed, batch))
+        return self._gather(fn(self.params, latents,
+                               *self._ids(ids1, ids2, neg_ids1, neg_ids2), seeds))
 
     def _require_encoder(self, what: str) -> None:
         if "encoder.conv_in.weight" not in self.params["vae"]:
@@ -536,7 +624,7 @@ class SDXLPipeline:
             latents = _encode_images(self.vae_config, self.params["vae"], image, gen)
         return self.img2img(latents, ids1, ids2, **kwargs)
 
-    def _build_inpaint(self, *, height, width, steps, guidance_scale, solver,
+    def _build_inpaint(self, *, batch, height, width, steps, guidance_scale, solver,
                        guidance_interval=None, deep_cache=None):
         """The inpainting program of one signature: txt2img's with the
         UNet's 5 extra input channels, the latent mask and the masked
@@ -546,8 +634,8 @@ class SDXLPipeline:
         schedule = sched.make_schedule(self.scheduler_config, steps)
         f = self.vae_config.spatial_scale_factor
         lat_h, lat_w = height // f, width // f
-        loop = self._loop(schedule, guidance_scale=guidance_scale, solver=solver, lat_h=lat_h,
-                          lat_w=lat_w, guidance_interval=guidance_interval,
+        loop = self._loop(schedule, batch=batch, guidance_scale=guidance_scale, solver=solver,
+                          lat_h=lat_h, lat_w=lat_w, guidance_interval=guidance_interval,
                           deep_cache=deep_cache)
 
         def loop_inputs(params, image, mask, ids1, ids2, neg_ids1, neg_ids2, seeds):
@@ -589,13 +677,15 @@ class SDXLPipeline:
         gi = norm_guidance_interval(guidance_interval, guidance_scale)
         dc = norm_deep_cache(deep_cache)
         g = float(guidance_scale)
-        sig = ("inpaint", batch, height, width, steps, g, solver, gi, dc)
+        local, (image, mask, ids1, ids2, neg_ids1, neg_ids2, seeds) = self._shard_batch(
+            batch, image, mask, ids1, ids2, neg_ids1, neg_ids2, _seed_vector(seed, batch))
+        sig = ("inpaint", local, height, width, steps, g, solver, gi, dc)
         fn = self._cached(sig, lambda: self._build_inpaint(
-            height=height, width=width, steps=steps, guidance_scale=g, solver=solver,
-            guidance_interval=gi, deep_cache=dc))
+            batch=local, height=height, width=width, steps=steps, guidance_scale=g,
+            solver=solver, guidance_interval=gi, deep_cache=dc))
         image, mask = (torch.as_tensor(a).to(self.device) for a in (image, mask))
-        return fn(self.params, image, mask, *self._ids(ids1, ids2, neg_ids1, neg_ids2),
-                  _seed_vector(seed, batch))
+        return self._gather(fn(self.params, image, mask,
+                               *self._ids(ids1, ids2, neg_ids1, neg_ids2), seeds))
 
     def cache_signatures(self):
         return sorted(self._cache, key=repr)
@@ -647,12 +737,13 @@ def tiny_configs():
 
 
 def make_tiny_pipeline(compile_config: CompileConfig | None = None, *,
-                       params: dict | None = None, device="cpu") -> SDXLPipeline:
+                       params: dict | None = None, device="cpu", mesh=None) -> SDXLPipeline:
     """A structurally complete but tiny pipeline, the CPU-sized test twin of
     the full one: it runs on the CPU unless ``device`` names another (the
     pipeline's own default is the card). ``params`` (optional) replaces the
     seeded random init, e.g. with the JAX package's weights through
-    ``io.convert.params_from_numpy``."""
+    ``io.convert.params_from_numpy``; ``mesh`` shards it (every rank of the
+    mesh makes the same pipeline)."""
     ucfg, c1, c2, vcfg = tiny_configs()
     if params is None:
         params = {
@@ -663,7 +754,7 @@ def make_tiny_pipeline(compile_config: CompileConfig | None = None, *,
         }
     return SDXLPipeline(
         unet_config=ucfg, clip_config=c1, clip2_config=c2, vae_config=vcfg,
-        params=params, device=device,
+        params=params, device=device, mesh=mesh,
         compile_config=compile_config or CompileConfig(backend="reference", dtype="float32"),
     )
 

@@ -8,7 +8,14 @@ behaviour:
     one program, and on the card one replayed graph a bucket, serves the
     group;
   * a group's batch pads up to a bucket size (1/2/4/8);
-  * per-request seeds ride along, so batching never changes a request's image.
+  * per-request seeds ride along, so batching never changes a request's image;
+  * over a mesh (``runtime/mesh.py``) the buckets are multiples of the data
+    axis, and under SPMD only global rank 0 takes requests: it checks each
+    group's call (``SDXLPipeline.check_txt2img``) and broadcasts its ids,
+    seeds and settings, and every other rank's engine runs the same call on
+    them (a follower loop), so the ranks' collectives meet. A call that
+    fails anyway fails on every rank alike: the leader gives the error to
+    the group's futures and a follower logs it, and both go on to the next.
 
 The worker runs the pipeline under ``torch.inference_mode()``; grad mode is
 thread-local, so nothing the caller's thread sets reaches the worker.
@@ -23,8 +30,11 @@ from concurrent.futures import Future
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from stabletriton_tpu_torch.runtime import mesh as mesh_mod
 from stabletriton_tpu_torch.runtime.denoise import norm_deep_cache, norm_guidance_interval
+from stabletriton_tpu_torch.runtime.profiling import logger
 
 _BUCKETS = (1, 2, 4, 8)
 
@@ -54,30 +64,46 @@ class Request:
                 norm_deep_cache(self.deep_cache))
 
 
-def _bucket(n: int) -> int:
-    for b in _BUCKETS:
+def _bucket(n: int, buckets=_BUCKETS) -> int:
+    for b in buckets:
         if n <= b:
             return b
-    return _BUCKETS[-1]
+    return buckets[-1]
 
 
 class ServingEngine:
-    """Dynamic-batching front end over an SDXLPipeline."""
+    """Dynamic-batching front end over an SDXLPipeline. Over a mesh every
+    rank makes one engine; rank 0's takes the requests (``submit``) and the
+    others follow it until it closes."""
 
     def __init__(self, pipeline, tok1, tok2, *, max_batch: int = _BUCKETS[-1],
                  max_wait_s: float = 0.05):
-        if max_batch < _BUCKETS[0]:
-            raise ValueError(f"max_batch={max_batch} is below the smallest bucket")
+        mesh = getattr(pipeline, "mesh", None)
+        data = mesh_mod.axis_size(mesh, mesh_mod.DATA_AXIS)
+        self._buckets = tuple(b * data for b in _BUCKETS)
+        if max_batch < self._buckets[0]:
+            # never exceed a caller's memory / latency cap: a sharded
+            # pipeline runs no batch below the data axis
+            raise ValueError(
+                f"max_batch={max_batch} is below the smallest mesh-compatible "
+                f"bucket {self._buckets[0]} (data axis {data}); raise "
+                f"max_batch or use a smaller data axis")
         self.pipeline = pipeline
         self.tok1, self.tok2 = tok1, tok2
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
+        self._spmd = mesh is not None and dist.get_world_size() > 1
+        self.leader = not self._spmd or dist.get_rank() == 0
         self._q: "queue.Queue[tuple[Request, Future] | None]" = queue.Queue()
-        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread = threading.Thread(target=self._worker if self.leader else self._follow,
+                                        daemon=True)
         self._thread.start()
 
     # -- client side --------------------------------------------------------
     def submit(self, request: Request) -> Future:
+        if not self.leader:
+            raise RuntimeError("only global rank 0's engine takes requests; the others "
+                               "follow it")
         fut: Future = Future()
         self._q.put((request, fut))
         return fut
@@ -86,8 +112,11 @@ class ServingEngine:
         return self.submit(Request(prompt=prompt, **kw)).result()
 
     def close(self):
-        self._q.put(None)
-        self._thread.join(timeout=30)
+        """Stop the worker (rank 0 also stops the followers); a follower's
+        close waits for rank 0's."""
+        if self.leader:
+            self._q.put(None)
+        self._thread.join(timeout=None if self._spmd else 30)
 
     # -- worker -------------------------------------------------------------
     def _drain_group(self, first):
@@ -112,15 +141,15 @@ class ServingEngine:
 
     def _run_group(self, reqs: list[Request]) -> np.ndarray:
         n = len(reqs)
-        pad = _bucket(n) - n
+        pad = _bucket(n, self._buckets) - n
         prompts = [r.prompt for r in reqs] + [""] * pad
         negatives = [r.negative for r in reqs] + [""] * pad
         seq1 = self.pipeline.clip_config.max_position_embeddings
         seq2 = self.pipeline.clip2_config.max_position_embeddings
         r0 = reqs[0]
-        imgs = self.pipeline.txt2img(
-            self.tok1.encode_batch(prompts, max_len=seq1),
-            self.tok2.encode_batch(prompts, max_len=seq2, pad=0),
+        call = dict(
+            ids1=self.tok1.encode_batch(prompts, max_len=seq1),
+            ids2=self.tok2.encode_batch(prompts, max_len=seq2, pad=0),
             neg_ids1=self.tok1.encode_batch(negatives, max_len=seq1),
             neg_ids2=self.tok2.encode_batch(negatives, max_len=seq2, pad=0),
             height=r0.height, width=r0.width, steps=r0.steps,
@@ -128,12 +157,34 @@ class ServingEngine:
             guidance_interval=r0.guidance_interval, deep_cache=r0.deep_cache,
             seed=[r.seed for r in reqs] + [0] * pad,
         )
-        return imgs.float().cpu().numpy()
+        if self._spmd:
+            # only a call the followers can run is broadcast
+            self.pipeline.check_txt2img(height=r0.height, width=r0.width, solver=r0.solver,
+                                        deep_cache=r0.deep_cache)
+            dist.broadcast_object_list([call], src=0)
+        return self.pipeline.txt2img(**call).float().cpu().numpy()
+
+    def _follow(self):
+        """A follower rank: run each call rank 0 broadcasts, until it
+        broadcasts None (its close). A call that raises raised on rank 0
+        too, which gave the error to its waiters: log it and follow on."""
+        with torch.inference_mode():
+            while True:
+                box = [None]
+                dist.broadcast_object_list(box, src=0)
+                if box[0] is None:
+                    return
+                try:
+                    self.pipeline.txt2img(**box[0])
+                except Exception:
+                    logger.exception("follower rank %d: a served call failed", dist.get_rank())
 
     def _worker(self):
         while True:
             item = self._q.get()
             if item is None:
+                if self._spmd:
+                    dist.broadcast_object_list([None], src=0)
                 return
             group = self._drain_group(item)
             futs = [f for _, f in group]

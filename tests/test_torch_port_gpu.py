@@ -15,6 +15,7 @@ import math
 import pytest
 import torch
 
+from stabletriton_tpu_torch.kernels import autotune as tautotune
 from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.kernels import dropout as tdropout
 from stabletriton_tpu_torch.kernels import flash_attention as tfa
@@ -38,6 +39,17 @@ def cuda_device():
         yield torch.device("cuda", 0)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.fixture(autouse=True)
+def rule_plans():
+    """The tests here hold the kernels at the fitted rules' plans
+    (``wgmma_plan``, ``skinny_plan``, ``tiny_kv_plan``, ``kernel_name``),
+    which their expected launch keys name; the autotune table, which the
+    routes read first, is off for them (``chip_smoke.py`` phase 9t holds
+    the tuned plans against the plain versions)."""
+    with tautotune.disabled():
+        yield
 
 
 @pytest.mark.gpu

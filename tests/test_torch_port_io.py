@@ -587,5 +587,6 @@ def test_port_imports_without_jax():
     for mod in ("native", "io.safetensors_io", "io.tokenizer", "io.torch_ingest",
                 "io.single_file", "io.pretrained", "io.lora", "frontends.diffusers",
                 "frontends.sgm", "frontends.comfyui", "kernels.flash_attention",
-                "runtime.pipeline", "runtime.profiling"):
+                "runtime.pipeline", "runtime.profiling", "kernels.autotune",
+                "kernels.fft_conv", "runtime.mesh"):
         assert f"stabletriton_tpu_torch.{mod}" in names
