@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile] [--plans]
     python3 chip_smoke.py --host-time [DIR]
+    python3 chip_smoke.py --group-norm [DIR]
 
 ``--profile`` adds a torch.profiler breakdown of one step under each
 binding to phases 4 and 4c (device time by kernel family, idle share, the
@@ -18,6 +19,12 @@ embedding and dropout wrappers, of bare C entries and of the fused GN conv
 op, of the package in DIR (a copy of another tree, to compare two in one
 run) or of this checkout, with the skinny linear's, LayerNorm's and
 dropout's device time and their PyTorch calls'; it prints no result line.
+``--group-norm`` likewise only builds the kernels and prints, for the
+package in DIR or this checkout, GroupNorm's (K9's) device time at every
+shape of the paths, whole and as the fused conv's stats and fold, beside
+F.group_norm and its bound, then the replayed SDXL-base step under the
+fused-op and all-kernel bindings and a 1024^2 f32 decode under the fused-op
+binding by kernel family; it prints no result line.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -47,9 +54,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bound in 3xTF32 on the tensor cores as well; each bf16 attention row
      with Sk <= 128 (K5, and K1's cross-attention) also prints the device
      time of every bf16 kernel at the same operands;
-  3b. fused-op kernels: GroupNorm (K9: stats, device fold and apply behind
-     one C entry, beside F.group_norm, its device time from the profiler
-     beside the wrapper's), LayerNorm / RMSNorm (K10, beside F.layer_norm /
+  3b. fused-op kernels: GroupNorm (K9: the stats-and-fold kernel and the
+     apply kernel behind one C entry) at every GroupNorm shape of the
+     SDXL-base, SD1.5 and f32 VAE decoder paths (K9_CASES), beside
+     F.group_norm, the same bits in a second run, and its stats and fold
+     alone (the fused conv's prologue) by device time beside their bound;
+     LayerNorm / RMSNorm (K10, beside F.layer_norm /
      F.rms_norm), GEGLU (K11) and the GN-fused 3x3 conv (K8, its scale /
      shift from the GroupNorm fold kernel) against their plain versions at
      the same path's shapes; K8 also beside the unfused pair (K9 apply, K6);
@@ -464,6 +474,51 @@ def compare(name, kernel_fn, plain_fn, tol, iters, *, bound_ms, library_fn=None,
     return r
 
 
+# K9's shapes, (B, H, W, C), dtype, act and path: every GroupNorm input of
+# the SDXL-base 1024^2 UNet step at CFG batch 2 in bf16 (the Transformer2D
+# GroupNorms at 64^2 x 640 and 32^2 x 1280, act None; the fused conv's
+# prologue, act SiLU, at the resnets' inputs, the skip concats included),
+# SD1.5 512^2's Transformer2D GroupNorms at its four levels, and the f32
+# VAE decoder's at batch 1 from 128^2 x 512 through 1024^2 x 128. A row's
+# launches are its path's (main: phase 5b's fused-op serving, "sdxl", or
+# phase 4c's SD1.5 fused-op step, "sd15"): K9 at its shape and the fused
+# conv (K8, whose prologue runs K9's stats and fold) at its input shape.
+K9_CASES = [
+    ((2, 128, 128, 320), torch.bfloat16, "silu", "sdxl"),
+    ((2, 128, 128, 640), torch.bfloat16, "silu", "sdxl"),
+    ((2, 128, 128, 960), torch.bfloat16, "silu", "sdxl"),
+    ((2, 64, 64, 640), torch.bfloat16, None, "sdxl"),
+    ((2, 64, 64, 1280), torch.bfloat16, "silu", "sdxl"),
+    ((2, 64, 64, 1920), torch.bfloat16, "silu", "sdxl"),
+    ((2, 32, 32, 1280), torch.bfloat16, None, "sdxl"),
+    ((2, 32, 32, 2560), torch.bfloat16, "silu", "sdxl"),
+    ((2, 64, 64, 320), torch.bfloat16, None, "sd15"),
+    ((2, 32, 32, 640), torch.bfloat16, None, "sd15"),
+    ((2, 16, 16, 1280), torch.bfloat16, None, "sd15"),
+    ((2, 8, 8, 1280), torch.bfloat16, None, "sd15"),
+    ((1, 128, 128, 512), torch.float32, "silu", "sdxl"),
+    ((1, 256, 256, 512), torch.float32, "silu", "sdxl"),
+    ((1, 512, 512, 512), torch.float32, "silu", "sdxl"),
+    ((1, 512, 512, 256), torch.float32, "silu", "sdxl"),
+    ((1, 1024, 1024, 256), torch.float32, "silu", "sdxl"),
+    ((1, 1024, 1024, 128), torch.float32, "silu", "sdxl"),
+]
+
+
+def k9_name(shape, dtype, act, path) -> str:
+    return (f"group_norm {tuple(shape)} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+            f"act={act}" + (" (SD1.5)" if path == "sd15" else ""))
+
+
+def k9_launches(by_key: dict, hwc) -> int:
+    """Launches of K9 on a path at an image shape (H, W, C): whole
+    GroupNorms (K9's counter) and its stats and fold as the prologue of a
+    fused conv whose input has that shape (K8's counter)."""
+    h, w, c = hwc
+    return (sum(n for key, n in by_key["K9"].items() if f" {h}x{w} c={c} " in key)
+            + sum(n for key, n in by_key["K8"].items() if f" {h}x{w} {c}->" in key))
+
+
 def phase_fused_kernels(dev):
     """K8-K11 against their plain versions at the fused-op path's shapes,
     each beside its library call where one PyTorch call computes the same
@@ -492,14 +547,13 @@ def phase_fused_kernels(dev):
                  kernel=kernel)
         results.append(r)
 
-    # K9: UNet transformer GroupNorms (bf16, no act), a resnet-sized one with
-    # SiLU, and the VAE decoder's f32 GroupNorms with SiLU; the library call
-    # is F.group_norm on an NCHW copy made outside the timed call (GroupNorm
-    # alone: the SiLU rows' library time leaves the activation out)
-    for shape, dtype, act, iters in [((2, 64, 64, 640), bf16, None, 20),
-                                     ((2, 128, 128, 320), bf16, "silu", 20),
-                                     ((1, 128, 128, 512), f32, "silu", 20),
-                                     ((1, 1024, 1024, 128), f32, "silu", 5)]:
+    # K9 at every GroupNorm shape of the SDXL-base, SD1.5 and f32 VAE decoder
+    # paths (K9_CASES): the whole GroupNorm against its plain version, the
+    # same bits in a second run, F.group_norm on an NCHW copy made outside the
+    # timed call (GroupNorm alone: the SiLU rows' library time leaves the
+    # activation out), and the stats and fold alone (st_group_norm_fold, the
+    # launch the fused conv's prologue makes) by device time beside its bound
+    for shape, dtype, act, path in K9_CASES:
         x = randn(*shape, dtype=dtype, scale=2.0, shift=0.5)
         g, b = randn(shape[3], dtype=dtype, shift=1.0), randn(shape[3], dtype=dtype)
         kfn = lambda x=x, g=g, b=b, act=act: gn.group_norm(x, g, b, num_groups=32, act=act)
@@ -510,11 +564,20 @@ def phase_fused_kernels(dev):
                 x, g, b, num_groups=32, act=act)
         nchw = x.permute(0, 3, 1, 2).contiguous()
         lfn = lambda x=nchw, g=g, b=b: F.group_norm(x, 32, g, b, 1e-5)
-        name = f"group_norm {tuple(shape)} {'bf16' if dtype == bf16 else 'f32'} act={act}"
-        record("K9", name, "group_norm.cu", compare(
-            name, kfn, pfn, BF16_REL_TOL if dtype == bf16 else F32_REL_TOL, iters,
-            bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, b), dtype), library_fn=lfn,
-            library_label="F.group_norm", op_fn=ofn, op_label="default-binding op"))
+        name = k9_name(shape, dtype, act, path)
+        iters = 5 if x.numel() > 2**26 else 20
+        r = compare(name, kfn, pfn, BF16_REL_TOL if dtype == bf16 else F32_REL_TOL, iters,
+                    bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, b), dtype), library_fn=lfn,
+                    library_label="F.group_norm", op_fn=ofn, op_label="default-binding op")
+        if not torch.equal(kfn(), kfn()):
+            raise AssertionError(f"{name}: two runs differ")
+        r["fold_device_ms"] = device_ms(
+            lambda x=x, g=g, b=b: gn.scale_shift(x, g, b, num_groups=32), iters)[0]
+        r["fold_bound_ms"] = bound(0, nbytes(x, g, b) + 8 * shape[0] * shape[3], dtype)[0]
+        log(f"  stats and fold alone: device {r['fold_device_ms']:.4f} ms, bound "
+            f"{r['fold_bound_ms'] * 1e3:.4g} us ({r['fold_bound_ms'] / r['fold_device_ms']:.1%})")
+        r["k9_path"], r["k9_hwc"] = path, (shape[1], shape[2], shape[3])
+        record("K9", name, "group_norm.cu", r)
         del x, nchw
 
     # K10: the transformer LayerNorms, and RMSNorm through the same kernel
@@ -1434,6 +1497,94 @@ def phase_host_time(dev):
     torch.cuda.empty_cache()
 
 
+# the refiner's and SD2.x's Transformer2D GroupNorm shapes (phases 6k, 7k),
+# timed beside K9_CASES by ``--group-norm``
+K9_MORE = [((2, 64, 64, 768), torch.bfloat16, None, "refiner"),
+           ((2, 96, 96, 320), torch.bfloat16, None, "sd2"),
+           ((2, 48, 48, 640), torch.bfloat16, None, "sd2"),
+           ((2, 24, 24, 1280), torch.bfloat16, None, "sd2")]
+
+
+def phase_group_norm(dev):
+    """``--group-norm [DIR]``: K9 of the package in DIR (or of this
+    checkout), to compare two trees in one call (parent, change, change,
+    parent). At every K9_CASES and K9_MORE shape: the device time a call
+    (torch.profiler's kernel events, two sessions) of the GroupNorm and of
+    its stats and fold alone (scale_shift), F.group_norm's, the bound and
+    the error against the plain version. Then the replayed SDXL-base step
+    (compile_unet_kv, 128^2 latent, CFG batch 2) under the fused-op and the
+    all-kernel binding and a 1024^2 f32 decode under the fused-op binding,
+    each by kernel family (profile_step). Prints no result line."""
+    import torch.nn.functional as F
+
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import (FUSED_OP_OVERRIDES, CompileConfig,
+                                                compile_unet_kv, fuse_attention_projections,
+                                                resolve_binding)
+    from stabletriton_tpu_torch.kernels import group_norm as gn
+    from stabletriton_tpu_torch.models import vae as vae_mod
+    from stabletriton_tpu_torch.models.unet import sdxl_base_unet_config
+    from stabletriton_tpu_torch.runtime.pipeline import _decode_images
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = {}
+    with torch.inference_mode():
+        for shape, dtype, act, path in K9_CASES + K9_MORE:
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+            g = (torch.randn(shape[3], generator=gen, device=dev) + 1).to(dtype)
+            b = torch.randn(shape[3], generator=gen, device=dev).to(dtype)
+            nchw = x.permute(0, 3, 1, 2).contiguous()
+            iters = 5 if x.numel() > 2**26 else 20
+            err = (gn.group_norm(x, g, b, num_groups=32, act=act).float()
+                   - gn.group_norm_plain(x, g, b, num_groups=32, act=act).float()).abs().max()
+            full = [device_ms(lambda: gn.group_norm(x, g, b, num_groups=32, act=act), iters)[0]
+                    for _ in range(2)]
+            fold = [device_ms(lambda: gn.scale_shift(x, g, b, num_groups=32), iters)[0]
+                    for _ in range(2)]
+            lib = device_ms(lambda: F.group_norm(nchw, 32, g, b, 1e-5), iters)[0]
+            bnd = bound(0, 2 * nbytes(x) + nbytes(g, b), dtype)[0]
+            fold_bnd = bound(0, nbytes(x, g, b) + 8 * shape[0] * shape[3], dtype)[0]
+            name = k9_name(shape, dtype, act, path) + (
+                f" ({path})" if path in ("refiner", "sd2") else "")
+            rows[name] = {"device_ms": full, "fold_device_ms": fold, "library_device_ms": lib,
+                          "bound_ms": bnd, "fold_bound_ms": fold_bnd,
+                          "max_abs_err": err.item()}
+            log(f"group-norm {name}: device {full[0]:.4f} / {full[1]:.4f} ms "
+                f"({bnd / min(full):.1%} of the {bnd * 1e3:.4g} us bound), stats and fold "
+                f"{fold[0]:.4f} / {fold[1]:.4f} ms ({fold_bnd / min(fold):.1%} of "
+                f"{fold_bnd * 1e3:.4g} us), F.group_norm {lib:.4f} ms, max abs err "
+                f"{err.item():.2e}")
+            del x, nchw
+        torch.cuda.empty_cache()
+
+        ucfg = sdxl_base_unet_config()
+        fused = fuse_attention_projections(make_unet_params(dev, ucfg))
+        inputs = sdxl_step_inputs(dev)
+        sample, ctx, pooled, time_ids = (inputs[k] for k in ("sample", "ctx", "pooled",
+                                                             "time_ids"))
+        t = torch.full((2,), 500.0, device=dev)
+        steps = {}
+        for name in ("fused_ops", "all_kernels"):
+            pre, _, step = compile_unet_kv(ucfg, replay_configs()[name])
+            pre(fused, ctx)
+            kv = pre(fused, ctx)
+            step(fused, sample, t, kv, pooled, time_ids)  # eager, then the capture
+            steps[name] = profile_step(lambda: step(fused, sample, t, kv, pooled, time_ids),
+                                       f"group-norm: SDXL-base step replayed, {name}")
+            del pre, step, kv
+            gc.collect()
+            torch.cuda.empty_cache()
+        del fused
+        vcfg = vae_mod.sdxl_vae_config()
+        vae = vae_mod.init_vae_params(vcfg, 3, device=dev)
+        lat = torch.randn((1, 128, 128, 4), generator=gen, device=dev)
+        with ops.use_backends(resolve_binding(CompileConfig(overrides=FUSED_OP_OVERRIDES))):
+            steps["decode_fused_ops"] = profile_step(
+                lambda: _decode_images(vcfg, vae, lat),
+                "group-norm: 1024^2 f32 decode, fused-op binding", unit="decode", top=12)
+    log("group-norm " + json.dumps({"rows": rows, "profiles": steps}))
+
+
 def make_unet_params(dev, cfg):
     from stabletriton_tpu_torch.models.unet import init_unet_params
 
@@ -1626,9 +1777,8 @@ def profile_step(run, label, *, unit="step", top=0):
                 "wgmma linear": ("linear_wgmma",), "split-K reduce": ("splitk_reduce",),
                 "skinny linear": ("linear_skinny",),
                 "attention": ("attn_", "gemm_wgmma_tf32x3"),
-                "GroupNorm/LayerNorm/GEGLU/time_embed": (
-                    "gn_apply", "gn_stats", "gn_fold", "ln_rows", "geglu_kernel",
-                    "time_embed_kernel"),
+                "GroupNorm": ("gn_apply", "gn_stats", "gn_fold"),
+                "LayerNorm/GEGLU/time_embed": ("ln_rows", "geglu_kernel", "time_embed_kernel"),
                 "cuBLAS/cuDNN": ("gemm", "nvjet", "sm90_", "cutlass", "cudnn", "xmma", "conv2d")}
     by, counts, names, busy, end = {}, {}, {}, 0.0, spans[0][0]
     for t0, t1, name in spans:
@@ -1662,7 +1812,7 @@ def profile_step(run, label, *, unit="step", top=0):
                 f"{short(n)} {ms:.3f} ({c // 2}, {ms / total:.1%})" for n, (ms, c) in sorted(
                     names.items(), key=lambda kv: -kv[1][0])[:top]))
     return {"kernel_ms": total, "span_ms": span / 2e3, "idle": 1 - busy / span,
-            "kernels": len(spans) / 2}
+            "kernels": len(spans) / 2, "families": by}
 
 
 def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_linears,
@@ -1756,7 +1906,8 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
                 raise AssertionError(f"{label} all-kernel step: K13 by kernel {linears}, "
                                      f"expected {linear_split}")
             result[name] = {"mse": mse, "max_abs": mx, "launches": counts, "attention": attn,
-                            "convs": convs, "linears": linears}
+                            "convs": convs, "linears": linears,
+                            "by_key": {k: dict(counters[k].by_key) for k in ("K8", "K9")}}
         counters["K13"].reset()
         with ops.use_backends(bindings["all_kernels"]):
             precompute_cross_kv(cfg, fused, ctx)
@@ -3529,18 +3680,19 @@ def phase_sd2_kernels(dev):
            kernel)
     del x, w, args
 
-    # K9: Transformer2D's GroupNorm at 96^2, 320 channels
-    x = randn(2, 96, 96, 320, scale=2.0, shift=0.5)
-    g, bb = randn(320, shift=1.0), randn(320)
-    nchw = x.permute(0, 3, 1, 2).contiguous()
-    name = "group_norm (2, 96, 96, 320) bf16 act=None (SD2)"
-    record("K9", name, "group_norm.cu", compare(
-        name, lambda: gn.group_norm(x, g, bb, num_groups=32, eps=1e-6),
-        lambda: gn.group_norm_plain(x, g, bb, num_groups=32, eps=1e-6), BF16_REL_TOL, 20,
-        bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, bb), bf16),
-        library_fn=lambda: F.group_norm(nchw, 32, g, bb, 1e-6), library_label="F.group_norm"),
-        "K9", ["bf16 b=2 96x96 c=320 "])
-    del x, nchw
+    # K9: Transformer2D's GroupNorm at 96^2 x 320, 48^2 x 640 and 24^2 x 1280
+    for hh, c in [(96, 320), (48, 640), (24, 1280)]:
+        x = randn(2, hh, hh, c, scale=2.0, shift=0.5)
+        g, bb = randn(c, shift=1.0), randn(c)
+        nchw = x.permute(0, 3, 1, 2).contiguous()
+        name = f"group_norm (2, {hh}, {hh}, {c}) bf16 act=None (SD2)"
+        record("K9", name, "group_norm.cu", compare(
+            name, lambda x=x, g=g, bb=bb: gn.group_norm(x, g, bb, num_groups=32, eps=1e-6),
+            lambda x=x, g=g, bb=bb: gn.group_norm_plain(x, g, bb, num_groups=32, eps=1e-6),
+            BF16_REL_TOL, 20, bound_ms=bound(0, 2 * nbytes(x) + nbytes(g, bb), bf16),
+            library_fn=lambda x=nchw, g=g, bb=bb: F.group_norm(x, 32, g, bb, 1e-6),
+            library_label="F.group_norm"), "K9", [f"bf16 b=2 {hh}x{hh} c={c} "])
+        del x, nchw
 
     # K10, K11: LayerNorm and GEGLU over the 18432 rows of level 0
     x = randn(18432, 320, scale=2.0, shift=0.3)
@@ -5226,8 +5378,9 @@ def main() -> int:
     args = sys.argv[1:]
     profile = "--profile" in args
     host_time = "--host-time" in args
-    if host_time:
-        at = args.index("--host-time") + 1
+    gn_mode = "--group-norm" in args
+    for flag in ("--host-time", "--group-norm"):
+        at = args.index(flag) + 1 if flag in args else len(args)
         if at < len(args) and not args[at].startswith("--"):
             sys.path.insert(0, os.path.abspath(args[at]))
     if not torch.cuda.is_available():
@@ -5242,12 +5395,12 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     from stabletriton_tpu_torch.kernels import build
-    if host_time:
+    if host_time or gn_mode:
         log(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(build.__file__)))}")
     from stabletriton_tpu_torch.models.unet import sd15_unet_config, sdxl_base_unet_config
 
     pool = ThreadPoolExecutor(1)
-    if not host_time:
+    if not (host_time or gn_mode):
         # the native library (g++, phase 7a) builds beside the CUDA kernels
         native_build = pool.submit(build_native)
     t0 = time.perf_counter()
@@ -5265,6 +5418,10 @@ def main() -> int:
 
     if host_time:
         phase_host_time(dev)
+        pool.shutdown()
+        return 0
+    if gn_mode:
+        phase_group_norm(dev)
         pool.shutdown()
         return 0
     if "--plans" in args:
@@ -5364,6 +5521,9 @@ def main() -> int:
         if r["tpu"] == "K8":
             return sum(n for key, n in fused_by_key["K8"].items()
                        if key.startswith(r["kernel"] + " "))
+        if r["tpu"] == "K9" and "k9_path" in r:
+            return k9_launches(fused_by_key if r["k9_path"] == "sdxl"
+                               else sd15_step["fused_ops"]["by_key"], r["k9_hwc"])
         if r["tpu"] == "K12":
             return all_counts["K12"]
         if r["tpu"] == "K13":
@@ -5421,7 +5581,7 @@ def main() -> int:
                              "prep_ms", "device_ms", "library_device_ms", "alt_device_ms",
                              "tf32_padded_device_ms", "launch_floor_ms",
                              "cold_device_ms", "device_ms_source", "rule_kernel", "rule_ms",
-                             "rule_max_abs_err") if k in r},
+                             "rule_max_abs_err", "fold_device_ms", "fold_bound_ms") if k in r},
     } for r in kernel_results + image_results + sd2_results]
     for k in kernels:
         if k["launches"] == 0:

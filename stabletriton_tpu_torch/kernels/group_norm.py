@@ -8,25 +8,34 @@ activation) and every GroupNorm of the VAE decoder (f32, SiLU, up to (1,
 1024, 1024, 128)). Its stats and fold also feed the fused GN conv
 (:func:`conv_direct.gn_conv2d_fused`, through :func:`scale_shift`).
 
-What bounds it on the H100: device memory on the device, two reads and one
-write of x at about one FLOP per byte, far under the card's ~295 FLOP/B
-balance point; on the host, the launches. A UNet step runs it eagerly
-dozens of times, so a wrapper that launched ~16 small PyTorch ops for the
-fold of the (B, C) moments cost more than the kernels.
+What bounds it on the H100: device memory, one read of x for the moments
+and one read and one write for the apply, at about one FLOP per byte, far
+under the card's ~295 FLOP/B balance point; on the host, the launches.
 
-What the design does about it: one C entry, ``st_group_norm``, launches
-three kernels on the caller's stream: the stats pass (blocks over (channel
-slab, row chunk, batch) write per-chunk partials, f32 over runs of 16 rows,
-then double), the fold (one block a (group, image): the chunk partials
-summed in a fixed order, the group's channels in channel order, then scale
-and shift (B, C) f32 with E[x^2] - mean^2 clamped at 0) and the apply pass
-(16-byte vector loads and stores, one read and one write). The wrapper makes
-one workspace allocation (the partials and scale / shift), the output, and
-that one ctypes call: no PyTorch arithmetic. No float atomics: the same
-input gives the same bits in every run, and the chunking depends on (H*W, C)
-only, so an image gets the same scale / shift at every batch bucket.
-``st_group_norm_fold`` runs the first two kernels alone for the fused GN
-conv.
+What the design does about it: ``st_group_norm`` launches two kernels on
+the caller's stream. The first takes the moments and folds them in one
+launch: :func:`plan` cuts each image into units (a slab of ``sv`` 16-byte
+channel vectors that holds whole groups, by a chunk of rows; every lane has
+a vector), each thread keeps four 16-byte loads in flight and sums runs of
+16 rows in f32 into a double, and the last block of each (image, slab) to
+take its ticket sums the slab's chunk partials in chunk order and folds the
+slab's groups (channel order, f32, E[x^2] - mean^2 clamped at 0) into scale
+and shift (B, C) f32. Its loads carry an L2 evict_last policy, so where x
+fits the L2 the second kernel, the apply (:func:`apply_plan`'s units walked
+backwards, streaming loads and stores), and the fused GN conv's gather after
+``st_group_norm_fold`` (the first kernel alone) read x from L2. The
+wrapper makes one workspace allocation (the partials and scale / shift),
+the output, and one ctypes call: no PyTorch arithmetic.
+
+Determinism: no float atomics, every sum in a fixed order, and the plans a
+function of (H*W, C, vec, groups) alone, so the same input gives the same bits in
+every run and an image gets the same scale / shift at every batch bucket.
+The tickets are counters in a buffer kept per (device, stream) and zeroed
+once (:func:`_tickets`); the block that takes a ticket last sets it back to
+0, so every eager call and every graph replay starts from zero. Launches on
+one stream run one after another; a graph replays the buffer of the stream
+it was captured on, whose eager calls it is ordered with (``runtime/graphs.py``
+warms up and captures on one side stream).
 
 The clamp (C3 in ROADMAP.md): the JAX K9 fold takes rsqrt(E[x^2] - mean^2 +
 eps) with no clamp and gives NaN where a near-constant group's difference
@@ -34,8 +43,8 @@ rounds below 0; the JAX package's own ``_gn_fold`` (K8) and its reference
 ops clamp, and so does the port, in the kernel and in :func:`fold`.
 
 CUDA C++ rather than Triton: the repo has one build route (``build.py``),
-one launch check and one library, and these passes need nothing Triton
-would add.
+one launch check and one library, and the L2 cache policies and the ticket
+fold are plain PTX / CUDA.
 
 The plain version (:func:`group_norm_plain`: :func:`moments_plain`, then
 :func:`fold`, then :func:`apply_plain`) computes the kernels' function in
@@ -46,6 +55,8 @@ the CPU. A CUDA tensor goes to the kernels or the wrapper raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -55,11 +66,15 @@ from stabletriton_tpu_torch.kernels.build import (
     on_device)
 from stabletriton_tpu_torch.ops.registry import register
 
-STATS_BLOCKS_PER_IMAGE = 132  # one stats block per SM for a single image
-MIN_CHUNK_ROWS = 64           # 8 rows per thread at least
+THREADS = 256          # csrc/group_norm.cu MAX_THREADS: a block's threads at most
+LOADS = 4              # 16-byte loads a thread keeps in flight: a chunk's least rows a lane
+MIN_SLAB = 4           # vectors a stats slab spans at least (64-byte rows)
+STATS_SMEM = 48 * 1024  # csrc/group_norm.cu MAX_SMEM: the stats kernel's shared memory
+UNITS_PER_IMAGE = 264  # blocks an image at most: two of the four an SM holds
+TICKETS = 1 << 16      # counters of a (device, stream) buffer: B x slabs a launch
 
-# one count per GroupNorm (one st_group_norm call: stats, fold, apply); the
-# stats and fold launched for the fused GN conv count with that conv
+# one count per GroupNorm (one st_group_norm call: two kernels);
+# the stats and fold launched for the fused GN conv count with that conv
 # (conv_direct.GN_LAUNCHES)
 LAUNCHES = LaunchCounter()
 
@@ -76,7 +91,7 @@ def fold(s1: torch.Tensor, s2: torch.Tensor, gamma: torch.Tensor, beta: torch.Te
     ``normalize(x) = x * scale + shift``; var = E[x^2] - mean^2 clamped at 0,
     as the JAX package's ``_gn_fold``. The group's channels are added in
     channel order in f32, and each product and difference rounded on its
-    own, as the fold kernel (``gn_fold``) computes them."""
+    own, as the stats kernel's fold (``gn_stats_fold``) computes them."""
     n, c = s1.shape
     per = c // num_groups
     cnt = hw * per
@@ -115,11 +130,44 @@ def _vec(x: torch.Tensor) -> int:
     return v if x.shape[-1] % v == 0 and x.data_ptr() % 16 == 0 else 1
 
 
-def stats_chunks(hw: int, c: int, vec: int) -> int:
-    """Row chunks of the stats pass: about one block per SM for one image,
-    at least MIN_CHUNK_ROWS rows each. A function of (H*W, C) only."""
-    slabs = -(-(c // vec) // 32)
-    return max(1, min(-(-hw // MIN_CHUNK_ROWS), -(-STATS_BLOCKS_PER_IMAGE // slabs)))
+def _chunks(hw: int, slabs: int, lanes: int) -> tuple[int, int]:
+    """(chunk_rows, chunks): at most UNITS_PER_IMAGE units an image where
+    the slabs allow (so a CFG batch of two is one wave of four blocks an
+    SM), whole row lanes a chunk and at least LOADS rows a lane."""
+    rows = -(-hw // max(1, UNITS_PER_IMAGE // slabs))
+    rows = max(LOADS * lanes, -(-rows // lanes) * lanes)
+    return rows, -(-hw // rows)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(hw: int, c: int, vec: int, groups: int) -> tuple[int, int, int, int]:
+    """The stats kernel's units, a function of (H*W, C, vec, groups) only,
+    never of B: ``(sv, slabs, chunk_rows, chunks)``. A slab is ``sv``
+    channel vectors holding whole groups, the least such multiple of the
+    groups' vectors that is at least MIN_SLAB and divides C / vec (all of
+    C / vec where none is); a block is THREADS // sv row lanes by sv vector
+    lanes, so every lane has a vector at every C, and the last block of a
+    slab folds its own groups."""
+    if c % groups:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    nv, per = c // vec, c // groups
+    base = math.lcm(per, vec) // vec
+    sv = next((m for m in range(base, nv + 1, base) if m >= MIN_SLAB and nv % m == 0), nv)
+    nt = THREADS // sv * sv
+    if sv > THREADS or (vec * nt + max(nt, sv * vec)) * 16 > STATS_SMEM:
+        raise ValueError(f"group norm kernel takes whole groups in at most {THREADS} vectors "
+                         f"and {STATS_SMEM} bytes of shared memory, got C={c}, groups={groups}")
+    return (sv, nv // sv, *_chunks(hw, nv // sv, THREADS // sv))
+
+
+@functools.lru_cache(maxsize=None)
+def apply_plan(hw: int, c: int, vec: int) -> tuple[int, int, int, int]:
+    """The apply kernel's units, ``(sv, slabs, chunk_rows, chunks)``: slabs
+    of gcd(C / vec, 8) vectors (128-byte rows where C / vec is a multiple
+    of 8), THREADS // sv row lanes by sv vector lanes."""
+    nv = c // vec
+    sv = math.gcd(nv, 8)
+    return (sv, nv // sv, *_chunks(hw, nv // sv, THREADS // sv))
 
 
 def _check_cuda(x: torch.Tensor) -> None:
@@ -143,21 +191,39 @@ def _params(x: torch.Tensor, gamma: torch.Tensor,
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# st_group_norm(x, gamma, gamma_dtype, beta, beta_dtype, out, ws, B, HW, C, G,
-#               eps, act, nchunks, dtype, vec, stream)
-_GN_ARGTYPES = [_P, _P, _I, _P, _I, _P, _P] + [_I] * 4 + [_F] + [_I] * 4 + [_P]
-# st_group_norm_fold: the same without out and act
-_FOLD_ARGTYPES = [_P, _P, _I, _P, _I, _P] + [_I] * 4 + [_F] + [_I] * 3 + [_P]
-_APPLY_ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
+# st_group_norm(x, gamma, gamma_dtype, beta, beta_dtype, out, ws, tickets, B, HW,
+#               C, G, eps, act, sv, chunk_rows, apply_sv, apply_rows, dtype, vec, stream)
+_GN_ARGTYPES = [_P, _P, _I, _P, _I, _P, _P, _P] + [_I] * 4 + [_F] + [_I] * 7 + [_P]
+# st_group_norm_fold: the same without out, act and the apply plan
+_FOLD_ARGTYPES = [_P, _P, _I, _P, _I, _P, _P] + [_I] * 4 + [_F] + [_I] * 4 + [_P]
+# st_group_norm_apply(x, scale, shift, out, B, HW, C, act, sv, chunk_rows, dtype, vec, stream)
+_APPLY_ARGTYPES = [_P] * 4 + [_I] * 8 + [_P]
+
+# the ticket buffers, by (device index, raw stream)
+_TICKET_BUFFERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _workspace(x: torch.Tensor, vec: int) -> tuple[torch.Tensor, int]:
+def _tickets(x: torch.Tensor, stream: int, need: int) -> torch.Tensor:
+    """The (device, stream)'s ticket counters, zeroed once; each launch
+    leaves its counters 0 (module docstring). A buffer first needed while the
+    stream captures a graph is allocated (and zeroed) inside that capture
+    and kept by no other call."""
+    if need > TICKETS:
+        raise ValueError(f"group norm kernel takes B * slabs <= {TICKETS}, got {need}")
+    key = (x.device.index, stream)
+    buf = _TICKET_BUFFERS.get(key)
+    if buf is None:
+        buf = torch.zeros(TICKETS, dtype=torch.int32, device=x.device)
+        if not torch.cuda.is_current_stream_capturing():
+            buf = _TICKET_BUFFERS.setdefault(key, buf)  # one buffer if two threads race
+    return buf
+
+
+def _workspace(x: torch.Tensor, chunks: int) -> torch.Tensor:
     """One allocation for the kernels' scratch: scale and shift ((B, C) f32
-    each, first), then the (B, chunks, C) double partial sums and squares."""
-    n, h, w, c = x.shape
-    nchunks = stats_chunks(h * w, c, vec)
-    return torch.empty(n * c * (1 + 2 * nchunks), dtype=torch.float64,
-                       device=x.device), nchunks
+    each, first), then the (B, chunks, C) double2 unit partials."""
+    n, _, _, c = x.shape
+    return torch.empty(n * c * (1 + 2 * chunks), dtype=torch.float64, device=x.device)
 
 
 def scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
@@ -175,13 +241,15 @@ def scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     gamma, beta = _params(x, gamma, beta)
     n, h, w, c = x.shape
     vec = _vec(x)
-    ws, nchunks = _workspace(x, vec)
+    sv, slabs, rows, chunks = plan(h * w, c, vec, num_groups)
+    ws = _workspace(x, chunks)
     fn = function("st_group_norm_fold", _FOLD_ARGTYPES)
     with on_device(x.device):
         stream = current_stream(x.device)
+        tickets = _tickets(x, stream, n * slabs)
         code = fn(x.data_ptr(), gamma.data_ptr(), DTYPE_CODES[gamma.dtype], beta.data_ptr(),
-                  DTYPE_CODES[beta.dtype], ws.data_ptr(), n, h * w, c, num_groups, eps, nchunks,
-                  DTYPE_CODES[x.dtype], vec, stream)
+                  DTYPE_CODES[beta.dtype], ws.data_ptr(), tickets.data_ptr(), n, h * w, c,
+                  num_groups, eps, sv, rows, DTYPE_CODES[x.dtype], vec, stream)
     check(code, "st_group_norm_fold")
     both = ws[:n * c].view(torch.float32).view(2, n, c)
     return both[0], both[1]
@@ -203,11 +271,13 @@ def apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
            for t in (scale, shift)):
         raise ValueError("scale / shift must be contiguous float32 on x's device")
     out = torch.empty_like(x)
+    vec = _vec(x)
+    sv, _, rows, _ = apply_plan(h * w, c, vec)
     fn = function("st_group_norm_apply", _APPLY_ARGTYPES)
     with on_device(x.device):
         stream = current_stream(x.device)
         code = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n,
-                  h * w, c, ACT_CODES[act], DTYPE_CODES[x.dtype], _vec(x), stream)
+                  h * w, c, ACT_CODES[act], sv, rows, DTYPE_CODES[x.dtype], vec, stream)
     check(code, "st_group_norm_apply")
     return out
 
@@ -216,8 +286,8 @@ def apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
                num_groups: int = 32, eps: float = 1e-5,
                act: str | None = None) -> torch.Tensor:
-    """GroupNorm over NHWC x (+SiLU): stats, fold and apply kernels behind
-    one C entry (``st_group_norm``)."""
+    """GroupNorm over NHWC x (+SiLU): the stats-and-fold kernel and the
+    apply kernel behind one C entry (``st_group_norm``)."""
     n, h, w, c = x.shape
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
@@ -228,14 +298,18 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     _check_cuda(x)
     gamma, beta = _params(x, gamma, beta)
     vec = _vec(x)
-    ws, nchunks = _workspace(x, vec)
+    sv, slabs, rows, chunks = plan(h * w, c, vec, num_groups)
+    apply_sv, _, apply_rows, _ = apply_plan(h * w, c, vec)
+    ws = _workspace(x, chunks)
     out = torch.empty_like(x)
     fn = function("st_group_norm", _GN_ARGTYPES)
     with on_device(x.device):
         stream = current_stream(x.device)
+        tickets = _tickets(x, stream, n * slabs)
         code = fn(x.data_ptr(), gamma.data_ptr(), DTYPE_CODES[gamma.dtype], beta.data_ptr(),
-                  DTYPE_CODES[beta.dtype], out.data_ptr(), ws.data_ptr(), n, h * w, c,
-                  num_groups, eps, ACT_CODES[act], nchunks, DTYPE_CODES[x.dtype], vec, stream)
+                  DTYPE_CODES[beta.dtype], out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), n,
+                  h * w, c, num_groups, eps, ACT_CODES[act], sv, rows, apply_sv, apply_rows,
+                  DTYPE_CODES[x.dtype], vec, stream)
     check(code, "st_group_norm")
     LAUNCHES.add(f"{'bf16' if x.dtype == torch.bfloat16 else 'f32'} b={n} {h}x{w} "
                  f"c={c} g={num_groups} act={act}")

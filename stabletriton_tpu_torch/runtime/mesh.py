@@ -60,16 +60,18 @@ def active_mesh():
     return _ACTIVE_MESH.get()
 
 
-def make_mesh(data: int | None = None, model: int = 1, device_type: str | None = None):
+def make_mesh(data: int | None = None, model: int = 1, device_type: str = "cuda"):
     """A ("data", "model") DeviceMesh over every rank: data-parallel x
     tensor-parallel, data-major (the ranks of one "model" group are
     consecutive). Initialises the default process group from torchrun's
     environment where none exists; on the card each rank takes the card of
-    its LOCAL_RANK first."""
+    its LOCAL_RANK first. The mesh is on the card unless the caller asks for
+    ``device_type="cpu"`` (gloo); without a card a "cuda" mesh raises."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: torch sees no CUDA device; pass device_type='cpu' "
+                           "for a CPU (gloo) mesh")
     if device_type == "cuda" and "LOCAL_RANK" in os.environ:
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     n = dist.get_world_size() if dist.is_initialized() else int(os.environ["WORLD_SIZE"])

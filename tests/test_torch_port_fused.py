@@ -13,6 +13,8 @@ The CUDA kernels themselves are checked on the card by
 tests/test_torch_port_gpu.py.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,12 +99,18 @@ def test_group_norm_refuses_other_activations():
 
 
 def test_stats_chunking_ignores_batch():
-    """The stats pass's row chunking is a function of (H*W, C) alone (it
-    takes no batch), so an image's moments are the same bits at every batch
-    bucket; about one block per SM for one image, at least 64 rows a chunk."""
-    assert tgn.stats_chunks(64, 640, 8) == 1                # at least 64 rows a chunk
-    assert tgn.stats_chunks(1024 * 1024, 128, 4) == tgn.STATS_BLOCKS_PER_IMAGE
-    assert 1 <= tgn.stats_chunks(32 * 32, 2560, 8) <= 16
+    """The kernels' plans (slabs of channel vectors by chunks of rows) are
+    functions of (H*W, C, vec, groups) alone (they take no batch), so an
+    image's moments are the same bits at every batch bucket; at least LOADS
+    rows a row lane, at most UNITS_PER_IMAGE units an image where the slabs
+    allow."""
+    assert list(inspect.signature(tgn.plan).parameters) == ["hw", "c", "vec", "groups"]
+    assert list(inspect.signature(tgn.apply_plan).parameters) == ["hw", "c", "vec"]
+    assert tgn.plan(64, 640, 8, 32) == (5, 16, 4 * 51, 1)    # one chunk of 4 rows a lane
+    sv, slabs, rows, chunks = tgn.plan(1024 * 1024, 128, 4, 32)
+    assert (sv, slabs, rows % 64) == (4, 8, 0) and slabs * chunks == tgn.UNITS_PER_IMAGE
+    assert tgn.plan(32 * 32, 2560, 8, 32) == (10, 32, 150, 7)  # 124 rows in the last chunk
+    assert tgn.apply_plan(32 * 32, 2560, 8) == (8, 40, 192, 6)
 
 
 # --------------------------------------------------------------------------

@@ -1,18 +1,25 @@
-"""GroupNorm's fold (K9), now on the device, host side on the CPU.
+"""GroupNorm's fold (K9), on the device, host side on the CPU.
 
-``st_group_norm`` (csrc/group_norm.cu) runs the stats pass, the fold of the
-(B, C) moments into per-channel scale / shift, and the apply pass behind one
-C entry; ``st_group_norm_fold`` runs the first two for the fused GN conv
-(K8). The kernels run only on the card (tests/test_torch_port_gpu.py). What
-the CPU can hold: the fold's plain twin (:func:`fold`, which the wrappers use
-for CPU tensors and which adds a group's channels in channel order, as the
-fold kernel does) against the JAX package's Pallas ``group_norm`` in
-interpret mode and against its ``_gn_fold`` (K8's fold), f32, within 1e-5 of
-the largest value (f32 summation order); the fold's arithmetic, bit for bit,
-against a numpy emulation of the kernel's order; batch invariance; and C3:
-the JAX K9 fold takes no clamp, so a near-constant group gives NaN there,
-where the port's fold clamps E[x^2] - mean^2 at 0.
+``st_group_norm`` (csrc/group_norm.cu) runs the stats-and-fold kernel (the
+(B, C) moments and their fold into per-channel scale / shift, one launch)
+and the apply kernel behind one C entry; ``st_group_norm_fold`` runs the
+first for the fused GN conv (K8). The kernels run only on the card
+(tests/test_torch_port_gpu.py). What the CPU can hold: the fold's plain twin
+(:func:`fold`, which the wrappers use for CPU tensors and which adds a
+group's channels in channel order, as the fold kernel does) against the JAX
+package's Pallas ``group_norm`` in interpret mode and against its
+``_gn_fold`` (K8's fold), f32, within 1e-5 of the largest value (f32
+summation order); the fold's arithmetic, bit for bit, against a numpy
+emulation of the kernel's order; the stats kernel's plan (:func:`plan`:
+every element summed once, no idle lane, a function of (H*W, C, vec) only)
+and its order of summation emulated in numpy, folded, against the Pallas
+``group_norm``; batch invariance; and C3: the JAX K9 fold takes no clamp, so
+a near-constant group gives NaN there, where the port's fold clamps E[x^2] -
+mean^2 at 0.
 """
+
+import inspect
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,9 +146,10 @@ def test_scale_shift_is_batch_invariant(shape, groups):
     h, w, c = shape[1:]
     for vec in (1, 4, 8):
         if c % vec == 0:
-            _, one = tgn._workspace(torch.empty((1, h, w, c)), vec)
-            _, four = tgn._workspace(torch.empty((4, h, w, c)), vec)
-            assert one == four == tgn.stats_chunks(h * w, c, vec)
+            chunks = tgn.plan(h * w, c, vec, groups)[3]
+            for n in (1, 4):
+                ws = tgn._workspace(torch.empty((n, h, w, c)), chunks)
+                assert ws.numel() * 8 == 8 * n * c * (1 + 2 * chunks)
 
 
 def test_c3_near_constant_group_is_nan_in_jax_k9_and_clamped_in_the_port():
@@ -170,3 +178,122 @@ def test_c3_near_constant_group_is_nan_in_jax_k9_and_clamped_in_the_port():
     scale, _ = tgn.scale_shift(xt, gt, bt, num_groups=32)
     rsqrt_eps = torch.rsqrt(torch.tensor(1e-5, dtype=torch.float32))
     assert torch.equal(scale[clamped], rsqrt_eps.expand(int(clamped.sum())))
+
+
+def _kernel_order_moments(x, vec, groups):
+    """The stats kernel's sums in numpy, in its order (csrc/group_norm.cu
+    gn_stats_fold): per unit (slab, chunk) of :func:`plan`, each thread (row
+    lane, vector lane) sums runs of 16 of its rows in f32 and adds each run
+    into a double; the row lanes meet in double in the kernel's two-stage
+    order; the chunks' partials add in chunk order; each channel's total is
+    rounded to f32 once. Also returns how often each element was summed."""
+    n, h, w, c = x.shape
+    hw = h * w
+    sv, slabs, rows, chunks = tgn.plan(hw, c, vec, groups)
+    lanes, nch = tgn.THREADS // sv, sv * vec
+    parts = max(1, lanes * sv // nch)
+    xs = x.reshape(n, hw, c).astype(np.float32)
+    seen = np.zeros((n, hw, c), np.int64)
+    s1 = np.zeros((n, c), np.float32)
+    s2 = np.zeros((n, c), np.float32)
+    for b in range(n):
+        for slab in range(slabs):
+            cs = slice(slab * nch, (slab + 1) * nch)
+            unit = np.zeros((chunks, 2, nch))
+            for chunk in range(chunks):
+                r0, r1 = chunk * rows, min(hw, (chunk + 1) * rows)
+                acc = np.zeros((lanes, 2, nch))
+                for rl in range(lanes):
+                    mine = np.arange(r0 + rl, r1, lanes)
+                    seen[b, mine, cs] += 1
+                    for run in range(0, len(mine), 16):
+                        fs = np.zeros(nch, np.float32)
+                        fq = np.zeros(nch, np.float32)
+                        for v in xs[b, mine[run:run + 16], cs]:
+                            fs = (fs + v).astype(np.float32)
+                            fq = (v.astype(np.float64) ** 2 + fq).astype(np.float32)  # fmaf
+                        acc[rl, 0] += fs
+                        acc[rl, 1] += fq
+                # part j sums row lanes j, j + parts, ...; then the parts in order
+                unit[chunk] = _in_order(np.stack([_in_order(acc[j::parts])
+                                                  for j in range(parts)]))
+            tot = _in_order(unit)
+            s1[b, cs], s2[b, cs] = tot[0].astype(np.float32), tot[1].astype(np.float32)
+    return s1, s2, seen
+
+
+def _in_order(a):
+    """The sum over a's first axis, one element after another (double)."""
+    out = np.zeros(a.shape[1:])
+    for v in a:
+        out = out + v
+    return out
+
+
+# the kernel paths' plans at small sizes: 16-byte vectors (vec 8 bf16, 4 f32)
+# with one and several slabs and chunks, 2-byte elements (vec 1), and a
+# 12-channel f32 row of three vectors (one slab narrower than MIN_SLAB)
+PLAN_SHAPES = [((2, 9, 7, 64), 8), ((1, 40, 40, 16), 8), ((1, 33, 31, 128), 4),
+               ((2, 9, 7, 20), 1), ((1, 5, 6, 12), 4), ((1, 70, 70, 640), 8)]
+
+
+@pytest.mark.parametrize("shape,vec", PLAN_SHAPES)
+def test_kernel_order_moments_fold_to_pallas_group_norm(shape, vec):
+    """The stats kernel's order of summation (emulated) sums every element
+    once; its moments, folded by :func:`fold` and applied, agree with the
+    JAX package's Pallas K9 (interpret) within 1e-5 of the largest value,
+    and its sums with float64 ones within 1e-6."""
+    x, g, b = _inputs(80 + shape[3], shape)
+    groups = 4 if shape[3] % 4 == 0 else 2
+    s1, s2, seen = _kernel_order_moments(x, vec, groups)
+    assert (seen == 1).all()
+    x64 = x.astype(np.float64)
+    np.testing.assert_allclose(s1, x64.sum(axis=(1, 2)), rtol=1e-6,
+                               atol=1e-6 * np.abs(x64).sum(axis=(1, 2)).max())
+    np.testing.assert_allclose(s2, (x64 ** 2).sum(axis=(1, 2)), rtol=1e-6)
+    hw = shape[1] * shape[2]
+    scale, shift = tgn.fold(torch.from_numpy(s1), torch.from_numpy(s2), torch.from_numpy(g),
+                            torch.from_numpy(b), hw=hw, num_groups=groups, eps=1e-5)
+    got = tgn.apply_plain(torch.from_numpy(x), scale, shift, "silu").numpy()
+    want = np.asarray(jgroup_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                                  num_groups=groups, act="silu", interpret=True))
+    assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
+# (H*W, C, vec) of every GroupNorm the port's paths run through the kernels:
+# SDXL-base 1024^2 and the refiner (bf16), SD1.5 512^2, SD2.x 768^2, and the
+# f32 VAE decoder and encoder; 32 groups
+PATH_PLANS = [(hw * hw, c, 8) for hw, c in [
+    (128, 320), (128, 640), (128, 960), (128, 384), (128, 1152), (64, 320), (64, 640),
+    (64, 768), (64, 960), (64, 1280), (64, 1920), (64, 2304), (32, 640), (32, 1280),
+    (32, 1920), (32, 2560), (16, 1280), (16, 2560), (8, 1280), (8, 2560), (96, 320),
+    (48, 640), (24, 1280), (12, 1280), (12, 2560)]] + [(hw * hw, c, 4) for hw, c in [
+        (128, 512), (256, 512), (512, 512), (512, 256), (1024, 256), (1024, 128),
+        (512, 128), (256, 256)]]
+
+
+@pytest.mark.parametrize("hw,c,vec", PATH_PLANS)
+def test_plan_at_path_shapes(hw, c, vec):
+    """At every path shape: no idle lane (a block is whole row lanes of sv
+    vectors, the slabs tile the row, a stats slab holds whole groups and
+    spans at least MIN_SLAB vectors; the apply's rows are 128 bytes), whole
+    row lanes a chunk and at least LOADS rows a lane, the chunks cover H*W
+    once, at most UNITS_PER_IMAGE units (one wave of a CFG batch of two) and
+    at least 70% of them where H*W allows, the ticket buffer holds a batch of 64, and the
+    workspace is 8 B C (1 + 2 chunks) bytes at every batch size; the plans
+    take no batch."""
+    assert list(inspect.signature(tgn.plan).parameters) == ["hw", "c", "vec", "groups"]
+    for sv, slabs, rows, chunks in (tgn.plan(hw, c, vec, 32), tgn.apply_plan(hw, c, vec)):
+        lanes = tgn.THREADS // sv
+        assert slabs * sv == c // vec and lanes * sv > tgn.THREADS - sv
+        assert rows % lanes == 0 and rows >= tgn.LOADS * lanes
+        assert (chunks - 1) * rows < hw <= chunks * rows
+        assert slabs * chunks <= tgn.UNITS_PER_IMAGE
+        if hw >= tgn.LOADS * lanes * (tgn.UNITS_PER_IMAGE // slabs):
+            assert slabs * chunks >= 0.7 * tgn.UNITS_PER_IMAGE
+    sv, slabs, _, chunks = tgn.plan(hw, c, vec, 32)
+    assert sv * vec % (c // 32) == 0 and sv >= tgn.MIN_SLAB and 64 * slabs <= tgn.TICKETS
+    assert tgn.apply_plan(hw, c, vec)[0] == 8
+    for n in (1, 2, 4):
+        ws = tgn._workspace(torch.empty((n, 1, 1, c)), chunks)
+        assert ws.numel() * 8 == 8 * n * c * (1 + 2 * chunks)

@@ -489,13 +489,69 @@ def _rel_err(out, ref):
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+# every GroupNorm shape of the paths, (B, H, W, C) and dtype: SDXL-base
+# 1024^2 (the fused conv's prologue at 128^2 x 320 / 640 / 960, 64^2 x 1280 /
+# 1920, 32^2 x 2560; the Transformer2D GroupNorms at 64^2 x 640 and 32^2 x
+# 1280) and the refiner's 64^2 x 768 at CFG batch 2 in bf16; SD1.5 512^2 and
+# SD2.x 768^2 at their levels; the f32 VAE decoder at batch 1 from 128^2 x
+# 512 through 1024^2 x 256 and x 128
+PATH_GN = [((2, 128, 128, 320), torch.bfloat16), ((2, 128, 128, 640), torch.bfloat16),
+           ((2, 128, 128, 960), torch.bfloat16), ((2, 64, 64, 640), torch.bfloat16),
+           ((2, 64, 64, 768), torch.bfloat16), ((2, 64, 64, 1280), torch.bfloat16),
+           ((2, 64, 64, 1920), torch.bfloat16), ((2, 32, 32, 1280), torch.bfloat16),
+           ((2, 32, 32, 2560), torch.bfloat16),
+           ((2, 64, 64, 320), torch.bfloat16), ((2, 32, 32, 640), torch.bfloat16),
+           ((2, 16, 16, 1280), torch.bfloat16), ((2, 8, 8, 2560), torch.bfloat16),
+           ((2, 96, 96, 320), torch.bfloat16), ((2, 48, 48, 640), torch.bfloat16),
+           ((2, 24, 24, 1280), torch.bfloat16), ((2, 12, 12, 2560), torch.bfloat16),
+           ((1, 128, 128, 512), torch.float32), ((1, 256, 256, 512), torch.float32),
+           ((1, 512, 512, 512), torch.float32), ((1, 512, 512, 256), torch.float32),
+           ((1, 1024, 1024, 256), torch.float32), ((1, 1024, 1024, 128), torch.float32)]
+
+
+def _k9_holds(fn, x, other):
+    """The K9 contract beyond its tolerance, for ``fn`` (a GroupNorm or its
+    stats and fold) of NHWC x: the same bits in a second run; image 0 the
+    same bits alone and in batches of 2 and 4 (``other`` fills the rest);
+    and a CUDA graph of ``fn``, replayed twice, equal to eager bit for bit
+    each time (the tickets start from zero on every replay)."""
+    def same(a, b):
+        a, b = (t if isinstance(t, tuple) else (t,) for t in (a, b))
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def first(t):
+        return tuple(u[:1] for u in t) if isinstance(t, tuple) else t[:1]
+
+    eager = fn(x)
+    assert same(fn(x), eager)
+    alone = fn(x[:1].contiguous())
+    for n in (2, 4):
+        batch = torch.cat([x[:1]] + [other[:1]] * (n - 1))
+        assert same(first(fn(batch)), alone)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(static)  # the eager warm-up a capture wants, on the capture's stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn(static)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert same(out, eager)
+    del graph
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,shape,act,tol", [
     (torch.bfloat16, (2, 9, 7, 64), None, 2e-2),     # vector loads, ragged chunks
     (torch.bfloat16, (3, 16, 16, 40), "silu", 2e-2),  # C/8 = 5 vectors: a masked slab
     (torch.float32, (1, 33, 31, 128), "silu", 1e-4),
     (torch.float32, (2, 5, 6, 12), None, 1e-4),      # C % 8, f32 vector width 4
-])
+] + [(dtype, shape, "silu" if dtype == torch.float32 else None,
+      2e-2 if dtype == torch.bfloat16 else 1e-4) for shape, dtype in PATH_GN])
 def test_gpu_group_norm_kernel_vs_plain(cuda_device, dtype, shape, act, tol):
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     x = (torch.randn(shape, generator=gen, device=cuda_device) * 3 + 1).to(dtype)
@@ -508,6 +564,8 @@ def test_gpu_group_norm_kernel_vs_plain(cuda_device, dtype, shape, act, tol):
     # the stats are the same bits in every run and at every batch size
     again = tgn.group_norm(torch.cat([x, x]), g, b, num_groups=4, act=act)
     assert torch.equal(again[: shape[0]], out) and torch.equal(again[shape[0]:], out)
+    other = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    _k9_holds(lambda t: tgn.group_norm(t, g, b, num_groups=4, act=act), x, other)
 
 
 def _bf16_ulps(out, ref):
@@ -525,16 +583,19 @@ GN_SHAPES = [((2, 64, 64, 640), torch.bfloat16, None),
              ((1, 128, 128, 512), torch.float32, "silu"),
              ((1, 1024, 1024, 128), torch.float32, "silu"),
              ((2, 9, 7, 20), torch.bfloat16, "silu"),
-             ((3, 5, 6, 10), torch.float32, None)]
+             ((3, 5, 6, 10), torch.float32, None)] + [
+    (shape, dtype, "silu") for shape, dtype in PATH_GN if shape not in (
+        (2, 64, 64, 640), (2, 128, 128, 320), (1, 128, 128, 512), (1, 1024, 1024, 128))]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,act", GN_SHAPES)
 def test_gpu_group_norm_one_entry_vs_plain(cuda_device, shape, dtype, act):
-    """st_group_norm (stats, device fold, apply) against group_norm_plain:
-    within 1 bf16 ulp of the largest output, or 1e-5 of the largest f32
-    output (the moments are summed in another order); one launch counted;
-    the same bits in a second run and for each image of a batch of two."""
+    """st_group_norm (stats and device fold, apply) against
+    group_norm_plain: within 1 bf16 ulp of the largest output, or 1e-5 of
+    the largest f32 output (the moments are summed in another order); one
+    launch counted; the same bits in a second run, for image 0 alone and in
+    batches of two and four, and in two graph replays."""
     groups = 32 if shape[3] % 32 == 0 else 5
     gen = torch.Generator(device=cuda_device).manual_seed(21)
     x = (torch.randn(shape, generator=gen, device=cuda_device) * 2 + 0.5).to(dtype)
@@ -549,10 +610,11 @@ def test_gpu_group_norm_one_entry_vs_plain(cuda_device, shape, dtype, act):
     else:
         assert _rel_err(out, ref) <= 1e-5
     assert torch.equal(tgn.group_norm(x, g, b, num_groups=groups, act=act), out)
+    other = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
     if x.numel() <= 2**23:
-        other = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
         pair = tgn.group_norm(torch.cat([x[:1], other[:1]]), g, b, num_groups=groups, act=act)
         assert torch.equal(pair[:1], out[:1])
+    _k9_holds(lambda t: tgn.group_norm(t, g, b, num_groups=groups, act=act), x, other)
 
 
 @pytest.mark.gpu
@@ -561,12 +623,14 @@ def test_gpu_group_norm_one_entry_vs_plain(cuda_device, shape, dtype, act):
     ((2, 16, 16, 2560), torch.bfloat16, 32, torch.bfloat16),  # 80
     ((1, 33, 31, 128), torch.float32, 32, torch.float32),
     ((2, 5, 6, 80), torch.float32, 16, torch.bfloat16),       # 5: straddles the vectors
-])
+] + [(shape, dtype, 32, dtype) for shape, dtype in PATH_GN])
 def test_gpu_group_norm_fold_vs_plain(cuda_device, shape, dtype, groups, pdtype):
     """st_group_norm_fold's scale / shift against fold(moments_plain(x))
     within 1e-5 (the moments' summation order), gamma / beta read in their
     own dtype; K9 is the apply kernel on exactly these scale / shift, bit
-    for bit, the values K8's prologue reads."""
+    for bit, the values K8's prologue reads; the same bits in a second run,
+    for image 0 alone and in batches of two and four, and in two graph
+    replays."""
     gen = torch.Generator(device=cuda_device).manual_seed(22)
     x = (torch.randn(shape, generator=gen, device=cuda_device) * 3 - 1).to(dtype)
     g = (torch.randn(shape[3], generator=gen, device=cuda_device) * 0.2 + 1).to(pdtype)
@@ -578,20 +642,27 @@ def test_gpu_group_norm_fold_vs_plain(cuda_device, shape, dtype, groups, pdtype)
     assert _rel_err(scale, rs) <= 1e-5 and _rel_err(shift, rh) <= 1e-5
     assert torch.equal(tgn.group_norm(x, g, b, num_groups=groups, act="silu"),
                        tgn.apply(x, scale.contiguous(), shift.contiguous(), "silu"))
+    other = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    _k9_holds(lambda t: tgn.scale_shift(t, g, b, num_groups=groups, eps=1e-5), x, other)
 
 
 @pytest.mark.gpu
-def test_gpu_group_norm_clamps_a_near_constant_group(cuda_device):
+@pytest.mark.parametrize("shape,dtype", [((1, 16, 16, 64), torch.float32)] + PATH_GN)
+def test_gpu_group_norm_clamps_a_near_constant_group(cuda_device, shape, dtype):
     """C3: x = 1000 + N(0, 1e-3), where E[x^2] - mean^2 rounds below 0 in
-    f32; the fold kernel clamps it, so every output is finite."""
+    f32; the fold kernel clamps it, so every output is finite and every
+    group's rstd is at most rsqrt(eps), through the GroupNorm, its stats and
+    fold, and a graph replay of both."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
+    c = shape[3]
     for c0 in (1000.0, 3000.0):
-        x = torch.randn((1, 16, 16, 64), generator=gen, device=cuda_device) * 1e-3 + c0
-        ones = torch.ones(64, device=cuda_device)
+        x = (torch.randn(shape, generator=gen, device=cuda_device) * 1e-3 + c0).to(dtype)
+        ones = torch.ones(c, device=cuda_device)
         out = tgn.group_norm(x, ones, torch.zeros_like(ones), num_groups=32)
         assert torch.isfinite(out).all()
         scale, _ = tgn.scale_shift(x, ones, torch.zeros_like(ones), num_groups=32)
         assert (scale <= (1 + 1e-6) / math.sqrt(1e-5)).all()  # rstd at most rsqrt(eps)
+    _k9_holds(lambda t: tgn.group_norm(t, ones, torch.zeros_like(ones), num_groups=32), x, x)
 
 
 @pytest.mark.gpu

@@ -40,6 +40,7 @@ from stabletriton_tpu.runtime import mesh as jmesh
 from stabletriton_tpu.runtime import pipeline as jpipe
 from stabletriton_tpu_torch.compile import fuse_attention_projections
 from stabletriton_tpu_torch.models import unet as tunet
+from stabletriton_tpu_torch.runtime import mesh as tmesh
 from stabletriton_tpu_torch.runtime import pipeline as tpipe
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -234,3 +235,12 @@ def test_jax_serving_raises_the_same_error():
         JEngine(Pipe(), None, None, max_batch=1)
     assert str(e.value) == ("max_batch=1 is below the smallest mesh-compatible bucket 2 "
                             "(data axis 2); raise max_batch or use a smaller data axis")
+
+
+def test_make_mesh_without_a_card_raises(monkeypatch):
+    """make_mesh puts the mesh on the card by default: where torch sees no
+    card it raises (no process group needed to find out), and a CPU (gloo)
+    mesh is built only when the caller asks for device_type="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.make_mesh(data=1)
