@@ -28,6 +28,12 @@ reads them in place at the addresses seen at capture, which are part of the
 signature, so parameters must not move while their graphs are in use, and a
 parameter changed in place is read by the next replay. On the CPU there is no graph: the function runs as it is.
 On the card a capture that fails raises; nothing falls back to eager runs.
+
+A capture is recorded (``runtime/profiling.py``) as a ``graphs.capture``
+span around ``graphs.warmup``, ``graphs.enter``, ``graphs.captured_call``,
+``graphs.end`` and ``graphs.instantiate``, whose durations are its
+:class:`Captured` times; the counters ``graphs.captures`` and
+``graphs.replays`` count captures and replays.
 """
 
 from __future__ import annotations
@@ -36,12 +42,12 @@ import dataclasses
 import functools
 import inspect
 import threading
-import time
 from typing import Any, Callable
 
 import torch
 
 from stabletriton_tpu_torch.kernels import build
+from stabletriton_tpu_torch.runtime import profiling
 
 _TENSOR = object()  # the place of a tensor leaf in a tree's spec
 
@@ -178,6 +184,7 @@ class GraphedCallable:
             outs = [t.clone() for t in entry.outputs]
             self._graphs._mark_done(stream)
             build.count_replay(entry.tally)
+            profiling.count("graphs.replays")
             return unflatten(entry.out_spec, iter(outs))
 
     def _capture(self, key, args, copied, held, device):
@@ -185,46 +192,54 @@ class GraphedCallable:
         of the inputs (its result is returned), then the capture."""
         if any(t.device != device for t in copied + held):
             raise ValueError("a graphed call takes tensors on one device")
-        graphs = self._graphs
-        side = graphs._side_stream(device)
-        caller = torch.cuda.current_stream(device)
-        graphs._after_last(caller)
-        side.wait_stream(caller)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            inputs = [t.clone(memory_format=torch.contiguous_format) for t in copied]
-            static_args = self._static_args(args, inputs)
-            result = self._fn(*static_args)
-        caller.wait_stream(side)
-        result_leaves = []
-        flatten(result, result_leaves)
-        for t in result_leaves:
-            t.record_stream(caller)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t1 = time.perf_counter()
-        try:
-            # the outer stream context gives the caller its stream back even
-            # where torch.cuda.graph's exit raises (an invalidated capture)
-            with torch.cuda.stream(side), build.recording() as tally, torch.cuda.graph(
-                    graph, pool=graphs._pool, stream=side, capture_error_mode="thread_local"):
-                t2 = time.perf_counter()
-                out = self._fn(*static_args)
-                t3 = time.perf_counter()
-            t4 = time.perf_counter()
-            graph.instantiate()
-        except Exception as e:
-            # such a capture can leave the allocator recording to the pool:
-            # the next capture takes a new one
-            graphs._pool = None
-            raise RuntimeError(f"capturing {self.__name__} failed; nothing runs eagerly "
-                               f"in its place") from e
-        t5 = time.perf_counter()
-        outputs = []
-        out_spec = flatten(out, outputs)
-        self.captured[key] = Captured(graph, inputs, outputs, out_spec, held, tally,
-                                      t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)
-        graphs._mark_done(caller)
-        return result
+        profiling.count("graphs.captures")
+        with profiling.span("graphs.capture", function=self.__name__):
+            graphs = self._graphs
+            side = graphs._side_stream(device)
+            caller = torch.cuda.current_stream(device)
+            graphs._after_last(caller)
+            side.wait_stream(caller)
+            with profiling.span("graphs.warmup") as warmup:
+                with torch.cuda.stream(side):
+                    inputs = [t.clone(memory_format=torch.contiguous_format) for t in copied]
+                    static_args = self._static_args(args, inputs)
+                    result = self._fn(*static_args)
+                caller.wait_stream(side)
+                result_leaves = []
+                flatten(result, result_leaves)
+                for t in result_leaves:
+                    t.record_stream(caller)
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+            enter = profiling.start("graphs.enter")
+            end = None
+            try:
+                # the outer stream context gives the caller its stream back even
+                # where torch.cuda.graph's exit raises (an invalidated capture)
+                with torch.cuda.stream(side), build.recording() as tally, torch.cuda.graph(
+                        graph, pool=graphs._pool, stream=side, capture_error_mode="thread_local"):
+                    profiling.finish(enter)
+                    with profiling.span("graphs.captured_call") as call:
+                        out = self._fn(*static_args)
+                    end = profiling.start("graphs.end")
+                profiling.finish(end)
+                with profiling.span("graphs.instantiate") as inst:
+                    graph.instantiate()
+            except Exception as e:
+                for sp in (enter, end):
+                    if sp is not None:
+                        profiling.finish(sp)
+                # such a capture can leave the allocator recording to the pool:
+                # the next capture takes a new one
+                graphs._pool = None
+                raise RuntimeError(f"capturing {self.__name__} failed; nothing runs eagerly "
+                                   f"in its place") from e
+            outputs = []
+            out_spec = flatten(out, outputs)
+            self.captured[key] = Captured(graph, inputs, outputs, out_spec, held, tally,
+                                          warmup.seconds, enter.seconds, call.seconds,
+                                          end.seconds, inst.seconds)
+            graphs._mark_done(caller)
+            return result
 
     @staticmethod
     def _static_args(args, inputs):

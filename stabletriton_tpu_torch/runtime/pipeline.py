@@ -27,10 +27,18 @@ the UNet's attention and feed-forward weights ("model"), and returns the
 whole batch, all-gathered. With ``ST_TPU_AUTOTUNE=1`` a new signature's
 kernel shapes are tuned on the card before its loop is built
 (``kernels/autotune.py``).
+
+Each entry point records (``runtime/profiling.py``) a ``pipeline.call`` span
+(the anchor of its device intervals where no serving group anchors them)
+around ``pipeline.build`` (a new signature's program), then
+``pipeline.conditioning`` (the loop's inputs: CLIP, time ids, noise),
+``pipeline.loop`` (the graphed loop) and ``pipeline.decode``, each with its
+device interval; and the counters ``pipeline.calls`` and ``pipeline.builds``.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass, field
 from typing import Any
@@ -60,6 +68,7 @@ from stabletriton_tpu_torch.models.unet import (
     unet_apply_shallow,
 )
 from stabletriton_tpu_torch.runtime import mesh as mesh_mod
+from stabletriton_tpu_torch.runtime import profiling
 from stabletriton_tpu_torch.runtime import scheduler as sched
 from stabletriton_tpu_torch.runtime.denoise import (
     SOLVERS,
@@ -69,6 +78,20 @@ from stabletriton_tpu_torch.runtime.denoise import (
 )
 from stabletriton_tpu_torch.runtime.graphs import Graphs, on_card
 from stabletriton_tpu_torch.runtime.profiling import logger
+
+
+def _entry(method):
+    """A pipeline's entry point in its ``pipeline.call`` span, the anchor of
+    its device intervals where no serving group anchors them; counts its
+    calls."""
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        profiling.count("pipeline.calls")
+        with profiling.span("pipeline.call", anchor=self.device, entry=method.__name__):
+            return method(self, *args, **kwargs)
+
+    return call
 
 
 def _decode_images(vae_config: vae_mod.VAEConfig, vae_params: dict,
@@ -386,19 +409,28 @@ class SDXLPipeline:
             guidance_interval=guidance_interval,
             deep_cache=self._deep_cache_tuple(deep_cache, lat_h, lat_w)))
 
-    def _program_around(self, loop, loop_inputs, decode: bool):
+    def _program_around(self, loop, loop_inputs, decode: bool, *, batch, schedule, lat_h, lat_w,
+                        guidance_scale):
         """program(params, *args): ``loop_inputs(params, *args)`` and the
         graphed ``loop`` on them, under the binding and inference mode, then
-        the decode where ``decode``. It carries ``program.loop`` (whose
-        ``__wrapped__`` is the eager loop) and ``program.loop_inputs``."""
+        the decode where ``decode``, each in its span; the loop's span
+        carries its rows, steps, latent size and guidance scale. It carries
+        ``program.loop`` (whose ``__wrapped__`` is the eager loop) and
+        ``program.loop_inputs``."""
         binding = resolve_binding(self.compile_config)
+        shape = dict(rows=batch, steps=len(schedule.timesteps), lat_h=lat_h, lat_w=lat_w,
+                     guidance_scale=guidance_scale)
 
         def program(params, *args):
             with torch.inference_mode(), ops.use_backends(binding), mesh_mod.use_mesh(self.mesh):
-                latents = loop(params["unet"], *loop_inputs(params, *args))
+                with profiling.span("pipeline.conditioning", device=True):
+                    inputs = loop_inputs(params, *args)
+                with profiling.span("pipeline.loop", device=True, **shape):
+                    latents = loop(params["unet"], *inputs)
                 if not decode:
                     return latents
-                return _decode_images(self.vae_config, params["vae"], latents)
+                with profiling.span("pipeline.decode", device=True, rows=int(latents.shape[0])):
+                    return _decode_images(self.vae_config, params["vae"], latents)
 
         program.loop, program.loop_inputs = loop, loop_inputs
         return program
@@ -446,7 +478,9 @@ class SDXLPipeline:
                     seeds, steps, shape, self.device)
             return latents, ctx, pooled, time_ids
 
-        return self._program_around(loop, loop_inputs, not return_latents)
+        return self._program_around(loop, loop_inputs, not return_latents, batch=batch,
+                                    schedule=schedule, lat_h=lat_h, lat_w=lat_w,
+                                    guidance_scale=guidance_scale)
 
     def _cached(self, sig, build):
         """The program of ``sig``, built by ``build()`` on its first call
@@ -457,7 +491,9 @@ class SDXLPipeline:
                 fn = self._cache.get(sig)
                 if fn is None:
                     logger.info("building program for signature %s", sig)
-                    fn = self._cache[sig] = build()
+                    profiling.count("pipeline.builds")
+                    with profiling.span("pipeline.build", signature=sig):
+                        fn = self._cache[sig] = build()
         return fn
 
     def _program(self, batch, height, width, steps, guidance_scale, solver,
@@ -475,6 +511,7 @@ class SDXLPipeline:
         return [None if a is None else torch.as_tensor(np.asarray(a), dtype=torch.long).to(
             self.device) for a in arrays]
 
+    @_entry
     def txt2img(self, ids1, ids2, *, neg_ids1=None, neg_ids2=None,
                 height: int = 1024, width: int = 1024, steps: int = 30,
                 guidance_scale: float = 5.0, solver: str = "euler", seed=0,
@@ -567,8 +604,10 @@ class SDXLPipeline:
                     seeds, steps - start, shape, self.device)
             return latents, ctx, pooled, time_ids
 
-        return self._program_around(loop, loop_inputs, decode)
+        return self._program_around(loop, loop_inputs, decode, batch=batch, schedule=part,
+                                    lat_h=lat_h, lat_w=lat_w, guidance_scale=guidance_scale)
 
+    @_entry
     def img2img(self, latents, ids1, ids2, *, neg_ids1=None, neg_ids2=None,
                 steps: int = 30, strength: float = 0.3, guidance_scale: float = 5.0,
                 solver: str = "euler", seed=0,
@@ -653,8 +692,10 @@ class SDXLPipeline:
                      if solver == "euler_a" else None)
             return latents, ctx, pooled, time_ids, noise, torch.cat([extra, extra])
 
-        return self._program_around(loop, loop_inputs, True)
+        return self._program_around(loop, loop_inputs, True, batch=batch, schedule=schedule,
+                                    lat_h=lat_h, lat_w=lat_w, guidance_scale=guidance_scale)
 
+    @_entry
     def inpaint(self, image, mask, ids1, ids2, *, neg_ids1=None, neg_ids2=None,
                 steps: int = 30, guidance_scale: float = 5.0, solver: str = "euler", seed=0,
                 guidance_interval: tuple[float, float] | None = None,

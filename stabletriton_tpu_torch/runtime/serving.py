@@ -19,11 +19,23 @@ behaviour:
 
 The worker runs the pipeline under ``torch.inference_mode()``; grad mode is
 thread-local, so nothing the caller's thread sets reaches the worker.
+
+Each request gets an id at ``submit``. The engine records
+(``runtime/profiling.py``) a ``serve.request`` span from submit to its
+future's result, with ``serve.queue`` inside it until the worker takes the
+request, and for each group a ``serve.group`` span, the anchor of its device
+intervals, around
+``serve.window`` (the wait for co-batchers, with the cause that ended it),
+``serve.tokenize``, the pipeline's ``pipeline.call`` and ``serve.handback``
+(the copy to the host, the device interval, and the futures' results); and
+the counters ``serve.requests``, ``serve.groups``, ``serve.rows_real``,
+``serve.rows_padded`` and ``serve.window_exit.<cause>``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 from concurrent.futures import Future
@@ -33,10 +45,12 @@ import torch
 import torch.distributed as dist
 
 from stabletriton_tpu_torch.runtime import mesh as mesh_mod
+from stabletriton_tpu_torch.runtime import profiling
 from stabletriton_tpu_torch.runtime.denoise import norm_deep_cache, norm_guidance_interval
 from stabletriton_tpu_torch.runtime.profiling import logger
 
 _BUCKETS = (1, 2, 4, 8)
+_REQUEST_IDS = itertools.count(1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +76,17 @@ class Request:
         return (self.height, self.width, self.steps, float(self.guidance_scale), self.solver,
                 norm_guidance_interval(self.guidance_interval, self.guidance_scale),
                 norm_deep_cache(self.deep_cache))
+
+
+@dataclasses.dataclass
+class _Queued:
+    """A submitted request in the engine: its future, its id and its spans."""
+
+    request: Request
+    future: Future
+    id: int
+    span: profiling.Span      # serve.request
+    waiting: profiling.Span   # serve.queue
 
 
 def _bucket(n: int, buckets=_BUCKETS) -> int:
@@ -94,7 +119,7 @@ class ServingEngine:
         self.max_wait_s = max_wait_s
         self._spmd = mesh is not None and dist.get_world_size() > 1
         self.leader = not self._spmd or dist.get_rank() == 0
-        self._q: "queue.Queue[tuple[Request, Future] | None]" = queue.Queue()
+        self._q: "queue.Queue[_Queued | None]" = queue.Queue()
         self._thread = threading.Thread(target=self._worker if self.leader else self._follow,
                                         daemon=True)
         self._thread.start()
@@ -105,7 +130,10 @@ class ServingEngine:
             raise RuntimeError("only global rank 0's engine takes requests; the others "
                                "follow it")
         fut: Future = Future()
-        self._q.put((request, fut))
+        rid = next(_REQUEST_IDS)
+        req = profiling.start("serve.request", parent=None, requests=(rid,))
+        profiling.count("serve.requests")
+        self._q.put(_Queued(request, fut, rid, req, profiling.start("serve.queue", parent=req)))
         return fut
 
     def generate(self, prompt: str, **kw) -> np.ndarray:
@@ -119,27 +147,37 @@ class ServingEngine:
         self._thread.join(timeout=None if self._spmd else 30)
 
     # -- worker -------------------------------------------------------------
-    def _drain_group(self, first):
-        """Collect up to max_batch same-signature requests within the window."""
+    def _drain_group(self, first: _Queued) -> list[_Queued]:
+        """Collect up to max_batch same-signature requests within the window;
+        a request of another signature goes back to the queue."""
         group = [first]
         leftovers = []
-        try:
-            while len(group) < self.max_batch:
-                item = self._q.get(timeout=self.max_wait_s)
-                if item is None:
-                    leftovers.append(None)
-                    break
-                if item[0].signature == first[0].signature:
-                    group.append(item)
-                else:
-                    leftovers.append(item)
-        except queue.Empty:
-            pass
+        cause = "full"
+        with profiling.span("serve.window") as window:
+            try:
+                while len(group) < self.max_batch:
+                    item = self._q.get(timeout=self.max_wait_s)
+                    if item is None:
+                        leftovers.append(None)
+                        cause = "close"
+                        break
+                    if item.request.signature == first.request.signature:
+                        profiling.finish(item.waiting)
+                        group.append(item)
+                    else:
+                        leftovers.append(item)
+            except queue.Empty:
+                cause = "timeout"
+            window.requests = tuple(item.id for item in group)
+            window.attrs.update(cause=cause,
+                                deferred=sum(item is not None for item in leftovers))
+        profiling.count(f"serve.window_exit.{cause}")
         for item in leftovers:
             self._q.put(item)
         return group
 
-    def _run_group(self, reqs: list[Request]) -> np.ndarray:
+    def _run_group(self, reqs: list[Request]) -> torch.Tensor:
+        """The group's images on the device (padded rows included)."""
         n = len(reqs)
         pad = _bucket(n, self._buckets) - n
         prompts = [r.prompt for r in reqs] + [""] * pad
@@ -147,11 +185,13 @@ class ServingEngine:
         seq1 = self.pipeline.clip_config.max_position_embeddings
         seq2 = self.pipeline.clip2_config.max_position_embeddings
         r0 = reqs[0]
+        with profiling.span("serve.tokenize"):
+            ids = dict(ids1=self.tok1.encode_batch(prompts, max_len=seq1),
+                       ids2=self.tok2.encode_batch(prompts, max_len=seq2, pad=0),
+                       neg_ids1=self.tok1.encode_batch(negatives, max_len=seq1),
+                       neg_ids2=self.tok2.encode_batch(negatives, max_len=seq2, pad=0))
         call = dict(
-            ids1=self.tok1.encode_batch(prompts, max_len=seq1),
-            ids2=self.tok2.encode_batch(prompts, max_len=seq2, pad=0),
-            neg_ids1=self.tok1.encode_batch(negatives, max_len=seq1),
-            neg_ids2=self.tok2.encode_batch(negatives, max_len=seq2, pad=0),
+            **ids,
             height=r0.height, width=r0.width, steps=r0.steps,
             guidance_scale=r0.guidance_scale, solver=r0.solver,
             guidance_interval=r0.guidance_interval, deep_cache=r0.deep_cache,
@@ -162,7 +202,7 @@ class ServingEngine:
             self.pipeline.check_txt2img(height=r0.height, width=r0.width, solver=r0.solver,
                                         deep_cache=r0.deep_cache)
             dist.broadcast_object_list([call], src=0)
-        return self.pipeline.txt2img(**call).float().cpu().numpy()
+        return self.pipeline.txt2img(**call)
 
     def _follow(self):
         """A follower rank: run each call rank 0 broadcasts, until it
@@ -186,14 +226,27 @@ class ServingEngine:
                 if self._spmd:
                     dist.broadcast_object_list([None], src=0)
                 return
-            group = self._drain_group(item)
-            futs = [f for _, f in group]
-            try:
-                with torch.inference_mode():
-                    imgs = self._run_group([r for r, _ in group])
-                for i, fut in enumerate(futs):
-                    fut.set_result(imgs[i])
-            except Exception as e:  # deliver the failure to every waiter
-                for fut in futs:
-                    if not fut.done():
-                        fut.set_exception(e)
+            profiling.finish(item.waiting)
+            with profiling.span("serve.group", anchor=self.pipeline.device) as grp:
+                group = self._drain_group(item)
+                n = len(group)
+                pad = _bucket(n, self._buckets) - n
+                grp.requests = tuple(q.id for q in group)
+                grp.attrs.update(rows=n, bucket=n + pad, signature=item.request.signature)
+                profiling.count("serve.groups")
+                profiling.count("serve.rows_real", n)
+                profiling.count("serve.rows_padded", pad)
+                try:
+                    with torch.inference_mode():
+                        imgs = self._run_group([q.request for q in group])
+                    with profiling.span("serve.handback", device=True) as back:
+                        imgs = imgs.float().cpu().numpy()
+                        back.end_device()
+                        for i, q in enumerate(group):
+                            q.future.set_result(imgs[i])
+                            profiling.finish(q.span)
+                except Exception as e:  # deliver the failure to every waiter
+                    for q in group:
+                        if not q.future.done():
+                            q.future.set_exception(e)
+                        profiling.finish(q.span)

@@ -99,6 +99,40 @@ def test_trace_writes_a_chrome_trace(tmp_path, caplog):
     assert [r.getMessage() for r in caplog.records] == [f"profiler trace written to {path}"]
 
 
+def test_trace_holds_the_serving_worker_and_the_spans(tmp_path):
+    """``trace`` around a request served by ``ServingEngine``: the Chrome
+    file holds the worker thread's ops, and the engine's and pipeline's
+    spans on the profiler's clock, the worker's ops inside its group's
+    span."""
+    from stabletriton_tpu_torch.runtime.serving import ServingEngine
+
+    class Tok:
+        def encode_batch(self, texts, *, max_len=16, pad=99, **kw):
+            return np.full((len(texts), max_len), pad, np.int32)
+
+    profiling.reset()
+    eng = ServingEngine(tpipe.make_tiny_pipeline(), Tok(), Tok(), max_wait_s=0.01)
+    try:
+        eng.generate("warm", height=32, width=32, steps=2)
+        with profiling.trace(log_dir=str(tmp_path)) as path:
+            eng.generate("traced", height=32, width=32, steps=2)
+        worker = eng._thread.native_id
+    finally:
+        eng.close()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e for e in events if e.get("tid") == worker and e.get("cat") == "cpu_op"]
+    assert any(e["name"] == "aten::convolution" for e in ops)
+    spans = {e["name"]: e for e in events if e.get("cat") == "program_span"}
+    assert {"serve.request", "serve.queue", "serve.group", "serve.window", "serve.tokenize",
+            "pipeline.call", "pipeline.conditioning", "pipeline.loop", "pipeline.decode",
+            "serve.handback"} <= set(spans)
+    assert spans["serve.group"]["tid"] == worker
+    group = spans["serve.group"]
+    lo, hi = group["ts"], group["ts"] + group["dur"]
+    assert all(lo <= e["ts"] and e["ts"] + e.get("dur", 0) <= hi for e in ops)
+
+
 def _signature_lines(caplog, logger):
     return [r for r in caplog.records if r.name == logger and r.levelno == logging.INFO
             and "signature" in r.getMessage()]

@@ -724,6 +724,38 @@ def test_capture_and_replay_bookkeeping(fake_cuda):
     assert len(g.captured) == 3 and len(runs) == 6 and counter.by_key == {"k": 5}
 
 
+def test_a_capture_is_recorded_as_spans(fake_cuda):
+    """A capture is a ``graphs.capture`` span around its warm-up, entry,
+    captured call, end and instantiation, whose durations are the
+    Captured record's times; the counters count one capture and the
+    replays."""
+    from stabletriton_tpu_torch.runtime import profiling
+
+    profiling.reset()
+
+    def fn(params, x):
+        out = x * params["w"]
+        fake_cuda.record(lambda: x * params["w"], out)
+        return out
+
+    g = tgraphs.Graphs().wrap(fn)
+    params = {"w": torch.full((2,), 3.0)}
+    for v in (1.0, 2.0, 4.0):
+        assert torch.equal(g(params, torch.full((2,), v)), torch.full((2,), 3 * v))
+    spans = profiling.spans()
+    (cap,) = [s for s in spans if s.name == "graphs.capture"]
+    parts = [s for s in spans if s.parent == cap.id]
+    assert cap.attrs == {"function": "fn"}
+    assert [s.name for s in parts] == ["graphs.warmup", "graphs.enter", "graphs.captured_call",
+                                       "graphs.end", "graphs.instantiate"]
+    assert all(cap.start_ns <= s.start_ns <= s.end_ns <= cap.end_ns for s in parts)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(parts, parts[1:]))
+    (entry,) = g.captured.values()
+    assert [entry.warmup_s, entry.enter_s, entry.capture_s, entry.end_s,
+            entry.instantiate_s] == [s.seconds for s in parts]
+    assert profiling.counters() == {"graphs.captures": 1, "graphs.replays": 2}
+
+
 def test_call_by_name_replays_the_positional_graph(fake_cuda):
     """A call that names an argument, or leaves a default out, has the
     signature of the positional call with every argument: it replays that
