@@ -74,6 +74,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      on inputs that put zeros, quotients under 2^-99 or over 2^99,
      infinities and NaN (by position) beside in-range outputs in one warp's
      rows, which the epilogue stores again with the division;
+  3f. the default binding's GroupNorm, LayerNorm and GEGLU kernel forms
+     ("cuda_bf16apply") at SD1.5's largest shapes beside the plain chains
+     they replace (device ms, bound, kernels a call), held to them: bf16
+     within 2 ulps of the largest output with at most 2e-4 of the elements
+     off, f32 within 8 ulps; rows of the kernels line, their launches those
+     of phases 5 and 5c; then torch.rsqrt against 1 / sqrt;
   3d. the rest of the opt-in kernels: the timestep embedding (K12) at
      (2,)->(2,320) and (12,)->(12,256), bit for bit against its plain
      version, beside the launch floor (the device time of an empty
@@ -97,6 +103,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      binding: MSE under 1e-3; attention launches per step K1 130, K2 10:
      K1's 70 cross-attention launches (77 keys) on attn_tinykv_wgmma_bf16,
      the 60 self and K2 on attn_wgmma_bf16;
+     default-binding kernel forms 46 GroupNorms, 210 LayerNorms, 70 GEGLUs
+     (none under the other two bindings);
      fused-op launches K8 35, K9 11, K10 210, K11 70; all-kernel also K12 2
      and K13 463 + 70 in the precompute, every linear dispatch on the
      kernel and none on the reference (cuBLAS) op, 512 of the 533 on the
@@ -105,9 +113,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
   4c. one full-width SD1.5 UNet step (64^2 latent, CFG batch 2, bf16) under
      the three bindings against the reference binding, MSE under 1e-3;
      attention launches per step K3 5, K4 10, K5 17 (all on the tiny-KV
-     kernel) and no K1 or K2; K8 45,
+     kernel) and no K1 or K2; default-binding kernel forms 61 GroupNorms,
+     48 LayerNorms, 16 GEGLUs; K8 45,
      K9 16, K10 48, K11 16; all-kernel K12 1, K13 152 + 16 (144 wgmma, 24
      skinny); all 49 convs on wgmma;
+  4h. (after 4e) SD1.5's UNet step at UNet batch 2 and 16: eager under the
+     default binding (the kernel forms' per-step launches, K8-K11 none), then
+     replayed under the default binding, under its plain chains and under
+     the fused-op binding, in turns; the default step by kernel family and
+     against the plain chains' (the step gate);
   4e. replay: under the reference, default, fused-op and all-kernel
      bindings, compile_unet_kv's precompute and step at the full-width
      SDXL-base step of phase 4 (and SD1.5's of 4c), called eagerly
@@ -162,7 +176,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      K3) and conv launch counters must have moved during this phase, every
      K1/K2 launch on its kernel as in phase 4 and each image's f32 decode on the
      3xTF32 conv 32 times and the direct conv once (conv_in), its attention
-     once on the 3xTF32 GEMM;
+     once on the 3xTF32 GEMM; the kernel forms of GroupNorm, LayerNorm and
+     GEGLU their per-step counts times the UNet steps run, and the decoder's
+     GroupNorms once per image in f32;
   5b. a second ServingEngine, over a pipeline with the fused-op binding,
      answers two co-batched 1024^2 requests and one alone; same image
      checks, and the launch counters of K8-K11 must match the per-step
@@ -186,7 +202,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      K3/K4/K5 bf16 launches must be the per-step counts times the UNet
      steps run (K3 and K4 on attn_wgmma_bf16, K5 on the tiny-KV kernel),
      plus one f32 K3 launch per
-     image for the VAE on the 3xTF32 GEMM; the decode convs as in phase 5.
+     image for the VAE on the 3xTF32 GEMM; the decode convs and the kernel
+     forms as in phase 5.
   6k. (after 3d) the twins at the shapes the image-conditioned paths give
      them and no earlier path did, against their plain versions as in phase
      3: the f32 VAE encoder's convs (conv_in Cin 3 -> 128 at 1024^2 on the
@@ -1585,6 +1602,191 @@ def phase_group_norm(dev):
     log("group-norm " + json.dumps({"rows": rows, "profiles": steps}))
 
 
+# phase 3f's rows: the default binding's kernel forms ("cuda_bf16apply") at
+# SD1.5's largest shapes at UNet batch 16 (GroupNorm+SiLU at 64^2 x 320 and
+# 960, the LayerNorm rows at 64^2 x 320, GEGLU's halves at 64^2) and the f32
+# decoder's largest GroupNorm
+BF16APPLY_ROWS = [("group_norm", (16, 64, 64, 320), torch.bfloat16, "silu"),
+                  ("group_norm", (16, 64, 64, 960), torch.bfloat16, "silu"),
+                  ("layer_norm", (65536, 320), torch.bfloat16, None),
+                  ("geglu", (16, 4096, 2560), torch.bfloat16, None),
+                  ("group_norm", (1, 512, 512, 128), torch.float32, "silu")]
+# how far a kernel form may lie from its plain chain (the card tests'
+# BF16APPLY_MAX_ULPS, BF16APPLY_MAX_SHARE and F32APPLY_MAX_REL): ulps of the
+# largest output and the share of elements off. bf16: 2 ulps, 2e-4 of the
+# elements (where the moments' summation order moves a rounding of mean,
+# rstd, scale or shift); f32: 8 ulps, any share
+BF16APPLY_GATE = {torch.bfloat16: (2, 2e-4), torch.float32: (8, 1.0)}
+# the forms' counters (kernel_counters) by op, and the op of each TPU kernel
+BF16APPLY_COUNTER = {"group_norm": "K9_bf16apply", "layer_norm": "K10_bf16apply",
+                     "geglu": "K11_bf16apply"}
+BF16APPLY_TPU = {"group_norm": "K9", "layer_norm": "K10", "geglu": "K11"}
+BF16APPLY_SOURCE = {"group_norm": "group_norm.cu", "layer_norm": "layer_norm.cu",
+                    "geglu": "geglu.cu"}
+
+
+def gap_to(out, ref) -> dict:
+    """How far a kernel form's output lies from its plain chain's: the
+    largest gap in ulps of the largest plain output (8 significant bits for
+    bf16, 24 for f32), the share of elements that differ, the largest
+    absolute gap."""
+    d = (out.float() - ref.float()).abs()
+    top = ref.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - (7 if out.dtype == torch.bfloat16 else 23))
+    return {"max_ulps": (d.max() / ulp).item(), "share_off": (out != ref).float().mean().item(),
+            "max_abs": d.max().item(), "max_rel": d.max().item() / top}
+
+
+def check_gap(name, gap, dtype) -> None:
+    """Raise where a kernel form lies past BF16APPLY_GATE from its plain chain."""
+    ulps, share = BF16APPLY_GATE[dtype]
+    if not (gap["max_ulps"] <= ulps and gap["share_off"] <= share):
+        raise AssertionError(f"{name}: {gap['max_ulps']:.2f} ulps of the largest output and "
+                             f"{gap['share_off']:.3e} of the elements off the plain chain, "
+                             f"past {ulps} and {share:g}")
+
+
+def phase_bf16apply(dev):
+    """Phase 3f: the default binding's GroupNorm, LayerNorm and GEGLU kernel
+    forms at BF16APPLY_ROWS, each against the plain chain it replaces
+    (``ops.reference``'s bf16-apply forms and reference GEGLU) on the same
+    inputs, held to BF16APPLY_GATE: CUDA-event and device ms a call (the
+    device time profiled twice) and kernels a call of both, the bytes bound
+    (x read once, the output written once) and its share, the gap
+    (``gap_to``). Then torch.rsqrt against 1 / sqrt on the card (the f32
+    rstd the plain forms take). Returns the kernel-table rows."""
+    from stabletriton_tpu_torch.kernels import geglu as gg
+    from stabletriton_tpu_torch.kernels import group_norm as gn
+    from stabletriton_tpu_torch.kernels import layer_norm as ln
+    from stabletriton_tpu_torch.ops import reference
+
+    gen = torch.Generator(device=dev).manual_seed(2222)
+    rows = []
+    with torch.inference_mode():
+        for op, shape, dtype, act in BF16APPLY_ROWS:
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+            c = shape[-1]
+            g = (torch.randn(c, generator=gen, device=dev) * 0.05 + 1).to(dtype)
+            b = (torch.randn(c, generator=gen, device=dev) * 0.05).to(dtype)
+            dname = "bf16" if dtype == torch.bfloat16 else "f32"
+            if op == "group_norm":
+                eps = 1e-6 if dtype == torch.float32 else 1e-5
+                kernel = lambda: gn.group_norm_bf16apply(x, g, b, num_groups=32, eps=eps, act=act)
+                plain = lambda: reference.group_norm_bf16apply(x, g, b, num_groups=32, eps=eps,
+                                                               act=act)
+                moved = 2 * nbytes(x) + nbytes(g, b)
+                name = f"group_norm bf16apply {tuple(shape)} {dname} act={act}"
+            elif op == "layer_norm":
+                kernel = lambda: ln.layer_norm_bf16apply(x, g, b, eps=1e-6)
+                plain = lambda: reference.layer_norm_bf16apply(x, g, b, eps=1e-6)
+                moved = 2 * nbytes(x) + nbytes(g, b)
+                name = f"layer_norm bf16apply {tuple(shape)} {dname}"
+            else:
+                state, gate = x.chunk(2, dim=-1)
+                kernel = lambda: gg.geglu_bf16apply(state, gate)
+                plain = lambda: reference.geglu(state, gate)
+                moved = nbytes(x) + nbytes(x) // 2
+                name = f"geglu bf16apply halves of {tuple(shape)} {dname}"
+            gap = gap_to(kernel(), plain())
+            iters = 5 if x.numel() > 2**26 else 20
+            dev_ms = [device_ms(kernel, iters) for _ in range(2)]
+            plain_ms, plain_n, _ = device_ms(plain, iters)
+            bnd = bound(0, moved, dtype)[0]
+            r = {"name": name, "source": f"stabletriton_tpu_torch/csrc/{BF16APPLY_SOURCE[op]}",
+                 "tpu": BF16APPLY_TPU[op], "counter": BF16APPLY_COUNTER[op],
+                 "max_abs_err": gap["max_abs"], "max_rel_err": gap["max_rel"],
+                 "max_ulps": gap["max_ulps"], "share_off": gap["share_off"],
+                 "ms": timed_ms(kernel, iters), "plain_ms": timed_ms(plain, iters),
+                 "bound_ms": bnd, "bound_by": "bytes", "library_ms": None,
+                 "device_ms": min(m for m, _, _ in dev_ms),
+                 "device_ms_runs": [m for m, _, _ in dev_ms], "kernels": dev_ms[0][1],
+                 "plain_device_ms": plain_ms, "plain_kernels": plain_n}
+            log(f"bf16apply {name}: device {r['device_ms_runs'][0]:.4f} / "
+                f"{r['device_ms_runs'][1]:.4f} ms in {r['kernels']} kernels "
+                f"({bnd / r['device_ms']:.1%} of the {bnd * 1e3:.4g} us bytes bound); plain "
+                f"chain {plain_ms:.4f} ms in {plain_n} kernels; gap {gap['max_ulps']:.2f} ulps "
+                f"of the largest output, {gap['share_off']:.3e} of elements off, max abs "
+                f"{gap['max_abs']:.3e}")
+            check_gap(name, gap, dtype)
+            rows.append(r)
+            del x
+        torch.cuda.empty_cache()
+
+        v = torch.exp(torch.empty(1 << 24, device=dev).uniform_(-30, 30, generator=gen))
+        rsqrt_off = (torch.rsqrt(v) != torch.sqrt(v).reciprocal()).float().mean().item()
+        log(f"bf16apply torch.rsqrt vs 1 / sqrt on the card: {rsqrt_off:.3e} of 2^24 values "
+            f"differ")
+    return rows
+
+
+def phase_bf16apply_steps(dev, ucfg, params):
+    """Phase 4h: one SD1.5 UNet step (64^2 latent) at UNet batch 2 and 16:
+    eager under CompileConfig(), whose kernel forms must launch their
+    per-step counts (default_per_step; K8-K11 nothing), then replayed
+    (compile_unet_kv) under the default binding, under its plain chains (the
+    binding before the kernel forms) and under the fused-op binding,
+    CUDA-event ms a replay in turns (default, plain, fused, fused, plain,
+    default), the replayed default step by kernel family, and the default
+    step's output against the plain chains' (within the step gate)."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import (FUSED_OP_OVERRIDES, CompileConfig,
+                                                compile_unet_kv, fuse_attention_projections,
+                                                resolve_binding)
+    from stabletriton_tpu_torch.models.unet import unet_apply
+
+    gen = torch.Generator(device=dev).manual_seed(2223)
+    params = fuse_attention_projections(params)
+    plain_binding = {**resolve_binding(CompileConfig()), "group_norm": "bf16apply",
+                     "layer_norm": "bf16apply", "geglu": "reference"}
+    plain_config = CompileConfig(overrides=tuple(
+        (op, plain_binding[op]) for op in ("group_norm", "layer_norm", "geglu")))
+    configs = {"default": CompileConfig(), "plain": plain_config,
+               "fused_ops": CompileConfig(overrides=FUSED_OP_OVERRIDES)}
+    counters = kernel_counters()
+    steps = {}
+    with torch.inference_mode():
+        for batch in (2, 16):
+            sample = torch.randn((batch, 64, 64, 4), generator=gen, device=dev).to(torch.bfloat16)
+            ctx = torch.randn((batch, 77, 768), generator=gen, device=dev).to(torch.bfloat16)
+            none = torch.zeros((batch, 0), device=dev)
+            t = torch.full((batch,), 500.0, device=dev)
+            reset(counters)
+            with ops.use_backends(resolve_binding(CompileConfig())):
+                unet_apply(ucfg, params, sample, t, ctx, none, none)
+            torch.cuda.synchronize()
+            want = {**dict.fromkeys(FUSED_PER_STEP, 0), **default_per_step(SD15_ALL_PER_STEP)}
+            launches = {k: counters[k].count for k in want}
+            if launches != want:
+                raise AssertionError(f"SD1.5 eager default step, UNet batch {batch}: launches "
+                                     f"{launches}, expected {want}")
+            run, outs = {}, {}
+            for label, config in configs.items():
+                pre, _, step = compile_unet_kv(ucfg, config)
+                kv = pre(params, ctx)
+                outs[label] = step(params, sample, t, kv, none, none)  # eager, then captured
+                run[label] = lambda step=step, kv=kv: step(params, sample, t, kv, none, none)
+            ms = {label: [] for label in configs}
+            for label in ("default", "plain", "fused_ops", "fused_ops", "plain", "default"):
+                ms[label].append(timed_ms(run[label], 10))
+            fam = profile_step(run["default"], f"bf16apply: SD1.5 step replayed, default, "
+                                               f"UNet batch {batch}")
+            diff = gap_to(outs["default"], outs["plain"])
+            mse = (outs["default"].float() - outs["plain"].float()).square().mean().item()
+            steps[batch] = {"launches": launches, "replay_ms": ms, "profile": fam,
+                            "vs_plain": diff, "mse_vs_plain": mse}
+            log(f"bf16apply SD1.5 step, UNet batch {batch}: kernel-form launches {launches}; "
+                f"replay ms default {ms['default']}, plain chains {ms['plain']}, fused-op "
+                f"{ms['fused_ops']}; default vs plain chains: {diff}, mse {mse:.3e}")
+            if not mse < STEP_MSE_GATE:
+                raise AssertionError(f"SD1.5 default step, UNet batch {batch}: mse {mse:.3e} "
+                                     f"against the plain chains exceeds {STEP_MSE_GATE:g}")
+            del run, outs, sample, ctx
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    log("bf16apply " + json.dumps({"steps": steps}))
+
+
 def make_unet_params(dev, cfg):
     from stabletriton_tpu_torch.models.unet import init_unet_params
 
@@ -1605,6 +1807,18 @@ def make_unet_params(dev, cfg):
 ALL_PER_STEP = {"K8": 35, "K9": 11, "K10": 210, "K11": 70, "K12": 2, "K13": 463}
 SD15_ALL_PER_STEP = {"K8": 45, "K9": 16, "K10": 48, "K11": 16, "K12": 1, "K13": 152}
 FUSED_PER_STEP = {k: ALL_PER_STEP[k] for k in ("K8", "K9", "K10", "K11")}
+
+
+def default_per_step(all_per_step: dict) -> dict:
+    """Launches of the default binding's kernel forms per UNet step, from
+    the all-kernel binding's: every GroupNorm (K8's, before a resnet conv or
+    conv_out, and K9's, before a Transformer2D), every LayerNorm (K10's)
+    and every GEGLU (K11's)."""
+    a = all_per_step
+    return {"K9_bf16apply": a["K8"] + a["K9"], "K10_bf16apply": a["K10"],
+            "K11_bf16apply": a["K11"]}
+
+
 PRECOMPUTE_LINEARS = 70
 SD15_PRECOMPUTE_LINEARS = 16
 VAE_LINEARS = 4  # the f32 VAE decoder's mid-attention q, k, v, out per image
@@ -1644,9 +1858,20 @@ def by_kernel(*counters) -> dict:
     return out
 
 
+def bf16apply_counters():
+    """Launch counters of the default binding's kernel forms of K9-K11
+    ("cuda_bf16apply")."""
+    from stabletriton_tpu_torch.kernels import geglu as gg
+    from stabletriton_tpu_torch.kernels import group_norm as gn
+    from stabletriton_tpu_torch.kernels import layer_norm as ln
+
+    return {"K9_bf16apply": gn.BF16APPLY_LAUNCHES, "K10_bf16apply": ln.BF16APPLY_LAUNCHES,
+            "K11_bf16apply": gg.BF16APPLY_LAUNCHES}
+
+
 def kernel_counters():
-    """Launch counters of K8-K13 (and K6, the plain conv kernel, and the
-    attention kernels K1-K5)."""
+    """Launch counters of K8-K13 (and K6, the plain conv kernel, the
+    attention kernels K1-K5, and the default binding's forms of K9-K11)."""
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.kernels import flash_attention as fa
     from stabletriton_tpu_torch.kernels import geglu as gg
@@ -1657,7 +1882,7 @@ def kernel_counters():
 
     return {"K8": cd.GN_LAUNCHES, "K9": gn.LAUNCHES, "K10": ln.LAUNCHES,
             "K11": gg.LAUNCHES, "K12": te.LAUNCHES, "K13": lin.LAUNCHES, "K6": cd.LAUNCHES,
-            "attention": fa.LAUNCHES}
+            "attention": fa.LAUNCHES, **bf16apply_counters()}
 
 
 class LinearDispatches:
@@ -1839,8 +2064,8 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
                 "fused_ops": resolve_binding(CompileConfig(overrides=FUSED_OP_OVERRIDES)),
                 "all_kernels": resolve_binding(CompileConfig(overrides=ALL_KERNEL_OVERRIDES))}
     reference = resolve_binding(CompileConfig(backend="reference"))
-    zero = dict.fromkeys(all_per_step, 0)
-    expect = {"default": zero,
+    zero = dict.fromkeys([*all_per_step, *BF16APPLY_COUNTER.values()], 0)
+    expect = {"default": {**zero, **default_per_step(all_per_step)},
               "fused_ops": {**zero, **{k: all_per_step[k] for k in FUSED_PER_STEP}},
               "all_kernels": {**all_per_step, "K13": all_per_step["K13"] + precompute_linears}}
 
@@ -2806,13 +3031,38 @@ def phase_decode_deviation(dev, vcfg, vae_params, profile=False):
                              f"exceeds {DECODE_MAX_ABS:g}")
 
 
+def decoder_norms(other) -> int:
+    """The GroupNorms of one image's VAE decode: the decoder's norm scales."""
+    return sum(1 for k in other[1]["vae"] if k.endswith(
+        ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")))
+
+
+def check_default_forms(by_key, all_per_step, steps, images, norms, label) -> None:
+    """The default binding's kernel forms' launches in a serving run (the
+    counters set to 0 just before its requests): their per-step counts
+    (default_per_step) times the UNet steps run, and the f32 VAE decoder's
+    ``norms`` GroupNorms once per image."""
+    want = {k: n * steps for k, n in default_per_step(all_per_step).items()}
+    want["K9_bf16apply"] += norms * images
+    got = {k: sum(by_key[k].values()) for k in want}
+    f32 = sum(n for key, n in by_key["K9_bf16apply"].items() if key.startswith("f32"))
+    log(f"{label}: kernel-form launches {got} ({f32} GroupNorms in f32) over {steps} UNet "
+        f"steps and {images} images")
+    if got != want or f32 != norms * images:
+        raise AssertionError(f"{label}: kernel-form launches {got}, {f32} in f32; expected "
+                             f"{want}, {norms * images} in f32")
+
+
 def phase_serving(dev, ucfg, unet_params, other):
-    """Phase 5: the default binding, two co-batched requests and one alone."""
+    """Phase 5: the default binding, two co-batched requests and one alone.
+    The bf16 attention, the decode's convs and attention, and the kernel
+    forms of GroupNorm, LayerNorm and GEGLU launch their counts per UNet
+    step and per image."""
     from stabletriton_tpu_torch.compile import CompileConfig
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.kernels import flash_attention as fa
 
-    counters = {"flash_attention": fa.LAUNCHES, "conv3x3": cd.LAUNCHES}
+    counters = {"flash_attention": fa.LAUNCHES, "conv3x3": cd.LAUNCHES, **bf16apply_counters()}
     # two requests with one signature co-batch; the third repeats the first
     # one's seed alone
     done, counts, by_key = serve(
@@ -2832,6 +3082,8 @@ def phase_serving(dev, ucfg, unet_params, other):
                          "default-binding serving")
     check_decode_convs(by_key["conv3x3"], len(done), "default-binding serving")
     check_decode_attention(by_key["flash_attention"], len(done), "default-binding serving")
+    check_default_forms(by_key, ALL_PER_STEP, steps, len(done), decoder_norms(other),
+                        "default-binding serving")
     return by_key, diff
 
 
@@ -2850,8 +3102,7 @@ def phase_serving_fused(dev, ucfg, unet_params, other):
         solo=("a red fox in snow", 21))
     diff = solo_vs_batched(done, "fused-op")
     steps = unet_steps(by_key["K8"], ucfg, "wgmma_bf16")
-    vae_norms = sum(1 for k in other[1]["vae"] if k.endswith(
-        ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")))
+    vae_norms = decoder_norms(other)
     k9_f32 = sum(n for key, n in by_key["K9"].items() if key.startswith("f32"))
     log(f"fused-op serving: {steps} UNet steps, {len(done)} images, "
         f"{vae_norms} VAE GroupNorms per image")
@@ -2888,8 +3139,7 @@ def phase_serving_all(dev, ucfg, unet_params, other):
     diff = solo_vs_batched(done, "all-kernel")
     steps = unet_steps(by_key["K8"], ucfg, "wgmma_bf16")
     gens, images = steps // SERVE_STEPS, len(done)
-    vae_norms = sum(1 for k in other[1]["vae"] if k.endswith(
-        ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")))
+    vae_norms = decoder_norms(other)
     want = {k: n * steps for k, n in ALL_PER_STEP.items()}
     want["K9"] += vae_norms * images
     want["K13"] += PRECOMPUTE_LINEARS * gens + VAE_LINEARS * images
@@ -2918,12 +3168,13 @@ def phase_serving_sd15(dev, ucfg, unet_params, other):
     requests and the first one's seed alone (4 Euler steps, guidance 7.5).
     The bf16 attention launches of each class must be its per-step count
     times the UNet steps run (from the conv_out launches); the VAE decode
-    adds one f32 K3 launch per image."""
+    adds one f32 K3 launch per image. The kernel forms of GroupNorm,
+    LayerNorm and GEGLU launch their counts per step and per image."""
     from stabletriton_tpu_torch.compile import CompileConfig
     from stabletriton_tpu_torch.kernels import conv_direct as cd
     from stabletriton_tpu_torch.kernels import flash_attention as fa
 
-    counters = {"flash_attention": fa.LAUNCHES, "conv3x3": cd.LAUNCHES}
+    counters = {"flash_attention": fa.LAUNCHES, "conv3x3": cd.LAUNCHES, **bf16apply_counters()}
     done, counts, by_key = serve(
         dev, ucfg, unet_params, other, CompileConfig(), counters=counters,
         prompts=[("a watercolor of a harbour", 31), ("an owl on a branch", 32)],
@@ -2936,6 +3187,8 @@ def phase_serving_sd15(dev, ucfg, unet_params, other):
     check_bf16_attention(by_key["flash_attention"], SD15_ATTN_PER_STEP, steps, "SD1.5 serving")
     check_decode_convs(by_key["conv3x3"], len(done), "SD1.5 serving")
     check_decode_attention(by_key["flash_attention"], len(done), "SD1.5 serving")
+    check_default_forms(by_key, SD15_ALL_PER_STEP, steps, len(done), decoder_norms(other),
+                        "SD1.5 serving")
     return by_key
 
 
@@ -5430,6 +5683,7 @@ def main() -> int:
                       + with_peak("phase 3b", phase_fused_kernels, dev)
                       + with_peak("phase 3c", phase_sd15_attention, dev))
     with_peak("phase 3e", phase_c4, dev)
+    kernel_results += with_peak("phase 3f", phase_bf16apply, dev)
     kernel_results += with_peak("phase 3d", phase_optional_kernels, dev)
     # the image paths' kernel checks with the others, before any phase
     # captures a graph or serves from a worker thread: after those, the
@@ -5481,7 +5735,7 @@ def main() -> int:
     with_peak("phase 9p", phase_packaged_table, dev, ucfg, sdxl["unet"], card)
     free(sdxl)
 
-    # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 4f, 5c
+    # SD1.5 at 512^2: phases 4c (default, fused-op and all-kernel), 4e, 4h, 4f, 5c
     ucfg = sd15_unet_config()
     sd15 = {"unet": make_unet_params(dev, ucfg)}
     sd15_step = with_peak("phase 4c (weights included)", phase_step_deviation, dev, ucfg,
@@ -5490,6 +5744,7 @@ def main() -> int:
               SD15_ATTN_PER_STEP, SD15_CONV_SPLIT, SD15_LINEAR_SPLIT, "SD1.5", profile)
     with_peak("phase 4e SD1.5 step", phase_replay_step, dev, ucfg, sd15["unet"],
               sd15_step_inputs(dev), "SD1.5", profile)
+    with_peak("phase 4h", phase_bf16apply_steps, dev, ucfg, sd15["unet"])
     with_peak("phase 4f SD1.5 steps", phase_deep_cache_steps, dev, ucfg, sd15["unet"],
               sd15_step_inputs(dev), "SD1.5")
     sd15["other"] = make_sd15_other_params(dev)
@@ -5516,6 +5771,9 @@ def main() -> int:
     conv = [*by_key["conv3x3"].items(), *sd15_by_key["conv3x3"].items()]
 
     def launches(r):
+        if "counter" in r and r["counter"] in BF16APPLY_COUNTER.values():
+            # the default binding's kernel forms: phases 5 and 5c
+            return sum(by_key[r["counter"]].values()) + sum(sd15_by_key[r["counter"]].values())
         if r["tpu"] == "K6":
             return sum(n for key, n in conv if key.startswith(r["kernel"] + " "))
         if r["tpu"] == "K8":
@@ -5547,6 +5805,8 @@ def main() -> int:
         if "match" in r:
             return sum(n for key, n in image_by_key[r["counter"]].items()
                        if all(m in key + " " for m in r["match"]))
+        if "counter" in r:
+            return sum(image_by_key[r["counter"]].values())
         if r["tpu"] in ("K6", "K8"):
             return sum(n for key, n in image_by_key[r["tpu"]].items()
                        if key.startswith(r["kernel"] + " "))
@@ -5581,7 +5841,8 @@ def main() -> int:
                              "prep_ms", "device_ms", "library_device_ms", "alt_device_ms",
                              "tf32_padded_device_ms", "launch_floor_ms",
                              "cold_device_ms", "device_ms_source", "rule_kernel", "rule_ms",
-                             "rule_max_abs_err", "fold_device_ms", "fold_bound_ms") if k in r},
+                             "rule_max_abs_err", "fold_device_ms", "fold_bound_ms",
+                             "plain_device_ms", "max_ulps", "share_off") if k in r},
     } for r in kernel_results + image_results + sd2_results]
     for k in kernels:
         if k["launches"] == 0:

@@ -32,6 +32,11 @@ KERNEL_ATTENTION_OPS = ("attention", "attention_qkv", "attention_kv")
 OPTIONAL_KERNEL_OPS = ("geglu", "group_norm", "layer_norm", "rms_norm", "linear",
                        "time_embed", "dropout")
 
+# the default binding's GroupNorm, LayerNorm and GEGLU: the JAX package's
+# plain bf16-apply forms (and its reference GEGLU), each op rounded to the
+# input dtype, computed by the K9-K11 kernels in their stepwise forms
+BF16APPLY_KERNEL_OPS = ("group_norm", "layer_norm", "geglu")
+
 # the fused-op binding: the JAX package's ``backend="pallas"`` with the
 # group_norm / layer_norm / geglu / gn_conv2d="fused" overrides
 FUSED_OP_OVERRIDES = (("group_norm", "cuda"), ("layer_norm", "cuda"), ("geglu", "cuda"),
@@ -79,9 +84,12 @@ class CompileConfig:
 def resolve_binding(config: CompileConfig) -> dict[str, str]:
     """The op -> backend binding for ``config``, as in the JAX package: the
     attention family on the attention kernel, conv2d on the direct 3x3 conv
-    kernel, GroupNorm/LayerNorm on the bf16-apply forms; then the quantize
-    mode's int8 ops; then the overrides. An unknown quantize mode raises;
-    an override must name a registered backend, or "reference"."""
+    kernel, GroupNorm / LayerNorm on the bf16-apply forms and GEGLU on the
+    reference form, these three computed by the kernels' "cuda_bf16apply"
+    forms (the same roundings in one or two launches, where the plain
+    chains take 2-27); then the quantize mode's int8 ops; then the
+    overrides. An unknown quantize mode raises; an override must name a
+    registered backend, or "reference"."""
     if config.backend not in ("cuda", "reference"):
         raise ValueError(f"unknown backend {config.backend!r}")
     if config.backend == "cuda" or any(bk != "reference" for _, bk in config.overrides):
@@ -90,8 +98,8 @@ def resolve_binding(config: CompileConfig) -> dict[str, str]:
     if config.backend == "cuda":
         for op in KERNEL_ATTENTION_OPS:
             binding[op] = "cuda"
-        binding["group_norm"] = "bf16apply"
-        binding["layer_norm"] = "bf16apply"
+        for op in BF16APPLY_KERNEL_OPS:
+            binding[op] = "cuda_bf16apply"
         binding["conv2d"] = "direct"
     if config.quantize in ("int8", "int8_ff"):
         binding["linear"] = "int8"

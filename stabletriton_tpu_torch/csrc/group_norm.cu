@@ -33,6 +33,13 @@
 //                   registers (no per-vector modulo), f32 math, one rounding to
 //                   x's dtype, streaming loads and stores.
 //
+// The STEPWISE instantiations of both are the default binding's GroupNorm,
+// rounded as the plain PyTorch chain they replace (ops/reference.py
+// group_norm_bf16apply) rounds on the card: the fold takes each group sum
+// times the f32 1 / count and rstd by rsqrtf (torch.rsqrt), the apply rounds
+// scale and shift to x's dtype, then x * s, + t and the SiLU (precise expf and
+// division) each to x's dtype. Only the moments' summation order differs.
+//
 // The tickets are unsigned counters in a buffer the wrapper keeps per device
 // and stream, zeroed once; the block that takes a ticket last sets it back to
 // 0, so every eager call and every graph replay starts from zero. No float
@@ -236,7 +243,10 @@ __device__ __forceinline__ void slab_totals(const double2* src, int C, int nchun
 // The fold of a slab's groups from its f32 channel totals cs / cq (each
 // group's channels in channel order in f32, every operation rounded on its
 // own, var clamped at 0): each group's mean into cs and rstd into cq at its
-// first channel. Leaves the block synchronised.
+// first channel. STEPWISE takes the moments as the plain PyTorch chain does
+// on the card: each sum times the f32 1 / count (torch's division by a
+// number), rstd by rsqrtf (torch.rsqrt). Leaves the block synchronised.
+template <bool STEPWISE>
 __device__ __forceinline__ void fold_groups(float* cs, float* cq, int nch, int per, int HW,
                                             float eps) {
   for (int g = threadIdx.x; g < nch / per; g += blockDim.x) {
@@ -247,15 +257,23 @@ __device__ __forceinline__ void fold_groups(float* cs, float* cq, int nch, int p
       gq = __fadd_rn(gq, cq[g * per + i]);
     }
     const float cnt = (float)((long long)HW * per);
-    const float mean = __fdiv_rn(gs, cnt), ex2 = __fdiv_rn(gq, cnt);
-    const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
-    cs[g * per] = mean;
-    cq[g * per] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));  // torch's rsqrt: 1 / sqrt
+    if constexpr (STEPWISE) {
+      const float inv = __fdiv_rn(1.f, cnt);
+      const float mean = __fmul_rn(gs, inv), ex2 = __fmul_rn(gq, inv);
+      const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
+      cs[g * per] = mean;
+      cq[g * per] = rsqrtf(__fadd_rn(var, eps));
+    } else {
+      const float mean = __fdiv_rn(gs, cnt), ex2 = __fdiv_rn(gq, cnt);
+      const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
+      cs[g * per] = mean;
+      cq[g * per] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));  // correctly rounded
+    }
   }
   __syncthreads();
 }
 
-template <typename T, int V>
+template <typename T, int V, bool STEPWISE>
 __global__ void __launch_bounds__(MAX_THREADS, 4) gn_stats_fold(
     const T* __restrict__ x, const void* gamma, int gamma_dtype, const void* beta,
     int beta_dtype, float* __restrict__ scale, float* __restrict__ shift,
@@ -301,7 +319,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 4) gn_stats_fold(
     slab_totals(slab_partials, p.C, p.nchunks, nch, red, cs, cq);
   }
   const int per = p.C / p.G;
-  fold_groups(cs, cq, nch, per, p.HW, eps);
+  fold_groups<STEPWISE>(cs, cq, nch, per, p.HW, eps);
   for (int ch = t; ch < nch; ch += nt) {
     const int c = slab * nch + ch, g0 = ch / per * per;
     const float sc = __fmul_rn(cq[g0], stv::load_param(gamma, gamma_dtype, c));
@@ -311,7 +329,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 4) gn_stats_fold(
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool STEPWISE>
 __global__ void __launch_bounds__(MAX_THREADS) gn_apply(
     const T* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ shift,
     T* __restrict__ out, Plan p, int act) {
@@ -326,6 +344,10 @@ __global__ void __launch_bounds__(MAX_THREADS) gn_apply(
   for (int i = 0; i < V; ++i) {
     sc[i] = __ldg(scale + (long long)b * p.C + c0 + i);
     sh[i] = __ldg(shift + (long long)b * p.C + c0 + i);
+    if constexpr (STEPWISE) {  // the plain form applies bf16(scale), bf16(shift)
+      sc[i] = stv::round_to<T>(sc[i]);
+      sh[i] = stv::round_to<T>(sh[i]);
+    }
   }
   const int r1 = min(p.HW, (chunk + 1) * p.chunk_rows);
   for (int r = chunk * p.chunk_rows + rl; r < r1; r += LOADS * k) {
@@ -344,8 +366,16 @@ __global__ void __launch_bounds__(MAX_THREADS) gn_apply(
       unpack<T, V>(raw[u], v);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float y = fmaf(v[i], sc[i], sh[i]);
-        v[i] = act ? stv::silu(y) : y;
+        if constexpr (STEPWISE) {
+          // x * s, + t and SiLU each rounded to T, as PyTorch's kernels
+          // round them (the SiLU at the store)
+          const float y = stv::round_to<T>(
+              __fadd_rn(stv::round_to<T>(__fmul_rn(v[i], sc[i])), sh[i]));
+          v[i] = act ? stv::silu_rn(y) : y;
+        } else {
+          const float y = fmaf(v[i], sc[i], sh[i]);
+          v[i] = act ? stv::silu(y) : y;
+        }
       }
       __stcs(reinterpret_cast<Raw<T, V>*>(out + off + (long long)row * p.C), pack<T, V>(v));
     }
@@ -392,19 +422,19 @@ struct Workspace {
   }
 };
 
-template <typename T, int V>
+template <typename T, int V, bool STEPWISE>
 void launch_stats(const void* x, const void* gamma, int gamma_dtype, const void* beta,
                   int beta_dtype, const Workspace& w, unsigned* tickets, const Plan& p, int B,
                   float eps, cudaStream_t stream) {
-  gn_stats_fold<T, V><<<dim3(p.nslabs * p.nchunks, B), threads_of(p.sv), stats_smem(V, p.sv),
+  gn_stats_fold<T, V, STEPWISE><<<dim3(p.nslabs * p.nchunks, B), threads_of(p.sv), stats_smem(V, p.sv),
                         stream>>>(static_cast<const T*>(x), gamma, gamma_dtype, beta,
                                   beta_dtype, w.scale, w.shift, w.partial, tickets, p, eps);
 }
 
-template <typename T, int V>
+template <typename T, int V, bool STEPWISE>
 void launch_apply(const void* x, const float* scale, const float* shift, void* out,
                   const Plan& p, int B, int act, cudaStream_t stream) {
-  gn_apply<T, V><<<dim3(p.nslabs * p.nchunks, B), MAX_THREADS, 0, stream>>>(
+  gn_apply<T, V, STEPWISE><<<dim3(p.nslabs * p.nchunks, B), MAX_THREADS, 0, stream>>>(
       static_cast<const T*>(x), scale, shift, static_cast<T*>(out), p, act);
 }
 
@@ -414,39 +444,56 @@ bool valid_params(const void* ws, const void* tickets, int gamma_dtype, int beta
          gamma_dtype <= 1 && beta_dtype >= 0 && beta_dtype <= 1;
 }
 
+template <bool STEPWISE>
+int stats_as(const void* x, const void* gamma, int gamma_dtype, const void* beta,
+             int beta_dtype, const Workspace& w, unsigned* tickets, const Plan& p, int B,
+             float eps, int dtype, int vec, cudaStream_t stream) {
+  if (dtype == 1 && vec == 8)
+    launch_stats<__nv_bfloat16, 8, STEPWISE>(x, gamma, gamma_dtype, beta, beta_dtype, w,
+                                             tickets, p, B, eps, stream);
+  else if (dtype == 1 && vec == 1)
+    launch_stats<__nv_bfloat16, 1, STEPWISE>(x, gamma, gamma_dtype, beta, beta_dtype, w,
+                                             tickets, p, B, eps, stream);
+  else if (dtype == 0 && vec == 4)
+    launch_stats<float, 4, STEPWISE>(x, gamma, gamma_dtype, beta, beta_dtype, w, tickets, p,
+                                     B, eps, stream);
+  else if (dtype == 0 && vec == 1)
+    launch_stats<float, 1, STEPWISE>(x, gamma, gamma_dtype, beta, beta_dtype, w, tickets, p,
+                                     B, eps, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 int stats_any(const void* x, const void* gamma, int gamma_dtype, const void* beta,
               int beta_dtype, const Workspace& w, unsigned* tickets, const Plan& p, int B,
-              float eps, int dtype, int vec, cudaStream_t stream) {
+              float eps, int stepwise, int dtype, int vec, cudaStream_t stream) {
+  return stepwise ? stats_as<true>(x, gamma, gamma_dtype, beta, beta_dtype, w, tickets, p, B,
+                                   eps, dtype, vec, stream)
+                  : stats_as<false>(x, gamma, gamma_dtype, beta, beta_dtype, w, tickets, p, B,
+                                    eps, dtype, vec, stream);
+}
+
+template <bool STEPWISE>
+int apply_as(const void* x, const float* scale, const float* shift, void* out, const Plan& p,
+             int B, int act, int dtype, int vec, cudaStream_t stream) {
   if (dtype == 1 && vec == 8)
-    launch_stats<__nv_bfloat16, 8>(x, gamma, gamma_dtype, beta, beta_dtype, w, tickets, p, B,
-                                   eps, stream);
+    launch_apply<__nv_bfloat16, 8, STEPWISE>(x, scale, shift, out, p, B, act, stream);
   else if (dtype == 1 && vec == 1)
-    launch_stats<__nv_bfloat16, 1>(x, gamma, gamma_dtype, beta, beta_dtype, w, tickets, p, B,
-                                   eps, stream);
+    launch_apply<__nv_bfloat16, 1, STEPWISE>(x, scale, shift, out, p, B, act, stream);
   else if (dtype == 0 && vec == 4)
-    launch_stats<float, 4>(x, gamma, gamma_dtype, beta, beta_dtype, w, tickets, p, B, eps,
-                           stream);
+    launch_apply<float, 4, STEPWISE>(x, scale, shift, out, p, B, act, stream);
   else if (dtype == 0 && vec == 1)
-    launch_stats<float, 1>(x, gamma, gamma_dtype, beta, beta_dtype, w, tickets, p, B, eps,
-                           stream);
+    launch_apply<float, 1, STEPWISE>(x, scale, shift, out, p, B, act, stream);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 int apply_any(const void* x, const float* scale, const float* shift, void* out, const Plan& p,
-              int B, int act, int dtype, int vec, cudaStream_t stream) {
-  if (dtype == 1 && vec == 8)
-    launch_apply<__nv_bfloat16, 8>(x, scale, shift, out, p, B, act, stream);
-  else if (dtype == 1 && vec == 1)
-    launch_apply<__nv_bfloat16, 1>(x, scale, shift, out, p, B, act, stream);
-  else if (dtype == 0 && vec == 4)
-    launch_apply<float, 4>(x, scale, shift, out, p, B, act, stream);
-  else if (dtype == 0 && vec == 1)
-    launch_apply<float, 1>(x, scale, shift, out, p, B, act, stream);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+              int B, int act, int stepwise, int dtype, int vec, cudaStream_t stream) {
+  return stepwise ? apply_as<true>(x, scale, shift, out, p, B, act, dtype, vec, stream)
+                  : apply_as<false>(x, scale, shift, out, p, B, act, dtype, vec, stream);
 }
 
 }  // namespace
@@ -454,7 +501,11 @@ int apply_any(const void* x, const float* scale, const float* shift, void* out, 
 // GroupNorm of x (B, HW, C) contiguous, dtype 0 = f32, 1 = bf16, into out
 // (same shape and dtype), in two kernels: the moments and the fold (G
 // groups, eps; gamma and beta (C,) of gamma_dtype / beta_dtype, 0 = f32,
-// 1 = bf16), then the apply (+SiLU when act == 1). vec: values per load (8
+// 1 = bf16), then the apply (+SiLU when act == 1): in f32 with one rounding,
+// or with stepwise = 1 the default binding's form (ops/reference.py
+// group_norm_bf16apply: the moments as torch takes them on the card, then x *
+// bf16(scale), + bf16(shift) and the SiLU each rounded to x's dtype, the
+// SiLU precise). vec: values per load (8
 // for bf16 / 4 for f32 when C is a multiple and x and out are 16-byte
 // aligned, else 1); (sv, chunk_rows) and (apply_sv, apply_rows): the stats
 // and apply plans (kernels/group_norm.py:plan, apply_plan). ws: 16-byte
@@ -464,8 +515,8 @@ int apply_any(const void* x, const float* scale, const float* shift, void* out, 
 // success).
 extern "C" int st_group_norm(const void* x, const void* gamma, int gamma_dtype, const void* beta,
                              int beta_dtype, void* out, void* ws, void* tickets, int B, int HW,
-                             int C, int G, float eps, int act, int sv, int chunk_rows,
-                             int apply_sv, int apply_rows, int dtype, int vec,
+                             int C, int G, float eps, int act, int stepwise, int sv,
+                             int chunk_rows, int apply_sv, int apply_rows, int dtype, int vec,
                              void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Plan p, pa;
@@ -475,9 +526,10 @@ extern "C" int st_group_norm(const void* x, const void* gamma, int gamma_dtype, 
     return (int)cudaErrorInvalidValue;
   const Workspace w(ws, B, C);
   const int code = stats_any(x, gamma, gamma_dtype, beta, beta_dtype, w,
-                             static_cast<unsigned*>(tickets), p, B, eps, dtype, vec, stream);
+                             static_cast<unsigned*>(tickets), p, B, eps, stepwise, dtype, vec,
+                             stream);
   if (code != 0) return code;
-  return apply_any(x, w.scale, w.shift, out, pa, B, act, dtype, vec, stream);
+  return apply_any(x, w.scale, w.shift, out, pa, B, act, stepwise, dtype, vec, stream);
 }
 
 // The first kernel of st_group_norm alone: scale / shift (B, C) f32 in the
@@ -493,7 +545,7 @@ extern "C" int st_group_norm_fold(const void* x, const void* gamma, int gamma_dt
       !valid_params(ws, tickets, gamma_dtype, beta_dtype))
     return (int)cudaErrorInvalidValue;
   return stats_any(x, gamma, gamma_dtype, beta, beta_dtype, Workspace(ws, B, C),
-                   static_cast<unsigned*>(tickets), p, B, eps, dtype, vec, stream);
+                   static_cast<unsigned*>(tickets), p, B, eps, 0, dtype, vec, stream);
 }
 
 // out = x * scale[b, c] + shift[b, c], then SiLU when act == 1; scale and
@@ -505,5 +557,5 @@ extern "C" int st_group_norm_apply(const void* x, const float* scale, const floa
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Plan p;
   if (!valid_plan(B, HW, C, 0, vec, sv, chunk_rows, &p)) return (int)cudaErrorInvalidValue;
-  return apply_any(x, scale, shift, out, p, B, act, dtype, vec, stream);
+  return apply_any(x, scale, shift, out, p, B, act, 0, dtype, vec, stream);
 }

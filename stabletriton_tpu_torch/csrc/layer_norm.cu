@@ -18,6 +18,12 @@
 // and the stats keep the occupancy. Blocks of 8 warps, or 4 where that
 // leaves fewer than two blocks an SM (the 2048-row LayerNorms), so that
 // rows spread over all 132 SMs.
+//
+// The STEPWISE form is the default binding's LayerNorm (ops/reference.py
+// layer_norm_bf16apply) on the same design: the moments as torch.mean and
+// torch.rsqrt take them on the card (sum times f32 1 / C, each square its own
+// rounding), then x - mean, * rstd, * gamma and + beta with each operand and
+// result rounded to x's dtype, as that chain of PyTorch ops rounds them.
 
 #include <type_traits>
 
@@ -30,6 +36,9 @@ using stv::store_vec;
 using stv::to_f32;
 
 constexpr int MAX_WARPS = 8, SMS = 132;
+// the register budget: a lane holds at most 64 values of its row, so C <= 2048
+// in either dtype (NV <= 8 bf16 vectors, 16 f32)
+constexpr int MAX_VALUES = 64;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -57,7 +66,7 @@ __device__ __forceinline__ void load_params(const PT* p, bool vec, float (&v)[V]
   }
 }
 
-template <typename T, typename PT, int V, int NV>
+template <typename T, typename PT, int V, int NV, bool STEPWISE>
 __global__ void __launch_bounds__(32 * MAX_WARPS) ln_rows(
     const T* __restrict__ x, const PT* __restrict__ gamma, const PT* __restrict__ beta,
     bool pvec, T* __restrict__ out, int rows, int C, float eps, int rms) {
@@ -80,19 +89,31 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) ln_rows(
 #pragma unroll
     for (int i = 0; i < V; ++i) s += v[j][i];
   }
-  const float mean = rms ? 0.f : warp_sum(s) / C;
+  // STEPWISE (LayerNorm only): torch.mean on the card takes the sum times
+  // the f32 1 / C, and squares each difference in its own rounded op
+  float mean;
+  if constexpr (STEPWISE) mean = __fmul_rn(warp_sum(s), __fdiv_rn(1.f, (float)C));
+  else mean = rms ? 0.f : warp_sum(s) / C;
   float q = 0.f;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     if (lane + 32 * j < CV) {
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        const float d = v[j][i] - mean;
-        q = fmaf(d, d, q);
+        if constexpr (STEPWISE) {
+          const float d = __fsub_rn(v[j][i], mean);
+          q = __fadd_rn(q, __fmul_rn(d, d));
+        } else {
+          const float d = v[j][i] - mean;
+          q = fmaf(d, d, q);
+        }
       }
     }
   }
-  const float rstd = rsqrtf(warp_sum(q) / C + eps);
+  float rstd;
+  if constexpr (STEPWISE)
+    rstd = rsqrtf(__fadd_rn(__fmul_rn(warp_sum(q), __fdiv_rn(1.f, (float)C)), eps));
+  else rstd = rsqrtf(warp_sum(q) / C + eps);
   T* orow = out + (long long)row * C;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
@@ -103,16 +124,43 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) ln_rows(
     if (beta) load_params<PT, V>(beta + cv * V, pvec, b);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      float y = (v[j][i] - mean) * rstd;
-      if (gamma) y *= g[i];
-      if (beta) y += b[i];
-      v[j][i] = y;
+      if constexpr (STEPWISE) {
+        // the plain form's roundings: x - bf16(mean), * bf16(rstd), * gamma,
+        // + beta, each rounded to T (the last at the store)
+        float y = stv::round_to<T>(__fsub_rn(v[j][i], stv::round_to<T>(mean)));
+        y = stv::round_to<T>(__fmul_rn(y, stv::round_to<T>(rstd)));
+        if (gamma) y = stv::round_to<T>(__fmul_rn(y, stv::round_to<T>(g[i])));
+        if (beta) y = __fadd_rn(y, stv::round_to<T>(b[i]));
+        v[j][i] = y;
+      } else {
+        float y = (v[j][i] - mean) * rstd;
+        if (gamma) y *= g[i];
+        if (beta) y += b[i];
+        v[j][i] = y;
+      }
     }
     store_vec<T, V>(orow + cv * V, v[j]);
   }
 }
 
-template <typename T, typename PT, int V>
+// ln_rows with NV = nv vectors a lane: the instantiations NV = N ..
+// MAX_VALUES / V, the first that fits
+template <typename T, typename PT, int V, bool STEPWISE, int N = 1>
+int launch_nv(int nv, dim3 grid, dim3 block, const T* x, const PT* gamma, const PT* beta,
+              bool pvec, T* out, int rows, int C, float eps, int rms, cudaStream_t stream) {
+  if (nv == N) {
+    ln_rows<T, PT, V, N, STEPWISE><<<grid, block, 0, stream>>>(x, gamma, beta, pvec, out, rows,
+                                                               C, eps, rms);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (N * V < MAX_VALUES)
+    return launch_nv<T, PT, V, STEPWISE, N + 1>(nv, grid, block, x, gamma, beta, pvec, out,
+                                                rows, C, eps, rms, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename PT, int V, bool STEPWISE>
 int launch(const void* x, const void* gamma, const void* beta, void* out, int rows, int C,
            float eps, int rms, cudaStream_t stream) {
   const int nv = (C / V + 31) / 32;
@@ -121,30 +169,27 @@ int launch(const void* x, const void* gamma, const void* beta, void* out, int ro
   const dim3 block(32 * warps);
   const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool pvec = a16(gamma) && a16(beta);
-  const T* xt = static_cast<const T*>(x);
-  const PT* gt = static_cast<const PT*>(gamma);
-  const PT* bt = static_cast<const PT*>(beta);
-  T* ot = static_cast<T*>(out);
-#define ST_LN_CASE(N)                                                                        \
-  case N:                                                                                    \
-    ln_rows<T, PT, V, N><<<grid, block, 0, stream>>>(xt, gt, bt, pvec, ot, rows, C, eps, rms); \
-    break;
-  switch (nv) {
-    ST_LN_CASE(1) ST_LN_CASE(2) ST_LN_CASE(3) ST_LN_CASE(4)
-    ST_LN_CASE(5) ST_LN_CASE(6) ST_LN_CASE(7) ST_LN_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef ST_LN_CASE
-  return (int)cudaGetLastError();
+  return launch_nv<T, PT, V, STEPWISE>(nv, grid, block, static_cast<const T*>(x),
+                                       static_cast<const PT*>(gamma),
+                                       static_cast<const PT*>(beta), pvec, static_cast<T*>(out),
+                                       rows, C, eps, rms, stream);
 }
 
-template <typename T, int V>
+template <typename T, int V, bool STEPWISE>
 int launch_p(const void* x, const void* gamma, const void* beta, int pdtype, void* out,
              int rows, int C, float eps, int rms, cudaStream_t stream) {
   return pdtype == 1
-             ? launch<T, __nv_bfloat16, V>(x, gamma, beta, out, rows, C, eps, rms, stream)
-             : launch<T, float, V>(x, gamma, beta, out, rows, C, eps, rms, stream);
+             ? launch<T, __nv_bfloat16, V, STEPWISE>(x, gamma, beta, out, rows, C, eps, rms,
+                                                     stream)
+             : launch<T, float, V, STEPWISE>(x, gamma, beta, out, rows, C, eps, rms, stream);
+}
+
+template <typename T, int V>
+int launch_s(const void* x, const void* gamma, const void* beta, int pdtype, void* out,
+             int rows, int C, float eps, int rms, int stepwise, cudaStream_t stream) {
+  return stepwise
+             ? launch_p<T, V, true>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stream)
+             : launch_p<T, V, false>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stream);
 }
 
 }  // namespace
@@ -152,14 +197,17 @@ int launch_p(const void* x, const void* gamma, const void* beta, int pdtype, voi
 // The launch's other arguments, one struct: a call's signature fixes them,
 // so the wrapper keeps one per signature and the call passes six pointers
 // (ctypes converts each argument on every call). dtype 0 = f32, 1 = bf16;
-// pdtype gamma's and beta's (0 where there are none); rms = 1 for RMSNorm.
+// pdtype gamma's and beta's (0 where there are none); rms = 1 for RMSNorm;
+// stepwise = 1 for the default binding's LayerNorm (ops/reference.py
+// layer_norm_bf16apply: each op of the apply rounded to x's dtype).
 struct LnDims {
   int dtype, pdtype, rows, C, rms;
   float eps;
+  int stepwise;
 };
 
 // x, out (rows, C) contiguous and 16-byte aligned, C a multiple of 8 (bf16)
-// or 4 (f32) and at most 256 vectors. gamma / beta (C,) or null; any
+// or 4 (f32) and at most 2048. gamma / beta (C,) or null; any
 // alignment (vector loads where both bases are 16-byte aligned). Returns a
 // cudaError_t (0 on success).
 extern "C" int st_layer_norm(const void* x, const void* gamma, const void* beta, void* out,
@@ -167,11 +215,14 @@ extern "C" int st_layer_norm(const void* x, const void* gamma, const void* beta,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!d) return (int)cudaErrorInvalidValue;
   const int dtype = d->dtype, pdtype = d->pdtype, rows = d->rows, C = d->C, rms = d->rms;
+  const int stepwise = d->stepwise;
   const float eps = d->eps;
-  if (rows <= 0 || pdtype < 0 || pdtype > 1) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || pdtype < 0 || pdtype > 1 || (stepwise && rms))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1 && C % 8 == 0)
-    return launch_p<__nv_bfloat16, 8>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stream);
+    return launch_s<__nv_bfloat16, 8>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stepwise,
+                                      stream);
   if (dtype == 0 && C % 4 == 0)
-    return launch_p<float, 4>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stream);
+    return launch_s<float, 4>(x, gamma, beta, pdtype, out, rows, C, eps, rms, stepwise, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+// x rounded to T (nearest even) and back: a PyTorch op's result in T, as
+// the next op reads it; the identity for f32
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
 template <typename T, int V>
 __device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
   if constexpr (V * sizeof(T) == 16) {
@@ -58,6 +65,19 @@ __device__ __forceinline__ float load_param(const void* p, int pdtype, int i) {
 // but the f32 VAE's; the GroupNorm apply kernel and the conv's GroupNorm
 // prologue share it, so the fused and the unfused pair normalise alike
 __device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.f + __expf(-x)); }
+
+// x * sigmoid(x) as PyTorch's CUDA silu computes it in f32, x / (1 + expf(-x))
+// with the precise expf and a rounded division, for the kernels' forms that
+// reproduce a plain PyTorch chain's roundings
+__device__ __forceinline__ float silu_rn(float x) {
+  return __fdiv_rn(x, __fadd_rn(1.f, expf(-x)));
+}
+
+// PyTorch's CUDA exact gelu in f32, x * 0.5 * (1 + erf(x * sqrt(1/2))),
+// each operation rounded on its own as in its kernel
+__device__ __forceinline__ float gelu_rn(float x) {
+  return __fmul_rn(__fmul_rn(x, 0.5f), __fadd_rn(1.f, erff(__fmul_rn(x, 0.70710678118654752f))));
+}
 
 // the linear kernels' epilogue activation on an f32 sum: act 0 none, 1 SiLU
 // (precise expf and division), 2 GELU with erff (the Pallas kernel's erf

@@ -16,6 +16,12 @@ saves) is made; the output is written once. ``erff`` takes the place of the
 Pallas kernel's Abramowitz-Stegun polynomial, which exists only because
 Mosaic has no erf.
 
+The default binding's GEGLU (:func:`geglu_bf16apply`, backend
+"cuda_bf16apply") is the same kernel in its stepwise form: the gelu as
+PyTorch's kernel takes it, rounded to the operands' dtype, then the product
+rounded, as the plain ``ops.reference.geglu`` (``state * F.gelu(gate)``)
+rounds them in its launches.
+
 CUDA C++ rather than Triton: the repo has one build route (``build.py``),
 one launch check and one library.
 
@@ -33,10 +39,13 @@ import torch.nn.functional as F
 
 from stabletriton_tpu_torch.kernels.build import (
     DTYPE_CODES, LaunchCounter, check, current_stream, function, on_device)
+from stabletriton_tpu_torch.ops import reference
 from stabletriton_tpu_torch.ops.registry import register
 
 
 LAUNCHES = LaunchCounter()
+# launches of the default binding's form (geglu_bf16apply)
+BF16APPLY_LAUNCHES = LaunchCounter()
 
 
 def geglu_plain(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -45,8 +54,9 @@ def geglu_plain(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     return (state.float() * F.gelu(gate.float(), approximate="none")).to(state.dtype)
 
 
+# st_geglu(state, gate, rs, out, rows, n, dtype, vec, stepwise, stream)
 _GEGLU_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _row_stride(t: torch.Tensor) -> int:
@@ -60,14 +70,8 @@ def _row_stride(t: torch.Tensor) -> int:
     return t.stride(-2) if t.dim() > 1 else t.shape[-1]
 
 
-@register("geglu", "cuda")
-def geglu(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """state * gelu(gate) on two (..., N) tensors of one shape, read in place
-    (e.g. the halves of a (..., 2N) buffer)."""
-    if state.shape != gate.shape:
-        raise ValueError(f"geglu shapes differ: {tuple(state.shape)} {tuple(gate.shape)}")
-    if state.device.type == "cpu":
-        return geglu_plain(state, gate)
+def _geglu(state, gate, stepwise, counter):
+    """One st_geglu launch on CUDA tensors, counted on ``counter``."""
     if state.dtype not in DTYPE_CODES or gate.dtype != state.dtype:
         raise ValueError(f"geglu kernel takes float32 or bfloat16 operands of one dtype, "
                          f"got {state.dtype} and {gate.dtype}")
@@ -89,8 +93,34 @@ def geglu(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     with on_device(state.device):
         stream = current_stream(state.device)
         code = fn(state.data_ptr(), gate.data_ptr(), rs, out.data_ptr(), rows, n,
-                  DTYPE_CODES[state.dtype], vec, stream)
+                  DTYPE_CODES[state.dtype], vec, int(stepwise), stream)
     check(code, "st_geglu")
-    LAUNCHES.add(f"{'bf16' if state.dtype == torch.bfloat16 else 'f32'} "
-                 f"rows={rows} n={n} rs={rs} vec={vec}")
+    counter.add(f"{'bf16' if state.dtype == torch.bfloat16 else 'f32'} "
+                f"rows={rows} n={n} rs={rs} vec={vec}")
     return out
+
+
+def _check_shapes(state: torch.Tensor, gate: torch.Tensor) -> None:
+    if state.shape != gate.shape:
+        raise ValueError(f"geglu shapes differ: {tuple(state.shape)} {tuple(gate.shape)}")
+
+
+@register("geglu", "cuda")
+def geglu(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """state * gelu(gate) on two (..., N) tensors of one shape, read in place
+    (e.g. the halves of a (..., 2N) buffer)."""
+    _check_shapes(state, gate)
+    if state.device.type == "cpu":
+        return geglu_plain(state, gate)
+    return _geglu(state, gate, False, LAUNCHES)
+
+
+@register("geglu", "cuda_bf16apply")
+def geglu_bf16apply(state: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """The default binding's GEGLU, ``ops.reference.geglu``'s roundings on
+    the kernel (that plain form for CPU tensors), read in place as
+    :func:`geglu`."""
+    _check_shapes(state, gate)
+    if state.device.type == "cpu":
+        return reference.geglu(state, gate)
+    return _geglu(state, gate, True, BF16APPLY_LAUNCHES)

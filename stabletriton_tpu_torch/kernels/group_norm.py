@@ -27,6 +27,16 @@ backwards, streaming loads and stores), and the fused GN conv's gather after
 wrapper makes one workspace allocation (the partials and scale / shift),
 the output, and one ctypes call: no PyTorch arithmetic.
 
+The default binding's GroupNorm (:func:`group_norm_bf16apply`, backend
+"cuda_bf16apply") runs the same two kernels in their stepwise forms, which
+round as the plain ``ops.reference.group_norm_bf16apply`` rounds on the
+card: the fold takes each group sum times the f32 1 / count and rstd by
+``torch.rsqrt``'s rsqrtf (K9 divides and takes a correctly rounded 1 /
+sqrt), and the apply rounds scale and shift to x's dtype, then x * s, + t
+and the SiLU each to x's dtype. So that binding keeps its numbers and sheds
+the plain chain's 22-27 launches (f32 copies, reductions, repeats) a
+GroupNorm. Only the moments' summation order differs from the plain chain's.
+
 Determinism: no float atomics, every sum in a fixed order, and the plans a
 function of (H*W, C, vec, groups) alone, so the same input gives the same bits in
 every run and an image gets the same scale / shift at every batch bucket.
@@ -64,6 +74,7 @@ import torch.nn.functional as F
 from stabletriton_tpu_torch.kernels.build import (
     ACT_CODES, DTYPE_CODES, SILU_ACTS, LaunchCounter, check, current_stream, function,
     on_device)
+from stabletriton_tpu_torch.ops import reference
 from stabletriton_tpu_torch.ops.registry import register
 
 THREADS = 256          # csrc/group_norm.cu MAX_THREADS: a block's threads at most
@@ -77,6 +88,8 @@ TICKETS = 1 << 16      # counters of a (device, stream) buffer: B x slabs a laun
 # the stats and fold launched for the fused GN conv count with that conv
 # (conv_direct.GN_LAUNCHES)
 LAUNCHES = LaunchCounter()
+# one count per GroupNorm of the default binding's form (group_norm_bf16apply)
+BF16APPLY_LAUNCHES = LaunchCounter()
 
 
 def moments_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -191,9 +204,10 @@ def _params(x: torch.Tensor, gamma: torch.Tensor,
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# st_group_norm(x, gamma, gamma_dtype, beta, beta_dtype, out, ws, tickets, B, HW,
-#               C, G, eps, act, sv, chunk_rows, apply_sv, apply_rows, dtype, vec, stream)
-_GN_ARGTYPES = [_P, _P, _I, _P, _I, _P, _P, _P] + [_I] * 4 + [_F] + [_I] * 7 + [_P]
+# st_group_norm(x, gamma, gamma_dtype, beta, beta_dtype, out, ws, tickets, B, HW, C,
+#               G, eps, act, stepwise, sv, chunk_rows, apply_sv, apply_rows, dtype, vec,
+#               stream)
+_GN_ARGTYPES = [_P, _P, _I, _P, _I, _P, _P, _P] + [_I] * 4 + [_F] + [_I] * 8 + [_P]
 # st_group_norm_fold: the same without out, act and the apply plan
 _FOLD_ARGTYPES = [_P, _P, _I, _P, _I, _P, _P] + [_I] * 4 + [_F] + [_I] * 4 + [_P]
 # st_group_norm_apply(x, scale, shift, out, B, HW, C, act, sv, chunk_rows, dtype, vec, stream)
@@ -282,19 +296,17 @@ def apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     return out
 
 
-@register("group_norm", "cuda")
-def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
-               num_groups: int = 32, eps: float = 1e-5,
-               act: str | None = None) -> torch.Tensor:
-    """GroupNorm over NHWC x (+SiLU): the stats-and-fold kernel and the
-    apply kernel behind one C entry (``st_group_norm``)."""
-    n, h, w, c = x.shape
+def _check_args(c: int, num_groups: int, act: str | None) -> None:
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     if act not in SILU_ACTS:
         raise ValueError(f"group norm kernel takes act in {list(SILU_ACTS)}, got {act!r}")
-    if x.device.type == "cpu":
-        return group_norm_plain(x, gamma, beta, num_groups=num_groups, eps=eps, act=act)
+
+
+def _group_norm(x, gamma, beta, num_groups, eps, act, stepwise, counter):
+    """One st_group_norm call on a CUDA tensor, counted on ``counter``."""
+    n, h, w, c = x.shape
+    _check_args(c, num_groups, act)
     _check_cuda(x)
     gamma, beta = _params(x, gamma, beta)
     vec = _vec(x)
@@ -308,9 +320,35 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
         tickets = _tickets(x, stream, n * slabs)
         code = fn(x.data_ptr(), gamma.data_ptr(), DTYPE_CODES[gamma.dtype], beta.data_ptr(),
                   DTYPE_CODES[beta.dtype], out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), n,
-                  h * w, c, num_groups, eps, ACT_CODES[act], sv, rows, apply_sv, apply_rows,
-                  DTYPE_CODES[x.dtype], vec, stream)
+                  h * w, c, num_groups, eps, ACT_CODES[act], int(stepwise), sv, rows, apply_sv,
+                  apply_rows, DTYPE_CODES[x.dtype], vec, stream)
     check(code, "st_group_norm")
-    LAUNCHES.add(f"{'bf16' if x.dtype == torch.bfloat16 else 'f32'} b={n} {h}x{w} "
-                 f"c={c} g={num_groups} act={act}")
+    counter.add(f"{'bf16' if x.dtype == torch.bfloat16 else 'f32'} b={n} {h}x{w} "
+                f"c={c} g={num_groups} act={act}")
     return out
+
+
+@register("group_norm", "cuda")
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+               num_groups: int = 32, eps: float = 1e-5,
+               act: str | None = None) -> torch.Tensor:
+    """GroupNorm over NHWC x (+SiLU): the stats-and-fold kernel and the
+    apply kernel behind one C entry (``st_group_norm``)."""
+    if x.device.type == "cpu":
+        _check_args(x.shape[3], num_groups, act)
+        return group_norm_plain(x, gamma, beta, num_groups=num_groups, eps=eps, act=act)
+    return _group_norm(x, gamma, beta, num_groups, eps, act, False, LAUNCHES)
+
+
+@register("group_norm", "cuda_bf16apply")
+def group_norm_bf16apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+                         num_groups: int = 32, eps: float = 1e-5,
+                         act: str | None = None) -> torch.Tensor:
+    """The default binding's GroupNorm (+SiLU) on the kernels' stepwise
+    forms, which round as ``ops.reference.group_norm_bf16apply`` does (module
+    docstring), counted on BF16APPLY_LAUNCHES. A CPU tensor takes that plain
+    form."""
+    if x.device.type == "cpu":
+        return reference.group_norm_bf16apply(x, gamma, beta, num_groups=num_groups, eps=eps,
+                                              act=act)
+    return _group_norm(x, gamma, beta, num_groups, eps, act, True, BF16APPLY_LAUNCHES)

@@ -14,8 +14,14 @@ registers (C = 640 or 1280 bf16 is 20-40 values a lane), loaded and stored
 as 16-byte vectors, so x is read once; f32 two-pass mean and variance from
 the registers; xor-butterfly warp sums, so every run gives the same bits;
 gamma and beta read as vectors of each lane's columns; the affine in f32
-and one rounding. This is not the default binding's ``bf16apply`` form,
-which rounds after each op.
+and one rounding.
+
+The default binding's LayerNorm (:func:`layer_norm_bf16apply`, backend
+"cuda_bf16apply") is the same kernel in its stepwise form: the moments as
+``torch.mean`` / ``torch.rsqrt`` take them on the card, then x - mean, *
+rstd, * gamma and + beta with each operand and result rounded to x's dtype,
+as the plain ``ops.reference.layer_norm_bf16apply`` rounds them (13
+launches a LayerNorm there). Only the moments' summation order differs.
 
 The launch path is short, since the UNet step launches 210 of these: what
 depends only on the signature (shapes and dtypes: the checks, the launch
@@ -42,11 +48,14 @@ import torch
 
 from stabletriton_tpu_torch.kernels.build import (
     DTYPE_CODES, LaunchCounter, check, current_stream, function, on_device)
+from stabletriton_tpu_torch.ops import reference
 from stabletriton_tpu_torch.ops.registry import register
 
-MAX_VECTORS_PER_LANE = 8  # the kernel's register budget: C <= 2048 bf16 / 1024 f32
+MAX_VALUES_PER_LANE = 64  # the kernel's register budget: C <= 2048 in either dtype
 
 LAUNCHES = LaunchCounter()
+# launches of the default binding's form (layer_norm_bf16apply)
+BF16APPLY_LAUNCHES = LaunchCounter()
 
 
 def layer_norm_plain(x: torch.Tensor, gamma: torch.Tensor | None,
@@ -75,13 +84,15 @@ class LnDims(ctypes.Structure):
     """st_layer_norm's other arguments (csrc/layer_norm.cu LnDims), made once
     per signature: ctypes converts every argument of every call."""
     _fields_ = [("dtype", ctypes.c_int), ("pdtype", ctypes.c_int), ("rows", ctypes.c_int),
-                ("c", ctypes.c_int), ("rms", ctypes.c_int), ("eps", ctypes.c_float)]
+                ("c", ctypes.c_int), ("rms", ctypes.c_int), ("eps", ctypes.c_float),
+                ("stepwise", ctypes.c_int)]
 
 
 class Route(NamedTuple):
     """What a signature decides about one launch of the kernel."""
     key: str
-    fields: tuple  # LnDims's: dtype, pdtype (0 where there are none), rows, c, rms, eps
+    fields: tuple  # LnDims's: dtype, pdtype (0 where there are none), rows, c, rms, eps,
+    #                stepwise
     dims: LnDims   # made of them
     address: int   # of dims, which the route keeps alive
 
@@ -95,7 +106,8 @@ def _check_params(c: int, *shapes) -> None:
 @functools.lru_cache(maxsize=None)
 def _route(shape: tuple, dtype: torch.dtype, gamma_shape: tuple | None,
            gamma_dtype: torch.dtype | None, beta_shape: tuple | None,
-           beta_dtype: torch.dtype | None, rmsnorm: bool, eps: float) -> Route:
+           beta_dtype: torch.dtype | None, rmsnorm: bool, eps: float,
+           stepwise: bool = False) -> Route:
     """A launch's signature, checked (the ValueError of a bad operand; the
     cache keeps no exception, so a bad call raises anew every time) and
     routed: the launch key and the C entry's other arguments. Pure and
@@ -105,17 +117,19 @@ def _route(shape: tuple, dtype: torch.dtype, gamma_shape: tuple | None,
     if dtype not in DTYPE_CODES:
         raise ValueError(f"layer norm kernel takes float32 or bfloat16, got {dtype}")
     vec = 16 // dtype.itemsize
-    if c % vec or c > 32 * vec * MAX_VECTORS_PER_LANE:
+    if c % vec or c > 32 * MAX_VALUES_PER_LANE:
         raise ValueError(f"layer norm kernel takes C a multiple of {vec} up to "
-                         f"{32 * vec * MAX_VECTORS_PER_LANE}, got {c}")
+                         f"{32 * MAX_VALUES_PER_LANE}, got {c}")
     pdtypes = {d for d in (gamma_dtype, beta_dtype) if d is not None}
     if len(pdtypes) > 1 or not pdtypes <= set(DTYPE_CODES):
         raise ValueError(f"gamma and beta must share one of {list(DTYPE_CODES)}, got {pdtypes}")
     rows = math.prod(shape[:-1])
-    key = (f"{'rms' if rmsnorm else 'ln'} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
-           f"rows={rows} c={c}")
+    if stepwise and rmsnorm:
+        raise ValueError("the stepwise form is LayerNorm's alone")
+    kind = "ln_bf16apply" if stepwise else "rms" if rmsnorm else "ln"
+    key = f"{kind} {'bf16' if dtype == torch.bfloat16 else 'f32'} rows={rows} c={c}"
     fields = (DTYPE_CODES[dtype], DTYPE_CODES[pdtypes.pop()] if pdtypes else 0, rows, c,
-              int(rmsnorm), eps)
+              int(rmsnorm), eps, int(stepwise))
     dims = LnDims(*fields)
     return Route(key, fields, dims, ctypes.addressof(dims))
 
@@ -131,14 +145,16 @@ def check_call(contiguous: bool, x_ptr: int, x_device, gamma_device, beta_device
         raise ValueError("gamma and beta must be contiguous on x's device")
 
 
-def _row_norm(x, gamma, beta, eps, rmsnorm):
+def _row_norm(x, gamma, beta, eps, rmsnorm, stepwise=False):
     if x.is_cpu:
         _check_params(x.shape[-1], None if gamma is None else gamma.shape,
                       None if beta is None else beta.shape)
+        if stepwise:
+            return reference.layer_norm_bf16apply(x, gamma, beta, eps=eps)
         return layer_norm_plain(x, gamma, beta, eps=eps, rmsnorm=rmsnorm)
     route = _route(x.shape, x.dtype, None if gamma is None else gamma.shape,
                    None if gamma is None else gamma.dtype, None if beta is None else beta.shape,
-                   None if beta is None else beta.dtype, rmsnorm, eps)
+                   None if beta is None else beta.dtype, rmsnorm, eps, stepwise)
     x_ptr = x.data_ptr()
     check_call(x.is_contiguous(), x_ptr, x.get_device(),
                None if gamma is None else gamma.get_device(),
@@ -151,7 +167,7 @@ def _row_norm(x, gamma, beta, eps, rmsnorm):
             None if beta is None else beta.data_ptr(), out.data_ptr(), current_stream(x.device),
             route.address)
     check(code, "st_layer_norm")
-    LAUNCHES.add(route.key)
+    (BF16APPLY_LAUNCHES if stepwise else LAUNCHES).add(route.key)
     return out
 
 
@@ -160,6 +176,15 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor | None, beta: torch.Tensor |
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis of x (..., C); gamma / beta may be None."""
     return _row_norm(x, gamma, beta, eps, rmsnorm=False)
+
+
+@register("layer_norm", "cuda_bf16apply")
+def layer_norm_bf16apply(x: torch.Tensor, gamma: torch.Tensor | None,
+                         beta: torch.Tensor | None, *, eps: float = 1e-5) -> torch.Tensor:
+    """The default binding's LayerNorm over the last axis of x (..., C): the
+    kernel's stepwise form, which rounds as ``ops.reference.
+    layer_norm_bf16apply`` does (that plain form for a CPU tensor)."""
+    return _row_norm(x, gamma, beta, eps, rmsnorm=False, stepwise=True)
 
 
 @register("rms_norm", "cuda")

@@ -671,6 +671,7 @@ def test_gpu_group_norm_clamps_a_near_constant_group(cuda_device, shape, dtype):
     (torch.bfloat16, 16, 1280, True, True, 2e-2),
     (torch.float32, 9, 96, False, False, 1e-4),     # gamma = beta = None
     (torch.float32, 8, 1024, True, False, 1e-4),
+    (torch.float32, 19, 2048, False, True, 1e-4),   # 16 f32 vectors a lane, the most
 ])
 def test_gpu_layer_norm_kernel_vs_plain(cuda_device, dtype, rows, c, rms, affine, tol):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -686,7 +687,8 @@ def test_gpu_layer_norm_kernel_vs_plain(cuda_device, dtype, rows, c, rms, affine
 @pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32, None])
 @pytest.mark.parametrize("dtype,rows,c", [
     (torch.bfloat16, 8192, 640), (torch.bfloat16, 2048, 1280), (torch.bfloat16, 77, 320),
-    (torch.float32, 300, 320), (torch.float32, 2048, 1024),
+    (torch.float32, 300, 320), (torch.float32, 2048, 1024), (torch.float32, 2048, 1280),
+    (torch.float32, 2048, 1536),
 ])
 def test_gpu_layer_norm_at_unet_shapes(cuda_device, dtype, rows, c, pdtype):
     """K10 at the UNet's LayerNorm shapes and C = 320, gamma / beta in bf16,
@@ -2011,3 +2013,249 @@ def test_gpu_turbo_step_replays_bit_for_bit(cuda_device, mode):
     assert torch.isfinite(eager.float()).all()
     assert torch.equal(first, eager) and torch.equal(replay, eager)
     assert not torch.equal(eager, exact)
+
+
+# The default binding's GroupNorm, LayerNorm and GEGLU ("cuda_bf16apply"):
+# the SD1.5 512^2 UNet's inputs at one image (a step runs 61 GroupNorms, 48
+# LayerNorms and 16 GEGLUs), taken at UNet batch 2 and 16, and its f32 VAE
+# decoder's GroupNorms at batch 1. ((H, W, C), act) for GroupNorm, (S, C)
+# for LayerNorm rows and (S, N) for GEGLU's halves of a (B, S, 2N) buffer.
+SD15_GN = [((64, 64, 320), "silu"), ((64, 64, 320), None), ((64, 64, 640), "silu"),
+           ((64, 64, 960), "silu"), ((32, 32, 320), "silu"), ((32, 32, 640), "silu"),
+           ((32, 32, 640), None), ((32, 32, 960), "silu"), ((32, 32, 1280), "silu"),
+           ((32, 32, 1920), "silu"), ((16, 16, 640), "silu"), ((16, 16, 1280), "silu"),
+           ((16, 16, 1280), None), ((16, 16, 1920), "silu"), ((16, 16, 2560), "silu"),
+           ((8, 8, 1280), "silu"), ((8, 8, 1280), None), ((8, 8, 2560), "silu")]
+SD15_VAE_GN = [((64, 64, 512), "silu"), ((64, 64, 512), None), ((128, 128, 512), "silu"),
+               ((256, 256, 512), "silu"), ((256, 256, 256), "silu"), ((512, 512, 256), "silu"),
+               ((512, 512, 128), "silu")]
+SD15_LN = [(4096, 320), (1024, 640), (256, 1280), (64, 1280)]
+# the f32 UNets' widest LayerNorms: 1280 (SD1.5, SD2.x, SDXL), 1536 (the refiner)
+F32_LN = [(1024, 1280), (1024, 1536)]
+SD15_GEGLU = [(4096, 1280), (1024, 2560), (256, 5120), (64, 5120)]
+SD15_STEP_CALLS = {"group_norm": 61, "layer_norm": 48, "geglu": 16}
+
+# Where the kernel forms may differ from the plain chains they replace: only
+# where the moments' summation order moves a rounding of mean, rstd, scale or
+# shift, which moves some elements of that (image, channel) or row by a
+# rounding of x's dtype (an element x * s past the largest output by up to
+# 1.25 bf16 ulps of that output). Measured on the card over these shapes at
+# three seeds (PERF.md, Findings): bf16 GroupNorm at most 1.25 ulps
+# and 7.9e-5 of the elements off, LayerNorm and GEGLU bit for bit; the f32
+# decoder's GroupNorm at most 5 f32 ulps of the largest output.
+BF16APPLY_MAX_ULPS = 2          # bf16 ulps of the largest output
+BF16APPLY_MAX_SHARE = 2e-4      # of the elements
+F32APPLY_MAX_REL = 16 * 2**-24  # of the largest f32 output: at most 8 f32 ulps
+
+
+def _bf16apply_inputs(device, shape, dtype, seed):
+    """x ~ 2 N(0, 1) + 0.5; gamma 1 + N(0, 0.05^2), beta N(0, 0.05^2), as
+    the benchmark's weights hold a norm's scale and bias."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).to(dtype)
+    c = shape[-1]
+    g = (torch.randn(c, generator=gen, device=device) * 0.05 + 1).to(dtype)
+    b = (torch.randn(c, generator=gen, device=device) * 0.05).to(dtype)
+    return x, g, b
+
+
+def _holds_plain(out, ref):
+    """The kernel form against its plain chain: bf16 within
+    BF16APPLY_MAX_ULPS of the largest output and at most
+    BF16APPLY_MAX_SHARE of the elements off; f32 within F32APPLY_MAX_REL."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.isfinite(out.float()).all()
+    if out.dtype == torch.bfloat16:
+        assert _bf16_ulps(out, ref) <= BF16APPLY_MAX_ULPS
+        assert (out != ref).float().mean().item() <= BF16APPLY_MAX_SHARE
+    else:
+        assert _rel_err(out, ref) <= F32APPLY_MAX_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [2, 16])
+@pytest.mark.parametrize("hwc,act", SD15_GN)
+def test_gpu_bf16apply_group_norm_at_sd15_shapes(cuda_device, hwc, act, batch):
+    """The default binding's GroupNorm kernel form against the plain
+    group_norm_bf16apply on the card, one launch counted on its own
+    counter (K9's untouched), the same bits in a second run."""
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    x, g, b = _bf16apply_inputs(cuda_device, (batch, *hwc), torch.bfloat16, 31)
+    k9, before = tgn.LAUNCHES.count, tgn.BF16APPLY_LAUNCHES.count
+    out = tgn.group_norm_bf16apply(x, g, b, num_groups=32, act=act)
+    assert tgn.BF16APPLY_LAUNCHES.count == before + 1 and tgn.LAUNCHES.count == k9
+    _holds_plain(out, tref.group_norm_bf16apply(x, g, b, num_groups=32, act=act))
+    assert torch.equal(tgn.group_norm_bf16apply(x, g, b, num_groups=32, act=act), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hwc,act", SD15_VAE_GN)
+def test_gpu_bf16apply_group_norm_f32_decoder(cuda_device, hwc, act):
+    """The f32 VAE decoder's GroupNorms under the default binding: x * scale,
+    + shift and the SiLU each an f32 rounding, as the plain form; within a
+    few f32 ulps of the largest output (the moments' order), and a graph
+    replay of it the same bits as eager."""
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    x, g, b = _bf16apply_inputs(cuda_device, (1, *hwc), torch.float32, 32)
+    out = tgn.group_norm_bf16apply(x, g, b, num_groups=32, eps=1e-6, act=act)
+    _holds_plain(out, tref.group_norm_bf16apply(x, g, b, num_groups=32, eps=1e-6, act=act))
+    other = torch.randn_like(x)
+    _k9_holds(lambda t: tgn.group_norm_bf16apply(t, g, b, num_groups=32, eps=1e-6, act=act),
+              x, other)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [2, 16])
+@pytest.mark.parametrize("s,c", SD15_LN)
+def test_gpu_bf16apply_layer_norm_at_sd15_shapes(cuda_device, s, c, batch):
+    """The default binding's LayerNorm kernel form against the plain
+    layer_norm_bf16apply on the card, on its own counter, the same bits
+    twice."""
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    x, g, b = _bf16apply_inputs(cuda_device, (batch, s, c), torch.bfloat16, 33)
+    k10, before = tln.LAUNCHES.count, tln.BF16APPLY_LAUNCHES.count
+    out = tln.layer_norm_bf16apply(x, g, b, eps=1e-6)
+    assert tln.BF16APPLY_LAUNCHES.count == before + 1 and tln.LAUNCHES.count == k10
+    _holds_plain(out, tref.layer_norm_bf16apply(x, g, b, eps=1e-6))
+    assert torch.equal(tln.layer_norm_bf16apply(x, g, b, eps=1e-6), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,c", F32_LN)
+def test_gpu_bf16apply_layer_norm_f32_wide(cuda_device, s, c):
+    """The default binding's LayerNorm in f32 at the widest rows the UNets
+    take (CompileConfig(dtype="float32")): within a few f32 ulps of the
+    plain chain, the same bits twice."""
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    x, g, b = _bf16apply_inputs(cuda_device, (2, s, c), torch.float32, 38)
+    out = tln.layer_norm_bf16apply(x, g, b, eps=1e-5)
+    _holds_plain(out, tref.layer_norm_bf16apply(x, g, b, eps=1e-5))
+    assert torch.equal(tln.layer_norm_bf16apply(x, g, b, eps=1e-5), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gpu_bf16apply_layer_norm_without_affine(cuda_device, dtype):
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    x, _, _ = _bf16apply_inputs(cuda_device, (2, 300, 640), dtype, 34)
+    _holds_plain(tln.layer_norm_bf16apply(x, None, None), tref.layer_norm_bf16apply(x, None,
+                                                                                     None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [2, 16])
+@pytest.mark.parametrize("s,n", SD15_GEGLU)
+def test_gpu_bf16apply_geglu_at_sd15_shapes(cuda_device, s, n, batch):
+    """The default binding's GEGLU kernel form on the halves of one
+    projection buffer against the plain reference geglu on the card: no
+    reduction, so the same bits; on its own counter."""
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(35)
+    proj = (torch.randn((batch, s, 2 * n), generator=gen, device=cuda_device) * 2).to(
+        torch.bfloat16)
+    state, gate = proj.chunk(2, dim=-1)
+    k11, before = tgeglu.LAUNCHES.count, tgeglu.BF16APPLY_LAUNCHES.count
+    out = tgeglu.geglu_bf16apply(state, gate)
+    assert tgeglu.BF16APPLY_LAUNCHES.count == before + 1 and tgeglu.LAUNCHES.count == k11
+    assert torch.equal(out, tref.geglu(state, gate))
+
+
+@pytest.mark.gpu
+def test_gpu_bf16apply_geglu_f32(cuda_device):
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(36)
+    state, gate = (torch.randn((2, 77, 2 * 96), generator=gen, device=cuda_device) * 2).chunk(
+        2, dim=-1)
+    assert torch.equal(tgeglu.geglu_bf16apply(state, gate), tref.geglu(state, gate))
+
+
+@pytest.mark.gpu
+def test_gpu_default_binding_step_runs_the_kernel_forms(cuda_device):
+    """Engagement: one eager SD1.5 UNet step (full width, 64^2 latent, CFG
+    batch 2) under CompileConfig() raises the kernel forms' counters by the
+    step's 61 GroupNorms, 48 LayerNorms and 16 GEGLUs, K9-K11's by nothing,
+    and stays within the step gate of the step under the plain chains the
+    binding had before."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import (CompileConfig, fuse_attention_projections,
+                                                resolve_binding)
+    from stabletriton_tpu_torch.models.unet import (init_unet_params, sd15_unet_config,
+                                                    unet_apply)
+
+    ucfg = sd15_unet_config()
+    params = fuse_attention_projections(init_unet_params(ucfg, 0, device=cuda_device,
+                                                         dtype=torch.bfloat16))
+    gen = torch.Generator(device=cuda_device).manual_seed(37)
+    sample = torch.randn((2, 64, 64, 4), generator=gen, device=cuda_device).to(torch.bfloat16)
+    ctx = torch.randn((2, 77, 768), generator=gen, device=cuda_device).to(torch.bfloat16)
+    none = torch.zeros((2, 0), device=cuda_device)
+    t = torch.full((2,), 500.0, device=cuda_device)
+    counters = {"group_norm": tgn.BF16APPLY_LAUNCHES, "layer_norm": tln.BF16APPLY_LAUNCHES,
+                "geglu": tgeglu.BF16APPLY_LAUNCHES}
+    untouched = (tgn.LAUNCHES, tln.LAUNCHES, tgeglu.LAUNCHES)
+
+    def step(binding):
+        with torch.inference_mode(), ops.use_backends(binding):
+            return unet_apply(ucfg, params, sample, t, ctx, none, none)
+
+    binding = resolve_binding(CompileConfig())
+    before = {k: c.count for k, c in counters.items()}
+    fixed = [c.count for c in untouched]
+    out = step(binding)
+    torch.cuda.synchronize()
+    assert {k: c.count - before[k] for k, c in counters.items()} == SD15_STEP_CALLS
+    assert [c.count for c in untouched] == fixed
+    plain = step({**binding, "group_norm": "bf16apply", "layer_norm": "bf16apply",
+                  "geglu": "reference"})
+    assert torch.isfinite(out.float()).all()
+    assert _rel_err(out, plain) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_gpu_default_binding_f32_step(cuda_device):
+    """CompileConfig(dtype="float32") on the card: one eager full-width SD2.x
+    UNet step (1280-wide transformer blocks, 64^2 latent, CFG batch 2) in
+    f32 runs every GroupNorm, LayerNorm and GEGLU on the kernel forms and
+    stays within the f32 step gate of the plain chains. SD2.x rather than
+    SD1.5: the f32 attention kernels take head dims 64 and 512, and SD1.5's
+    are 40, 80 and 160."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import (CompileConfig, cast_params,
+                                                fuse_attention_projections, resolve_binding)
+    from stabletriton_tpu_torch.models.unet import (init_unet_params, sd21_unet_config,
+                                                    unet_apply)
+
+    ucfg = sd21_unet_config()
+    config = CompileConfig(dtype="float32")
+    params = cast_params(fuse_attention_projections(init_unet_params(ucfg, 0,
+                                                                     device=cuda_device)),
+                         config)
+    gen = torch.Generator(device=cuda_device).manual_seed(39)
+    sample = torch.randn((2, 64, 64, 4), generator=gen, device=cuda_device)
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=gen, device=cuda_device)
+    none = torch.zeros((2, 0), device=cuda_device)
+    t = torch.full((2,), 500.0, device=cuda_device)
+    counters = {"group_norm": tgn.BF16APPLY_LAUNCHES, "layer_norm": tln.BF16APPLY_LAUNCHES,
+                "geglu": tgeglu.BF16APPLY_LAUNCHES}
+
+    def step(binding):
+        with torch.inference_mode(), ops.use_backends(binding):
+            return unet_apply(ucfg, params, sample, t, ctx, none, none)
+
+    binding = resolve_binding(config)
+    before = {k: c.count for k, c in counters.items()}
+    out = step(binding)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    # SD1.5's topology, so its count of each op
+    assert {k: c.count - before[k] for k, c in counters.items()} == SD15_STEP_CALLS
+    plain = step({**binding, "group_norm": "bf16apply", "layer_norm": "bf16apply",
+                  "geglu": "reference"})
+    assert _rel_err(out, plain) <= 1e-3

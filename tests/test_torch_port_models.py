@@ -24,7 +24,9 @@ from stabletriton_tpu.models import unet as junet
 from stabletriton_tpu.models import vae as jvae
 from stabletriton_tpu.runtime import scheduler as jsched
 from stabletriton_tpu_torch import ops as tops
-from stabletriton_tpu_torch.compile import CompileConfig, fuse_attention_projections, resolve_binding
+from stabletriton_tpu_torch.compile import (ALL_KERNEL_OVERRIDES, FUSED_OP_OVERRIDES,
+                                            CompileConfig, fuse_attention_projections,
+                                            resolve_binding)
 from stabletriton_tpu_torch.io.convert import params_from_numpy
 from stabletriton_tpu_torch.models import clip as tclip
 from stabletriton_tpu_torch.models import unet as tunet
@@ -250,7 +252,17 @@ def test_params_from_numpy():
 def test_resolve_binding():
     assert resolve_binding(CompileConfig(backend="reference")) == {}
     b = resolve_binding(CompileConfig())
+    # GroupNorm / LayerNorm / GEGLU: the plain bf16-apply (and reference GEGLU)
+    # roundings, computed by the kernels' stepwise forms
     assert b == {"attention": "cuda", "attention_qkv": "cuda", "attention_kv": "cuda",
-                 "group_norm": "bf16apply", "layer_norm": "bf16apply", "conv2d": "direct"}
+                 "group_norm": "cuda_bf16apply", "layer_norm": "cuda_bf16apply",
+                 "geglu": "cuda_bf16apply", "conv2d": "direct"}
+    # the fused-op and all-kernel bindings are as they were
+    fused = {"attention": "cuda", "attention_qkv": "cuda", "attention_kv": "cuda",
+             "group_norm": "cuda", "layer_norm": "cuda", "geglu": "cuda", "gn_conv2d": "fused",
+             "conv2d": "direct"}
+    assert resolve_binding(CompileConfig(overrides=FUSED_OP_OVERRIDES)) == fused
+    assert resolve_binding(CompileConfig(overrides=ALL_KERNEL_OVERRIDES)) == {
+        **fused, "linear": "cuda", "time_embed": "cuda"}
     with pytest.raises(ValueError, match="unknown backend"):
         resolve_binding(CompileConfig(backend="pallas"))

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from stabletriton_tpu import ops as jops
+from stabletriton_tpu_torch import kernels  # noqa: F401  (registers the kernel backends)
 from stabletriton_tpu_torch import ops as tops
 from stabletriton_tpu_torch.ops import registry
 
@@ -46,25 +47,33 @@ def test_attention_fused_operands():
     _close(jops.attention_kv(qj, kvj, num_heads=2), tops.attention_kv(qt, kvt, num_heads=2))
 
 
-@pytest.mark.parametrize("backend", ["reference", "bf16apply"])
+# the port's backend -> the JAX op it is held against: the default binding's
+# kernel forms ("cuda_bf16apply") compute the plain bf16-apply forms (on CPU
+# tensors, by calling them)
+_JAX_BACKEND = {"cuda_bf16apply": "bf16apply"}
+
+
+@pytest.mark.parametrize("backend", ["reference", "bf16apply", "cuda_bf16apply"])
 @pytest.mark.parametrize("act", [None, "silu"])
 def test_group_norm(backend, act):
     rng = np.random.default_rng(2)
     xj, xt = _pair(rng, 2, 5, 6, 16, scale=3.0)
     gj, gt = _pair(rng, 16)
     bj, bt = _pair(rng, 16)
-    with jops.use_backends(group_norm=backend), tops.use_backends(group_norm=backend):
+    jax_backend = _JAX_BACKEND.get(backend, backend)
+    with jops.use_backends(group_norm=jax_backend), tops.use_backends(group_norm=backend):
         _close(jops.group_norm(xj, gj, bj, num_groups=4, eps=1e-6, act=act),
                tops.group_norm(xt, gt, bt, num_groups=4, eps=1e-6, act=act))
 
 
-@pytest.mark.parametrize("backend", ["reference", "bf16apply"])
+@pytest.mark.parametrize("backend", ["reference", "bf16apply", "cuda_bf16apply"])
 def test_layer_norm(backend):
     rng = np.random.default_rng(3)
     xj, xt = _pair(rng, 3, 7, 24, scale=2.0)
     gj, gt = _pair(rng, 24)
     bj, bt = _pair(rng, 24)
-    with jops.use_backends(layer_norm=backend), tops.use_backends(layer_norm=backend):
+    jax_backend = _JAX_BACKEND.get(backend, backend)
+    with jops.use_backends(layer_norm=jax_backend), tops.use_backends(layer_norm=backend):
         _close(jops.layer_norm(xj, gj, bj, eps=1e-6), tops.layer_norm(xt, gt, bt, eps=1e-6))
         _close(jops.layer_norm(xj, None, None), tops.layer_norm(xt, None, None))
 
@@ -74,6 +83,26 @@ def test_geglu():
     sj, st = _pair(rng, 2, 9, 16, scale=2.0)
     gj, gt = _pair(rng, 2, 9, 16, scale=2.0)
     _close(jops.geglu(sj, gj), tops.geglu(st, gt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_geglu_default_binding_kernel_form(dtype):
+    """The default binding's GEGLU ("cuda_bf16apply") on the halves of one
+    projection buffer against the JAX reference op on the same values, in
+    f32 and in bf16; JAX rounds each op of its bf16 gelu where the port
+    rounds the gelu once, so bf16 is held within one bf16 ulp of the largest
+    output."""
+    rng = np.random.default_rng(5)
+    pj, pt = _pair(rng, 2, 9, 32, scale=2.0)
+    with tops.use_backends(geglu="cuda_bf16apply"):
+        got = tops.geglu(*pt.to(dtype).chunk(2, dim=-1))
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        _close(jops.geglu(*jnp.split(pj, 2, axis=-1)), got)
+    else:
+        want = np.asarray(jops.geglu(*jnp.split(pj.astype(jnp.bfloat16), 2, axis=-1)).astype(
+            jnp.float32))
+        _close(want, got.float(), atol=2.0**-7 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("act,bias", [(None, False), (None, True), ("silu", True), ("gelu", True)])

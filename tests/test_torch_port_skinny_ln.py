@@ -265,6 +265,21 @@ def test_layer_norm_plain_vs_pallas(c, rms, dtype):
         _assert_bf16_close(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [1280, 1536, 2048])
+def test_layer_norm_route_takes_every_unet_width(dtype, c):
+    """Either dtype takes rows up to 2048 wide (64 values a lane), so the
+    1280-wide transformer blocks of every UNet and the refiner's 1536-wide
+    ones route in f32 as in bf16, in both forms; one vector more raises."""
+    for stepwise in (False, True):
+        route = tln._route((2, 1024, c), dtype, (c,), dtype, (c,), dtype, False, 1e-5,
+                           stepwise)
+        assert route.fields[2:4] == (2048, c) and route.fields[6] == int(stepwise)
+    wide = 2048 + 16 // dtype.itemsize
+    with pytest.raises(ValueError, match="up to 2048"):
+        tln._route((2, 1024, wide), dtype, None, None, None, None, False, 1e-5, True)
+
+
 def test_layer_norm_route_raises_alike_on_every_call():
     """As for linear: the cached signature checks raise the same ValueError
     on every call, before and after a good call; the per-call checks (x's
@@ -273,13 +288,18 @@ def test_layer_norm_route_raises_alike_on_every_call():
     good = ((2, 4096, 640), bf16, (640,), bf16, (640,), bf16, False, 1e-6)
     route = tln._route(*good)
     assert route.key == "ln bf16 rows=8192 c=640"
-    assert route.fields == (1, 1, 8192, 640, 0, 1e-6)
+    assert route.fields == (1, 1, 8192, 640, 0, 1e-6, 0)
     d = tln.LnDims.from_address(route.address)  # what the C entry reads
     assert (d.dtype, d.pdtype, d.rows, d.c, d.rms) == route.fields[:5]
     assert d.eps == np.float32(1e-6)
     route2 = tln._route((2048, 1024), f32, None, None, None, None, True, 1e-5)
     assert route2.key == "rms f32 rows=2048 c=1024"
-    assert route2.fields == (0, 0, 2048, 1024, 1, 1e-5)
+    assert route2.fields == (0, 0, 2048, 1024, 1, 1e-5, 0)
+    # the default binding's stepwise LayerNorm: its own key, stepwise = 1 in the struct
+    route3 = tln._route(*good, True)
+    assert route3.key == "ln_bf16apply bf16 rows=8192 c=640"
+    assert route3.fields == (1, 1, 8192, 640, 0, 1e-6, 1)
+    assert tln.LnDims.from_address(route3.address).stepwise == 1
     bad = [
         (((2, 4096, 640), bf16, (320,), bf16, (640,), bf16, False, 1e-6), "norm parameter"),
         (((2, 4096, 640), torch.float16, (640,), bf16, (640,), bf16, False, 1e-6), "float32"),
@@ -287,6 +307,7 @@ def test_layer_norm_route_raises_alike_on_every_call():
         (((2, 4096, 4096), bf16, None, None, None, None, False, 1e-6), "up to 2048"),
         (((2, 4096, 640), bf16, (640,), bf16, (640,), f32, False, 1e-6), "share"),
         (((2, 4096, 640), bf16, (640,), torch.float16, None, None, False, 1e-6), "share"),
+        (((2, 4096, 640), bf16, (640,), bf16, (640,), bf16, True, 1e-6, True), "LayerNorm's"),
     ]
     for args, match in bad:
         for _ in range(2):
