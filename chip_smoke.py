@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile] [--plans]
     python3 chip_smoke.py --host-time [DIR]
     python3 chip_smoke.py --group-norm [DIR]
+    python3 chip_smoke.py --sd21
 
 ``--profile`` adds a torch.profiler breakdown of one step under each
 binding to phases 4 and 4c (device time by kernel family, idle share, the
@@ -24,7 +25,10 @@ package in DIR or this checkout, GroupNorm's (K9's) device time at every
 shape of the paths, whole and as the fused conv's stats and fold, beside
 F.group_norm and its bound, then the replayed SDXL-base step under the
 fused-op and all-kernel bindings and a 1024^2 f32 decode under the fused-op
-binding by kernel family; it prints no result line.
+binding by kernel family; it prints no result line. ``--sd21`` only builds
+the kernels and runs phases 7v and 5v (SD2.1-768 at the sd-2.1-768.batch8
+cell's shapes and served as it serves it), then prints their kernel rows
+and the result line.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -241,6 +245,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      LayerNorm, GEGLU and projections at 320 channels and the cross K/V
      precompute of a 1024-wide context; each row's launches are counted on
      phase 7c's path;
+  7v. (after 7k) the twins at the shapes of the sd-2.1-768.batch8 cell
+     (UNet batch 16 at a 96^2 latent, a group of 8 images at 768^2) against
+     their plain versions as in phase 3: attention at h=5 d=64 (self S=9216
+     on the K3 route, whose plain version runs a batch row at a time; cross
+     against 77 keys on the K5 route) and at h=10 (K2, S=2304); the UNet's
+     3x3 convs at level 0 (conv_in, 320->320, the up block's 960->320, the
+     upsampler's 640->640, conv_out); the default binding's kernel forms as
+     in phase 3f: GroupNorm+SiLU at 320, 640 and 960 channels, the
+     Transformer2D's GroupNorm, LayerNorm over level 0's 147456 rows, GEGLU,
+     and the f32 decoder's GroupNorm at 768^2; each row's launches are
+     counted on phase 5v's path;
+  5v. (after 5c) a ServingEngine over a full-width SD2.1-768 pipeline as the
+     benchmark's configuration gives it (OpenCLIP-H's 23 layers read after
+     final_layer_norm, pad id 0; SchedulerConfig(prediction_type=
+     "v_prediction"); default binding) answers eight co-batched 768^2
+     requests (a bucket of 8: UNet batch 16; 4 Euler steps, guidance 7.5),
+     after eight with other seeds that capture the bucket's loop; the
+     counters set to 0 just before and read just after the replayed group:
+     every bf16 attention launch at b=16 and the per-step counts by kernel
+     and class (K3 5, K2 5, K1 6 on attn_wgmma_bf16; K5 5, K1 11 on the
+     tiny-KV kernel) times the UNet steps run, the kernel forms' per-step
+     counts (SD1.5's topology) and the decoder's GroupNorms per image,
+     each image's f32 decode as in phase 5, and every
+     pipeline.loop span's prediction "v_prediction";
   7a. (after 5c) the native library (native/src/*.cpp, built with g++ into
      build/native/ beside the CUDA build): every entry bit for bit its numpy
      version on full-size inputs (a 1280x1280 bf16 / f16 / f32 weight, a
@@ -352,6 +380,9 @@ sys.path.insert(0, REPO)
 BF16_REL_TOL = 2e-2   # bf16 outputs: ~2-3 bf16 ulps of the largest value
 F32_REL_TOL = 1e-4    # f32: summation order only
 STEP_MSE_GATE = 1e-3  # the JAX package's fidelity gate
+# the float32 scores the plain attention may hold at once: above it the plain
+# version runs one batch row at a time (16 rows of 5 x 9216^2 are ~27 GB)
+PLAIN_SCORES_MAX = 8 << 30
 # one 1024^2 f32 decode under the default binding against the reference
 # binding's (cuDNN, cuBLAS, SDPA; TF32 off), images in [-1, 1]: the kernels
 # compute the same f32 function, 3xTF32 keeping ~f32 accuracy
@@ -733,6 +764,9 @@ def attention_cases(randn, cases, record=True):
             qkv = randn(b, s, 3 * c, dtype=dtype)
             kfn = lambda qkv=qkv, h=h: fa.flash_attention_qkv(qkv, num_heads=h)
             pfn = lambda qkv=qkv, h=h: fa.attention_plain(*qkv.chunk(3, -1), num_heads=h)
+            if b * h * s * s * 4 > PLAIN_SCORES_MAX:
+                pfn = lambda qkv=qkv, h=h: torch.cat([  # noqa: E731
+                    fa.attention_plain(*row.chunk(3, -1), num_heads=h) for row in qkv.split(1)])
             q, k, v = qkv.chunk(3, -1)
             sq, sk, inputs = s, s, (qkv,)
         elif kind == "kv":
@@ -1646,7 +1680,18 @@ def check_gap(name, gap, dtype) -> None:
                              f"past {ulps} and {share:g}")
 
 
-def phase_bf16apply(dev):
+def bf16apply_match(op, shape, dtype, act) -> list:
+    """The launch-key fields of a kernel form's launches at ``shape``."""
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    if op == "group_norm":
+        b, h, w, c = shape
+        return [f"{dname} b={b} {h}x{w} c={c} ", f"act={act} "]
+    if op == "layer_norm":
+        return [f"ln_bf16apply {dname} rows={shape[0]} c={shape[1]} "]
+    return [f"{dname} rows={math.prod(shape[:-1])} n={shape[-1] // 2} "]
+
+
+def phase_bf16apply(dev, rows=BF16APPLY_ROWS, path=None):
     """Phase 3f: the default binding's GroupNorm, LayerNorm and GEGLU kernel
     forms at BF16APPLY_ROWS, each against the plain chain it replaces
     (``ops.reference``'s bf16-apply forms and reference GEGLU) on the same
@@ -1654,16 +1699,18 @@ def phase_bf16apply(dev):
     device time profiled twice) and kernels a call of both, the bytes bound
     (x read once, the output written once) and its share, the gap
     (``gap_to``). Then torch.rsqrt against 1 / sqrt on the card (the f32
-    rstd the plain forms take). Returns the kernel-table rows."""
+    rstd the plain forms take). Returns the kernel-table rows. Given a
+    ``path``, the same for ``rows`` (phase 7v), each row carrying the
+    launch-key fields its launches on that path are counted by."""
     from stabletriton_tpu_torch.kernels import geglu as gg
     from stabletriton_tpu_torch.kernels import group_norm as gn
     from stabletriton_tpu_torch.kernels import layer_norm as ln
     from stabletriton_tpu_torch.ops import reference
 
-    gen = torch.Generator(device=dev).manual_seed(2222)
-    rows = []
+    gen = torch.Generator(device=dev).manual_seed(2222 if path is None else 2323)
+    cases, rows = rows, []
     with torch.inference_mode():
-        for op, shape, dtype, act in BF16APPLY_ROWS:
+        for op, shape, dtype, act in cases:
             x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
             c = shape[-1]
             g = (torch.randn(c, generator=gen, device=dev) * 0.05 + 1).to(dtype)
@@ -1690,6 +1737,9 @@ def phase_bf16apply(dev):
             gap = gap_to(kernel(), plain())
             iters = 5 if x.numel() > 2**26 else 20
             dev_ms = [device_ms(kernel, iters) for _ in range(2)]
+            # a profile that lost kernels (under one a call: every form is at
+            # least one) reads short: the device time is the other run's
+            whole = [m for m in dev_ms if m[1] is None or m[1] >= 1] or dev_ms
             plain_ms, plain_n, _ = device_ms(plain, iters)
             bnd = bound(0, moved, dtype)[0]
             r = {"name": name, "source": f"stabletriton_tpu_torch/csrc/{BF16APPLY_SOURCE[op]}",
@@ -1698,9 +1748,11 @@ def phase_bf16apply(dev):
                  "max_ulps": gap["max_ulps"], "share_off": gap["share_off"],
                  "ms": timed_ms(kernel, iters), "plain_ms": timed_ms(plain, iters),
                  "bound_ms": bnd, "bound_by": "bytes", "library_ms": None,
-                 "device_ms": min(m for m, _, _ in dev_ms),
-                 "device_ms_runs": [m for m, _, _ in dev_ms], "kernels": dev_ms[0][1],
+                 "device_ms": min(m for m, _, _ in whole),
+                 "device_ms_runs": [m for m, _, _ in dev_ms], "kernels": whole[0][1],
                  "plain_device_ms": plain_ms, "plain_kernels": plain_n}
+            if path is not None:
+                r.update(path=path, match=bf16apply_match(op, shape, dtype, act))
             log(f"bf16apply {name}: device {r['device_ms_runs'][0]:.4f} / "
                 f"{r['device_ms_runs'][1]:.4f} ms in {r['kernels']} kernels "
                 f"({bnd / r['device_ms']:.1%} of the {bnd * 1e3:.4g} us bytes bound); plain "
@@ -1711,6 +1763,8 @@ def phase_bf16apply(dev):
             rows.append(r)
             del x
         torch.cuda.empty_cache()
+        if path is not None:
+            return rows
 
         v = torch.exp(torch.empty(1 << 24, device=dev).uniform_(-30, 30, generator=gen))
         rsqrt_off = (torch.rsqrt(v) != torch.sqrt(v).reciprocal()).float().mean().item()
@@ -2839,8 +2893,9 @@ SERVE_STEPS = 4  # Euler steps of every served request
 
 
 def serve(dev, ucfg, unet_params, other, compile_config, prompts, counters, solo=None, *,
-          size=1024, guidance=5.0):
-    """A ServingEngine over a full-width pipeline: submit ``prompts`` together
+          size=1024, guidance=5.0, scheduler_config=None):
+    """A ServingEngine over a full-width pipeline (``scheduler_config``: the
+    pipeline's, where not the default): submit ``prompts`` together
     (one signature, so they co-batch), then ``solo`` alone. The same
     requests with other seeds go first: each bucket's first request runs its
     denoise loop eagerly and captures it, so the counted requests replay.
@@ -2853,7 +2908,9 @@ def serve(dev, ucfg, unet_params, other, compile_config, prompts, counters, solo
     (c1, c2, vcfg), params = other
     pipe = SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
                         vae_config=vcfg, params={"unet": unet_params, **params},
-                        compile_config=compile_config, device=dev)
+                        compile_config=compile_config, device=dev,
+                        **({} if scheduler_config is None
+                           else {"scheduler_config": scheduler_config}))
     tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
     engine = ServingEngine(pipe, tok, tok, max_wait_s=0.5)
     kw = dict(height=size, width=size, steps=SERVE_STEPS, guidance_scale=guidance,
@@ -3189,6 +3246,87 @@ def phase_serving_sd15(dev, ucfg, unet_params, other):
     check_decode_attention(by_key["flash_attention"], len(done), "SD1.5 serving")
     check_default_forms(by_key, SD15_ALL_PER_STEP, steps, len(done), decoder_norms(other),
                         "SD1.5 serving")
+    return by_key
+
+
+# phase 5v: SD2.1-768 as the benchmark's sd-2.1-768.batch8 cell serves it.
+# Its UNet has SD1.5's topology (22 resnets, 16 Transformer2D of one block),
+# so the kernel forms launch SD1.5's per-step counts; its bf16 attention per
+# UNet step by kernel and class (d=64 everywhere): level 0 (h=5, unpacked)
+# self S=9216 5 x K3 and cross 5 x K5, level 1 (h=10, two heads a 128-lane
+# block) self S=2304 5 x K2 and cross 5 x K1, level 2 and the mid block
+# (h=20) self 5 + 1 x K1 and cross 5 + 1 x K1; self-attention on
+# attn_wgmma_bf16, cross (77 keys) on the tiny-KV kernel
+SD21_ATTN_PER_STEP = {"wgmma_bf16": {"K1": 6, "K2": 5, "K3": 5},
+                      "tinykv_wgmma_bf16": {"K1": 11, "K5": 5}}
+SD21_SIZE = 768
+SD21_PROMPTS = ["a lighthouse on a cliff at dawn", "a bowl of ramen", "an owl", "a red kite "
+                "over a wheat field in late summer light", "a glass teapot", "a city at night",
+                "a watercolor of a harbour with fishing boats", "a cat"]
+
+
+def make_sd21_other_params(dev):
+    """SD2.1's text encoder as the benchmark's configuration states it
+    (OpenCLIP-H's 23 layers, read after final_layer_norm; pad id 0, the
+    tokenizer's "!") in both encoder slots, and SD1.5's VAE; random weights
+    from fixed seeds."""
+    import dataclasses
+
+    from stabletriton_tpu_torch.models import clip as clip_mod
+    from stabletriton_tpu_torch.models import vae as vae_mod
+
+    c1 = dataclasses.replace(clip_mod.sd2_text_encoder_config(), num_layers=23, pad_token_id=0)
+    vcfg = vae_mod.sd15_vae_config()
+    params = {"text_encoder": clip_mod.init_clip_params(c1, 61, device=dev),
+              "vae": vae_mod.init_vae_params(vcfg, 62, device=dev)}
+    return (c1, c1, vcfg), params
+
+
+def phase_serving_sd21(dev):
+    """Phase 5v: SD2.1-768 under v-prediction and the default binding, eight
+    co-batched 768^2 requests (UNet batch 16; 4 Euler steps, guidance 7.5).
+    Every bf16 attention launch is at b=16 and the launches of each kernel
+    and class are SD21_ATTN_PER_STEP's times the UNet steps run (from the
+    conv_out launches); the kernel forms launch their per-step counts and
+    the decoder's GroupNorms once per image; each image's decode as in
+    phase 5; every loop span says "v_prediction". Returns the
+    replayed group's launches by key."""
+    from stabletriton_tpu_torch.compile import CompileConfig
+    from stabletriton_tpu_torch.models.unet import sd21_unet_config
+    from stabletriton_tpu_torch.runtime import profiling
+    from stabletriton_tpu_torch.runtime.scheduler import SchedulerConfig
+
+    ucfg = sd21_unet_config()
+    sd21 = {"unet": make_unet_params(dev, ucfg), "other": make_sd21_other_params(dev)}
+    counters = kernel_counters()
+    profiling.reset()
+    done, counts, by_key = serve(
+        dev, ucfg, sd21["unet"], sd21["other"], CompileConfig(), counters=counters,
+        prompts=[(p, 51 + i) for i, p in enumerate(SD21_PROMPTS)], size=SD21_SIZE,
+        guidance=7.5, scheduler_config=SchedulerConfig(prediction_type="v_prediction"))
+    predictions = [s.attrs.get("prediction") for s in profiling.spans()
+                   if s.name == "pipeline.loop"]
+    norms = decoder_norms(sd21["other"])
+    free(sd21)
+    steps = unet_steps(by_key["K6"], ucfg, "wgmma_bf16")
+    images = len(done)
+    batches = sorted({int(f.split("=")[1]) for key in by_key["attention"]
+                      for f in key.split() if f.startswith("b=")
+                      and key.split()[1] in SD21_ATTN_PER_STEP})
+    log(f"SD2.1 serving: {steps} UNet steps, {images} images, bf16 attention at batch "
+        f"{batches}, loop spans' prediction {predictions}")
+    if steps != SERVE_STEPS or images != len(SD21_PROMPTS) or batches != [16]:
+        raise AssertionError(f"SD2.1 serving: {steps} UNet steps, {images} images, attention "
+                             f"batches {batches}; expected {SERVE_STEPS}, "
+                             f"{len(SD21_PROMPTS)}, [16]")
+    if not predictions or set(predictions) != {"v_prediction"}:
+        raise AssertionError(f"SD2.1 serving: loop spans' prediction {predictions}")
+    log(f"SD2.1 serving: K8-K11 launches (the encoder's and the decoder's included) "
+        f"{ {k: counts[k] for k in FUSED_PER_STEP} }")
+    check_bf16_attention(by_key["attention"], SD21_ATTN_PER_STEP, steps, "SD2.1 serving")
+    check_decode_convs(by_key["K6"], images, "SD2.1 serving")
+    check_decode_attention(by_key["attention"], images, "SD2.1 serving")
+    check_default_forms(by_key, SD15_ALL_PER_STEP, steps, images, norms, "SD2.1 serving")
     return by_key
 
 
@@ -3983,6 +4121,82 @@ def phase_sd2_kernels(dev):
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
     return results
+
+
+# phase 7v: the sd-2.1-768.batch8 cell's shapes, a group of 8 at 768^2 (UNet
+# batch 16, 96^2 latent): attention at h=5 and 10 ...
+SD21_ATTENTION_CASES = [
+    ("SD2.1 self S=9216 h=5 d=64 b=16 bf16", "K3", "qkv", (16, 9216, 320, 5), torch.bfloat16,
+     3),
+    ("SD2.1 cross Sq=9216 Sk=77 h=5 d=64 b=16 bf16", "K5", "kv", (16, 9216, 77, 320, 5),
+     torch.bfloat16, 5),
+    ("SD2.1 self S=2304 h=10 b=16 bf16", "K2", "qkv", (16, 2304, 640, 10), torch.bfloat16, 5),
+]
+# ... level 0's 3x3 convs (B, H, W, Cin, Cout): conv_in, the resnets'
+# 320->320, the up block's first conv1 on the 640 + 320 skip concat, the
+# upsampler from level 1, conv_out ...
+SD21_CONVS = [(16, 96, 96, 4, 320), (16, 96, 96, 320, 320), (16, 96, 96, 960, 320),
+              (16, 96, 96, 640, 640), (16, 96, 96, 320, 4)]
+# ... and the default binding's kernel forms: GroupNorm+SiLU before the
+# resnets' convs (320, and the up block's 960 and 640 concats), the
+# Transformer2D's GroupNorm, LayerNorm and GEGLU over level 0's 147456 rows,
+# and the f32 decoder's GroupNorm+SiLU at 768^2
+SD21_BF16APPLY_ROWS = [("group_norm", (16, 96, 96, 320), torch.bfloat16, "silu"),
+                       ("group_norm", (16, 96, 96, 640), torch.bfloat16, "silu"),
+                       ("group_norm", (16, 96, 96, 960), torch.bfloat16, "silu"),
+                       ("group_norm", (16, 96, 96, 320), torch.bfloat16, None),
+                       ("layer_norm", (147456, 320), torch.bfloat16, None),
+                       ("geglu", (16, 9216, 2560), torch.bfloat16, None),
+                       ("group_norm", (1, 768, 768, 128), torch.float32, "silu")]
+
+
+def phase_sd21_kernels(dev):
+    """Phase 7v: the twins at the sd-2.1-768.batch8 cell's shapes, each
+    against its plain version beside its bound, in phase 3's manner:
+    SD21_ATTENTION_CASES (the plain K3 a batch row at a time), SD21_CONVS on
+    the kernel the routing picks beside cuDNN, and SD21_BF16APPLY_ROWS in
+    phase 3f's. Each row carries the launch-key fields its launches on
+    phase 5v's path are counted by."""
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.ops import reference
+
+    gen = torch.Generator(device=dev).manual_seed(2321)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    results = []
+    for r, (_, _, kind, shape, _, _) in zip(attention_cases(randn, SD21_ATTENTION_CASES),
+                                            SD21_ATTENTION_CASES):
+        if kind == "kv":
+            b, sq, sk, c, h = shape
+        else:
+            b, sq, c, h = shape
+            sk = sq
+        r.update(counter="attention", path="sd21",
+                 match=[f"{r['kernel']} b={b} h={h} d={c // h} sq={sq} sk={sk} "])
+        results.append(r)
+
+    for b, hh, ww, cin, cout in SD21_CONVS:
+        x = randn(b, hh, ww, cin)
+        w = randn(3, 3, cin, cout, scale=1.0 / math.sqrt(9 * cin))
+        bias = randn(cout)
+        kernel = cd.conv_variant(tuple(x.shape), cout, bf16)
+        name = f"conv3x3 SD2.1 unet b={b} {hh}x{ww} {cin}->{cout}"
+        r = compare(name, lambda x=x, w=w, bias=bias: cd.conv3x3(x, w, bias),
+                    lambda x=x, w=w, bias=bias: cd.conv3x3_plain(x, w, bias), BF16_REL_TOL, 10,
+                    bound_ms=bound(2 * b * hh * ww * cout * 9 * cin,
+                                   nbytes(x, w, bias) + b * hh * ww * cout * 2, bf16),
+                    library_fn=lambda x=x, w=w, bias=bias: reference.conv2d(x, w, bias),
+                    library_label="cuDNN (reference op)")
+        r.update(name=name, source="stabletriton_tpu_torch/csrc/conv3x3.cu", tpu="K6",
+                 kernel=kernel, counter="K6", path="sd21",
+                 match=[f"{kernel} b={b} {hh}x{ww} {cin}->{cout} "])
+        results.append(r)
+        del x, w, bias
+    torch.cuda.empty_cache()
+    return results + phase_bf16apply(dev, SD21_BF16APPLY_ROWS, path="sd21")
 
 
 def png_pixels(png: bytes) -> np.ndarray:
@@ -5632,6 +5846,7 @@ def main() -> int:
     profile = "--profile" in args
     host_time = "--host-time" in args
     gn_mode = "--group-norm" in args
+    sd21_mode = "--sd21" in args
     for flag in ("--host-time", "--group-norm"):
         at = args.index(flag) + 1 if flag in args else len(args)
         if at < len(args) and not args[at].startswith("--"):
@@ -5653,7 +5868,7 @@ def main() -> int:
     from stabletriton_tpu_torch.models.unet import sd15_unet_config, sdxl_base_unet_config
 
     pool = ThreadPoolExecutor(1)
-    if not (host_time or gn_mode):
+    if not (host_time or gn_mode or sd21_mode):
         # the native library (g++, phase 7a) builds beside the CUDA kernels
         native_build = pool.submit(build_native)
     t0 = time.perf_counter()
@@ -5677,6 +5892,11 @@ def main() -> int:
         phase_group_norm(dev)
         pool.shutdown()
         return 0
+    if sd21_mode:
+        pool.shutdown()
+        sd21_results = with_peak("phase 7v", phase_sd21_kernels, dev)
+        sd21_by_key = with_peak("phase 5v", phase_serving_sd21, dev)
+        return report([table_row(r, path_launches(r, sd21_by_key), {}) for r in sd21_results])
     if "--plans" in args:
         phase_plans(dev)
     kernel_results = (with_peak("phase 3", phase_kernels, dev)
@@ -5690,6 +5910,7 @@ def main() -> int:
     # profiler recorded no kernel in three sessions running (PR 14's run)
     image_results = with_peak("phase 6k", phase_image_kernels, dev)
     sd2_results = with_peak("phase 7k", phase_sd2_kernels, dev)
+    sd21_results = with_peak("phase 7v", phase_sd21_kernels, dev)
     # runtime/profiling.py and the turbo ops at their shapes, with the
     # kernel phases: the profiler must see their kernels
     with_peak("phase 8p", phase_profiling, dev, kernel_results, card)
@@ -5751,6 +5972,7 @@ def main() -> int:
     sd15_by_key = with_peak("phase 5c", phase_serving_sd15, dev, ucfg, sd15["unet"],
                             sd15["other"])
     free(sd15)
+    sd21_by_key = with_peak("phase 5v", phase_serving_sd21, dev)
 
     sd2_by_key, sd2_rec = front_door(dev, native_build)
     pool.shutdown()
@@ -5825,25 +6047,46 @@ def main() -> int:
     def sd2_launches(r):
         """Launches of a phase 7k row's kernel at its shape on phase 7c's
         path (its requests' counters)."""
-        return sum(n for key, n in sd2_by_key[r["counter"]].items()
-                   if all(m in key + " " for m in r["match"]))
+        return path_launches(r, sd2_by_key)
 
-    kernels = [{
+    kernels = [table_row(r, sd2_launches(r) if r.get("path") == "sd2"
+                         else path_launches(r, sd21_by_key) if r.get("path") == "sd21"
+                         else image_launches(r) if "match" in r else launches(r),
+                         {"sd2_path_launches": sd2_launches(r)} if r.get("path") == "sd2"
+                         else {} if r.get("path") == "sd21"
+                         else {"image_path_launches": image_launches(r)})
+               for r in kernel_results + image_results + sd2_results + sd21_results]
+    return report(kernels)
+
+
+def path_launches(r, by_key) -> int:
+    """Launches of a row's kernel at its shape (the row's ``match``) on a
+    path whose counters gave ``by_key``."""
+    return sum(n for key, n in by_key[r["counter"]].items()
+               if all(m in key + " " for m in r["match"]))
+
+
+def table_row(r, launches, extra) -> dict:
+    """A kernel row of the result line: ``launches`` on its path, ``extra``
+    fields beside them."""
+    return {
         "name": r["name"] + (f" [{r['kernel']}]" if r.get("kernel") else ""), "route": "cuda",
-        "source": r["source"], "replaces": REPLACES[r["tpu"]],
-        "launches": (sd2_launches(r) if r.get("path") == "sd2"
-                     else image_launches(r) if "match" in r else launches(r)),
+        "source": r["source"], "replaces": REPLACES[r["tpu"]], "launches": launches,
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        **({"sd2_path_launches": sd2_launches(r)} if r.get("path") == "sd2"
-           else {"image_path_launches": image_launches(r)}),
+        **extra,
         **{k: r[k] for k in ("old_ms", "old_kernel", "old_device_ms", "bound_f32_fma_ms",
                              "prep_ms", "device_ms", "library_device_ms", "alt_device_ms",
                              "tf32_padded_device_ms", "launch_floor_ms",
                              "cold_device_ms", "device_ms_source", "rule_kernel", "rule_ms",
                              "rule_max_abs_err", "fold_device_ms", "fold_bound_ms",
                              "plain_device_ms", "max_ulps", "share_off") if k in r},
-    } for r in kernel_results + image_results + sd2_results]
+    }
+
+
+def report(kernels) -> int:
+    """Fail where a row's kernel never launched on its path; else print the
+    rows and the result line."""
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: no launch of its kernel on its path")

@@ -48,6 +48,7 @@ from stabletriton_tpu_torch.models.unet import (
     unet_param_shapes,
 )
 from stabletriton_tpu_torch.runtime.pipeline import SDXLPipeline
+from stabletriton_tpu_torch.runtime.scheduler import SchedulerConfig
 
 
 def _read_component(comp_dir: Path) -> dict[str, torch.Tensor]:
@@ -139,15 +140,21 @@ def load_sdxl_single_file(checkpoint: str | Path, *, compile_config: CompileConf
 
 def load_single_file_auto(checkpoint: str | Path, *,
                           compile_config: CompileConfig | None = None,
+                          prediction_type: str = "epsilon",
                           validate: bool = True, device="cuda"):
     """A single file of any family -> (SDXLPipeline, family), the family
     ("sdxl", "sd2" or "sd1") told by its tensor names. SD2.x pipelines
     condition on OpenCLIP-H's penultimate layer (``clip_skip=2``), SD1.x's
-    on CLIP-L's last; both decode with the SD1.x VAE."""
+    on CLIP-L's last; both decode with the SD1.x VAE. A file does not say
+    whether its UNet predicts eps or v (SD2.x 768-v checkpoints:
+    "v_prediction"): ``prediction_type`` says it, and the pipeline's
+    SchedulerConfig takes it."""
+    scheduler_config = SchedulerConfig(prediction_type=prediction_type)
     family = detect_family(read_safetensors(checkpoint))
     if family == "sdxl":
         pipe, _, _ = load_sdxl_single_file(checkpoint, compile_config=compile_config,
                                            validate=validate, device=device)
+        pipe.scheduler_config = scheduler_config
         return pipe, family
     ucfg = sd15_unet_config() if family == "sd1" else sd21_unet_config()
     c1 = (clip_mod.sd15_text_encoder_config() if family == "sd1"
@@ -163,5 +170,6 @@ def load_single_file_auto(checkpoint: str | Path, *,
               "vae": _cast(raw["vae"], torch.float32)}
     pipe = SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c1,
                         vae_config=vae_mod.sd15_vae_config(), params=params, compile_config=cc,
+                        scheduler_config=scheduler_config,
                         clip_skip=2 if family == "sd2" else 1, device=device)
     return pipe, family

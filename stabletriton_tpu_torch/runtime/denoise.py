@@ -16,6 +16,10 @@ With ``guidance_scale <= 1`` the loop runs the cond branch alone, as the JAX
 loop does: the conditioning (and the time cache, on its axis 1) is cut to
 its cond half once before the loop and each evaluation calls the UNet on
 the B un-doubled rows and takes its eps as it is.
+
+A v-prediction UNet's output becomes eps in each evaluation, after the CFG
+combine and before any solver or DeepCache sees it
+(``scheduler.v_to_eps``), so every solver steps on eps alike.
 """
 
 from __future__ import annotations
@@ -86,7 +90,8 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
                       precompute: Callable | None = None,
                       precompute_time: Callable | None = None,
                       guidance_interval: tuple[float, float] | None = None,
-                      deep_cache: tuple | None = None):
+                      deep_cache: tuple | None = None,
+                      prediction_type: str = "epsilon"):
     """Build loop(params, latents, ctx, text_embeds, time_ids[, noise][,
     extra]) -> final latents.
 
@@ -134,9 +139,18 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
     refreshes the cache the next step reads. At the last step (sigma_next
     == 0) the step is the Euler step and JAX's correction evaluation is
     discarded, so this loop does not run it: the result is the same.
+
+    ``prediction_type``: "epsilon" (the UNet's output is eps) or
+    "v_prediction" (it is v: the guided output becomes eps at the
+    evaluation's unscaled sample and sigma, ``scheduler.v_to_eps``, the
+    scalars host constants; Heun's correction converts at its own sigma).
     """
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; one of {SOLVERS}")
+    if prediction_type not in sched.PREDICTION_TYPES:
+        raise ValueError(f"unknown prediction_type {prediction_type!r}; "
+                         f"one of {sched.PREDICTION_TYPES}")
+    v_pred = prediction_type == "v_prediction"
     if deep_cache is not None and int(deep_cache[0]) < 1:
         raise ValueError(f"deep_cache interval must be >= 1: {deep_cache[0]}")
     g = float(guidance_scale)
@@ -186,7 +200,7 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
             """eps at ``x`` and sigmas[k] (timestep k, time-cache slice k), and
             the cache after: one UNet evaluation, on the CFG pair where
             guided[k], DeepCache's full or shallow pass where ``full`` is not
-            None."""
+            None; a v-prediction output converted to eps."""
             inp = sched.scale_model_input(x, sigmas[k])
             tc = None if tc_all is None else {key: v[k] for key, v in tc_all.items()}
             # without CFG the conditioning, time cache and cache are B rows
@@ -214,6 +228,8 @@ def make_denoise_loop(unet_step: Callable, schedule: sched.Schedule, *,
             if guided[k]:
                 eps_u, eps_c = eps.chunk(2, dim=0)
                 eps = eps_u + g * (eps_c - eps_u)
+            if v_pred:
+                eps = sched.v_to_eps(x, eps, sigmas[k])
             return eps, cache
 
         lat = latents

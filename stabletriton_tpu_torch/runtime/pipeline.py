@@ -32,8 +32,9 @@ Each entry point records (``runtime/profiling.py``) a ``pipeline.call`` span
 (the anchor of its device intervals where no serving group anchors them)
 around ``pipeline.build`` (a new signature's program), then
 ``pipeline.conditioning`` (the loop's inputs: CLIP, time ids, noise),
-``pipeline.loop`` (the graphed loop) and ``pipeline.decode``, each with its
-device interval; and the counters ``pipeline.calls`` and ``pipeline.builds``.
+``pipeline.loop`` (the graphed loop, with the UNet's ``prediction`` type)
+and ``pipeline.decode``, each with its device interval; and the counters
+``pipeline.calls`` and ``pipeline.builds``.
 """
 
 from __future__ import annotations
@@ -407,19 +408,21 @@ class SDXLPipeline:
             unet_step, schedule, guidance_scale=guidance_scale, solver=solver,
             precompute=kv_pre, precompute_time=time_pre,
             guidance_interval=guidance_interval,
-            deep_cache=self._deep_cache_tuple(deep_cache, lat_h, lat_w)))
+            deep_cache=self._deep_cache_tuple(deep_cache, lat_h, lat_w),
+            prediction_type=self.scheduler_config.prediction_type))
 
     def _program_around(self, loop, loop_inputs, decode: bool, *, batch, schedule, lat_h, lat_w,
                         guidance_scale):
         """program(params, *args): ``loop_inputs(params, *args)`` and the
         graphed ``loop`` on them, under the binding and inference mode, then
         the decode where ``decode``, each in its span; the loop's span
-        carries its rows, steps, latent size and guidance scale. It carries
-        ``program.loop`` (whose ``__wrapped__`` is the eager loop) and
-        ``program.loop_inputs``."""
+        carries its rows, steps, latent size, guidance scale and the UNet's
+        prediction type. It carries ``program.loop`` (whose ``__wrapped__``
+        is the eager loop) and ``program.loop_inputs``."""
         binding = resolve_binding(self.compile_config)
         shape = dict(rows=batch, steps=len(schedule.timesteps), lat_h=lat_h, lat_w=lat_w,
-                     guidance_scale=guidance_scale)
+                     guidance_scale=guidance_scale,
+                     prediction=self.scheduler_config.prediction_type)
 
         def program(params, *args):
             with torch.inference_mode(), ops.use_backends(binding), mesh_mod.use_mesh(self.mesh):

@@ -5,7 +5,10 @@ the Euler, Euler-Ancestral, Heun and DPM-Solver++(2M) steps. The schedule
 tables are numpy, computed on the host exactly as in the JAX package.
 Semantics match diffusers' EulerDiscreteScheduler as SDXL configures it
 (scaled-linear betas 0.00085 -> 0.012 over 1000 train steps, "leading"
-spacing, steps_offset 1, epsilon prediction).
+spacing, steps_offset 1, epsilon prediction). A v-prediction model (SD2.x
+768-v) is served by converting its output to eps once per evaluation
+(:func:`v_to_eps`), before any solver sees it, so the steps below are
+epsilon steps only.
 
 The step functions run on tensors; every scalar of a step (a sigma
 difference, sigma_down / sigma_up, DPM++'s h, r0 and expm1(-h)) is a
@@ -22,6 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+PREDICTION_TYPES = ("epsilon", "v_prediction")
+
 
 @dataclass(frozen=True)
 class SchedulerConfig:
@@ -32,6 +37,14 @@ class SchedulerConfig:
     timestep_spacing: str = "leading"
     steps_offset: int = 1
     use_karras_sigmas: bool = False
+    # what the UNet predicts: "epsilon" (the noise) or "v_prediction"
+    # (v = alpha_t eps - sigma_t x0, Salimans & Ho 2022)
+    prediction_type: str = "epsilon"
+
+    def __post_init__(self):
+        if self.prediction_type not in PREDICTION_TYPES:
+            raise ValueError(f"unknown prediction_type {self.prediction_type!r}; "
+                             f"one of {PREDICTION_TYPES}")
 
 
 @dataclass(frozen=True)
@@ -87,6 +100,19 @@ def scale_model_input(sample: torch.Tensor, sigma: float) -> torch.Tensor:
     """Euler pre-scaling: sample / sqrt(sigma^2 + 1)."""
     denom = np.sqrt(np.float32(sigma) ** 2 + np.float32(1.0))
     return (sample.float() / float(denom)).to(sample.dtype)
+
+
+def v_to_eps(sample: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tensor:
+    """eps for a v-prediction output ``v`` at the unscaled ``sample`` and
+    ``sigma``: eps = x sigma / (sigma^2 + 1) + v / sqrt(sigma^2 + 1), the
+    map of diffusers' pred_x0 = x / (sigma^2 + 1) - v sigma / sqrt(sigma^2 +
+    1) with eps = (x - pred_x0) / sigma, written without the division by
+    sigma. The two scalars are float32 host constants; the arithmetic is in
+    float32, rounded to the sample's dtype."""
+    s = np.float32(sigma)
+    var = s * s + np.float32(1.0)
+    c_x, c_v = s / var, np.float32(1.0) / np.sqrt(var)
+    return (sample.float() * float(c_x) + v.float() * float(c_v)).to(sample.dtype)
 
 
 def euler_step(sample: torch.Tensor, eps: torch.Tensor, sigma: float,

@@ -182,14 +182,19 @@ class ServingEngine:
         pad = _bucket(n, self._buckets) - n
         prompts = [r.prompt for r in reqs] + [""] * pad
         negatives = [r.negative for r in reqs] + [""] * pad
-        seq1 = self.pipeline.clip_config.max_position_embeddings
-        seq2 = self.pipeline.clip2_config.max_position_embeddings
+        c1, c2 = self.pipeline.clip_config, self.pipeline.clip2_config
+        # each encoder pads with its own pad id (SD2.x's OpenCLIP-H and
+        # SDXL's bigG: 0, "!"); one without keeps the tokenizer's default
+        # (CLIP-L's EOS), as ``CLIPTextConfig.empty_prompt_ids`` does
+        pad1, pad2 = ({} if c.pad_token_id is None else {"pad": c.pad_token_id}
+                      for c in (c1, c2))
+        seq1, seq2 = c1.max_position_embeddings, c2.max_position_embeddings
         r0 = reqs[0]
         with profiling.span("serve.tokenize"):
-            ids = dict(ids1=self.tok1.encode_batch(prompts, max_len=seq1),
-                       ids2=self.tok2.encode_batch(prompts, max_len=seq2, pad=0),
-                       neg_ids1=self.tok1.encode_batch(negatives, max_len=seq1),
-                       neg_ids2=self.tok2.encode_batch(negatives, max_len=seq2, pad=0))
+            ids = dict(ids1=self.tok1.encode_batch(prompts, max_len=seq1, **pad1),
+                       ids2=self.tok2.encode_batch(prompts, max_len=seq2, **pad2),
+                       neg_ids1=self.tok1.encode_batch(negatives, max_len=seq1, **pad1),
+                       neg_ids2=self.tok2.encode_batch(negatives, max_len=seq2, **pad2))
         call = dict(
             **ids,
             height=r0.height, width=r0.width, steps=r0.steps,

@@ -2259,3 +2259,168 @@ def test_gpu_default_binding_f32_step(cuda_device):
     plain = step({**binding, "group_norm": "bf16apply", "layer_norm": "bf16apply",
                   "geglu": "reference"})
     assert _rel_err(out, plain) <= 1e-3
+
+
+# --------------------------------------------------------------------------
+# SD2.1-768 under v-prediction: the full-width UNet at a 96^2 latent
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_gpu_sd2_k3_at_batch_16(cuda_device):
+    """K3 <64> at h = 5, S = 9216 and UNet batch 16 (the sd-2.1-768.batch8
+    cell's level-0 self-attention) against the plain attention, one batch
+    row at a time (the plain scores of all 16 would need ~80 GB)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    qkv = torch.randn((16, 9216, 3 * 320), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = dict(tfa.LAUNCHES.by_key)
+    out = tfa.flash_attention_qkv(qkv, num_heads=5)
+    torch.cuda.synchronize()
+    new = {k: n - before.get(k, 0) for k, n in tfa.LAUNCHES.by_key.items()
+           if n != before.get(k, 0)}
+    assert new == {"K3 wgmma_bf16 b=16 h=5 d=64 sq=9216 sk=9216": 1}
+    for i in range(16):
+        ref = tfa.attention_plain(*qkv[i:i + 1].chunk(3, -1), num_heads=5)
+        assert _rel_err(out[i:i + 1], ref) <= 2e-2, i
+
+
+def _sd21_pipeline(device, compile_config):
+    """SD2.1-768's UNet at full width (random bf16 weights, seed 0), its
+    v-prediction schedule, and a two-layer OpenCLIP-H-wide encoder (1024
+    wide, pad id 0); the VAE is not run (the tests take the latents)."""
+    import dataclasses
+
+    from stabletriton_tpu_torch.models import clip as tclip
+    from stabletriton_tpu_torch.models import vae as tvae
+    from stabletriton_tpu_torch.models.unet import init_unet_params, sd21_unet_config
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+    from stabletriton_tpu_torch.runtime.scheduler import SchedulerConfig
+
+    ucfg = sd21_unet_config()
+    c1 = dataclasses.replace(tclip.sd2_text_encoder_config(), num_layers=2, pad_token_id=0)
+    params = {"unet": init_unet_params(ucfg, 0, device=device, dtype=torch.bfloat16),
+              "text_encoder": tclip.init_clip_params(c1, 1, device=device), "vae": {}}
+    return tpipe.SDXLPipeline(
+        unet_config=ucfg, clip_config=c1, clip2_config=c1, vae_config=tvae.sd15_vae_config(),
+        params=params, compile_config=compile_config, device=device,
+        scheduler_config=SchedulerConfig(prediction_type="v_prediction"))
+
+
+SD21_CALL = dict(height=768, width=768, steps=3, guidance_scale=7.5, return_latents=True)
+
+
+def _sd21_ids(pipe, batch):
+    ids = torch.as_tensor(pipe.clip_config.empty_prompt_ids(batch), dtype=torch.long)
+    ids[:, 1:9] = torch.arange(300, 300 + 8 * batch).reshape(batch, 8) % 700 + 300
+    ids[:, 9] = pipe.clip_config.eos_token_id
+    return ids
+
+
+@pytest.mark.gpu
+def test_gpu_sd21_v_loop_replays_bit_for_bit_at_batch_16(cuda_device):
+    """A v-prediction SD2.1 loop at full width, 8 images (UNet batch 16 at a
+    96^2 latent) under the default binding: the first call (eager, then the
+    capture) and a replay give the eager loop's latents bit for bit, and the
+    replay launches what the eager call did."""
+    from stabletriton_tpu_torch import ops as tops
+    from stabletriton_tpu_torch.compile import CompileConfig, resolve_binding
+
+    pipe = _sd21_pipeline(cuda_device, CompileConfig())
+    ids = _sd21_ids(pipe, 8)
+    seeds = list(range(40, 48))
+    before = _all_launches()
+    first = pipe.txt2img(ids, ids, seed=seeds, **SD21_CALL)
+    eager_counts = _launched(before)
+    before = _all_launches()
+    second = pipe.txt2img(ids, ids, seed=seeds, **SD21_CALL)
+    torch.cuda.synchronize()
+    assert _launched(before) == eager_counts and any(eager_counts)
+    prog = pipe._program(8, 768, 768, 3, 7.5, "euler", True, None, None)
+    neg = torch.as_tensor(pipe.clip_config.empty_prompt_ids(8), dtype=torch.long)
+    args = [t.to(cuda_device) for t in (ids, ids, neg, neg)]
+    with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
+        inputs = prog.loop_inputs(pipe.params, *args, seeds)
+        eager = prog.loop.__wrapped__(pipe.params["unet"], *inputs)
+    assert len(prog.loop.captured) == 1
+    assert torch.isfinite(first.float()).all()
+    assert torch.equal(first, eager) and torch.equal(second, eager)
+    del pipe
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_gpu_sd21_v_loop_within_the_step_gate_of_the_reference(cuda_device, monkeypatch):
+    """The same v-prediction loop, one image (UNet batch 2: the reference
+    binding's plain attention holds the whole 9216^2 scores), eager under
+    both bindings on the reference's conditioning and noise, the default
+    binding's teacher-forced: each Euler step hands it the reference's next
+    latents, so every evaluation of both loops sees the same sample. Each
+    evaluation's CFG pair (the UNet's v) lies within the step gate of the
+    reference's: 2e-2 of the reference pair's largest, M. The guided,
+    converted eps the solver steps on is held to the bound that follows
+    from it: the combine u + g (c - u) scales the pair's gap by at most
+    |1 - g| + g = 2g - 1, and its bf16 rounding on either side adds up to 2
+    more of it, so (1 + 2g) x 2e-2 x M; the conversion scales v by 1 /
+    sqrt(sigma^2 + 1) and rounds eps to bf16 once on either side, one bf16
+    ulp of the reference's largest eps. The largest share of that bound
+    measured on an H100 is printed."""
+    from stabletriton_tpu_torch import ops as tops
+    from stabletriton_tpu_torch.compile import CompileConfig, resolve_binding
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+    from stabletriton_tpu_torch.runtime import scheduler as tsched
+
+    g, steps = SD21_CALL["guidance_scale"], SD21_CALL["steps"]
+    pipes = {"reference": _sd21_pipeline(cuda_device, CompileConfig(backend="reference")),
+             "default": _sd21_pipeline(cuda_device, CompileConfig())}
+    ref = pipes["reference"]
+    ids = _sd21_ids(ref, 1)
+    neg = torch.as_tensor(ref.clip_config.empty_prompt_ids(1), dtype=torch.long)
+    args = [t.to(cuda_device) for t in (ids, ids, neg, neg)]
+    real_unet, real_conv, real_step = tpipe.unet_apply, tsched.v_to_eps, tsched.euler_step
+    runs = {}
+    for name in ("reference", "default"):
+        pipe = pipes[name]
+        rec = {"pair": [], "eps": [], "sigma": [], "lat": []}
+        forced = runs["reference"]["lat"] if name == "default" else None
+
+        def unet(*a, rec=rec, **kw):
+            rec["pair"].append(real_unet(*a, **kw))
+            return rec["pair"][-1]
+
+        def conv(x, v, sigma, rec=rec):
+            rec["sigma"].append(sigma)
+            rec["eps"].append(real_conv(x, v, sigma))
+            return rec["eps"][-1]
+
+        def step(lat, eps, sigma, sigma_next, rec=rec, forced=forced):
+            rec["lat"].append(real_step(lat, eps, sigma, sigma_next))
+            return rec["lat"][-1] if forced is None else forced[len(rec["lat"]) - 1]
+
+        monkeypatch.setattr(tpipe, "unet_apply", unet)
+        monkeypatch.setattr(tsched, "v_to_eps", conv)
+        monkeypatch.setattr(tsched, "euler_step", step)
+        prog = pipe._program(1, SD21_CALL["height"], SD21_CALL["width"], steps, g, "euler", True,
+                             None, None)
+        with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
+            if forced is None:
+                inputs = prog.loop_inputs(ref.params, *args, [7])
+            prog.loop.__wrapped__(pipe.params["unet"], *inputs)
+        monkeypatch.undo()
+        runs[name] = rec
+    torch.cuda.synchronize()
+    want, got = runs["reference"], runs["default"]
+    assert len(want["eps"]) == len(got["eps"]) == steps and want["sigma"] == got["sigma"]
+    shares = []
+    for k in range(steps):
+        m = want["pair"][k].float().abs().max().item()
+        gap = (got["pair"][k].float() - want["pair"][k].float()).abs().max().item()
+        assert torch.isfinite(got["pair"][k].float()).all() and gap <= 2e-2 * m, k
+        top = want["eps"][k].float().abs().max().item()
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        bound = (1 + 2 * g) * 2e-2 * m / math.sqrt(want["sigma"][k] ** 2 + 1) + ulp
+        eps_gap = (got["eps"][k].float() - want["eps"][k].float()).abs().max().item()
+        shares.append((gap / (2e-2 * m), eps_gap / bound))
+        assert eps_gap <= bound, (k, eps_gap, bound)
+    print(f"sd21 v loop, share of the pair's gate and of the eps bound by step: {shares}")
+    del pipes, ref, runs, want, got
+    torch.cuda.empty_cache()

@@ -283,6 +283,22 @@ def test_load_single_file_auto_equals_jax(files, family, monkeypatch):
         assert pipe.clip_config.hidden_size == 1024 and pipe.clip_config.num_layers == 24
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_load_single_file_auto_takes_the_prediction_type(files, family):
+    """A file does not say whether its UNet predicts eps or v: the caller's
+    ``prediction_type`` reaches the pipeline's SchedulerConfig (epsilon by
+    default), and an unknown one raises before the file is read."""
+    path = files[family][0]
+    kw = dict(compile_config=CompileConfig(backend="reference", dtype="float32"),
+              validate=False, device="cpu")
+    pipe, _ = tpretrained.load_single_file_auto(path, **kw)
+    assert pipe.scheduler_config.prediction_type == "epsilon"
+    pipe, _ = tpretrained.load_single_file_auto(path, prediction_type="v_prediction", **kw)
+    assert pipe.scheduler_config.prediction_type == "v_prediction"
+    with pytest.raises(ValueError, match="prediction_type"):
+        tpretrained.load_single_file_auto(path / "missing", prediction_type="x0", **kw)
+
+
 def test_load_single_file_auto_validates(files):
     with pytest.raises(ValueError, match="shape"):
         tpretrained.load_single_file_auto(files["sd2"][0], device="cpu")

@@ -116,7 +116,8 @@ def test_three_requests_of_two_signatures(fresh):
             "pipeline.build", "pipeline.conditioning", "pipeline.loop", "pipeline.decode"]
         loop = next(k for k in _children(spans, call) if k.name == "pipeline.loop")
         assert loop.attrs == {"rows": g.attrs["rows"], "steps": 3 if g is groups[1] else 2,
-                              "lat_h": SIZE // 2, "lat_w": SIZE // 2, "guidance_scale": 5.0}
+                              "lat_h": SIZE // 2, "lat_w": SIZE // 2, "guidance_scale": 5.0,
+                              "prediction": "epsilon"}
         below = [s for s in spans if s.parent is not None and _root(s, by_id) is g]
         assert len(below) == 8 and all(s.requests == g.requests for s in below)
     # the request ends when its future has its result: inside the hand-back

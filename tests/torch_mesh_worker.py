@@ -153,9 +153,9 @@ def run(rank: int, world: int, store: str, inputs: dict, out_dir: str) -> None:
         engine.close()
         tok = Tok()
         prompts = ["a red fox", "a blue bird", "a cat", ""]
-        direct = pipe.txt2img(tok.encode_batch(prompts), tok.encode_batch(prompts, pad=0),
+        direct = pipe.txt2img(tok.encode_batch(prompts), tok.encode_batch(prompts),
                               neg_ids1=tok.encode_batch([""] * 4),
-                              neg_ids2=tok.encode_batch([""] * 4, pad=0), height=SIZE,
+                              neg_ids2=tok.encode_batch([""] * 4), height=SIZE,
                               width=SIZE, steps=2, seed=[3, 4, 5, 0]).numpy()
         res["served"], res["direct"] = served, direct[:3]
         torch.save(res, f"{out_dir}/rank{rank}.pt")
