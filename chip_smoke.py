@@ -5,6 +5,7 @@
     python3 chip_smoke.py --host-time [DIR]
     python3 chip_smoke.py --group-norm [DIR]
     python3 chip_smoke.py --sd21
+    python3 chip_smoke.py --k8 [DIR] [--serve]
 
 ``--profile`` adds a torch.profiler breakdown of one step under each
 binding to phases 4 and 4c (device time by kernel family, idle share, the
@@ -28,7 +29,16 @@ fused-op and all-kernel bindings and a 1024^2 f32 decode under the fused-op
 binding by kernel family; it prints no result line. ``--sd21`` only builds
 the kernels and runs phases 7v and 5v (SD2.1-768 at the sd-2.1-768.batch8
 cell's shapes and served as it serves it), then prints their kernel rows
-and the result line.
+and the result line. ``--k8`` only builds the kernels and runs phase 3k:
+K8 at every shape of the SDXL-base 1024^2 step at UNet batch 2 and 16
+(and the refiner's 128^2 384 -> 384, SD1.5's split 8^2 2560 -> 1280)
+against its plain version, its normalised operand bit for bit K9's apply
+(a centre-tap identity weight), and its device time beside its bound, the
+unfused pair (K9 apply + K6) and, given DIR (another tree, e.g. the
+parent's), that tree's K8 timed in a subprocess on the same card; then
+with ``--serve`` phase 5b (the fused-op binding served at 1024^2: every
+K8 launch of the replayed steps on wgmma_gn_bf16 but conv_out's), and
+the result line.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -698,6 +708,161 @@ def phase_fused_kernels(dev):
     return results
 
 
+# K8's rows (``--k8``): the parent tree's K8 at the same shapes, timed in a
+# subprocess that imports that tree's package (it builds its own kernels
+# under its build/); prints one JSON line of device ms by shape
+K8_PARENT_TIMER = r"""
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from stabletriton_tpu_torch.kernels import conv_direct as cd, group_norm as gn
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(24)
+out = {}
+for (b, h, cin, cout, res) in json.loads(sys.argv[1]):
+    x = (torch.randn((b, h, h, cin), generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    scale = torch.rand((b, cin), generator=gen, device=dev) + 0.5
+    shift = torch.randn((b, cin), generator=gen, device=dev)
+    w = (torch.randn((3, 3, cin, cout), generator=gen, device=dev) / (9 * cin) ** 0.5
+         ).to(torch.bfloat16)
+    bias = torch.randn((b, cout), generator=gen, device=dev)
+    r = (torch.randn((b, h, h, cout), generator=gen, device=dev).to(torch.bfloat16)
+         if res else None)
+    fn = lambda: cd.gn_conv3x3(x, scale, shift, w, bias, residual=r, gn_act="silu")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    before = dict(cd.GN_LAUNCHES.by_key)
+    fn()
+    key = [k for k, n in cd.GN_LAUNCHES.by_key.items() if n != before.get(k, 0)]
+    out[f"{b} {h} {cin} {cout} {int(res)}"] = [us / 10 / 1e3, key[0] if key else None]
+print("K8_PARENT " + json.dumps(out))
+"""
+
+
+def k8_shapes(batch: int) -> list[tuple]:
+    """(b, h, cin, cout, residual, per step) of every K8 launch at Cout > 8
+    of the SDXL-base 1024^2 UNet step at UNet batch ``batch`` (CFG pairs of
+    batch / 2 images), as the fused-op binding dispatches them (the step run
+    on the meta device with a probe in gn_conv2d's place)."""
+    from stabletriton_tpu_torch.kernels import autotune
+    from stabletriton_tpu_torch.models.unet import sdxl_base_unet_config
+    from stabletriton_tpu_torch.ops import reference
+
+    per_step: dict = {}
+
+    def probe(x, gamma, beta, w, b=None, *, residual=None, **kw):
+        if w.shape[3] > 8:
+            key = (int(x.shape[0]), int(x.shape[1]), int(w.shape[2]), int(w.shape[3]),
+                   residual is not None)
+            per_step[key] = per_step.get(key, 0) + 1
+        return reference.gn_conv2d(x, gamma, beta, w, b, residual=residual, **kw)
+
+    autotune._probe_unet(sdxl_base_unet_config(), 128, 128, batch // 2, 2,
+                         {"conv2d": "reference", "gn_conv2d": "_shape_probe"},
+                         {"gn_conv2d": probe})
+    return [(*k, c) for k, c in sorted(per_step.items())]
+
+
+def phase_k8(dev, parent_dir=None):
+    """``--k8``: K8 at every shape it serves in the SDXL-base 1024^2 step at
+    UNet batch 2 and 16 (and the refiner's, SD2's 96^2 320 -> 320, SD1.5's
+    split 8^2 2560 -> 1280): against its plain version (2e-2), the normalised
+    operand equal to K9's apply bit for bit (a centre-tap identity weight,
+    Cin = Cout, borders included), and its device time beside its bound
+    (operations at 989 TFLOP/s), the unfused pair (K9 apply + K6, on the same
+    scale / shift) and, with ``parent_dir``, the parent tree's K8 (timed in a
+    subprocess on the same card). Returns the rows."""
+    from stabletriton_tpu_torch.kernels import conv_direct as cd
+    from stabletriton_tpu_torch.kernels import group_norm as gn
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(24)
+    bf16 = torch.bfloat16
+    cases = [(b, h, cin, cout, res, n) for batch in (2, 16)
+             for (b, h, cin, cout, res, n) in k8_shapes(batch)]
+    # the refiner's convs, SD2's 96^2 and SD1.5's split 8^2
+    cases += [(2, 128, 384, 384, False, 0), (2, 128, 1152, 384, False, 0),
+              (2, 64, 2304, 768, False, 0), (2, 96, 320, 320, False, 0),
+              (2, 8, 2560, 1280, False, 0)]
+    parent = {}
+    if parent_dir:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", K8_PARENT_TIMER,
+             json.dumps([[b, h, cin, cout, res] for b, h, cin, cout, res, _ in cases])],
+            cwd=parent_dir, capture_output=True, text=True,
+            env={**os.environ, "PYTHONPATH": os.path.abspath(parent_dir)})
+        if run.returncode != 0:
+            raise AssertionError(f"the parent's K8 timer failed: {run.stderr[-3000:]}")
+        line = [ln for ln in run.stdout.splitlines() if ln.startswith("K8_PARENT ")][-1]
+        parent = json.loads(line[len("K8_PARENT "):])
+        log(f"parent K8 timed in {time.perf_counter() - t0:.1f} s (its build included)")
+    rows = []
+    for b, h, cin, cout, res, per_step in cases:
+        x = randn_gen(gen, dev, (b, h, h, cin), scale=2.0, shift=0.5)
+        scale = torch.rand((b, cin), generator=gen, device=dev) + 0.5
+        shift = torch.randn((b, cin), generator=gen, device=dev)
+        w = randn_gen(gen, dev, (3, 3, cin, cout), scale=1.0 / math.sqrt(9 * cin))
+        bias = torch.randn((b, cout), generator=gen, device=dev)
+        r = randn_gen(gen, dev, (b, h, h, cout)) if res else None
+        fused = lambda: cd.gn_conv3x3(x, scale, shift, w, bias, residual=r, gn_act="silu")
+        pair = lambda: cd.conv3x3(gn.apply(x, scale, shift, "silu"), w, bias, residual=r)
+        before = dict(cd.GN_LAUNCHES.by_key)
+        out = fused()
+        (key,) = [k for k, n in cd.GN_LAUNCHES.by_key.items() if n != before.get(k, 0)]
+        if not key.startswith("wgmma_gn_bf16 "):
+            raise AssertionError(f"K8 {b} {h}^2 {cin}->{cout}: launched {key}")
+        if not torch.equal(fused(), out):
+            raise AssertionError(f"K8 {key}: two runs differ")
+        ref = cd.gn_conv3x3_plain(x, scale, shift, w, bias, residual=r, gn_act="silu")
+        rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        if not rel <= BF16_REL_TOL:
+            raise AssertionError(f"K8 {key}: relative error {rel:.3e}")
+        del ref
+        if not res and cin == cout:
+            # the centre-tap identity: the output is the normalised operand
+            eye = torch.zeros((3, 3, cin, cout), device=dev, dtype=bf16)
+            eye[1, 1] = torch.eye(cin, device=dev, dtype=bf16)
+            got = cd.gn_conv3x3(x, scale, shift, eye, gn_act="silu")
+            if not torch.equal(got, gn.apply(x, scale, shift, "silu")):
+                raise AssertionError(f"K8 {key}: the normalised operand is not K9's apply")
+        flops = 2 * b * h * h * cout * 9 * cin
+        moved = nbytes(x, w, bias, r, scale, shift) + b * h * h * cout * 2
+        bound_ms, bound_by = bound(flops, moved, bf16)
+        ms = device_ms(fused, 10)[0]
+        pair_ms = device_ms(pair, 10)[0]
+        pk = f"{b} {h} {cin} {cout} {int(res)}"
+        parent_ms, parent_key = parent.get(pk, (None, None))
+        row = {"shape": [b, h, h, cin, cout], "residual": res, "per_step": per_step, "key": key,
+               "max_rel_err": rel, "device_ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "unfused_pair_ms": pair_ms, "parent_ms": parent_ms, "parent_key": parent_key}
+        rows.append(row)
+        log(f"K8 {key}{' +res' if res else ''} ({per_step} a step): device {ms:.4f} ms "
+            f"({bound_ms / ms:.1%} of {bound_ms * 1e3:.4g} us {bound_by}); unfused pair "
+            f"{pair_ms:.4f} ms ({pair_ms / ms:.2f}x); parent {ms_text(parent_ms)}"
+            + (f" ({parent_ms / ms:.2f}x, {parent_key})" if parent_ms else "")
+            + f"; rel err {rel:.2e}")
+        del x, w, r, out
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    for batch in (2, 16):
+        sel = [r for r in rows if r["shape"][0] == batch and r["per_step"]]
+        step = {k: sum(r[k] * r["per_step"] for r in sel if r[k] is not None)
+                for k in ("device_ms", "unfused_pair_ms", "parent_ms", "bound_ms")}
+        log(f"K8 a step at UNet batch {batch} ({sum(r['per_step'] for r in sel)} launches): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in step.items()))
+    return rows
+
+
+def randn_gen(gen, dev, shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+
 # (label, class, operand form, shape, dtype, timing iterations); shapes are
 # (B, S, C, H) for the fused QKV buffer ("qkv") and separate q, k, v
 # ("qkv3"), (B, Sq, Sk, C, H) against the fused KV buffer ("kv")
@@ -1311,7 +1476,7 @@ def phase_plans(dev):
               lambda bn, sp, ws: conv(x.data_ptr(), w.data_ptr(), None, 0, 0, None,
                                       out.data_ptr(), None if ws is None else ws.data_ptr(),
                                       b, h, wd, cin, cout, 0, None, None, 0, tile.tw, tile.th,
-                                      tile.tb, bn, sp, stream))
+                                      tile.tb, bn, sp, 0, stream))
     # the skinny kernel at each M = 2 shape of the steps: every slice width
     # and a range of K splits, device time a launch (profiler), through the
     # C entry, beside the plan skinny_plan picks
@@ -1445,6 +1610,8 @@ def phase_host_time(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     gemm = build.function("st_linear_wgmma", lin._WGMMA_ARGTYPES)
     conv = build.function("st_conv3x3_wgmma", cd._WGMMA_ARGTYPES)
+    # the persistent grid argument (K8's) where the tree's C entry takes one
+    grid_arg = (0,) if len(cd._WGMMA_ARGTYPES) > 23 else ()
     cases = []  # (label, {what: fn})
     for m, k, n in HOST_GEMMS:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -1473,7 +1640,7 @@ def phase_host_time(dev):
                 tile=tile, plan=plan:
                 conv(x.data_ptr(), w.data_ptr(), bias.data_ptr(), 0, s[4], None, out.data_ptr(),
                      ws.data_ptr(), *s, 1, None, None, 0, tile.tw, tile.th, tile.tb, plan.bn,
-                     plan.splits, stream)}))
+                     plan.splits, *grid_arg, stream)}))
     for bsz, h, wd, c in HOST_NORMS:
         x = torch.randn((bsz, h, wd, c), generator=gen, device=dev).to(torch.bfloat16)
         g = torch.randn(c, generator=gen, device=dev).to(torch.bfloat16)
@@ -2178,9 +2345,10 @@ def phase_step_deviation(dev, cfg, params, inputs, all_per_step, precompute_line
                                           or linear_calls.calls["cuda"] != counts["K13"]):
                 raise AssertionError(f"{label} all-kernel step: linear dispatches "
                                      f"{linear_calls.calls}, K13 launches {counts['K13']}")
-            if convs != conv_split:
+            want_convs = gn_conv_split(conv_split, expect[name].get("K8", 0), 1)
+            if convs != want_convs:
                 raise AssertionError(f"{label} {name}: convs by kernel {convs}, expected "
-                                     f"{conv_split}")
+                                     f"{want_convs}")
             if name == "all_kernels" and linears != linear_split:
                 raise AssertionError(f"{label} all-kernel step: K13 by kernel {linears}, "
                                      f"expected {linear_split}")
@@ -3173,6 +3341,15 @@ def phase_serving_fused(dev, ucfg, unet_params, other):
                                  f"expected {n}")
     if k9_f32 != vae_norms * len(done):
         raise AssertionError(f"K9: {k9_f32} f32 launches, expected {vae_norms * len(done)}")
+    # every K8 launch at Cout > 8 (the 34 resnet convs a step) on the
+    # warp-specialised kernel, conv_out's on the 8-column form
+    routes = {}
+    for key, n in by_key["K8"].items():
+        routes[key.split()[0]] = routes.get(key.split()[0], 0) + n
+    if routes != {"wgmma_gn_bf16": (FUSED_PER_STEP["K8"] - 1) * steps, "wgmma_bf16": steps}:
+        raise AssertionError(f"K8 by route during fused-op serving: {routes}, expected "
+                             f"{FUSED_PER_STEP['K8'] - 1} a step on wgmma_gn_bf16 and conv_out's "
+                             f"one on wgmma_bf16, over {steps} steps")
     check_bf16_attention(by_key["attention"], ATTN_PER_STEP, steps, "fused-op serving")
     check_decode_convs(by_key["K6"], len(done), "fused-op serving")
     check_decode_attention(by_key["attention"], len(done), "fused-op serving")
@@ -3407,7 +3584,19 @@ def expected_summary(parts: dict, pieces, all_kernels: bool) -> dict:
         if all_kernels:
             for k, n in p.get("all", {}).items():
                 opt[k] += n * times
+            conv = gn_conv_split(conv, p.get("all", {}).get("K8", 0) * times, times)
     return {"attention": attn, "f32_attention": f32, "conv": conv, "opt": opt}
+
+
+def gn_conv_split(conv: dict, k8: int, steps: int) -> dict:
+    """The convs by kernel when ``k8`` of them (over ``steps`` steps) are
+    K8's: all but conv_out's (one a step, on the 8-column form) move from
+    wgmma_bf16 to K8's warp-specialised kernel, wgmma_gn_bf16."""
+    if not k8:
+        return conv
+    moved = k8 - steps
+    return {**conv, "wgmma_bf16": conv["wgmma_bf16"] - moved,
+            "wgmma_gn_bf16": conv.get("wgmma_gn_bf16", 0) + moved}
 
 
 def delta_since(counters, before: dict) -> dict:
@@ -5365,7 +5554,8 @@ def tuned_plan_mismatches(tally: dict) -> tuple[int, list]:
             else:
                 want = {plan_of(e, lin.skinny_plan(m, k, n, 2), ("cols", "splits"))} if e else set()
             got = (f.get("bn", f.get("cols")), f["split"])
-        elif counter in (cd.LAUNCHES, cd.GN_LAUNCHES) and words[0] == "wgmma_bf16":
+        elif counter in (cd.LAUNCHES, cd.GN_LAUNCHES) and words[0] in ("wgmma_bf16",
+                                                                       "wgmma_gn_bf16"):
             n = int(f["b"])
             h, w = (int(v) for v in words[2].split("x"))
             cin, cout = (int(v) for v in words[3].split("->"))
@@ -5547,8 +5737,9 @@ def phase_tuning(dev, ucfg, unet_params, other, card):
         plan = cd._wgmma_route(2, 128, 128, 320, 320, True, False, None)[1]
         err = rel_err(cd.gn_conv3x3(x, scale, shift, w, bias),
                       cd.gn_conv3x3_plain(x, scale, shift, w, bias))
-        times = in_turns(lambda: cd._launch(x, w, bias, None, None, gn, "wgmma_bf16", plan=t.rule),
-                         lambda: cd._launch(x, w, bias, None, None, gn, "wgmma_bf16", plan=plan))
+        times = in_turns(
+            lambda: cd._launch(x, w, bias, None, None, gn, "wgmma_gn_bf16", plan=t.rule),
+            lambda: cd._launch(x, w, bias, None, None, gn, "wgmma_gn_bf16", plan=plan))
         rec["k8"] = report("K8 conv 2x128x128 320->320 with the GroupNorm prologue", t, plan,
                            times, "library_us", None, err, BF16_REL_TOL)
         # tiny-KV attention off the fused KV buffer: SDXL's 64^2 cross-attention
@@ -5847,6 +6038,7 @@ def main() -> int:
     host_time = "--host-time" in args
     gn_mode = "--group-norm" in args
     sd21_mode = "--sd21" in args
+    k8_mode = "--k8" in args
     for flag in ("--host-time", "--group-norm"):
         at = args.index(flag) + 1 if flag in args else len(args)
         if at < len(args) and not args[at].startswith("--"):
@@ -5868,7 +6060,7 @@ def main() -> int:
     from stabletriton_tpu_torch.models.unet import sd15_unet_config, sdxl_base_unet_config
 
     pool = ThreadPoolExecutor(1)
-    if not (host_time or gn_mode or sd21_mode):
+    if not (host_time or gn_mode or sd21_mode or k8_mode):
         # the native library (g++, phase 7a) builds beside the CUDA kernels
         native_build = pool.submit(build_native)
     t0 = time.perf_counter()
@@ -5891,6 +6083,22 @@ def main() -> int:
     if gn_mode:
         phase_group_norm(dev)
         pool.shutdown()
+        return 0
+    if k8_mode:
+        pool.shutdown()
+        at = args.index("--k8") + 1
+        parent = args[at] if at < len(args) and not args[at].startswith("--") else None
+        rows = with_peak("phase 3k", phase_k8, dev, parent)
+        log(json.dumps({"k8": rows}))
+        if "--serve" in args:
+            ucfg = sdxl_base_unet_config()
+            sdxl = {"unet": make_unet_params(dev, ucfg)}
+            sdxl["other"] = make_other_params(dev)
+            with_peak("phase 5b", phase_serving_fused, dev, ucfg, sdxl["unet"], sdxl["other"])
+            free(sdxl)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     if sd21_mode:
         pool.shutdown()

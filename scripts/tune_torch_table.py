@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Make the PyTorch/CUDA port's packaged autotune table on the card it runs on.
 
-    python3 scripts/tune_torch_table.py [OUT_DIR]
+    python3 scripts/tune_torch_table.py [OUT_DIR] [--gn]
 
 Tunes, from an empty table (no packaged file, a fresh user cache), every
 kernel shape of these signatures (batch 1, the UNet at batch 2 and 1: CFG,
@@ -20,6 +20,11 @@ the rule by more than two timings of the rule differ) as
 its route takes the rule. Prints the card's name and power limit, each
 tuned shape's times against its fitted rule's, and each signature's wall
 time. Needs one CUDA card.
+
+``--gn`` measures only the GroupNorm-prologue convs (K8, the ``:gn`` keys)
+of the three signatures, from an empty table, and writes the packaged
+table with its ``:gn`` entries replaced by those measured off the rule,
+every other entry as it was.
 """
 
 from __future__ import annotations
@@ -51,10 +56,15 @@ def main() -> int:
     from stabletriton_tpu_torch.kernels import autotune
     from stabletriton_tpu_torch.models import unet
 
-    out_dir = pathlib.Path(sys.argv[1]) if len(sys.argv) > 1 else autotune.PACKAGED_DIR
+    args = [a for a in sys.argv[1:] if a != "--gn"]
+    gn_only = "--gn" in sys.argv[1:]
+    out_dir = pathlib.Path(args[0]) if args else autotune.PACKAGED_DIR
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     tag = autotune.platform_tag()
+    packaged = autotune.packaged_path(tag)
+    others = ({k: e for k, e in json.loads(packaged.read_text()).items()
+               if not k.endswith(":gn")} if gn_only and packaged.exists() else {})
     print(f"{card}; platform tag {tag}", flush=True)
     bindings = {"default": CompileConfig(), "fused-op": CompileConfig(overrides=FUSED_OP_OVERRIDES),
                 "all-kernel": CompileConfig(overrides=ALL_KERNEL_OVERRIDES)}
@@ -66,9 +76,13 @@ def main() -> int:
         for label, make, size in SIGNATURES:
             cfg = getattr(unet, make)()
             for name, config in bindings.items():
+                if gn_only and name != "fused-op":
+                    continue
                 t0 = time.perf_counter()
-                tuned = autotune.ensure_tuned_for(resolve_binding(config), cfg, size // 8,
-                                                  size // 8, 1, torch.bfloat16, (1, 2))
+                tuned = (autotune.ensure_conv_tuned(cfg, size // 8, size // 8, 1, torch.bfloat16,
+                                                    (1, 2), gn=True) if gn_only else
+                         autotune.ensure_tuned_for(resolve_binding(config), cfg, size // 8,
+                                                   size // 8, 1, torch.bfloat16, (1, 2)))
                 for t in tuned:
                     rule_us = [t.times_us[t.rule]] + ([t.retimed_us[t.rule]] if t.retimed_us
                                                       else [])
@@ -82,7 +96,7 @@ def main() -> int:
                 print(f"{label}, {name} binding: {len(tuned)} shapes tuned in "
                       f"{time.perf_counter() - t0:.1f} s", flush=True)
         measured = json.loads(pathlib.Path(os.environ["ST_TPU_AUTOTUNE_CACHE"]).read_text())
-    table = {k: e for k, e in measured.items() if not autotune.keeps_rule(e)}
+    table = {**others, **{k: e for k, e in measured.items() if not autotune.keeps_rule(e)}}
     out_dir.mkdir(parents=True, exist_ok=True)
     out = out_dir / f"{tag}.json"
     out.write_text(json.dumps(table, indent=1, sort_keys=True) + "\n")

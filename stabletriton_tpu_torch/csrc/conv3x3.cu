@@ -22,7 +22,7 @@
 // image stay exactly 0: the conv pads the NORMALIZED input with zeros, and
 // normalize(0) != 0.
 //
-// Five kernels:
+// The kernels:
 //   conv_wgmma_bf16  - bf16 with Cin % 8 == 0, Cout % 8 == 0 or Cout <= 8,
 //                      and 16-byte aligned x and w: the Hopper mainloop of
 //                      wgmma.cuh. The A operand is one TMA box per (tap,
@@ -43,14 +43,19 @@
 //                      comes padded by the wrapper to 8 zero-filled channels
 //                      (0.5 MB at 128^2): TMA reads rows of 16 bytes, and the
 //                      64-channel box over 8 channels reads zeros past them.
-//   conv_gn_wgmma_bf16 - the same with the GroupNorm prologue: a TMA box of the
-//                      tile's halo per 64-channel chunk, normalised once in
-//                      shared memory (scale / shift staged once per block,
-//                      SiLU, bf16; zero outside the image, since TMA's zero is
-//                      a raw zero), then each of the 9 taps loads its A
-//                      fragments from the halo at its offset (ldmatrix) for a
-//                      register-A wgmma. BN = 128, or 8 for Cout <= 8 (the
-//                      UNet's norm_out + SiLU + conv_out).
+//   conv_gn_wgmma_bf16 - the same with the GroupNorm prologue (K8), at Cout
+//                      > 8: warp-specialised on a persistent tile loop (see
+//                      its section below). Three warps of their own turn
+//                      each 64-channel chunk of the tile's halo, loaded by
+//                      TMA as 8-channel planes, into the bf16 operand in place
+//                      (scale / shift read from L2, SiLU, bf16; zero outside
+//                      the image, since TMA's zero is a raw zero) while the
+//                      consumer warpgroups run the previous chunk's 9 taps
+//                      as shared-memory wgmmas straight from the normalised
+//                      halo, one descriptor a tap. conv_gn_wgmma_bf16_n8,
+//                      its 8-column form (Cout <= 8: the UNet's norm_out +
+//                      SiLU + conv_out), normalises in the consumers and
+//                      feeds register-A wgmmas.
 //   conv_wgmma_tf32x3 - f32 with Cin % 8 == 0 (every 3x3 conv of the VAE
 //                      decoder but conv_in): the same TMA + wgmma shape in
 //                      3xTF32. The weight comes prepared by the wrapper as
@@ -374,6 +379,7 @@ struct ConvWgmmaArgs {
   int B, H, W, Cin;
   int tw, th, tb, ntx, nty;  // the pixel tile and the tiles across W and H
   int splits, gn_act;
+  int bstages;                // K8 at Cout > 8: its weight ring's stages
 
   // the output pixel of tile row `row` in pixel tile (x0, y0, b0), or -1
   __device__ long long pixel(int x0, int y0, int b0, int row) const {
@@ -433,32 +439,69 @@ __global__ void __launch_bounds__(wg::THREADS, CTAS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 wgmma kernel with the GroupNorm prologue (K8), block tile 128 x BN
-// (128, or 8 with the K-major 8-row weight for Cout <= 8).
-// K steps run channel chunk by channel chunk (step kb: chunk kb / 9, tap
-// kb % 9). For each chunk the producer loads the tile's halo once, (th + 2)
-// x (tw + 2) pixels x 64 channels of each image, zero outside the tensor;
-// the consumers normalise it in place in shared memory (x * scale + shift,
-// SiLU, rounded to bf16; zero for pixels outside the image and channels
-// past Cin, since GroupNorm(0) != 0), and each of the 9 taps then reads its
-// A fragments from the halo at the tap's offset (ldmatrix) for a register-A
-// wgmma. B (the weight rows of the tap and chunk) streams through its own
-// ring, a stage a step, as in the plain conv.
+// K8, the bf16 wgmma conv with the GroupNorm prologue, at Cout > 8: a
+// warp-specialised kernel on a persistent tile loop.
+//
+//   block tile  128 output pixels (8 wide x th rows x tb images, th * tb =
+//               16) x BN = 128, 192 or 256 output channels; K steps run
+//               channel chunk by channel chunk (step kb: chunk kb / 9, tap
+//               kb % 9), a split taking a contiguous share of them;
+//   warps       warpgroups 0 and 1 consume (64 output rows each: 8 rows of
+//               8 pixels; one m64nBNk16 wgmma a 16-channel slice); warps
+//               8-10 normalise; one thread of warp 11 loads the weight rows
+//               of every step and every chunk's halo one chunk ahead of them
+//               (384 threads, 168 registers: the m64n256 accumulators take
+//               128);
+//   halo ring   GN_HSTAGES stages, each one chunk's halo ((8 + 2) x (th +
+//               2) x tb pixels x 64 channels) as 8 planes of 8 channels,
+//               16 bytes a pixel (8 TMA boxes, no swizzle); a stage goes
+//               TMA full -> normalised -> released: the normaliser turns it
+//               into the bf16 operand in place (x * scale + shift, SiLU,
+//               one bf16 rounding: gn_apply8, the arithmetic of K9's apply;
+//               zero outside the image and past Cin, since GroupNorm(0) !=
+//               0), four pixels a thread at a time so that their
+//               special-function chains overlap, with each image's (scale,
+//               shift) read from L2 once a chunk, while the consumers run
+//               the previous chunk's taps;
+//   A operand   straight from the normalised halo: with 8-pixel rows, the
+//               64 x 16 A tile of tap (ky, kx) is 8 core matrices (an output
+//               row's 8 pixels, 16 bytes each) 10 pixels apart along M and a
+//               plane apart along K, so every tap is one no-swizzle
+//               descriptor into the same halo, no copy;
+//   B ring      a.bstages stages (as many as the shared memory holds) of the
+//               (9 Cin, Cout) weight's 64 x BN rows, MN-major, 128-byte
+//               swizzle, as in wgmma.cuh; one wgmma group kept in flight
+//               across K steps (a stage is released one step late);
+//   tiles       the grid (at most one block an SM) walks the (split, row
+//               tile, column tile) items blockIdx.x, + gridDim.x, ...: the
+//               producer and the normaliser run ahead into the next item
+//               while the consumers store this one's tile (gn_store: the
+//               tile's images known, no division a row) or its f32
+//               partial (splitk_reduce sums the splits).
 // ---------------------------------------------------------------------------
-constexpr int GN_B_STAGES = 4, GN_HALO_STAGES = 2;
-__host__ __device__ constexpr int gn_b_bytes(int bn) { return wg::BK * bn * 2; }
+constexpr int GN_NORM_THREADS = 96, GN_PLANE_THREADS = GN_NORM_THREADS / 8;
+constexpr int GN_THREADS = 256 + GN_NORM_THREADS + 32;
+constexpr int GN_TW = 8, GN_BM = 128;
+constexpr int GN_HSTAGES = 4, GN_MAX_BSTAGES = 8, GN_UNROLL = 4;
 
-// the halo ring stage of the tile, rounded to the 1024-byte swizzle atom
-__host__ __device__ __forceinline__ int gn_halo_bytes(int tw, int th, int tb) {
-  return (tw + 2) * (th + 2) * tb * 128;
+// the halo's pixels, and a plane of 8 channels of them padded to TMA's
+// 128-byte destination alignment
+__host__ __device__ __forceinline__ int gn_halo_pixels(int th, int tb) {
+  return (GN_TW + 2) * (th + 2) * tb;
 }
-__host__ __device__ __forceinline__ int gn_halo_stride(int tw, int th, int tb) {
-  return (gn_halo_bytes(tw, th, tb) + 1023) / 1024 * 1024;
+__host__ __device__ __forceinline__ int gn_plane(int th, int tb) {
+  return (gn_halo_pixels(th, tb) * 16 + 127) / 128 * 128;
 }
-// [pad to 1024][B ring][halo ring][fullB, emptyB, fullH, emptyH][(scale, shift)]
-__host__ __device__ __forceinline__ int gn_smem_bytes(int tw, int th, int tb, int cin, int bn) {
-  return 1024 + GN_B_STAGES * gn_b_bytes(bn) + GN_HALO_STAGES * gn_halo_stride(tw, th, tb) +
-         16 * (GN_B_STAGES + GN_HALO_STAGES) + tb * cin * 8;
+// [pad to 1024][B ring][halo ring][full_b, empty_b][full_h, ready_h, empty_h]
+__host__ __device__ __forceinline__ int gn_smem_bytes(int bn, int th, int tb, int bstages) {
+  return 1024 + bstages * wg::BK * bn * 2 + GN_HSTAGES * 8 * gn_plane(th, tb) +
+         8 * (2 * bstages + 3 * GN_HSTAGES);
+}
+// the deepest weight ring that fits beside the halo ring
+__host__ __forceinline__ int gn_bstages(int bn, int th, int tb) {
+  int s = GN_MAX_BSTAGES;
+  while (s > 2 && gn_smem_bytes(bn, th, tb, s) > 232448) --s;
+  return s;
 }
 
 // the GroupNorm prologue on 8 bf16 channels c .. c + 7 of one pixel, with
@@ -481,30 +524,349 @@ __device__ __forceinline__ uint4 gn_apply8(uint4 raw, const float2 (&ss)[8], int
   return raw;
 }
 
+// (scale, shift) of image b's channels c .. c + 7 as pairs, from L2
+__device__ __forceinline__ void gn_pairs(const ConvWgmmaArgs& a, int b, int c, float2 (&ss)[8]) {
+  const long long o = (long long)b * a.Cin + c;
+  const float4* sc = reinterpret_cast<const float4*>(a.gn_scale + o);
+  const float4* sh = reinterpret_cast<const float4*>(a.gn_shift + o);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float4 m = __ldg(sc + q), d = __ldg(sh + q);
+    ss[4 * q] = make_float2(m.x, d.x);
+    ss[4 * q + 1] = make_float2(m.y, d.y);
+    ss[4 * q + 2] = make_float2(m.z, d.z);
+    ss[4 * q + 3] = make_float2(m.w, d.w);
+  }
+}
+
+// one item of the persistent walk: its pixel tile, columns and K steps
+struct GnItem {
+  int x0, y0, b0, n0, k0, k1, z;
+};
+
 template <int BN>
-__global__ void __launch_bounds__(wg::THREADS, 1)
+__device__ __forceinline__ GnItem gn_item(const ConvWgmmaArgs& a, int item, int tiles,
+                                          int n_tiles, int nk) {
+  GnItem t;
+  t.z = item / tiles;
+  const int r = item - t.z * tiles, mt = r / n_tiles;
+  t.n0 = (r - mt * n_tiles) * BN;
+  t.x0 = (mt % a.ntx) * GN_TW;
+  t.y0 = (mt / a.ntx % a.nty) * a.th;
+  t.b0 = mt / (a.ntx * a.nty) * a.tb;
+  wg::split_range(nk, a.splits, t.z, t.k0, t.k1);
+  return t;
+}
+
+// v[i] += the 8 bf16 at p (16-byte aligned), read through the read-only
+// path: the epilogue's inputs are never its outputs, so its loads need not
+// wait for its stores
+__device__ __forceinline__ void gn_add_bf16x8(float (&v)[8], const __nv_bfloat16* p) {
+  uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] += f.x;
+    v[2 * i + 1] += f.y;
+  }
+}
+
+// a consumer warpgroup's m64nBN accumulators (tile rows row0 .. row0 + 63;
+// accumulator i at row row0 + 16 warp + lane / 4 + 8 ((i >> 1) & 1), column
+// 8 (i >> 2) + 2 (lane % 4) + (i & 1), as wg::store_tile has them) to the
+// output with bias, residual and activation (epilogue8's arithmetic), or to
+// the split's f32 partial tile. The tile's rows lie in known images, so a
+// row's image, and with it the per-batch bias row, comes from its tile row;
+// the bias and residual are read 8 columns at a time (16-byte aligned). The
+// activation is a template argument: a runtime switch inlines every
+// activation's code once an element, and at 128 elements a thread that
+// code thrashed the instruction cache.
+template <int BN, int ACT>
+__device__ __forceinline__ void gn_store(const float (&acc)[BN / 2], int row0, const GnItem& t,
+                                         const ConvWgmmaArgs& a, float* partial) {
+  const wg::Epilogue& e = a.e;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int per_img = a.th * GN_TW;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + warp * 16 + lane / 4 + 8 * h;
+    const int bi = row / per_img, r = row - bi * per_img;
+    const int b = t.b0 + bi, y = t.y0 + r / GN_TW, x = t.x0 + r % GN_TW;
+    const bool valid = b < a.B && y < a.H && x < a.W;
+    const long long m = ((long long)b * a.H + y) * a.W + x;
+    const long long brow = e.bias_bstride ? (long long)b * e.bias_bstride : 0;
+#pragma unroll
+    for (int g = 0; g < BN / 32; ++g) {
+      float2 p[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int i = (4 * g + jj) * 4 + 2 * h;
+        p[jj] = make_float2(acc[i], acc[i + 1]);
+      }
+      float v[8];
+      wg::quad_transpose(p, v);
+      const int n = t.n0 + 8 * (4 * g + (lane & 3));
+      if (!valid || n >= e.N) continue;
+      if (partial) {
+        float4* dst = reinterpret_cast<float4*>(partial + m * e.N + n);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+        continue;
+      }
+      if (e.bias) {
+        if (e.bias_dtype == 1) {
+          gn_add_bf16x8(v, static_cast<const __nv_bfloat16*>(e.bias) + brow + n);
+        } else {
+          const float4* bf = reinterpret_cast<const float4*>(static_cast<const float*>(e.bias) +
+                                                             brow + n);
+          const float4 lo = __ldg(bf), hi = __ldg(bf + 1);
+          v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+          v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+        }
+      }
+      if (e.residual) gn_add_bf16x8(v, e.residual + m * e.N + n);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = stv::act(v[q], ACT);
+      stv::store_vec<__nv_bfloat16, 8>(e.out + m * e.N + n, v);
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(GN_THREADS, 1)
     conv_gn_wgmma_bf16(const __grid_constant__ CUtensorMap tmap_halo,
                        const __grid_constant__ CUtensorMap tmap_w, ConvWgmmaArgs a) {
-  constexpr int B_BYTES = gn_b_bytes(BN);
+  constexpr int B_BYTES = wg::BK * BN * 2;
   extern __shared__ __align__(16) uint8_t smem[];
+  const int bstages = a.bstages;
   const uint32_t base = wg::smem_u32(smem);
   const uint32_t b_ring = (base + 1023u) & ~1023u;
-  const int halo_stride = gn_halo_stride(a.tw, a.th, a.tb);
-  const uint32_t h_ring = b_ring + GN_B_STAGES * B_BYTES;
-  const uint32_t bars = h_ring + GN_HALO_STAGES * halo_stride;
+  const int plane = gn_plane(a.th, a.tb), hstage = 8 * plane;
+  const uint32_t h_ring = b_ring + bstages * B_BYTES;
+  const uint32_t bars = h_ring + GN_HSTAGES * hstage;
   auto full_b = [&](int s) { return bars + 8 * s; };
-  auto empty_b = [&](int s) { return bars + 8 * (GN_B_STAGES + s); };
-  auto full_h = [&](int h) { return bars + 8 * (2 * GN_B_STAGES + h); };
-  auto empty_h = [&](int h) { return bars + 8 * (2 * GN_B_STAGES + GN_HALO_STAGES + h); };
-  uint8_t* halo_ptr = smem + (h_ring - base);
-  float2* gss = reinterpret_cast<float2*>(smem + (bars + 16 * (GN_B_STAGES + GN_HALO_STAGES) -
-                                                   base));
+  auto empty_b = [&](int s) { return bars + 8 * (bstages + s); };
+  auto full_h = [&](int h) { return bars + 8 * (2 * bstages + h); };
+  auto ready_h = [&](int h) { return full_h(GN_HSTAGES + h); };
+  auto empty_h = [&](int h) { return full_h(2 * GN_HSTAGES + h); };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < GN_B_STAGES; ++s) {
+    for (int s = 0; s < bstages; ++s) {
       wg::bar_init(full_b(s), 1);
       wg::bar_init(empty_b(s), 2);
     }
-    for (int h = 0; h < GN_HALO_STAGES; ++h) {
+    for (int h = 0; h < GN_HSTAGES; ++h) {
+      wg::bar_init(full_h(h), 1);
+      wg::bar_init(ready_h(h), GN_NORM_THREADS);
+      wg::bar_init(empty_h(h), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nk = 9 * ((a.Cin + 63) / 64);
+  const int n_tiles = (a.e.N + BN - 1) / BN;
+  const int tiles = a.ntx * a.nty * ((a.B + a.tb - 1) / a.tb) * n_tiles;
+  const int items = tiles * a.splits;
+  const int hw = GN_TW + 2, hh = a.th + 2;
+  const int wgi = threadIdx.x / 128;
+  if (threadIdx.x >= 256 + GN_NORM_THREADS) {
+    // the producer (one thread): the weight rows of every step, and every
+    // chunk's halo one chunk ahead of them, so a halo stage is loaded and
+    // normalised while the consumers run the chunk before
+    if (threadIdx.x == 256 + GN_NORM_THREADS) {
+      int step = 0, loads = 0, hi = blockIdx.x;
+      GnItem hu = gn_item<BN>(a, hi, tiles, n_tiles, nk);
+      int hcc = hu.k0 / 9;
+      auto halo_next = [&] {  // the next chunk's halo in the walk's order
+        if (hi >= items) return;
+        const int h = loads++ % GN_HSTAGES;
+        wg::bar_wait(empty_h(h), (((loads - 1) / GN_HSTAGES) & 1) ^ 1);
+        wg::bar_expect_tx(full_h(h), 16 * gn_halo_pixels(a.th, a.tb) * 8);
+#pragma unroll 1
+        for (int j = 0; j < 8; ++j)
+          wg::tma_load_4d(h_ring + h * hstage + j * plane, &tmap_halo, full_h(h),
+                          hcc * 64 + 8 * j, hu.x0 - 1, hu.y0 - 1, hu.b0);
+        if (++hcc > (hu.k1 - 1) / 9 && (hi += gridDim.x) < items) {
+          hu = gn_item<BN>(a, hi, tiles, n_tiles, nk);
+          hcc = hu.k0 / 9;
+        }
+      };
+      halo_next();
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const GnItem t = gn_item<BN>(a, i, tiles, n_tiles, nk);
+        for (int kb = t.k0; kb < t.k1; ++kb, ++step) {
+          const int cc = kb / 9, tap = kb - 9 * cc, s = step % bstages;
+          if (kb == t.k0 || tap == 0) halo_next();
+          wg::bar_wait(empty_b(s), ((step / bstages) & 1) ^ 1);
+          wg::bar_expect_tx(full_b(s), B_BYTES);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            wg::tma_load_2d(b_ring + s * B_BYTES + j * wg::BOX_BYTES, &tmap_w, full_b(s),
+                            t.n0 + 64 * j, tap * a.Cin + cc * 64);
+        }
+      }
+    }
+  } else if (wgi == 2) {
+    // the normaliser: thread t takes channel plane t / 12 and every 12th
+    // halo pixel from t % 12, GN_UNROLL pixels at a time; its 8 channels'
+    // (scale, shift) for the tile's (at most two) images stay in registers
+    // for the chunk
+    const int tn = threadIdx.x - 256, t12 = tn % GN_PLANE_THREADS, j = tn / GN_PLANE_THREADS;
+    const int np = gn_halo_pixels(a.th, a.tb);
+    int loads = 0;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const GnItem t = gn_item<BN>(a, i, tiles, n_tiles, nk);
+      for (int cc = t.k0 / 9; cc <= (t.k1 - 1) / 9; ++cc, ++loads) {
+        const int h = loads % GN_HSTAGES;
+        const int c = cc * 64 + 8 * j;
+        float2 s0[8], s1[8];
+        const bool live = c < a.Cin;
+        if (live && t.b0 < a.B) gn_pairs(a, t.b0, c, s0);
+        if (live && a.tb > 1 && t.b0 + 1 < a.B) gn_pairs(a, t.b0 + 1, c, s1);
+        wg::bar_wait(full_h(h), (loads / GN_HSTAGES) & 1);
+        uint8_t* pl = smem + (h_ring - base) + h * hstage + j * plane;
+        int hb = 0, hy = t12 / hw, hx = t12 % hw;
+        for (int p = t12; p < np; p += GN_UNROLL * GN_PLANE_THREADS) {
+          uint4 v[GN_UNROLL];
+          bool in[GN_UNROLL], second[GN_UNROLL];
+#pragma unroll
+          for (int u = 0; u < GN_UNROLL; ++u) {
+            const int q = p + u * GN_PLANE_THREADS;
+            const int b = t.b0 + hb, y = t.y0 - 1 + hy, x = t.x0 - 1 + hx;
+            in[u] = q < np && live && b < a.B && y >= 0 && y < a.H && x >= 0 && x < a.W;
+            second[u] = hb > 0;
+            v[u] = q < np ? *reinterpret_cast<const uint4*>(pl + q * 16) : make_uint4(0, 0, 0, 0);
+            for (hx += GN_PLANE_THREADS; hx >= hw;) {
+              hx -= hw;
+              if (++hy == hh) hy = 0, ++hb;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < GN_UNROLL; ++u) {
+            float2 ss[8];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) ss[q] = second[u] ? s1[q] : s0[q];
+            const uint4 n = gn_apply8(v[u], ss, a.gn_act);
+            v[u] = in[u] ? n : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+          for (int u = 0; u < GN_UNROLL; ++u) {
+            const int q = p + u * GN_PLANE_THREADS;
+            if (q < np) *reinterpret_cast<uint4*>(pl + q * 16) = v[u];
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wg::bar_arrive(ready_h(h));
+      }
+    }
+  } else {
+    // the consumers: warpgroup wgi computes tile rows 64 wgi .. 64 wgi + 63;
+    // the halo pixel of its first output row at tap (0, 0)
+    const int per_img = a.th * GN_TW, r0 = wgi * 64;
+    const int hp0 = r0 / per_img * hw * hh + r0 % per_img / GN_TW * hw;
+    const bool leader = threadIdx.x % 128 == 0;
+    int step = 0, loads = 0;
+    float acc[BN / 2];
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const GnItem t = gn_item<BN>(a, i, tiles, n_tiles, nk);
+#pragma unroll
+      for (int q = 0; q < BN / 2; ++q) acc[q] = 0.f;
+      int h = 0;
+      for (int kb = t.k0; kb < t.k1; ++kb, ++step) {
+        const int cc = kb / 9, tap = kb - 9 * cc;
+        const int prev_h = h;
+        if (kb == t.k0 || tap == 0) {  // a new chunk: wait for its normalised halo
+          h = loads % GN_HSTAGES;
+          wg::bar_wait(ready_h(h), (loads / GN_HSTAGES) & 1);
+          ++loads;
+        }
+        const int s = step % bstages;
+        wg::bar_wait(full_b(s), (step / bstages) & 1);
+        const uint32_t a_tap =
+            h_ring + h * hstage + (hp0 + (tap / 3) * hw + tap % 3) * 16;
+        const uint32_t b_tile = b_ring + s * B_BYTES;
+        wg::fence_acc(acc);
+        wg::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < wg::BK / 16; ++kk)
+          wg::wgmma_ss_wide<BN>(acc, wg::desc_plain(a_tap + 2 * kk * plane, plane, hw * 16),
+                                wg::desc_b(b_tile, 0, kk));
+        wg::wgmma_commit();
+        wg::fence_acc(acc);
+        if (kb > t.k0) {
+          // the previous step's wgmmas are done: release its weight stage,
+          // and its halo where it was its chunk's last
+          wg::wgmma_wait<1>();
+          if (leader) {
+            wg::bar_arrive(empty_b((step - 1) % bstages));
+            if (tap == 0) wg::bar_arrive(empty_h(prev_h));
+          }
+        }
+      }
+      wg::wgmma_wait<0>();
+      wg::fence_acc(acc);
+      if (leader) {
+        wg::bar_arrive(empty_b((step - 1) % bstages));
+        wg::bar_arrive(empty_h(h));
+      }
+      // the activation a template argument: its code once, not once an element
+      float* partial = a.splits > 1 ? a.ws + t.z * a.e.M * a.e.N : nullptr;
+      if (a.e.act == 1)
+        gn_store<BN, 1>(acc, r0, t, a, partial);
+      else
+        gn_store<BN, 0>(acc, r0, t, a, partial);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8's 8-column form (Cout <= 8: the UNet's norm_out + SiLU + conv_out): the
+// block tile is 128 pixels x 8 columns, the weight K-major with rows past
+// Cout zero (as conv_wgmma_bf16<8>). The producer loads the tile's halo once
+// per 64-channel chunk (128-byte swizzle) and the weight rows of each step;
+// the consumers normalise the halo in place (scale / shift staged once per
+// block) and each of the 9 taps reads its A fragments from the halo at the
+// tap's offset (ldmatrix) for a register-A wgmma.
+// ---------------------------------------------------------------------------
+constexpr int N8_B_STAGES = 4, N8_HALO_STAGES = 2;
+constexpr int N8_B_BYTES = wg::BK * 8 * 2;
+
+// the halo ring stage of the tile, rounded to the 1024-byte swizzle atom
+__host__ __device__ __forceinline__ int n8_halo_bytes(int tw, int th, int tb) {
+  return (tw + 2) * (th + 2) * tb * 128;
+}
+__host__ __device__ __forceinline__ int n8_halo_stride(int tw, int th, int tb) {
+  return (n8_halo_bytes(tw, th, tb) + 1023) / 1024 * 1024;
+}
+// [pad to 1024][B ring][halo ring][fullB, emptyB, fullH, emptyH][(scale, shift)]
+__host__ __device__ __forceinline__ int n8_smem_bytes(int tw, int th, int tb, int cin) {
+  return 1024 + N8_B_STAGES * N8_B_BYTES + N8_HALO_STAGES * n8_halo_stride(tw, th, tb) +
+         16 * (N8_B_STAGES + N8_HALO_STAGES) + tb * cin * 8;
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    conv_gn_wgmma_bf16_n8(const __grid_constant__ CUtensorMap tmap_halo,
+                          const __grid_constant__ CUtensorMap tmap_w, ConvWgmmaArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t base = wg::smem_u32(smem);
+  const uint32_t b_ring = (base + 1023u) & ~1023u;
+  const int halo_stride = n8_halo_stride(a.tw, a.th, a.tb);
+  const uint32_t h_ring = b_ring + N8_B_STAGES * N8_B_BYTES;
+  const uint32_t bars = h_ring + N8_HALO_STAGES * halo_stride;
+  auto full_b = [&](int s) { return bars + 8 * s; };
+  auto empty_b = [&](int s) { return bars + 8 * (N8_B_STAGES + s); };
+  auto full_h = [&](int h) { return bars + 8 * (2 * N8_B_STAGES + h); };
+  auto empty_h = [&](int h) { return bars + 8 * (2 * N8_B_STAGES + N8_HALO_STAGES + h); };
+  uint8_t* halo_ptr = smem + (h_ring - base);
+  float2* gss = reinterpret_cast<float2*>(smem + (bars + 16 * (N8_B_STAGES + N8_HALO_STAGES) -
+                                                   base));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < N8_B_STAGES; ++s) {
+      wg::bar_init(full_b(s), 1);
+      wg::bar_init(empty_b(s), 2);
+    }
+    for (int h = 0; h < N8_HALO_STAGES; ++h) {
       wg::bar_init(full_h(h), 1);
       wg::bar_init(empty_h(h), 256);
     }
@@ -512,16 +874,11 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   }
   __syncthreads();
 
-  int mt, nt;
-  wg::block_tile((a.e.N + BN - 1) / BN, mt, nt);
-  const int n0 = nt * BN;
+  const int mt = static_cast<int>(blockIdx.x);
   const int x0 = (mt % a.ntx) * a.tw;
   const int y0 = (mt / a.ntx % a.nty) * a.th;
   const int b0 = mt / (a.ntx * a.nty) * a.tb;
-  const int ncc = (a.Cin + 63) / 64;
-  int k0, k1;
-  wg::split_range(9 * ncc, a.splits, blockIdx.z, k0, k1);
-  const int nk = k1 - k0;
+  const int nk = 9 * ((a.Cin + 63) / 64);
   const int wgi = threadIdx.x / 128;
   const int per_img = a.th * a.tw;
   const int hw = a.tw + 2, hh = a.th + 2;
@@ -529,33 +886,24 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     if (threadIdx.x == 256) {
       const CUtensorMap* mh = &tmap_halo;
       const CUtensorMap* mw = &tmap_w;
-      const uint32_t halo_tx = gn_halo_bytes(a.tw, a.th, a.tb);
+      const uint32_t halo_tx = n8_halo_bytes(a.tw, a.th, a.tb);
       for (int it = 0, loads = 0; it < nk; ++it) {
-        const int kb = k0 + it, cc = kb / 9, tap = kb - 9 * cc;
-        if (it == 0 || tap == 0) {  // a new channel chunk: its halo
-          const int h = loads % GN_HALO_STAGES;
-          wg::bar_wait(empty_h(h), ((loads / GN_HALO_STAGES) & 1) ^ 1);
+        const int cc = it / 9, tap = it - 9 * cc;
+        if (tap == 0) {  // a new channel chunk: its halo
+          const int h = loads % N8_HALO_STAGES;
+          wg::bar_wait(empty_h(h), ((loads / N8_HALO_STAGES) & 1) ^ 1);
           wg::bar_expect_tx(full_h(h), halo_tx);
           wg::tma_load_4d(h_ring + h * halo_stride, mh, full_h(h), cc * 64, x0 - 1, y0 - 1, b0);
           ++loads;
         }
-        const int s = it % GN_B_STAGES;
-        wg::bar_wait(empty_b(s), ((it / GN_B_STAGES) & 1) ^ 1);
-        wg::bar_expect_tx(full_b(s), B_BYTES);
-        if constexpr (BN == 8) {
-          wg::tma_load_2d(b_ring + s * B_BYTES, mw, full_b(s), tap * a.Cin + cc * 64, 0);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wg::tma_load_2d(b_ring + s * B_BYTES + j * wg::BOX_BYTES, mw, full_b(s),
-                            n0 + 64 * j, tap * a.Cin + cc * 64);
-        }
+        const int s = it % N8_B_STAGES;
+        wg::bar_wait(empty_b(s), ((it / N8_B_STAGES) & 1) ^ 1);
+        wg::bar_expect_tx(full_b(s), N8_B_BYTES);
+        wg::tma_load_2d(b_ring + s * N8_B_BYTES, mw, full_b(s), tap * a.Cin + cc * 64, 0);
       }
     }
   } else {
-    float acc[1][BN == 8 ? 4 : 64];
-#pragma unroll
-    for (int i = 0; i < (BN == 8 ? 4 : 64); ++i) acc[0][i] = 0.f;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
     // scale / shift of the tile's images as (scale, shift) pairs
     for (int i = threadIdx.x; i < a.tb * a.Cin; i += 256) {
       const int bi = i / a.Cin, c = i - bi * a.Cin;
@@ -613,10 +961,10 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     // a new chunk's halo is waited for and normalised first, and a chunk's
     // halo is released after its last tap's loads
     auto fragments = [&](int it, uint32_t(&f)[4][4]) {
-      const int kb = k0 + it, cc = kb / 9, tap = kb - 9 * cc;
-      if (it == 0 || tap == 0) {
-        h = loads % GN_HALO_STAGES;
-        wg::bar_wait(full_h(h), (loads / GN_HALO_STAGES) & 1);
+      const int cc = it / 9, tap = it - 9 * cc;
+      if (tap == 0) {
+        h = loads % N8_HALO_STAGES;
+        wg::bar_wait(full_h(h), (loads / N8_HALO_STAGES) & 1);
         normalise(h, cc);
         wg::consumers_sync();
         ++loads;
@@ -627,33 +975,29 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wg::ldmatrix_x4(row + (((2 * kk + lane / 16) ^ (hp & 7)) << 4), f[kk]);
-      if (tap == 8 || it == nk - 1) {
+      if (tap == 8) {
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         wg::bar_arrive(empty_h(h));
       }
     };
     auto issue = [&](int it, uint32_t(&f)[4][4]) {
-      const int s = it % GN_B_STAGES;
-      wg::bar_wait(full_b(s), (it / GN_B_STAGES) & 1);
-      wg::fence_acc(acc[0]);
+      const int s = it % N8_B_STAGES;
+      wg::bar_wait(full_b(s), (it / N8_B_STAGES) & 1);
+      wg::fence_acc(acc);
       wg::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t b = b_ring + s * B_BYTES;
-        if constexpr (BN == 8)
-          wg::wgmma_rs_n8(acc[0], f[kk], wg::desc_sw128(b + kk * 32, 16, wg::SW_ROWS8));
-        else
-          wg::wgmma_rs(acc[0], f[kk], wg::desc_b(b, 0, kk));
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wg::wgmma_rs_n8(acc, f[kk],
+                        wg::desc_sw128(b_ring + s * N8_B_BYTES + kk * 32, 16, wg::SW_ROWS8));
       wg::wgmma_commit();
-      wg::fence_acc(acc[0]);
+      wg::fence_acc(acc);
     };
     auto retire = [&](int it, uint32_t(&f)[4][4]) {
       wg::wgmma_wait<0>();
-      wg::fence_acc(acc[0]);
+      wg::fence_acc(acc);
       wg::fence_frag(f);
-      if (threadIdx.x % 128 == 0 && it + GN_B_STAGES < nk)
-        wg::bar_arrive(empty_b(it % GN_B_STAGES));
+      if (threadIdx.x % 128 == 0 && it + N8_B_STAGES < nk)
+        wg::bar_arrive(empty_b(it % N8_B_STAGES));
     };
     // the next step's fragments load while this step's wgmmas run
     uint32_t fa[4][4], fb[4][4];
@@ -668,11 +1012,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       retire(it + 1, fb);
     }
     auto row_m = [&](int row) { return a.pixel(x0, y0, b0, row); };
-    if constexpr (BN == 8)
-      wg::store_n8(acc[0], wgi, row_m, a.e);
-    else
-      wg::store_tile<128>(acc, wgi, n0, row_m, a.e,
-                          a.splits > 1 ? a.ws + blockIdx.z * a.e.M * a.e.N : nullptr);
+    wg::store_n8(acc, wgi, row_m, a.e);
   }
 }
 
@@ -813,18 +1153,16 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 
 template <class Kernel>
 int launch_conv(Kernel kernel, const CUtensorMap& tx, const CUtensorMap& tw,
-                const ConvWgmmaArgs& a, int bn, long long m_tiles, int smem, bool& attr_set,
+                const ConvWgmmaArgs& a, dim3 grid, int threads, int smem, bool& attr_set,
                 cudaStream_t stream) {
-  const long long tiles = m_tiles * ((a.e.N + bn - 1) / bn);
-  if (smem > 232448 || tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (!attr_set) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const dim3 grid((unsigned)tiles, 1, a.splits);
-  kernel<<<grid, wg::THREADS, smem, stream>>>(tx, tw, a);
+  kernel<<<grid, threads, smem, stream>>>(tx, tw, a);
   return (int)cudaGetLastError();
 }
 
@@ -888,46 +1226,54 @@ extern "C" int st_conv3x3_direct(const float* x, const float* w, const void* bia
 // contiguous bf16 with Cin % 8 == 0 and x, w 16-byte aligned; w the (3, 3,
 // Cin, Cout) weight, or at bn = 8 (Cout <= 8) the K-major (8, 9 * Cin)
 // weight with rows past Cout zero; bias of bias_dtype with bias_bstride as
-// st_conv3x3; gn_scale / gn_shift (B, Cin) f32 for the GroupNorm prologue or
-// null. The plan: the pixel tile tw x th x tb (= 128), the block tile's
-// width bn (128 or 256 with Cout % 8 == 0 and 16-byte aligned residual and
-// out, 128 with the prologue; 8 for Cout <= 8) and the K split (1 <= splits
-// <= 9 * ceil(Cin / 64); 1 at bn = 8), with ws a (splits, B*H*W, Cout) f32
-// workspace when splits > 1. Returns a cudaError_t.
+// st_conv3x3; gn_scale / gn_shift (B, Cin) f32 for the GroupNorm prologue
+// (they and the bias 16-byte aligned at bn > 8) or null. The plan: the
+// pixel tile tw x th x tb (= 128; with the prologue at bn > 8, 8 wide and
+// th a multiple of 8), the block tile's width bn (Cout % 8 == 0 and
+// 16-byte aligned residual and out: 128 or 256, with the prologue 128, 192
+// or 256; 8 for Cout <= 8), the K split (1 <= splits <= 9 * ceil(Cin / 64); 1 at bn = 8), with ws a
+// (splits, B*H*W, Cout) f32 workspace when splits > 1, and with the
+// prologue at bn > 8 the persistent grid (blocks, each walking the items
+// blockIdx.x, + grid, ...). Returns a cudaError_t.
 extern "C" int st_conv3x3_wgmma(const void* x, const void* w, const void* bias, int bias_dtype,
                                 long long bias_bstride, const void* residual, void* out,
                                 float* ws, int B, int H, int W, int Cin, int Cout, int act,
                                 const float* gn_scale, const float* gn_shift, int gn_act, int tw,
-                                int th, int tb, int bn, int splits, void* stream_ptr) {
+                                int th, int tb, int bn, int splits, int grid,
+                                void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bool gn = gn_scale != nullptr;
+  const bool gn = gn_scale != nullptr, ws_gn = gn && bn != 8;
   const int nk = 9 * ((Cin + 63) / 64);
-  // the epilogue's 16-byte vectors at bn 128 / 256; element stores at bn 8
+  // the epilogue's 16-byte vectors at bn >= 128; element stores at bn 8
   const uintptr_t out_align = bn == 8 ? 2 : 16;
-  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(residual) % out_align == 0 &&
-                       reinterpret_cast<uintptr_t>(out) % out_align == 0;
-  const bool width_ok = bn == 8 ? Cout <= 8 && splits == 1
-                                : Cout % 8 == 0 && (bn == 128 || (bn == 256 && !gn));
+  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool aligned = a16(x) && a16(w) && reinterpret_cast<uintptr_t>(residual) % out_align == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % out_align == 0 &&
+                       (!ws_gn || (a16(gn_scale) && a16(gn_shift) && a16(bias)));
+  const bool width_ok = bn == 8    ? Cout <= 8 && splits == 1
+                        : ws_gn    ? Cout % 8 == 0 && (bn == 128 || bn == 192 || bn == 256)
+                                   : Cout % 8 == 0 && !gn && (bn == 128 || bn == 256);
+  const bool tile_ok = ws_gn ? tw == GN_TW && th * tb == GN_BM / GN_TW && th % 8 == 0
+                             : tw * th * tb == wg::BM && (!gn || (tw * th) % 16 == 0);
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 8 || !width_ok || !aligned ||
       act < 0 || act > 1 || gn_act < 0 || gn_act > 1 || bias_dtype < 0 || bias_dtype > 1 ||
-      (gn && (!gn_shift || (tw * th) % 16)) || tw < 1 || th < 1 || tb < 1 || tw > 256 ||
-      th > 256 || tb > 256 || tw * th * tb != wg::BM || splits < 1 || splits > nk ||
-      (splits > 1 && !ws))
+      (gn && !gn_shift) || tw < 1 || th < 1 || tb < 1 || tw > 256 || th > 256 || tb > 256 ||
+      !tile_ok || splits < 1 || splits > nk || (splits > 1 && !ws) || (ws_gn && grid < 1))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tx, twm;
   const uint64_t xdims[4] = {(uint64_t)Cin, (uint64_t)W, (uint64_t)H, (uint64_t)B};
   const uint64_t xstrides[3] = {(uint64_t)Cin * 2, (uint64_t)W * Cin * 2,
                                 (uint64_t)H * W * Cin * 2};
-  // the A box: the pixel tile, or with the prologue its halo
-  const uint32_t xbox[4] = {64, (uint32_t)(tw + (gn ? 2 : 0)), (uint32_t)(th + (gn ? 2 : 0)),
-                            (uint32_t)tb};
+  // the A box: the pixel tile, or with the prologue its halo; at bn > 8 the
+  // halo's 8-channel planes, unswizzled
+  const uint32_t xbox[4] = {ws_gn ? 8u : 64u, (uint32_t)(tw + (gn ? 2 : 0)),
+                            (uint32_t)(th + (gn ? 2 : 0)), (uint32_t)tb};
   // B: the (9 * Cin, Cout) weight in 64-column boxes, or at bn = 8 the
   // K-major (8, 9 * Cin) one in boxes of 64 k x 8 rows
   const uint64_t w8_dims[2] = {9ull * Cin, 8}, w8_strides[1] = {9ull * Cin * 2};
   const uint32_t w8_box[2] = {64, 8};
-  if (!wg::make_map(&tx, x, 4, xdims, xstrides, xbox) ||
+  if (!wg::make_map(&tx, x, 4, xdims, xstrides, xbox, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    ws_gn ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B) ||
       !(bn == 8 ? wg::make_map(&twm, w, 2, w8_dims, w8_strides, w8_box)
                 : wg::make_b_map(&twm, w, 9LL * Cin, Cout)))
     return (int)cudaErrorInvalidValue;
@@ -937,28 +1283,41 @@ extern "C" int st_conv3x3_wgmma(const void* x, const void* w, const void* bias, 
                        static_cast<__nv_bfloat16*>(out), M, Cout, bias_dtype, act};
   const int ntx = (W + tw - 1) / tw, nty = (H + th - 1) / th;
   const long long mt = (long long)ntx * nty * ((B + tb - 1) / tb);
+  const long long tiles = mt * ((Cout + bn - 1) / bn);
+  if (tiles * splits > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const int bstages = ws_gn ? gn_bstages(bn, th, tb) : 0;
   const ConvWgmmaArgs a{e, ws, gn_scale, gn_shift, B, H, W, Cin, tw, th, tb, ntx, nty,
-                        splits, gn_act};
+                        splits, gn_act, bstages};
+  const dim3 tile_grid((unsigned)tiles, 1, splits);
+  const dim3 walk((unsigned)(grid < tiles * splits ? grid : tiles * splits));
   int code;
-  if (gn && bn == 8) {
-    static bool set = false;
-    code = launch_conv(conv_gn_wgmma_bf16<8>, tx, twm, a, 8, mt,
-                       gn_smem_bytes(tw, th, tb, Cin, 8), set, stream);
+  if (ws_gn) {
+    const int smem = gn_smem_bytes(bn, th, tb, bstages);
+    if (bn == 128) {
+      static bool set = false;
+      code = launch_conv(conv_gn_wgmma_bf16<128>, tx, twm, a, walk, GN_THREADS, smem, set, stream);
+    } else if (bn == 192) {
+      static bool set = false;
+      code = launch_conv(conv_gn_wgmma_bf16<192>, tx, twm, a, walk, GN_THREADS, smem, set, stream);
+    } else {
+      static bool set = false;
+      code = launch_conv(conv_gn_wgmma_bf16<256>, tx, twm, a, walk, GN_THREADS, smem, set, stream);
+    }
   } else if (gn) {
     static bool set = false;
-    code = launch_conv(conv_gn_wgmma_bf16<128>, tx, twm, a, 128, mt,
-                       gn_smem_bytes(tw, th, tb, Cin, 128), set, stream);
+    code = launch_conv(conv_gn_wgmma_bf16_n8, tx, twm, a, tile_grid, wg::THREADS,
+                       n8_smem_bytes(tw, th, tb, Cin), set, stream);
   } else if (bn == 8) {
     static bool set = false;
-    code = launch_conv(conv_wgmma_bf16<8, 6, 2>, tx, twm, a, 8, mt, wg::Ring<8, 6>::bytes(), set,
-                       stream);
+    code = launch_conv(conv_wgmma_bf16<8, 6, 2>, tx, twm, a, tile_grid, wg::THREADS,
+                       wg::Ring<8, 6>::bytes(), set, stream);
   } else if (bn == 256) {
     static bool set = false;
-    code = launch_conv(conv_wgmma_bf16<256, 4, 1>, tx, twm, a, 256, mt,
+    code = launch_conv(conv_wgmma_bf16<256, 4, 1>, tx, twm, a, tile_grid, wg::THREADS,
                        wg::Ring<256, 4>::bytes(), set, stream);
   } else {
     static bool set = false;
-    code = launch_conv(conv_wgmma_bf16<128, 3, 2>, tx, twm, a, 128, mt,
+    code = launch_conv(conv_wgmma_bf16<128, 3, 2>, tx, twm, a, tile_grid, wg::THREADS,
                        wg::Ring<128, 3>::bytes(), set, stream);
   }
   if (code != 0 || splits == 1) return code;

@@ -169,6 +169,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
+// shared-memory matrix descriptor, no swizzle, K-major: 8 x 16-byte core
+// matrices of 128 contiguous bytes, lbo bytes apart along K and sbo bytes
+// apart along M or N
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
 // A (64 rows x 16 k of a K-major, 128-byte-swizzled tile): rows 128 bytes
 // apart, 8-row atoms 1024 apart; the k-th 16-wide slice starts 32 bytes in
 __device__ __forceinline__ uint64_t desc_a(uint32_t tile, int row0, int kk) {
@@ -213,10 +221,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define WG_ACC96 WG_ACC64, WG_ACC8(64), WG_ACC8(72), WG_ACC8(80), WG_ACC8(88)
+#define WG_ACC128 \
+  WG_ACC96, WG_ACC8(96), WG_ACC8(104), WG_ACC8(112), WG_ACC8(120)
+#define WG_D96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95}"
+#define WG_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, " \
+  "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
 #define WG_ACC32 WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
 #define WG_D32                                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x N, f32) += A (64 x 16, shared, K-major) * B (16 x N, shared,
+// MN-major) in one instruction, N = 128, 192 or 256: A is read once for the
+// whole width
+template <int N>
+__device__ __forceinline__ void wgmma_ss_wide(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 128) {
+    wgmma_ss(d, da, db);
+  } else if constexpr (N == 192) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " WG_D96
+        ", %96, %97, p, 1, 1, 0, 1;\n}\n"
+        : WG_ACC96
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 256, "wgmma_ss_wide takes N = 128, 192 or 256");
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_D128
+        ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : WG_ACC128
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
 
 // d (64 x 64, f32) = A (64 x 16, shared, K-major) * B (16 x 64, shared,
 // K-major), plus d when accumulate is nonzero (attention's S = Q K^T: K rows
@@ -646,14 +699,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a bf16 (or f32) tensor map (rank <= 4) with 128-byte swizzle and zero fill
-// out of range: dims and box innermost first, strides in bytes of dims
+// a bf16 (or f32) tensor map (rank <= 4) with 128-byte swizzle (or another)
+// and zero fill out of range: dims and box innermost first, strides in bytes of dims
 // 1..rank-1. Encoded per launch: the C entry's whole host time, both encodes
 // included, is ~5 us on an H100 host (chip_smoke.py --host-time), a quarter
 // of the Python wrapper's.
 bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
               const uint64_t* strides, const uint32_t* box,
-              CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+              CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled enc = encoder();
   if (!enc) return false;
   cuuint64_t d[5], s[4];
@@ -665,7 +719,7 @@ bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims
     if (i + 1 < rank) s[i] = strides[i];
   }
   return enc(map, dtype, rank, const_cast<void*>(base), d, s, b, e,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -24,8 +24,8 @@ the JAX package's ``block_q`` / ``block_k`` / ``span`` / ``block_rows``:
   ``linear:m:k:n:dtype``   {"bn", "splits"} (wgmma GEMM, M > 16) or
                            {"cols", "splits"} (skinny kernel, M <= 16)
   ``conv3x3:...``          {"bn", "splits"} (wgmma conv; ``:gn`` keys the
-                           GroupNorm prologue, width 128 only; Cout <= 8
-                           runs at width 8 unsplit)
+                           GroupNorm prologue, K8, at widths 128, 192,
+                           256; Cout <= 8 runs at width 8 unsplit)
   ``attention:...``,       {"kernel": "tinykv_wgmma_bf16" | "wgmma_bf16",
   ``attention_qkv:...``,    "tiles"} (bf16; both kernels take Sk <=
   ``attention_kv:...``      TINY_KV_KEYS)
@@ -37,11 +37,11 @@ rule's time by more than two timings of the rule differ, so noise never
 makes a second plan path. No value routes a
 launch away from the hand-written kernels: there is no library route, and a
 value that a kernel cannot take raises at lookup, naming its key.
-``conv_tile`` stays a pure function of the shape. Not ported, because they
-are TPU layouts with no Hopper meaning: the JAX module's device kinds in
-``platform_tag``, the ``views`` / ``element`` halo plans,
-``conv_block_rows_candidates``, ``attention_spans`` and
-``attention_variants``.
+``conv_tile`` (and K8's ``gn_conv_tile``) stays a pure function of the
+shape. Not ported, because they are TPU layouts with no Hopper meaning:
+the JAX module's device kinds in ``platform_tag``, the ``views`` /
+``element`` halo plans, ``conv_block_rows_candidates``,
+``attention_spans`` and ``attention_variants``.
 
 Two-layer store, as in the JAX package: a packaged table in the repo
 (``kernels/tuned/<platform>.json``, the plans off the rule that
@@ -262,16 +262,18 @@ def linear_key(m: int, k: int, n: int, dtype) -> str:
 
 
 def _around(m_tiles: int, n: int, steps: int, out_rows: int, moved: int,
-            widths: tuple[int, ...], rule) -> list:
+            widths: tuple[int, ...], rule, model=None) -> list:
     """The rule's plan, and at each width the split of least modelled time
-    with its neighbours, its half and double, and no split."""
+    (``model``, else the wgmma mainloop's) with its neighbours, its half and
+    double, and no split."""
     from stabletriton_tpu_torch.kernels import wgmma_plan as wp
 
+    model = model or wp.modelled_seconds
     top = min(steps, wp.MAX_SPLITS)
     cands = {rule}
     for bn in widths:
         best = min(range(1, top + 1), key=lambda s: (
-            wp.modelled_seconds(m_tiles, n, steps, out_rows, moved, bn, s), s))
+            model(m_tiles, n, steps, out_rows, moved, bn, s), s))
         for s in (1, best // 2, best - 1, best, best + 1, 2 * best):
             if 1 <= s <= top:
                 cands.add(wp.Plan(bn, s))
@@ -287,8 +289,8 @@ def gemm_candidates(m: int, k: int, n: int) -> list:
 
 def conv_candidates(n: int, h: int, w: int, cin: int, cout: int, gn: bool = False) -> list:
     """The wgmma conv's plans for Cin padded to 8, as the wrapper launches
-    it: width 8 unsplit alone for Cout <= 8; width 128 alone under the
-    GroupNorm prologue."""
+    it: width 8 unsplit alone for Cout <= 8; under the GroupNorm prologue
+    K8's widths around its own model."""
     from stabletriton_tpu_torch.kernels import wgmma_plan as wp
 
     cin8 = -(-cin // 8) * 8
@@ -297,7 +299,8 @@ def conv_candidates(n: int, h: int, w: int, cin: int, cout: int, gn: bool = Fals
         return [rule]
     return _around(math.prod(tile.counts(n, h, w)), cout, 9 * math.ceil(cin8 / wp.BK),
                    n * h * w, (n * h * w * (cin8 + cout) + 9 * cin8 * cout) * 2,
-                   (128,) if gn else wp.WIDTHS, rule)
+                   wp.GN_WIDTHS if gn else wp.WIDTHS, rule,
+                   wp.gn_modelled_seconds if gn else None)
 
 
 def skinny_candidates(m: int, k: int, n: int, itemsize: int) -> list:

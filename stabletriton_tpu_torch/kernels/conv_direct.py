@@ -58,12 +58,18 @@ activation that the unfused pair (GroupNorm apply, then conv) pays. Each
 in-image input element is multiplied by its (batch, channel) f32 scale, the
 shift added, SiLU applied and the result rounded to bf16 before the
 tensor-core product (the JAX kernel casts before its MXU dots); the SAME
-border stays exactly 0. The wgmma kernel (``conv_gn_wgmma_bf16``) loads the
-tile's halo once per 64-channel chunk, normalises it in shared memory
-(scale and shift staged once per block; the border and channels past Cin
-set to 0, since TMA's zero fill is a raw zero) and feeds all 9 taps from it
-as register-A wgmma operands, so each input element is normalised once, not
-once per tap; the f32 scalar kernel applies it in its A-tile gather. The scale
+border stays exactly 0. At Cout > 8 the wgmma kernel (``conv_gn_wgmma_bf16``,
+launch key "wgmma_gn_bf16") is warp-specialised: three warps of their own
+turn each 64-channel chunk of the tile's halo into the bf16 operand in
+shared memory (each image's scale and shift read from L2; the border and
+channels past Cin set to 0, since TMA's zero fill is a raw zero) while two
+others run the previous chunk's 9 taps as shared-memory wgmmas straight
+from it, so each input element is normalised once a column tile, not once
+per tap, and off the tensor cores' path; its grid is persistent, one block
+an SM walking the output tiles (``wgmma_plan.gn_grid``), on a pixel tile 8
+wide and widths 128, 192 or 256 from its own model. The 8-column form
+(Cout <= 8, conv_out) normalises in its consumer warps and feeds register-A
+wgmmas. The f32 scalar kernel applies it in its A-tile gather. The scale
 and shift come from the GroupNorm stats and fold kernels
 (``kernels/group_norm.py`` :func:`scale_shift`), which read x once, so K8
 normalises with the very values K9's apply kernel would.
@@ -73,6 +79,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -118,9 +125,9 @@ _CONV_ARGTYPES = [_P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P, _
 _TF32_ARGTYPES = [_P, _P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 10 + [_P]
 # st_conv3x3_wgmma(x, w, bias, bias_dtype, bias_bstride, residual, out, ws,
 #                  B, H, W, Cin, Cout, act, gn_scale, gn_shift, gn_act,
-#                  tw, th, tb, bn, splits, stream)
+#                  tw, th, tb, bn, splits, grid, stream)
 _WGMMA_ARGTYPES = ([_P, _P, _P, _I, ctypes.c_longlong, _P, _P, _P] + [_I] * 6
-                   + [_P, _P, _I] + [_I] * 5 + [_P])
+                   + [_P, _P, _I] + [_I] * 6 + [_P])
 # st_conv3x3_direct(x, w, bias, bias_dtype, bias_bstride, residual, out, B, H,
 #                   W, Cin, Cout, act, stream): f32, Cin <= DIRECT_MAX_CIN
 _DIRECT_ARGTYPES = [_P, _P, _P, _I, ctypes.c_longlong, _P, _P] + [_I] * 6 + [_P]
@@ -130,9 +137,11 @@ DIRECT_MAX_CIN = 4  # the direct kernel's largest instance (csrc/conv3x3.cu)
 def conv_variant(x_shape: tuple[int, ...], cout: int, dtype: torch.dtype,
                  aligned: bool = True, gn: bool = False) -> str | None:
     """The kernel that takes a 3x3 conv of x (B, H, W, Cin) to ``cout``
-    channels: in bf16 "wgmma_bf16" where ``wgmma_plan.conv_fits`` (Cout a
-    multiple of 8 or at most 8; any Cin; room for the prologue's staging),
-    else None: no kernel takes it; in float32 without a GroupNorm prologue
+    channels: in bf16 where ``wgmma_plan.conv_fits`` (Cout a multiple of 8
+    or at most 8; any Cin; at Cout <= 8 room for the prologue's staging)
+    "wgmma_gn_bf16" with the GroupNorm prologue at Cout > 8 (K8's
+    warp-specialised kernel), else "wgmma_bf16", and None where no kernel
+    takes it; in float32 without a GroupNorm prologue
     "direct_f32" for Cin <= DIRECT_MAX_CIN (any alignment) and
     "wgmma_tf32x3" for Cin % 8 == 0 with x aligned (``aligned``: x's base
     is 16-byte aligned); "scalar" for the rest."""
@@ -142,7 +151,9 @@ def conv_variant(x_shape: tuple[int, ...], cout: int, dtype: torch.dtype,
         if x_shape[3] <= DIRECT_MAX_CIN:
             return "direct_f32"
         return "wgmma_tf32x3" if x_shape[3] % 8 == 0 and aligned else "scalar"
-    return "wgmma_bf16" if wgmma_plan.conv_fits(*x_shape, cout, gn=gn) else None
+    if not wgmma_plan.conv_fits(*x_shape, cout, gn=gn):
+        return None
+    return "wgmma_gn_bf16" if gn and cout > wgmma_plan.N8 else "wgmma_bf16"
 
 
 def n8_weight(w: torch.Tensor) -> torch.Tensor:
@@ -205,7 +216,8 @@ def tuned_plan(n, h, wd, cin, cout, gn, has_res, act) -> wgmma_plan.Plan | None:
         return None
     autotune.check_entry(key, entry, ("bn", "splits"))
     plan = wgmma_plan.Plan(entry["bn"], entry["splits"])
-    widths = (wgmma_plan.N8,) if cout <= wgmma_plan.N8 else (128,) if gn else wgmma_plan.WIDTHS
+    widths = ((wgmma_plan.N8,) if cout <= wgmma_plan.N8 else
+              wgmma_plan.GN_WIDTHS if gn else wgmma_plan.WIDTHS)
     steps = 1 if cout <= wgmma_plan.N8 else 9 * -(-cin // wgmma_plan.BK)
     if plan.bn not in widths or not 1 <= plan.splits <= min(steps, wgmma_plan.MAX_SPLITS):
         raise ValueError(f"autotune entry {key} = {entry}: the wgmma conv takes bn in {widths} "
@@ -219,12 +231,25 @@ def _wgmma_route(n, h, wd, cin, cout, gn, has_res=False, act=None, plan=None):
     table's, else ``wgmma_plan.conv_plan``'s) and launch key at one shape
     (Cin as the caller gave it; the plan's at Cin padded to 8; cached: the
     host time of a launch is the step's budget; :func:`autotune.record`
-    clears the cache)."""
+    clears the cache). K8 at Cout > 8 keys its persistent grid too
+    (:func:`_gn_grid`)."""
     cin8 = -(-cin // 8) * 8
     tile, rule = wgmma_plan.conv_plan(n, h, wd, cin8, cout, gn=gn)
     plan = plan or tuned_plan(n, h, wd, cin, cout, gn, has_res, act) or rule
-    return tile, plan, (f"wgmma_bf16 b={n} {h}x{wd} {cin}->{cout} "
-                        f"tile={tile.tw}x{tile.th}x{tile.tb} bn={plan.bn} split={plan.splits}")
+    shape = (f"b={n} {h}x{wd} {cin}->{cout} tile={tile.tw}x{tile.th}x{tile.tb} bn={plan.bn} "
+             f"split={plan.splits}")
+    if gn and cout > wgmma_plan.N8:
+        return tile, plan, f"wgmma_gn_bf16 {shape} grid={_gn_grid(n, h, wd, cout, tile, plan)}"
+    return tile, plan, f"wgmma_bf16 {shape}"
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_grid(n, h, wd, cout, tile, plan) -> int:
+    """K8's persistent grid at Cout > 8 (``wgmma_plan.gn_grid``); 0, which
+    the other wgmma convs ignore, at Cout <= 8 (cached as the route is)."""
+    if cout <= wgmma_plan.N8:
+        return 0
+    return wgmma_plan.gn_grid(math.prod(tile.counts(n, h, wd)), cout, plan)
 
 
 def _launch(x, w, b, residual, act, gn=None, variant=None, plan=None
@@ -258,11 +283,14 @@ def _launch(x, w, b, residual, act, gn=None, variant=None, plan=None
     if variant is None:
         raise ValueError(f"no conv kernel takes {tuple(x.shape)} -> {cout} in {dtype}"
                          + (" with the GroupNorm prologue" if gn is not None else ""))
-    wgmma = variant == "wgmma_bf16" and dtype == torch.bfloat16
+    wgmma = variant in ("wgmma_bf16", "wgmma_gn_bf16") and dtype == torch.bfloat16
     if wgmma:
         tile, plan, key = _wgmma_route(n, h, wd, cin, cout, gn is not None,
                                        residual is not None, act, plan)
+        grid = _gn_grid(n, h, wd, cout, tile, plan) if gn is not None else 0
         x, w, gn = _pad_cin(_aligned(x), w, gn)
+        if gn is not None:
+            gn, b = (_aligned(gn[0]), _aligned(gn[1]), gn[2]), _aligned(b)
         w = n8_weight(w) if plan.bn == wgmma_plan.N8 else _aligned(w)
         residual = _aligned(residual)
     out = torch.empty((n, h, wd, cout), dtype=dtype, device=dev)
@@ -279,7 +307,7 @@ def _launch(x, w, b, residual, act, gn=None, variant=None, plan=None
             code = function("st_conv3x3_wgmma", _WGMMA_ARGTYPES)(
                 x.data_ptr(), w.data_ptr(), *bias_args, res_ptr, out.data_ptr(),
                 None if ws is None else ws.data_ptr(), n, h, wd, x.shape[3], cout,
-                ACT_CODES[act], *gn_args, tile.tw, tile.th, tile.tb, plan.bn, plan.splits,
+                ACT_CODES[act], *gn_args, tile.tw, tile.th, tile.tb, plan.bn, plan.splits, grid,
                 stream)
             check(code, "st_conv3x3_wgmma")
             return out, key

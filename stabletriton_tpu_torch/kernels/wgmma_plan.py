@@ -1,6 +1,7 @@
 """Tile width, pixel tile and K split of the Hopper wgmma kernels
-(``csrc/wgmma.cuh``: ``linear_wgmma_bf16``, ``conv_wgmma_bf16``), and the
-split of f32 operands into tf32 parts that the 3xTF32 kernels take.
+(``csrc/wgmma.cuh``: ``linear_wgmma_bf16``, ``conv_wgmma_bf16``; K8,
+``conv_gn_wgmma_bf16`` in ``csrc/conv3x3.cu``), and the split of f32
+operands into tf32 parts that the 3xTF32 kernels take.
 
 The fitted rule below is a pure function of the shape, but it comes second:
 each wrapper's route first looks the shape up in the autotune table
@@ -32,6 +33,14 @@ A step's time is its operations at the H100's bf16 peak (989 TFLOP/s over
 fixed costs were fitted to the wgmma kernels' times at forced plans on an
 H100 80GB HBM3 at 700 W (``chip_smoke.py --plans`` prints them beside the
 planner's choice); they rank plans and are no measurement of any one call.
+
+K8 at Cout > 8 (the GroupNorm prologue) has a model of its own: its pixel
+tile is 8 pixels wide (8 x 16, or 8 x 8 x 2 images where the image is 8
+rows or fewer), its widths 128, 192 and 256, and its grid persistent, one
+block an SM walking the (split, row tile, column tile) items, so a "wave"
+is the items an SM walks, and each item pays its epilogue
+(``GN_TILE_SECONDS``) and the kernel once the first halo's load and
+normalisation (``GN_FILL_SECONDS``).
 """
 
 from __future__ import annotations
@@ -54,10 +63,22 @@ MEMORY_BYTES_PER_S = 3.35e12
 SUSTAINED = {128: 0.73, 256: 0.93}
 BLOCK_SECONDS = {128: 2.3e-6, 256: 7.5e-6}
 LAUNCH_SECONDS, REDUCE_SECONDS = 4e-6, 3e-6
-# dynamic shared memory the GroupNorm prologue's (scale, shift) staging may
-# take beside its rings (csrc/conv3x3.cu conv_gn_wgmma_bf16: 4 B stages of
-# 16 KB, 2 halo stages of at most 25 KB, 12 barriers; 227 KB in all)
-GN_STAGING_BYTES = 232448 - (1024 + 4 * BK * 128 * 2 + 2 * 25600 + 16 * 6)
+SMEM_BYTES = 232448        # dynamic shared memory a block may take
+# dynamic shared memory K8's 8-column form (Cout <= 8) may give the (scale,
+# shift) staging of its tile's images beside its rings (csrc/conv3x3.cu
+# conv_gn_wgmma_bf16_n8: 4 B stages of 1 KB, 2 halo stages of at most 25
+# KB, 12 barriers)
+GN_STAGING_BYTES = SMEM_BYTES - (1024 + 4 * BK * N8 * 2 + 2 * 25600 + 16 * 6)
+# K8 at Cout > 8 (csrc/conv3x3.cu conv_gn_wgmma_bf16): its widths, its
+# block tile's rows and pixel tile's width, its halo ring's depth and the
+# most stages of its weight ring, and the fitted share of the peak its
+# mainloop sustains, an item's epilogue and the kernel's first halo
+GN_WIDTHS = (128, 192, 256)
+GN_BM, GN_TW = 128, 8
+GN_HSTAGES, GN_MAX_BSTAGES = 4, 8
+GN_SUSTAINED = {128: 0.40, 192: 0.45, 256: 0.52}
+GN_TILE_SECONDS = {128: 1.5e-6, 192: 2.0e-6, 256: 2.5e-6}
+GN_FILL_SECONDS = 3e-6
 
 
 @dataclass(frozen=True)
@@ -96,12 +117,24 @@ def modelled_seconds(m_tiles: int, n: int, steps: int, out_rows: int, bytes_move
     return seconds
 
 
+def gn_modelled_seconds(m_tiles: int, n: int, steps: int, out_rows: int, bytes_moved: int,
+                        bn: int, splits: int) -> float:
+    """The model's time of one plan of K8 at Cout > 8 (module docstring)."""
+    items = m_tiles * math.ceil(n / bn) * splits
+    step_seconds = GN_BM * bn * BK * 2 / (PEAK_FLOPS * GN_SUSTAINED[bn] / SMS)
+    seconds = LAUNCH_SECONDS + GN_FILL_SECONDS + max(
+        math.ceil(items / SMS) * (GN_TILE_SECONDS[bn] + math.ceil(steps / splits) * step_seconds),
+        bytes_moved / MEMORY_BYTES_PER_S)
+    if splits > 1:
+        seconds += REDUCE_SECONDS + 2 * splits * out_rows * n * 4 / MEMORY_BYTES_PER_S
+    return seconds
+
+
 def plan(m_tiles: int, n: int, steps: int, out_rows: int, bytes_moved: int,
-         widths: tuple[int, ...] = WIDTHS) -> Plan:
+         widths: tuple[int, ...] = WIDTHS, model=modelled_seconds) -> Plan:
     """The plan of least modelled time for ``m_tiles`` row tiles, ``n``
     output columns and ``steps`` K steps; ``out_rows`` x ``n`` outputs."""
-    best = min((modelled_seconds(m_tiles, n, steps, out_rows, bytes_moved, bn, splits),
-                splits, bn)
+    best = min((model(m_tiles, n, steps, out_rows, bytes_moved, bn, splits), splits, bn)
                for bn in widths for splits in range(1, min(steps, MAX_SPLITS) + 1))
     return Plan(bn=best[2], splits=best[1])
 
@@ -122,18 +155,55 @@ def conv_tile(b: int, h: int, w: int) -> ConvTile:
 
 
 @functools.lru_cache(maxsize=None)
+def gn_conv_tile(b: int, h: int, w: int) -> ConvTile:
+    """K8's pixel tile at Cout > 8, 128 pixels: 8 wide (an output row's 8
+    pixels are one core matrix of its A operand) and 16 rows, or 8 rows of
+    two images where the image has 8 rows or fewer (SD1.5's 8^2 level)."""
+    th = 16 if h > 8 else 8
+    return ConvTile(GN_TW, th, GN_BM // (GN_TW * th))
+
+
+def _gn_smem(bn: int, tile: ConvTile, bstages: int) -> int:
+    plane = -(-(GN_TW + 2) * (tile.th + 2) * tile.tb * 16 // 128) * 128
+    return 1024 + bstages * BK * bn * 2 + GN_HSTAGES * 8 * plane + 8 * (2 * bstages
+                                                                        + 3 * GN_HSTAGES)
+
+
+def gn_bstages(bn: int, tile: ConvTile) -> int:
+    """The stages of K8's weight ring: as many as fit beside its halo ring
+    (csrc/conv3x3.cu gn_bstages), at most GN_MAX_BSTAGES."""
+    return max(s for s in range(2, GN_MAX_BSTAGES + 1)
+               if s == 2 or _gn_smem(bn, tile, s) <= SMEM_BYTES)
+
+
+def gn_smem_bytes(bn: int, tile: ConvTile) -> int:
+    """K8's dynamic shared memory at Cout > 8 (csrc/conv3x3.cu
+    gn_smem_bytes): the weight ring, the halo ring (8 planes of 8 channels a
+    stage, 16 bytes a pixel, each padded to 128 bytes) and its barriers."""
+    return _gn_smem(bn, tile, gn_bstages(bn, tile))
+
+
+def gn_grid(m_tiles: int, n: int, plan: Plan) -> int:
+    """K8's persistent grid: a block an SM, or one an item where there are
+    fewer items."""
+    return min(m_tiles * math.ceil(n / plan.bn) * plan.splits, SMS)
+
+
+@functools.lru_cache(maxsize=None)
 def conv_plan(b: int, h: int, w: int, cin: int, cout: int, *,
               gn: bool = False) -> tuple[ConvTile, Plan]:
     """The pixel tile and plan of a 3x3 conv; a conv to Cout <= 8 (the
-    UNet's conv_out) runs at width 8 unsplit, the GroupNorm prologue at
-    width 128 otherwise."""
-    tile = conv_tile(b, h, w)
+    UNet's conv_out) runs at width 8 unsplit; K8 otherwise on its own tile,
+    widths and model."""
+    tile = gn_conv_tile(b, h, w) if gn and cout > N8 else conv_tile(b, h, w)
     if cout <= N8:
         return tile, Plan(bn=N8, splits=1)
     m_tiles = math.prod(tile.counts(b, h, w))
     steps = 9 * math.ceil(cin / BK)
     moved = (b * h * w * (cin + cout) + 9 * cin * cout) * 2
-    return tile, plan(m_tiles, cout, steps, b * h * w, moved, (128,) if gn else WIDTHS)
+    if gn:
+        return tile, plan(m_tiles, cout, steps, b * h * w, moved, GN_WIDTHS, gn_modelled_seconds)
+    return tile, plan(m_tiles, cout, steps, b * h * w, moved)
 
 
 def tf32_parts(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -156,8 +226,9 @@ def gemm_fits(m: int, k: int, n: int, aligned: bool) -> bool:
 def conv_fits(b: int, h: int, w: int, cin: int, cout: int, *, gn: bool = False) -> bool:
     """Whether the wgmma conv takes the shape: Cout a multiple of 8 (TMA's
     16-byte rows, as for the GEMM) or at most 8 (the 8-column tile); any
-    Cin, which the wrapper pads to a multiple of 8; with the prologue, the
-    images' scale and shift must fit beside the ring."""
+    Cin, which the wrapper pads to a multiple of 8; with the prologue at
+    Cout <= 8, the images' scale and shift must fit beside the rings (at
+    Cout > 8 K8 reads them from L2)."""
     cin8 = -(-cin // 8) * 8
     return ((cout % 8 == 0 or cout <= N8)
-            and (not gn or conv_tile(b, h, w).tb * cin8 * 8 <= GN_STAGING_BYTES))
+            and (not gn or cout > N8 or conv_tile(b, h, w).tb * cin8 * 8 <= GN_STAGING_BYTES))

@@ -373,7 +373,7 @@ BAD_ENTRIES = [
     ("linear", (2, 1280, 1280), {"cols": 64, "splits": 9}),
     ("linear", (2, 1280, 1280), {"bn": 128, "splits": 1}),
     ("conv", (2, 32, 32, 1280, 1280, False), {"bn": 128, "splits": 200}),
-    ("conv", (2, 32, 32, 1280, 1280, True), {"bn": 256, "splits": 1}),
+    ("conv", (2, 32, 32, 1280, 1280, True), {"bn": 8, "splits": 1}),
     ("conv", (2, 128, 128, 320, 4, False), {"bn": 128, "splits": 1}),
     ("conv", (2, 32, 32, 1280, 1280, False), {"impl": "xla", "t_us": 1.0}),
     ("attention", (2, 4096, 77, 10, 64), {"kernel": "sdpa", "tiles": 1}),
@@ -486,7 +486,8 @@ def test_tune_skinny_times_only_plans_the_kernel_takes(table):
 def test_tune_conv_with_the_prologue_times_width_128_only(table):
     clock = FakeClock(lambda p: 1e-6 * p.splits)
     autotune.tune_conv(2, 16, 16, 1280, 1280, gn=True, measure=clock, device="cpu")
-    assert clock.timed and all(p.bn == 128 for p in clock.timed)
+    # K8 at Cout > 8: its own widths, each timed
+    assert clock.timed and {p.bn for p in clock.timed} == set(twp.GN_WIDTHS)
     assert twp.conv_plan(2, 16, 16, 1280, 1280, gn=True)[1] in clock.timed
     clock = FakeClock(lambda p: 1e-6)
     autotune.tune_conv(2, 128, 128, 320, 4, has_res=False, act=None, measure=clock,

@@ -1026,7 +1026,7 @@ def test_gpu_wgmma_gn_conv_border(cuda_device, force_plan, hw, cin, splits):
     before = dict(tconv.GN_LAUNCHES.by_key)
     out = tconv.gn_conv3x3(x, scale, shift, w, bias, gn_act="silu")
     keys = _new_keys(tconv.GN_LAUNCHES, before)
-    assert len(keys) == 1 and next(iter(keys)).startswith("wgmma_bf16 ")
+    assert len(keys) == 1 and next(iter(keys)).startswith("wgmma_gn_bf16 ")
     ref = tconv.gn_conv3x3_plain(x, scale, shift, w, bias, gn_act="silu")
     assert _rel_err(out, ref) <= 2e-2
 
@@ -1052,8 +1052,94 @@ def test_gpu_wgmma_gn_conv_operand_equals_unfused_pair(cuda_device, force_plan, 
     fused = tconv.gn_conv3x3(x, scale, shift, w, bias, act="silu", gn_act="silu")
     pair = tconv.conv3x3(tgn.apply(x, scale, shift, "silu"), w, bias, act="silu")
     (k8,), (k6,) = _new_keys(tconv.GN_LAUNCHES, before[0]), _new_keys(tconv.LAUNCHES, before[1])
-    assert k8 == f"{k6} gn_act=silu" and k6.startswith("wgmma_bf16 ")
+    # K8 on its warp-specialised kernel (its own 8-wide tile) at K6's width
+    # and split: the same K order, one chunk of 9 taps
+    tile = twp.gn_conv_tile(2, hw, hw)
+    assert k6.startswith("wgmma_bf16 ") and k8 == (
+        f"wgmma_gn_bf16 b=2 {hw}x{hw} 64->96 tile={tile.tw}x{tile.th}x{tile.tb} bn=128 split=1 "
+        f"grid={twp.gn_grid(math.prod(tile.counts(2, hw, hw)), 96, twp.Plan(128, 1))} "
+        "gn_act=silu")
     assert torch.equal(fused, pair)
+
+
+# (b, h, cin, cout) of K8 at Cout > 8 in the SDXL-base 1024^2 step at UNet
+# batch 2 and 16 (128^2, 64^2, 32^2; Cin 320-2560), the refiner's 128^2
+# 384 -> 384 and SD1.5's split 8^2 2560 -> 1280
+K8_SHAPES = [(b, h, cin, cout) for b in (2, 16) for h, cin, cout in [
+    (128, 320, 320), (128, 640, 320), (128, 960, 320), (64, 320, 640), (64, 640, 640),
+    (64, 960, 640), (64, 1280, 640), (64, 1920, 640), (32, 640, 1280), (32, 1280, 1280),
+    (32, 1920, 1280), (32, 2560, 1280)]] + [(2, 128, 384, 384), (2, 8, 2560, 1280)]
+
+
+def _k8_operands(dev, b, h, cin, cout, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((b, h, h, cin), generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    gamma = torch.rand((cin,), generator=gen, device=dev) + 0.5
+    beta = torch.randn((cin,), generator=gen, device=dev)
+    scale, shift = tgn.scale_shift(x, gamma, beta, num_groups=32 if cin % 32 == 0 else 8,
+                                   eps=1e-5)
+    w = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+         / (9 * cin) ** 0.5).to(torch.bfloat16)
+    return gen, x, scale, shift, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("b,h,cin,cout", K8_SHAPES)
+def test_gpu_k8_at_every_sdxl_shape_vs_plain(cuda_device, b, h, cin, cout, res):
+    """K8 on its warp-specialised kernel at every shape it serves in
+    SDXL-base at UNet batch 2 and 16, the refiner's and SD1.5's split 8^2,
+    with the per-batch bias and, with ``res``, a residual: within 2e-2 of
+    gn_conv3x3_plain, launched once under the rule's plan, the same bits in
+    a second run."""
+    gen, x, scale, shift, w = _k8_operands(cuda_device, b, h, cin, cout, b * h + cin + res)
+    bias = torch.randn((b, cout), generator=gen, device=cuda_device)
+    r = (torch.randn((b, h, h, cout), generator=gen, device=cuda_device).to(torch.bfloat16)
+         if res else None)
+    before = dict(tconv.GN_LAUNCHES.by_key)
+    out = tconv.gn_conv3x3(x, scale, shift, w, bias, residual=r, gn_act="silu")
+    tile, plan = twp.conv_plan(b, h, h, cin, cout, gn=True)
+    grid = twp.gn_grid(math.prod(tile.counts(b, h, h)), cout, plan)
+    assert _new_keys(tconv.GN_LAUNCHES, before) == {
+        f"wgmma_gn_bf16 b={b} {h}x{h} {cin}->{cout} tile=8x{tile.th}x{tile.tb} bn={plan.bn} "
+        f"split={plan.splits} grid={grid} gn_act=silu": 1}
+    assert torch.equal(tconv.gn_conv3x3(x, scale, shift, w, bias, residual=r, gn_act="silu"),
+                       out)
+    ref = tconv.gn_conv3x3_plain(x, scale, shift, w, bias, residual=r, gn_act="silu")
+    assert _rel_err(out, ref) <= 2e-2
+
+
+# (b, h, c, plan): each route of K8 (its tiles 8 x 16 and 8 x 8 x 2, each
+# width, split and unsplit, ragged images), None for the rule's plan
+K8_ROUTES = [(2, 128, 320, None), (16, 64, 640, None), (2, 32, 1280, None), (2, 8, 1280, None),
+             (2, 128, 384, None), (2, 16, 320, twp.Plan(128, 1)), (2, 16, 320, twp.Plan(192, 1)),
+             (2, 32, 320, twp.Plan(256, 3)), (2, 16, 320, twp.Plan(128, 7)),
+             (2, 8, 640, twp.Plan(192, 4)), (1, 8, 640, twp.Plan(256, 1)),
+             (2, 13, 72, twp.Plan(128, 2))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,c,plan", K8_ROUTES)
+def test_gpu_k8_centre_tap_output_is_the_apply(cuda_device, force_plan, b, h, c, plan):
+    """A centre-tap identity weight (Cin = Cout, no bias): K8's output is
+    its normalised operand itself, which must equal K9's apply bit for bit
+    at every pixel, the image borders included (the operand's zero padding
+    is the normalised input's, not GroupNorm(0)). Each route: the rule's
+    plan at SDXL's levels, the refiner's and SD1.5's 8^2, and forced
+    widths, splits and ragged images."""
+    if plan is not None:
+        real = twp.conv_plan
+        force_plan("conv_plan", lambda *a, **kw: (real(*a, **kw)[0], plan))
+    _, x, scale, shift, _ = _k8_operands(cuda_device, b, h, c, c, 31 + b * h + c)
+    eye = torch.zeros((3, 3, c, c), device=cuda_device, dtype=torch.bfloat16)
+    eye[1, 1] = torch.eye(c, device=cuda_device, dtype=torch.bfloat16)
+    before = dict(tconv.GN_LAUNCHES.by_key)
+    out = tconv.gn_conv3x3(x, scale, shift, eye, gn_act="silu")
+    (key,) = _new_keys(tconv.GN_LAUNCHES, before)
+    assert key.startswith("wgmma_gn_bf16 ")
+    if plan is not None:
+        assert f" bn={plan.bn} split={plan.splits} " in key
+    assert torch.equal(out, tgn.apply(x, scale, shift, "silu"))
 
 
 @pytest.mark.gpu

@@ -84,7 +84,10 @@ SDXL_CONVS = [((2, 128, 128, 4), 320, "wgmma_bf16"), ((2, 128, 128, 320), 4, "wg
 @pytest.mark.parametrize("shape,cout,want", SDXL_CONVS)
 def test_conv_routes_by_tma_terms(shape, cout, want):
     assert tconv.conv_variant(shape, cout, BF16) == want
-    assert tconv.conv_variant(shape, cout, BF16, gn=True) == want
+    # the GroupNorm prologue: K8's warp-specialised kernel at Cout > 8, its
+    # 8-column form on the wgmma conv's tile at Cout <= 8
+    assert tconv.conv_variant(shape, cout, BF16, gn=True) == (
+        "wgmma_gn_bf16" if cout > wp.N8 else want)
     # a misaligned bf16 base is copied to an aligned one: the same kernel
     assert tconv.conv_variant(shape, cout, BF16, aligned=False) == "wgmma_bf16"
     # f32: Cin 4 on the direct kernel at any alignment, Cin % 8 == 0 on the
@@ -96,17 +99,22 @@ def test_conv_routes_by_tma_terms(shape, cout, want):
 
 
 def test_conv_prologue_routes_by_staging_room():
-    """The GroupNorm prologue stages (scale, shift) of the tile's images
-    beside the ring: Cin past what fits has no kernel (the wrapper raises,
-    gn_conv2d "fused" composes GroupNorm and conv); so has a bf16 Cout
-    neither a multiple of 8 nor at most 8."""
+    """The 8-column form of the GroupNorm prologue (Cout <= 8) stages
+    (scale, shift) of the tile's images beside its rings: Cin past what
+    fits has no kernel (the wrapper raises, gn_conv2d "fused" composes
+    GroupNorm and conv); K8 at Cout > 8 reads them from L2 and takes any
+    Cin; a bf16 Cout neither a multiple of 8 nor at most 8 has no kernel."""
     fits = wp.GN_STAGING_BYTES // 8  # channels at one image a tile
-    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8), 64, BF16, gn=True) == "wgmma_bf16"
-    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 64, BF16, gn=True) is None
-    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 64, BF16) == "wgmma_bf16"
+    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8), 4, BF16, gn=True) == "wgmma_bf16"
+    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 4, BF16, gn=True) is None
+    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 4, BF16) == "wgmma_bf16"
+    assert tconv.conv_variant((2, 32, 32, fits // 8 * 8 + 8), 64, BF16,
+                              gn=True) == "wgmma_gn_bf16"
     # 8 x 8 images: two to a tile, half the channels
-    assert tconv.conv_variant((2, 8, 8, fits // 8 * 8), 64, BF16, gn=True) is None
+    assert tconv.conv_variant((2, 8, 8, fits // 8 * 8), 4, BF16, gn=True) is None
+    assert tconv.conv_variant((2, 8, 8, fits // 8 * 8), 64, BF16, gn=True) == "wgmma_gn_bf16"
     assert tconv.conv_variant((2, 8, 8, 64), 12, BF16) is None
+    assert tconv.conv_variant((2, 8, 8, 64), 12, BF16, gn=True) is None
     assert tconv.conv_variant((2, 8, 8, 64), 12, torch.float32) == "wgmma_tf32x3"
 
 
@@ -158,8 +166,78 @@ def test_small_grids_get_a_split():
 
 
 def test_prologue_plans_run_at_width_128():
-    for b, h, w, cin, cout in [(2, 32, 32, 2560, 1280), (2, 8, 8, 1280, 1280)]:
-        assert wp.conv_plan(b, h, w, cin, cout, gn=True)[1].bn == 128
+    """K8 at Cout > 8 plans on its own widths (128, 192, 256) and its own
+    tile: 8 pixels wide, 16 rows, or 8 rows of two images at 8 x 8."""
+    for b, h, w, cin, cout in [(2, 32, 32, 2560, 1280), (2, 8, 8, 1280, 1280),
+                               (2, 16, 16, 640, 640)]:
+        tile, plan = wp.conv_plan(b, h, w, cin, cout, gn=True)
+        assert plan.bn in wp.GN_WIDTHS
+        assert tile == (wp.ConvTile(8, 8, 2) if h == 8 else wp.ConvTile(8, 16, 1))
+    # SD1.5's 8^2 level: 10 row tiles of two images fill no wave, so K splits
+    assert wp.conv_plan(2, 8, 8, 2560, 1280, gn=True)[1].splits > 1
+
+
+# (b, h, w, cin, cout) of every K8 shape at Cout > 8 of SDXL-base 1024^2 at
+# UNet batch 2 and 16 (the resnets' GroupNorm + SiLU + conv pairs), the
+# refiner's 128^2 384 -> 384, SD1.5's 8^2 2560 -> 1280 (split) and ragged
+# images
+GN_SHAPES = [(b, h, h, cin, cout) for b in (2, 16) for h, cin, cout in [
+    (128, 320, 320), (128, 640, 320), (128, 960, 320), (64, 320, 640), (64, 640, 640),
+    (64, 960, 640), (64, 1280, 640), (64, 1920, 640), (32, 640, 1280), (32, 1280, 1280),
+    (32, 1920, 1280), (32, 2560, 1280)]] + [
+    (2, 128, 128, 384, 384), (2, 8, 8, 2560, 1280), (1, 8, 8, 1280, 1280), (2, 13, 17, 72, 200),
+    (3, 5, 6, 64, 24), (2, 12, 12, 1280, 1280)]
+
+
+def _gn_items(m_tiles, n_tiles, splits, block, grid):
+    """The (split, row tile, column tile) items block ``block`` of K8's
+    persistent grid walks, in order, as the kernel decodes them (csrc/
+    conv3x3.cu gn_item): items block, block + grid, ...; column tile
+    fastest, split slowest."""
+    tiles = m_tiles * n_tiles
+    return [(i // tiles, i % tiles // n_tiles, i % n_tiles)
+            for i in range(block, tiles * splits, grid)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", GN_SHAPES)
+def test_gn_plan_fits_and_walks_every_item_once(b, h, w, cin, cout):
+    """K8's plan at Cout > 8: the same shape always gets the same plan; its
+    dynamic shared memory fits the 232,448 bytes a block may take; the
+    persistent grid's blocks, walking items blockIdx.x, + grid, ... as the
+    kernel decodes them, reach every (split, row tile, column tile) exactly
+    once; the splits cover the K steps once; and the pixel tile reaches
+    every output pixel once, with each warpgroup's 64 rows inside one
+    image (8 output rows of 8 pixels: the A operand's 8 core matrices).
+    The weight ring takes at least 4 stages beside the halo ring."""
+    tile, plan = wp.conv_plan(b, h, w, cin, cout, gn=True)
+    assert (tile, plan) == wp.conv_plan(b, h, w, cin, cout, gn=True)
+    wp.conv_plan.cache_clear()
+    assert (tile, plan) == wp.conv_plan(b, h, w, cin, cout, gn=True)
+    assert plan.bn in wp.GN_WIDTHS and 1 <= plan.splits <= wp.MAX_SPLITS
+    assert wp.gn_smem_bytes(plan.bn, tile) <= wp.SMEM_BYTES
+    assert wp.gn_bstages(plan.bn, tile) >= 3
+    assert tile.tw == wp.GN_TW and tile.tw * tile.th * tile.tb == wp.GN_BM
+    assert (tile.th * tile.tw) % 64 == 0
+    m_tiles, n_tiles = math.prod(tile.counts(b, h, w)), math.ceil(cout / plan.bn)
+    grid = wp.gn_grid(m_tiles, cout, plan)
+    assert 1 <= grid <= wp.SMS
+    walked = [it for blk in range(grid)
+              for it in _gn_items(m_tiles, n_tiles, plan.splits, blk, grid)]
+    assert sorted(walked) == [(z, mt, nt) for z in range(plan.splits) for mt in range(m_tiles)
+                              for nt in range(n_tiles)]
+    steps = 9 * math.ceil(cin / wp.BK)
+    covered = [s for a, e in wp.split_ranges(steps, plan.splits) for s in range(a, e)]
+    assert covered == list(range(steps))
+    ntx, nty, _ = tile.counts(b, h, w)
+    seen = np.zeros((b, h, w), np.int64)
+    for mt in range(m_tiles):
+        x0, y0, b0 = (mt % ntx) * tile.tw, (mt // ntx % nty) * tile.th, mt // (ntx * nty) * tile.tb
+        for row in range(wp.GN_BM):
+            bb = b0 + row // (tile.th * tile.tw)
+            y, x = y0 + row % (tile.th * tile.tw) // tile.tw, x0 + row % tile.tw
+            if bb < b and y < h and x < w:
+                seen[bb, y, x] += 1
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("b,h,w", [(2, 128, 128), (2, 64, 64), (2, 32, 32), (2, 16, 16),
