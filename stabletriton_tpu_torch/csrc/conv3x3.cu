@@ -93,11 +93,10 @@
 //                      What neither f32 kernel above takes: f32 with the
 //                      GroupNorm prologue, f32 Cin > 4 that is no multiple
 //                      of 8, and f32 x whose base is not 16-byte aligned at
-//                      Cin % 8 == 0. No path of chip_smoke.py launches it
-//                      (the VAE decoder's GroupNorms are not fused into its
-//                      convs, and its Cin are 4 or multiples of 8);
-//                      chip_smoke.py times it beside the direct kernel and a
-//                      card test holds it against the plain conv.
+//                      Cin % 8 == 0. No model path launches it (the VAE
+//                      decoder's GroupNorms are not fused into its convs,
+//                      and its Cin are 4 or multiples of 8); a card test
+//                      holds it against the plain conv.
 //
 // What bounds it on the H100: at the UNet's shapes (K = 9*Cin = 2880 to
 // 23040) the implicit GEMM is compute-bound, so the wgmma kernel keeps the

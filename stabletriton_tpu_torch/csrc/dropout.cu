@@ -20,7 +20,7 @@
 // shape, ~3 us at 64 a clock on each of the 132 SMs, under the bytes bound
 // and spread over the same warps that wait on memory. ptxas (-Xptxas -v):
 // 36-48 registers a thread, no spills, so four blocks of 256 fit an SM.
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.0075-0.0084
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md's table): 0.0075-0.0084
 // ms at (2, 4096, 640) bf16, 75-83% of the bound, where the kernel it
 // replaced (one thread a group of four, 2-byte accesses) read 0.0156; with
 // the L2 overwritten before each launch 0.0096-0.0104 ms (60-65%). In f32,

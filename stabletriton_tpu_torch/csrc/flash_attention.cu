@@ -42,7 +42,7 @@
 // against one exp2 on the SFU (16 a clock an SM against ~4,000 bf16 FLOPs
 // on the tensor cores), so at D = 64 the exponentials take as long as both
 // products; the score matrix never reaches device memory. The operations
-// bound of chip_smoke.py counts only the products, at the bf16 tensor-core
+// bound of kernel_table.py counts only the products, at the bf16 tensor-core
 // peak.
 //
 // attn_wgmma_bf16<D>: a block is 128 query rows of one (batch, head): two

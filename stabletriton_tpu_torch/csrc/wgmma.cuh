@@ -702,8 +702,8 @@ EncodeTiled encoder() {
 // a bf16 (or f32) tensor map (rank <= 4) with 128-byte swizzle (or another)
 // and zero fill out of range: dims and box innermost first, strides in bytes of dims
 // 1..rank-1. Encoded per launch: the C entry's whole host time, both encodes
-// included, is ~5 us on an H100 host (chip_smoke.py --host-time), a quarter
-// of the Python wrapper's.
+// included, is ~5 us on an H100 host, a quarter of the Python wrapper's
+// (kernel_table.py --host times the wrappers).
 bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
               const uint64_t* strides, const uint32_t* box,
               CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,

@@ -74,7 +74,7 @@ import torch
 _LOCK = threading.Lock()
 _TABLES: dict[str, dict] = {}  # platform -> {key: entry}
 # the packaged tables; a tuner that must start from nothing points it at
-# an empty directory (scripts/tune_torch_table.py, chip_smoke.py)
+# an empty directory (scripts/tune_torch_table.py, the card tests' empty_table)
 PACKAGED_DIR = pathlib.Path(__file__).parent / "tuned"
 _DISABLED = [False]  # set inside :func:`disabled`
 REPS = 10  # launches in one measured graph

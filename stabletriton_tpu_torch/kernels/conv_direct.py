@@ -31,8 +31,8 @@ an aligned one. f32 convs with Cin
 kernel, which keeps f32 accuracy on the tensor cores: the wrapper splits the
 weight into a K-major (Cout_pad, 9*Cin) big part exact in tf32 and the small
 rest (:func:`tf32_split`, plain torch on the weight at every launch, no
-cache: ``chip_smoke.py`` times it beside each f32 conv, PERF.md has the
-numbers), the kernel splits x the same way in registers and sums three
+cache: inside each f32 conv row's time of ``kernel_table.py``, PERF.md has
+the numbers), the kernel splits x the same way in registers and sums three
 tf32 products. f32 convs with Cin <= 4 (the decoders' conv_in, Cin 4 ->
 512, which writes 33.5 MB at 128^2 after 36 FMAs an output) go to the
 direct kernel: each thread holds its 2 output channels' weights in

@@ -98,7 +98,7 @@ def skinny_plan(m: int, k: int, n: int, itemsize: int) -> SkinnyPlan:
     (each split at least one pass of the block's rows, 256 / vectors a row),
     else the narrowest; then the least split that fills the SMs, at most 8.
     Whole 128-byte lines of a w row (8 vectors) weigh more than a block on
-    every SM: on an H100 80GB HBM3 at 700 W (``chip_smoke.py --plans``)
+    every SM: on an H100 80GB HBM3 at 700 W (``kernel_table.py --plans``)
     (2,1280)@(1280,320) took 4.4 us in 80 blocks of 32 columns and 5.0 us
     in 140 of 16. Pure, so the CPU tests cover it."""
     vec = 16 // itemsize

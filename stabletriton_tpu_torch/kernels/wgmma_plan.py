@@ -31,7 +31,7 @@ order. It picks the plan of least modelled time:
 A step's time is its operations at the H100's bf16 peak (989 TFLOP/s over
 132 SMs) over the share of it the mainloop sustains. The shares and the
 fixed costs were fitted to the wgmma kernels' times at forced plans on an
-H100 80GB HBM3 at 700 W (``chip_smoke.py --plans`` prints them beside the
+H100 80GB HBM3 at 700 W (``kernel_table.py --plans`` prints them beside the
 planner's choice); they rank plans and are no measurement of any one call.
 
 K8 at Cout > 8 (the GroupNorm prologue) has a model of its own: its pixel

@@ -12,8 +12,8 @@ tuner loop and pipeline hook, on the CPU.
     processes at once), each route's lookup and the cache that ``record``
     clears, the entry that keeps the rule, and the values a kernel cannot
     take, which raise;
-  * the tuner loop under a fake clock (the card's measurements are
-    ``chip_smoke.py``'s): a plan off the rule is recorded only beyond the
+  * the tuner loop under a fake clock (on the card, tests/test_torch_port_gpu.py
+    tunes from an empty table): a plan off the rule is recorded only beyond the
     rule's two-timing spread; and that it refuses the CPU with the default
     clock;
   * the pipeline's hook: JAX's ``cfg_factors`` rule, never on the CPU.

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, and the port's paths at
+full width against the reference binding, on the card.
 
 Every test here is marked ``gpu`` and skips where torch sees no CUDA device.
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -7,14 +8,21 @@ that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_gpu.py -q
 
 Tolerances, relative to the largest plain output: 2e-2 for bf16 (a few bf16
-ulps), 1e-4 for float32 (summation order only).
+ulps), 1e-4 for float32 (summation order only). A full-width UNet step under
+a kernel binding stays within the step gate (MSE 1e-3) of the reference
+binding's (cuBLAS, cuDNN, SDPA).
 """
 
+import gc
 import math
+import weakref
 
+import numpy as np
 import pytest
 import torch
 
+import kernel_table
+from stabletriton_tpu_torch.compile import ALL_KERNEL_OVERRIDES, FUSED_OP_OVERRIDES, CompileConfig
 from stabletriton_tpu_torch.kernels import autotune as tautotune
 from stabletriton_tpu_torch.kernels import conv_direct as tconv
 from stabletriton_tpu_torch.kernels import dropout as tdropout
@@ -42,12 +50,26 @@ def cuda_device():
 
 
 @pytest.fixture(autouse=True)
-def rule_plans():
+def release_memory():
+    """After each test on the card, the pipelines it left (their programs
+    hold closures over them, a cycle) and the allocator's cached blocks go,
+    so each full-width test, and the mesh test's ranks, find the card free."""
+    yield
+    if torch.cuda.is_available():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+@pytest.fixture(autouse=True)
+def rule_plans(request):
     """The tests here hold the kernels at the fitted rules' plans
     (``wgmma_plan``, ``skinny_plan``, ``tiny_kv_plan``, ``kernel_name``),
     which their expected launch keys name; the autotune table, which the
-    routes read first, is off for them (``chip_smoke.py`` phase 9t holds
-    the tuned plans against the plain versions)."""
+    routes read first, is off for them, but for the tests that tune a table
+    of their own (``empty_table``: test_gpu_tuned_plans_hold_the_plain_versions)."""
+    if "empty_table" in request.fixturenames:
+        yield
+        return
     with tautotune.disabled():
         yield
 
@@ -577,7 +599,8 @@ def _bf16_ulps(out, ref):
     return ((out.float() - ref.float()).abs().max() / ulp).item()
 
 
-# chip_smoke.py's K9 shapes, then C not a multiple of the vector (vec = 1)
+# K9 at a Transformer2D's and a resnet's shape of SDXL, the f32 decoder's
+# smallest and largest, then C not a multiple of the vector (vec = 1)
 GN_SHAPES = [((2, 64, 64, 640), torch.bfloat16, None),
              ((2, 128, 128, 320), torch.bfloat16, "silu"),
              ((1, 128, 128, 512), torch.float32, "silu"),
@@ -1227,17 +1250,30 @@ def test_gpu_time_embed_kernel_vs_plain(cuda_device, b, dim, flip, shift):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (2, 100, 640)),
-                                         (torch.float32, ((1 << 20) + 3,))])
+                                         (torch.float32, ((1 << 20) + 3,)),
+                                         (torch.bfloat16, (2, 4096, 640)),
+                                         (torch.float32, (2, 4096, 640)),
+                                         (torch.float32, (1 << 20,))])
 def test_gpu_dropout_kernel_matches_plain_bit_for_bit(cuda_device, dtype, shape):
+    """K14 on its path, ops.dispatch under a ("dropout", "cuda") binding:
+    two calls launch twice and give the same bits, which are the plain
+    version's; another seed gives others; the dropped share lies within 4
+    sigma of the rate; rate 0 returns x with no launch."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import resolve_binding
+
+    binding = resolve_binding(CompileConfig(backend="reference", overrides=(("dropout", "cuda"),)))
     gen = torch.Generator(device=cuda_device).manual_seed(9)
     x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
     before = tdropout.LAUNCHES.count
-    out = tdropout.dropout(x, 2**40 + 17, rate=0.1)
-    again = tdropout.dropout(x, 2**40 + 17, rate=0.1)
+    with ops.use_backends(binding):
+        out = ops.dispatch("dropout", x, 2**40 + 17, rate=0.1)
+        again = ops.dispatch("dropout", x, 2**40 + 17, rate=0.1)
     assert tdropout.LAUNCHES.count == before + 2
     assert torch.equal(out, again)
     assert torch.equal(out, tdropout.dropout_plain(x, 2**40 + 17, rate=0.1))
     assert not torch.equal(out, tdropout.dropout(x, 17, rate=0.1))
+    assert abs((out == 0).float().mean().item() - 0.1) <= 4 * math.sqrt(0.09 / x.numel())
     assert tdropout.dropout(x, 3, rate=0.0) is x
     assert tdropout.LAUNCHES.count == before + 3
 
@@ -1448,35 +1484,20 @@ def _replay_ids(pipe, batch, seed):
 
 
 def _eager_loop(pipe, ids, seeds, **kw):
-    """The program's own eager loop (``program.loop.__wrapped__``, from the
-    same make_denoise_loop) on the inputs txt2img makes for ``ids``."""
-    from stabletriton_tpu_torch import ops as tops
-    from stabletriton_tpu_torch.compile import resolve_binding
-
-    batch = ids.shape[0]
-    prog = pipe._program(batch, kw["height"], kw["width"], kw["steps"], 5.0, "euler", True,
-                         kw.get("guidance_interval"))
-    neg = torch.as_tensor(pipe.clip_config.empty_prompt_ids(batch, ids.shape[1]),
-                          dtype=torch.long)
-    args = [t.to(pipe.device) for t in (ids, ids, neg, neg)]
-    with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
-        inputs = prog.loop_inputs(pipe.params, *args, seeds)
-        return prog.loop.__wrapped__(pipe.params["unet"], *inputs), prog
+    """The program's own eager loop (``_eager``, from the same
+    make_denoise_loop) on the inputs txt2img makes for ``ids``."""
+    prog = pipe._program(ids.shape[0], kw["height"], kw["width"], kw["steps"], 5.0, "euler",
+                         True, kw.get("guidance_interval"))
+    return _eager(pipe, prog, ids, ids, seeds), prog
 
 
-def _all_launches():
-    from stabletriton_tpu_torch.kernels import conv_direct, flash_attention, geglu, group_norm
-    from stabletriton_tpu_torch.kernels import layer_norm, linear, time_embed
-
-    counters = (conv_direct.LAUNCHES, conv_direct.GN_LAUNCHES, flash_attention.LAUNCHES,
-                geglu.LAUNCHES, group_norm.LAUNCHES, layer_norm.LAUNCHES, linear.LAUNCHES,
-                time_embed.LAUNCHES)
-    return [dict(c.by_key) for c in counters]
+def _snapshot() -> dict:
+    return {name: dict(c.by_key) for name, c in kernel_table.counters().items()}
 
 
-def _launched(before):
-    return [{k: n - b.get(k, 0) for k, n in now.items() if n != b.get(k, 0)}
-            for now, b in zip(_all_launches(), before)]
+def _since(before: dict) -> dict:
+    """Each counter's launches by key since ``before``."""
+    return {name: _new_keys(c, before[name]) for name, c in kernel_table.counters().items()}
 
 
 @pytest.mark.gpu
@@ -1490,13 +1511,13 @@ def test_gpu_replay_equals_eager_bit_for_bit(cuda_device, cache):
     pipe = _replay_pipeline(cuda_device, **cache)
     ids = _replay_ids(pipe, 2, 0)
     for gi in (None, (0.0, 5.0)):
-        before = _all_launches()
+        before = _snapshot()
         first = pipe.txt2img(ids, ids, seed=[1, 2], guidance_interval=gi, **REPLAY)
-        eager_counts = _launched(before)
-        before = _all_launches()
+        eager_counts = _since(before)
+        before = _snapshot()
         second = pipe.txt2img(ids, ids, seed=[1, 2], guidance_interval=gi, **REPLAY)
         torch.cuda.synchronize()
-        assert _launched(before) == eager_counts and any(eager_counts)
+        assert _since(before) == eager_counts and any(eager_counts.values())
         eager, prog = _eager_loop(pipe, ids, [1, 2], guidance_interval=gi, **REPLAY)
         assert len(prog.loop.captured) == 1 and prog.loop._graphs is pipe._graphs
         assert torch.isfinite(first.float()).all()
@@ -1558,38 +1579,56 @@ def test_gpu_replay_from_two_threads_equals_serial_calls(cuda_device):
         assert torch.equal(g, w)
 
 
+def _failed_capture() -> None:
+    """test_gpu_failed_capture_raises's case, in a process of its own."""
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with tautotune.disabled(), pytest.MonkeyPatch.context() as monkeypatch:
+        pipe = _replay_pipeline(torch.device("cuda", 0))
+        ids = _replay_ids(pipe, 1, 0)
+        real = tpipe.unet_apply
+
+        def refusing(*a, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                torch.cuda.synchronize()
+            return real(*a, **kw)
+
+        monkeypatch.setattr(tpipe, "unet_apply", refusing)
+        with pytest.raises(RuntimeError, match="capturing"):
+            pipe.txt2img(ids, ids, seed=1, **REPLAY)
+        assert torch.cuda.current_stream() == torch.cuda.default_stream()  # given back
+        prog = pipe._program(1, 64, 64, 3, 5.0, "euler", True, None)
+        assert prog.loop.captured == {}
+        monkeypatch.undo()
+        first = pipe.txt2img(ids, ids, seed=1, **REPLAY)
+        assert torch.equal(pipe.txt2img(ids, ids, seed=1, **REPLAY), first)
+
+
 @pytest.mark.gpu
-def test_gpu_failed_capture_raises(cuda_device, monkeypatch):
+def test_gpu_failed_capture_raises(cuda_device):
     """A step that synchronises the device while the loop is captured (a
     call a capture refuses) makes txt2img raise; nothing runs eagerly in
     the graph's place and nothing is kept; the pipeline captures again once
-    the step is capturable."""
-    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+    the step is capturable. In a spawned process: a failed capture leaves
+    PyTorch's caching allocator with that capture underway, and from then on
+    torch.cuda.empty_cache() releases nothing of the default pool, so the
+    process it fails in keeps the card's memory from the tests after it."""
+    import torch.multiprocessing as mp
 
-    pipe = _replay_pipeline(cuda_device)
-    ids = _replay_ids(pipe, 1, 0)
-    real = tpipe.unet_apply
-
-    def refusing(*a, **kw):
-        if torch.cuda.is_current_stream_capturing():
-            torch.cuda.synchronize()
-        return real(*a, **kw)
-
-    monkeypatch.setattr(tpipe, "unet_apply", refusing)
-    with pytest.raises(RuntimeError, match="capturing"):
-        pipe.txt2img(ids, ids, seed=1, **REPLAY)
-    assert torch.cuda.current_stream() == torch.cuda.default_stream()  # given back
-    prog = pipe._program(1, 64, 64, 3, 5.0, "euler", True, None)
-    assert prog.loop.captured == {}
-    monkeypatch.undo()
-    first = pipe.txt2img(ids, ids, seed=1, **REPLAY)
-    assert torch.equal(pipe.txt2img(ids, ids, seed=1, **REPLAY), first)
+    proc = mp.get_context("spawn").Process(target=_failed_capture)
+    proc.start()
+    proc.join(300)
+    if proc.is_alive():
+        proc.kill()
+    assert proc.exitcode == 0, "the case failed in its process (its traceback is above)"
 
 
 @pytest.fixture(scope="module")
 def full_width_unets():
     """SDXL-base's and SD1.5's UNets at full width, random bf16 weights on
-    the card, fused projections; made once for the module's tests."""
+    the card: (config, the params with fused projections, the params as
+    made); made once for the module's tests."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from stabletriton_tpu_torch.compile import fuse_attention_projections
@@ -1599,15 +1638,15 @@ def full_width_unets():
     dev = torch.device("cuda", 0)
     out = {}
     for family, cfg in (("sdxl", sdxl_base_unet_config()), ("sd15", sd15_unet_config())):
-        out[family] = (cfg, fuse_attention_projections(
-            init_unet_params(cfg, 0, device=dev, dtype=torch.bfloat16)))
+        params = init_unet_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+        out[family] = (cfg, fuse_attention_projections(params), params)
     yield out
     out.clear()
     torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("binding", ["default", "all_kernels"])
+@pytest.mark.parametrize("binding", ["default", "fused_ops", "all_kernels"])
 @pytest.mark.parametrize("family,latent,depth,classes", [
     ("sdxl", 128, 1, set()), ("sdxl", 128, 2, {"K1", "K2"}), ("sd15", 64, 1, {"K3", "K5"})])
 def test_gpu_shallow_pass_equals_full_pass(cuda_device, full_width_unets, family, latent, depth,
@@ -1615,35 +1654,56 @@ def test_gpu_shallow_pass_equals_full_pass(cuda_device, full_width_unets, family
     """At full width, CFG batch 2, bf16, on the cross K/V cache: the shallow
     pass on the full pass's cache gives the full pass's eps bit for bit, and
     launches the attention classes its outermost levels hold (none for
-    SDXL's depth-1 split)."""
+    SDXL's depth-1 split). Both passes captured as graphs: a replay of each
+    holds to its eager run (``_held_to``), one graph each; at depth 1 so do
+    compile_unet_deepcache's (full, shallow) on the context itself."""
     from stabletriton_tpu_torch import ops as tops
-    from stabletriton_tpu_torch.compile import (ALL_KERNEL_OVERRIDES, CompileConfig,
-                                                resolve_binding)
+    from stabletriton_tpu_torch.compile import compile_unet_deepcache, resolve_binding
     from stabletriton_tpu_torch.models.unet import (precompute_cross_kv, unet_apply,
                                                     unet_apply_shallow)
+    from stabletriton_tpu_torch.runtime.graphs import Graphs
 
-    cfg, params = full_width_unets[family]
-    gen = torch.Generator(device=cuda_device).manual_seed(3)
-    sample = torch.randn((2, latent, latent, 4), generator=gen, device=cuda_device)
-    ctx = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen, device=cuda_device)
-    if cfg.has_addition_embedding:
-        te = torch.randn((2, 1280), generator=gen, device=cuda_device).to(torch.bfloat16)
-        tid = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device=cuda_device)
-    else:
-        te = torch.zeros((2, 0), device=cuda_device, dtype=torch.bfloat16)
-        tid = torch.zeros((2, 0), device=cuda_device)
-    t = torch.full((2,), 500.0, device=cuda_device)
-    config = CompileConfig(overrides=ALL_KERNEL_OVERRIDES if binding == "all_kernels" else ())
-    with torch.inference_mode(), tops.use_backends(resolve_binding(config)):
-        kv = precompute_cross_kv(cfg, params, ctx.to(torch.bfloat16))
-        args = (cfg, params, sample.to(torch.bfloat16), t, None, te, tid)
-        eps, cache = unet_apply(*args, cross_kv=kv, return_cache=True, cache_depth=depth)
+    cfg, params, _ = full_width_unets[family]
+    sample, t, ctx, te, tid = kernel_table.step_inputs(cfg, latent, cuda_device, seed=3)
+    binding_ = resolve_binding(_config(binding))
+
+    def full(*args):
+        with tops.use_backends(binding_):
+            return unet_apply(cfg, params, *args, cross_kv=kv, return_cache=True,
+                              cache_depth=depth)
+
+    def shallow(*args):
+        with tops.use_backends(binding_):
+            return unet_apply_shallow(cfg, params, *args, cross_kv=kv, cache_depth=depth)
+
+    with torch.inference_mode():
+        with tops.use_backends(binding_):
+            kv = precompute_cross_kv(cfg, params, ctx)
+        args = (sample, t, None, te, tid)
+        eps, cache = full(*args)
         before = dict(tfa.LAUNCHES.by_key)
-        shallow = unet_apply_shallow(*args, cache, cross_kv=kv, cache_depth=depth)
+        eps_shallow = shallow(*args, cache)
         torch.cuda.synchronize()
-    launched = {k.split()[0] for k, n in tfa.LAUNCHES.by_key.items() if n != before.get(k, 0)}
+        launched = {k.split()[0] for k in _new_keys(tfa.LAUNCHES, before)}
+        graphs = Graphs()
+        full_g, shallow_g = graphs.wrap(full), graphs.wrap(shallow)
+        full_g(*args)                       # the eager run, then the capture
+        shallow_g(*args, cache)
+        exact = binding == "all_kernels"
+        _held_to(full_g(*args), (eps, cache), exact=exact)
+        _held_to(shallow_g(*args, cache), eps, exact=exact)
+        assert len(full_g.captured) == 1 and len(shallow_g.captured) == 1
+        if depth == 1:
+            full_g, shallow_g = compile_unet_deepcache(cfg, _config(binding))
+            args = (params, sample, t, ctx, te, tid)
+            eps_d, cache_d = full_g.__wrapped__(*args)
+            full_g(*args)
+            shallow_g(*args, cache_d)
+            _held_to(full_g(*args), (eps_d, cache_d), exact=exact)
+            _held_to(shallow_g(*args, cache_d), eps_d, exact=exact)
+            assert torch.equal(shallow_g.__wrapped__(*args, cache_d), eps_d)
     assert launched == classes
-    assert torch.isfinite(eps.float()).all() and torch.equal(shallow, eps)
+    assert torch.isfinite(eps.float()).all() and torch.equal(eps_shallow, eps)
 
 
 @pytest.mark.gpu
@@ -1665,11 +1725,11 @@ def test_gpu_mode_replay_equals_eager_bit_for_bit(cuda_device, kw):
     outs, counts = [], []
     for seed in (1, 2):
         ids = _replay_ids(pipe, 1, seed)
-        before = _all_launches()
+        before = _snapshot()
         outs.append((ids, seed, pipe.txt2img(ids, ids, seed=seed, **REPLAY, **kw)))
         torch.cuda.synchronize()
-        counts.append(_launched(before))
-    assert counts[0] == counts[1] and any(counts[0])
+        counts.append(_since(before))
+    assert counts[0] == counts[1] and any(counts[0].values())
     prog = pipe._program(1, REPLAY["height"], REPLAY["width"], REPLAY["steps"], 5.0,
                          kw["solver"], True,
                          norm_guidance_interval(kw.get("guidance_interval"), 5.0),
@@ -1792,6 +1852,20 @@ def _image_pipeline(device, in_channels):
                               params=params, device=device, compile_config=base.compile_config)
 
 
+def _decoded(run):
+    """Run ``run()`` with the pipeline module's decode tapped: the latents
+    each decode received (a request's loop output), and what run returned."""
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    seen, real = [], tpipe._decode_images
+    tpipe._decode_images = lambda cfg, p, lat: seen.append(lat.clone()) or real(cfg, p, lat)
+    try:
+        out = run()
+    finally:
+        tpipe._decode_images = real
+    return seen, out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind,kw", [
     ("img2img_image", {"strength": 0.7}), ("img2img_image", {"strength": 0.5, "encode_seed": 3}),
@@ -1811,27 +1885,21 @@ def test_gpu_image_loop_replay_equals_eager_bit_for_bit(cuda_device, kind, kw):
     size = REPLAY["height"]
     mask = torch.zeros((1, size, size, 1), device=cuda_device)
     mask[:, 13:45, 20:50] = 1.0
-    outs, counts, seen = [], [], []
-    real_decode = tpipe._decode_images
-    tpipe._decode_images = lambda cfg, p, lat: seen.append(lat.clone()) or real_decode(cfg, p,
-                                                                                      lat)
-    try:
-        for seed in (1, 2):
-            gen = torch.Generator(device=cuda_device).manual_seed(seed)
-            image = torch.rand((1, size, size, 3), generator=gen, device=cuda_device) * 2 - 1
-            ids = _replay_ids(pipe, 1, seed)
-            before = _all_launches()
-            if kind == "inpaint":
-                pipe.inpaint(image, mask, ids, ids, steps=3, seed=seed, **kw)
-                got = seen[-1]
-            else:
-                got = pipe.img2img_image(image, ids, ids, steps=3, seed=seed, decode=False, **kw)
-            torch.cuda.synchronize()
-            counts.append(_launched(before))
-            outs.append((image, ids, seed, got))
-    finally:
-        tpipe._decode_images = real_decode
-    assert counts[0] == counts[1] and any(counts[0])
+    outs, counts = [], []
+    for seed in (1, 2):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        image = torch.rand((1, size, size, 3), generator=gen, device=cuda_device) * 2 - 1
+        ids = _replay_ids(pipe, 1, seed)
+        before = _snapshot()
+        if kind == "inpaint":
+            (got,), _ = _decoded(lambda: pipe.inpaint(image, mask, ids, ids, steps=3, seed=seed,
+                                                      **kw))
+        else:
+            got = pipe.img2img_image(image, ids, ids, steps=3, seed=seed, decode=False, **kw)
+        torch.cuda.synchronize()
+        counts.append(_since(before))
+        outs.append((image, ids, seed, got))
+    assert counts[0] == counts[1] and any(counts[0].values())
     (prog,) = pipe._cache.values()
     assert len(prog.loop.captured) == 1
     for image, ids, seed, got in outs:
@@ -1857,22 +1925,13 @@ def test_gpu_warmup_captures_and_the_first_request_replays(cuda_device):
     """warmup builds and captures one txt2img signature on zero inputs;
     the first request of that signature replays it (no new graph, no new
     program) and gives the eager loop's images' latents bit for bit."""
-    from stabletriton_tpu_torch.runtime import pipeline as tpipe
-
     pipe = _image_pipeline(cuda_device, 4)
     size = REPLAY["height"]
     pipe.warmup(height=size, width=size, steps=3)
     (prog,) = pipe._cache.values()
     (entry,) = prog.loop.captured.values()
     ids = _replay_ids(pipe, 1, 4)
-    seen = []
-    real_decode = tpipe._decode_images
-    tpipe._decode_images = lambda cfg, p, lat: seen.append(lat.clone()) or real_decode(cfg, p,
-                                                                                      lat)
-    try:
-        pipe.txt2img(ids, ids, height=size, width=size, steps=3, seed=5)
-    finally:
-        tpipe._decode_images = real_decode
+    seen, _ = _decoded(lambda: pipe.txt2img(ids, ids, height=size, width=size, steps=3, seed=5))
     assert list(pipe._cache.values()) == [prog] and list(prog.loop.captured.values()) == [entry]
     eager, _ = _eager_loop(pipe, ids, [5], height=size, width=size, steps=3)
     assert torch.equal(seen[0], eager)
@@ -2062,21 +2121,28 @@ def test_gpu_conv2d_int8_stride2_equals_the_cpu(cuda_device, padding):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["int8", "int8_conv"])
-def test_gpu_turbo_step_replays_bit_for_bit(cuda_device, mode):
-    """compile_unet_kv's turbo step on a small SDXL-shaped UNet: the first
-    call (eager, then captured) and a replay equal the eager step bit for
-    bit, and differ from the bf16 step."""
-    from stabletriton_tpu_torch.compile import (CompileConfig, compile_unet_kv,
-                                                fuse_attention_projections,
+@pytest.mark.parametrize("mode", ["int8", "int8_conv", "int8_ff", "int8_conv fused-op"])
+def test_gpu_turbo_step_replays_bit_for_bit(cuda_device, mode, monkeypatch):
+    """compile_unet_kv's turbo step on a small SDXL-shaped UNet (each mode
+    on the default binding, int8_conv on the fused-op one too): the eager
+    step runs int8 products (int8 and int8_conv at M <= 16 too, their rows
+    padded: time_emb_proj is quantized); the first call (eager, then
+    captured) and a replay equal the eager step bit for bit, and differ
+    from the bf16 step."""
+    from stabletriton_tpu_torch.compile import (compile_unet_kv, fuse_attention_projections,
                                                 quantize_linear_weights)
     from stabletriton_tpu_torch.models.unet import init_unet_params
+    from stabletriton_tpu_torch.ops import reference as tref
 
+    quantize = mode.split()[0]
+    config = CompileConfig(quantize=quantize,
+                           overrides=FUSED_OP_OVERRIDES if "fused" in mode else ())
     pipe = _replay_pipeline(cuda_device)
     ucfg = pipe.unet_config
     params = fuse_attention_projections(init_unet_params(ucfg, 0, device=cuda_device,
                                                          dtype=torch.bfloat16))
-    qparams = quantize_linear_weights(params, min_dim=64, conv=mode == "int8_conv")
+    qparams = quantize_linear_weights(params, min_dim=64, conv=quantize == "int8_conv",
+                                      ff_only=quantize == "int8_ff")
     assert any(isinstance(v, tuple) for v in qparams.values())
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     sample = torch.randn((2, 8, 8, 4), generator=gen, device=cuda_device).to(torch.bfloat16)
@@ -2085,20 +2151,77 @@ def test_gpu_turbo_step_replays_bit_for_bit(cuda_device, mode):
     pooled = torch.randn((2, 16), generator=gen, device=cuda_device).to(torch.bfloat16)
     time_ids = torch.tensor([[64.0, 64, 0, 0, 64, 64]] * 2, device=cuda_device)
     t = torch.full((2,), 500.0, device=cuda_device)
+    rows, real = [], tref.int8_mm
+    monkeypatch.setattr(tref, "int8_mm", lambda a, b: rows.append(a.shape[0]) or real(a, b))
     with torch.inference_mode():
-        pre, _, step = compile_unet_kv(ucfg, CompileConfig(quantize=mode))
+        pre, _, step = compile_unet_kv(ucfg, config)
         kv = pre.__wrapped__(qparams, ctx)
         eager = step.__wrapped__(qparams, sample, t, kv, pooled, time_ids)
+        monkeypatch.undo()
         first = step(qparams, sample, t, kv, pooled, time_ids)
         replay = step(qparams, sample, t, kv, pooled, time_ids)
         bpre, _, bstep = compile_unet_kv(ucfg, CompileConfig())
         exact = bstep.__wrapped__(params, sample, t, bpre.__wrapped__(params, ctx), pooled,
                                   time_ids)
     torch.cuda.synchronize()
+    assert rows and (quantize == "int8_ff" or min(rows) <= 16)
     assert len(step.captured) == 1
     assert torch.isfinite(eager.float()).all()
     assert torch.equal(first, eager) and torch.equal(replay, eager)
     assert not torch.equal(eager, exact)
+
+
+# the turbo ops at SDXL-base's 1024^2 shapes, CFG batch 2, bf16: (x shape, N,
+# conv) with conv None for a linear, else (kernel size, stride, padding, bias)
+INT8_SDXL = {"to_qkv": ((2, 4096, 640), 1920, None), "ff up 64^2": ((2, 4096, 640), 5120, None),
+             "ff up 32^2": ((2, 1024, 1280), 10240, None),
+             "cross K/V precompute": ((2, 77, 2048), 2560, None),
+             "time_emb_proj": ((2, 1280), 1280, None),
+             "3x3 128^2 320->320": ((2, 128, 128, 320), 320, (3, 1, 1, "batch")),
+             "3x3 s2 downsampler": ((2, 64, 64, 640), 640, (3, 2, 1, "cout")),
+             "1x1 shortcut": ((2, 32, 32, 640), 1280, (1, 1, 0, "cout"))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(INT8_SDXL))
+def test_gpu_int8_ops_at_sdxl_shapes_equal_the_cpu(cuda_device, name):
+    """linear_int8 / conv2d_int8 at SDXL-base's shapes: the int8 activations
+    and the int32 accumulators on the card equal the CPU's (rows quantize
+    and sum independently, so exactly), and the output is finite."""
+    from stabletriton_tpu_torch.compile import quantize_linear_weights
+    from stabletriton_tpu_torch.ops import reference as tref
+
+    xs, n, conv = INT8_SDXL[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(4242)
+    x = torch.randn(xs, generator=gen, device=cuda_device).to(torch.bfloat16)
+    cin = xs[-1]
+    if conv is None:
+        ks = stride = pad = None
+        w = (torch.randn((cin, n), generator=gen, device=cuda_device) * cin ** -0.5).to(
+            torch.bfloat16)
+        b = torch.randn(n, generator=gen, device=cuda_device).to(torch.bfloat16)
+        dims, kw, k, op = -1, {}, cin, tref.linear_int8
+    else:
+        ks, stride, pad, bias = conv
+        w = (torch.randn((ks, ks, cin, n), generator=gen, device=cuda_device)
+             * (ks * ks * cin) ** -0.5).to(torch.bfloat16)
+        b = torch.randn((xs[0], n) if bias == "batch" else (n,), generator=gen,
+                        device=cuda_device).to(torch.bfloat16)
+        dims, kw, k = (1, 2, 3), dict(stride=stride, padding=pad), ks * ks * cin
+        op = tref.conv2d_int8
+    pair = quantize_linear_weights({"w.weight": w}, min_dim=1, conv=conv is not None)["w.weight"]
+    wmat = pair[0].reshape(k, n)
+
+    def operands(x):
+        xq, sx = tref._quantize_activations(x.float(), dims)
+        a = xq.reshape(-1, k) if conv is None else tref._im2col(xq, ks, ks, stride, pad)[0]
+        return xq, sx, a
+
+    xq, sx, a = operands(x)
+    xq_c, sx_c, a_c = operands(x.cpu())
+    assert torch.equal(xq.cpu(), xq_c) and torch.equal(sx.cpu(), sx_c)
+    assert torch.equal(tref.int8_mm(a, wmat).cpu(), tref.int8_mm(a_c, wmat.cpu()))
+    assert torch.isfinite(op(x, pair, b, **kw).float()).all()
 
 
 # The default binding's GroupNorm, LayerNorm and GEGLU ("cuda_bf16apply"):
@@ -2263,26 +2386,25 @@ def test_gpu_bf16apply_geglu_f32(cuda_device):
 
 
 @pytest.mark.gpu
-def test_gpu_default_binding_step_runs_the_kernel_forms(cuda_device):
+@pytest.mark.parametrize("batch", [2, 16])
+def test_gpu_default_binding_step_runs_the_kernel_forms(cuda_device, full_width_unets, batch):
     """Engagement: one eager SD1.5 UNet step (full width, 64^2 latent, CFG
-    batch 2) under CompileConfig() raises the kernel forms' counters by the
-    step's 61 GroupNorms, 48 LayerNorms and 16 GEGLUs, K9-K11's by nothing,
-    and stays within the step gate of the step under the plain chains the
-    binding had before."""
+    batch 2, and UNet batch 16 as the sd-1.5.batch8 cell runs it) under
+    CompileConfig() raises the kernel forms' counters by the step's 61
+    GroupNorms, 48 LayerNorms and 16 GEGLUs, K9-K11's by nothing, and stays
+    within 2e-2 of the largest output and the step gate (MSE) of the step
+    under the plain chains the binding had before."""
     from stabletriton_tpu_torch import ops
-    from stabletriton_tpu_torch.compile import (CompileConfig, fuse_attention_projections,
-                                                resolve_binding)
-    from stabletriton_tpu_torch.models.unet import (init_unet_params, sd15_unet_config,
-                                                    unet_apply)
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.models.unet import unet_apply
 
-    ucfg = sd15_unet_config()
-    params = fuse_attention_projections(init_unet_params(ucfg, 0, device=cuda_device,
-                                                         dtype=torch.bfloat16))
+    ucfg, params, _ = full_width_unets["sd15"]
     gen = torch.Generator(device=cuda_device).manual_seed(37)
-    sample = torch.randn((2, 64, 64, 4), generator=gen, device=cuda_device).to(torch.bfloat16)
-    ctx = torch.randn((2, 77, 768), generator=gen, device=cuda_device).to(torch.bfloat16)
-    none = torch.zeros((2, 0), device=cuda_device)
-    t = torch.full((2,), 500.0, device=cuda_device)
+    sample = torch.randn((batch, 64, 64, 4), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    ctx = torch.randn((batch, 77, 768), generator=gen, device=cuda_device).to(torch.bfloat16)
+    none = torch.zeros((batch, 0), device=cuda_device)
+    t = torch.full((batch,), 500.0, device=cuda_device)
     counters = {"group_norm": tgn.BF16APPLY_LAUNCHES, "layer_norm": tln.BF16APPLY_LAUNCHES,
                 "geglu": tgeglu.BF16APPLY_LAUNCHES}
     untouched = (tgn.LAUNCHES, tln.LAUNCHES, tgeglu.LAUNCHES)
@@ -2302,6 +2424,7 @@ def test_gpu_default_binding_step_runs_the_kernel_forms(cuda_device):
                   "geglu": "reference"})
     assert torch.isfinite(out.float()).all()
     assert _rel_err(out, plain) <= 2e-2
+    assert (out.float() - plain.float()).square().mean().item() < STEP_MSE_GATE
 
 
 @pytest.mark.gpu
@@ -2414,13 +2537,13 @@ def test_gpu_sd21_v_loop_replays_bit_for_bit_at_batch_16(cuda_device):
     pipe = _sd21_pipeline(cuda_device, CompileConfig())
     ids = _sd21_ids(pipe, 8)
     seeds = list(range(40, 48))
-    before = _all_launches()
+    before = _snapshot()
     first = pipe.txt2img(ids, ids, seed=seeds, **SD21_CALL)
-    eager_counts = _launched(before)
-    before = _all_launches()
+    eager_counts = _since(before)
+    before = _snapshot()
     second = pipe.txt2img(ids, ids, seed=seeds, **SD21_CALL)
     torch.cuda.synchronize()
-    assert _launched(before) == eager_counts and any(eager_counts)
+    assert _since(before) == eager_counts and any(eager_counts.values())
     prog = pipe._program(8, 768, 768, 3, 7.5, "euler", True, None, None)
     neg = torch.as_tensor(pipe.clip_config.empty_prompt_ids(8), dtype=torch.long)
     args = [t.to(cuda_device) for t in (ids, ids, neg, neg)]
@@ -2510,3 +2633,1299 @@ def test_gpu_sd21_v_loop_within_the_step_gate_of_the_reference(cuda_device, monk
     print(f"sd21 v loop, share of the pair's gate and of the eps bound by step: {shares}")
     del pipes, ref, runs, want, got
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# kernel_table.py's rows: each against its plain version
+# --------------------------------------------------------------------------
+
+
+# each op's gate against its plain version (of the largest plain output): 2e-2
+# in bf16 and 1e-4 in f32 but where named: bit for bit (0), or the default
+# binding's forms' rule ("bf16apply": ``_holds_plain``); K8 and K9 also give
+# the same bits in a second run
+ROW_TOL = {"time_embed": 0, "dropout": 0, "gn_bf16apply": "bf16apply",
+           "ln_bf16apply": "bf16apply", "geglu_bf16apply": "bf16apply"}
+ROW_REPEAT = ("gn_conv", "group_norm")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", kernel_table.ROWS, ids=lambda r: r.name)
+def test_gpu_kernel_table_row_vs_plain(cuda_device, row):
+    """Each row the kernel timer times (the paths' shapes of PERF.md's
+    kernel table) against its plain version on the same inputs, within
+    ROW_TOL: launched on its counter under the kernel (and for attention the
+    class) its route names."""
+    case = kernel_table.case(row, cuda_device)
+    tol = ROW_TOL.get(row.op, 2e-2 if row.dtype == "bf16" else 1e-4)
+    before = dict(case.counter.by_key)
+    out = case.kernel()
+    torch.cuda.synchronize()
+    new = _new_keys(case.counter, before)
+    assert new, "no launch counted"
+    if case.want is not None:
+        assert all(key.startswith(case.want + " ") for key in new), new
+    ref = case.plain()
+    if tol == "bf16apply":
+        _holds_plain(out, ref)
+    else:
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert torch.isfinite(out.float()).all()
+        if tol == 0:
+            assert torch.equal(out, ref)
+        else:
+            assert _rel_err(out, ref) <= tol
+    if row.op in ROW_REPEAT:
+        assert torch.equal(case.kernel(), out)
+
+
+# --------------------------------------------------------------------------
+# the full-width UNet step under each binding: the step gate, the launches
+# --------------------------------------------------------------------------
+
+STEP_MSE_GATE = 1e-3  # the JAX package's fidelity gate
+
+# Launches of one UNet step (CFG batch 2) at full width. Under the all-kernel
+# binding (the fused-op binding launches K8-K11 alone): resnets x 2 GN+SiLU+
+# conv pairs + norm_out/conv_out (K8); one GroupNorm per Transformer2D (K9);
+# transformer blocks x 3 LayerNorms (K10) and x 1 GEGLU (K11); the timestep
+# embedding, and SDXL's time ids (K12); every projection (K13), the cross K/V
+# precompute adding one a block once a generation. SDXL-base: 17 resnets, 11
+# Transformer2D, 70 blocks; SD1.5: 22 resnets, 16 Transformer2D of one block.
+# The bf16 attention by kernel and class (SDXL: self at 64^2 10 x K2, at 32^2
+# 60 x K1 on attn_wgmma_bf16, 70 cross x K1 on the tiny-KV kernel; SD1.5:
+# K3 5, K4 10, and K5 17 on the tiny-KV kernel); the bf16 3x3 convs, all on
+# wgmma; the all-kernel step's K13 by kernel (M = 2 on the skinny kernel).
+STEP_LAUNCHES = {
+    "sdxl": {"latent": 128, "precompute": 70,
+             "all": {"K8": 35, "K9": 11, "K10": 210, "K11": 70, "K12": 2, "K13": 463},
+             "attention": {"wgmma_bf16": {"K1": 60, "K2": 10}, "tinykv_wgmma_bf16": {"K1": 70}},
+             "convs": 38, "linears": {"wgmma_bf16": 512, "skinny_bf16": 21}},
+    "sd15": {"latent": 64, "precompute": 16,
+             "all": {"K8": 45, "K9": 16, "K10": 48, "K11": 16, "K12": 1, "K13": 152},
+             "attention": {"wgmma_bf16": {"K3": 5, "K4": 10}, "tinykv_wgmma_bf16": {"K5": 17}},
+             "convs": 49, "linears": {"wgmma_bf16": 144, "skinny_bf16": 24}},
+}
+# SD2.1's UNet has SD1.5's topology; its d=64 attention by kernel and class
+SD21_ATTENTION = {"wgmma_bf16": {"K1": 6, "K2": 5, "K3": 5},
+                  "tinykv_wgmma_bf16": {"K1": 11, "K5": 5}}
+OPT_KERNELS = ("K8", "K9", "K10", "K11", "K12", "K13")
+FORMS = ("K9_bf16apply", "K10_bf16apply", "K11_bf16apply")
+
+
+def _config(binding: str) -> CompileConfig:
+    if binding == "reference":
+        return CompileConfig(backend="reference")
+    if binding.startswith("int8"):
+        return CompileConfig(quantize=binding)
+    return CompileConfig(overrides={"default": (), "fused_ops": FUSED_OP_OVERRIDES,
+                                    "all_kernels": ALL_KERNEL_OVERRIDES}[binding])
+
+
+def _by_kernel(*by_keys) -> dict:
+    """Launches summed by kernel, the keys' first field."""
+    out = {}
+    for by_key in by_keys:
+        for key, n in by_key.items():
+            out[key.split()[0]] = out.get(key.split()[0], 0) + n
+    return out
+
+
+def _attention_by(by_key: dict, kernels=("wgmma_bf16", "tinykv_wgmma_bf16")) -> dict:
+    """Attention launches of ``kernels`` as {kernel: {class: n}}."""
+    out = {}
+    for key, n in by_key.items():
+        cls, kernel = key.split()[:2]
+        if kernel in kernels:
+            out.setdefault(kernel, {})
+            out[kernel][cls] = out[kernel].get(cls, 0) + n
+    return out
+
+
+def _expected(family: str, binding: str, steps: int = 1) -> tuple[dict, dict]:
+    """K8-K13 and the kernel forms' launches of ``steps`` UNet steps under a
+    binding, and its 3x3 convs by kernel."""
+    a = STEP_LAUNCHES["sd15" if family == "sd21" else family]
+    counts = dict.fromkeys(OPT_KERNELS + FORMS, 0)
+    if binding == "default":
+        counts.update(K9_bf16apply=(a["all"]["K8"] + a["all"]["K9"]) * steps,
+                      K10_bf16apply=a["all"]["K10"] * steps, K11_bf16apply=a["all"]["K11"] * steps)
+    elif binding == "fused_ops":
+        counts.update({k: a["all"][k] * steps for k in ("K8", "K9", "K10", "K11")})
+    elif binding == "all_kernels":
+        counts.update({k: n * steps for k, n in a["all"].items()})
+    return counts, _k8_split({"wgmma_bf16": a["convs"] * steps}, counts["K8"], steps)
+
+
+def _k8_split(convs: dict, k8: int, steps: int) -> dict:
+    """3x3 convs by kernel when ``k8`` of them over ``steps`` steps are K8's:
+    all but conv_out's (one a step, on the 8-column form) move to the
+    warp-specialised kernel."""
+    if k8:
+        convs = {**convs, "wgmma_bf16": convs["wgmma_bf16"] - (k8 - steps),
+                 "wgmma_gn_bf16": convs.get("wgmma_gn_bf16", 0) + k8 - steps}
+    return convs
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _leaves(x)]
+    return [tree]
+
+
+def _held_to(got, eager, reference=None, *, exact: bool = False) -> None:
+    """A replay's output against its eager run: finite, and bit for bit, or,
+    unless ``exact`` (the all-kernel binding runs no cuBLAS call), within the
+    step gate: MSE against ``reference`` (the reference binding's eager
+    output) where given, else against the eager run."""
+    a = torch.cat([t.float().flatten() for t in _leaves(got)])
+    assert torch.isfinite(a).all()
+    if all(torch.equal(x, y) for x, y in zip(_leaves(got), _leaves(eager))):
+        return
+    assert not exact, "a replay differs from its eager run"
+    b = torch.cat([t.float().flatten() for t in _leaves(reference if reference is not None
+                                                          else eager)])
+    assert (a - b).square().mean().item() < STEP_MSE_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("binding", ["reference", "default", "fused_ops", "all_kernels"])
+@pytest.mark.parametrize("family", ["sdxl", "sd15"])
+def test_gpu_full_width_step(cuda_device, full_width_unets, family, binding):
+    """compile_unet_kv's cross K/V precompute and UNet step at full width
+    (SDXL-base at a 128^2 latent, SD1.5 at 64^2; CFG batch 2, bf16, random
+    weights). The eager step (``__wrapped__``) under a kernel binding
+    against the reference binding's on the unfused weights: finite, MSE
+    under the step gate; its launches: the bf16 attention by kernel and
+    class, K8-K13 and the default binding's forms by count, the 3x3 convs by
+    kernel; the precompute's K13 under the all-kernel binding alone, one a
+    block, and that binding's GEMMs by kernel (STEP_LAUNCHES counts every
+    linear dispatch, so none reaches cuBLAS). Then the first call (the eager
+    run, then the capture) and a replay of each, held as ``_held_to`` holds
+    them (the step against the reference binding's eager step); one graph
+    each; a replay counts the eager step's launches key by key."""
+    from stabletriton_tpu_torch.compile import compile_unet_kv
+
+    cfg, fused, params = full_width_unets[family]
+    p = params if binding == "reference" else fused
+    want = STEP_LAUNCHES[family]
+    sample, t, ctx, te, tid = kernel_table.step_inputs(cfg, want["latent"], cuda_device)
+    with torch.inference_mode():
+        rpre, _, rstep = compile_unet_kv(cfg, _config("reference"))
+        ref = rstep.__wrapped__(params, sample, t, rpre.__wrapped__(params, ctx), te, tid)
+        pre, _, step = compile_unet_kv(cfg, _config(binding))
+        before = _snapshot()
+        kv_eager = pre.__wrapped__(p, ctx)
+        torch.cuda.synchronize()
+        pre_launches, before = _since(before), _snapshot()
+        eager = step.__wrapped__(p, sample, t, kv_eager, te, tid)
+        torch.cuda.synchronize()
+        got = _since(before)
+        pre(p, ctx)                         # the eager run, then the capture
+        kv = pre(p, ctx)                    # a replay
+        first = step(p, sample, t, kv, te, tid)
+        before = _snapshot()
+        again = step(p, sample, t, kv, te, tid)
+        torch.cuda.synchronize()
+        replay = _since(before)
+    exact = binding == "all_kernels"
+    _held_to(kv, kv_eager, exact=exact)
+    _held_to(first, eager, ref, exact=exact)
+    _held_to(again, eager, ref, exact=exact)
+    assert replay == got
+    assert len(step.captured) == 1 and len(pre.captured) == 1
+    assert torch.isfinite(eager.float()).all() and torch.isfinite(ref.float()).all()
+    if binding == "reference":
+        return
+    assert (eager.float() - ref.float()).square().mean().item() < STEP_MSE_GATE
+    assert _attention_by(got["attention"]) == want["attention"]
+    counts, convs = _expected(family, binding)
+    assert {k: sum(got[k].values()) for k in counts} == counts
+    assert _by_kernel(got["K6"], got["K8"]) == convs
+    assert {k: sum(v.values()) for k, v in pre_launches.items() if v} == (
+        {"K13": want["precompute"]} if exact else {})
+    if exact:
+        assert _by_kernel(got["K13"], pre_launches["K13"]) == want["linears"]
+
+
+# --------------------------------------------------------------------------
+# full-width requests: SDXL-base 1024^2, SD1.5 512^2, SD2.1 768^2, 4 steps
+# --------------------------------------------------------------------------
+
+STEPS = 4
+# a request under a mode, its eager loop and the reference binding's: the
+# binding's MSE against the reference's may be at most this many times its
+# plain Euler MSE (a wrong cache slice or a misplaced correction is O(1) off)
+MODE_MSE_RATIO = 10.0
+# the same seed alone (bucket 1) and co-batched (bucket 2) gives images up to
+# ~0.12-0.16 apart (max abs, images in [-1, 1]) under every binding, the
+# reference one included: the plans and cuBLAS's algorithms depend on M, and
+# 4 bf16 Euler steps through random full-width weights amplify a rounding. A
+# binding stays under the bound, about twice the largest measured, and a
+# kernel binding within the ratio of the reference binding's diff.
+SOLO_VS_BATCHED_BOUND = 0.3
+SOLO_VS_BATCHED_RATIO = 2.0
+# one 1024^2 f32 decode under the default binding against the reference
+# binding's (TF32 off), images in [-1, 1]: 3xTF32 keeps ~f32 accuracy
+DECODE_MAX_ABS = 5e-5
+# one image's f32 decode: conv_in on the direct kernel, 32 convs on the
+# 3xTF32 wgmma kernel, its mid-block attention once on the 3xTF32 GEMM (K3);
+# the f32 encode: conv_in (Cin 3) direct, 21 convs on 3xTF32 (the stride-2
+# downsamplers and 1x1 shortcuts on the plain conv, as the JAX package)
+DECODE_CONVS = {"wgmma_tf32x3": 32, "direct_f32": 1}
+ENCODE_CONVS = {"wgmma_tf32x3": 21, "direct_f32": 1}
+VAE_LINEARS = 4  # the f32 VAE's mid-attention q, k, v, out an image
+NORMS = ("norm1.weight", "norm2.weight", "group_norm.weight", "conv_norm_out.weight")
+
+
+def _modes() -> dict:
+    """The request modes: txt2img keywords, plain Euler first."""
+    from stabletriton_tpu_torch.runtime import scheduler as tsched
+
+    s = [float(v) for v in tsched.make_schedule(tsched.SchedulerConfig(), STEPS).sigmas]
+    middle = ((s[2] + s[3]) / 2, (s[0] + s[1]) / 2)  # steps 1 and 2 of 0-3
+    return {"euler": {}, "euler, interval": {"guidance_interval": middle},
+            "deep_cache=2": {"deep_cache": 2}, "deep_cache=(2, 2)": {"deep_cache": (2, 2)},
+            "heun": {"solver": "heun"}, "dpmpp_2m": {"solver": "dpmpp_2m"},
+            "euler_a": {"solver": "euler_a"},
+            "heun, deep_cache=2, interval": {"solver": "heun", "deep_cache": 2,
+                                             "guidance_interval": middle}}
+
+
+@pytest.fixture(scope="module")
+def sdxl_other():
+    """SDXL-base's two text encoders and VAE decoder at full width, random
+    f32 weights on the card: (clip config, clip-2 config, VAE config,
+    params)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stabletriton_tpu_torch.models import clip as tclip
+    from stabletriton_tpu_torch.models import vae as tvae
+
+    c1, c2 = tclip.sdxl_text_encoder_config(), tclip.sdxl_text_encoder_2_config()
+    vcfg = tvae.sdxl_vae_config()
+    dev = torch.device("cuda", 0)
+    yield c1, c2, vcfg, {"text_encoder": tclip.init_clip_params(c1, 1, device=dev),
+                         "text_encoder_2": tclip.init_clip_params(c2, 2, device=dev),
+                         "vae": tvae.init_vae_params(vcfg, 3, device=dev)}
+    torch.cuda.empty_cache()
+
+
+def _sdxl_pipeline(full_width_unets, sdxl_other, binding, unet=None, **kw):
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    cfg, _, params = full_width_unets["sdxl"]
+    c1, c2, vcfg, other = sdxl_other
+    return tpipe.SDXLPipeline(unet_config=kw.pop("unet_config", cfg), clip_config=c1,
+                              clip2_config=c2, vae_config=vcfg,
+                              params={"unet": params if unet is None else unet, **other,
+                                      **kw.pop("params", {})},
+                              compile_config=_config(binding), device="cuda", **kw)
+
+
+def _tokens(pipe, prompt: str):
+    """The benchmark's stub tokenizer's ids for one prompt, per encoder (the
+    second padded with 0, as SDXL's second tokenizer pads)."""
+    from gpubench.tokenizer import StubTokenizer
+
+    c1, c2 = pipe.clip_config, pipe.clip2_config
+    tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+    return (tok.encode_batch([prompt], max_len=c1.max_position_embeddings),
+            tok.encode_batch([prompt], max_len=c2.max_position_embeddings, pad=0))
+
+
+def _eager(pipe, prog, ids1, ids2, seeds, *extra):
+    """The program's eager loop (``loop.__wrapped__``) on the inputs its
+    entry point makes for these ids and seeds (``extra``: the image-path
+    inputs before the ids)."""
+    from stabletriton_tpu_torch import ops as tops
+    from stabletriton_tpu_torch.compile import resolve_binding
+
+    b = len(seeds)
+    ids = pipe._ids(ids1, ids2, pipe.clip_config.empty_prompt_ids(b, ids1.shape[1]),
+                    pipe.clip2_config.empty_prompt_ids(b, ids2.shape[1]))
+    with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
+        return prog.loop.__wrapped__(pipe.params["unet"], *prog.loop_inputs(
+            pipe.params, *extra, *ids, seeds))
+
+
+def _program(pipe, size, kw):
+    from stabletriton_tpu_torch.runtime.denoise import norm_deep_cache, norm_guidance_interval
+
+    return pipe._program(1, size, size, STEPS, 5.0, kw.get("solver", "euler"), True,
+                         norm_guidance_interval(kw.get("guidance_interval"), 5.0),
+                         norm_deep_cache(kw.get("deep_cache")))
+
+
+def _eager_graphs():
+    """Graphs that graph nothing: every loop runs eagerly (the reference
+    binding's requests, held against and never replayed)."""
+    from stabletriton_tpu_torch.runtime.graphs import Graphs
+
+    class Eager(Graphs):
+        def wrap(self, fn):
+            return fn
+
+    return Eager()
+
+
+@pytest.fixture(scope="module")
+def reference_latents(full_width_unets, sdxl_other):
+    """The reference binding's eager SDXL 1024^2 request of each mode on the
+    second call's prompt and seed, made once."""
+    pipe = _sdxl_pipeline(full_width_unets, sdxl_other, "reference", _graphs=_eager_graphs())
+    ids1, ids2 = _tokens(pipe, "a bowl of ramen")
+    out = {mode: pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=STEPS, seed=12,
+                              return_latents=True, **kw) for mode, kw in _modes().items()}
+    del pipe
+    gc.collect()
+    yield out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("binding", ["reference", "default", "fused_ops", "all_kernels", "int8",
+                                     "int8_ff", "int8_conv"])
+def test_gpu_full_width_requests_replay_like_eager(cuda_device, full_width_unets, sdxl_other,
+                                                   reference_latents, binding):
+    """SDXL-base 1024^2 4-step requests (batch 1, latents returned) through
+    SDXLPipeline.txt2img: plain Euler and Euler with a guidance interval over
+    the middle two steps under every binding, every solver and DeepCache
+    mode too under the default and the all-kernel binding, plain Euler under
+    each turbo mode. Each mode twice (the first call captures, the second
+    replays with another prompt and seed): each the eager loop on its inputs
+    bit for bit (under the reference and fused-op bindings, and the interval
+    requests, as ``_held_to`` holds a replay), all finite, one graph a
+    signature, the replay counting the first call's launches key by key.
+    Under the default and all-kernel bindings each mode's MSE against the
+    reference binding's eager request is at most MODE_MSE_RATIO x plain
+    Euler's. A graph goes with its pipeline's programs."""
+    modes = _modes()
+    names = (list(modes) if binding in ("default", "all_kernels") else ["euler"]
+             if binding.startswith("int8") else ["euler", "euler, interval"])
+    pipe = _sdxl_pipeline(full_width_unets, sdxl_other, binding)
+    calls = [("a lighthouse at dusk", 11), ("a bowl of ramen", 12)]
+    mse = {}
+    for mode in names:
+        kw = modes[mode]
+        outs, counts = [], []
+        for prompt, seed in calls:
+            ids1, ids2 = _tokens(pipe, prompt)
+            before = _snapshot()
+            outs.append(pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=STEPS, seed=seed,
+                                     return_latents=True, **kw))
+            torch.cuda.synchronize()
+            counts.append(_since(before))
+        prog = _program(pipe, 1024, kw)
+        assert len(prog.loop.captured) == 1, mode
+        assert counts[1] == counts[0], mode
+        strict = binding.startswith("int8") or (binding in ("default", "all_kernels")
+                                                 and mode != "euler, interval")
+        for (prompt, seed), got in zip(calls, outs):
+            assert got.shape == (1, 128, 128, 4) and torch.isfinite(got.float()).all(), mode
+            eager = _eager(pipe, prog, *_tokens(pipe, prompt), [seed])
+            if strict:
+                assert torch.equal(got, eager), mode
+            else:
+                _held_to(got, eager, exact=binding == "all_kernels")
+        mse[mode] = (outs[1].float() - reference_latents[mode].float()).square().mean().item()
+    if binding in ("default", "all_kernels"):
+        for mode in names:
+            if mode != "euler, interval":
+                assert mse[mode] <= MODE_MSE_RATIO * mse["euler"], (mode, mse)
+    (entry,) = _program(pipe, 1024, {}).loop.captured.values()
+    graph = weakref.ref(entry.graph)
+    pipe._cache.clear()
+    del entry, prog
+    gc.collect()
+    assert graph() is None
+
+
+@pytest.mark.gpu
+def test_gpu_full_width_decode_within_5e5_of_the_reference(cuda_device, sdxl_other):
+    """One 1024^2 f32 decode (random latents) under the default binding (the
+    3xTF32 convs, the f32 attention, linears and GroupNorm forms) against
+    the reference binding's (cuDNN, cuBLAS; TF32 off): (1, 1024, 1024, 3),
+    finite, max abs at most DECODE_MAX_ABS."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.runtime.pipeline import _decode_images
+
+    _, _, vcfg, other = sdxl_other
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    lat = torch.randn((1, 128, 128, 4), generator=gen, device=cuda_device)
+    images = {}
+    with torch.inference_mode():
+        for name in ("reference", "default"):
+            with ops.use_backends(resolve_binding(_config(name))):
+                images[name] = _decode_images(vcfg, other["vae"], lat).float()
+    got, ref = images["default"], images["reference"]
+    assert got.shape == (1, 1024, 1024, 3) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= DECODE_MAX_ABS
+
+
+SD21_PROMPTS = ["a lighthouse on a cliff at dawn", "a bowl of ramen", "an owl", "a red kite "
+                "over a wheat field in late summer light", "a glass teapot", "a city at night",
+                "a watercolor of a harbour with fishing boats", "a cat"]
+# (family, binding, the co-batched (prompt, seed) requests, the first one's
+# seed again alone): SDXL-base 1024^2 under each binding, SD1.5 512^2 and
+# SD2.1-768 (v-prediction, a bucket of 8: UNet batch 16) as the benchmark's
+# configurations serve them
+SERVE_CASES = {
+    "sdxl-reference": ("sdxl", "reference", [("a lighthouse at dusk", 11),
+                                             ("a bowl of ramen", 12)],
+                       ("a lighthouse at dusk", 11)),
+    "sdxl-default": ("sdxl", "default", [("a lighthouse at dusk", 11), ("a bowl of ramen", 12)],
+                     ("a lighthouse at dusk", 11)),
+    "sdxl-fused_ops": ("sdxl", "fused_ops", [("a red fox in snow", 21), ("a glass teapot", 22)],
+                       ("a red fox in snow", 21)),
+    "sdxl-all_kernels": ("sdxl", "all_kernels", [("a paper boat on a pond", 41),
+                                                 ("a clock tower", 42)],
+                         ("a paper boat on a pond", 41)),
+    "sd15-default": ("sd15", "default", [("a watercolor of a harbour", 31),
+                                         ("an owl on a branch", 32)],
+                     ("a watercolor of a harbour", 31)),
+    "sd21-default": ("sd21", "default", [(p, 51 + i) for i, p in enumerate(SD21_PROMPTS)], None),
+}
+
+
+def _serve(pipe, prompts, solo, size: int, guidance: float):
+    """A ServingEngine over ``pipe``: ``prompts`` submitted together (one
+    signature, so they co-batch), then ``solo`` alone, after the same
+    requests with other seeds, which run each bucket's loop eagerly and
+    capture it. Returns the counted requests' images, the launches of the
+    first requests and of the counted (replayed) ones, and the graphs."""
+    from gpubench.tokenizer import StubTokenizer
+    from stabletriton_tpu_torch.runtime.serving import Request, ServingEngine
+
+    tok = StubTokenizer(pipe.clip_config.bos_token_id, pipe.clip_config.eos_token_id)
+    engine = ServingEngine(pipe, tok, tok, max_wait_s=0.5)
+    kw = dict(height=size, width=size, steps=STEPS, guidance_scale=guidance, solver="euler")
+
+    def run(shift):
+        futs = [engine.submit(Request(prompt=p, seed=s + shift, **kw)) for p, s in prompts]
+        done = [f.result(timeout=900) for f in futs]
+        if solo is not None:
+            done.append(engine.submit(Request(prompt=solo[0], seed=solo[1] + shift,
+                                              **kw)).result(timeout=900))
+        return done
+
+    try:
+        before = _snapshot()
+        run(1000)
+        first = _since(before)
+        before = _snapshot()
+        done = run(0)
+        counted = _since(before)
+    finally:
+        engine.close()
+    return done, first, counted, sum(len(p.loop.captured) for p in pipe._cache.values())
+
+
+@pytest.fixture(scope="module")
+def reference_serving(full_width_unets, sdxl_other):
+    """The reference binding (cuBLAS, cuDNN, SDPA) serving SDXL-base's
+    two co-batched requests and the first one's seed alone, once."""
+    _, _, prompts, solo = SERVE_CASES["sdxl-reference"]
+    pipe = _sdxl_pipeline(full_width_unets, sdxl_other, "reference")
+    out = _serve(pipe, prompts, solo, 1024, 5.0)
+    del pipe
+    gc.collect()
+    yield out
+
+
+def _serving_pipeline(family, binding, full_width_unets, sdxl_other, device):
+    """SDXL-base, SD1.5 (CLIP-L in both encoder slots) or SD2.1-768 (its
+    23-layer OpenCLIP-H text tower, pad id 0, v-prediction) at full width."""
+    import dataclasses
+
+    from stabletriton_tpu_torch.models import clip as tclip
+    from stabletriton_tpu_torch.models import vae as tvae
+    from stabletriton_tpu_torch.models.unet import init_unet_params, sd21_unet_config
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+    from stabletriton_tpu_torch.runtime.scheduler import SchedulerConfig
+
+    if family == "sdxl":
+        return _sdxl_pipeline(full_width_unets, sdxl_other, binding)
+    vcfg = tvae.sd15_vae_config()
+    if family == "sd15":
+        ucfg, _, unet = full_width_unets["sd15"]
+        c1, seeds, kw = tclip.sd15_text_encoder_config(), (21, 22), {}
+    else:
+        ucfg = sd21_unet_config()
+        unet = init_unet_params(ucfg, 0, device=device, dtype=torch.bfloat16)
+        c1 = dataclasses.replace(tclip.sd2_text_encoder_config(), num_layers=23, pad_token_id=0)
+        seeds = (61, 62)
+        kw = {"scheduler_config": SchedulerConfig(prediction_type="v_prediction")}
+    params = {"unet": unet, "text_encoder": tclip.init_clip_params(c1, seeds[0], device=device),
+              "vae": tvae.init_vae_params(vcfg, seeds[1], device=device)}
+    return tpipe.SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c1, vae_config=vcfg,
+                              params=params, compile_config=_config(binding), device=device, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_gpu_serving_at_full_width(cuda_device, full_width_unets, sdxl_other, reference_serving,
+                                   case):
+    """A ServingEngine over a full-width pipeline serves 4-step requests:
+    two co-batched and the first one's seed alone (SD2.1: a bucket of
+    eight). The images are finite, (size, size, 3) and inside [-1, 1]; the
+    counted requests replay, one graph a bucket, and launch what the first
+    (eager) ones did key by key; the same seed alone and co-batched differ
+    by at most SOLO_VS_BATCHED_BOUND, and under an SDXL kernel binding by at
+    most SOLO_VS_BATCHED_RATIO x the reference binding's diff. The launches
+    (the UNet steps run read off conv_out's): the bf16 attention by kernel
+    and class a step; each image's f32 decode (its convs by kernel, its
+    attention on the 3xTF32 GEMM); under the default binding the kernel
+    forms a step and the decoder's GroupNorms (f32) an image; under the
+    fused-op binding K8-K11 a step and K9 once a decoder GroupNorm, every
+    resnet K8 on the warp-specialised kernel and conv_out's on the 8-column
+    form; under the all-kernel binding K8-K13 a step, K13 also the cross K/V
+    precompute a generation and the decoder's attention projections an
+    image. SD2.1's attention all at UNet batch 16, its loops v-prediction."""
+    from stabletriton_tpu_torch.runtime import profiling
+
+    family, binding, prompts, solo = SERVE_CASES[case]
+    size, guidance = {"sdxl": (1024, 5.0), "sd15": (512, 7.5), "sd21": (768, 7.5)}[family]
+    profiling.reset()
+    if case == "sdxl-reference":
+        done, first, counted, graphs = reference_serving
+    else:
+        pipe = _serving_pipeline(family, binding, full_width_unets, sdxl_other, cuda_device)
+        norms = sum(1 for k in pipe.params["vae"] if k.endswith(NORMS))
+        done, first, counted, graphs = _serve(pipe, prompts, solo, size, guidance)
+        del pipe
+        gc.collect()
+    for img in done:
+        assert img.shape == (size, size, 3) and np.isfinite(img).all()
+        assert -1.0 <= img.min() and img.max() <= 1.0
+    assert counted == first
+    assert graphs == 1 + (solo is not None)
+    if solo is not None:
+        diff = float(np.abs(done[0] - done[2]).max())
+        assert diff <= SOLO_VS_BATCHED_BOUND
+        if family == "sdxl" and binding != "reference":
+            ref = reference_serving[0]
+            assert diff <= SOLO_VS_BATCHED_RATIO * float(np.abs(ref[0] - ref[2]).max())
+    if binding == "reference":
+        return
+    images = len(done)
+    steps = sum(n for name in ("K6", "K8") for key, n in counted[name].items()
+                if key.startswith("wgmma_bf16 ") and key.split("->")[1].split()[0] == "4")
+    assert steps > 0 and steps % STEPS == 0
+    per_step = SD21_ATTENTION if family == "sd21" else STEP_LAUNCHES[family]["attention"]
+    assert _attention_by(counted["attention"]) == {
+        k: {cls: n * steps for cls, n in by.items()} for k, by in per_step.items()}
+    assert {k: sum(n for key, n in counted["K6"].items() if key.split()[0] == k)
+            for k in DECODE_CONVS} == {k: n * images for k, n in DECODE_CONVS.items()}
+    assert _attention_by(counted["attention"], ("wgmma_tf32x3",)) == {
+        "wgmma_tf32x3": {"K3": images}}
+    counts, _ = _expected(family, binding, steps)
+    f32_norms = sum(n for name in ("K9", "K9_bf16apply") for key, n in counted[name].items()
+                    if key.startswith("f32"))
+    assert f32_norms == norms * images
+    if binding == "default":
+        counts["K9_bf16apply"] += norms * images
+        keys = FORMS
+    elif binding == "fused_ops":
+        counts["K9"] += norms * images
+        keys = ("K8", "K9", "K10", "K11")
+        assert _by_kernel(counted["K8"]) == {"wgmma_gn_bf16": (counts["K8"] // steps - 1) * steps,
+                                             "wgmma_bf16": steps}
+    else:
+        gens = steps // STEPS
+        counts["K9"] += norms * images
+        counts["K13"] += STEP_LAUNCHES[family]["precompute"] * gens + VAE_LINEARS * images
+        keys = OPT_KERNELS
+        assert sum(n for key, n in counted["K13"].items() if " k=2048 " in key) == (
+            STEP_LAUNCHES[family]["precompute"] * gens)
+        assert sum(n for key, n in counted["K13"].items()
+                   if key.startswith("wgmma_tf32x3 ")) == VAE_LINEARS * images
+    assert {k: sum(counted[k].values()) for k in keys} == {k: counts[k] for k in keys}
+    if family == "sd21":
+        assert steps == STEPS and images == len(SD21_PROMPTS)
+        assert {int(f[2:]) for key in counted["attention"] if "tf32" not in key
+                for f in key.split() if f.startswith("b=")} == {16}
+        loops = [s.attrs.get("prediction") for s in profiling.spans() if s.name == "pipeline.loop"]
+        assert loops and set(loops) == {"v_prediction"}
+
+
+# One image-path request's pieces. The SDXL refiner's step (44 transformer
+# blocks, 22 resnets, 11 Transformer2D): self-attention at 64^2 (h=12) 20 x
+# K2, at 32^2 and the mid block's 16^2 (h=24) 24 x K1, 44 cross x K1 on the
+# tiny-KV kernel; 49 bf16 3x3 convs; all-kernel K8 45, K9 11, K10 132, K11
+# 44, K12 2, K13 312, and 44 in the precompute. The 9-channel UNet launches
+# SDXL-base's.
+REFINER_STEP = {"attention": {"wgmma_bf16": {"K1": 24, "K2": 20},
+                              "tinykv_wgmma_bf16": {"K1": 44}},
+                "convs": 49, "precompute": 44,
+                "all": {"K8": 45, "K9": 11, "K10": 132, "K11": 44, "K12": 2, "K13": 312}}
+# each kind's pipelines and pieces (None: its launches are held only to the
+# first call's)
+IMAGE_KINDS = {
+    "txt2img": (("base",), [("sdxl_step", STEPS), ("sdxl_generation", 1), ("decode", 1)]),
+    "img2img_image": (("base",), [("encode", 1), ("sdxl_step", STEPS // 2),
+                                  ("sdxl_generation", 1)]),
+    "inpaint": (("inpaint",), [("encode", 1), ("sdxl_step", STEPS), ("sdxl_generation", 1),
+                               ("decode", 1)]),
+    "inpaint heun, interval, deep_cache=2": (("inpaint",), None),
+    "two_stage": (("base", "refiner"), [("sdxl_step", STEPS), ("sdxl_generation", 1),
+                                        ("refiner_step", 1), ("refiner_generation", 1),
+                                        ("decode", 1)]),
+}
+
+
+def _image_parts(decode_norms: int, encode_norms: int) -> dict:
+    x = STEP_LAUNCHES["sdxl"]
+    return {
+        "sdxl_step": {"attention": x["attention"], "conv": {"wgmma_bf16": x["convs"]},
+                      "all": x["all"]},
+        "refiner_step": {"attention": REFINER_STEP["attention"],
+                         "conv": {"wgmma_bf16": REFINER_STEP["convs"]}, "all": REFINER_STEP["all"]},
+        "sdxl_generation": {"all": {"K13": x["precompute"]}},
+        "refiner_generation": {"all": {"K13": REFINER_STEP["precompute"]}},
+        "encode": {"conv": ENCODE_CONVS, "f32_attention": 1,
+                   "all": {"K9": encode_norms, "K13": VAE_LINEARS}},
+        "decode": {"conv": DECODE_CONVS, "f32_attention": 1,
+                   "all": {"K9": decode_norms, "K13": VAE_LINEARS}},
+    }
+
+
+def _summary(delta: dict) -> dict:
+    """A request's launches (``_since``): bf16 attention by class and
+    kernel, f32 attention in all, the 3x3 convs by kernel, K8-K13."""
+    attn, f32 = {}, 0
+    for key, n in delta["attention"].items():
+        cls, kernel = key.split()[:2]
+        if kernel == "wgmma_tf32x3":
+            f32 += n
+        else:
+            attn[f"{cls} {kernel}"] = attn.get(f"{cls} {kernel}", 0) + n
+    return {"attention": attn, "f32_attention": f32, "conv": _by_kernel(delta["K6"], delta["K8"]),
+            "opt": {k: sum(delta[k].values()) for k in OPT_KERNELS}}
+
+
+def _expected_summary(parts: dict, pieces, all_kernels: bool) -> dict:
+    """``_summary``'s form of ``pieces`` ((piece, times), ...)."""
+    attn, f32, conv = {}, 0, {}
+    opt = dict.fromkeys(OPT_KERNELS, 0)
+    for piece, times in pieces:
+        p = parts[piece]
+        for kernel, by_class in p.get("attention", {}).items():
+            for cls, n in by_class.items():
+                attn[f"{cls} {kernel}"] = attn.get(f"{cls} {kernel}", 0) + n * times
+        f32 += p.get("f32_attention", 0) * times
+        for kernel, n in p.get("conv", {}).items():
+            conv[kernel] = conv.get(kernel, 0) + n * times
+        k8 = p.get("all", {}).get("K8", 0) * times
+        if all_kernels:
+            for k, n in p.get("all", {}).items():
+                opt[k] += n * times
+            conv = _k8_split(conv, k8, times)
+    return {"attention": attn, "f32_attention": f32, "conv": conv, "opt": opt}
+
+
+@pytest.fixture(scope="module")
+def image_assets(full_width_unets, sdxl_other):
+    """The image paths' weights beside SDXL-base's: the VAE encoder, the
+    9-channel UNet (SDXL-base's tensors with a new conv_in), the SDXL
+    refiner's UNet; two calls' prompts, seeds and 1024^2 images; a centred
+    square mask."""
+    import dataclasses
+
+    from stabletriton_tpu_torch.models import vae as tvae
+    from stabletriton_tpu_torch.models.unet import init_unet_params, sdxl_refiner_unet_config
+
+    cfg, _, params = full_width_unets["sdxl"]
+    _, _, vcfg, other = sdxl_other
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(66)
+    rcfg = sdxl_refiner_unet_config()
+    mask = torch.zeros((1, 1024, 1024, 1), device=dev)
+    mask[:, 256:768, 256:768] = 1.0
+
+    def image(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.rand((1, 1024, 1024, 3), generator=g, device=dev) * 2 - 1
+
+    yield {"vae": {**other["vae"], **tvae.init_vae_encoder_params(vcfg, 4, device=dev)},
+           "cfg9": dataclasses.replace(cfg, in_channels=9),
+           "unet9": {**params, "conv_in.weight": (torch.randn(
+               (3, 3, 9, cfg.block_out_channels[0]), generator=gen, device=dev) / 9.0).to(
+                   torch.bfloat16)},
+           "rcfg": rcfg, "refiner": init_unet_params(rcfg, 5, device=dev, dtype=torch.bfloat16),
+           "calls": [("a lighthouse at dusk", 11, image(101)), ("a bowl of ramen", 12, image(102))],
+           "mask": mask}
+    torch.cuda.empty_cache()
+
+
+def _image_pipes(kind, binding, full_width_unets, sdxl_other, assets, **kw) -> list:
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    c1, c2, vcfg, other = sdxl_other
+    pipes = []
+    for name in IMAGE_KINDS[kind][0]:
+        if name == "refiner":
+            pipes.append(tpipe.SDXLPipeline(
+                unet_config=assets["rcfg"], clip_config=c2, clip2_config=c2, vae_config=vcfg,
+                params={"unet": assets["refiner"], "text_encoder_2": other["text_encoder_2"],
+                        "vae": other["vae"]},
+                compile_config=_config(binding), device="cuda", **kw))
+        elif name == "inpaint":
+            pipes.append(_sdxl_pipeline(full_width_unets, sdxl_other, binding,
+                                        unet=assets["unet9"], unet_config=assets["cfg9"],
+                                        params={"vae": assets["vae"]}, **kw))
+        else:
+            pipes.append(_sdxl_pipeline(full_width_unets, sdxl_other, binding,
+                                        params={"vae": assets["vae"]}, **kw))
+    return pipes
+
+
+def _image_request(kind, pipes, call, mask):
+    """A request's latents through its entry point: the loop's output,
+    taken where the decode receives it (img2img_image returns it)."""
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    prompt, seed, img = call
+    ids1, ids2 = _tokens(pipes[0], prompt)
+    if kind == "img2img_image":
+        return pipes[0].img2img_image(img, ids1, ids2, steps=STEPS, strength=0.5, seed=seed,
+                                      decode=False)
+    if kind == "txt2img":
+        run = lambda: pipes[0].txt2img(ids1, ids2, height=1024, width=1024,  # noqa: E731
+                                       steps=STEPS, seed=seed)
+    elif kind == "inpaint":
+        run = lambda: pipes[0].inpaint(img, mask, ids1, ids2, steps=STEPS, seed=seed)  # noqa: E731
+    elif kind.startswith("inpaint"):
+        run = lambda: pipes[0].inpaint(img, mask, ids1, ids2, steps=STEPS,  # noqa: E731
+                                       seed=seed, solver="heun", deep_cache=2,
+                                       **_modes()["euler, interval"])
+    else:
+        run = lambda: tpipe.TwoStageSDXL(base=pipes[0], refiner=pipes[1]).txt2img(  # noqa: E731
+            ids1, ids2, height=1024, width=1024, steps=STEPS, refiner_strength=0.25, seed=seed)
+    (latents,), _ = _decoded(run)
+    return latents
+
+
+def _image_eager(kind, pipes, call, mask):
+    """The eager loop of the request's program (the refiner's for two_stage)
+    on the inputs its entry point makes for ``call``, and that program."""
+    from stabletriton_tpu_torch import ops as tops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    prompt, seed, img = call
+    pipe = pipes[0]
+    ids1, ids2 = _tokens(pipe, prompt)
+    (prog,) = pipe._cache.values()
+    if kind == "img2img_image":
+        with torch.inference_mode(), tops.use_backends(resolve_binding(pipe.compile_config)):
+            encoded = tpipe._encode_images(pipe.vae_config, pipe.params["vae"], img)
+        return _eager(pipe, prog, ids1, ids2, [seed], encoded), prog
+    if kind.startswith("inpaint"):
+        return _eager(pipe, prog, ids1, ids2, [seed], img, mask), prog
+    base = _eager(pipe, prog, ids1, ids2, [seed])
+    if kind == "txt2img":
+        return base, prog
+    refiner = pipes[1]
+    (prog,) = refiner._cache.values()
+    ids = refiner._ids(ids2, refiner.clip2_config.empty_prompt_ids(1, ids2.shape[1]))
+    with torch.inference_mode(), tops.use_backends(resolve_binding(refiner.compile_config)):
+        return prog.loop.__wrapped__(refiner.params["unet"], *prog.loop_inputs(
+            refiner.params, base, None, ids[0], None, ids[1], [seed + 1])), prog
+
+
+@pytest.fixture(scope="module")
+def image_references(full_width_unets, sdxl_other, image_assets):
+    """The reference binding's request of each image-path kind on the second
+    call, run eagerly (its yardstick), made once; it launches no kernel of
+    the port."""
+    out = {}
+    for kind in IMAGE_KINDS:
+        pipes = _image_pipes(kind, "reference", full_width_unets, sdxl_other, image_assets,
+                             _graphs=_eager_graphs())
+        before = _snapshot()
+        out[kind] = _image_request(kind, pipes, image_assets["calls"][1], image_assets["mask"])
+        assert not any(_since(before).values()), kind
+        del pipes
+        gc.collect()
+    yield out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("binding", ["default", "all_kernels"])
+def test_gpu_full_width_image_paths(cuda_device, full_width_unets, sdxl_other, image_assets,
+                                    image_references, binding):
+    """The image-conditioned paths at 1024^2, 4 Euler steps, batch 1, random
+    weights. The f32 VAE encode against the reference binding's (TF32 off):
+    (1, 128, 128, 4), finite, max abs within 1e-4 of the largest latent,
+    its launches as ``_expected_summary`` counts them. Then warmup and the
+    same signature's txt2img (which must capture nothing more),
+    img2img_image at strength 0.5, inpaint on the 9-channel UNet (Euler,
+    and Heun with a guidance interval and DeepCache 2), TwoStageSDXL with
+    the refiner at strength 0.25; each twice (the first call captures, the
+    second replays with another prompt, image and seed): both the eager loop
+    on their inputs bit for bit, finite, one graph; the replay counting the
+    first call's launches, which the plain kinds' pieces count; the latents'
+    MSE against the reference binding's request at most MODE_MSE_RATIO x
+    the binding's plain txt2img MSE."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    _, _, vcfg, _ = sdxl_other
+    vae, calls, mask = image_assets["vae"], image_assets["calls"], image_assets["mask"]
+    parts = _image_parts(sum(1 for k in vae if k.startswith("decoder.") and k.endswith(NORMS)),
+                         sum(1 for k in vae if k.startswith("encoder.") and k.endswith(NORMS)))
+    all_kernels = binding == "all_kernels"
+    encoded = {}
+    with torch.inference_mode():
+        for name in ("reference", binding):
+            before = _snapshot()
+            with ops.use_backends(resolve_binding(_config(name))):
+                encoded[name] = tpipe._encode_images(vcfg, vae, calls[0][2])
+            torch.cuda.synchronize()
+            if name == binding:
+                assert _summary(_since(before)) == _expected_summary(parts, [("encode", 1)],
+                                                                     all_kernels)
+    got, ref = encoded[binding], encoded["reference"]
+    assert got.shape == (1, 128, 128, 4) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    mse = {}
+    for kind, (_, pieces) in IMAGE_KINDS.items():
+        pipes = _image_pipes(kind, binding, full_width_unets, sdxl_other, image_assets)
+        if kind == "txt2img":
+            pipes[0].warmup(height=1024, width=1024, steps=STEPS)
+            (warm,) = next(iter(pipes[0]._cache.values())).loop.captured.values()
+        outs, counts = [], []
+        for call in calls:
+            before = _snapshot()
+            outs.append(_image_request(kind, pipes, call, mask))
+            torch.cuda.synchronize()
+            counts.append(_since(before))
+        assert counts[1] == counts[0], kind
+        if pieces is not None:
+            assert _summary(counts[1]) == _expected_summary(parts, pieces, all_kernels), kind
+        for call, out in zip(calls, outs):
+            eager, prog = _image_eager(kind, pipes, call, mask)
+            assert torch.isfinite(out.float()).all() and torch.equal(out, eager), kind
+            assert len(prog.loop.captured) == 1, kind
+        if kind == "txt2img":
+            (entry,) = prog.loop.captured.values()
+            assert entry is warm and len(pipes[0]._cache) == 1
+        mse[kind] = (outs[1].float() - image_references[kind].float()).square().mean().item()
+        del pipes, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kind, m in mse.items():
+        assert m <= MODE_MSE_RATIO * mse["txt2img"], (kind, mse)
+
+
+# --------------------------------------------------------------------------
+# the front door at full width: checkpoints written here from seeded random
+# weights, loaded onto the card; the diffusers frontend
+# --------------------------------------------------------------------------
+
+# SDXL-base's unet/config.json (stabilityai/stable-diffusion-xl-base-1.0), the
+# fields the loader reads
+SDXL_UNET_JSON = {"in_channels": 4, "out_channels": 4, "block_out_channels": [320, 640, 1280],
+                  "down_block_types": ["DownBlock2D", "CrossAttnDownBlock2D",
+                                       "CrossAttnDownBlock2D"],
+                  "layers_per_block": 2, "transformer_layers_per_block": [1, 2, 10],
+                  "attention_head_dim": [5, 10, 20], "cross_attention_dim": 2048,
+                  "norm_num_groups": 32, "addition_embed_type": "text_time",
+                  "addition_time_embed_dim": 256, "projection_class_embeddings_input_dim": 2816,
+                  "flip_sin_to_cos": True, "freq_shift": 0}
+VOCAB_WORDS = ("a", "photo", "of", "lighthouse", "at", "dusk", "bowl", "ramen", "cat",
+               "watercolor", "harbour", "highly", "detailed", "dream")
+
+
+def _write_vocab(d) -> None:
+    """A synthetic CLIP vocabulary: every byte's symbol with and without
+    </w>, the merges that build VOCAB_WORDS, and the start / end tokens at
+    CLIP's ids 49406 / 49407."""
+    import json
+
+    from stabletriton_tpu_torch.io.tokenizer import _byte_encoder
+
+    d.mkdir(parents=True, exist_ok=True)
+    enc = _byte_encoder()
+    vocab = {enc[b]: b for b in range(256)}
+    vocab.update({enc[b] + "</w>": 256 + b for b in range(256)})
+    merges = []
+    for word in VOCAB_WORDS:
+        syms = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(syms) > 1:
+            merges.append(f"{syms[0]} {syms[1]}")
+            syms = [syms[0] + syms[1]] + syms[2:]
+            vocab.setdefault(syms[0], len(vocab))
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    (d / "vocab.json").write_text(json.dumps(vocab))
+    (d / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+def _torch_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """This package's layout -> torch's (a view): the inverse of
+    io.safetensors_io.to_framework_layout."""
+    if not name.endswith(".weight") or "embedding" in name.rsplit(".", 2)[-2]:
+        return t
+    if t.dim() == 2:
+        return t.t()
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    return t
+
+
+@pytest.mark.gpu
+def test_gpu_loaded_sdxl_directory_equals_the_pipeline_in_memory(cuda_device, tmp_path):
+    """A full-width SDXL-base diffusers directory (f16 seeded random weights:
+    the UNet, both text encoders, the whole VAE, unet/config.json, synthetic
+    tokenizer files) written by the port's safetensors writer; load_sdxl
+    loads it onto the card with SDXL-base's UNet config and keys; two
+    prompts through its tokenizers, two 1024^2 4-step requests (capture,
+    replay): each image finite, (1, 1024, 1024, 3) and bit for bit the same
+    request on a pipeline built in memory from the same f16 tensors; the
+    two images differ."""
+    import json
+
+    from stabletriton_tpu_torch.io import pretrained
+    from stabletriton_tpu_torch.io.safetensors_io import write_safetensors
+    from stabletriton_tpu_torch.io.tokenizer import sdxl_tokenize
+    from stabletriton_tpu_torch.models import clip as tclip
+    from stabletriton_tpu_torch.models import vae as tvae
+    from stabletriton_tpu_torch.models.unet import init_unet_params, sdxl_base_unet_config
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    f16 = torch.float16
+    ucfg = sdxl_base_unet_config()
+    c1, c2 = tclip.sdxl_text_encoder_config(), tclip.sdxl_text_encoder_2_config()
+    vcfg = tvae.sdxl_vae_config()
+    comps = {"unet": init_unet_params(ucfg, 70, device=cuda_device, dtype=f16),
+             "text_encoder": tclip.init_clip_params(c1, 71, device=cuda_device, dtype=f16),
+             "text_encoder_2": tclip.init_clip_params(c2, 72, device=cuda_device, dtype=f16),
+             "vae": {**tvae.init_vae_params(vcfg, 73, device=cuda_device, dtype=f16),
+                     **tvae.init_vae_encoder_params(vcfg, 74, device=cuda_device, dtype=f16)}}
+    for comp, params in comps.items():
+        (tmp_path / comp).mkdir()
+        name = "model" if comp.startswith("text") else "diffusion_pytorch_model"
+        write_safetensors(tmp_path / comp / f"{name}.safetensors",
+                          {k: _torch_layout(k, v) for k, v in params.items()})
+    (tmp_path / "unet" / "config.json").write_text(json.dumps(SDXL_UNET_JSON))
+    for sub in ("tokenizer", "tokenizer_2"):
+        _write_vocab(tmp_path / sub)
+    pipe, tok1, tok2 = pretrained.load_sdxl(tmp_path, device=cuda_device)
+    decoder = set(tvae.vae_decoder_param_shapes(vcfg))
+    memory = tpipe.SDXLPipeline(
+        unet_config=ucfg, clip_config=c1, clip2_config=c2, vae_config=vcfg,
+        params={"unet": comps["unet"],
+                **{k: {n: t.float() for n, t in comps[k].items()}
+                   for k in ("text_encoder", "text_encoder_2")},
+                "vae": {n: t.float() for n, t in comps["vae"].items() if n in decoder}},
+        compile_config=CompileConfig(), device=cuda_device)
+    assert pipe.unet_config == ucfg and pipe.params["unet"].keys() == memory.params["unet"].keys()
+    prompts = [("a photo of a lighthouse at dusk", 11), ("a bowl of ramen, highly detailed", 12)]
+    images = {}
+    for name, p in (("loaded", pipe), ("in memory", memory)):
+        for i, (prompt, seed) in enumerate(prompts):
+            ids1, ids2 = sdxl_tokenize(tok1, tok2, [prompt])
+            images[name, i] = p.txt2img(ids1, ids2, height=1024, width=1024, steps=STEPS,
+                                        seed=seed)
+        (prog,) = p._cache.values()
+        assert len(prog.loop.captured) == 1
+    for i in range(len(prompts)):
+        a = images["loaded", i]
+        assert a.shape == (1, 1024, 1024, 3) and torch.isfinite(a).all()
+        assert torch.equal(a, images["in memory", i])
+    assert not torch.equal(images["loaded", 0], images["loaded", 1])
+
+
+@pytest.mark.gpu
+def test_gpu_sd2_requests_at_768(cuda_device):
+    """SD2.x at full width as a single file loads it (the UNet, OpenCLIP-H's
+    text tower read at its penultimate layer, the SD1.x VAE decoder; f16
+    seeded random weights, the encoders and decoder in f32): 768^2 4-step
+    requests under the default and the all-kernel binding, each twice
+    (capture, replay with another prompt and seed): images finite, (1, 768,
+    768, 3) inside [-1, 1]; latents finite and the eager loop's on their
+    inputs bit for bit; one graph; the all-kernel binding's latent MSE
+    against the reference binding's same request at most MODE_MSE_RATIO x
+    the default binding's. The single file itself (names, family, clip_skip,
+    every tensor as written) is tests/test_torch_port_single_file.py's."""
+    from stabletriton_tpu_torch.models import clip as tclip
+    from stabletriton_tpu_torch.models import vae as tvae
+    from stabletriton_tpu_torch.models.unet import init_unet_params, sd21_unet_config
+    from stabletriton_tpu_torch.runtime import pipeline as tpipe
+
+    f16 = torch.float16
+    ucfg, ccfg, vcfg = (sd21_unet_config(), tclip.sd2_text_encoder_config(),
+                        tvae.sd15_vae_config())
+    params = {"unet": init_unet_params(ucfg, 80, device=cuda_device, dtype=f16),
+              "text_encoder": {k: v.float() for k, v in tclip.init_clip_params(
+                  ccfg, 81, device=cuda_device, dtype=f16).items()},
+              "vae": {k: v.float() for k, v in tvae.init_vae_params(
+                  vcfg, 82, device=cuda_device, dtype=f16).items()}}
+    pipes = {name: tpipe.SDXLPipeline(
+        unet_config=ucfg, clip_config=ccfg, clip2_config=ccfg, vae_config=vcfg, params=params,
+        compile_config=_config(name), clip_skip=2, device=cuda_device,
+        **({"_graphs": _eager_graphs()} if name == "reference" else {}))
+        for name in ("reference", "default", "all_kernels")}
+    calls = [("a watercolor of a harbour", 21), ("a photo of a cat at dusk", 22)]
+
+    def request(pipe, prompt, seed):
+        ids1, ids2 = _tokens(pipe, prompt)
+        (lat,), img = _decoded(lambda: pipe.txt2img(ids1, ids2, height=768, width=768,
+                                                    steps=STEPS, seed=seed))
+        assert img.shape == (1, 768, 768, 3) and torch.isfinite(img).all()
+        assert -1.0 <= img.min().item() and img.max().item() <= 1.0
+        return lat
+
+    reference = {seed: request(pipes["reference"], prompt, seed) for prompt, seed in calls}
+    mse = {}
+    for name in ("default", "all_kernels"):
+        pipe = pipes[name]
+        outs = [request(pipe, prompt, seed) for prompt, seed in calls]
+        (prog,) = pipe._cache.values()
+        assert len(prog.loop.captured) == 1
+        for (prompt, seed), out in zip(calls, outs):
+            assert torch.isfinite(out.float()).all()
+            assert torch.equal(out, _eager(pipe, prog, *_tokens(pipe, prompt), [seed]))
+        mse[name] = max((o.float() - reference[seed].float()).square().mean().item()
+                        for o, (_, seed) in zip(outs, calls))
+    assert mse["all_kernels"] <= MODE_MSE_RATIO * max(mse["default"], 1e-12)
+
+
+@pytest.mark.gpu
+def test_gpu_diffusers_frontend_at_full_width(cuda_device):
+    """A duck-typed full-width SDXL-base UNet module (torch layout, bf16 on
+    the card) through frontends.diffusers.compile under the default binding:
+    its config SDXL-base's; two steps (capture, replay) each bit for bit
+    unet_apply on the params the compiled UNet holds; a DeepCache pair (its
+    full step the plain step's bits, its shallow one unet_apply_shallow on
+    the carried cache); one CompVisUNetShim call with a 2816-wide y and
+    zero-width time ids, bit for bit unet_apply on that y."""
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import resolve_binding
+    from stabletriton_tpu_torch.frontends import diffusers as fe
+    from stabletriton_tpu_torch.frontends.sgm import CompVisUNetShim
+    from stabletriton_tpu_torch.models.unet import (init_unet_params, sdxl_base_unet_config,
+                                                    unet_apply, unet_apply_shallow)
+    from stabletriton_tpu_torch.ops import time_embed
+
+    bf16, lat = torch.bfloat16, 128
+    ucfg = sdxl_base_unet_config()
+
+    class DuckUNet:
+        config = SDXL_UNET_JSON
+
+        def __init__(self, params):
+            self._sd = {k: _torch_layout(k, v) for k, v in params.items()}
+
+        def state_dict(self):
+            return self._sd
+
+    cc = CompileConfig()
+    compiled = fe.compile(DuckUNet(init_unet_params(ucfg, 90, device=cuda_device, dtype=bf16)),
+                          cc, device=cuda_device)
+    assert compiled.unet_config == ucfg
+    binding = resolve_binding(cc)
+    gen = torch.Generator(device=cuda_device).manual_seed(91)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(bf16)
+
+    ctx = randn(2, 77, ucfg.cross_attention_dim)
+    pooled = randn(2, ucfg.projection_class_embeddings_input_dim - 6 * ucfg.addition_time_embed_dim)
+    time_ids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device=cuda_device)
+    kw = {"added_cond_kwargs": {"text_embeds": pooled, "time_ids": time_ids}}
+
+    def nhwc(x):
+        return x.permute(0, 2, 3, 1).to(bf16).contiguous()
+
+    def nchw(x):
+        return x.float().permute(0, 3, 1, 2).to(bf16)
+
+    def direct(sample, t, fn=unet_apply, y=pooled, tid=time_ids, **extra):
+        with torch.inference_mode(), ops.use_backends(binding):
+            return fn(ucfg, compiled.params, nhwc(sample), torch.full((2,), float(t),
+                                                                      device=cuda_device),
+                      ctx, y, tid, **extra)
+
+    for t in (999.0, 501.0):
+        sample = randn(2, 4, lat, lat)
+        assert torch.equal(compiled(sample, t, ctx, **kw).sample, nchw(direct(sample, t)))
+    assert len(compiled._fn.captured) == 1
+    dc = fe.CompiledUNet.from_params(ucfg, compiled.params, cc, deep_cache=2, device=cuda_device)
+    s0, s1 = randn(2, 4, lat, lat), randn(2, 4, lat, lat)
+    assert torch.equal(dc(s0, 900.0, ctx, **kw).sample, compiled(s0, 900.0, ctx, **kw).sample)
+    shallow = dc(s1, 800.0, ctx, **kw).sample
+    _, cache = direct(s0, 900.0, return_cache=True)
+    assert torch.equal(shallow, nchw(direct(s1, 800.0, unet_apply_shallow, cache=cache)))
+    y = torch.cat([pooled, time_embed(time_ids.reshape(-1), dim=ucfg.addition_time_embed_dim
+                                      ).to(bf16).reshape(2, -1)], dim=-1)
+    assert y.shape == (2, ucfg.projection_class_embeddings_input_dim)
+    x = randn(2, 4, lat, lat)
+    got = CompVisUNetShim(compiled)(x, timesteps=torch.tensor([700.0], device=cuda_device),
+                                    context=ctx, y=y)
+    assert torch.equal(got, nchw(direct(x, 700.0, y=y, tid=torch.zeros((2, 0),
+                                                                       device=cuda_device))))
+
+
+# --------------------------------------------------------------------------
+# runtime/profiling.py, autotune, fft_conv and the mesh on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_gpu_bench_fn_agrees_with_cuda_events_and_the_trace_names_the_kernel(cuda_device,
+                                                                              tmp_path):
+    """bench_fn on K2's shape (self-attention S=4096 h=10 d=64 bf16 against a
+    fused KV buffer, chained through q) within 10% of CUDA events on the same
+    call, in turns (events, bench_fn, bench_fn, events), every launch K2 on
+    attn_wgmma_bf16; profiling.trace around a few launches writes a Chrome
+    trace naming the kernel (a session that records no kernel, as one now
+    and then does, is traced again, at most three times)."""
+    import json
+
+    from stabletriton_tpu_torch.runtime import profiling
+
+    gen = torch.Generator(device=cuda_device).manual_seed(88)
+    q = torch.randn((2, 4096, 640), generator=gen, device=cuda_device).to(torch.bfloat16)
+    kv = torch.randn((2, 4096, 1280), generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    def call(q):
+        return tfa.flash_attention_kv(q, kv, num_heads=10)
+
+    before = dict(tfa.LAUNCHES.by_key)
+    events = [kernel_table.events_ms(lambda: call(q), 20)]
+    bench = [profiling.bench_fn(call, q) * 1e3 for _ in range(2)]
+    events.append(kernel_table.events_ms(lambda: call(q), 20))
+    assert {tuple(k.split()[:2]) for k in _new_keys(tfa.LAUNCHES, before)} == {
+        ("K2", "wgmma_bf16")}
+    mean = sum(events) / len(events)
+    assert max(abs(b - mean) for b in bench) <= 0.10 * mean, (bench, events)
+    for _ in range(3):
+        with profiling.trace(log_dir=str(tmp_path)) as path:
+            for _ in range(5):
+                call(q)
+        with open(path) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+        if names:
+            break
+    assert any("attn_wgmma_bf16" in n for n in names), names
+
+
+@pytest.fixture
+def empty_table(monkeypatch, tmp_path):
+    """The autotune table starts empty (no packaged file, a user cache under
+    tmp_path) and the routes read it; the table as it was is back after."""
+    monkeypatch.setattr(tautotune, "PACKAGED_DIR", tmp_path / "none")
+    monkeypatch.setenv("ST_TPU_AUTOTUNE_CACHE", str(tmp_path / "user.json"))
+    tautotune.reload()
+    yield tmp_path / "user.json"
+    monkeypatch.undo()
+    tautotune.reload()
+
+
+@pytest.mark.gpu
+def test_gpu_tuned_plans_hold_the_plain_versions(cuda_device, empty_table, monkeypatch):
+    """Autotune on the card from an empty table: the fitted rule's two
+    recorded misses ((154,1024)@(1024,640), (128,1280)@(1280,1280)), K8 at
+    SDXL's 128^2 320->320 and the tiny-KV attention of SDXL's 64^2
+    cross-attention, tuned; the route then runs each on the table's plan
+    within 2e-2 of the plain version. A small SDXL-shaped pipeline under the
+    all-kernel binding with the pipeline's hook on (ST_TPU_AUTOTUNE=1): its
+    first request tunes the signature, the second tunes nothing, both finite
+    (that each route then takes the table's plan, tests/test_torch_port_autotune.py
+    holds)."""
+    import json
+
+    gen = torch.Generator(device=cuda_device).manual_seed(71)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda_device) * scale).to(torch.bfloat16)
+
+    for m, k, n in [(154, 1024, 640), (128, 1280, 1280)]:
+        tautotune.tune_linear(m, k, n)
+        x, w, b = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
+        assert _rel_err(tlinear.linear(x, w, b), tlinear.linear_plain(x, w, b)) <= 2e-2
+    tautotune.tune_conv(2, 128, 128, 320, 320, has_res=False, act=None, gn=True)
+    x, w = randn(2, 128, 128, 320), randn(3, 3, 320, 320, scale=1 / 54)
+    bias = torch.randn((2, 320), generator=gen, device=cuda_device)
+    scale = torch.rand((2, 320), generator=gen, device=cuda_device) + 0.5
+    shift = torch.randn((2, 320), generator=gen, device=cuda_device)
+    assert _rel_err(tconv.gn_conv3x3(x, scale, shift, w, bias),
+                    tconv.gn_conv3x3_plain(x, scale, shift, w, bias)) <= 2e-2
+    tautotune.tune_attention_fused(2, 4096, 77, 10, 64)
+    q, kv = randn(2, 4096, 640), randn(2, 77, 1280)
+    assert _rel_err(tfa.flash_attention_kv(q, kv, num_heads=10),
+                    tfa.attention_plain(q, *kv.chunk(2, -1), num_heads=10)) <= 2e-2
+    monkeypatch.setenv("ST_TPU_AUTOTUNE", "1")
+    pipe = _replay_pipeline(cuda_device)
+    ids = _replay_ids(pipe, 1, 0)
+    first = pipe.txt2img(ids, ids, seed=5, **REPLAY)
+    entries = len(json.loads(empty_table.read_text()))
+    again = pipe.txt2img(ids, ids, seed=6, **REPLAY)
+    assert torch.isfinite(first.float()).all() and torch.isfinite(again.float()).all()
+    assert len(json.loads(empty_table.read_text())) == entries
+
+
+@pytest.mark.gpu
+def test_gpu_fft_conv2d_vs_conv2d(cuda_device):
+    """fft_conv2d (torch.fft, cuFFT) at (1, 128, 128, 4) with a 9 x 9 kernel
+    against F.conv2d in depthwise form (TF32 off; the kernel flipped, since
+    fft_conv2d convolves and conv2d correlates): within 1e-4 of the largest
+    output."""
+    import torch.nn.functional as F
+
+    from stabletriton_tpu_torch.kernels.fft_conv import fft_conv2d
+
+    gen = torch.Generator(device=cuda_device).manual_seed(81)
+    x = torch.randn((1, 128, 128, 4), generator=gen, device=cuda_device)
+    k = torch.randn((9, 9), generator=gen, device=cuda_device)
+    weight = k.flip(0, 1)[None, None].expand(4, 1, 9, 9).contiguous()
+    out = fft_conv2d(x, k)
+    ref = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=4, groups=4).permute(0, 2, 3, 1)
+    assert out.shape == ref.shape and _rel_err(out, ref) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    """runtime/mesh.py over torch.distributed, two spawned ranks on the one
+    card over gloo with a TCP store on localhost (tests/torch_mesh_worker.py
+    ``card_rank``): data=1 model=2, the full-width SDXL-base UNet step on
+    rank-local shards (each rank half of to_q) against the unsharded step,
+    MSE under the step gate; data=2 model=1, a replayed 1024^2 4-step
+    txt2img of batch 2 (one graph a rank; images (2, 1024, 1024, 3), finite,
+    inside [-1, 1]) against the unsharded pipeline's batch 2 within
+    SOLO_VS_BATCHED_BOUND. An NCCL mesh is not run here (one card)."""
+    import json
+    import socket
+    import time
+
+    import torch.multiprocessing as mp
+
+    import torch_mesh_worker
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = str(tmp_path / "rank%d.json")
+    ctx = mp.start_processes(torch_mesh_worker.card_rank,
+                             args=(2, f"tcp://127.0.0.1:{port}", out), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 400
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, "the two ranks did not finish in 400 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
+    assert recs[0]["tp_finite"] and recs[0]["tp_mse"] <= STEP_MSE_GATE
+    for r in recs:
+        assert r["local_to_q"] == [640, 320] and r["dp_shape"] == [2, 1024, 1024, 3]
+        assert r["dp_ok"] and r["dp_graphs"] == 1
+    assert recs[0]["dp_max_abs"] <= SOLO_VS_BATCHED_BOUND
+

@@ -84,9 +84,10 @@ def test_native_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*/*.so"))
 
 
-def test_native_widening_equals_jax_and_plain():
+@pytest.mark.parametrize("n", [1000, 1280 * 1280])
+def test_native_widening_equals_jax_and_plain(n):
     rng = np.random.default_rng(0)
-    vals = rng.standard_normal(1000).astype(np.float32)
+    vals = rng.standard_normal(n).astype(np.float32)
     bf16 = (vals.view(np.uint32) >> 16).astype(np.uint16)
     for got in (native.bf16_to_f32(bf16), native.bf16_to_f32_plain(bf16)):
         np.testing.assert_array_equal(got, jnative.bf16_to_f32(bf16))
@@ -98,7 +99,7 @@ def test_native_widening_equals_jax_and_plain():
             assert got.tobytes() == want.tobytes()  # NaN and -0 too
 
 
-@pytest.mark.parametrize("shape", [(37, 53), (1, 7), (320, 1280)])
+@pytest.mark.parametrize("shape", [(37, 53), (1, 7), (320, 1280), (1280, 1280)])
 def test_native_transpose_2d_equals_jax_and_plain(shape):
     x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
     want = jnative.transpose_2d(x)
@@ -107,7 +108,7 @@ def test_native_transpose_2d_equals_jax_and_plain(shape):
         assert got.flags.c_contiguous
 
 
-@pytest.mark.parametrize("shape", [(5, 3, 4, 4), (320, 4, 3, 3), (8, 8, 1, 1)])
+@pytest.mark.parametrize("shape", [(5, 3, 4, 4), (320, 4, 3, 3), (8, 8, 1, 1), (1280, 1280, 3, 3)])
 def test_native_oihw_to_hwio_equals_jax_and_plain(shape):
     x = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
     want = jnative.oihw_to_hwio(x)
@@ -121,9 +122,10 @@ def test_native_transposes_refuse_other_dtypes():
             fn(np.zeros((2, 2, 2, 2) if fn is native.oihw_to_hwio else (2, 2), np.float16))
 
 
-def test_native_rgb8_equals_jax_and_plain():
+@pytest.mark.parametrize("hw", [(33, 17), (1024, 1024)])
+def test_native_rgb8_equals_jax_and_plain(hw):
     rng = np.random.default_rng(3)
-    img = rng.uniform(-1.2, 1.2, (33, 17, 3)).astype(np.float32)
+    img = rng.uniform(-1.2, 1.2, (*hw, 3)).astype(np.float32)
     # the rounding edges: (x + 1) * 127.5 + 0.5 at whole numbers
     edges = (np.arange(256, dtype=np.float32) / np.float32(127.5) - 1).reshape(-1, 1, 1)
     for x in (img, np.broadcast_to(edges, (256, 2, 3))):
@@ -148,8 +150,9 @@ def _png_pixels(png: bytes) -> np.ndarray:
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def test_native_png_round_trip_equals_jax_and_plain():
-    rgb = native.to_rgb8(np.random.default_rng(4).uniform(-1, 1, (13, 17, 3)).astype(np.float32))
+@pytest.mark.parametrize("hw", [(13, 17), (1024, 1024)])
+def test_native_png_round_trip_equals_jax_and_plain(hw):
+    rgb = native.to_rgb8(np.random.default_rng(4).uniform(-1, 1, (*hw, 3)).astype(np.float32))
     png = native.encode_png(rgb)
     assert png == jnative.encode_png(rgb) == native.encode_png_plain(rgb)
     assert png[:8] == b"\x89PNG\r\n\x1a\n"
@@ -569,7 +572,8 @@ names = [m.name for m in pkgutil.walk_packages(stabletriton_tpu_torch.__path__,
                                                "stabletriton_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import kernel_table
+kernel_table.step_rows()
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "stabletriton_tpu") or m.startswith(("jax.", "jaxlib", "stabletriton_tpu."))))
 assert not bad, bad
@@ -578,8 +582,9 @@ print(" ".join(names))
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, imports with jax and the
-    JAX package blocked."""
+    """Every module of the port, and kernel_table.py with the benchmark's
+    modules its step rows read, imports with jax and the JAX package
+    blocked."""
     out = subprocess.run([sys.executable, "-c", GUARD.format(repo=str(REPO))],
                          capture_output=True, text=True, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr

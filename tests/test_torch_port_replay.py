@@ -8,7 +8,7 @@ in the loop, the pipeline and ``Request``, and the runtime's own pieces that
 a CPU can reach: the graphed callable's signature keying and the launch
 counters' capture tally and replay accounting. On the CPU a graphed callable
 runs its function as it is; its capture and replay are held on the card
-(``tests/test_torch_port_gpu.py``, ``chip_smoke.py`` phases 4e and 4f). The
+(``tests/test_torch_port_gpu.py``, at full width too). The
 stand-in cases at the end (``fake_cuda``) also replay the other solvers' and
 DeepCache's loops; ``tests/test_torch_port_solvers.py`` and
 ``tests/test_torch_port_deep_cache.py`` hold those against JAX.

@@ -161,3 +161,86 @@ def run(rank: int, world: int, store: str, inputs: dict, out_dir: str) -> None:
         torch.save(res, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def card_rank(rank: int, world: int, init: str, out_path: str) -> None:
+    """One rank of ``tests/test_torch_port_gpu.py``'s mesh test: two ranks
+    on the one card over gloo. (a) The SDXL-base UNet step at full width,
+    bf16, eager, default binding, on this rank's shards of a data=1 model=2
+    mesh (rank 0 also runs the unsharded step on the same inputs); (b) a
+    1024^2 4-step txt2img of batch 2 on a data=2 model=1 mesh, captured then
+    replayed (rank 0 also runs the unsharded pipeline's batch 2). Writes its
+    record to ``out_path % rank`` as JSON."""
+    import json
+
+    from gpubench.tokenizer import StubTokenizer
+    from stabletriton_tpu_torch import ops
+    from stabletriton_tpu_torch.compile import fuse_attention_projections, resolve_binding
+    from stabletriton_tpu_torch.models import clip as tclip
+    from stabletriton_tpu_torch.models import vae as tvae
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        rec = {"rank": rank}
+        ucfg = tunet.sdxl_base_unet_config()
+        params = tunet.init_unet_params(ucfg, 0, device=dev, dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        sample = torch.randn((2, 128, 128, 4), generator=gen, device=dev).to(torch.bfloat16)
+        ctx = torch.randn((2, 77, 2048), generator=gen, device=dev).to(torch.bfloat16)
+        pooled = torch.randn((2, 1280), generator=gen, device=dev).to(torch.bfloat16)
+        time_ids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device=dev)
+        t = torch.full((2,), 500.0, device=dev)
+        binding = resolve_binding(CompileConfig())
+
+        def step(p):
+            with torch.inference_mode(), ops.use_backends(binding):
+                kv = tunet.precompute_cross_kv(ucfg, p, ctx)
+                return tunet.unet_apply(ucfg, p, sample, t, None, pooled, time_ids, cross_kv=kv)
+
+        tp = tmesh.make_mesh(data=1, model=2, device_type="cuda")
+        local = tmesh.shard_params(params, tp)
+        rec["local_to_q"] = list(local[
+            "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q.weight"].shape)
+        with tmesh.use_mesh(tp):
+            out = step(local)
+        if rank == 0:
+            d = out.float() - step(fuse_attention_projections(params)).float()
+            rec["tp_mse"] = d.pow(2).mean().item()
+            rec["tp_finite"] = bool(torch.isfinite(out).all())
+        del local, out
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        c1, c2 = tclip.sdxl_text_encoder_config(), tclip.sdxl_text_encoder_2_config()
+        vcfg = tvae.sdxl_vae_config()
+        other = {"text_encoder": tclip.init_clip_params(c1, 1, device=dev),
+                 "text_encoder_2": tclip.init_clip_params(c2, 2, device=dev),
+                 "vae": tvae.init_vae_params(vcfg, 3, device=dev)}
+        tok = StubTokenizer(c1.bos_token_id, c1.eos_token_id)
+        prompts = ["a lighthouse at dusk", "a bowl of ramen"]
+        ids1 = tok.encode_batch(prompts, max_len=c1.max_position_embeddings)
+        ids2 = tok.encode_batch(prompts, max_len=c2.max_position_embeddings, pad=0)
+
+        def request(mesh):
+            pipe = tpipe.SDXLPipeline(unet_config=ucfg, clip_config=c1, clip2_config=c2,
+                                      vae_config=vcfg, params={"unet": params, **other},
+                                      compile_config=CompileConfig(), device=dev, mesh=mesh)
+            img = pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=4, seed=41)
+            if mesh is not None:
+                img = pipe.txt2img(ids1, ids2, height=1024, width=1024, steps=4, seed=41)
+                rec["dp_graphs"] = sum(len(p.loop.captured) for p in pipe._cache.values())
+            torch.cuda.synchronize()
+            return img
+
+        images = request(tmesh.make_mesh(data=2, model=1, device_type="cuda"))
+        rec["dp_shape"] = list(images.shape)
+        rec["dp_ok"] = bool(torch.isfinite(images).all() and images.abs().max() <= 1.0)
+        if rank == 0:
+            rec["dp_max_abs"] = (images.float() - request(None).float()).abs().max().item()
+        with open(out_path % rank, "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
